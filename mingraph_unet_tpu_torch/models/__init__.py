@@ -1,0 +1,1 @@
+"""Models of the port (counterparts of ``mingraph_unet_tpu/models``)."""

@@ -1,0 +1,84 @@
+"""Parameter holders with the flax parameter trees of the JAX package.
+
+Each module stores its parameters under flax's leaf names and in flax's
+layouts (conv kernels HWIO, dense kernels (in, out), BatchNorm ``scale`` /
+``bias`` with running ``mean`` / ``var`` buffers), so a flax checkpoint maps
+onto the port's ``state_dict`` by renaming alone (``convert.py``) and the
+s2d kernel transforms work on the same layout as in JAX. Parameters stay
+float32; modules cast them to the compute dtype at use, as flax does.
+
+Random init draws from an explicit ``torch.Generator`` (CPU), with flax's
+initializers: LeCun-normal kernels (truncated normal), zero biases, unit
+BatchNorm scales and variances.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+__all__ = ["lecun_normal", "xavier_uniform", "ConvParams", "Dense", "FoldableBatchNorm"]
+
+
+def lecun_normal(shape: Sequence[int], fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal (±2σ) with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # stddev of N(0,1) cut at ±2
+    t = torch.empty(tuple(shape))
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * std
+
+
+def xavier_uniform(
+    shape: Sequence[int], gain: float, fan_in: int, fan_out: int, gen: torch.Generator
+) -> torch.Tensor:
+    """Xavier-uniform with explicit fans (the GAT's reference init)."""
+    limit = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    return (torch.rand(tuple(shape), generator=gen) * 2.0 - 1.0) * limit
+
+
+class ConvParams(nn.Module):
+    """``nn.Conv``'s tree: ``kernel (kh, kw, Cin, Cout)``, ``bias (Cout,)``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int], gen: torch.Generator):
+        super().__init__()
+        kh, kw = kernel_size
+        self.kernel = nn.Parameter(lecun_normal((kh, kw, in_features, features), kh * kw * in_features, gen))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``y = x @ kernel + bias`` in the compute dtype."""
+
+    def __init__(self, in_features: int, features: int, gen: torch.Generator, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel = nn.Parameter(lecun_normal((in_features, features), in_features, gen))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+
+
+class FoldableBatchNorm(nn.Module):
+    """flax ``nn.BatchNorm``'s tree with its eval-mode affine:
+    ``BN(z) = a·z + c`` with ``a = scale / sqrt(var + eps)``,
+    ``c = bias − mean·a``, computed in f32."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.epsilon = epsilon
+
+    def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        a = self.scale * torch.rsqrt(self.var + self.epsilon)
+        return a, self.bias - self.mean * a
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, c = self.eval_affine()
+        return x * a.to(x.dtype) + c.to(x.dtype)

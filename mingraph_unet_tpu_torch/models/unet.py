@@ -1,0 +1,248 @@
+"""U-Net encoder / decoder, inference path. Counterpart of
+``mingraph_unet_tpu/models/unet.py``.
+
+- ``ConvBlock``: (Conv3x3 → BN → ReLU) ×2, BN folded into the conv in f32
+  and the folded weights cast to the compute dtype (eval mode only).
+- The full-resolution levels 0 and 1 run in 2×2 space-to-depth (s2d)
+  layout, phase-major ``(B, H/2, W/2, 4C)``, with the JAX package's
+  lowering: conv1 of an encoder level is the windowed stride-2 conv from the
+  full-res input; conv2 of every s2d block is the phase-select conv kernel;
+  conv1 of an s2d decoder level is the fused decoder-conv1 kernel with the
+  ConvTranspose folded in; the encoder's pool is the phase-max-pool kernel.
+  The dispatch is structural: on a CUDA tensor those sites always run their
+  hand-written kernels (``ops/kernels``); on a CPU tensor the wrappers run
+  the plain PyTorch versions.
+- Deeper levels, the bottleneck and the final 1×1 conv use cuDNN through
+  ``F.conv2d`` / ``F.conv_transpose2d``, as the JAX package leaves them to
+  XLA.
+
+Full-resolution tensors that nothing downstream reads (the encoder skips of
+the s2d levels and the last decoder output) are built only when the caller
+asks for them (``full_res_outputs=True``); under ``jit`` XLA drops them,
+eager PyTorch would write them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm
+from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc, conv_transpose2x2_nhwc
+from mingraph_unet_tpu_torch.ops.kernels.pool import phase_max_pool_kernel
+from mingraph_unet_tpu_torch.ops.kernels.psconv import (
+    dec_conv1_bias_table,
+    dec_conv1_fused,
+    dec_conv1_weights,
+    psel_conv3x3,
+)
+
+__all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet"]
+
+FusedUp = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x_prev, wt, bias_up)
+
+
+class ConvBlock(nn.Module):
+    """(Conv3x3 'SAME' → BN → ReLU) ×2 with the flax tree
+    ``conv{1,2}/{kernel,bias}``, ``bn{1,2}/{scale,bias,mean,var}``."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        gen: torch.Generator,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = ConvParams(in_features, features, (3, 3), gen)
+        self.conv2 = ConvParams(features, features, (3, 3), gen)
+        self.bn1 = FoldableBatchNorm(features)
+        self.bn2 = FoldableBatchNorm(features)
+
+    def folded(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(kernel, bias) of conv ``i`` (1 or 2) with its BN folded in, f32."""
+        conv, bn = (self.conv1, self.bn1) if i == 1 else (self.conv2, self.bn2)
+        a, c = bn.eval_affine()
+        return conv.kernel * a, conv.bias * a + c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Standard NHWC path."""
+        for i in (1, 2):
+            k, b = self.folded(i)
+            x = torch.relu(conv2d_nhwc(x.to(self.dtype), k, b, padding=1))
+        return x
+
+    def forward_s2d(self, x: torch.Tensor, fused_up: Optional[FusedUp] = None) -> torch.Tensor:
+        """s2d path; returns a phase-major (B, H/2, W/2, 4·features) tensor.
+
+        Encoder level (``fused_up`` None): x is full-res NHWC and conv1 is
+        the windowed stride-2 conv. Decoder level: x is the s2d skip,
+        ``fused_up = (x_prev, wt, bias_up)``, and conv1 runs as
+        ``dec_conv1_fused`` over [skip ‖ upsample of x_prev]."""
+        dt = self.dtype
+        k, b = self.folded(1)
+        if fused_up is None:
+            x = s2d_ops.conv3x3_windowed_down(x.to(dt), s2d_ops.windowed_down_kernel(k))
+            x = torch.relu(x + s2d_ops.s2d_vector(b).to(dt))
+        else:
+            x_prev, wt, bias_up = fused_up
+            skip_c = x.shape[-1] // 4
+            k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
+            t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
+            x = dec_conv1_fused(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
+        k, b = self.folded(2)
+        return psel_conv3x3(x, k, b)
+
+
+def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool(2, 2) on NHWC (floor: an odd trailing row/col is dropped)."""
+    b, h, w, c = x.shape
+    x = x[:, : h // 2 * 2, : w // 2 * 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+class UNetEncoder(nn.Module):
+    """``depth`` ConvBlock+MaxPool stages and a bottleneck (``block{i}``,
+    ``bottleneck``)."""
+
+    def __init__(self, in_channels, init_features, depth, gen, dtype=torch.float32):
+        super().__init__()
+        self.depth = depth
+        self.dtype = dtype
+        cin, f = in_channels, init_features
+        for i in range(depth):
+            self.add_module(f"block{i}", ConvBlock(cin, f, gen, dtype))
+            cin, f = f, 2 * f
+        self.bottleneck = ConvBlock(cin, f, gen, dtype)
+
+    def forward(self, x: torch.Tensor, s2d_levels: Sequence[int]):
+        """Returns ``(skips, bottleneck, skip_s2d, skip_hw)``: ``skips[i]`` is
+        the full-res skip of a standard level (None at s2d levels, whose
+        phase-major form is ``skip_s2d[i]``); ``skip_hw[i]`` its (H, W)."""
+        skips: List[Optional[torch.Tensor]] = []
+        skip_s2d: Dict[int, torch.Tensor] = {}
+        skip_hw: List[Tuple[int, int]] = []
+        for i in range(self.depth):
+            block = getattr(self, f"block{i}")
+            skip_hw.append((x.shape[1], x.shape[2]))
+            if i in s2d_levels:
+                s = block.forward_s2d(x.to(self.dtype))
+                skip_s2d[i] = s
+                skips.append(None)
+                x = phase_max_pool_kernel(s)  # MaxPool(2,2) = max over phases
+            else:
+                x = block(x)
+                skips.append(x)
+                x = _max_pool_2x2(x)
+        return skips, self.bottleneck(x), skip_s2d, skip_hw
+
+
+class DecoderBlock(nn.Module):
+    """ConvTranspose(k2, s2) halving channels → pad to the skip's size →
+    concat [skip, up] → ConvBlock (``upsample``, ``conv_block``)."""
+
+    def __init__(self, in_features, skip_features, out_features, up_features, gen, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.upsample = ConvParams(in_features, up_features, (2, 2), gen)
+        self.conv_block = ConvBlock(skip_features + up_features, out_features, gen, dtype)
+
+    def forward(self, x_prev: torch.Tensor, x_skip: torch.Tensor) -> torch.Tensor:
+        x_up = conv_transpose2x2_nhwc(x_prev.to(self.dtype), self.upsample.kernel, self.upsample.bias)
+        dh = x_skip.shape[1] - x_up.shape[1]
+        dw = x_skip.shape[2] - x_up.shape[2]
+        if dh or dw:
+            x_up = F.pad(x_up, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+        return self.conv_block(torch.cat([x_skip.to(self.dtype), x_up], dim=-1))
+
+    def forward_s2d(self, x_prev: torch.Tensor, x_skip_s2d: torch.Tensor) -> torch.Tensor:
+        """Whole block in s2d layout: the upsample is folded into conv1."""
+        if x_prev.shape[:3] != x_skip_s2d.shape[:3]:
+            raise ValueError(
+                f"s2d DecoderBlock needs matching grids: skip {tuple(x_skip_s2d.shape)} "
+                f"vs prev {tuple(x_prev.shape)}"
+            )
+        wt = s2d_ops.s2d_convt2x2_kernel(self.upsample.kernel)
+        return self.conv_block.forward_s2d(x_skip_s2d, fused_up=(x_prev.to(self.dtype), wt, self.upsample.bias))
+
+
+class UNetDecoder(nn.Module):
+    """Upsampling path (``block{j}``, ``final_conv``)."""
+
+    def __init__(self, num_classes, init_features, depth, gen, dtype=torch.float32):
+        super().__init__()
+        self.depth = depth
+        self.dtype = dtype
+        prev = init_features * 2**depth
+        for j, i in enumerate(reversed(range(depth))):
+            out = init_features * 2**i
+            self.add_module(f"block{j}", DecoderBlock(prev, out, out, prev // 2, gen, dtype))
+            prev = out
+        self.final_conv = ConvParams(prev, num_classes, (1, 1), gen)
+
+    def forward(self, skips, bottleneck, skip_s2d, skip_hw):
+        """Returns ``(logits f32, f_u shallow→deep, f_u_s2d)``; ``f_u[0]`` is
+        None when level 0 ran in s2d (its phase-major form is
+        ``f_u_s2d[0]``)."""
+        x = bottleneck
+        f_u_s2d: Dict[int, torch.Tensor] = {}
+        feats: List[Optional[torch.Tensor]] = []
+        for j, i in enumerate(reversed(range(self.depth))):
+            block = getattr(self, f"block{j}")
+            if i in skip_s2d and skip_hw[i] == (2 * x.shape[1], 2 * x.shape[2]):
+                f = block.forward_s2d(x, skip_s2d[i])
+                f_u_s2d[i] = f
+                x = s2d_ops.depth_to_space(f) if i > 0 else None
+            else:
+                skip = skips[i] if skips[i] is not None else s2d_ops.depth_to_space(skip_s2d[i])
+                x = block(x, skip)
+            feats.append(x)
+        k, b = self.final_conv.kernel, self.final_conv.bias
+        if 0 in f_u_s2d:
+            # Final 1×1 conv in s2d layout (block-diagonal per-phase matmul),
+            # so only the num_classes-wide result goes back to full res.
+            f = f_u_s2d[0].to(self.dtype)
+            y = f @ s2d_ops.s2d_1x1_kernel(k).to(self.dtype) + s2d_ops.s2d_vector(b).to(self.dtype)
+            logits = s2d_ops.depth_to_space(y)
+        else:
+            logits = conv2d_nhwc(x.to(self.dtype), k, b, padding=0)
+        return logits.float(), feats[::-1], f_u_s2d
+
+
+class UNet(nn.Module):
+    """Encoder∘decoder; ``forward(x) → dict(logits, skips, f_u, skip_s2d,
+    f_u_s2d)``.
+
+    The s2d levels follow from the shape alone: level 0 runs in s2d layout
+    when H and W are even, level 1 when ``depth ≥ 2`` and H, W are multiples
+    of 4 (the JAX package's TPU profitability gate is not carried over)."""
+
+    def __init__(self, gen, in_channels=3, num_classes=2, init_features=32, depth=4,
+                 dtype=torch.float32):
+        super().__init__()
+        self.depth = depth
+        self.dtype = dtype
+        self.encoder = UNetEncoder(in_channels, init_features, depth, gen, dtype)
+        self.decoder = UNetDecoder(num_classes, init_features, depth, gen, dtype)
+
+    def s2d_levels(self, h: int, w: int) -> Tuple[int, ...]:
+        levels = []
+        if h % 2 == 0 and w % 2 == 0:
+            levels.append(0)
+        if self.depth >= 2 and h % 4 == 0 and w % 4 == 0:
+            levels.append(1)
+        return tuple(levels)
+
+    def forward(self, x: torch.Tensor, full_res_outputs: bool = False) -> Dict[str, object]:
+        x = x.to(self.dtype)
+        skips, bottleneck, skip_s2d, skip_hw = self.encoder(x, self.s2d_levels(x.shape[1], x.shape[2]))
+        logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw)
+        if full_res_outputs:
+            skips = [s if s is not None else s2d_ops.depth_to_space(skip_s2d[i]) for i, s in enumerate(skips)]
+            f_u = [f if f is not None else s2d_ops.depth_to_space(f_u_s2d[i]) for i, f in enumerate(f_u)]
+        return {"logits": logits, "skips": skips, "f_u": f_u, "skip_s2d": skip_s2d, "f_u_s2d": f_u_s2d}

@@ -1,0 +1,1 @@
+"""Tensor ops of the port (counterparts of ``mingraph_unet_tpu/ops``)."""

@@ -1,0 +1,100 @@
+"""Auxiliary patch features: Sobel magnitude and histogram equalization.
+Counterpart of ``mingraph_unet_tpu/ops/filters.py`` for the functions the
+inference path runs.
+
+- :func:`sobel_patch_mean` computes the Sobel patch feature the direct way:
+  gray, reflect-101 pad, 3×3 stencil, magnitude, per-image min/max, patch
+  mean (the JAX package's lane-flattened form is a TPU layout device).
+- :func:`equalize_histogram_rgb_batched` is OpenCV ``equalizeHist`` on the
+  luma in YUV space, bit-exact with the JAX package's nibble-factored form:
+  a 256-bin count per image, a cumulative sum and the LUT
+  ``round((cdf − cdf_min) / max(N − cdf_min, 1) · 255)`` in float32 with
+  round-half-even.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mingraph_unet_tpu_torch.ops.image import rgb_to_gray
+
+__all__ = ["sobel_patch_mean", "equalize_histogram_rgb_batched"]
+
+# OpenCV RGB↔YUV (analog, 8-bit offset 128) coefficients.
+_RGB2YUV = np.array(
+    [
+        [0.299, 0.587, 0.114],
+        [-0.14713, -0.28886, 0.436],
+        [0.615, -0.51499, -0.10001],
+    ]
+)
+_YUV2RGB = np.array(
+    [
+        [1.0, 0.0, 1.13983],
+        [1.0, -0.39465, -0.58060],
+        [1.0, 2.03211, 0.0],
+    ]
+)
+
+
+def sobel_patch_mean(rgb: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """Per-patch mean of the min-max-normalized 3×3 Sobel magnitude, in
+    [0, 1]: (B, H, W, 3) in [0, 255] → (B, H/p, W/p, 1) f32. (The JAX
+    package's other kernel sizes are not on the serving path and not
+    ported.)"""
+    b, h, w, _ = rgb.shape
+    gray = rgb_to_gray(rgb.float())  # (B, H, W)
+    g = F.pad(gray[:, None], (1, 1, 1, 1), mode="reflect")[:, 0]  # reflect-101
+
+    def sh(dy: int, dx: int) -> torch.Tensor:
+        return g[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+    tl, t, tr = sh(-1, -1), sh(-1, 0), sh(-1, 1)
+    l, r = sh(0, -1), sh(0, 1)
+    bl, bo, br = sh(1, -1), sh(1, 0), sh(1, 1)
+    gx = (tr + 2.0 * r + br) - (tl + 2.0 * l + bl)
+    gy = (bl + 2.0 * bo + br) - (tl + 2.0 * t + tr)
+    mag = torch.sqrt(gx * gx + gy * gy)
+    mn = mag.amin(dim=(1, 2))
+    mx = mag.amax(dim=(1, 2))
+    p = patch_size
+    mean = mag.reshape(b, h // p, p, w // p, p).mean(dim=(2, 4))
+    # mean((m − mn)/(mx − mn)·255)/255 = (mean(m) − mn)/(mx − mn)
+    out = (mean - mn[:, None, None]) / torch.clamp(mx - mn, min=1e-12)[:, None, None]
+    return out[..., None]
+
+
+def _equalize_channel_batched(y_u8: torch.Tensor) -> torch.Tensor:
+    """OpenCV ``equalizeHist`` per image on (B, H, W) integer luma → int64."""
+    b = y_u8.shape[0]
+    flat = y_u8.reshape(b, -1).long()
+    n = flat.shape[1]
+    hist = torch.zeros((b, 256), dtype=torch.int64, device=flat.device)
+    hist.scatter_add_(1, flat, torch.ones_like(flat))
+    cdf = torch.cumsum(hist, dim=1).float()  # exact: counts < 2^24
+    total = float(n)
+    cdf_min = torch.where(hist > 0, cdf, torch.full_like(cdf, total + 1.0)).amin(dim=1, keepdim=True)
+    denom = torch.clamp(total - cdf_min, min=1.0)
+    lut = torch.clamp(torch.round((cdf - cdf_min) / denom * 255.0), 0.0, 255.0).long()
+    return torch.gather(lut, 1, flat).reshape(y_u8.shape)
+
+
+def equalize_histogram_rgb_batched(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """Equalize the luma of (B, H, W, 3) uint8 images in YUV space →
+    (B, H, W, 3) uint8."""
+    rgb = rgb_u8.float()
+    r, g, bl = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    m = _RGB2YUV
+    y = float(m[0, 0]) * r + float(m[0, 1]) * g + float(m[0, 2]) * bl
+    u = float(m[1, 0]) * r + float(m[1, 1]) * g + float(m[1, 2]) * bl
+    v = float(m[2, 0]) * r + float(m[2, 1]) * g + float(m[2, 2]) * bl
+    y_u8 = torch.clamp(torch.round(y), 0, 255).long()
+    y_eq = _equalize_channel_batched(y_u8).float()
+    mi = _YUV2RGB
+    r2 = float(mi[0, 0]) * y_eq + float(mi[0, 2]) * v
+    g2 = float(mi[1, 0]) * y_eq + float(mi[1, 1]) * u + float(mi[1, 2]) * v
+    b2 = float(mi[2, 0]) * y_eq + float(mi[2, 1]) * u
+    rgb_eq = torch.stack([r2, g2, b2], dim=-1)
+    return torch.clamp(torch.round(rgb_eq), 0, 255).to(torch.uint8)

@@ -1,0 +1,158 @@
+"""Build the port's CUDA sources into plain-C shared libraries and load them.
+
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` into ``build/<name>-<hash>.so``, where the hash
+covers the source, the shared headers and the flags; a library whose file
+exists is not rebuilt. The libraries are loaded with ``ctypes``: their C
+functions take raw device pointers and the CUDA stream and return
+``cudaGetLastError()`` after the launch.
+
+Nothing here runs at import time: the first kernel launch on a CUDA tensor
+calls :func:`library`, which builds what is missing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+__all__ = [
+    "BUILD_DIR",
+    "KERNEL_DTYPES",
+    "SOURCES",
+    "build_all",
+    "check_cuda_input",
+    "compiler_log",
+    "library",
+    "nvcc_path",
+    "require",
+    "stream_ptr",
+]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("psel_conv", "dec_conv1", "phase_pool")
+_HEADERS = ("conv_tile.cuh",)
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# C signatures: every pointer and the stream are c_void_p (a plain int
+# argument would be cut to 32 bits), every size is c_int.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "psel_conv": ("mgu_psel_conv3x3", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "dec_conv1": ("mgu_dec_conv1", [_P] * 6 + [_I] * 7 + [_P]),
+    "phase_pool": ("mgu_phase_max_pool", [_P, _P] + [_I] * 5 + [_P]),
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's default."""
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in (f"{name}.cu",) + _HEADERS:
+        h.update((CSRC / f).read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every missing library, all ``nvcc`` processes at once.
+    Returns seconds per library built (empty when all were present); each
+    compiler log (register and shared-memory use) is kept beside its .so."""
+    with _lock:
+        missing = [n for n in SOURCES if not _target(n).exists()]
+        if not missing:
+            return {}
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {}
+        t0 = time.perf_counter()
+        for name in missing:
+            out = _target(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            log = open(out.with_suffix(".log"), "w")
+            cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
+        seconds = {}
+        failed = []
+        for name, (proc, tmp, out, log) in jobs.items():
+            rc = proc.wait()
+            log.close()
+            seconds[name] = time.perf_counter() - t0
+            if rc == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(f"{name} (rc {rc}): {out.with_suffix('.log').read_text()[-2000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (one of :data:`SOURCES`), built if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    path = _target(name)
+    if not path.exists():
+        build_all()
+    with _lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(path))
+            fn_name, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = lib
+        return _loaded[name]
+
+
+def compiler_log(name: str) -> str:
+    """The ``nvcc -Xptxas -v`` output of the current build of ``name``."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+# Launch helpers shared by the kernel wrappers.
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_cuda_input(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int = 4) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+    require(t.dim() == ndim, f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    require(t.is_contiguous(), f"{name} must be contiguous (NHWC), got strides {t.stride()}")
+    require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

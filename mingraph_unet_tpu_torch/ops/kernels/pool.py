@@ -1,0 +1,50 @@
+"""The encoder's s2d MaxPool as a hand-written CUDA kernel, with its plain
+PyTorch version. Counterpart of ``mingraph_unet_tpu/ops/pallas/pool.py``.
+
+:func:`phase_max_pool_kernel` replaces ``phase_max_pool_pallas``:
+``(B, Hh, Ww, 4C) → (B, Hh, Ww, C)``, the max over the four phase groups,
+which is MaxPool2d(2, 2) of the full-resolution tensor. Memory bounds it:
+the kernel (``csrc/phase_pool.cu``) reads each input byte once and writes
+each output byte once, 16 bytes per thread.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+from mingraph_unet_tpu_torch.ops.kernels.build import (
+    KERNEL_DTYPES,
+    check_cuda_input,
+    library,
+    require,
+    stream_ptr,
+)
+
+__all__ = ["phase_max_pool_kernel"]
+
+
+def phase_max_pool_kernel(y_s2d: torch.Tensor) -> torch.Tensor:
+    """MaxPool(2, 2) in s2d layout; a CPU tensor runs the plain
+    ``ops/s2d.py::phase_max_pool``. On CUDA: bf16 or f32, C·itemsize a
+    multiple of 16 bytes. Exact (the max selects one of its inputs)."""
+    if y_s2d.device.type == "cpu":
+        return s2d_ops.phase_max_pool(y_s2d)
+    dt = y_s2d.dtype
+    require(dt in KERNEL_DTYPES, f"phase_max_pool_kernel: unsupported dtype {dt}")
+    check_cuda_input("y_s2d", y_s2d, dt)
+    b, hh, ww, cc = y_s2d.shape
+    c = cc // 4
+    require(cc % 4 == 0 and (c * y_s2d.element_size()) % 16 == 0, f"C={c} channels per phase must fill 16-byte vectors")
+    out = torch.empty((b, hh, ww, c), dtype=dt, device=y_s2d.device)
+    rc = library("phase_pool").mgu_phase_max_pool(
+        y_s2d.data_ptr(), out.data_ptr(), b, hh, ww, c,
+        int(dt == torch.bfloat16), stream_ptr(y_s2d),
+    )
+    if rc != 0:
+        raise RuntimeError(f"phase_max_pool_kernel launch failed: cudaError {rc}")
+    phase_max_pool_kernel.launches += 1
+    return out
+
+
+phase_max_pool_kernel.launches = 0

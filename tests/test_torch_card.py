@@ -1,0 +1,123 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card. Every test here is marked ``cuda`` and skips without
+a card. This file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_card.py -m cuda --noconftest -q
+
+Tolerances are relative to max |plain|: f32 1e-4 (another summation order;
+TF32 is off on both sides), bf16 1e-2 (the kernel rounds its f32 sum once
+to bf16, the plain version rounds the cuDNN conv and then the bias add).
+The pool selects one of its inputs and must be bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mingraph_unet_tpu_torch.ops import s2d as t_s2d
+from mingraph_unet_tpu_torch.ops.kernels import pool as t_pool
+from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_close_rel(got, ref, rel):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    err = np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6)
+    assert err <= rel, f"max error {err:.3g} of max |ref| > {rel}"
+
+
+def _psel_case(shape, seed=0):
+    b, hh, ww, c, cout = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, hh, ww, 4 * c)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, c, cout)) * 0.2).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    return x, k, bias
+
+
+def _dec1_args(shape, seed=1):
+    b, hh, ww, c, cprev = shape
+    rng = np.random.default_rng(seed)
+    x_skip = rng.standard_normal((b, hh, ww, 4 * c)).astype(np.float32)
+    x_prev = rng.standard_normal((b, hh, ww, cprev)).astype(np.float32)
+    kernel = _t((rng.standard_normal((3, 3, 2 * c, c)) * 0.2).astype(np.float32))
+    bias = _t(rng.standard_normal(c).astype(np.float32))
+    kt = _t((rng.standard_normal((2, 2, cprev, c)) * 0.2).astype(np.float32))
+    bias_up = _t(rng.standard_normal(c).astype(np.float32))
+    k_skip, k_prev = t_psconv.dec_conv1_weights(kernel, c, t_s2d.s2d_convt2x2_kernel(kt))
+    t9 = t_psconv.dec_conv1_bias_table(kernel, c, bias_up, bias)
+    return _t(x_skip), _t(x_prev), k_skip, k_prev, t9
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# bf16 outputs round to 8 bits of mantissa: 1e-2 of max |ref|.
+CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32, 32), (1, 6, 20, 64, 64), (1, 5, 3, 32, 32)])
+def test_card_psel_matches_plain(cuda_device, shape, dtype):
+    x, k, bias = (_t(a).to(cuda_device) for a in _psel_case(shape))
+    x = x.to(dtype)
+    got = t_psconv.psel_conv3x3(x, k, bias)
+    ref = t_psconv.psel_conv3x3_plain(x.float(), k, bias)
+    torch.cuda.synchronize()
+    _assert_close_rel(got.float().cpu(), ref.cpu(), CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 6, 8, 32, 64), (1, 5, 20, 64, 128), (2, 8, 1, 32, 64), (1, 1, 1, 32, 64)])
+def test_card_dec_conv1_matches_plain(cuda_device, shape, dtype):
+    args = [a.to(cuda_device) for a in _dec1_args(shape)]
+    got = t_psconv.dec_conv1_fused(args[0].to(dtype), args[1].to(dtype), *args[2:])
+    ref = t_psconv.dec_conv1_fused_plain(args[0].to(dtype).float(), args[1].to(dtype).float(), *args[2:])
+    torch.cuda.synchronize()
+    _assert_close_rel(got.float().cpu(), ref.cpu(), CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_pool_bit_equal(cuda_device, dtype):
+    x = torch.randn((2, 9, 7, 256), generator=torch.Generator().manual_seed(3))
+    x[0, 1, 2, 5] = x[1, 3, 4, 64 + 7] = float("nan")  # in the first and in a later phase group
+    x = x.to(cuda_device, dtype)
+    got = t_pool.phase_max_pool_kernel(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, t_s2d.phase_max_pool(x), rtol=0, atol=0, equal_nan=True)
+    assert got[0, 1, 2, 5].isnan() and got[1, 3, 4, 7].isnan()
+
+
+@pytest.mark.cuda
+def test_card_bf16_conv_rejects_uninstantiated_widths(cuda_device):
+    """The bf16 conv kernels exist for Cout = Cin in BF16_WIDTHS (and
+    Cp = 2·Cs for dec-conv1); other widths raise instead of launching."""
+    x = torch.zeros((1, 4, 4, 4 * 32), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        t_psconv.psel_conv3x3(x, torch.zeros((3, 3, 32, 16)), torch.zeros(16))
+    x16 = torch.zeros((1, 4, 4, 4 * 16), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        t_psconv.psel_conv3x3(x16, torch.zeros((3, 3, 16, 16)), torch.zeros(16))
+    xp = torch.zeros((1, 4, 4, 48), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        t_psconv.dec_conv1_fused(x, xp, torch.zeros((3, 3, 32, 32)), torch.zeros((3, 3, 48, 128)),
+                                 torch.zeros((3, 3, 128)))

@@ -1,0 +1,170 @@
+"""The port's kernel modules (mingraph_unet_tpu_torch/ops/kernels) against
+the JAX package's Pallas kernels in interpret mode, on the CPU, where each
+wrapper runs its plain PyTorch version; and the wrappers' device rules.
+
+tests/test_torch_card.py holds each hand-written kernel against its plain
+version on the card.
+
+Tolerances: f32 results agree to 2e-4 of max |ref| (PARITY.md M5: the two
+sides sum the same products in another order); the pool selects one of its
+inputs and must be bit-equal.
+"""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mingraph_unet_tpu.ops import s2d as jax_s2d
+from mingraph_unet_tpu.ops.pallas import pool as jax_pool
+from mingraph_unet_tpu.ops.pallas import psconv as jax_psconv
+from mingraph_unet_tpu_torch.ops import s2d as t_s2d
+from mingraph_unet_tpu_torch.ops.kernels import pool as t_pool
+from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
+
+REL_TOL = 2e-4
+
+
+def _assert_close_rel(got, ref, rel=REL_TOL):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    scale = max(np.abs(ref).max(), 1e-6)
+    err = np.abs(got - ref).max() / scale
+    assert err <= rel, f"max error {err:.3g} of max |ref| > {rel}"
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# (B, Hh, Ww, C, Cout): the path's 128- and 256-lane widths, and a small odd case.
+PSEL_SHAPES = [(2, 8, 8, 32, 32), (1, 6, 8, 64, 64), (1, 5, 3, 16, 8)]
+
+
+def _psel_case(shape, seed=0):
+    b, hh, ww, c, cout = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, hh, ww, 4 * c)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, c, cout)) * 0.2).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    return x, k, bias
+
+
+@pytest.mark.parametrize("shape", PSEL_SHAPES)
+def test_psel_plain_matches_pallas(shape):
+    x, k, bias = _psel_case(shape)
+    with jax.default_matmul_precision("highest"):
+        ref = jax_psconv.conv3x3_s2d_psel(
+            jnp.asarray(x), jax_psconv.psconv_weights(jnp.asarray(k)),
+            jax_s2d.s2d_vector(jnp.asarray(bias)), relu=True, interpret=True,
+        )
+    got = t_psconv.psel_conv3x3(_t(x), _t(k), _t(bias))
+    _assert_close_rel(got.numpy(), ref)
+
+
+# (B, Hh, Ww, skip_c = up_c = Cout, Cprev); width 1 makes every column both
+# first and last (the bias-table corner case).
+DEC1_SHAPES = [(2, 6, 8, 32, 64), (1, 4, 6, 64, 128), (2, 8, 1, 32, 64)]
+
+
+def _dec1_case(shape, seed=1):
+    b, hh, ww, c, cprev = shape
+    rng = np.random.default_rng(seed)
+    x_skip = rng.standard_normal((b, hh, ww, 4 * c)).astype(np.float32)
+    x_prev = rng.standard_normal((b, hh, ww, cprev)).astype(np.float32)
+    kernel = (rng.standard_normal((3, 3, 2 * c, c)) * 0.2).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    kt = (rng.standard_normal((2, 2, cprev, c)) * 0.2).astype(np.float32)
+    bias_up = rng.standard_normal(c).astype(np.float32)
+    return x_skip, x_prev, kernel, bias, kt, bias_up
+
+
+def _t_dec1_args(x_skip, x_prev, kernel, bias, kt, bias_up):
+    c = kernel.shape[-1]
+    wt = t_s2d.s2d_convt2x2_kernel(_t(kt))
+    k_skip, k_prev = t_psconv.dec_conv1_weights(_t(kernel), c, wt)
+    t9 = t_psconv.dec_conv1_bias_table(_t(kernel), c, _t(bias_up), _t(bias))
+    return _t(x_skip), _t(x_prev), k_skip, k_prev, t9
+
+
+@pytest.mark.parametrize("shape", DEC1_SHAPES)
+def test_dec_conv1_plain_matches_pallas(shape):
+    x_skip, x_prev, kernel, bias, kt, bias_up = _dec1_case(shape)
+    c = kernel.shape[-1]
+    with jax.default_matmul_precision("highest"):
+        wt = jax_s2d.s2d_convt2x2_kernel(jnp.asarray(kt))
+        km, kp, kc = jax_psconv.dec_conv1_weights(jnp.asarray(kernel), c, wt)
+        t9 = jax_psconv.dec_conv1_bias_table(jnp.asarray(kernel), c, jnp.asarray(bias_up), jnp.asarray(bias))
+        ref = jax_psconv.dec_conv1_fused(
+            jnp.asarray(x_skip), jnp.asarray(x_prev), km, kp, kc, t9, interpret=True
+        )
+    got = t_psconv.dec_conv1_fused(*_t_dec1_args(x_skip, x_prev, kernel, bias, kt, bias_up))
+    _assert_close_rel(got.numpy(), ref)
+
+
+def test_dec_conv1_bias_table_matches_jax():
+    _, _, kernel, bias, kt, bias_up = _dec1_case((1, 4, 4, 32, 64))
+    ref = jax_psconv.dec_conv1_bias_table(jnp.asarray(kernel), 32, jnp.asarray(bias_up), jnp.asarray(bias))
+    got = t_psconv.dec_conv1_bias_table(_t(kernel), 32, _t(bias_up), _t(bias))
+    _assert_close_rel(got.numpy(), ref, rel=1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 16, 24, 128), np.float32),   # level-0 lanes (32 channels)
+    ((2, 8, 8, 256), np.float32),     # level-1 lanes (64 channels)
+    ((1, 5, 3, 32), np.float32),      # odd grid, 8 channels
+    ((2, 8, 8, 256), "bfloat16"),
+])
+def test_pool_plain_matches_pallas_bit_equal(shape, dtype):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if dtype == "bfloat16":
+        xj = jnp.asarray(x, jnp.bfloat16)
+        xt = _t(x).to(torch.bfloat16)
+    else:
+        xj, xt = jnp.asarray(x), _t(x)
+    ref = jax_pool.phase_max_pool_pallas(xj, interpret=True)
+    got = t_pool.phase_max_pool_kernel(xt)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+def test_mma_b_fragments_layout():
+    """Lane 4g + t of a warp finds B[16s + 8h + 2t + e, 8j + g] at
+    [s, j, g, t, h, e]: the mma.sync m16n8k16 B-fragment order the bf16
+    conv kernels read."""
+    k, n = 32, 24
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    packed = t_psconv.mma_b_fragments(w)
+    assert packed.shape == (2, 3, 8, 4, 2, 2) and packed.is_contiguous()
+    for s, j, g, t, h, e in itertools.product(range(2), range(3), range(8), range(4), range(2), range(2)):
+        assert packed[s, j, g, t, h, e] == w[16 * s + 8 * h + 2 * t + e, 8 * j + g]
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_nothing():
+    before = (t_psconv.psel_conv3x3.launches, t_psconv.dec_conv1_fused.launches,
+              t_pool.phase_max_pool_kernel.launches)
+    x, k, bias = _psel_case((1, 4, 4, 16, 16))
+    y = t_psconv.psel_conv3x3(_t(x), _t(k), _t(bias))
+    torch.testing.assert_close(y, t_psconv.psel_conv3x3_plain(_t(x), _t(k), _t(bias)), rtol=0, atol=0)
+    t_pool.phase_max_pool_kernel(y)
+    t_psconv.dec_conv1_fused(*_t_dec1_args(*_dec1_case((1, 4, 4, 16, 32))))
+    after = (t_psconv.psel_conv3x3.launches, t_psconv.dec_conv1_fused.launches,
+             t_pool.phase_max_pool_kernel.launches)
+    assert after == before
+
+
+def test_non_cpu_tensor_never_runs_the_plain_version():
+    """A tensor off the CPU goes to the kernel path, which raises here (a
+    meta tensor is no CUDA tensor) instead of falling back."""
+    x = torch.empty((1, 4, 4, 64), device="meta")
+    k = torch.zeros((3, 3, 16, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_psconv.psel_conv3x3(x, k, torch.zeros(16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_pool.phase_max_pool_kernel(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_psconv.dec_conv1_fused(x, torch.empty((1, 4, 4, 32), device="meta"), k,
+                                 torch.zeros((3, 3, 32, 64)), torch.zeros((3, 3, 64)))
