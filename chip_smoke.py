@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -24,26 +25,48 @@ Phases, each fatal on failure (exit code != 0, no result line):
    step) and each kernel at each shape with CUDA events, beside its plain
    version, its one-call PyTorch counterpart where there is one, and its
    bound on an H100 SXM (3.35 TB/s, 989 bf16 TFLOP/s dense).
+5. Train the U-Net of the repo's model widths (``configs/model.yaml``: init
+   32, depth 4, 2 classes) in bf16 at 512² b8 with the segmentation
+   trainer's step (augmentation, CE + Dice, backward, Adam lr 1e-3 weight
+   decay 1e-4): 3 warm-up and 10 timed steps. Every step's loss must be
+   finite; each step must launch the training conv kernel (K4) 4 times
+   forward and 4 times dgrad and K1–K3 never; every parameter must get a
+   finite gradient and the BN running statistics must move; on one fixed
+   batch without augmentation the loss must fall over 10 steps. At batch
+   2, 128², the card's f32 step (TF32 off) must agree with the same step
+   in f64 on the CPU, leaf by leaf (see ``_train_vs_cpu``).
+6. Hold K4's forward, dgrad and autograd gradients against their plain
+   versions at both train shapes, bf16 and f32 (the kernel gradient of
+   bf16 inputs within ``DK_TOL``: it is summed and returned in f32), and
+   time them and the kernel gradient (PyTorch) beside their bounds.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
-forward's device time by kernel (torch.profiler) and its busy share.
+forward's and the train step's device time by kernel (torch.profiler) and
+their busy shares.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import sys
 import time
 
 BATCH, SIZE = 8, 512
 CONV_TOL = 1e-2      # kernel (bf16 out) vs plain (f32) on bf16 inputs, of max |plain|
-CPU_TOL = 1e-3       # card f32 vs CPU f32 at batch 1, of max |CPU|
+CPU_TOL = 1e-3       # card f32 vs CPU f32 (forward at batch 1) and vs CPU f64 (train step at batch 2)
+F32_TOL = 1e-4       # an f32 kernel vs its plain version, TF32 off, of max |plain|
+DK_TOL = 5e-4        # K4's kernel gradient of bf16 inputs vs plain f32 on the same values, of max |plain|;
+#                      a result rounded to bf16 is off by up to 2^-9 (2e-3) of an entry
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_SIMT_FLOPS = 67e12
 FORWARD_ITERS, KERNEL_ITERS = 20, 20
+TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
+LR, WEIGHT_DECAY = 1e-3, 1e-4
 
 PSCONV_SRC = "mingraph_unet_tpu/ops/pallas/psconv.py"
 POOL_SRC = "mingraph_unet_tpu/ops/pallas/pool.py"
@@ -67,6 +90,52 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _wrappers():
+    """Every kernel wrapper of the port, by the name its launch count goes
+    under."""
+    from mingraph_unet_tpu_torch.ops.kernels import pool, psconv
+
+    return {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel,
+            "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad}
+
+
+def _reset_counts() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _counts():
+    return {k: w.launches for k, w in _wrappers().items()}
+
+
+def _edge(t):
+    """The border rows and columns of an NHWC tensor, flattened, in f32."""
+    import torch
+
+    return torch.cat([e.flatten() for e in (t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1])]).float()
+
+
+def _check_close(name: str, got, ref, tol: float, border: bool = True) -> float:
+    """``got`` within ``tol`` of max |ref| over the whole tensor and, with
+    ``border``, again over its border rows and columns against their own
+    scale; fatal otherwise. Returns the max abs error."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = err <= tol * scale and bool(torch.isfinite(got.float()).all())
+    msg = f"max_abs_err {err:.6g} (rel {err / max(scale, 1e-30):.3g}), tolerance {tol} * max|plain| = {tol * scale:.4g}"
+    if border:
+        b_err = (_edge(got) - _edge(ref)).abs().max().item()
+        b_scale = _edge(ref).abs().max().item()
+        ok = ok and b_err <= tol * b_scale
+        msg += f"; border {b_err:.6g} vs {tol * b_scale:.4g}"
+    print(f"[chip_smoke] {name}: {msg}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"{name} disagrees with its plain version")
+    return err
 
 
 def _kernel_cases(dev):
@@ -140,28 +209,18 @@ def _kernel_table(dev, launches):
         got = kernel_fn(*args)
         ref = plain_fn(*[a.float() if a.dtype == torch.bfloat16 else a for a in args])
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        if case["kind"] == "pool":
-            ok = torch.equal(got, ref.to(got.dtype))
-            tol_txt = "bit-equal"
-        else:
-            ok = err <= CONV_TOL * scale
-            tol_txt = f"<= {CONV_TOL} * max|plain| = {CONV_TOL * scale:.4g}"
-            # The border rows and columns (where the padding and dec-conv1's
-            # class table act) again, against their own scale.
-            edge = lambda t: torch.cat([e.flatten() for e in (t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1])]).float()  # noqa: E731
-            b_err = (edge(got) - edge(ref)).abs().max().item()
-            b_scale = edge(ref).abs().max().item()
-            b_ok = b_err <= CONV_TOL * b_scale
-            print(f"[chip_smoke] {name} L{case['level']} border: max_abs_err {b_err:.6g}, tolerance "
-                  f"{CONV_TOL} * max|plain border| = {CONV_TOL * b_scale:.4g}: {'ok' if b_ok else 'FAIL'}")
-            ok = ok and b_ok
         shape = tuple(args[0].shape)
-        print(f"[chip_smoke] {name} L{case['level']} {shape}: max_abs_err {err:.6g} "
-              f"(rel {err / max(scale, 1e-30):.3g}), tolerance {tol_txt}: {'ok' if ok else 'FAIL'}")
-        if not ok or not torch.isfinite(got.float()).all():
-            _fail(f"{name} at L{case['level']} disagrees with its plain version")
+        tag = f"{name} L{case['level']} {shape}"
+        if case["kind"] == "pool":
+            err = (got.float() - ref.float()).abs().max().item()
+            ok = torch.equal(got, ref.to(got.dtype))
+            print(f"[chip_smoke] {tag}: max_abs_err {err:.6g}, tolerance bit-equal: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"{name} at L{case['level']} disagrees with its plain version")
+        else:
+            # Whole output, then the border rows and columns (where the
+            # padding and dec-conv1's class table act) against their own scale.
+            err = _check_close(tag, got, ref, CONV_TOL)
         ms = _time_ms(lambda: kernel_fn(*args), KERNEL_ITERS)
         plain_ms = _time_ms(lambda: plain_fn(*args), KERNEL_ITERS)
         if case["kind"] == "psel":
@@ -230,21 +289,18 @@ def _main_path(dev):
     import torch
 
     from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
-    from mingraph_unet_tpu_torch.ops.kernels import pool, psconv
 
     model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, device=dev, seed=0)
     _perturb_bn(model, seed=1)
     x = _images(BATCH, SIZE, seed=2).to(dev)
 
-    wrappers = {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel}
-    for w in wrappers.values():
-        w.launches = 0
+    _reset_counts()
     out = model(x)
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = _counts()
     print(f"[chip_smoke] main path launches: {launches}")
-    if launches != {"psel": 4, "dec1": 2, "pool": 2}:
-        _fail(f"expected psel 4, dec1 2, pool 2 launches per forward, got {launches}")
+    if launches != {"psel": 4, "dec1": 2, "pool": 2, "k4_fwd": 0, "k4_dgrad": 0}:
+        _fail(f"expected psel 4, dec1 2, pool 2 and no K4 launches per forward, got {launches}")
     expect = {"logits": (BATCH, SIZE, SIZE, 2), "pred_bboxes": (BATCH, 4), "pred_confidence": (BATCH, 1),
               "l_partition": (BATCH,), "soft_assignments": (BATCH, SIZE // 16, SIZE // 16, 2)}
     for k, shape in expect.items():
@@ -313,28 +369,362 @@ def _forward_time(model, x):
     return ms
 
 
-def _profile(model, x, fwd_ms: float, steps: int = 5, top: int = 15) -> None:
-    """Device time by kernel over ``steps`` forward steps with
+def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15) -> None:
+    """Device time by kernel over ``steps`` calls of ``step`` with
     torch.profiler, and the busy share of the unprofiled step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model(x)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            model(x)
+            step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
-    print(f"[chip_smoke] profile: {busy_ms:.3f} ms of kernel time per step, {launches:.0f} kernel launches "
-          f"per step of {len(kernels)} distinct kernels; busy share of the {fwd_ms:.3f} ms step {busy_ms / fwd_ms:.3f}")
+    print(f"[chip_smoke] profile {label}: {busy_ms:.3f} ms of kernel time per step, {launches:.0f} kernel launches "
+          f"per step of {len(kernels)} distinct kernels; busy share of the {step_ms:.3f} ms step {busy_ms / step_ms:.3f}")
     for e in kernels[:top]:
         print(f"[chip_smoke]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
               f"{e.count / steps:5.1f}/step  {e.key[:100]}")
+
+
+def _train_cfg(size: int, bf16: bool, optimizer: str = "adam"):
+    """The segmentation trainer's config at the repo's model widths. The
+    defaults of ``PipelineConfig`` are ``configs/*.yaml``'s (a CPU test
+    holds them equal); the files are not read here, as PyYAML need not be
+    installed on the card's machine."""
+    from mingraph_unet_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    cfg.preprocessing.resize_dim = (size, size)
+    cfg.training.bf16 = bf16
+    cfg.training.optimizer = optimizer
+    cfg.training.learning_rate = LR
+    cfg.training.weight_decay = WEIGHT_DECAY
+    return cfg
+
+
+def _train_batch(b: int, size: int, seed: int, dev):
+    """Seeded uint8 orchard-like images (green ground, orange blobs, noise)
+    and their binary blob masks, on ``dev``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(size), torch.arange(size), indexing="ij")
+    mask = torch.zeros((b, size, size), dtype=torch.bool)
+    for _ in range(6):
+        cy, cx = torch.rand((2, b, 1, 1), generator=g) * size
+        r = (0.04 + 0.08 * torch.rand((b, 1, 1), generator=g)) * size
+        mask |= (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
+    ground, fruit = torch.tensor([40.0, 110.0, 35.0]), torch.tensor([230.0, 140.0, 30.0])
+    img = torch.where(mask[..., None], fruit, ground) + 20.0 * torch.randn((b, size, size, 3), generator=g)
+    return img.clamp(0, 255).to(torch.uint8).to(dev), mask.to(torch.uint8).to(dev)
+
+
+def _grads_finite(model) -> bool:
+    import torch
+
+    return all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+def _train_path(dev):
+    """Phase 5 on the card: the bf16 512² b8 train steps through K4, then
+    the loss on a fixed batch. Returns the launch counts and timings."""
+    import torch
+
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
+
+    cfg = _train_cfg(SIZE, bf16=True)
+    model = build_unet(cfg)
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
+    step = make_train_step(cfg, augment=True)
+    imgs, masks = _train_batch(BATCH, SIZE, seed=3, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    _reset_counts()
+    losses = [step(state, imgs, masks, gen)["loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_ITERS):
+        losses.append(step(state, imgs, masks, gen)["loss"])
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_ITERS
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_ITERS
+    launches = _counts()
+    n = TRAIN_WARMUP + TRAIN_ITERS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    print(f"[chip_smoke] train main path launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
+    if launches != {"psel": 0, "dec1": 0, "pool": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n}:
+        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, got {launches} over {n} steps")
+    if not all(math.isfinite(v) for v in losses):
+        _fail("a train step's loss is not finite")
+    if not _grads_finite(model):
+        _fail("a parameter has no gradient or a non-finite one")
+    unmoved = [k for k, b in model.named_buffers() if torch.equal(b, stats0[k])]
+    if unmoved:
+        _fail(f"BN running statistics did not move: {unmoved[:5]}")
+    print(f"[chip_smoke] train bf16 {BATCH}x{SIZE}^2: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} images/s, "
+          f"host issue time {host_ms:.3f} ms/step, peak memory {peak:.2f} GiB; all {len(list(model.parameters()))} "
+          f"parameters have finite gradients; all {len(stats0)} BN statistics moved")
+    _profile("train step", lambda: step(state, imgs, masks, gen), ms, steps=3)
+
+    # The same trainer on one fixed batch, without augmentation: the loss falls.
+    del state, model
+    model = build_unet(cfg)
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
+    fixed = make_train_step(cfg, augment=False)
+    fixed_losses = [float(fixed(state, imgs, masks, gen)["loss"]) for _ in range(FIXED_BATCH_STEPS)]
+    print(f"[chip_smoke] fixed batch losses {[f'{v:.4f}' for v in fixed_losses]}")
+    if not fixed_losses[-1] < fixed_losses[0]:
+        _fail(f"the loss did not fall on a fixed batch: {fixed_losses[0]} -> {fixed_losses[-1]}")
+    del state, model
+    torch.cuda.empty_cache()
+    return launches, ms, host_ms, peak
+
+
+def _feeds_bn(name: str) -> bool:
+    """A conv bias followed by a train-mode BatchNorm: its gradient is zero
+    in exact arithmetic (BN subtracts the batch mean)."""
+    return re.search(r"(^|\.)conv[12]\.bias$", name) is not None
+
+
+class _Decisions:
+    """Within ``with``: records the U-Net's discrete decisions (the sign of
+    every ReLU input, the winners of every max-pool window) in call order,
+    or, given a recording, makes them instead of the run's own: a ReLU
+    becomes ``x·mask`` and a pool the tie-split sum over its recorded
+    winners, which have the gradients ReLU and ``amax`` give. ``flips``
+    counts the decisions a replay made other than the run's own."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.log, self.flips, self.total = [], 0, 0
+
+    def _decide(self, own):
+        if self.replay is None:
+            self.log.append(own.cpu())
+            return own
+        rec = self.replay[len(self.log)].to(own.device)
+        self.log.append(rec)
+        self.flips += int((rec != own).sum())
+        self.total += own.numel()
+        return rec
+
+    def _pool(self, v, dims, own_pool):
+        """Max over ``dims`` of the windows ``v``: the run's own pool when
+        recording, the tie-split sum over the recorded winners in a replay."""
+        wins = self._decide(v == v.amax(dims, keepdim=True))
+        if self.replay is None:
+            return own_pool()
+        wins = wins.to(v.dtype)
+        return (v * wins).sum(dims) / wins.sum(dims)
+
+    def __enter__(self):
+        import torch
+
+        from mingraph_unet_tpu_torch.models import unet
+
+        self._saved = (torch.relu, unet.s2d_ops.phase_max_pool, unet._max_pool_2x2)
+        relu, phase_pool, pool2 = self._saved
+
+        def relu_d(x):
+            positive = self._decide(x > 0)
+            return relu(x) if self.replay is None else x * positive.to(x.dtype)
+
+        def phase_pool_d(y, r=2):
+            b, hh, ww, cc = y.shape
+            return self._pool(y.reshape(b, hh, ww, r * r, cc // (r * r)), 3, lambda: phase_pool(y, r))
+
+        def pool2_d(x):
+            b, h, w, c = x.shape
+            v = x[:, : h // 2 * 2, : w // 2 * 2].reshape(b, h // 2, 2, w // 2, 2, c)
+            return self._pool(v, (2, 4), lambda: pool2(x))
+
+        torch.relu, unet.s2d_ops.phase_max_pool, unet._max_pool_2x2 = relu_d, phase_pool_d, pool2_d
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from mingraph_unet_tpu_torch.models import unet
+
+        torch.relu, unet.s2d_ops.phase_max_pool, unet._max_pool_2x2 = self._saved
+        if exc[0] is None and self.replay is not None and len(self.log) != len(self.replay):
+            _fail(f"decision replay: {len(self.log)} decisions made, {len(self.replay)} recorded")
+        return False
+
+
+def _train_vs_cpu(dev) -> None:
+    """Phase 5, card vs CPU: one f32 train step at batch 2, 128², TF32 off,
+    same weights and batch, held against the same step in f64 on the CPU.
+    SGD with momentum, so that the update is linear in the gradient: Adam's
+    first step is lr·sign(g), which would turn the rounding noise of
+    near-zero gradients into differences of 2·lr (Adam is held to JAX on
+    the CPU by tests/test_torch_train.py).
+
+    The f64 step makes the card's discrete decisions (``_Decisions``): a
+    ReLU input or a pool's runner-up within f32 rounding of its kink may
+    fall on the other side in f32, which moves a deep leaf's gradient by
+    up to 10% of its scale; the decision-matched f64 step measures the
+    card's arithmetic, and the flips are counted and printed with each f32
+    step's distance from the plain f64 step. Each leaf (gradient, updated
+    parameter) of the card's step must lie within CPU_TOL of its own max
+    |f64|. A conv bias before a train-mode BN has a zero gradient in exact
+    arithmetic; its gradient is held to CPU_TOL of the model's largest
+    gradient and its update to lr times that. The CPU's f32 step is held to
+    the same limits the same way."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models.unet import UNet
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_cfg(128, bf16=False, optimizer="sgd")
+    u = cfg.model.unet
+    weights = build_unet(cfg, device="cpu").state_dict()
+    imgs, masks = _train_batch(2, 128, seed=5, dev="cpu")
+
+    def step(where, dtype, decisions):
+        if dtype == torch.float64:
+            model = UNet(torch.Generator(), u.in_channels, u.out_channels, u.init_features, u.depth, dtype)
+            model = model.double().train()
+        else:
+            model = build_unet(cfg, device=where)
+        model.load_state_dict(weights)
+        state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
+        with decisions:
+            loss = float(make_train_step(cfg, augment=False)(state, imgs.to(where), masks.to(where), None)["loss"])
+        return loss, {(kind, n): (p.grad if kind == "grad" else p.detach()).cpu().double()
+                      for n, p in model.named_parameters() for kind in ("grad", "param")}
+
+    t0 = time.perf_counter()
+    plain_loss, plain = step("cpu", torch.float64, _Decisions())
+    top_grad = max(t.abs().max().item() for (kind, _), t in plain.items() if kind == "grad")
+    results = {}
+    for name, where in (("card", dev), ("CPU", "cpu")):
+        rec = _Decisions()
+        loss, got = step(where, torch.float32, rec)
+        ref = _Decisions(replay=rec.log)
+        ref_loss, ref_leaves = step("cpu", torch.float64, ref)
+        rows = []
+        for key, r in ref_leaves.items():
+            kind, n = key
+            err, own = (got[key] - r).abs().max().item(), r.abs().max().item()
+            plain_err = (got[key] - plain[key]).abs().max().item() / max(plain[key].abs().max().item(), 1e-30)
+            limit = CPU_TOL * top_grad * (1.0 if kind == "grad" else LR) if _feeds_bn(n) else CPU_TOL * own
+            rows.append((err / limit, kind, n, err / max(own, 1e-30), plain_err, _feeds_bn(n)))
+        rows.sort(reverse=True)
+        results[name] = (abs(loss - ref_loss) / abs(ref_loss), rows, ref.flips, ref.total)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[chip_smoke] train step f32 vs f64, batch 2, 128^2, TF32 off ({time.perf_counter() - t0:.1f}s): "
+          f"f64 loss {plain_loss:.9f}")
+    for name, (loss_rel, rows, flips, total) in results.items():
+        worst_plain = max((r for r in rows if not r[5]), key=lambda r: r[4])
+        print(f"[chip_smoke]   {name} f32: loss rel err {loss_rel:.3g}; {flips} of {total} ReLU and pool decisions "
+              f"differ from the plain f64 step's; worst leaf vs the plain f64 step {worst_plain[4]:.3g} of its "
+              f"scale ({worst_plain[1]} {worst_plain[2]}); vs the decision-matched f64 step, share of limit, "
+              f"error of max |f64 leaf|:")
+        for share, kind, n, rel, _, _ in rows[:5]:
+            print(f"[chip_smoke]     {share:.3g}  {kind} {n}: {rel:.3g}")
+        outside = [(kind, n) for share, kind, n, *_ in rows if not share <= 1.0]
+        if loss_rel > CPU_TOL or outside:
+            _fail(f"train step {name} f32 vs f64: loss rel err {loss_rel:.3g}, {len(outside)} leaves outside "
+                  f"their limit, first {outside[:3]}")
+    print(f"[chip_smoke] train step f32 card and CPU vs f64: loss and all {len(rows)} leaves within their "
+          f"limits: ok")
+
+
+def _k4_table(dev, launches):
+    """Phase 6: K4 forward and dgrad against their plain versions (bf16 and
+    f32) and timed, the autograd Function's gradients against plain
+    autograd, and the kernel gradient's time beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale  # noqa: E731
+    source = "mingraph_unet_tpu_torch/csrc/psel_conv.cu"
+    rows = []
+    for lvl, c in ((0, 32), (1, 64)):
+        hh = SIZE // 2 ** (lvl + 1)
+        full_px = BATCH * (2 * hh) ** 2
+        x = rnd(BATCH, hh, hh, 4 * c).to(torch.bfloat16)
+        cot = rnd(BATCH, hh, hh, 4 * c).to(torch.bfloat16)
+        k = rnd(3, 3, c, c, scale=(1.0 / (9 * c)) ** 0.5)
+        t_bytes = (2 * x.numel() * 2 + k.numel() * 2) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * full_px * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
+        for name, fn, plain, inp, kk, line in (
+            ("psconv_fwd", psconv.psconv_fwd, psconv.psconv_train_plain, x, k, 416),
+            ("psconv_dgrad", psconv.psconv_dgrad, psconv.psconv_dgrad_plain, cot, k, 433),
+        ):
+            tag = f"{name} L{lvl} {tuple(inp.shape)}"
+            err = _check_close(f"{tag} bf16", fn(inp, kk), plain(inp.float(), kk), CONV_TOL)
+            torch.backends.cudnn.allow_tf32 = False
+            _check_close(f"{tag} f32", fn(inp.float(), kk), plain(inp.float(), kk), F32_TOL)
+            torch.backends.cudnn.allow_tf32 = True
+            ms = _time_ms(lambda: fn(inp, kk), KERNEL_ITERS)
+            plain_ms = _time_ms(lambda: plain(inp, kk), KERNEL_ITERS)
+            kd = kk if name == "psconv_fwd" else kk.flip(0, 1).transpose(2, 3)
+            w = s2d_ops.s2d_conv3x3_kernel(kd).to(inp.dtype).permute(3, 2, 0, 1).contiguous()
+            xn = inp.permute(0, 3, 1, 2)
+            library_ms = _time_ms(lambda: F.conv2d(xn, w, padding=1), KERNEL_ITERS)
+            rows.append({
+                "name": f"{name} L{lvl}", "route": "cuda", "source": source,
+                "replaces": f"{PSCONV_SRC}:{line}", "launches": launches[f"k4_{name.split('_')[1]}"],
+                "shape": list(inp.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+            })
+            print(f"[chip_smoke] {name} L{lvl}: {ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} us, "
+                  f"library {library_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")
+
+        # The autograd Function's dx and dK for the seeded cotangent, bf16
+        # and f32, against the plain version under ordinary autograd in f32
+        # on the same values. dx of bf16 inputs is bf16 (CONV_TOL); dK is
+        # summed in f32 either way, so DK_TOL tells it from a bf16 result.
+        for dt, tol, dk_tol in ((torch.bfloat16, CONV_TOL, DK_TOL), (torch.float32, F32_TOL, F32_TOL)):
+            torch.backends.cudnn.allow_tf32 = False
+            grads = []
+            for fn, xin, gin in ((psconv.psconv_train, x.to(dt), cot.to(dt)),
+                                 (psconv.psconv_train_plain, x.float(), cot.float())):
+                xi, ki = xin.clone().requires_grad_(), k.clone().requires_grad_()
+                fn(xi, ki).backward(gin)
+                grads.append((xi.grad, ki.grad))
+            torch.backends.cudnn.allow_tf32 = True
+            (dx, dk), (dx_ref, dk_ref) = grads
+            dname = "bf16" if dt == torch.bfloat16 else "f32"
+            _check_close(f"psconv_train L{lvl} {dname} dx", dx, dx_ref, tol)
+            if dk.dtype != torch.float32:
+                _fail(f"psconv_train L{lvl} {dname}: the kernel gradient is {dk.dtype}, not float32")
+            _check_close(f"psconv_train L{lvl} {dname} dK", dk[None], dk_ref[None], dk_tol, border=False)
+
+        # The kernel gradient (PyTorch: the dense s2d weight gradient pulled
+        # back through the tap map): least work = read x and g once, write
+        # dK in f32; 2·9·C² operations per full-res pixel.
+        dk_ms = _time_ms(lambda: psconv.psconv_wgrad(x, cot, k), KERNEL_ITERS)
+        b_bytes = ((x.numel() + cot.numel()) * 2 + k.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        b_ops = 2 * full_px * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
+        print(f"[chip_smoke] psconv_wgrad L{lvl} (PyTorch): {dk_ms * 1e3:.1f} us/call, bound "
+              f"{max(b_bytes, b_ops) * 1e3:.1f} us ({'bytes' if b_bytes >= b_ops else 'operations'})")
+    return rows
 
 
 def main() -> int:
@@ -367,12 +757,16 @@ def main() -> int:
 
     model, x, launches = _main_path(dev)
     fwd_ms = _forward_time(model, x)
-    _profile(model, x, fwd_ms)
+    _profile("forward", lambda: model(x), fwd_ms)
     del model, x
     torch.cuda.empty_cache()
-    rows = _kernel_table(dev, launches)
+    train_launches, train_ms, train_host_ms, train_peak = _train_path(dev)
+    _train_vs_cpu(dev)
+    rows = _kernel_table(dev, launches) + _k4_table(dev, train_launches)
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
+    print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "
+          f"train_host_ms {train_host_ms:.4f} train_peak_gib {train_peak:.3f}")
     print(card_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

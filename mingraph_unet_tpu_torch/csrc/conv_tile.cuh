@@ -1,7 +1,8 @@
 // Tiled 3x3 'SAME' conv on a phase-major space-to-depth (s2d) tensor.
 //
-// Shared by psel_conv.cu (the s2d ConvBlock's conv2) and dec_conv1.cu (the
-// s2d decoder's conv1 with the ConvTranspose folded in).
+// Shared by psel_conv.cu (the s2d ConvBlock's conv2; without ReLU, the raw
+// training conv's forward and dgrad) and dec_conv1.cu (the s2d decoder's
+// conv1 with the ConvTranspose folded in).
 //
 // Layout. An s2d tensor is (B, Hh, Ww, 4C) with channel index ph*C + c,
 // ph = 2*py + px. Full-resolution pixel (y, x, c) lives at s2d
@@ -24,7 +25,9 @@
 //         weights arrive pre-packed in B-fragment order (psconv.py): a lane
 //         reads its 4 values as one 8-byte load, and the 8 warps share them
 //         through L1. Accumulators stay in registers; the epilogue adds the
-//         bias, applies ReLU and writes bf16 pairs in the s2d layout. The
+//         bias, applies ReLU when RELU is set (psel, dec_conv1; the raw
+//         training conv leaves it off) and writes bf16 pairs in the s2d
+//         layout. The
 //         unroll depth and blocks per SM were picked by timing variants at
 //         the serving shapes on an H100 (PERF.md).
 //   f32:  plain FMA, one full-res pixel per thread, weights in their HWIO
@@ -92,7 +95,7 @@ struct ConvArgs {
   const void* w;      // full-res (3, 3, C, Cout) weights: f32 HWIO, or bf16 in B-fragment order
   const void* xp;     // (B, Hh, Ww, Cp) x_prev (HAS_PREV only)
   const void* wp;     // folded (3, 3, Cp, 4Cout) x_prev weights, laid out as w (HAS_PREV only)
-  const float* bias;  // (Cout,) when !HAS_PREV
+  const float* bias;  // (Cout,) when !HAS_PREV; null adds none
   const float* t9;    // (3, 3, 4Cout) bias + upsample-bias class table (HAS_PREV)
   void* y;            // (B, Hh, Ww, 4Cout) s2d output
   int b, hh, ww, c, cp, cout;
@@ -121,7 +124,8 @@ __device__ void stage_halo(T* dst, int stride, const T* src, int b, int i0, int 
 }
 
 // Epilogue term for s2d pixel (gi, gj), phase p, output channel n. Without
-// x_prev it is the bias. With it, the (3, 3) class table is weighted by
+// x_prev it is the bias, or zero when the bias pointer is null (the raw
+// training conv). With x_prev, the (3, 3) class table is weighted by
 // (first, interior, last) row and column indicators written additively,
 // (f, 1 - f - l, l): when the s2d grid is one pixel high or wide a pixel is
 // both first and last and the weights (1, -1, 1) give the value with both
@@ -129,7 +133,7 @@ __device__ void stage_halo(T* dst, int stride, const T* src, int b, int i0, int 
 template <bool HAS_PREV>
 __device__ __forceinline__ float epilogue_term(const ConvArgs& a, int gi, int gj, int p, int n) {
   if constexpr (!HAS_PREV) {
-    return a.bias[n];
+    return a.bias ? a.bias[n] : 0.f;
   } else {
     const int z = 4 * a.cout;
     const float* t = a.t9 + p * a.cout + n;
@@ -196,7 +200,7 @@ __device__ __forceinline__ void mma_term(float (&acc)[2][NT][4], AOf a_of, int r
 // bf16 tensor-core kernel; C = Cout, Cp = 2C (compile time, so the loops
 // unroll and the accumulators stay in registers). Blocks per SM: 4 for a
 // narrow psel (64 registers suffice), else 2 (128 registers).
-template <int C, bool HAS_PREV>
+template <int C, bool HAS_PREV, bool RELU>
 __global__ void __launch_bounds__(THREADS, !HAS_PREV && C <= 32 ? 4 : 2) conv_bf16_kernel(ConvArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int COUT = C, CP = 2 * C;
@@ -261,8 +265,12 @@ __global__ void __launch_bounds__(THREADS, !HAS_PREV && C <= 32 ? 4 : 2) conv_bf
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int n = nc + j * 8 + 2 * t;
-          const float v0 = fmaxf(acc[mi][j][2 * h] + epilogue_term<HAS_PREV>(a, gi, gj, p, n), 0.f);
-          const float v1 = fmaxf(acc[mi][j][2 * h + 1] + epilogue_term<HAS_PREV>(a, gi, gj, p, n + 1), 0.f);
+          float v0 = acc[mi][j][2 * h] + epilogue_term<HAS_PREV>(a, gi, gj, p, n);
+          float v1 = acc[mi][j][2 * h + 1] + epilogue_term<HAS_PREV>(a, gi, gj, p, n + 1);
+          if constexpr (RELU) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
           *reinterpret_cast<__nv_bfloat162*>(out + n) = __floats2bfloat162_rn(v0, v1);
         }
       }
@@ -272,7 +280,7 @@ __global__ void __launch_bounds__(THREADS, !HAS_PREV && C <= 32 ? 4 : 2) conv_bf
 
 // f32 FMA kernel: one full-res output pixel per thread, 16 output channels
 // at a time, sizes at run time.
-template <bool HAS_PREV>
+template <bool HAS_PREV, bool RELU>
 __global__ void __launch_bounds__(THREADS) conv_f32_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemPlan<float> plan(a.c, a.cp, HAS_PREV);
@@ -320,8 +328,10 @@ __global__ void __launch_bounds__(THREADS) conv_f32_kernel(ConvArgs a) {
     }
     if (inside) {
 #pragma unroll
-      for (int q = 0; q < 16; ++q)
-        out[n0 + q] = fmaxf(acc[q] + epilogue_term<HAS_PREV>(a, gi, gj, p, n0 + q), 0.f);
+      for (int q = 0; q < 16; ++q) {
+        const float v = acc[q] + epilogue_term<HAS_PREV>(a, gi, gj, p, n0 + q);
+        out[n0 + q] = RELU ? fmaxf(v, 0.f) : v;
+      }
     }
   }
 }
@@ -337,14 +347,14 @@ int launch(Kern kern, const ConvArgs& a, size_t smem_bytes, cudaStream_t stream)
 
 // Launch on `stream`; returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a bf16 width without an instantiation.
-template <bool HAS_PREV>
+template <bool HAS_PREV, bool RELU>
 int launch_conv_tile(const ConvArgs& a, bool is_bf16, cudaStream_t stream) {
   if (!is_bf16)
-    return launch(conv_f32_kernel<HAS_PREV>, a, SmemPlan<float>(a.c, a.cp, HAS_PREV).bytes, stream);
+    return launch(conv_f32_kernel<HAS_PREV, RELU>, a, SmemPlan<float>(a.c, a.cp, HAS_PREV).bytes, stream);
   const size_t bytes = SmemPlan<__nv_bfloat16>(a.c, 2 * a.c, HAS_PREV).bytes;
   switch (a.c) {
-    case 32: return launch(conv_bf16_kernel<32, HAS_PREV>, a, bytes, stream);
-    case 64: return launch(conv_bf16_kernel<64, HAS_PREV>, a, bytes, stream);
+    case 32: return launch(conv_bf16_kernel<32, HAS_PREV, RELU>, a, bytes, stream);
+    case 64: return launch(conv_bf16_kernel<64, HAS_PREV, RELU>, a, bytes, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }

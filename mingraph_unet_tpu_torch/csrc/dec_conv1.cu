@@ -11,5 +11,5 @@ extern "C" int mgu_dec_conv1(const void* xs, const void* xp, const void* ws, con
                              int cout, int is_bf16, void* stream) {
   mgu::ConvArgs a{xs, ws, xp, wp, nullptr, t9, y, b, hh, ww, cs, cp, cout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mgu::launch_conv_tile<true>(a, is_bf16 != 0, s);
+  return mgu::launch_conv_tile<true, true>(a, is_bf16 != 0, s);
 }

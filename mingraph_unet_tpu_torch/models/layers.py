@@ -63,9 +63,19 @@ class Dense(nn.Module):
 
 
 class FoldableBatchNorm(nn.Module):
-    """flax ``nn.BatchNorm``'s tree with its eval-mode affine:
-    ``BN(z) = a·z + c`` with ``a = scale / sqrt(var + eps)``,
-    ``c = bias − mean·a``, computed in f32."""
+    """flax ``nn.BatchNorm``'s tree (``scale``, ``bias``; running ``mean``
+    and ``var`` buffers), normalizing over every axis but the last.
+
+    Eval mode (``model.eval()``): the affine ``BN(z) = a·z + c`` with
+    ``a = scale / sqrt(var + eps)``, ``c = bias − mean·a``, in f32, which the
+    U-Net folds into its convs. Train mode: the batch statistics in f32 (f64
+    for an f64 input) with
+    the biased variance ``E[z²] − E[z]²``, and the running statistics
+    updated as ``0.9·running + 0.1·batch`` (flax's decay, and the biased
+    variance, where ``nn.BatchNorm2d`` keeps the unbiased one). Gradients
+    flow through the batch mean and variance; the output is in z's dtype."""
+
+    MOMENTUM = 0.9  # flax's running-average decay
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -80,5 +90,17 @@ class FoldableBatchNorm(nn.Module):
         return a, self.bias - self.mean * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, c = self.eval_affine()
+        if not self.training:
+            a, c = self.eval_affine()
+            return x * a.to(x.dtype) + c.to(x.dtype)
+        axes = tuple(range(x.dim() - 1))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(axes)
+        var = (xf * xf).mean(axes) - mean * mean
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        a = self.scale * torch.rsqrt(var + self.epsilon)
+        c = self.bias - mean * a
         return x * a.to(x.dtype) + c.to(x.dtype)

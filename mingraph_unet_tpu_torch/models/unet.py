@@ -1,17 +1,24 @@
-"""U-Net encoder / decoder, inference path. Counterpart of
+"""U-Net encoder / decoder. Counterpart of
 ``mingraph_unet_tpu/models/unet.py``.
 
-- ``ConvBlock``: (Conv3x3 → BN → ReLU) ×2, BN folded into the conv in f32
-  and the folded weights cast to the compute dtype (eval mode only).
+- ``ConvBlock``: (Conv3x3 → BN → ReLU) ×2. ``model.eval()``: BN folded into
+  the conv in f32 and the folded weights cast to the compute dtype.
+  ``model.train()``: conv + bias → BN over the batch statistics (which
+  updates the running ones) → ReLU, differentiable.
 - The full-resolution levels 0 and 1 run in 2×2 space-to-depth (s2d)
   layout, phase-major ``(B, H/2, W/2, 4C)``, with the JAX package's
   lowering: conv1 of an encoder level is the windowed stride-2 conv from the
-  full-res input; conv2 of every s2d block is the phase-select conv kernel;
-  conv1 of an s2d decoder level is the fused decoder-conv1 kernel with the
-  ConvTranspose folded in; the encoder's pool is the phase-max-pool kernel.
-  The dispatch is structural: on a CUDA tensor those sites always run their
-  hand-written kernels (``ops/kernels``); on a CPU tensor the wrappers run
-  the plain PyTorch versions.
+  full-res input; conv1 of an s2d decoder level has the ConvTranspose folded
+  into x_prev's taps. At inference conv2 of every s2d block is the
+  phase-select conv kernel (K1), decoder conv1 the fused decoder-conv1
+  kernel (K2) and the encoder's pool the phase-max-pool kernel (K3); in
+  training conv2 is the raw conv kernel with its backward (K4), and conv1
+  and the pool are differentiable PyTorch (K1–K3 have no backward).
+  A site takes its kernel where the kernel has an instantiation for its
+  dtype and widths (``psel_fits``, ``dec_conv1_fits``,
+  ``phase_max_pool_fits``), decided from the shapes; every other site runs
+  the plain dense-s2d form. On a CPU tensor the wrappers run the plain
+  PyTorch versions.
 - Deeper levels, the bottleneck and the final 1×1 conv use cuDNN through
   ``F.conv2d`` / ``F.conv_transpose2d``, as the JAX package leaves them to
   XLA.
@@ -33,12 +40,19 @@ from torch import nn
 from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc, conv_transpose2x2_nhwc
-from mingraph_unet_tpu_torch.ops.kernels.pool import phase_max_pool_kernel
+from mingraph_unet_tpu_torch.ops.kernels.pool import phase_max_pool_fits, phase_max_pool_kernel
 from mingraph_unet_tpu_torch.ops.kernels.psconv import (
     dec_conv1_bias_table,
+    dec_conv1_fits,
     dec_conv1_fused,
+    dec_conv1_fused_plain,
+    dec_conv1_preact,
     dec_conv1_weights,
+    psconv_train,
+    psconv_train_plain,
     psel_conv3x3,
+    psel_conv3x3_plain,
+    psel_fits,
 )
 
 __all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet"]
@@ -73,8 +87,12 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Standard NHWC path."""
         for i in (1, 2):
-            k, b = self.folded(i)
-            x = torch.relu(conv2d_nhwc(x.to(self.dtype), k, b, padding=1))
+            if self.training:
+                conv, bn = (self.conv1, self.bn1) if i == 1 else (self.conv2, self.bn2)
+                x = torch.relu(bn(conv2d_nhwc(x.to(self.dtype), conv.kernel, conv.bias, padding=1)))
+            else:
+                k, b = self.folded(i)
+                x = torch.relu(conv2d_nhwc(x.to(self.dtype), k, b, padding=1))
         return x
 
     def forward_s2d(self, x: torch.Tensor, fused_up: Optional[FusedUp] = None) -> torch.Tensor:
@@ -84,6 +102,8 @@ class ConvBlock(nn.Module):
         the windowed stride-2 conv. Decoder level: x is the s2d skip,
         ``fused_up = (x_prev, wt, bias_up)``, and conv1 runs as
         ``dec_conv1_fused`` over [skip ‖ upsample of x_prev]."""
+        if self.training:
+            return self._forward_s2d_train(x, fused_up)
         dt = self.dtype
         k, b = self.folded(1)
         if fused_up is None:
@@ -94,9 +114,39 @@ class ConvBlock(nn.Module):
             skip_c = x.shape[-1] // 4
             k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
             t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
-            x = dec_conv1_fused(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
+            fused = dec_conv1_fits(dt, skip_c, x_prev.shape[-1], k.shape[-1])
+            x = (dec_conv1_fused if fused else dec_conv1_fused_plain)(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
         k, b = self.folded(2)
-        return psel_conv3x3(x, k, b)
+        psel = psel_conv3x3 if psel_fits(dt, k.shape[2], k.shape[3]) else psel_conv3x3_plain
+        return psel(x, k, b)
+
+    def _forward_s2d_train(self, x: torch.Tensor, fused_up: Optional[FusedUp]) -> torch.Tensor:
+        """Train mode: each conv is bias → BN over (B, H/2, W/2, 4, C), so the
+        statistics are per full-res channel as on the standard path → ReLU.
+        conv1 is differentiable PyTorch (the windowed conv, or the decoder's
+        split form with the upsample-bias field, bias included); conv2 is
+        ``psconv_train`` (K4) where the tile has an instantiation."""
+        dt = self.dtype
+        k, b = self.conv1.kernel, self.conv1.bias
+        if fused_up is None:
+            x = s2d_ops.conv3x3_windowed_down(x.to(dt), s2d_ops.windowed_down_kernel(k))
+            x = x + s2d_ops.s2d_vector(b).to(dt)
+        else:
+            x_prev, wt, bias_up = fused_up
+            skip_c = x.shape[-1] // 4
+            k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
+            t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
+            x = dec_conv1_preact(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
+        x = self._bn_relu_s2d(x, self.bn1)
+        k = self.conv2.kernel
+        conv = psconv_train if psel_fits(dt, k.shape[2], k.shape[3]) else psconv_train_plain
+        x = conv(x, k) + s2d_ops.s2d_vector(self.conv2.bias).to(dt)
+        return self._bn_relu_s2d(x, self.bn2)
+
+    @staticmethod
+    def _bn_relu_s2d(x: torch.Tensor, bn: FoldableBatchNorm) -> torch.Tensor:
+        b, hh, ww, z = x.shape
+        return torch.relu(bn(x.reshape(b, hh, ww, 4, z // 4)).reshape(b, hh, ww, z))
 
 
 def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +184,10 @@ class UNetEncoder(nn.Module):
                 s = block.forward_s2d(x.to(self.dtype))
                 skip_s2d[i] = s
                 skips.append(None)
-                x = phase_max_pool_kernel(s)  # MaxPool(2,2) = max over phases
+                # MaxPool(2,2) = max over phases; amax splits the gradient
+                # evenly among ties, as JAX's max does.
+                kernel = not self.training and phase_max_pool_fits(s.dtype, s.shape[-1] // 4)
+                x = phase_max_pool_kernel(s) if kernel else s2d_ops.phase_max_pool(s)
             else:
                 x = block(x)
                 skips.append(x)
@@ -186,7 +239,8 @@ class UNetDecoder(nn.Module):
         self.final_conv = ConvParams(prev, num_classes, (1, 1), gen)
 
     def forward(self, skips, bottleneck, skip_s2d, skip_hw):
-        """Returns ``(logits f32, f_u shallow→deep, f_u_s2d)``; ``f_u[0]`` is
+        """Returns ``(logits f32 (f64 in an f64 model), f_u shallow→deep,
+        f_u_s2d)``; ``f_u[0]`` is
         None when level 0 ran in s2d (its phase-major form is
         ``f_u_s2d[0]``)."""
         x = bottleneck
@@ -211,7 +265,7 @@ class UNetDecoder(nn.Module):
             logits = s2d_ops.depth_to_space(y)
         else:
             logits = conv2d_nhwc(x.to(self.dtype), k, b, padding=0)
-        return logits.float(), feats[::-1], f_u_s2d
+        return logits.to(torch.promote_types(logits.dtype, torch.float32)), feats[::-1], f_u_s2d
 
 
 class UNet(nn.Module):

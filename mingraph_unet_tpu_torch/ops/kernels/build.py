@@ -35,6 +35,7 @@ __all__ = [
     "library",
     "nvcc_path",
     "require",
+    "require_no_grad",
     "stream_ptr",
 ]
 
@@ -52,7 +53,7 @@ _FLAGS = (
 # argument would be cut to 32 bits), every size is c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "psel_conv": ("mgu_psel_conv3x3", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "psel_conv": ("mgu_psel_conv3x3", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
     "dec_conv1": ("mgu_dec_conv1", [_P] * 6 + [_I] * 7 + [_P]),
     "phase_pool": ("mgu_phase_max_pool", [_P, _P] + [_I] * 5 + [_P]),
 }
@@ -143,6 +144,14 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel without a backward must not run where autograd records: its
+    output would carry no ``grad_fn`` and every parameter upstream would get
+    no gradient, silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} has no backward: call it under torch.no_grad() (inference)")
 
 
 def check_cuda_input(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int = 4) -> None:

@@ -18,18 +18,27 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     check_cuda_input,
     library,
     require,
+    require_no_grad,
     stream_ptr,
 )
 
-__all__ = ["phase_max_pool_kernel"]
+__all__ = ["phase_max_pool_fits", "phase_max_pool_kernel"]
+
+
+def phase_max_pool_fits(dtype: torch.dtype, c: int) -> bool:
+    """Whether the kernel takes C channels per phase of this dtype: bf16 or
+    f32, and C·itemsize a multiple of 16 bytes."""
+    return dtype in KERNEL_DTYPES and (c * dtype.itemsize) % 16 == 0
 
 
 def phase_max_pool_kernel(y_s2d: torch.Tensor) -> torch.Tensor:
     """MaxPool(2, 2) in s2d layout; a CPU tensor runs the plain
-    ``ops/s2d.py::phase_max_pool``. On CUDA: bf16 or f32, C·itemsize a
-    multiple of 16 bytes. Exact (the max selects one of its inputs)."""
+    ``ops/s2d.py::phase_max_pool``. On CUDA: the shapes
+    :func:`phase_max_pool_fits` accepts; no backward. Exact (the max
+    selects one of its inputs)."""
     if y_s2d.device.type == "cpu":
         return s2d_ops.phase_max_pool(y_s2d)
+    require_no_grad("phase_max_pool_kernel", y_s2d)
     dt = y_s2d.dtype
     require(dt in KERNEL_DTYPES, f"phase_max_pool_kernel: unsupported dtype {dt}")
     check_cuda_input("y_s2d", y_s2d, dt)

@@ -18,14 +18,24 @@ B-fragment order (:func:`mma_b_fragments`) and are instantiated for the
 U-Net's two s2d widths: Cout = Cin (psel), Cout = Cs and Cp = 2·Cs
 (dec-conv1), with Cin, Cs in {32, 64}.
 
+- :func:`psconv_train` replaces ``psconv_train``: the raw 3×3 s2d conv
+  (no bias, no ReLU) of the training path as a ``torch.autograd.Function``.
+  Its forward (:func:`psconv_fwd`) and its dgrad (:func:`psconv_dgrad`, the
+  same conv on the cotangent with the flipped, in/out-transposed kernel) are
+  the psel tile with the ReLU epilogue compiled out; its kernel gradient
+  (:func:`psconv_wgrad`) is PyTorch, as the JAX package computes it in XLA.
+
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (or raises). ``launches``
-on each wrapper counts kernel launches.
+on each wrapper counts kernel launches. psel, dec-conv1 and the pool have
+no backward: on the card they refuse inputs that require a gradient while
+autograd records. Callers choose between a kernel and its plain version
+from the shapes alone, with :func:`psel_fits` and :func:`dec_conv1_fits`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,11 +45,14 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     check_cuda_input,
     library,
     require,
+    require_no_grad,
     stream_ptr,
 )
 
 __all__ = [
     "BF16_WIDTHS",
+    "psel_fits",
+    "dec_conv1_fits",
     "mma_b_fragments",
     "psel_conv3x3",
     "psel_conv3x3_plain",
@@ -47,10 +60,36 @@ __all__ = [
     "dec_conv1_bias_table",
     "dec_conv1_fused",
     "dec_conv1_fused_plain",
+    "dec_conv1_preact",
+    "psconv_train",
+    "psconv_train_plain",
+    "psconv_fwd",
+    "psconv_dgrad",
+    "psconv_dgrad_plain",
+    "psconv_wgrad",
 ]
 
 # Channel widths with a bf16 kernel instantiation (csrc/conv_tile.cuh).
 BF16_WIDTHS = (32, 64)
+
+
+def psel_fits(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether the psel tile has an instantiation for this conv: f32 with
+    Cin and Cout multiples of 16, or bf16 with Cout = Cin in
+    :data:`BF16_WIDTHS`. The same rule serves psconv_train's forward and
+    dgrad (whose adjoint conv swaps Cin and Cout)."""
+    if dtype == torch.float32:
+        return cin % 16 == 0 and cout % 16 == 0
+    return dtype == torch.bfloat16 and cin == cout and cin in BF16_WIDTHS
+
+
+def dec_conv1_fits(dtype: torch.dtype, cs: int, cp: int, cout: int) -> bool:
+    """Whether the dec-conv1 tile has an instantiation: f32 with Cs, Cp,
+    Cout multiples of 16, or bf16 with Cout = Cs in :data:`BF16_WIDTHS` and
+    Cp = 2·Cs."""
+    if dtype == torch.float32:
+        return cs % 16 == 0 and cp % 16 == 0 and cout % 16 == 0
+    return dtype == torch.bfloat16 and cout == cs and cp == 2 * cs and cs in BF16_WIDTHS
 
 
 def mma_b_fragments(w2d: torch.Tensor) -> torch.Tensor:
@@ -83,36 +122,45 @@ def psel_conv3x3_plain(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Te
     return torch.relu(y + s2d_ops.s2d_vector(bias).to(y.dtype))
 
 
-def psel_conv3x3(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """ReLU of a 3×3 'SAME' conv + bias of a phase-major s2d tensor.
-
-    x_s2d: (B, Hh, Ww, 4·Cin); kernel: full-res (3, 3, Cin, Cout) HWIO
-    (BN-folded); bias: (Cout,). Returns (B, Hh, Ww, 4·Cout) in x's dtype.
-    On CUDA: f32 with Cin and Cout multiples of 16, or bf16 with
-    Cout = Cin in :data:`BF16_WIDTHS`; f32 accumulation.
-    """
-    if x_s2d.device.type == "cpu":
-        return psel_conv3x3_plain(x_s2d, kernel, bias)
+def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                 relu: bool) -> torch.Tensor:
+    """Launch the psel tile on CUDA tensors after checking what it takes;
+    ``bias`` None adds none."""
     dt = x_s2d.dtype
-    require(dt in KERNEL_DTYPES, f"psel_conv3x3: unsupported dtype {dt}")
+    require(dt in KERNEL_DTYPES, f"{name}: unsupported dtype {dt}")
     check_cuda_input("x_s2d", x_s2d, dt)
     b, hh, ww, zin = x_s2d.shape
     require(tuple(kernel.shape[:2]) == (3, 3) and kernel.dim() == 4, f"kernel must be (3, 3, Cin, Cout), got {tuple(kernel.shape)}")
     cin, cout = kernel.shape[2], kernel.shape[3]
     require(zin == 4 * cin, f"x has {zin} s2d channels, kernel expects 4*{cin}")
     require(cin % 16 == 0 and cout % 16 == 0, f"Cin={cin}, Cout={cout} must be multiples of 16")
-    require(tuple(bias.shape) == (cout,), f"bias must be ({cout},), got {tuple(bias.shape)}")
+    if bias is not None:
+        require(tuple(bias.shape) == (cout,), f"bias must be ({cout},), got {tuple(bias.shape)}")
+        bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
     if dt == torch.bfloat16:
         require(cin == cout and cin in BF16_WIDTHS, f"bf16 kernel needs Cout = Cin in {BF16_WIDTHS}, got {cin} -> {cout}")
     w = _kernel_weights(kernel, x_s2d.device, dt)
-    bf = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=x_s2d.device)
     rc = library("psel_conv").mgu_psel_conv3x3(
-        x_s2d.data_ptr(), w.data_ptr(), bf.data_ptr(), y.data_ptr(),
-        b, hh, ww, cin, cout, int(dt == torch.bfloat16), stream_ptr(x_s2d),
+        x_s2d.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+        b, hh, ww, cin, cout, int(dt == torch.bfloat16), int(relu), stream_ptr(x_s2d),
     )
     if rc != 0:
-        raise RuntimeError(f"psel_conv3x3 launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return y
+
+
+def psel_conv3x3(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """ReLU of a 3×3 'SAME' conv + bias of a phase-major s2d tensor.
+
+    x_s2d: (B, Hh, Ww, 4·Cin); kernel: full-res (3, 3, Cin, Cout) HWIO
+    (BN-folded); bias: (Cout,). Returns (B, Hh, Ww, 4·Cout) in x's dtype.
+    On CUDA: the shapes :func:`psel_fits` accepts; f32 accumulation.
+    """
+    if x_s2d.device.type == "cpu":
+        return psel_conv3x3_plain(x_s2d, kernel, bias)
+    require_no_grad("psel_conv3x3", x_s2d, kernel, bias)
+    y = _psel_launch("psel_conv3x3", x_s2d, kernel, bias, relu=True)
     psel_conv3x3.launches += 1
     return y
 
@@ -170,6 +218,25 @@ def bias_table_field(t9: torch.Tensor, hh: int, ww: int) -> torch.Tensor:
     return torch.einsum("yd,xe,deo->yxo", weights(hh), weights(ww), t9.float())
 
 
+def dec_conv1_preact(
+    x_skip_s2d: torch.Tensor,
+    x_prev: torch.Tensor,
+    k_skip: torch.Tensor,
+    k_prev: torch.Tensor,
+    t9: torch.Tensor,
+) -> torch.Tensor:
+    """The XLA ``fused_up`` branch before its ReLU: ``conv3x3_s2d(skip, K_a)
+    + conv3x3_s2d(x_prev, K_prev) + field`` in the inputs' dtype.
+    Differentiable: the training path's decoder conv1."""
+    _, hh, ww, _ = x_skip_s2d.shape
+    dt = x_skip_s2d.dtype
+    return (
+        s2d_ops.conv3x3_s2d(x_skip_s2d, s2d_ops.s2d_conv3x3_kernel(k_skip))
+        + s2d_ops.conv3x3_s2d(x_prev, k_prev)
+        + bias_table_field(t9, hh, ww)[None].to(dt)
+    )
+
+
 def dec_conv1_fused_plain(
     x_skip_s2d: torch.Tensor,
     x_prev: torch.Tensor,
@@ -177,16 +244,9 @@ def dec_conv1_fused_plain(
     k_prev: torch.Tensor,
     t9: torch.Tensor,
 ) -> torch.Tensor:
-    """The XLA ``fused_up`` branch: ``relu(conv3x3_s2d(skip, K_a) +
-    conv3x3_s2d(x_prev, K_prev) + field)`` in the inputs' dtype."""
-    _, hh, ww, _ = x_skip_s2d.shape
-    dt = x_skip_s2d.dtype
-    y = (
-        s2d_ops.conv3x3_s2d(x_skip_s2d, s2d_ops.s2d_conv3x3_kernel(k_skip))
-        + s2d_ops.conv3x3_s2d(x_prev, k_prev)
-        + bias_table_field(t9, hh, ww)[None].to(dt)
-    )
-    return torch.relu(y)
+    """``relu`` of :func:`dec_conv1_preact`: the plain version of
+    :func:`dec_conv1_fused`."""
+    return torch.relu(dec_conv1_preact(x_skip_s2d, x_prev, k_skip, k_prev, t9))
 
 
 def dec_conv1_fused(
@@ -206,6 +266,7 @@ def dec_conv1_fused(
     """
     if x_skip_s2d.device.type == "cpu":
         return dec_conv1_fused_plain(x_skip_s2d, x_prev, k_skip, k_prev, t9)
+    require_no_grad("dec_conv1_fused", x_skip_s2d, x_prev, k_skip, k_prev, t9)
     dt = x_skip_s2d.dtype
     require(dt in KERNEL_DTYPES, f"dec_conv1_fused: unsupported dtype {dt}")
     check_cuda_input("x_skip_s2d", x_skip_s2d, dt)
@@ -238,3 +299,97 @@ def dec_conv1_fused(
 
 
 dec_conv1_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the training conv (raw s2d conv2 with its backward)
+# ---------------------------------------------------------------------------
+
+
+def _adjoint(kernel: torch.Tensor) -> torch.Tensor:
+    """The 3×3 'SAME' conv's adjoint kernel: spatially flipped, in/out
+    transposed, (3, 3, Cin, Cout) → (3, 3, Cout, Cin)."""
+    return kernel.flip(0, 1).transpose(2, 3)
+
+
+def psconv_train_plain(x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """``conv3x3_s2d(x, s2d_conv3x3_kernel(kernel))`` in x's dtype, no bias,
+    no ReLU: the dense s2d form. Under ordinary autograd it is the plain
+    version of :func:`psconv_train`, forward and backward."""
+    return s2d_ops.conv3x3_s2d(x_s2d, s2d_ops.s2d_conv3x3_kernel(kernel))
+
+
+def psconv_dgrad_plain(g_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """dx of the raw conv for cotangent ``g_s2d``: the same conv with the
+    adjoint kernel, in g's dtype."""
+    return psconv_train_plain(g_s2d, _adjoint(kernel))
+
+
+def psconv_fwd(x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """K4 forward: the raw 3×3 'SAME' conv of a phase-major s2d tensor,
+    (B, Hh, Ww, 4·Cin) → (B, Hh, Ww, 4·Cout) in x's dtype; kernel full-res
+    (3, 3, Cin, Cout). On CUDA: the psel tile without ReLU or bias, for
+    the shapes :func:`psel_fits` accepts."""
+    if x_s2d.device.type == "cpu":
+        return psconv_train_plain(x_s2d, kernel)
+    y = _psel_launch("psconv_fwd", x_s2d, kernel, None, relu=False)
+    psconv_fwd.launches += 1
+    return y
+
+
+psconv_fwd.launches = 0
+
+
+def psconv_dgrad(g_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """K4 dgrad: dx = the raw conv of the cotangent (B, Hh, Ww, 4·Cout) with
+    the adjoint kernel, (B, Hh, Ww, 4·Cin) in g's dtype. On CUDA: the psel
+    tile without ReLU (the sites are square, so the bf16 instantiations
+    fit)."""
+    if g_s2d.device.type == "cpu":
+        return psconv_dgrad_plain(g_s2d, kernel)
+    y = _psel_launch("psconv_dgrad", g_s2d, _adjoint(kernel), None, relu=False)
+    psconv_dgrad.launches += 1
+    return y
+
+
+psconv_dgrad.launches = 0
+
+
+def psconv_wgrad(x_s2d: torch.Tensor, g_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The full-res kernel gradient of the raw conv, (3, 3, Cin, Cout) in at
+    least f32, summed in f32 from the exact products of bf16 inputs, as the
+    JAX package's ``preferred_element_type=f32`` does. PyTorch, as the JAX
+    package computes it outside Pallas: the dense s2d weight gradient (one
+    convolution backward on the s2d tensors as they lie, no relayout) on
+    the inputs widened to f32, so that its output is not rounded to bf16
+    (a bf16 value is exact in TF32, so cuDNN's TF32 path loses nothing),
+    pulled back through ``s2d_conv3x3_kernel``'s tap map by its adjoint."""
+    cin, cout = kernel.shape[2], kernel.shape[3]
+    dt = torch.promote_types(kernel.dtype, torch.float32)
+    dw = torch.nn.grad.conv2d_weight(
+        x_s2d.to(dt).permute(0, 3, 1, 2), (4 * cout, 4 * cin, 3, 3), g_s2d.to(dt).permute(0, 3, 1, 2), padding=1
+    )
+    return s2d_ops.s2d_conv3x3_kernel_adjoint(dw.permute(2, 3, 1, 0))
+
+
+class _PsconvTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_s2d, kernel):
+        ctx.save_for_backward(x_s2d, kernel)
+        return psconv_fwd(x_s2d, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_s2d, kernel = ctx.saved_tensors
+        g = g.contiguous()  # autograd may hand the cotangent over strided or expanded
+        dx = psconv_dgrad(g, kernel).to(x_s2d.dtype) if ctx.needs_input_grad[0] else None
+        dk = psconv_wgrad(x_s2d, g, kernel).to(kernel.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dk
+
+
+def psconv_train(x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Differentiable raw 3×3 'SAME' s2d conv (no bias, no ReLU): forward
+    through :func:`psconv_fwd`, dx through :func:`psconv_dgrad`, the kernel
+    gradient through :func:`psconv_wgrad`. On the CPU the two wrappers run
+    their plain versions, so the same backward is testable there."""
+    return _PsconvTrain.apply(x_s2d, kernel)

@@ -24,6 +24,7 @@ __all__ = [
     "space_to_depth",
     "depth_to_space",
     "s2d_conv3x3_kernel",
+    "s2d_conv3x3_kernel_adjoint",
     "s2d_vector",
     "s2d_convt2x2_kernel",
     "s2d_1x1_kernel",
@@ -54,24 +55,22 @@ def depth_to_space(y: torch.Tensor, r: int = _R) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
-def _tap_map(r: int, device: torch.device):
-    """Index maps ``(dI, dJ, pyo, pxo, pyi, pxi) -> (u, v, valid)``: output
-    pixel (r·I + pyo) reads input pixel (r·(I+dI) + pyi), full-res tap
-    ``u = r·dI + pyi − pyo`` of the 3×3 kernel, valid iff |u|, |v| ≤ 1.
-    Cached per device: a host-to-card copy inside the forward would
-    synchronize the stream."""
-    shape = (3, 3, r, r, r, r)
-    u = np.zeros(shape, np.int64)
-    v = np.zeros(shape, np.int64)
-    valid = np.zeros(shape, np.float32)
-    for idx in np.ndindex(*shape):
-        di, dj, pyo, pxo, pyi, pxi = idx
+def _tap_select(r: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """0/1 tap map ``S[dI, dJ, pyo, pxo, pyi, pxi, u, v]``: output pixel
+    (r·I + pyo) reads input pixel (r·(I+dI) + pyi) through full-res tap
+    ``u = r·dI + pyi − pyo`` of the 3×3 kernel (row ``u + 1``), where
+    |u|, |v| ≤ 1. A product with it picks one kernel entry or zero, so it
+    is exact in any dtype, and its gradient is a matmul, which sums in a
+    fixed order (the backward of a gather accumulates in whatever order
+    the threads reach it). Cached per device: a host-to-card copy inside
+    the forward would synchronize the stream."""
+    s = np.zeros((3, 3, r, r, r, r, 3, 3), np.float32)
+    for di, dj, pyo, pxo, pyi, pxi in np.ndindex(3, 3, r, r, r, r):
         uu = r * (di - 1) + pyi - pyo
         vv = r * (dj - 1) + pxi - pxo
-        valid[idx] = float(abs(uu) <= 1 and abs(vv) <= 1)
-        u[idx] = min(max(uu + 1, 0), 2)
-        v[idx] = min(max(vv + 1, 0), 2)
-    return tuple(torch.from_numpy(a).to(device) for a in (u, v, valid))
+        if abs(uu) <= 1 and abs(vv) <= 1:
+            s[di, dj, pyo, pxo, pyi, pxi, uu + 1, vv + 1] = 1.0
+    return torch.from_numpy(s).to(device=device, dtype=dtype)
 
 
 def s2d_conv3x3_kernel(
@@ -85,18 +84,26 @@ def s2d_conv3x3_kernel(
     groups = tuple(in_groups) if in_groups else (cin,)
     if sum(groups) != cin:
         raise ValueError(f"groups {groups} do not sum to Cin={cin}")
-    u, v, valid = _tap_map(r, kernel.device)
-    valid = valid.to(kernel.dtype)[..., None, None]
+    sel = _tap_select(r, kernel.device, kernel.dtype)
     parts = []
     off = 0
     for g in groups:
         kg = kernel[:, :, off : off + g, :]
         off += g
-        gathered = kg[u, v] * valid  # (3, 3, pyo, pxo, pyi, pxi, g, Cout)
-        parts.append(
-            gathered.permute(0, 1, 4, 5, 6, 2, 3, 7).reshape(3, 3, r * r * g, r * r * cout)
-        )
+        # (3, 3, pyi, pxi, g, pyo, pxo, Cout)
+        parts.append(torch.einsum("ijabcduv,uvgo->ijcdgabo", sel, kg).reshape(3, 3, r * r * g, r * r * cout))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+def s2d_conv3x3_kernel_adjoint(kernel_s2d: torch.Tensor, r: int = _R) -> torch.Tensor:
+    """Adjoint of :func:`s2d_conv3x3_kernel` (one input group): pulls an s2d
+    kernel gradient (3, 3, r²·Cin, r²·Cout) back to the full-res
+    (3, 3, Cin, Cout) gradient, each tap summed over the s2d entries that
+    hold it, in the dtype of ``kernel_s2d``."""
+    cin, cout = kernel_s2d.shape[2] // (r * r), kernel_s2d.shape[3] // (r * r)
+    sel = _tap_select(r, kernel_s2d.device, kernel_s2d.dtype)
+    k = kernel_s2d.reshape(3, 3, r, r, cin, r, r, cout)
+    return torch.einsum("ijabcduv,ijcdgabo->uvgo", sel, k)
 
 
 def s2d_vector(vec: torch.Tensor, r: int = _R) -> torch.Tensor:

@@ -1,0 +1,1 @@
+"""Trainers of the port (counterparts of ``mingraph_unet_tpu/train``)."""

@@ -1,0 +1,208 @@
+"""U-Net-only segmentation trainer. Counterpart of
+``mingraph_unet_tpu/train/segmentation.py``.
+
+One train step: synced augmentation and normalization of the uint8 batch
+on the device (``data/dataset.py::device_preprocess_batch``), the U-Net in
+train mode (its s2d conv2s through the K4 kernel on the card), CE +
+``dice_weight``·soft-Dice, backward, Adam (or SGD) and the per-step StepLR.
+The trainer adds step-indexed checkpoints with exact resume and JSONL
+metrics. Entry points run on the CUDA card unless ``device="cpu"`` is
+passed. One device only: ``data_parallel`` or ``spatial_parallel`` above 1
+raises (multi-GPU training is not ported yet).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from mingraph_unet_tpu_torch.config import PipelineConfig
+from mingraph_unet_tpu_torch.data.dataset import BatchLoader, MangoDataset, device_preprocess_batch
+from mingraph_unet_tpu_torch.device import resolve_device
+from mingraph_unet_tpu_torch.experiments.metrics import segmentation_metrics
+from mingraph_unet_tpu_torch.models.losses import cross_entropy_loss, dice_loss
+from mingraph_unet_tpu_torch.models.unet import UNet
+from mingraph_unet_tpu_torch.ops.image import draw_augment
+from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
+from mingraph_unet_tpu_torch.train.common import TrainState, make_multistep, make_optimizer
+from mingraph_unet_tpu_torch.utils.logging import MetricsLogger
+
+__all__ = ["build_unet", "make_train_step", "train_unet_segmentation", "evaluate_unet"]
+
+Device = Optional[Union[str, torch.device]]
+
+
+def build_unet(cfg: PipelineConfig, device: Device = None) -> UNet:
+    """The U-Net of ``cfg.model.unet`` in train mode, weights drawn from
+    ``cfg.training.seed``, compute dtype bf16 when ``cfg.training.bf16``
+    (parameters stay f32). Its s2d levels follow from the input shape."""
+    u = cfg.model.unet
+    if not u.use_batchnorm or u.remat:
+        raise NotImplementedError("the port's U-Net has BatchNorm and no rematerialization")
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if cfg.training.bf16 else torch.float32
+    gen = torch.Generator().manual_seed(cfg.training.seed)
+    model = UNet(gen, u.in_channels, u.out_channels, u.init_features, u.depth, dtype)
+    return model.to(dev).train()
+
+
+def make_train_step(cfg: PipelineConfig, augment: bool = True) -> Callable:
+    """``train_step(state, images_u8 (B, H, W, 3), masks (B, H, W), gen)``
+    takes one optimizer step on ``state`` and returns the step's
+    ``{"loss", "ce", "dice"}`` as device tensors. ``gen`` is a
+    ``torch.Generator`` on the model's device; augmentation draws from it."""
+    pre = cfg.preprocessing
+    dice_w = cfg.model.losses.dice_weight
+
+    def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor,
+                   gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        model = state.model
+        dev = next(model.parameters()).device
+        images_u8, masks = images_u8.to(dev), masks.to(dev).long()
+        b, h, w = masks.shape
+        draw = (draw_augment(gen, b, h, w, pre.horizontal_flip_prob, pre.rotation_degrees, pre.random_crop_prob)
+                if augment else None)
+        imgs, masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
+                                              draw, num_classes=cfg.dataset.num_classes)
+        model.train()
+        logits = model(imgs)["logits"]
+        ce = cross_entropy_loss(logits, masks)
+        dice = dice_loss(logits, masks)
+        loss = ce + dice_w * dice
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        return {"loss": loss.detach(), "ce": ce.detach(), "dice": dice.detach()}
+
+    return train_step
+
+
+def train_unet_segmentation(
+    config_dir: str,
+    max_epochs: Optional[int] = None,
+    max_steps_per_epoch: Optional[int] = None,
+    data_root_override: Optional[str] = None,
+    device: Device = None,
+) -> Tuple[TrainState, Dict[str, Any]]:
+    """Train from a config directory; resumes from the newest checkpoint
+    when ``training.resume`` is set. Returns the state and
+    ``{"epoch_loss": [...]}`` of the epochs run."""
+    cfg = PipelineConfig.from_config_dir(config_dir)
+    train_cfg = cfg.training
+    if train_cfg.data_parallel > 1 or train_cfg.spatial_parallel > 1:
+        raise NotImplementedError("data_parallel / spatial_parallel > 1: multi-GPU training is not ported")
+    dev = resolve_device(device)
+    ds_cfg = cfg.dataset
+    data_root = data_root_override or ds_cfg.data_root
+    dataset = MangoDataset(
+        image_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.image_folder),
+        mask_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.mask_folder),
+        image_size=cfg.preprocessing.resize_dim,
+        num_classes=cfg.model.unet.out_channels,
+    )
+    loader = BatchLoader(dataset, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed)
+    steps_per_epoch = max(1, len(loader))
+    if max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
+
+    model = build_unet(cfg, dev)
+    optimizer, scheduler = make_optimizer(model.parameters(), cfg.training, steps_per_epoch)
+    state = TrainState(model, optimizer, scheduler)
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    ckpt = CheckpointManager(train_cfg.checkpoint_dir, max_to_keep=3, best_metric=train_cfg.checkpoint_best_metric,
+                             best_mode=train_cfg.checkpoint_best_mode)
+    start_epoch = 0
+    if train_cfg.resume and ckpt.latest_step is not None:
+        restored = ckpt.restore_latest(map_location=dev)
+        state.load_state_dict(restored["state"])
+        gen.set_state(restored["rng"])
+        start_epoch = int(restored["epoch"]) + 1
+        print(f"[train] resumed from step {state.step} (epoch {start_epoch})")
+
+    train_step = make_train_step(cfg, augment=True)
+    window = max(1, train_cfg.scan_window)
+    multistep = make_multistep(train_step, window)
+    num_epochs = max_epochs if max_epochs is not None else train_cfg.num_epochs
+    logger = MetricsLogger(train_cfg.log_dir, "train_segmentation", train_cfg.log_interval)
+    history: Dict[str, Any] = {"epoch_loss": []}
+    global_step = start_epoch * steps_per_epoch
+
+    with torch.autograd.set_detect_anomaly(train_cfg.debug_nans):
+        for epoch in range(start_epoch, num_epochs):
+            epoch_lr = optimizer.param_groups[0]["lr"]
+            running = {"loss": 0.0, "ce": 0.0, "dice": 0.0}
+            n_steps = 0
+            pending = []  # (metrics on the device, steps covered, global step)
+
+            def drain(keep: int = 0) -> None:
+                """Read queued metrics on the host, leaving the newest
+                ``keep`` in flight so the card is not waited on every step."""
+                while len(pending) > keep:
+                    metrics, done, gstep = pending.pop(0)
+                    values = {k: float(v) for k, v in metrics.items()}
+                    for k in running:
+                        running[k] += values[k] * done
+                    logger.log(gstep, {**values, "lr": epoch_lr, "epoch": epoch})
+
+            def run(batches) -> None:
+                nonlocal n_steps, global_step
+                i = 0
+                while i < len(batches):
+                    if len(batches) - i >= window:
+                        chunk = batches[i : i + window]
+                        imgs = torch.from_numpy(np.stack([b[0] for b in chunk]))
+                        masks = torch.from_numpy(np.stack([b[1] for b in chunk]).astype(np.uint8))
+                        metrics, done = multistep(state, imgs, masks, gen), window
+                    else:
+                        imgs = torch.from_numpy(batches[i][0])
+                        masks = torch.from_numpy(batches[i][1].astype(np.uint8))
+                        metrics, done = train_step(state, imgs, masks, gen), 1
+                    i += done
+                    n_steps += done
+                    global_step += done
+                    pending.append((metrics, done, global_step))
+                    drain(keep=1)
+
+            batches = (loader.prefetch_epoch(epoch, prefetch=train_cfg.num_workers)
+                       if train_cfg.num_workers > 0 else loader.epoch(epoch))
+            buf = []
+            for batch in batches:
+                if n_steps + len(buf) >= steps_per_epoch:
+                    break
+                buf.append(batch)
+                if len(buf) == window:
+                    run(buf)
+                    buf = []
+            run(buf)
+            drain()
+            epoch_loss = running["loss"] / max(1, n_steps)
+            history["epoch_loss"].append(epoch_loss)
+            print(f"[train] epoch {epoch + 1}/{num_epochs} avg_loss={epoch_loss:.4f}")
+            if (epoch + 1) % train_cfg.save_epoch_interval == 0 or epoch == num_epochs - 1:
+                ckpt.save(state.step, {"state": state.state_dict(), "epoch": epoch, "rng": gen.get_state()},
+                          metrics={"loss": epoch_loss})
+    logger.close()
+    return state, history
+
+
+@torch.no_grad()
+def evaluate_unet(model: UNet, dataset: MangoDataset, cfg: PipelineConfig, batch_size: int = 8) -> Dict[str, Any]:
+    """Predict over ``dataset`` in eval mode (the BN running statistics)
+    and compute the reference-exact segmentation metrics; the model's mode
+    is restored afterwards."""
+    pre = cfg.preprocessing
+    was_training = model.training
+    model.eval()
+    dev = next(model.parameters()).device
+    trues, preds = [], []
+    for imgs_np, masks_np in BatchLoader(dataset, batch_size, shuffle=False, drop_last=False).epoch(0):
+        imgs_u8 = torch.from_numpy(imgs_np).to(dev)
+        imgs, _ = device_preprocess_batch(imgs_u8, torch.zeros(imgs_u8.shape[:3], dtype=torch.long, device=dev),
+                                          pre.normalization_mean, pre.normalization_std)
+        preds.append(model(imgs)["logits"].argmax(-1).cpu().numpy().reshape(-1))
+        trues.append(masks_np.reshape(-1))
+    model.train(was_training)
+    return segmentation_metrics(np.concatenate(trues), np.concatenate(preds), cfg.model.unet.out_channels)

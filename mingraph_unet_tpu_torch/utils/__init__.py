@@ -1,0 +1,1 @@
+"""Host utilities of the port (counterparts of ``mingraph_unet_tpu/utils``)."""

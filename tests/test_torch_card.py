@@ -8,7 +8,9 @@ machine that has only PyTorch:
 Tolerances are relative to max |plain|: f32 1e-4 (another summation order;
 TF32 is off on both sides), bf16 1e-2 (the kernel rounds its f32 sum once
 to bf16, the plain version rounds the cuDNN conv and then the bias add).
-The pool selects one of its inputs and must be bit-equal.
+The pool selects one of its inputs and must be bit-equal. The training
+conv's kernel gradient is PyTorch on both sides and is held to the same
+tolerances.
 """
 
 import numpy as np
@@ -70,6 +72,8 @@ def cuda_device():
 
 # bf16 outputs round to 8 bits of mantissa: 1e-2 of max |ref|.
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# K4's kernel gradient is summed and returned in f32 whatever the inputs.
+DK_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-4}
 
 
 @pytest.mark.cuda
@@ -121,3 +125,85 @@ def test_card_bf16_conv_rejects_uninstantiated_widths(cuda_device):
     with pytest.raises(ValueError, match="bf16 kernel"):
         t_psconv.dec_conv1_fused(x, xp, torch.zeros((3, 3, 32, 32)), torch.zeros((3, 3, 48, 128)),
                                  torch.zeros((3, 3, 128)))
+
+
+# (B, Hh, Ww, C): the train path's two widths, an odd grid and a grid one
+# s2d pixel wide.
+PSCONV_SHAPES = [(2, 8, 8, 32), (1, 6, 20, 64), (1, 5, 3, 32), (2, 4, 1, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PSCONV_SHAPES)
+def test_card_psconv_fwd_and_dgrad_match_plain(cuda_device, shape, dtype):
+    x, k, _ = (_t(a).to(cuda_device) for a in _psel_case((*shape, shape[-1])))
+    x = x.to(dtype)
+    before = (t_psconv.psconv_fwd.launches, t_psconv.psconv_dgrad.launches)
+    y = t_psconv.psconv_fwd(x, k)
+    dx = t_psconv.psconv_dgrad(x, k)  # x stands in for a cotangent of the same shape
+    torch.cuda.synchronize()
+    assert (t_psconv.psconv_fwd.launches, t_psconv.psconv_dgrad.launches) == (before[0] + 1, before[1] + 1)
+    _assert_close_rel(y.float().cpu(), t_psconv.psconv_train_plain(x.float(), k).cpu(), CARD_TOL[dtype])
+    _assert_close_rel(dx.float().cpu(), t_psconv.psconv_dgrad_plain(x.float(), k).cpu(), CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PSCONV_SHAPES)
+def test_card_psconv_train_grads_match_plain(cuda_device, shape, dtype):
+    """The autograd Function's dx and dK for a seeded cotangent against the
+    plain version under ordinary autograd, in f32 on the same input values.
+    dK is summed and returned in f32 for bf16 inputs too: DK_TOL is a
+    quarter of the 2^-9 a bf16 rounding of the result would cost."""
+    x, k, _ = (_t(a).to(cuda_device) for a in _psel_case((*shape, shape[-1])))
+    x = x.to(dtype)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda_device).manual_seed(5), device=cuda_device)
+    g = g.to(dtype)
+    grads = []
+    for fn, xin, gin in ((t_psconv.psconv_train, x, g), (t_psconv.psconv_train_plain, x.float(), g.float())):
+        xi, ki = xin.clone().requires_grad_(), k.clone().requires_grad_()
+        fn(xi, ki).backward(gin)
+        grads.append((xi.grad, ki.grad))
+    torch.cuda.synchronize()
+    (dx, dk), (dx_ref, dk_ref) = grads
+    assert dx.dtype == dtype and dk.dtype == torch.float32
+    _assert_close_rel(dx.float().cpu(), dx_ref.cpu(), CARD_TOL[dtype])
+    _assert_close_rel(dk.cpu(), dk_ref.cpu(), DK_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_card_inference_kernels_refuse_autograd(cuda_device):
+    """psel, dec-conv1 and the pool have no backward: where autograd
+    records they raise instead of returning an output without grad_fn."""
+    x = torch.zeros((1, 4, 4, 4 * 32), device=cuda_device)
+    k = torch.zeros((3, 3, 32, 32), device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        t_psconv.psel_conv3x3(x, k, torch.zeros(32, device=cuda_device))
+    with pytest.raises(ValueError, match="no backward"):
+        t_pool.phase_max_pool_kernel(x.clone().requires_grad_())
+    with torch.no_grad():
+        t_psconv.psel_conv3x3(x, k, torch.zeros(32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_card_bf16_unet_init16_forward_matches_cpu(cuda_device):
+    """bf16 MinGraphUNet at init_features 16: level 0 (C=16) has no bf16
+    tile, so it runs the plain form; level 1 (C=32) runs the kernels. The
+    outputs agree with the CPU f32 model within the bf16 tolerance of the
+    slice test (5e-2 of max |CPU|)."""
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+
+    cfg = dict(init_features=16, depth=2, detection_pre_pool=4)
+    card = MinGraphUNet(dtype=torch.bfloat16, device=cuda_device, **cfg)
+    cpu = MinGraphUNet(device="cpu", **cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(6))
+    counters = (t_psconv.psel_conv3x3, t_psconv.dec_conv1_fused, t_pool.phase_max_pool_kernel)
+    before = [c.launches for c in counters]
+    out = card(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 2]
+    ref = cpu(x)
+    for key in ("logits", "pred_bboxes", "pred_confidence", "l_partition"):
+        assert torch.isfinite(out[key]).all(), key
+        _assert_close_rel(out[key].float().cpu(), ref[key], 5e-2)

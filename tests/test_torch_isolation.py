@@ -1,6 +1,8 @@
 """The port stands alone: importing mingraph_unet_tpu_torch and every module
 in it (and the chip smoke script) loads neither JAX nor any module of the JAX
-package ``mingraph_unet_tpu``, and loads no kernel library."""
+package ``mingraph_unet_tpu``, nor OpenCV or PyYAML (the card machine need
+not have them; the port imports them only where it reads images or config
+files), and loads no kernel library."""
 
 import os
 import pkgutil
@@ -21,8 +23,8 @@ import chip_smoke  # the card script imports only torch and the port
 from mingraph_unet_tpu_torch.ops.kernels import build
 assert build._loaded == {}, "importing the port loaded a kernel library"
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "flax", "mingraph_unet_tpu")
-             or m.startswith(("jax.", "jaxlib.", "flax.", "mingraph_unet_tpu.")))
+             if m in ("jax", "jaxlib", "flax", "mingraph_unet_tpu", "cv2", "yaml")
+             or m.startswith(("jax.", "jaxlib.", "flax.", "mingraph_unet_tpu.", "cv2.", "yaml.")))
 print(len(names), bad)
 """
 
