@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, segmentation-training and end-to-end
+training paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -17,8 +17,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    columns, the pool bit for bit.
 3. Run ``MinGraphUNet(dtype=bfloat16, detection_pre_pool=32)`` at 512² b8
    with seeded weights, perturbed BN running statistics and seeded
-   non-constant images. The launch counters must read psel 4, dec-conv1 2
-   and pool 2, and every output must be finite. At batch 1 the card's f32
+   non-constant images. The launch counters must read psel 4, dec-conv1 2,
+   pool 2 and hist-eq 1, and every output must be finite. At batch 1 the card's f32
    outputs (TF32 off) must agree with the same port and weights on the CPU
    within ``CPU_TOL`` of max |CPU|.
 4. Time the forward (ms/step, images/s, and the host's time to issue a
@@ -30,7 +30,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    trainer's step (augmentation, CE + Dice, backward, Adam lr 1e-3 weight
    decay 1e-4): 3 warm-up and 10 timed steps. Every step's loss must be
    finite; each step must launch the training conv kernel (K4) 4 times
-   forward and 4 times dgrad and K1–K3 never; every parameter must get a
+   forward and 4 times dgrad and K1–K3 and hist-eq never; every parameter must get a
    finite gradient and the BN running statistics must move; on one fixed
    batch without augmentation the loss must fall over 10 steps. At batch
    2, 128², the card's f32 step (TF32 off) must agree with the same step
@@ -39,6 +39,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
    versions at both train shapes, bf16 and f32 (the kernel gradient of
    bf16 inputs within ``DK_TOL``: it is summed and returned in f32), and
    time them and the kernel gradient (PyTorch) beside their bounds.
+7. Hold the hist-eq kernel (K6) bit for bit against its plain version on
+   the orchard-like luma at 512² b8, a constant image, a two-valued image
+   and an odd shape (3, 37, 53), and time it at 512² b8.
+8. Train the end-to-end MinGraphUNet (``PipelineConfig()``: init 32, depth
+   4, GAT 128/64 with 4 heads, patch 16, the reference-exact full-resolution
+   detection path, fast instancing) in bf16 at 512² b8 with
+   ``make_e2e_train_step`` (augmentation, detection trained, Adam lr 1e-3
+   weight decay 1e-4): 3 warm-up and 5 timed steps. Every term must be
+   finite each step; each step must launch K4 4 + 4 times, hist-eq once and
+   K1–K3 never; every gradient must be finite and the graph branch's
+   non-zero; the BN statistics of the U-Net and of the detection head must
+   move; on one fixed batch without augmentation the total loss must fall
+   over 10 steps. At batch 2, 128², the card's f32 step (TF32 off, dropout
+   the identity) must agree with a CPU f64 step that replays its discrete
+   decisions, leaf by leaf (``_e2e_vs_cpu``).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -66,10 +81,12 @@ BF16_TENSOR_FLOPS = 989e12
 F32_SIMT_FLOPS = 67e12
 FORWARD_ITERS, KERNEL_ITERS = 20, 20
 TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
+E2E_WARMUP, E2E_ITERS = 3, 5
 LR, WEIGHT_DECAY = 1e-3, 1e-4
 
 PSCONV_SRC = "mingraph_unet_tpu/ops/pallas/psconv.py"
 POOL_SRC = "mingraph_unet_tpu/ops/pallas/pool.py"
+HISTEQ_SRC = "mingraph_unet_tpu/ops/pallas/histeq.py"
 
 
 def _fail(msg: str) -> None:
@@ -95,10 +112,10 @@ def _time_ms(fn, iters: int) -> float:
 def _wrappers():
     """Every kernel wrapper of the port, by the name its launch count goes
     under."""
-    from mingraph_unet_tpu_torch.ops.kernels import pool, psconv
+    from mingraph_unet_tpu_torch.ops.kernels import histeq, pool, psconv
 
     return {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel,
-            "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad}
+            "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad, "histeq": histeq.equalize_channel}
 
 
 def _reset_counts() -> None:
@@ -299,8 +316,8 @@ def _main_path(dev):
     torch.cuda.synchronize()
     launches = _counts()
     print(f"[chip_smoke] main path launches: {launches}")
-    if launches != {"psel": 4, "dec1": 2, "pool": 2, "k4_fwd": 0, "k4_dgrad": 0}:
-        _fail(f"expected psel 4, dec1 2, pool 2 and no K4 launches per forward, got {launches}")
+    if launches != {"psel": 4, "dec1": 2, "pool": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1}:
+        _fail(f"expected psel 4, dec1 2, pool 2, histeq 1 and no K4 launches per forward, got {launches}")
     expect = {"logits": (BATCH, SIZE, SIZE, 2), "pred_bboxes": (BATCH, 4), "pred_confidence": (BATCH, 1),
               "l_partition": (BATCH,), "soft_assignments": (BATCH, SIZE // 16, SIZE // 16, 2)}
     for k, shape in expect.items():
@@ -394,10 +411,12 @@ def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15) ->
 
 
 def _train_cfg(size: int, bf16: bool, optimizer: str = "adam"):
-    """The segmentation trainer's config at the repo's model widths. The
-    defaults of ``PipelineConfig`` are ``configs/*.yaml``'s (a CPU test
-    holds them equal); the files are not read here, as PyYAML need not be
-    installed on the card's machine."""
+    """The trainers' config at the repo's model widths (for the end-to-end
+    trainer ``scripts/bench_train.py``'s setting: ``PipelineConfig()``, the
+    full-resolution detection path, fast instancing). The defaults of
+    ``PipelineConfig`` are ``configs/*.yaml``'s (a CPU test holds them
+    equal); the files are not read here, as PyYAML need not be installed on
+    the card's machine."""
     from mingraph_unet_tpu_torch.config import PipelineConfig
 
     cfg = PipelineConfig()
@@ -466,8 +485,9 @@ def _train_path(dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     print(f"[chip_smoke] train main path launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
-    if launches != {"psel": 0, "dec1": 0, "pool": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n}:
-        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, got {launches} over {n} steps")
+    if launches != {"psel": 0, "dec1": 0, "pool": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0}:
+        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3 or hist-eq, got {launches} "
+              f"over {n} steps")
     if not all(math.isfinite(v) for v in losses):
         _fail("a train step's loss is not finite")
     if not _grads_finite(model):
@@ -491,13 +511,15 @@ def _train_path(dev):
         _fail(f"the loss did not fall on a fixed batch: {fixed_losses[0]} -> {fixed_losses[-1]}")
     del state, model
     torch.cuda.empty_cache()
-    return launches, ms, host_ms, peak
+    return {k: v // n for k, v in launches.items()}, ms, host_ms, peak
 
 
 def _feeds_bn(name: str) -> bool:
-    """A conv bias followed by a train-mode BatchNorm: its gradient is zero
-    in exact arithmetic (BN subtracts the batch mean)."""
-    return re.search(r"(^|\.)conv[12]\.bias$", name) is not None
+    """A U-Net conv bias (in a bare ``UNet`` or under ``unet.``), which feeds
+    a train-mode BatchNorm directly: its gradient is zero in exact
+    arithmetic (BN subtracts the batch mean). The detection head's conv
+    biases are not: a ReLU sits between each and its BN."""
+    return re.match(r"(unet\.)?(encoder|decoder)\..*\.conv[12]\.bias$", name) is not None
 
 
 class _Decisions:
@@ -649,7 +671,7 @@ def _train_vs_cpu(dev) -> None:
           f"limits: ok")
 
 
-def _k4_table(dev, launches):
+def _k4_table(dev, launches, e2e_launches):
     """Phase 6: K4 forward and dgrad against their plain versions (bf16 and
     f32) and timed, the autograd Function's gradients against plain
     autograd, and the kernel gradient's time beside its bound."""
@@ -689,6 +711,7 @@ def _k4_table(dev, launches):
             rows.append({
                 "name": f"{name} L{lvl}", "route": "cuda", "source": source,
                 "replaces": f"{PSCONV_SRC}:{line}", "launches": launches[f"k4_{name.split('_')[1]}"],
+                "launches_e2e": e2e_launches[f"k4_{name.split('_')[1]}"],
                 "shape": list(inp.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms,
@@ -727,6 +750,289 @@ def _k4_table(dev, launches):
     return rows
 
 
+def _luma_u8(imgs_u8):
+    """The pipeline's uint8 luma of uint8 RGB images (OpenCV's YUV Y)."""
+    import torch
+
+    rgb = imgs_u8.float()
+    y = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+
+
+def _histeq_table(dev, launches, e2e_launches):
+    """Phase 7: K6 against its plain version bit for bit on four inputs,
+    and timed at 512² b8. Its least work is one read and one write of the
+    luma, one byte each per pixel."""
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import histeq
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    orchard = _luma_u8(_train_batch(BATCH, SIZE, seed=8, dev=dev)[0])
+    cases = {
+        "orchard luma 512^2 b8": orchard,
+        "constant": torch.full((2, 64, 64), 77, dtype=torch.uint8, device=dev),
+        "two-valued": torch.where(torch.rand((2, 128, 96), generator=g, device=dev) < 0.3, 12, 200).to(torch.uint8),
+        "odd shape": torch.randint(0, 256, (3, 37, 53), generator=g, device=dev).to(torch.uint8),
+    }
+    errs = {}
+    for tag, y in cases.items():
+        got = histeq.equalize_channel(y)
+        ref = histeq.equalize_channel_plain(y)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, ref)
+        err = errs[tag] = (got.float() - ref.float()).abs().max().item()
+        print(f"[chip_smoke] equalize_channel {tag} {tuple(y.shape)}: max_abs_err {err:.6g}, tolerance bit-equal: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"equalize_channel disagrees with its plain version on the {tag} input")
+    ms = _time_ms(lambda: histeq.equalize_channel(orchard), KERNEL_ITERS)
+    plain_ms = _time_ms(lambda: histeq.equalize_channel_plain(orchard), KERNEL_ITERS)
+    bound_ms = 2 * orchard.numel() / HBM_BYTES_PER_S * 1e3
+    # A call is short enough that the wrapper's host work may set the timed
+    # rate: the card's own time per call (memset and both kernels) from
+    # torch.profiler beside it.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(KERNEL_ITERS):
+            histeq.equalize_channel(orchard)
+        torch.cuda.synchronize()
+    parts = {e.key[:40]: e.self_device_time_total / 1e3 / KERNEL_ITERS for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    device_ms = sum(parts.values())
+    print(f"[chip_smoke] equalize_channel {tuple(orchard.shape)}: {ms * 1e3:.1f} us/launch, plain "
+          f"{plain_ms * 1e3:.1f} us, library -, bound {bound_ms * 1e3:.2f} us (bytes); card time per call "
+          f"{device_ms * 1e3:.1f} us ({', '.join(f'{k} {v * 1e3:.1f}' for k, v in parts.items())})")
+    return [{
+        "name": "equalize_channel", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/histeq.cu",
+        "replaces": f"{HISTEQ_SRC}:88", "launches": launches["histeq"], "launches_e2e": e2e_launches["histeq"],
+        "shape": list(orchard.shape), "max_abs_err": errs["orchard luma 512^2 b8"], "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": None,
+    }]
+
+
+# The graph branch: modules whose gradients come only through the graph
+# losses and the detection head.
+GRAPH_BRANCH = ("patch_gat", "mincut", "region_gat", "feature_consistency_proj", "detection_head")
+
+
+def _e2e_path(dev):
+    """Phase 8 on the card: the bf16 512² b8 end-to-end train steps, then the
+    total loss on a fixed batch. Returns the launch counts per step and the
+    timings."""
+    import torch
+
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
+
+    cfg = _train_cfg(SIZE, bf16=True)
+    model = build_mingraph_unet(cfg)
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
+    state = TrainState(model, opt, sched)
+    step = make_e2e_train_step(model, opt, cfg, augment=True, train_detection=True)
+    imgs, masks = _train_batch(BATCH, SIZE, seed=9, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def check(aux, i):
+        bad = [k for k, v in aux.items() if not bool(torch.isfinite(v))]
+        if bad:
+            _fail(f"end-to-end step {i}: non-finite terms {bad}")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    for i in range(E2E_WARMUP):
+        check(step(state, imgs, masks, gen), i)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    auxes = []
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(E2E_ITERS):
+        auxes.append(step(state, imgs, masks, gen))
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / E2E_ITERS
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / E2E_ITERS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, aux in enumerate(auxes):
+        check(aux, E2E_WARMUP + i)
+    n = E2E_WARMUP + E2E_ITERS
+    launches = _counts()
+    print(f"[chip_smoke] e2e launches over {n} steps: {launches}; last terms "
+          f"{ {k: round(float(v), 4) for k, v in auxes[-1].items()} }")
+    if launches != {"psel": 0, "dec1": 0, "pool": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n}:
+        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, got {launches} "
+              f"over {n} steps")
+    if not _grads_finite(model):
+        _fail("an end-to-end parameter has no gradient or a non-finite one")
+    # The step gives a leaf the total does not reach a zero gradient (as
+    # JAX does), so "has a gradient" proves nothing: every leaf whose
+    # gradient is not zero in exact arithmetic must have a non-zero one.
+    zero = [n for n, p in model.named_parameters()
+            if not _zero_in_exact_arithmetic(n) and not bool(p.grad.ne(0).any())]
+    if zero:
+        _fail(f"end-to-end leaves with an all-zero gradient: {zero[:5]} ({len(zero)} in all)")
+    norms = {m: sum(float(p.grad.float().norm()) for p in getattr(model, m).parameters()) for m in GRAPH_BRANCH}
+    unmoved = [k for k, b in model.named_buffers() if torch.equal(b, stats0[k])]
+    if unmoved or not any(k.startswith("detection_head.") for k in stats0):
+        _fail(f"BN running statistics did not move: {unmoved[:5]}")
+    print(f"[chip_smoke] e2e train bf16 {BATCH}x{SIZE}^2: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} images/s, "
+          f"host issue time {host_ms:.3f} ms/step, peak memory {peak:.2f} GiB, first {E2E_WARMUP} steps "
+          f"{first_s:.1f}s; all {len(list(model.parameters()))} parameters have finite gradients, non-zero but "
+          f"for the exact zeros, graph-branch "
+          f"gradient norms { {k: f'{v:.3g}' for k, v in norms.items()} }; all {len(stats0)} BN statistics "
+          f"(U-Net and detection head) moved")
+    _profile("e2e train step", lambda: step(state, imgs, masks, gen), ms, steps=2)
+
+    # The same trainer on one fixed batch, without augmentation: the total falls.
+    del state, model, opt, sched, step
+    torch.cuda.empty_cache()
+    model = build_mingraph_unet(cfg)
+    opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
+    state = TrainState(model, opt, sched)
+    fixed = make_e2e_train_step(model, opt, cfg, augment=False, train_detection=True)
+    totals = [float(fixed(state, imgs, masks, gen)["total"]) for _ in range(FIXED_BATCH_STEPS)]
+    print(f"[chip_smoke] e2e fixed batch totals {[f'{v:.4f}' for v in totals]}")
+    if not totals[-1] < totals[0]:
+        _fail(f"the end-to-end total did not fall on a fixed batch: {totals[0]} -> {totals[-1]}")
+    del state, model, opt, sched, fixed
+    torch.cuda.empty_cache()
+    return {k: v // n for k, v in launches.items()}, ms, host_ms, peak
+
+
+def _zero_in_exact_arithmetic(name: str) -> bool:
+    """A leaf whose gradient is zero in exact arithmetic: a conv bias before
+    a train-mode BN, or the region GAT's attention vectors at two regions
+    (each node attends its single neighbour with weight 1)."""
+    return _feeds_bn(name) or name.startswith(("region_gat.layer0.heads.a_src", "region_gat.layer0.heads.a_dst"))
+
+
+class _E2EDecisions(_Decisions):
+    """``_Decisions`` plus the end-to-end model's other discrete decisions:
+    the GAT's leaky-ReLU signs, the MinCut argmax labels and the
+    connected-component instance masks (the CC threshold at 0.5 and the
+    instance selection)."""
+
+    def __enter__(self):
+        import torch
+
+        from mingraph_unet_tpu_torch.models import gat
+        from mingraph_unet_tpu_torch.ops import cc
+
+        super().__enter__()
+        self._saved_e2e = (gat.leaky_relu, torch.argmax, cc.top_instances_dense)
+        leaky, argmax, top_dense = self._saved_e2e
+
+        def leaky_d(x, alpha):
+            positive = self._decide(x >= 0)
+            return leaky(x, alpha) if self.replay is None else torch.where(positive, x, alpha * x)
+
+        def argmax_d(x, *args, **kwargs):
+            return self._decide(argmax(x, *args, **kwargs))
+
+        def top_dense_d(labels, *args, **kwargs):
+            masks, areas = top_dense(labels, *args, **kwargs)
+            return self._decide(masks), areas
+
+        gat.leaky_relu, torch.argmax, cc.top_instances_dense = leaky_d, argmax_d, top_dense_d
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from mingraph_unet_tpu_torch.models import gat
+        from mingraph_unet_tpu_torch.ops import cc
+
+        gat.leaky_relu, torch.argmax, cc.top_instances_dense = self._saved_e2e
+        return super().__exit__(*exc)
+
+
+def _e2e_vs_cpu(dev) -> None:
+    """Phase 8, card vs CPU: one f32 end-to-end step at batch 2, 128², TF32
+    off, dropout the identity, SGD with momentum (an update linear in the
+    gradient), against the same step in f64 on the CPU that replays the
+    card's discrete decisions (``_E2EDecisions``). The final 1×1 conv is
+    scaled so that the foreground probability crosses 0.5 in blobs and the
+    shape loss has instances. Every leaf (gradient, updated parameter) must
+    lie within CPU_TOL of its own max |f64|; a leaf whose gradient is zero
+    in exact arithmetic (or up to f64 rounding) is held to CPU_TOL of the
+    model's largest gradient (and its update to lr times that)."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models import layers
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.end_to_end import (
+        build_mingraph_unet, make_e2e_train_step, mingraph_unet_kwargs)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_cfg(128, bf16=False, optimizer="sgd")
+    weights = build_mingraph_unet(cfg, device="cpu").state_dict()
+    weights["unet.decoder.final_conv.kernel"] *= 4.0
+    weights["unet.decoder.final_conv.bias"] += torch.tensor([-0.5, 0.5])
+    imgs, masks = _train_batch(2, 128, seed=5, dev="cpu")
+    dropout = layers.dropout
+    layers.dropout = lambda x, p, gen: x
+
+    def step(where, dtype, decisions):
+        model = MinGraphUNet(**mingraph_unet_kwargs(cfg), dtype=dtype, device=where).to(dtype=dtype)
+        model.load_state_dict(weights)
+        model.train()
+        opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
+        state = TrainState(model, opt, sched)
+        gen = torch.Generator(device=where)
+        with decisions:
+            aux = make_e2e_train_step(model, opt, cfg, augment=False)(state, imgs.to(where), masks.to(where), gen)
+        return ({k: float(v) for k, v in aux.items()},
+                {(kind, n): (p.grad if kind == "grad" else p.detach()).cpu().double()
+                 for n, p in model.named_parameters() for kind in ("grad", "param")})
+
+    try:
+        t0 = time.perf_counter()
+        rec = _E2EDecisions()
+        aux, got = step(dev, torch.float32, rec)
+        ref_dec = _E2EDecisions(replay=rec.log)
+        ref_aux, ref = step("cpu", torch.float64, ref_dec)
+    finally:
+        layers.dropout = dropout
+        torch.backends.cudnn.allow_tf32 = True
+    top_grad = max(t.abs().max().item() for (kind, _), t in ref.items() if kind == "grad")
+    rows = []
+    for key, r in ref.items():
+        kind, n = key
+        err, own = (got[key] - r).abs().max().item(), r.abs().max().item()
+        # A gradient below 1e-9 of the largest is zero up to f64 rounding
+        # (a lattice GAT's a_dst when no node's four scores straddle the
+        # leaky ReLU's kink: the softmax does not see it).
+        exact_zero = _zero_in_exact_arithmetic(n) or (kind == "grad" and own < 1e-9 * top_grad)
+        limit = CPU_TOL * top_grad * (1.0 if kind == "grad" else LR) if exact_zero else CPU_TOL * own
+        rows.append((err / max(limit, 1e-300), kind, n, err / max(own, 1e-30)))
+    rows.sort(reverse=True)
+    terms = {k: abs(aux[k] - ref_aux[k]) / max(abs(ref_aux[k]), 1e-30) for k in ref_aux}
+    print(f"[chip_smoke] e2e step f32 card vs f64 CPU, batch 2, 128^2, TF32 off ({time.perf_counter() - t0:.1f}s): "
+          f"f64 terms { {k: round(v, 6) for k, v in ref_aux.items()} }; {ref_dec.flips} of {ref_dec.total} "
+          f"decisions replayed against the f64 step's own; worst term rel err {max(terms.values()):.3g}; worst "
+          f"leaves, share of limit, error of max |f64 leaf|:")
+    for share, kind, n, rel in rows[:5]:
+        print(f"[chip_smoke]     {share:.3g}  {kind} {n}: {rel:.3g}")
+    if ref_aux["l_shape"] == 0.0 or ref_aux["l_feature"] == 0.0:
+        _fail("the f32-vs-f64 end-to-end step must exercise the shape and feature losses")
+    outside = [(kind, n) for share, kind, n, _ in rows if not share <= 1.0]
+    bad_terms = [k for k, v in terms.items() if not v <= CPU_TOL]
+    if outside or bad_terms:
+        _fail(f"e2e step f32 card vs f64: terms outside {bad_terms}, {len(outside)} leaves outside their limit, "
+              f"first {outside[:3]}")
+    print(f"[chip_smoke] e2e step f32 card vs f64: all {len(terms)} terms and {len(rows)} leaves within their "
+          f"limits: ok")
+
+
 def main() -> int:
     try:
         import torch
@@ -762,11 +1068,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train_ms, train_host_ms, train_peak = _train_path(dev)
     _train_vs_cpu(dev)
-    rows = _kernel_table(dev, launches) + _k4_table(dev, train_launches)
+    e2e_launches, e2e_ms, e2e_host_ms, e2e_peak = _e2e_path(dev)
+    _e2e_vs_cpu(dev)
+    rows = (_kernel_table(dev, launches) + _k4_table(dev, train_launches, e2e_launches)
+            + _histeq_table(dev, launches, e2e_launches))
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "
           f"train_host_ms {train_host_ms:.4f} train_peak_gib {train_peak:.3f}")
+    print(f"[chip_smoke] e2e_ms {e2e_ms:.4f} e2e_images_per_s {BATCH / e2e_ms * 1e3:.2f} "
+          f"e2e_host_ms {e2e_host_ms:.4f} e2e_peak_gib {e2e_peak:.3f}")
     print(card_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

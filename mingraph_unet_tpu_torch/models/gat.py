@@ -1,13 +1,15 @@
-"""Graph attention layers (inference). Counterpart of
-``mingraph_unet_tpu/models/gat.py``.
+"""Graph attention layers. Counterpart of ``mingraph_unet_tpu/models/gat.py``.
 
 The edge score ``e_ij = LeakyReLU(a·[Wh_i ‖ Wh_j])`` is rank-1 in (i, j):
 ``e_ij = LeakyReLU(s_src[i] + s_dst[j])`` with ``s_* = Wh·a_*``.
 :class:`DenseGAT` masks an (N, N) score matrix; :class:`LatticeGAT` takes
 the softmax over the four shifted lattice neighbours. As in the reference,
 the softmax subtracts the per-head *global* max over edges and adds 1e-10
-to the denominator; nodes without incoming edges aggregate to zero. Dropout
-is the identity at inference and has no parameters, so it is left out.
+to the denominator; nodes without incoming edges aggregate to zero. The
+global max is not detached: autograd splits its gradient evenly among ties,
+as JAX does. In train mode (``module.train()`` and a ``gen``) dropout acts
+on the attention weights and on the layer's output, as the JAX layers'
+``attn_dropout`` and ``out_dropout``; it has no parameters.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mingraph_unet_tpu_torch.models import layers
 from mingraph_unet_tpu_torch.models.layers import xavier_uniform
 from mingraph_unet_tpu_torch.ops import lattice as lattice_ops
 
@@ -42,6 +45,12 @@ class _HeadParams(nn.Module):
         self.a_dst = nn.Parameter(xavier_uniform((num_heads, head_out), gain, 2 * head_out, 1, gen))
 
 
+def leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: at exactly 0 its gradient is 1 (the positive
+    branch), where ``F.leaky_relu``'s is ``alpha``."""
+    return torch.where(x >= 0, x, alpha * x)
+
+
 def _head_out(out_features: int, num_heads: int, concat: bool) -> int:
     if not concat:
         return out_features
@@ -54,18 +63,19 @@ class DenseGAT(nn.Module):
     """Multi-head GAT over a dense mask: ``x (..., N, D)``, ``adj (N, N)``
     with ``adj[j, i] = 1`` for an edge i→j → (..., out)."""
 
-    def __init__(self, in_features, out_features, num_heads, gen, alpha=0.2, concat=True, dtype=torch.float32):
+    def __init__(self, in_features, out_features, num_heads, gen, alpha=0.2, concat=True, dtype=torch.float32,
+                 dropout_rate=0.0):
         super().__init__()
         self.heads = _HeadParams(in_features, _head_out(out_features, num_heads, concat), num_heads, gen)
-        self.alpha, self.concat, self.dtype = alpha, concat, dtype
+        self.alpha, self.concat, self.dtype, self.dropout_rate = alpha, concat, dtype, dropout_rate
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, adj: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         p = self.heads
         h = torch.einsum("...nd,hdo->...hno", x.to(dt), p.W.to(dt))
         s_src = torch.einsum("...hno,ho->...hn", h, p.a_src.to(dt))
         s_dst = torch.einsum("...hno,ho->...hn", h, p.a_dst.to(dt))
-        e = F.leaky_relu(s_src[..., :, None, :] + s_dst[..., :, :, None], self.alpha)  # (..., H, tgt, src)
+        e = leaky_relu(s_src[..., :, None, :] + s_dst[..., :, :, None], self.alpha)  # (..., H, tgt, src)
         mask = adj.bool()
         mask = mask[None] if mask.dim() == 2 else mask[..., None, :, :]
         e_valid = torch.where(mask, e, torch.full_like(e, float("-inf")))
@@ -73,23 +83,28 @@ class DenseGAT(nn.Module):
         gmax = torch.where(torch.isfinite(gmax), gmax, torch.zeros_like(gmax))
         exp_e = torch.where(mask, torch.exp(e - gmax), torch.zeros_like(e))
         attn = exp_e / (exp_e.sum(dim=-1, keepdim=True) + 1e-10)
+        gen = gen if self.training else None
+        attn = layers.dropout(attn, self.dropout_rate, gen)
         h_prime = F.elu(torch.einsum("...hji,...hio->...hjo", attn, h))
         if self.concat:
             moved = h_prime.movedim(-3, -2)  # (..., N, H, O)
-            return moved.reshape(*moved.shape[:-2], -1)
-        return h_prime.mean(dim=-3)
+            out = moved.reshape(*moved.shape[:-2], -1)
+        else:
+            out = h_prime.mean(dim=-3)
+        return layers.dropout(out, self.dropout_rate, gen)
 
 
 class LatticeGAT(nn.Module):
     """Multi-head GAT over the implicit 4-connected lattice:
     ``x (..., nph, npw, D)`` → ``(..., nph, npw, out)``, O(4N)."""
 
-    def __init__(self, in_features, out_features, num_heads, gen, alpha=0.2, concat=True, dtype=torch.float32):
+    def __init__(self, in_features, out_features, num_heads, gen, alpha=0.2, concat=True, dtype=torch.float32,
+                 dropout_rate=0.0):
         super().__init__()
         self.heads = _HeadParams(in_features, _head_out(out_features, num_heads, concat), num_heads, gen)
-        self.alpha, self.concat, self.dtype = alpha, concat, dtype
+        self.alpha, self.concat, self.dtype, self.dropout_rate = alpha, concat, dtype, dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         p = self.heads
         nph, npw = x.shape[-3], x.shape[-2]
@@ -104,28 +119,33 @@ class LatticeGAT(nn.Module):
             [lattice_ops.neighbor_mask(nph, npw, dr, dc, h.dtype, h.device) for dr, dc in lattice_ops.DIRECTIONS],
             dim=-1,
         )
-        e = F.leaky_relu(ns + s_dst[..., None], self.alpha)  # (..., H, nph, npw, 4)
+        e = leaky_relu(ns + s_dst[..., None], self.alpha)  # (..., H, nph, npw, 4)
         mask = valid.bool()
         e_valid = torch.where(mask, e, torch.full_like(e, float("-inf")))
         gmax = e_valid.amax(dim=(-3, -2, -1), keepdim=True)  # per head, over grid and directions
         gmax = torch.where(torch.isfinite(gmax), gmax, torch.zeros_like(gmax))
         exp_e = torch.where(mask, torch.exp(e - gmax), torch.zeros_like(e))
         attn = exp_e / (exp_e.sum(dim=-1, keepdim=True) + 1e-10)
+        gen = gen if self.training else None
+        attn = layers.dropout(attn, self.dropout_rate, gen)
         h_prime = F.elu(torch.einsum("...rck,...rcko->...rco", attn, nh))  # (..., H, nph, npw, O)
         if self.concat:
             moved = h_prime.movedim(-4, -2)  # (..., nph, npw, H, O)
-            return moved.reshape(*moved.shape[:-2], -1)
-        return h_prime.mean(dim=-4)
+            out = moved.reshape(*moved.shape[:-2], -1)
+        else:
+            out = h_prime.mean(dim=-4)
+        return layers.dropout(out, self.dropout_rate, gen)
 
 
 class GATNetwork(nn.Module):
     """Stacked GAT (``layer{i}``): one layer → a single averaging layer to
     ``output_dim``; more → concat layers at ``hidden_dim`` then an averaging
     layer. ``backend`` is ``"lattice"`` (grid input) or ``"dense"``
-    (``forward(x, adj)``)."""
+    (``forward(x, adj)``); every layer drops at ``dropout_rate`` in train
+    mode, drawing from the ``gen`` given to :meth:`forward`."""
 
     def __init__(self, in_features, hidden_dim, output_dim, num_heads, gen, num_layers=1,
-                 alpha=0.2, backend="dense", dtype=torch.float32):
+                 alpha=0.2, backend="dense", dtype=torch.float32, dropout_rate=0.0):
         super().__init__()
         cls = LatticeGAT if backend == "lattice" else DenseGAT
         self.backend = backend
@@ -136,12 +156,13 @@ class GATNetwork(nn.Module):
             + [(hidden_dim, output_dim, False)]
         )
         for i, (din, dout, concat) in enumerate(dims):
-            self.add_module(f"layer{i}", cls(din, dout, num_heads, gen, alpha, concat, dtype))
+            self.add_module(f"layer{i}", cls(din, dout, num_heads, gen, alpha, concat, dtype, dropout_rate))
 
-    def forward(self, x: torch.Tensor, adj: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, adj: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.backend == "dense" and adj is None:
             raise ValueError("the dense backend needs an adjacency mask")
         for i in range(self.num_layers):
             layer = getattr(self, f"layer{i}")
-            x = layer(x) if self.backend == "lattice" else layer(x, adj)
+            x = layer(x, gen=gen) if self.backend == "lattice" else layer(x, adj, gen=gen)
         return x

@@ -9,18 +9,19 @@ float32; modules cast them to the compute dtype at use, as flax does.
 
 Random init draws from an explicit ``torch.Generator`` (CPU), with flax's
 initializers: LeCun-normal kernels (truncated normal), zero biases, unit
-BatchNorm scales and variances.
+BatchNorm scales and variances. :func:`dropout` draws its masks from a
+``torch.Generator`` on the tensor's device, passed in by the caller.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-__all__ = ["lecun_normal", "xavier_uniform", "ConvParams", "Dense", "FoldableBatchNorm"]
+__all__ = ["lecun_normal", "xavier_uniform", "dropout", "ConvParams", "Dense", "FoldableBatchNorm"]
 
 
 def lecun_normal(shape: Sequence[int], fan_in: int, gen: torch.Generator) -> torch.Tensor:
@@ -37,6 +38,20 @@ def xavier_uniform(
     """Xavier-uniform with explicit fans (the GAT's reference init)."""
     limit = gain * math.sqrt(6.0 / (fan_in + fan_out))
     return (torch.rand(tuple(shape), generator=gen) * 2.0 - 1.0) * limit
+
+
+def dropout(x: torch.Tensor, p: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 − p and
+    scale the kept ones by 1/(1 − p). The identity when ``p == 0`` or
+    ``gen is None`` (eval: modules pass a generator only in train mode).
+    The mask is drawn from ``gen``, which must live on x's device; it cannot
+    reproduce JAX's random bits, only their distribution."""
+    if gen is None or p == 0.0:
+        return x
+    if not 0.0 < p < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConvParams(nn.Module):
@@ -70,7 +85,8 @@ class FoldableBatchNorm(nn.Module):
     ``a = scale / sqrt(var + eps)``, ``c = bias − mean·a``, in f32, which the
     U-Net folds into its convs. Train mode: the batch statistics in f32 (f64
     for an f64 input) with
-    the biased variance ``E[z²] − E[z]²``, and the running statistics
+    the biased variance ``E[z²] − E[z]²`` (clipped at 0 against rounding,
+    as flax does), and the running statistics
     updated as ``0.9·running + 0.1·batch`` (flax's decay, and the biased
     variance, where ``nn.BatchNorm2d`` keeps the unbiased one). Gradients
     flow through the batch mean and variance; the output is in z's dtype."""
@@ -96,7 +112,7 @@ class FoldableBatchNorm(nn.Module):
         axes = tuple(range(x.dim() - 1))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(axes)
-        var = (xf * xf).mean(axes) - mean * mean
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -1,12 +1,14 @@
-"""Soft Normalized-Cut partitioning on the patch lattice (inference).
-Counterpart of ``mingraph_unet_tpu/models/mincut.py``: Gaussian edge
-weights ``w = exp(−‖f_i − f_j‖²/2σ²)`` over the four lattice neighbours,
+"""Soft Normalized-Cut partitioning on the patch lattice. Counterpart of
+``mingraph_unet_tpu/models/mincut.py``: Gaussian edge weights
+``w = exp(−‖f_i − f_j‖²/2σ²)`` over the four lattice neighbours,
 ``L = Σ_k cut_k / assoc_k``, where a segment counts only when
-``assoc_k > 1e-8``."""
+``assoc_k > 1e-8``. The loss is differentiable in both the features and the
+assignments (autograd's gradient); in train mode the predictor's GAT drops
+at ``dropout_rate``."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -46,14 +48,15 @@ class SegmentPredictor(nn.Module):
     """Per-node K-way segment logits from a 1-layer lattice GAT
     (``gnn_predictor``)."""
 
-    def __init__(self, in_features, num_segments, hidden_dim, num_heads, gen, alpha=0.2, dtype=torch.float32):
+    def __init__(self, in_features, num_segments, hidden_dim, num_heads, gen, alpha=0.2, dtype=torch.float32,
+                 dropout_rate=0.0):
         super().__init__()
         self.gnn_predictor = GATNetwork(
-            in_features, hidden_dim, num_segments, num_heads, gen, 1, alpha, "lattice", dtype
+            in_features, hidden_dim, num_segments, num_heads, gen, 1, alpha, "lattice", dtype, dropout_rate
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gnn_predictor(x)
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.gnn_predictor(x, gen=gen)
 
 
 class MinCutRefinement(nn.Module):
@@ -61,14 +64,17 @@ class MinCutRefinement(nn.Module):
     lattice (``segment_predictor``)."""
 
     def __init__(self, in_features, num_segments, gen, sigma_ncut=1.0, predictor_hidden=None,
-                 predictor_heads=1, alpha=0.2, dtype=torch.float32):
+                 predictor_heads=1, alpha=0.2, dtype=torch.float32, dropout_rate=0.0):
         super().__init__()
         self.sigma_ncut = sigma_ncut
         self.segment_predictor = SegmentPredictor(
-            in_features, num_segments, predictor_hidden or in_features, predictor_heads, gen, alpha, dtype
+            in_features, num_segments, predictor_hidden or in_features, predictor_heads, gen, alpha, dtype,
+            dropout_rate,
         )
 
-    def forward(self, gat_features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.segment_predictor(gat_features)
-        soft = torch.softmax(logits.float(), dim=-1)
-        return normalized_cut_loss_lattice(gat_features.float(), soft, self.sigma_ncut), soft
+    def forward(self, gat_features: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits = self.segment_predictor(gat_features, gen=gen)
+        acc = torch.promote_types(logits.dtype, torch.float32)  # f32, or f64 in an f64 model
+        soft = torch.softmax(logits.to(acc), dim=-1)
+        return normalized_cut_loss_lattice(gat_features.to(acc), soft, self.sigma_ncut), soft

@@ -6,10 +6,9 @@ inference path runs.
   gray, reflect-101 pad, 3×3 stencil, magnitude, per-image min/max, patch
   mean (the JAX package's lane-flattened form is a TPU layout device).
 - :func:`equalize_histogram_rgb_batched` is OpenCV ``equalizeHist`` on the
-  luma in YUV space, bit-exact with the JAX package's nibble-factored form:
-  a 256-bin count per image, a cumulative sum and the LUT
-  ``round((cdf − cdf_min) / max(N − cdf_min, 1) · 255)`` in float32 with
-  round-half-even.
+  luma in YUV space, bit-exact with the JAX package's nibble-factored form.
+  The luma goes as uint8 to ``ops/kernels/histeq.py::equalize_channel``,
+  the K6 kernel on the card and its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from mingraph_unet_tpu_torch.ops.image import rgb_to_gray
+from mingraph_unet_tpu_torch.ops.kernels.histeq import equalize_channel
 
 __all__ = ["sobel_patch_mean", "equalize_histogram_rgb_batched"]
 
@@ -66,21 +66,6 @@ def sobel_patch_mean(rgb: torch.Tensor, patch_size: int) -> torch.Tensor:
     return out[..., None]
 
 
-def _equalize_channel_batched(y_u8: torch.Tensor) -> torch.Tensor:
-    """OpenCV ``equalizeHist`` per image on (B, H, W) integer luma → int64."""
-    b = y_u8.shape[0]
-    flat = y_u8.reshape(b, -1).long()
-    n = flat.shape[1]
-    hist = torch.zeros((b, 256), dtype=torch.int64, device=flat.device)
-    hist.scatter_add_(1, flat, torch.ones_like(flat))
-    cdf = torch.cumsum(hist, dim=1).float()  # exact: counts < 2^24
-    total = float(n)
-    cdf_min = torch.where(hist > 0, cdf, torch.full_like(cdf, total + 1.0)).amin(dim=1, keepdim=True)
-    denom = torch.clamp(total - cdf_min, min=1.0)
-    lut = torch.clamp(torch.round((cdf - cdf_min) / denom * 255.0), 0.0, 255.0).long()
-    return torch.gather(lut, 1, flat).reshape(y_u8.shape)
-
-
 def equalize_histogram_rgb_batched(rgb_u8: torch.Tensor) -> torch.Tensor:
     """Equalize the luma of (B, H, W, 3) uint8 images in YUV space →
     (B, H, W, 3) uint8."""
@@ -90,8 +75,8 @@ def equalize_histogram_rgb_batched(rgb_u8: torch.Tensor) -> torch.Tensor:
     y = float(m[0, 0]) * r + float(m[0, 1]) * g + float(m[0, 2]) * bl
     u = float(m[1, 0]) * r + float(m[1, 1]) * g + float(m[1, 2]) * bl
     v = float(m[2, 0]) * r + float(m[2, 1]) * g + float(m[2, 2]) * bl
-    y_u8 = torch.clamp(torch.round(y), 0, 255).long()
-    y_eq = _equalize_channel_batched(y_u8).float()
+    y_u8 = torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+    y_eq = equalize_channel(y_u8).float()
     mi = _YUV2RGB
     r2 = float(mi[0, 0]) * y_eq + float(mi[0, 2]) * v
     g2 = float(mi[1, 0]) * y_eq + float(mi[1, 1]) * u + float(mi[1, 2]) * v

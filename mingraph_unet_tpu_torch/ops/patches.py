@@ -9,10 +9,11 @@ __all__ = ["patch_reduce_mean", "broadcast_patch_to_pixels"]
 
 
 def patch_reduce_mean(x: torch.Tensor, patch_size: int) -> torch.Tensor:
-    """Per-patch channel means, summed in f32: (N, H, W, C) → (N, H/p, W/p, C)."""
+    """Per-patch channel means, summed in f32 (f64 for f64): (N, H, W, C) →
+    (N, H/p, W/p, C)."""
     n, h, w, c = x.shape
     p = patch_size
-    y = x.float().reshape(n, h // p, p, w // p, p, c).sum(dim=(2, 4))
+    y = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(n, h // p, p, w // p, p, c).sum(dim=(2, 4))
     return (y / (p * p)).to(x.dtype)
 
 

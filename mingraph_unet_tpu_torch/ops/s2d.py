@@ -145,7 +145,7 @@ def patch_reduce_mean_s2d(x_s2d: torch.Tensor, patch: int, r: int = _R) -> torch
     p = patch // r
     b, hh, ww, cc = x_s2d.shape
     c = cc // (r * r)
-    x = x_s2d.float().reshape(b, hh // p, p, ww // p, p, r * r, c).sum(dim=(2, 4, 5))
+    x = x_s2d.to(torch.promote_types(x_s2d.dtype, torch.float32)).reshape(b, hh // p, p, ww // p, p, r * r, c).sum(dim=(2, 4, 5))
     return (x / (patch * patch)).to(x_s2d.dtype)
 
 

@@ -1,5 +1,6 @@
 """Shared trainer machinery: optimizer, learning-rate schedule, train state,
-multi-step windows. Counterpart of ``mingraph_unet_tpu/train/common.py``.
+multi-step windows, the epoch loop. Counterpart of
+``mingraph_unet_tpu/train/common.py``.
 
 Optimizer semantics are the JAX package's (and the reference's):
 - Adam with L2 ``weight_decay`` folded into the gradient, Adam over
@@ -13,14 +14,18 @@ Optimizer semantics are the JAX package's (and the reference's):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from mingraph_unet_tpu_torch.config import TrainingConfig
+from mingraph_unet_tpu_torch.data.dataset import BatchLoader
+from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
+from mingraph_unet_tpu_torch.utils.logging import MetricsLogger
 
-__all__ = ["TrainState", "make_optimizer", "make_lr_schedule", "make_multistep"]
+__all__ = ["TrainState", "make_optimizer", "make_lr_schedule", "make_multistep", "run_epochs"]
 
 
 @dataclass
@@ -93,3 +98,99 @@ def make_multistep(train_step: Callable, window: int) -> Callable:
         return {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
 
     return multistep
+
+
+def run_epochs(
+    state: TrainState,
+    gen: torch.Generator,
+    loader: BatchLoader,
+    cfg: TrainingConfig,
+    steps_per_epoch: int,
+    steps_for_epoch: Callable[[int], Tuple[Callable, Callable]],
+    loss_key: str,
+    name: str,
+    max_epochs: Optional[int] = None,
+) -> Dict[str, Any]:
+    """The trainers' host loop. Resumes ``state`` and ``gen`` from the newest
+    checkpoint in ``cfg.checkpoint_dir`` when ``cfg.resume`` is set, then
+    runs each epoch's steps (``steps_for_epoch(epoch) -> (train_step,
+    multistep)``, the latter over ``cfg.scan_window`` batches at once),
+    logs every metric to JSONL, prints the epoch's means and saves a
+    checkpoint every ``save_epoch_interval`` epochs and after the last.
+    Returns ``{"epoch_loss": [...]}``, the mean ``loss_key`` of each epoch
+    run."""
+    dev = next(state.model.parameters()).device
+    ckpt = CheckpointManager(cfg.checkpoint_dir, max_to_keep=3, best_metric=cfg.checkpoint_best_metric,
+                             best_mode=cfg.checkpoint_best_mode)
+    start_epoch = 0
+    if cfg.resume and ckpt.latest_step is not None:
+        restored = ckpt.restore_latest(map_location=dev)
+        state.load_state_dict(restored["state"])
+        gen.set_state(restored["rng"])
+        start_epoch = int(restored["epoch"]) + 1
+        print(f"[{name}] resumed from step {state.step} (epoch {start_epoch})")
+
+    window = max(1, cfg.scan_window)
+    num_epochs = max_epochs if max_epochs is not None else cfg.num_epochs
+    logger = MetricsLogger(cfg.log_dir, name, cfg.log_interval)
+    history: Dict[str, Any] = {"epoch_loss": []}
+    global_step = start_epoch * steps_per_epoch
+
+    with torch.autograd.set_detect_anomaly(cfg.debug_nans):
+        for epoch in range(start_epoch, num_epochs):
+            train_step, multistep = steps_for_epoch(epoch)
+            epoch_lr = state.optimizer.param_groups[0]["lr"]
+            running: Dict[str, float] = {}
+            n_steps = 0
+            pending = []  # (metrics on the device, steps covered, global step)
+
+            def drain(keep: int = 0) -> None:
+                """Read queued metrics on the host, leaving the newest
+                ``keep`` in flight so the card is not waited on every step."""
+                while len(pending) > keep:
+                    metrics, done, gstep = pending.pop(0)
+                    values = {k: float(v) for k, v in metrics.items()}
+                    for k, v in values.items():
+                        running[k] = running.get(k, 0.0) + v * done
+                    logger.log(gstep, {**values, "lr": epoch_lr, "epoch": epoch})
+
+            def run(batches) -> None:
+                nonlocal n_steps, global_step
+                i = 0
+                while i < len(batches):
+                    if len(batches) - i >= window:
+                        chunk = batches[i : i + window]
+                        imgs = torch.from_numpy(np.stack([b[0] for b in chunk]))
+                        masks = torch.from_numpy(np.stack([b[1] for b in chunk]).astype(np.uint8))
+                        metrics, done = multistep(state, imgs, masks, gen), window
+                    else:
+                        imgs = torch.from_numpy(batches[i][0])
+                        masks = torch.from_numpy(batches[i][1].astype(np.uint8))
+                        metrics, done = train_step(state, imgs, masks, gen), 1
+                    i += done
+                    n_steps += done
+                    global_step += done
+                    pending.append((metrics, done, global_step))
+                    drain(keep=1)
+
+            batches = (loader.prefetch_epoch(epoch, prefetch=cfg.num_workers)
+                       if cfg.num_workers > 0 else loader.epoch(epoch))
+            buf = []
+            for batch in batches:
+                if n_steps + len(buf) >= steps_per_epoch:
+                    break
+                buf.append(batch)
+                if len(buf) == window:
+                    run(buf)
+                    buf = []
+            run(buf)
+            drain()
+            avg = {k: v / max(1, n_steps) for k, v in running.items()}
+            epoch_loss = avg.get(loss_key, 0.0)
+            history["epoch_loss"].append(epoch_loss)
+            print(f"[{name}] epoch {epoch + 1}/{num_epochs} " + " ".join(f"{k}={v:.4f}" for k, v in sorted(avg.items())))
+            if (epoch + 1) % cfg.save_epoch_interval == 0 or epoch == num_epochs - 1:
+                ckpt.save(state.step, {"state": state.state_dict(), "epoch": epoch, "rng": gen.get_state()},
+                          metrics={"loss": epoch_loss})
+    logger.close()
+    return history

@@ -1,0 +1,284 @@
+"""End-to-end MinGraph-UNet trainer. Counterpart of
+``mingraph_unet_tpu/train/end_to_end.py``.
+
+One train step: synced augmentation and normalization of the uint8 batch
+on the device, ``MinGraphUNet`` in train mode (K4 at the U-Net's s2d
+conv2s, hist-eq through K6, dropout from the step's generator), and
+
+``L_total = CE + λ1·L_shape + λ2·L_feature + λ3·L_partition + λ4·L_smooth
+[+ λ5·L_partition_sup] + L_bbox + L_conf``
+
+with the JAX trainer's terms: L_feature between the pooled-decoder
+projection and the GAT patch features with patch labels ``y_p`` from the
+ground-truth mask (foreground fraction > 0.5); L_shape per predicted
+instance (connected components of the thresholded foreground probability,
+no gradient through the instancing); L_smooth the TV of the foreground
+probability; the detection head against the mask's union box. A term whose
+weight is 0 is left out. ``loss_balance="uncertainty"`` replaces each
+active graph term by ``exp(−s)·λ·L + s/2`` with a learnable ``s`` in the
+model's ``loss_balance.log_vars`` (the flax tree's
+``params/loss_balance/log_vars``), trained by the same optimizer.
+
+The trainer adds the two-phase schedule (``graph_warmup_epochs`` epochs with
+the graph terms' weights at 0, then all of them), step-indexed checkpoints
+with exact resume and JSONL metrics, as ``train/segmentation.py``. Entry
+points run on the CUDA card unless ``device="cpu"`` is passed. Not ported
+(they raise ``NotImplementedError``): COCO instance annotations (ROADMAP A5),
+the dense detection head and class scores (A3), the ablation switches
+(A2), more than one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from mingraph_unet_tpu_torch.config import PipelineConfig
+from mingraph_unet_tpu_torch.data.dataset import BatchLoader, MangoDataset, device_preprocess_batch
+from mingraph_unet_tpu_torch.device import resolve_device
+from mingraph_unet_tpu_torch.models import losses
+from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+from mingraph_unet_tpu_torch.ops.image import draw_augment
+from mingraph_unet_tpu_torch.ops.patches import patch_reduce_mean
+from mingraph_unet_tpu_torch.train.common import TrainState, make_multistep, make_optimizer, run_epochs
+
+__all__ = ["BALANCED_LOSSES", "LossBalance", "build_mingraph_unet", "gt_union_box", "make_e2e_train_step",
+           "mingraph_unet_kwargs", "train_end_to_end"]
+
+Device = Optional[Union[str, torch.device]]
+
+# Slot order of the uncertainty balancer's log-variances.
+BALANCED_LOSSES = ("l_shape", "l_feature", "l_partition", "l_smooth", "l_partition_sup")
+
+
+class LossBalance(nn.Module):
+    """The uncertainty balancer's learnable log-variances, one per
+    :data:`BALANCED_LOSSES` slot, starting at 0."""
+
+    def __init__(self):
+        super().__init__()
+        self.log_vars = nn.Parameter(torch.zeros(len(BALANCED_LOSSES)))
+
+
+def mingraph_unet_kwargs(cfg: PipelineConfig) -> Dict[str, Any]:
+    """The ``MinGraphUNet`` arguments that ``cfg`` sets, all but the dtype
+    and the device."""
+    m = cfg.model
+    if cfg.dataset.annotations_file:
+        raise NotImplementedError("COCO instance annotations are not ported yet (ROADMAP A5)")
+    if m.fusion_detection.use_dense_detection or cfg.dataset.num_detection_classes > 1:
+        raise NotImplementedError("the dense detection head and class scores (num_detection_classes > 1) "
+                                  "are not ported yet (ROADMAP A3)")
+    ab = m.ablation
+    if not (ab.use_patch_gat and ab.use_partition and ab.use_region_gat and ab.use_fusion):
+        raise NotImplementedError("the ablation switches are not ported yet (ROADMAP A2)")
+    if not m.unet.use_batchnorm or m.unet.remat:
+        raise NotImplementedError("the port's U-Net has BatchNorm and no rematerialization")
+    return dict(
+        num_classes=m.unet.out_channels,
+        init_features=m.unet.init_features,
+        depth=m.unet.depth,
+        patch_size=m.graph_construction.patch_size,
+        unet_patch_feature_dim=m.graph_construction.unet_patch_feature_dim,
+        sobel_kernel_size=cfg.preprocessing.sobel_kernel_size,
+        normalization_mean=cfg.preprocessing.normalization_mean,
+        normalization_std=cfg.preprocessing.normalization_std,
+        gat_hidden_dim=m.gat.hidden_dim,
+        gat_output_dim=m.gat.output_dim,
+        gat_num_heads=m.gat.num_heads,
+        gat_num_layers=m.gat.num_layers,
+        gat_dropout=m.gat.dropout,
+        gat_alpha=m.gat.alpha,
+        num_segments=cfg.dataset.num_semantic_regions,
+        sigma_ncut=m.mincut.sigma_ncut,
+        fc_hidden_dim=m.fusion_detection.fc_hidden_dim,
+        detection_pre_pool=m.fusion_detection.detection_pre_pool,
+        in_channels=m.unet.in_channels,
+        seed=cfg.training.seed,
+    )
+
+
+def build_mingraph_unet(cfg: PipelineConfig, device: Device = None) -> MinGraphUNet:
+    """The ``MinGraphUNet`` of ``cfg`` in train mode, weights drawn from
+    ``cfg.training.seed``, compute dtype bf16 when ``cfg.training.bf16``
+    (parameters stay f32); with ``loss_balance: uncertainty`` it carries a
+    :class:`LossBalance` as ``model.loss_balance``, which the forward does
+    not use."""
+    dtype = torch.bfloat16 if cfg.training.bf16 else torch.float32
+    model = MinGraphUNet(**mingraph_unet_kwargs(cfg), dtype=dtype, device=device)
+    if cfg.training.loss_balance == "uncertainty":
+        model.loss_balance = LossBalance().to(model.device)
+    return model.train()
+
+
+@torch.no_grad()
+def gt_union_box(masks: torch.Tensor, foreground_class: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per image the normalized union box (cx, cy, w, h) of the foreground
+    pixels of ``masks`` (B, H, W), zeros without foreground, and the
+    has-object flag."""
+    b, h, w = masks.shape
+    fg = masks == foreground_class
+    ys = torch.arange(h, dtype=torch.float32, device=masks.device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=masks.device)[None, None, :]
+    big, neg = torch.tensor(1e9, device=masks.device), torch.tensor(-1.0, device=masks.device)
+    y_min = torch.where(fg, ys, big).amin(dim=(1, 2))
+    x_min = torch.where(fg, xs, big).amin(dim=(1, 2))
+    y_max = torch.where(fg, ys, neg).amax(dim=(1, 2))
+    x_max = torch.where(fg, xs, neg).amax(dim=(1, 2))
+    has = fg.any(dim=2).any(dim=1)
+    box = torch.stack([(x_min + x_max + 1.0) / 2.0 / w, (y_min + y_max + 1.0) / 2.0 / h,
+                       (x_max - x_min + 1.0) / w, (y_max - y_min + 1.0) / h], dim=-1)
+    return torch.where(has[:, None], box, torch.zeros_like(box)), has
+
+
+def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: PipelineConfig,
+                        augment: bool = True, train_detection: bool = True) -> Callable:
+    """``train_step(state, images_u8 (B, H, W, 3), masks (B, H, W), gen)``
+    takes one optimizer step on ``model`` with ``opt``, which ``state``
+    (a ``TrainState``, for the schedule and the step count) must hold, and
+    returns the step's terms as device scalars: ``total``, ``l_unet_seg``,
+    ``l_shape``, ``l_feature``, ``l_partition``, ``l_smooth``, and where
+    they apply ``l_partition_sup``, ``bal_s_<term>`` (the log-variance the
+    step used), ``l_bbox`` and ``l_conf``. ``gen``, a ``torch.Generator``
+    on the model's device, draws the augmentation and the dropout masks."""
+    pre = cfg.preprocessing
+    lw = cfg.model.losses
+    patch = cfg.model.graph_construction.patch_size
+    max_instances = cfg.model.fusion_detection.max_instances
+    exact_instancing = cfg.training.instancing == "exact"
+    balance = cfg.training.loss_balance == "uncertainty"
+    if balance and not isinstance(getattr(model, "loss_balance", None), LossBalance):
+        raise ValueError("loss_balance 'uncertainty' needs the model's LossBalance (build_mingraph_unet adds it)")
+
+    def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor,
+                   gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        if state.model is not model or state.optimizer is not opt:
+            raise ValueError("state must hold the model and optimizer this step was made for")
+        dev = model.device
+        images_u8, masks = images_u8.to(dev), masks.to(dev).long()
+        b, h, w = masks.shape
+        draw = (draw_augment(gen, b, h, w, pre.horizontal_flip_prob, pre.rotation_degrees, pre.random_crop_prob)
+                if augment else None)
+        imgs, aug_masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
+                                                  draw, num_classes=cfg.dataset.num_classes)
+        model.train()
+        out = model(imgs, gen=gen)
+        logits = out["logits"]
+        l_seg = losses.cross_entropy_loss(logits, aug_masks)
+
+        # y_p from the ground truth: foreground fraction per patch > 0.5.
+        with torch.no_grad():
+            fg_frac = patch_reduce_mean((aug_masks == 1).float()[..., None], patch)[..., 0]
+            y_p = (fg_frac > 0.5).float()
+        n_patches = y_p.shape[1] * y_p.shape[2]
+        l_feature = losses.feature_consistency_loss(
+            out["f_unet_patches"].reshape(b, n_patches, -1), out["gat_feats"].reshape(b, n_patches, -1),
+            y_p.reshape(b, n_patches), margin=lw.feature_loss_margin)
+        l_partition = out["l_partition"].mean()
+        probs = torch.softmax(logits, dim=-1)
+        l_shape = losses.elliptical_shape_loss_soft_instances(probs, max_instances=max_instances,
+                                                              exact=exact_instancing)
+        l_smooth = losses.total_variation_loss(probs[..., 1:2])
+
+        aux = {"l_unet_seg": l_seg, "l_shape": l_shape, "l_feature": l_feature, "l_partition": l_partition,
+               "l_smooth": l_smooth}
+        graph_terms = [("l_shape", l_shape, lw.l_shape_weight), ("l_feature", l_feature, lw.l_feature_weight),
+                       ("l_partition", l_partition, lw.l_partition_weight),
+                       ("l_smooth", l_smooth, lw.l_smooth_weight)]
+        if lw.l_partition_sup_weight > 0.0:
+            l_psup = losses.partition_supervision_loss(out["soft_assignments"], y_p)  # f32 (f64) already
+            aux["l_partition_sup"] = l_psup
+            graph_terms.append(("l_partition_sup", l_psup, lw.l_partition_sup_weight))
+        total = l_seg
+        for name, val, wt in graph_terms:
+            if wt == 0.0:
+                continue
+            if balance:
+                s = model.loss_balance.log_vars[BALANCED_LOSSES.index(name)]
+                total = total + torch.exp(-s) * wt * val + 0.5 * s
+                aux[f"bal_s_{name}"] = s.detach().clone()  # before the update
+            else:
+                total = total + wt * val
+        if train_detection:
+            gt_box, has_obj = gt_union_box(aug_masks)
+            l_bbox, l_conf = losses.detection_losses(out["pred_bboxes"], out["pred_confidence"], gt_box, has_obj)
+            total = total + l_bbox + l_conf
+            aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
+        aux["total"] = total
+
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        # A parameter the total does not reach (the MinCut predictor while
+        # the graph terms are off) has a zero gradient in JAX, which the
+        # optimizer still applies (weight decay moves it): the same here.
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        state.apply_gradients()
+        return {k: v.detach() for k, v in aux.items()}
+
+    return train_step
+
+
+def _warmup_cfg(cfg: PipelineConfig) -> PipelineConfig:
+    """``cfg`` with every graph term's weight at 0 (the warm-up phase)."""
+    zero = dict(l_shape_weight=0.0, l_feature_weight=0.0, l_partition_weight=0.0, l_smooth_weight=0.0,
+                l_partition_sup_weight=0.0)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, losses=dataclasses.replace(cfg.model.losses, **zero)))
+
+
+def train_end_to_end(
+    config_dir: str,
+    max_epochs: Optional[int] = None,
+    max_steps_per_epoch: Optional[int] = None,
+    data_root_override: Optional[str] = None,
+    train_detection: bool = True,
+    device: Device = None,
+) -> Tuple[TrainState, Dict[str, Any]]:
+    """Train from a config directory; resumes from the newest checkpoint
+    when ``training.resume`` is set. Returns the state and
+    ``{"epoch_loss": [...]}`` (the mean total per epoch run)."""
+    cfg = PipelineConfig.from_config_dir(config_dir)
+    train_cfg = cfg.training
+    if train_cfg.data_parallel > 1 or train_cfg.spatial_parallel > 1:
+        raise NotImplementedError("data_parallel / spatial_parallel > 1: multi-GPU training is not ported")
+    dev = resolve_device(device)
+    ds_cfg = cfg.dataset
+    data_root = data_root_override or ds_cfg.data_root
+    model = build_mingraph_unet(cfg, dev)
+    dataset = MangoDataset(
+        image_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.image_folder),
+        mask_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.mask_folder),
+        image_size=cfg.preprocessing.resize_dim,
+        num_classes=cfg.model.unet.out_channels,
+    )
+    loader = BatchLoader(dataset, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed)
+    steps_per_epoch = max(1, len(loader))
+    if max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
+
+    optimizer, scheduler = make_optimizer(model.parameters(), train_cfg, steps_per_epoch)
+    state = TrainState(model, optimizer, scheduler)
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    window = max(1, train_cfg.scan_window)
+    phases: Dict[str, Tuple[Callable, Callable]] = {}
+
+    def steps_for_epoch(epoch: int) -> Tuple[Callable, Callable]:
+        """The warm-up phase's step (graph terms off) for the first
+        ``graph_warmup_epochs`` epochs, then the joint one; the model and
+        the optimizer state are the same across phases."""
+        phase = "warmup" if epoch < train_cfg.graph_warmup_epochs else "joint"
+        if phase not in phases:
+            step = make_e2e_train_step(model, optimizer, _warmup_cfg(cfg) if phase == "warmup" else cfg,
+                                       augment=True, train_detection=train_detection)
+            phases[phase] = (step, make_multistep(step, window))
+        return phases[phase]
+
+    history = run_epochs(state, gen, loader, train_cfg, steps_per_epoch, steps_for_epoch, loss_key="total",
+                         name="train_end_to_end", max_epochs=max_epochs)
+    return state, history

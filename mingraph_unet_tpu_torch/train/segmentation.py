@@ -26,9 +26,7 @@ from mingraph_unet_tpu_torch.experiments.metrics import segmentation_metrics
 from mingraph_unet_tpu_torch.models.losses import cross_entropy_loss, dice_loss
 from mingraph_unet_tpu_torch.models.unet import UNet
 from mingraph_unet_tpu_torch.ops.image import draw_augment
-from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
-from mingraph_unet_tpu_torch.train.common import TrainState, make_multistep, make_optimizer
-from mingraph_unet_tpu_torch.utils.logging import MetricsLogger
+from mingraph_unet_tpu_torch.train.common import TrainState, make_multistep, make_optimizer, run_epochs
 
 __all__ = ["build_unet", "make_train_step", "train_unet_segmentation", "evaluate_unet"]
 
@@ -112,79 +110,10 @@ def train_unet_segmentation(
     optimizer, scheduler = make_optimizer(model.parameters(), cfg.training, steps_per_epoch)
     state = TrainState(model, optimizer, scheduler)
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
-    ckpt = CheckpointManager(train_cfg.checkpoint_dir, max_to_keep=3, best_metric=train_cfg.checkpoint_best_metric,
-                             best_mode=train_cfg.checkpoint_best_mode)
-    start_epoch = 0
-    if train_cfg.resume and ckpt.latest_step is not None:
-        restored = ckpt.restore_latest(map_location=dev)
-        state.load_state_dict(restored["state"])
-        gen.set_state(restored["rng"])
-        start_epoch = int(restored["epoch"]) + 1
-        print(f"[train] resumed from step {state.step} (epoch {start_epoch})")
-
     train_step = make_train_step(cfg, augment=True)
-    window = max(1, train_cfg.scan_window)
-    multistep = make_multistep(train_step, window)
-    num_epochs = max_epochs if max_epochs is not None else train_cfg.num_epochs
-    logger = MetricsLogger(train_cfg.log_dir, "train_segmentation", train_cfg.log_interval)
-    history: Dict[str, Any] = {"epoch_loss": []}
-    global_step = start_epoch * steps_per_epoch
-
-    with torch.autograd.set_detect_anomaly(train_cfg.debug_nans):
-        for epoch in range(start_epoch, num_epochs):
-            epoch_lr = optimizer.param_groups[0]["lr"]
-            running = {"loss": 0.0, "ce": 0.0, "dice": 0.0}
-            n_steps = 0
-            pending = []  # (metrics on the device, steps covered, global step)
-
-            def drain(keep: int = 0) -> None:
-                """Read queued metrics on the host, leaving the newest
-                ``keep`` in flight so the card is not waited on every step."""
-                while len(pending) > keep:
-                    metrics, done, gstep = pending.pop(0)
-                    values = {k: float(v) for k, v in metrics.items()}
-                    for k in running:
-                        running[k] += values[k] * done
-                    logger.log(gstep, {**values, "lr": epoch_lr, "epoch": epoch})
-
-            def run(batches) -> None:
-                nonlocal n_steps, global_step
-                i = 0
-                while i < len(batches):
-                    if len(batches) - i >= window:
-                        chunk = batches[i : i + window]
-                        imgs = torch.from_numpy(np.stack([b[0] for b in chunk]))
-                        masks = torch.from_numpy(np.stack([b[1] for b in chunk]).astype(np.uint8))
-                        metrics, done = multistep(state, imgs, masks, gen), window
-                    else:
-                        imgs = torch.from_numpy(batches[i][0])
-                        masks = torch.from_numpy(batches[i][1].astype(np.uint8))
-                        metrics, done = train_step(state, imgs, masks, gen), 1
-                    i += done
-                    n_steps += done
-                    global_step += done
-                    pending.append((metrics, done, global_step))
-                    drain(keep=1)
-
-            batches = (loader.prefetch_epoch(epoch, prefetch=train_cfg.num_workers)
-                       if train_cfg.num_workers > 0 else loader.epoch(epoch))
-            buf = []
-            for batch in batches:
-                if n_steps + len(buf) >= steps_per_epoch:
-                    break
-                buf.append(batch)
-                if len(buf) == window:
-                    run(buf)
-                    buf = []
-            run(buf)
-            drain()
-            epoch_loss = running["loss"] / max(1, n_steps)
-            history["epoch_loss"].append(epoch_loss)
-            print(f"[train] epoch {epoch + 1}/{num_epochs} avg_loss={epoch_loss:.4f}")
-            if (epoch + 1) % train_cfg.save_epoch_interval == 0 or epoch == num_epochs - 1:
-                ckpt.save(state.step, {"state": state.state_dict(), "epoch": epoch, "rng": gen.get_state()},
-                          metrics={"loss": epoch_loss})
-    logger.close()
+    steps = (train_step, make_multistep(train_step, max(1, train_cfg.scan_window)))
+    history = run_epochs(state, gen, loader, train_cfg, steps_per_epoch, lambda epoch: steps, loss_key="loss",
+                         name="train_segmentation", max_epochs=max_epochs)
     return state, history
 
 

@@ -8,7 +8,8 @@ machine that has only PyTorch:
 Tolerances are relative to max |plain|: f32 1e-4 (another summation order;
 TF32 is off on both sides), bf16 1e-2 (the kernel rounds its f32 sum once
 to bf16, the plain version rounds the cuDNN conv and then the bias add).
-The pool selects one of its inputs and must be bit-equal. The training
+The pool selects one of its inputs and hist-eq is integer-valued: both
+must be bit-equal. The training
 conv's kernel gradient is PyTorch on both sides and is held to the same
 tolerances.
 """
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
+from mingraph_unet_tpu_torch.ops.kernels import histeq as t_histeq
 from mingraph_unet_tpu_torch.ops.kernels import pool as t_pool
 from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
 
@@ -207,3 +209,41 @@ def test_card_bf16_unet_init16_forward_matches_cpu(cuda_device):
     for key in ("logits", "pred_bboxes", "pred_confidence", "l_partition"):
         assert torch.isfinite(out[key]).all(), key
         _assert_close_rel(out[key].float().cpu(), ref[key], 5e-2)
+
+
+def _luma_case(kind, shape, seed=9):
+    rng = np.random.default_rng(seed)
+    if kind == "constant":
+        y = np.full(shape, 77)
+    elif kind == "two_valued":
+        y = np.where(rng.uniform(size=shape) < 0.3, 12, 200)
+    else:
+        y = rng.normal(110, 40, shape)
+    return _t(np.clip(y, 0, 255).astype(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["noise", "constant", "two_valued"])
+@pytest.mark.parametrize("shape", [(8, 512, 512), (3, 37, 53), (2, 1, 17)])
+def test_card_histeq_bit_equal(cuda_device, shape, kind):
+    """K6 against its plain version: the pipeline's shape, an odd shape
+    (ragged 16-byte vectors) and a tiny one; a constant image takes
+    cdf_min = N and the clamped denominator."""
+    y = _luma_case(kind, shape).to(cuda_device)
+    before = t_histeq.equalize_channel.launches
+    got = t_histeq.equalize_channel(y)
+    torch.cuda.synchronize()
+    assert t_histeq.equalize_channel.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == y.shape
+    torch.testing.assert_close(got, t_histeq.equalize_channel_plain(y), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_card_histeq_refuses_what_it_does_not_take(cuda_device):
+    y = torch.zeros((2, 4, 4), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="uint8"):
+        t_histeq.equalize_channel(y.float())
+    with pytest.raises(ValueError, match="aligned"):
+        t_histeq.equalize_channel(torch.zeros(40, dtype=torch.uint8, device=cuda_device)[1:33].view(2, 4, 4))
+    with pytest.raises(ValueError, match="pixels per image"):
+        t_histeq.equalize_channel(torch.zeros((1, 4097, 4096), dtype=torch.uint8, device=cuda_device))

@@ -22,8 +22,10 @@ import pytest
 import torch
 
 from mingraph_unet_tpu.models.pipeline import MinGraphUNet as JaxMinGraphUNet
+from mingraph_unet_tpu_torch.config import PipelineConfig
 from mingraph_unet_tpu_torch.convert import load_jax_variables
 from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet
 
 B, H = 2, 64
 CONFIG = dict(init_features=32, depth=2, detection_pre_pool=H // 16)
@@ -119,6 +121,20 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked():
 
 
 def test_unported_paths_raise():
+    """The reference-exact (non-pooled) detection path runs now; a config
+    that asks for the dense head, class scores or an ablation switch still
+    raises."""
     model = MinGraphUNet(device="cpu", init_features=8, depth=2, detection_pre_pool=None)
-    with pytest.raises(NotImplementedError, match="pooled detection path"):
-        model(torch.zeros(1, 32, 32, 3))
+    out = model(torch.zeros(1, 32, 32, 3), full_res_outputs=True)
+    assert out["fused"].shape == (1, 32, 32, 8 + 64) and torch.isfinite(out["pred_bboxes"]).all()
+    for section, key, value, match in (("fusion_detection", "use_dense_detection", True, "ROADMAP A3"),
+                                       (None, "num_detection_classes", 2, "ROADMAP A3"),
+                                       ("ablation", "use_patch_gat", False, "ROADMAP A2"),
+                                       ("ablation", "use_partition", False, "ROADMAP A2"),
+                                       ("ablation", "use_region_gat", False, "ROADMAP A2"),
+                                       ("ablation", "use_fusion", False, "ROADMAP A2")):
+        cfg = PipelineConfig()
+        cfg.model.unet.init_features, cfg.model.unet.depth = 8, 2
+        setattr(cfg.dataset if section is None else getattr(cfg.model, section), key, value)
+        with pytest.raises(NotImplementedError, match=match):
+            build_mingraph_unet(cfg, device="cpu")
