@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, segmentation-training and end-to-end
-training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, large-scene serving, segmentation-training
+and end-to-end training paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -14,11 +14,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    runs in f32 on the same (bf16) inputs; a conv kernel must agree within
    ``CONV_TOL`` of max |plain| (one bf16 rounding of its f32 sum is 2^-9
    relative) over its whole output and again over its border rows and
-   columns, the pool bit for bit.
+   columns, the pool bit for bit. The depth-to-space kernel (K5) must be
+   bit-equal to its plain version at the serving shape and the large
+   scene's two shapes (bf16), in f32 and at an odd shape.
 3. Run ``MinGraphUNet(dtype=bfloat16, detection_pre_pool=32)`` at 512² b8
    with seeded weights, perturbed BN running statistics and seeded
    non-constant images. The launch counters must read psel 4, dec-conv1 2,
-   pool 2 and hist-eq 1, and every output must be finite. At batch 1 the card's f32
+   pool 2, d2s 1 and hist-eq 1, and every output must be finite. At batch 1 the card's f32
    outputs (TF32 off) must agree with the same port and weights on the CPU
    within ``CPU_TOL`` of max |CPU|.
 4. Time the forward (ms/step, images/s, and the host's time to issue a
@@ -30,7 +32,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    trainer's step (augmentation, CE + Dice, backward, Adam lr 1e-3 weight
    decay 1e-4): 3 warm-up and 10 timed steps. Every step's loss must be
    finite; each step must launch the training conv kernel (K4) 4 times
-   forward and 4 times dgrad and K1–K3 and hist-eq never; every parameter must get a
+   forward and 4 times dgrad and K1–K3, K5 and hist-eq never; every parameter must get a
    finite gradient and the BN running statistics must move; on one fixed
    batch without augmentation the loss must fall over 10 steps. At batch
    2, 128², the card's f32 step (TF32 off) must agree with the same step
@@ -48,12 +50,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``make_e2e_train_step`` (augmentation, detection trained, Adam lr 1e-3
    weight decay 1e-4): 3 warm-up and 5 timed steps. Every term must be
    finite each step; each step must launch K4 4 + 4 times, hist-eq once and
-   K1–K3 never; every gradient must be finite and the graph branch's
+   K1–K3 and K5 never; every gradient must be finite and the graph branch's
    non-zero; the BN statistics of the U-Net and of the detection head must
    move; on one fixed batch without augmentation the total loss must fall
    over 10 steps. At batch 2, 128², the card's f32 step (TF32 off, dropout
    the identity) must agree with a CPU f64 step that replays its discrete
    decisions, leaf by leaf (``_e2e_vs_cpu``).
+9. Serve a 1024² scene (BASELINE config 4 with the dense head):
+   ``pipeline_forward_large(MinGraphUNet(dtype=bfloat16,
+   detection_pre_pool=32, use_dense_detection=True), scene, tile=512,
+   halo=64)`` (the U-Net over four 640² windows, the graph branch once over
+   the 64×64 patch lattice) and ``decode_dense_detections(cell_size=16,
+   top_k=32)`` on the card. The launch counters must read psel 4,
+   dec-conv1 2, pool 2, d2s 2 and hist-eq 1; every output must be finite;
+   each valid box must have x1 ≤ x2, y1 ≤ y2, its centre inside the scene
+   and its size within the scene's (the decode does not clip, as in JAX),
+   and invalid slots zero boxes and scores; the card's decode must equal
+   the plain decode on the CPU over the card's own dense outputs, bit for
+   bit. Timed (ms/scene, megapixels/s, host issue time, peak memory) and
+   profiled. At a 256² scene (tile 128, halo 32), full widths with class
+   scores, the card's f32 outputs (TF32 off) must agree with the same port
+   and weights on the CPU within ``CPU_TOL`` of max |CPU|, and the hard
+   patch labels wherever the top two soft assignments differ by more.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -71,6 +89,7 @@ import sys
 import time
 
 BATCH, SIZE = 8, 512
+SCENE, TILE, HALO = 1024, 512, 64   # the large-scene cell (BASELINE config 4)
 CONV_TOL = 1e-2      # kernel (bf16 out) vs plain (f32) on bf16 inputs, of max |plain|
 CPU_TOL = 1e-3       # card f32 vs CPU f32 (forward at batch 1) and vs CPU f64 (train step at batch 2)
 F32_TOL = 1e-4       # an f32 kernel vs its plain version, TF32 off, of max |plain|
@@ -82,6 +101,8 @@ F32_SIMT_FLOPS = 67e12
 FORWARD_ITERS, KERNEL_ITERS = 20, 20
 TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
 E2E_WARMUP, E2E_ITERS = 3, 5
+SCENE_WARMUP, SCENE_ITERS = 2, 10
+SCENE_CPU_SEED = 13
 LR, WEIGHT_DECAY = 1e-3, 1e-4
 
 PSCONV_SRC = "mingraph_unet_tpu/ops/pallas/psconv.py"
@@ -115,7 +136,8 @@ def _wrappers():
     from mingraph_unet_tpu_torch.ops.kernels import histeq, pool, psconv
 
     return {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel,
-            "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad, "histeq": histeq.equalize_channel}
+            "d2s": pool.depth_to_space_kernel, "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad,
+            "histeq": histeq.equalize_channel}
 
 
 def _reset_counts() -> None:
@@ -203,7 +225,7 @@ def _kernel_cases(dev):
     return cases
 
 
-def _kernel_table(dev, launches):
+def _kernel_table(dev, launches, scene_launches):
     """Phases 2 and 4 for the kernels: compare with the plain version, time."""
     import torch
     import torch.nn.functional as F
@@ -258,6 +280,7 @@ def _kernel_table(dev, launches):
             "source": source,
             "replaces": replaces,
             "launches": launches[case["kind"]],
+            "launches_scene": scene_launches[case["kind"]],
             "shape": list(shape),
             "max_abs_err": err,
             "ms": ms,
@@ -316,8 +339,8 @@ def _main_path(dev):
     torch.cuda.synchronize()
     launches = _counts()
     print(f"[chip_smoke] main path launches: {launches}")
-    if launches != {"psel": 4, "dec1": 2, "pool": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1}:
-        _fail(f"expected psel 4, dec1 2, pool 2, histeq 1 and no K4 launches per forward, got {launches}")
+    if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1}:
+        _fail(f"expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4 launches per forward, got {launches}")
     expect = {"logits": (BATCH, SIZE, SIZE, 2), "pred_bboxes": (BATCH, 4), "pred_confidence": (BATCH, 1),
               "l_partition": (BATCH,), "soft_assignments": (BATCH, SIZE // 16, SIZE // 16, 2)}
     for k, shape in expect.items():
@@ -485,8 +508,8 @@ def _train_path(dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     print(f"[chip_smoke] train main path launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
-    if launches != {"psel": 0, "dec1": 0, "pool": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0}:
-        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3 or hist-eq, got {launches} "
+    if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0}:
+        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5 or hist-eq, got {launches} "
               f"over {n} steps")
     if not all(math.isfinite(v) for v in losses):
         _fail("a train step's loss is not finite")
@@ -759,7 +782,7 @@ def _luma_u8(imgs_u8):
     return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
 
 
-def _histeq_table(dev, launches, e2e_launches):
+def _histeq_table(dev, launches, e2e_launches, scene_launches):
     """Phase 7: K6 against its plain version bit for bit on four inputs,
     and timed at 512² b8. Its least work is one read and one write of the
     luma, one byte each per pixel."""
@@ -808,10 +831,195 @@ def _histeq_table(dev, launches, e2e_launches):
     return [{
         "name": "equalize_channel", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/histeq.cu",
         "replaces": f"{HISTEQ_SRC}:88", "launches": launches["histeq"], "launches_e2e": e2e_launches["histeq"],
+        "launches_scene": scene_launches["histeq"],
         "shape": list(orchard.shape), "max_abs_err": errs["orchard luma 512^2 b8"], "ms": ms, "device_ms": device_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None,
     }]
+
+
+def _d2s_table(dev, launches, scene_launches):
+    """Phase 2 for K5: bit-equal to its plain version on five inputs (the
+    three main-path shapes in bf16, one f32, one odd), then timed at the
+    main-path shapes. Its least work is one read and one write of the
+    tensor; the library call is the permuted view's ``.contiguous()``."""
+    import torch
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import pool
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda s, dt: torch.randn(s, generator=g, device=dev).to(dt)  # noqa: E731
+    sites = {  # name: (shape, launches of that site's run)
+        "serving L1": ((BATCH, SIZE // 4, SIZE // 4, 256), launches),
+        "scene L1": ((4, (TILE + 2 * HALO) // 4, (TILE + 2 * HALO) // 4, 256), scene_launches),
+        "scene L0": ((4, (TILE + 2 * HALO) // 2, (TILE + 2 * HALO) // 2, 128), scene_launches),
+    }
+    cases = {f"{k} bf16": rnd(shape, torch.bfloat16) for k, (shape, _) in sites.items()}
+    cases["scene L1 f32"] = rnd(sites["scene L1"][0], torch.float32)
+    cases["odd f32"] = rnd((3, 5, 7, 64), torch.float32)
+    errs = {}
+    for tag, y in cases.items():
+        got = pool.depth_to_space_kernel(y)
+        ref = s2d_ops.depth_to_space(y)
+        torch.cuda.synchronize()
+        ok = got.dtype == ref.dtype and torch.equal(got, ref)
+        err = errs[tag] = (got.float() - ref.float()).abs().max().item()
+        print(f"[chip_smoke] depth_to_space {tag} {tuple(y.shape)}: max_abs_err {err:.6g}, tolerance bit-equal: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"depth_to_space disagrees with its plain version on the {tag} input")
+    rows = []
+    for name, (shape, counts) in sites.items():
+        y = cases[f"{name} bf16"]
+        b, hh, ww, cc = y.shape
+        ms = _time_ms(lambda: pool.depth_to_space_kernel(y), KERNEL_ITERS)
+        plain_ms = _time_ms(lambda: s2d_ops.depth_to_space(y), KERNEL_ITERS)
+        library_ms = _time_ms(lambda: y.view(b, hh, ww, 2, 2, cc // 4).permute(0, 1, 3, 2, 4, 5).contiguous(),
+                              KERNEL_ITERS)
+        bound_ms = 2 * y.numel() * y.element_size() / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": f"depth_to_space {name}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/d2s.cu",
+            "replaces": f"{POOL_SRC}:168", "launches": counts["d2s"], "launches_serving": launches["d2s"],
+            "launches_scene": scene_launches["d2s"], "shape": list(shape), "max_abs_err": errs[f"{name} bf16"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        })
+        print(f"[chip_smoke] depth_to_space {name} {tuple(shape)}: {ms * 1e3:.1f} us/launch, plain "
+              f"{plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us (bytes)")
+    return rows
+
+
+def _check_decode(boxes, scores, valid, size: int) -> None:
+    """Valid boxes ordered, centred in the scene and no larger than it;
+    invalid slots zero."""
+    import torch
+
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    ok = ((x1 <= x2) & (y1 <= y2) & (cx >= 0) & (cx <= size) & (cy >= 0) & (cy <= size)
+          & (x2 - x1 <= size) & (y2 - y1 <= size) & (scores >= 0.5))
+    if not bool(torch.where(valid, ok, True).all()):
+        _fail("a valid decoded box is unordered, centred outside the scene or larger than it")
+    if bool(boxes[~valid].any()) or bool(scores[~valid].any()):
+        _fail("an invalid decoded slot holds a non-zero box or score")
+
+
+def _large_scene(dev):
+    """Phase 9: the 1024² large-scene forward with the dense head and its
+    decode on the card. Returns the launch counts, ms/scene, the host's
+    issue time and the peak memory."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models.detection import decode_dense_detections
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+    from mingraph_unet_tpu_torch.train.infer import pipeline_forward_large
+
+    model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, use_dense_detection=True, device=dev, seed=0)
+    _perturb_bn(model, seed=1)
+    scene = _images(1, SCENE, seed=12).to(dev)
+    patch = model.patch_size
+
+    def serve():
+        out = pipeline_forward_large(model, scene, tile=TILE, halo=HALO)
+        det = decode_dense_detections(out["dense_objectness_logits"], out["dense_boxes"], (SCENE, SCENE),
+                                      cell_size=patch, top_k=32, score_threshold=0.5, iou_threshold=0.5)
+        return out, det
+
+    _reset_counts()
+    out, (boxes, scores, valid) = serve()
+    count = valid.sum(-1)
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"[chip_smoke] large-scene launches: {launches}")
+    if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1}:
+        _fail(f"expected psel 4, dec1 2, pool 2, d2s 2, histeq 1 and no K4 launches per scene, got {launches}")
+    g = SCENE // patch
+    expect = {"logits": (1, SCENE, SCENE, 2), "pred_bboxes": (1, 4), "pred_confidence": (1, 1), "l_partition": (1,),
+              "soft_assignments": (1, g, g, 2), "dense_objectness_logits": (1, g, g), "dense_boxes": (1, g, g, 4)}
+    for k, shape in expect.items():
+        if tuple(out[k].shape) != shape:
+            _fail(f"{k}: shape {tuple(out[k].shape)}, expected {shape}")
+    bad = [k for k, v in out.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    if bad:
+        _fail(f"large-scene outputs not finite: {bad}")
+    _check_decode(boxes, scores, valid, SCENE)
+    plain = decode_dense_detections(out["dense_objectness_logits"].cpu(), out["dense_boxes"].cpu(), (SCENE, SCENE),
+                                    cell_size=patch, top_k=32, score_threshold=0.5, iou_threshold=0.5)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip((boxes, scores, valid), plain))
+    print(f"[chip_smoke] bf16 {SCENE}^2 scene: all outputs finite; {int(count[0])} of 32 detections valid; "
+          f"card decode equal to the CPU plain decode bit for bit: {'ok' if same else 'FAIL'}")
+    if not same:
+        _fail("the card's dense decode differs from the plain decode on the CPU")
+
+    sink = torch.zeros((), device=dev)
+
+    def step():
+        o, (bx, sc, va) = serve()
+        sink.add_(o["logits"].sum() + o["pred_confidence"].sum() + sc.sum() + va.sum())
+
+    for _ in range(SCENE_WARMUP):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(step, SCENE_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SCENE_ITERS):
+        step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / SCENE_ITERS
+    torch.cuda.synchronize()
+    mpix = SCENE * SCENE / 1e6
+    print(f"[chip_smoke] large scene bf16 {SCENE}^2 (tile {TILE}, halo {HALO}, dense head and decode): {ms:.3f} "
+          f"ms/scene, {mpix / ms * 1e3:.2f} megapixels/s, host issue time {host_ms:.3f} ms/scene, peak memory "
+          f"{peak:.2f} GiB")
+    _profile("large scene", step, ms, steps=3)
+    del model, scene, out
+    torch.cuda.empty_cache()
+    _large_scene_vs_cpu(dev)
+    return launches, ms, host_ms, peak
+
+
+def _large_scene_vs_cpu(dev) -> None:
+    """Phase 9, card vs CPU: the large-scene forward in f32 (TF32 off) at a
+    256² scene, tile 128, halo 32, full widths with the dense head and two
+    detection classes, on the card and on the CPU with the same weights."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+    from mingraph_unet_tpu_torch.train.infer import pipeline_forward_large
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(dtype=torch.float32, detection_pre_pool=32, use_dense_detection=True, num_detection_classes=2)
+    cpu = MinGraphUNet(device="cpu", seed=3, **cfg)
+    _perturb_bn(cpu, seed=4)
+    card = MinGraphUNet(device=dev, **cfg)
+    card.load_state_dict(cpu.state_dict())
+    scene = _images(1, 256, seed=SCENE_CPU_SEED)
+    t0 = time.perf_counter()
+    o_cpu = pipeline_forward_large(cpu, scene, tile=128, halo=32)
+    o_card = pipeline_forward_large(card, scene.to(dev), tile=128, halo=32)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = True
+    soft = o_cpu["soft_assignments"].topk(2, dim=-1).values
+    margin = soft[..., 0] - soft[..., 1]
+    decided = margin > CPU_TOL
+    labels_ok = torch.equal(o_card["hard_patch_labels"].cpu()[decided], o_cpu["hard_patch_labels"][decided])
+    print(f"[chip_smoke] large scene f32 card vs CPU, 256^2, tile 128, halo 32 ({time.perf_counter() - t0:.1f}s): "
+          f"hard labels equal on the {int(decided.sum())} of {decided.numel()} patches with a top-2 margin above "
+          f"{CPU_TOL}: {labels_ok}; min margin {margin.min().item():.3g}")
+    if not labels_ok:
+        _fail("card and CPU disagree on a hard patch label with a clear margin")
+    for k in ("logits", "pred_bboxes", "pred_confidence", "pred_class_scores", "dense_objectness_logits",
+              "dense_boxes", "soft_assignments"):
+        ref, got = o_cpu[k], o_card[k].cpu()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ok = err <= CPU_TOL * max(scale, 1e-6)
+        print(f"[chip_smoke]   {k}: max_abs_err {err:.3g}, tolerance {CPU_TOL} * max|cpu| = "
+              f"{CPU_TOL * scale:.3g}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"card and CPU disagree on the large-scene {k}")
 
 
 # The graph branch: modules whose gradients come only through the graph
@@ -866,8 +1074,8 @@ def _e2e_path(dev):
     launches = _counts()
     print(f"[chip_smoke] e2e launches over {n} steps: {launches}; last terms "
           f"{ {k: round(float(v), 4) for k, v in auxes[-1].items()} }")
-    if launches != {"psel": 0, "dec1": 0, "pool": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n}:
-        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, got {launches} "
+    if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n}:
+        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3 or K5, got {launches} "
               f"over {n} steps")
     if not _grads_finite(model):
         _fail("an end-to-end parameter has no gradient or a non-finite one")
@@ -1066,18 +1274,21 @@ def main() -> int:
     _profile("forward", lambda: model(x), fwd_ms)
     del model, x
     torch.cuda.empty_cache()
+    scene_launches, scene_ms, scene_host_ms, scene_peak = _large_scene(dev)
     train_launches, train_ms, train_host_ms, train_peak = _train_path(dev)
     _train_vs_cpu(dev)
     e2e_launches, e2e_ms, e2e_host_ms, e2e_peak = _e2e_path(dev)
     _e2e_vs_cpu(dev)
-    rows = (_kernel_table(dev, launches) + _k4_table(dev, train_launches, e2e_launches)
-            + _histeq_table(dev, launches, e2e_launches))
+    rows = (_kernel_table(dev, launches, scene_launches) + _d2s_table(dev, launches, scene_launches)
+            + _k4_table(dev, train_launches, e2e_launches) + _histeq_table(dev, launches, e2e_launches, scene_launches))
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "
           f"train_host_ms {train_host_ms:.4f} train_peak_gib {train_peak:.3f}")
     print(f"[chip_smoke] e2e_ms {e2e_ms:.4f} e2e_images_per_s {BATCH / e2e_ms * 1e3:.2f} "
           f"e2e_host_ms {e2e_host_ms:.4f} e2e_peak_gib {e2e_peak:.3f}")
+    print(f"[chip_smoke] scene_ms {scene_ms:.4f} scene_mpix_per_s {SCENE * SCENE / 1e6 / scene_ms * 1e3:.3f} "
+          f"scene_host_ms {scene_host_ms:.4f} scene_peak_gib {scene_peak:.3f}")
     print(card_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,14 +11,17 @@
   full-res input; conv1 of an s2d decoder level has the ConvTranspose folded
   into x_prev's taps. At inference conv2 of every s2d block is the
   phase-select conv kernel (K1), decoder conv1 the fused decoder-conv1
-  kernel (K2) and the encoder's pool the phase-max-pool kernel (K3); in
-  training conv2 is the raw conv kernel with its backward (K4), and conv1
-  and the pool are differentiable PyTorch (K1–K3 have no backward).
+  kernel (K2), the encoder's pool the phase-max-pool kernel (K3) and each
+  decoder output's turn to full resolution the depth-to-space kernel (K5,
+  :func:`decoder_d2s`; the skips and the logits keep the plain relayout, as
+  in JAX); in training conv2 is the raw conv kernel with its backward (K4),
+  and conv1, the pool and the relayouts are differentiable PyTorch (K1–K3
+  and K5 have no backward).
   A site takes its kernel where the kernel has an instantiation for its
   dtype and widths (``psel_fits``, ``dec_conv1_fits``,
-  ``phase_max_pool_fits``), decided from the shapes; every other site runs
-  the plain dense-s2d form. On a CPU tensor the wrappers run the plain
-  PyTorch versions.
+  ``phase_max_pool_fits``, ``depth_to_space_fits``), decided from the
+  shapes; every other site runs the plain form. On a CPU tensor the
+  wrappers run the plain PyTorch versions.
 - Deeper levels, the bottleneck and the final 1×1 conv use cuDNN through
   ``F.conv2d`` / ``F.conv_transpose2d``, as the JAX package leaves them to
   XLA.
@@ -40,7 +43,12 @@ from torch import nn
 from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc, conv_transpose2x2_nhwc
-from mingraph_unet_tpu_torch.ops.kernels.pool import phase_max_pool_fits, phase_max_pool_kernel
+from mingraph_unet_tpu_torch.ops.kernels.pool import (
+    depth_to_space_fits,
+    depth_to_space_kernel,
+    phase_max_pool_fits,
+    phase_max_pool_kernel,
+)
 from mingraph_unet_tpu_torch.ops.kernels.psconv import (
     dec_conv1_bias_table,
     dec_conv1_fits,
@@ -55,7 +63,7 @@ from mingraph_unet_tpu_torch.ops.kernels.psconv import (
     psel_fits,
 )
 
-__all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet"]
+__all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet", "decoder_d2s"]
 
 FusedUp = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x_prev, wt, bias_up)
 
@@ -147,6 +155,15 @@ class ConvBlock(nn.Module):
     def _bn_relu_s2d(x: torch.Tensor, bn: FoldableBatchNorm) -> torch.Tensor:
         b, hh, ww, z = x.shape
         return torch.relu(bn(x.reshape(b, hh, ww, 4, z // 4)).reshape(b, hh, ww, z))
+
+
+def decoder_d2s(f_s2d: torch.Tensor, training: bool) -> torch.Tensor:
+    """A decoder level's s2d output at full resolution: the depth-to-space
+    kernel (K5) at inference where it fits, the plain (differentiable)
+    relayout in training. Counterpart of JAX ``models/unet.py::_d2s``."""
+    if not training and depth_to_space_fits(f_s2d.dtype, f_s2d.shape[-1] // 4):
+        return depth_to_space_kernel(f_s2d)
+    return s2d_ops.depth_to_space(f_s2d)
 
 
 def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -251,7 +268,7 @@ class UNetDecoder(nn.Module):
             if i in skip_s2d and skip_hw[i] == (2 * x.shape[1], 2 * x.shape[2]):
                 f = block.forward_s2d(x, skip_s2d[i])
                 f_u_s2d[i] = f
-                x = s2d_ops.depth_to_space(f) if i > 0 else None
+                x = decoder_d2s(f, self.training) if i > 0 else None
             else:
                 skip = skips[i] if skips[i] is not None else s2d_ops.depth_to_space(skip_s2d[i])
                 x = block(x, skip)
@@ -298,5 +315,5 @@ class UNet(nn.Module):
         logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw)
         if full_res_outputs:
             skips = [s if s is not None else s2d_ops.depth_to_space(skip_s2d[i]) for i, s in enumerate(skips)]
-            f_u = [f if f is not None else s2d_ops.depth_to_space(f_u_s2d[i]) for i, f in enumerate(f_u)]
+            f_u = [f if f is not None else decoder_d2s(f_u_s2d[i], self.training) for i, f in enumerate(f_u)]
         return {"logits": logits, "skips": skips, "f_u": f_u, "skip_s2d": skip_s2d, "f_u_s2d": f_u_s2d}

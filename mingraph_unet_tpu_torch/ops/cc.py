@@ -16,6 +16,9 @@ linear index (``y·W + x``) of its pixels.
   largest components as (B, O, H, W) f32 masks and their areas. Equal areas
   keep JAX ``top_k``'s order, lowest index first: a stable descending sort
   replaces ``torch.topk``, which promises no order among ties.
+- :func:`component_count` and :func:`instance_boxes`: the number of
+  components of a label map, and the pixel bounding boxes of instance
+  masks (over the last two axes, any leading axes).
 
 None of these carries a gradient.
 """
@@ -28,7 +31,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["label_components", "label_components_stencil", "top_instances", "top_instances_dense"]
+__all__ = ["component_count", "instance_boxes", "label_components", "label_components_stencil", "top_instances",
+           "top_instances_dense"]
 
 
 def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -148,3 +152,31 @@ def top_instances_dense(labels: torch.Tensor, max_objects: int, min_area: int = 
     ids_k = torch.where(keep, ids_c.gather(1, pos), torch.full_like(pos, n, dtype=ids_c.dtype))
     masks = labels[:, None] == ids_k[:, :, None, None]
     return masks.float(), torch.where(keep, top_areas, torch.zeros_like(top_areas))
+
+
+@torch.no_grad()
+def component_count(labels: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) labels → (...) int32: the root pixels (label == own
+    linear index)."""
+    h, w = labels.shape[-2:]
+    idx = torch.arange(h * w, dtype=labels.dtype, device=labels.device).reshape(h, w)
+    return ((labels == idx) & (labels >= 0)).sum(dim=(-2, -1)).to(torch.int32)
+
+
+@torch.no_grad()
+def instance_boxes(masks: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) binary masks → (..., 4) f32 ``[x_min, y_min, x_max,
+    y_max]``, the maxima the last row and column holding the object; an
+    empty mask gives a zero box."""
+    h, w = masks.shape[-2:]
+    dev = masks.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    m = masks.bool()
+    big, neg = torch.tensor(1e9, device=dev), torch.tensor(-1.0, device=dev)
+    y_min = torch.where(m, ys, big).amin(dim=(-2, -1))
+    x_min = torch.where(m, xs, big).amin(dim=(-2, -1))
+    y_max = torch.where(m, ys, neg).amax(dim=(-2, -1))
+    x_max = torch.where(m, xs, neg).amax(dim=(-2, -1))
+    boxes = torch.stack([x_min, y_min, x_max, y_max], dim=-1)
+    return torch.where(m.flatten(-2).any(-1)[..., None], boxes, torch.zeros_like(boxes))

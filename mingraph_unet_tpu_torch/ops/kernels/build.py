@@ -42,7 +42,7 @@ __all__ = [
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("psel_conv", "dec_conv1", "phase_pool", "histeq")
+SOURCES = ("psel_conv", "dec_conv1", "phase_pool", "d2s", "histeq")
 _HEADERS = ("conv_tile.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,6 +56,7 @@ _SIGNATURES = {
     "psel_conv": ("mgu_psel_conv3x3", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
     "dec_conv1": ("mgu_dec_conv1", [_P] * 6 + [_I] * 7 + [_P]),
     "phase_pool": ("mgu_phase_max_pool", [_P, _P] + [_I] * 5 + [_P]),
+    "d2s": ("mgu_depth_to_space", [_P, _P] + [_I] * 4 + [_P]),
     "histeq": ("mgu_histeq", [_P, _P, _P, _I, _I, _P]),
 }
 

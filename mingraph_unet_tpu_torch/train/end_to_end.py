@@ -24,8 +24,9 @@ the graph terms' weights at 0, then all of them), step-indexed checkpoints
 with exact resume and JSONL metrics, as ``train/segmentation.py``. Entry
 points run on the CUDA card unless ``device="cpu"`` is passed. Not ported
 (they raise ``NotImplementedError``): COCO instance annotations (ROADMAP A5),
-the dense detection head and class scores (A3), the ablation switches
-(A2), more than one device.
+more than one device, and training a model with the dense detection head,
+class scores (A3) or an ablation switch off (A2): ``build_mingraph_unet``
+builds such a model for inference, ``make_e2e_train_step`` refuses it.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from mingraph_unet_tpu_torch.data.dataset import BatchLoader, MangoDataset, devi
 from mingraph_unet_tpu_torch.device import resolve_device
 from mingraph_unet_tpu_torch.models import losses
 from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+from mingraph_unet_tpu_torch.ops.cc import instance_boxes
 from mingraph_unet_tpu_torch.ops.image import draw_augment
 from mingraph_unet_tpu_torch.ops.patches import patch_reduce_mean
 from mingraph_unet_tpu_torch.train.common import TrainState, make_multistep, make_optimizer, run_epochs
@@ -70,12 +72,6 @@ def mingraph_unet_kwargs(cfg: PipelineConfig) -> Dict[str, Any]:
     m = cfg.model
     if cfg.dataset.annotations_file:
         raise NotImplementedError("COCO instance annotations are not ported yet (ROADMAP A5)")
-    if m.fusion_detection.use_dense_detection or cfg.dataset.num_detection_classes > 1:
-        raise NotImplementedError("the dense detection head and class scores (num_detection_classes > 1) "
-                                  "are not ported yet (ROADMAP A3)")
-    ab = m.ablation
-    if not (ab.use_patch_gat and ab.use_partition and ab.use_region_gat and ab.use_fusion):
-        raise NotImplementedError("the ablation switches are not ported yet (ROADMAP A2)")
     if not m.unet.use_batchnorm or m.unet.remat:
         raise NotImplementedError("the port's U-Net has BatchNorm and no rematerialization")
     return dict(
@@ -97,6 +93,12 @@ def mingraph_unet_kwargs(cfg: PipelineConfig) -> Dict[str, Any]:
         sigma_ncut=m.mincut.sigma_ncut,
         fc_hidden_dim=m.fusion_detection.fc_hidden_dim,
         detection_pre_pool=m.fusion_detection.detection_pre_pool,
+        num_detection_classes=cfg.dataset.num_detection_classes,
+        use_dense_detection=m.fusion_detection.use_dense_detection,
+        use_patch_gat=m.ablation.use_patch_gat,
+        use_partition=m.ablation.use_partition,
+        use_region_gat=m.ablation.use_region_gat,
+        use_fusion=m.ablation.use_fusion,
         in_channels=m.unet.in_channels,
         seed=cfg.training.seed,
     )
@@ -122,13 +124,7 @@ def gt_union_box(masks: torch.Tensor, foreground_class: int = 1) -> Tuple[torch.
     has-object flag."""
     b, h, w = masks.shape
     fg = masks == foreground_class
-    ys = torch.arange(h, dtype=torch.float32, device=masks.device)[None, :, None]
-    xs = torch.arange(w, dtype=torch.float32, device=masks.device)[None, None, :]
-    big, neg = torch.tensor(1e9, device=masks.device), torch.tensor(-1.0, device=masks.device)
-    y_min = torch.where(fg, ys, big).amin(dim=(1, 2))
-    x_min = torch.where(fg, xs, big).amin(dim=(1, 2))
-    y_max = torch.where(fg, ys, neg).amax(dim=(1, 2))
-    x_max = torch.where(fg, xs, neg).amax(dim=(1, 2))
+    x_min, y_min, x_max, y_max = instance_boxes(fg).unbind(-1)
     has = fg.any(dim=2).any(dim=1)
     box = torch.stack([(x_min + x_max + 1.0) / 2.0 / w, (y_min + y_max + 1.0) / 2.0 / h,
                        (x_max - x_min + 1.0) / w, (y_max - y_min + 1.0) / h], dim=-1)
@@ -151,6 +147,11 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
     max_instances = cfg.model.fusion_detection.max_instances
     exact_instancing = cfg.training.instancing == "exact"
     balance = cfg.training.loss_balance == "uncertainty"
+    if model.use_dense_detection or model.num_detection_classes > 1:
+        raise NotImplementedError("training the dense detection head or class scores (num_detection_classes > 1) "
+                                  "is not ported yet (ROADMAP A3)")
+    if not (model.use_patch_gat and model.use_partition and model.use_region_gat and model.use_fusion):
+        raise NotImplementedError("training with an ablation switch off is not ported yet (ROADMAP A2)")
     if balance and not isinstance(getattr(model, "loss_balance", None), LossBalance):
         raise ValueError("loss_balance 'uncertainty' needs the model's LossBalance (build_mingraph_unet adds it)")
 

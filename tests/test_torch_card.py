@@ -8,8 +8,9 @@ machine that has only PyTorch:
 Tolerances are relative to max |plain|: f32 1e-4 (another summation order;
 TF32 is off on both sides), bf16 1e-2 (the kernel rounds its f32 sum once
 to bf16, the plain version rounds the cuDNN conv and then the bias add).
-The pool selects one of its inputs and hist-eq is integer-valued: both
-must be bit-equal. The training
+The pool selects one of its inputs, depth-to-space is a permutation and
+hist-eq is integer-valued: all three must be bit-equal, as must the dense
+decode on the card against the CPU. The training
 conv's kernel gradient is PyTorch on both sides and is held to the same
 tolerances.
 """
@@ -247,3 +248,53 @@ def test_card_histeq_refuses_what_it_does_not_take(cuda_device):
         t_histeq.equalize_channel(torch.zeros(40, dtype=torch.uint8, device=cuda_device)[1:33].view(2, 4, 4))
     with pytest.raises(ValueError, match="pixels per image"):
         t_histeq.equalize_channel(torch.zeros((1, 4097, 4096), dtype=torch.uint8, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 128, 128, 256), torch.bfloat16),   # the serving level-1 handoff
+    ((4, 320, 320, 128), torch.bfloat16),   # the large scene's f_u[0]
+    ((2, 9, 7, 256), torch.float32),
+    ((3, 5, 7, 64), torch.float32),
+    ((1, 1, 3, 32), torch.bfloat16),        # one 16-byte vector per phase group
+])
+def test_card_d2s_bit_equal(cuda_device, shape, dtype):
+    """K5 against its plain version: a permutation, bit for bit."""
+    y = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda_device, dtype)
+    before = t_pool.depth_to_space_kernel.launches
+    got = t_pool.depth_to_space_kernel(y)
+    torch.cuda.synchronize()
+    assert t_pool.depth_to_space_kernel.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    torch.testing.assert_close(got, t_s2d.depth_to_space(y), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_card_d2s_rejects_what_it_cannot_take(cuda_device):
+    with pytest.raises(ValueError, match="16-byte"):
+        t_pool.depth_to_space_kernel(torch.zeros((1, 2, 2, 16), device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        t_pool.depth_to_space_kernel(torch.zeros((1, 2, 2, 64), device=cuda_device, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_pool.depth_to_space_kernel(torch.zeros((1, 2, 4, 64), device=cuda_device).transpose(1, 2))
+    with pytest.raises(ValueError, match="no backward"):
+        t_pool.depth_to_space_kernel(torch.zeros((1, 2, 2, 64), device=cuda_device, requires_grad=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("equal_scores", [False, True])
+def test_card_dense_decode_equals_cpu(cuda_device, equal_scores):
+    """decode_dense_detections on the card equals the plain decode on the
+    CPU over the same raw outputs, bit for bit (the sigmoid is taken in
+    f64 and rounded once)."""
+    from mingraph_unet_tpu_torch.models.detection import decode_dense_detections
+
+    g = torch.Generator().manual_seed(8)
+    logits = torch.zeros((2, 64, 64)) if equal_scores else torch.randn((2, 64, 64), generator=g) * 3
+    boxes = torch.rand((2, 64, 64, 4), generator=g)
+    cpu = decode_dense_detections(logits, boxes, (1024, 1024), 16, top_k=32)
+    card = decode_dense_detections(logits.to(cuda_device), boxes.to(cuda_device), (1024, 1024), 16, top_k=32)
+    torch.cuda.synchronize()
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert cpu[2].any()

@@ -76,10 +76,14 @@ def test_convert_loads_a_jax_e2e_train_state():
     (lambda c: setattr(c.preprocessing, "sobel_kernel_size", 5), "Sobel"),
 ])
 def test_build_refuses_what_is_not_ported(change, match):
+    """COCO instances and other Sobel sizes stop the build; the dense head,
+    class scores and the ablation switches build a model for inference,
+    whose end-to-end train step is refused."""
     cfg = _small_cfg(False)
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
-        t_e2e.build_mingraph_unet(cfg, device="cpu")
+        model = t_e2e.build_mingraph_unet(cfg, device="cpu")
+        t_e2e.make_e2e_train_step(model, torch.optim.SGD(model.parameters(), lr=0.1), cfg)
 
 
 def test_build_follows_the_config():

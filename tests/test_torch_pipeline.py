@@ -25,7 +25,7 @@ from mingraph_unet_tpu.models.pipeline import MinGraphUNet as JaxMinGraphUNet
 from mingraph_unet_tpu_torch.config import PipelineConfig
 from mingraph_unet_tpu_torch.convert import load_jax_variables
 from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
-from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet
+from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
 
 B, H = 2, 64
 CONFIG = dict(init_features=32, depth=2, detection_pre_pool=H // 16)
@@ -121,9 +121,9 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked():
 
 
 def test_unported_paths_raise():
-    """The reference-exact (non-pooled) detection path runs now; a config
-    that asks for the dense head, class scores or an ablation switch still
-    raises."""
+    """The reference-exact (non-pooled) detection path runs; a config that
+    asks for the dense head, class scores or an ablation switch builds its
+    model for inference, and the end-to-end train step refuses it."""
     model = MinGraphUNet(device="cpu", init_features=8, depth=2, detection_pre_pool=None)
     out = model(torch.zeros(1, 32, 32, 3), full_res_outputs=True)
     assert out["fused"].shape == (1, 32, 32, 8 + 64) and torch.isfinite(out["pred_bboxes"]).all()
@@ -136,5 +136,10 @@ def test_unported_paths_raise():
         cfg = PipelineConfig()
         cfg.model.unet.init_features, cfg.model.unet.depth = 8, 2
         setattr(cfg.dataset if section is None else getattr(cfg.model, section), key, value)
+        model = build_mingraph_unet(cfg, device="cpu")
+        assert getattr(model, key) == value
+        out = model.eval()(torch.zeros(1, 32, 32, 3))
+        assert torch.isfinite(out["pred_bboxes"]).all()
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
         with pytest.raises(NotImplementedError, match=match):
-            build_mingraph_unet(cfg, device="cpu")
+            make_e2e_train_step(model, opt, cfg)
