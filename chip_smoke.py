@@ -72,6 +72,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    scores, the card's f32 outputs (TF32 off) must agree with the same port
    and weights on the CPU within ``CPU_TOL`` of max |CPU|, and the hard
    patch labels wherever the top two soft assignments differ by more.
+10. Hold the windowed s2d conv (K7) at the eight s2d conv sites of the
+   serving U-Net, with the activations one serving forward gives them and
+   their BN-folded weights: enc0 conv1 (s2d of the image, 3 → 32), enc0
+   conv2, enc1 conv1 (s2d of the pool output, 32 → 64), enc1 conv2, the
+   decoder conv1s over [skip ‖ s2d(upsample)] (groups (64, 64) → 64 and
+   (32, 32) → 32) and their conv2s. Kernel vs plain within ``CONV_TOL``
+   (bf16) and ``F32_TOL`` (f32), whole output and borders; at the conv2
+   sites against K1 within ``CONV_TOL``; odd shapes (Cin 5, groups (2, 4),
+   Cin 3, odd W/2, H/2 not a multiple of the tile) in both dtypes. Timed
+   beside its plain version, the dense-s2d ``F.conv2d`` and the op the
+   serving forward runs at the site (K1, K2 or the windowed cuDNN conv).
+   The serving forward, the scene and both trainers launch K7 and K8 never.
+11. Hold the fused ConvBlock (K8) at the five standard-layout ConvBlocks of
+   the same forward (enc block2, enc block3, bottleneck, dec block0, dec
+   block1) with each block's conv kernels and ``fold_bn`` of its BN: kernel
+   vs plain (f32 cuDNN, TF32 off) within ``CONV_TOL``, against the block's
+   own bf16 ``ConvBlock.forward`` within ``BLOCK_TOL``, f32 odd shapes
+   (Cin 1 and 3, every b1 > 0 in three, every tile size) within
+   ``F32_TOL``; timed beside its plain version and, as context, the block's
+   two bf16 cuDNN convs.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -95,10 +115,13 @@ CPU_TOL = 1e-3       # card f32 vs CPU f32 (forward at batch 1) and vs CPU f64 (
 F32_TOL = 1e-4       # an f32 kernel vs its plain version, TF32 off, of max |plain|
 DK_TOL = 5e-4        # K4's kernel gradient of bf16 inputs vs plain f32 on the same values, of max |plain|;
 #                      a result rounded to bf16 is off by up to 2^-9 (2e-3) of an entry
+BLOCK_TOL = 2e-2     # K8 (f32 inside) vs the model's bf16 ConvBlock.forward, of max |block|: the block
+#                      rounds its folded weights, conv1's sum, h and conv2's sum to bf16 (2^-9 each)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_SIMT_FLOPS = 67e12
 FORWARD_ITERS, KERNEL_ITERS = 20, 20
+K8_ITERS = 3         # K8 is SIMT f32: ~406 GFLOP over its five sites
 TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
 E2E_WARMUP, E2E_ITERS = 3, 5
 SCENE_WARMUP, SCENE_ITERS = 2, 10
@@ -108,6 +131,8 @@ LR, WEIGHT_DECAY = 1e-3, 1e-4
 PSCONV_SRC = "mingraph_unet_tpu/ops/pallas/psconv.py"
 POOL_SRC = "mingraph_unet_tpu/ops/pallas/pool.py"
 HISTEQ_SRC = "mingraph_unet_tpu/ops/pallas/histeq.py"
+WCONV_SRC = "mingraph_unet_tpu/ops/pallas/wconv.py"
+CONV_BLOCK_SRC = "mingraph_unet_tpu/ops/pallas/conv_block.py"
 
 
 def _fail(msg: str) -> None:
@@ -133,11 +158,11 @@ def _time_ms(fn, iters: int) -> float:
 def _wrappers():
     """Every kernel wrapper of the port, by the name its launch count goes
     under."""
-    from mingraph_unet_tpu_torch.ops.kernels import histeq, pool, psconv
+    from mingraph_unet_tpu_torch.ops.kernels import conv_block, histeq, pool, psconv, wconv
 
     return {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel,
             "d2s": pool.depth_to_space_kernel, "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad,
-            "histeq": histeq.equalize_channel}
+            "histeq": histeq.equalize_channel, "wconv": wconv.wconv3x3_s2d, "conv_block": conv_block.fused_conv_block}
 
 
 def _reset_counts() -> None:
@@ -156,7 +181,7 @@ def _edge(t):
     return torch.cat([e.flatten() for e in (t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1])]).float()
 
 
-def _check_close(name: str, got, ref, tol: float, border: bool = True) -> float:
+def _check_close(name: str, got, ref, tol: float, border: bool = True, what: str = "its plain version") -> float:
     """``got`` within ``tol`` of max |ref| over the whole tensor and, with
     ``border``, again over its border rows and columns against their own
     scale; fatal otherwise. Returns the max abs error."""
@@ -173,7 +198,7 @@ def _check_close(name: str, got, ref, tol: float, border: bool = True) -> float:
         msg += f"; border {b_err:.6g} vs {tol * b_scale:.4g}"
     print(f"[chip_smoke] {name}: {msg}: {'ok' if ok else 'FAIL'}")
     if not ok:
-        _fail(f"{name} disagrees with its plain version")
+        _fail(f"{name} disagrees with {what}")
     return err
 
 
@@ -323,6 +348,18 @@ def _perturb_bn(model, seed: int) -> None:
             buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
 
 
+def _serving_model(dev):
+    """The serving configuration with seeded weights, perturbed BN running
+    statistics, and its seeded batch of images."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+
+    model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, device=dev, seed=0)
+    _perturb_bn(model, seed=1)
+    return model, _images(BATCH, SIZE, seed=2).to(dev)
+
+
 def _main_path(dev):
     """Phase 3: the serving forward through the kernels, then batch-1 card
     vs CPU. Returns (model, images, launch counts)."""
@@ -330,17 +367,17 @@ def _main_path(dev):
 
     from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
 
-    model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, device=dev, seed=0)
-    _perturb_bn(model, seed=1)
-    x = _images(BATCH, SIZE, seed=2).to(dev)
+    model, x = _serving_model(dev)
 
     _reset_counts()
     out = model(x)
     torch.cuda.synchronize()
     launches = _counts()
     print(f"[chip_smoke] main path launches: {launches}")
-    if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1}:
-        _fail(f"expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4 launches per forward, got {launches}")
+    if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
+                    "wconv": 0, "conv_block": 0}:
+        _fail(f"expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4, K7 or K8 launches per forward, got "
+              f"{launches}")
     expect = {"logits": (BATCH, SIZE, SIZE, 2), "pred_bboxes": (BATCH, 4), "pred_confidence": (BATCH, 1),
               "l_partition": (BATCH,), "soft_assignments": (BATCH, SIZE // 16, SIZE // 16, 2)}
     for k, shape in expect.items():
@@ -508,9 +545,10 @@ def _train_path(dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     print(f"[chip_smoke] train main path launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
-    if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0}:
-        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5 or hist-eq, got {launches} "
-              f"over {n} steps")
+    if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0,
+                    "wconv": 0, "conv_block": 0}:
+        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5, K7, K8 or hist-eq, "
+              f"got {launches} over {n} steps")
     if not all(math.isfinite(v) for v in losses):
         _fail("a train step's loss is not finite")
     if not _grads_finite(model):
@@ -889,6 +927,236 @@ def _d2s_table(dev, launches, scene_launches):
     return rows
 
 
+def _capture_sites(model, x):
+    """One serving forward of ``model`` on ``x`` that records what each U-Net
+    conv site is given: every s2d ConvBlock (its input and, at a decoder
+    level, the x_prev, ConvTranspose matmul and bias it folds in) with the
+    input of its conv2 (K1's arguments), and the input of every
+    standard-layout ConvBlock. Returns (s2d sites, standard sites) as
+    (name, block, tensors) in call order."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models import unet as unet_mod
+
+    s2d_calls, psel_calls, std_calls = [], [], []
+    real_s2d, real_psel = unet_mod.ConvBlock.forward_s2d, unet_mod.psel_conv3x3
+
+    def forward_s2d(block, inp, fused_up=None):
+        s2d_calls.append((block, inp, fused_up))
+        return real_s2d(block, inp, fused_up)
+
+    def psel(inp, k, b):
+        psel_calls.append((inp, k, b))
+        return real_psel(inp, k, b)
+
+    hooks = [m.register_forward_pre_hook(lambda mod, args: std_calls.append((mod, args[0])))
+             for m in model.unet.modules() if isinstance(m, unet_mod.ConvBlock)]
+    unet_mod.ConvBlock.forward_s2d, unet_mod.psel_conv3x3 = forward_s2d, psel
+    try:
+        with torch.no_grad():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        unet_mod.ConvBlock.forward_s2d, unet_mod.psel_conv3x3 = real_s2d, real_psel
+        for h in hooks:
+            h.remove()
+    if len(s2d_calls) != 4 or len(psel_calls) != 4 or len(std_calls) != 5:
+        _fail(f"site capture: {len(s2d_calls)} s2d blocks, {len(psel_calls)} psel calls and {len(std_calls)} "
+              f"standard blocks, expected 4, 4 and 5")
+    s2d_sites = [(name, *call, psel_calls[i])
+                 for i, (name, call) in enumerate(zip(("enc0", "enc1", "dec-L1", "dec-L0"), s2d_calls))]
+    std_sites = [(name, *call) for name, call in zip(
+        ("enc block2", "enc block3", "bottleneck", "dec block0", "dec block1"), std_calls)]
+    return s2d_sites, std_sites
+
+
+def _wconv_sites(s2d_sites):
+    """K7's eight sites: (name, x_s2d, full-res kernel, bias, groups,
+    what the serving forward runs there as a zero-argument function)."""
+    import torch
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    sites = []
+    for name, block, inp, fused_up, (x2, k2, b2) in s2d_sites:
+        dt = block.dtype
+        k1, b1 = block.folded(1)
+        if fused_up is None:
+            x1, groups = s2d_ops.space_to_depth(inp.to(dt)), ()
+            kw = s2d_ops.windowed_down_kernel(k1)
+            full = inp.to(dt)
+            model_fn = (lambda full=full, kw=kw, b1=b1: torch.relu(
+                s2d_ops.conv3x3_windowed_down(full, kw) + s2d_ops.s2d_vector(b1).to(full.dtype)))
+        else:
+            x_prev, wt, bias_up = fused_up
+            x_prev = x_prev.to(dt)
+            skip_c = inp.shape[-1] // 4
+            up = x_prev @ wt.to(dt) + s2d_ops.s2d_vector(bias_up).to(dt)  # the s2d ConvTranspose output
+            x1, groups = torch.cat([inp.to(dt), up], dim=-1), (skip_c, k1.shape[2] - skip_c)
+            k_skip, k_prev = psconv.dec_conv1_weights(k1, skip_c, wt)
+            t9 = psconv.dec_conv1_bias_table(k1, skip_c, bias_up, b1)
+            skip = inp.to(dt)
+            model_fn = (lambda skip=skip, x_prev=x_prev, k_skip=k_skip, k_prev=k_prev, t9=t9:
+                        psconv.dec_conv1_fused(skip, x_prev, k_skip, k_prev, t9))
+        sites.append((f"{name} conv1", x1.contiguous(), k1, b1, groups, model_fn))
+        sites.append((f"{name} conv2", x2, k2, b2, (), lambda x2=x2, k2=k2, b2=b2: psconv.psel_conv3x3(x2, k2, b2)))
+    return sites
+
+
+def _wconv_table(dev, s2d_sites, launches, scene_launches):
+    """Phase 10: K7 at the eight s2d conv sites of the serving U-Net, on
+    their captured bf16 activations and BN-folded weights, against its plain
+    version (bf16 within CONV_TOL, and f32 within F32_TOL) and, at the four
+    conv2 sites, against K1 (the same function) within CONV_TOL; f32 and
+    bf16 at odd shapes; then timed beside its plain version, the library's
+    one call (``F.conv2d`` with the dense s2d kernel, no bias or ReLU), what
+    the serving forward runs at the site (K1, K2 or the windowed cuDNN
+    conv) and, as context, the same conv at full resolution in cuDNN. Bound: x and y once in bf16 (and the bf16 weights) at
+    3.35 TB/s against the conv's useful 2·9·Cin·Cout operations per
+    full-res pixel at 989 bf16 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv, wconv
+
+    rows = []
+    with torch.no_grad():
+        for name, x1, k, bias, groups, model_fn in _wconv_sites(s2d_sites):
+            b, hh, ww, c4 = x1.shape
+            cin, cout = k.shape[2], k.shape[3]
+            w2 = wconv.wconv3x3_weights(k)
+            tag = f"wconv3x3_s2d {name} {tuple(x1.shape)} {cin}->{cout}{f' groups {groups}' if groups else ''}"
+            got = wconv.wconv3x3_s2d(x1, w2, bias, groups)
+            ref = wconv.wconv3x3_s2d_plain(x1.float(), w2.to(x1.dtype), bias, groups)
+            torch.cuda.synchronize()
+            err = _check_close(f"{tag} bf16", got, ref, CONV_TOL)
+            _check_close(f"{tag} f32", wconv.wconv3x3_s2d(x1.float(), w2, bias, groups),
+                         wconv.wconv3x3_s2d_plain(x1.float(), w2, bias, groups), F32_TOL)
+            if name.endswith("conv2"):
+                _check_close(f"{tag} vs K1", got, psconv.psel_conv3x3(x1, k, bias), CONV_TOL, what="K1")
+            ms = _time_ms(lambda: wconv.wconv3x3_s2d(x1, w2, bias, groups), KERNEL_ITERS)
+            plain_ms = _time_ms(lambda: wconv.wconv3x3_s2d_plain(x1, w2, bias, groups), KERNEL_ITERS)
+            wd = s2d_ops.s2d_conv3x3_kernel(k, groups).to(x1.dtype).permute(3, 2, 0, 1).contiguous()
+            xn = x1.permute(0, 3, 1, 2)
+            library_ms = _time_ms(lambda: F.conv2d(xn, wd, padding=1), KERNEL_ITERS)
+            model_ms = _time_ms(model_fn, KERNEL_ITERS)
+            # The same conv at full resolution (each group's s2d part turned
+            # back and concatenated): what a U-Net without the s2d lowering
+            # would run at this site.
+            offs = [0]
+            for gw in groups or (cin,):
+                offs.append(offs[-1] + 4 * gw)
+            xf = torch.cat([s2d_ops.depth_to_space(x1[..., a:b_]) for a, b_ in zip(offs, offs[1:])], -1)
+            xf = xf.contiguous().permute(0, 3, 1, 2)
+            wf = k.to(x1.dtype).permute(3, 2, 0, 1).contiguous()
+            fullres_ms = _time_ms(lambda: F.conv2d(xf, wf, padding=1), KERNEL_ITERS)
+            t_bytes = (x1.numel() * 2 + b * hh * ww * 4 * cout * 2 + w2.numel() * 2 + cout * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * b * (2 * hh) * (2 * ww) * 9 * cin * cout / BF16_TENSOR_FLOPS * 1e3
+            path = "mma" if wconv.wconv_uses_mma(x1.dtype, groups or (cin,), cout) else "simt"
+            rows.append({
+                "name": f"wconv3x3_s2d {name}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/wconv.cu",
+                "replaces": f"{WCONV_SRC}:122", "launches": launches["wconv"],
+                "launches_scene": scene_launches["wconv"], "shape": list(x1.shape), "groups": list(groups),
+                "cout": cout, "path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "serving_site_ms": model_ms, "fullres_cudnn_ms": fullres_ms,
+            })
+            print(f"[chip_smoke] wconv3x3_s2d {name} ({path}): {ms * 1e3:.1f} us/launch, "
+                  f"plain {plain_ms * 1e3:.1f} us, "
+                  f"library (dense s2d F.conv2d) {library_ms * 1e3:.1f} us, serving forward's op here "
+                  f"{model_ms * 1e3:.1f} us, full-res cuDNN conv {fullres_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")
+
+        # Odd shapes: Cin 5, groups (2, 4), the RGB input's Cin 3, odd W/2,
+        # H/2 not a multiple of the 4-row tile, a tensor-core grouped case.
+        g = torch.Generator(device=dev).manual_seed(17)
+        for b, hh, ww, cin, cout, groups in ((1, 5, 7, 5, 4, ()), (2, 9, 8, 6, 4, (2, 4)), (2, 7, 9, 3, 32, ()),
+                                             (1, 6, 21, 64, 32, (32, 32))):
+            x = torch.randn((b, hh, ww, 4 * cin), generator=g, device=dev)
+            k = torch.randn((3, 3, cin, cout), generator=g, device=dev) * (1.0 / (9 * cin)) ** 0.5
+            bias = torch.randn(cout, generator=g, device=dev)
+            w2 = wconv.wconv3x3_weights(k)
+            for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, CONV_TOL)):
+                xd = x.to(dt)
+                _check_close(f"wconv3x3_s2d odd {tuple(x.shape)} {cin}->{cout} groups {groups} {dt}",
+                             wconv.wconv3x3_s2d(xd, w2, bias, groups),
+                             wconv.wconv3x3_s2d_plain(xd.float(), w2.to(dt), bias, groups), tol)
+    return rows
+
+
+def _conv_block_table(dev, std_sites, launches, scene_launches):
+    """Phase 11: K8 at the five standard-layout ConvBlocks of the serving
+    U-Net, on their captured bf16 inputs, with each block's own conv kernels
+    and ``fold_bn`` of its conv biases and BN: against its plain version
+    (f32 cuDNN, TF32 off) within CONV_TOL, and against the block's own
+    ``ConvBlock.forward`` (bf16 folded weights, bf16 h, cuDNN) within
+    BLOCK_TOL; f32 at small odd shapes within F32_TOL (Cin 1 and 3, every
+    b1 > 0 in two of them, every tile size); then timed (few launches: it
+    is ~406 GFLOP over the five sites in f32) beside its plain version and,
+    as context, the block's two cuDNN convs. Bound: x and y once, f32
+    weights, against 2·9·(Cin·C + C·C) operations per pixel at the f32
+    FMA rate (67 TFLOP/s): the function is f32 inside."""
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import conv_block as cb
+
+    rows = []
+    with torch.no_grad():
+        for name, block, x in std_sites:
+            args = []
+            for conv, bn in ((block.conv1, block.bn1), (block.conv2, block.bn2)):
+                s, b = cb.fold_bn(conv.bias, bn.scale, bn.bias, bn.mean, bn.var, bn.epsilon)
+                args += [conv.kernel, s, b]
+            bn_, h, w, cin = x.shape
+            c = block.conv1.kernel.shape[-1]
+            tag = f"fused_conv_block {name} {tuple(x.shape)} {cin}->{c}"
+            got = cb.fused_conv_block(x, *args)
+            torch.backends.cudnn.allow_tf32 = False
+            ref = cb.fused_conv_block_plain(x.float(), *args)
+            torch.cuda.synchronize()
+            err = _check_close(f"{tag} bf16", got, ref, CONV_TOL)
+            plain_ms = _time_ms(lambda: cb.fused_conv_block_plain(x, *args), K8_ITERS)
+            torch.backends.cudnn.allow_tf32 = True
+            _check_close(f"{tag} vs the block's ConvBlock.forward", got, block(x), BLOCK_TOL, what="ConvBlock.forward")
+            ms = _time_ms(lambda: cb.fused_conv_block(x, *args), K8_ITERS)
+            pair_ms = _time_ms(lambda: block(x), KERNEL_ITERS)
+            flops = 2 * bn_ * h * w * 9 * (cin * c + c * c)
+            t_bytes = (x.numel() * 2 + bn_ * h * w * c * 2 + 9 * (cin * c + c * c) * 4 + 4 * c * 4) / HBM_BYTES_PER_S
+            t_bytes *= 1e3
+            t_ops = flops / F32_SIMT_FLOPS * 1e3
+            rows.append({
+                "name": f"fused_conv_block {name}", "route": "cuda",
+                "source": "mingraph_unet_tpu_torch/csrc/conv_block.cu", "replaces": f"{CONV_BLOCK_SRC}:135",
+                "launches": launches["conv_block"], "launches_scene": scene_launches["conv_block"],
+                "shape": list(x.shape), "cout": c, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "context_cudnn_pair_bf16_ms": pair_ms,
+            })
+            print(f"[chip_smoke] fused_conv_block {name}: {ms * 1e3:.1f} us/launch ({flops / ms / 1e9:.1f} "
+                  f"f32 TFLOP/s), plain (f32 cuDNN, TF32 off) {plain_ms * 1e3:.1f} us, library -, context: the "
+                  f"block's two bf16 cuDNN convs {pair_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
+                  f"({rows[-1]['bound_by']})")
+
+        g = torch.Generator(device=dev).manual_seed(19)
+        torch.backends.cudnn.allow_tf32 = False
+        for b, h, w, cin, c, positive_b1 in ((1, 9, 7, 1, 8, True), (2, 13, 11, 3, 32, True),
+                                             (1, 11, 19, 16, 64, False), (1, 10, 6, 64, 128, True),
+                                             (1, 5, 9, 96, 256, False), (1, 6, 5, 256, 512, False)):
+            x = torch.randn((b, h, w, cin), generator=g, device=dev)
+            w1 = torch.randn((3, 3, cin, c), generator=g, device=dev) * (2.0 / (9 * cin)) ** 0.5
+            w2 = torch.randn((3, 3, c, c), generator=g, device=dev) * (2.0 / (9 * c)) ** 0.5
+            s1, s2 = torch.rand(c, generator=g, device=dev) + 0.5, torch.rand(c, generator=g, device=dev) + 0.5
+            b1 = (torch.rand(c, generator=g, device=dev) + 0.5 if positive_b1
+                  else torch.randn(c, generator=g, device=dev) * 0.1)
+            b2 = torch.randn(c, generator=g, device=dev) * 0.1
+            _check_close(f"fused_conv_block odd f32 {tuple(x.shape)} {cin}->{c}{' b1 > 0' if positive_b1 else ''}",
+                         cb.fused_conv_block(x, w1, s1, b1, w2, s2, b2),
+                         cb.fused_conv_block_plain(x, w1, s1, b1, w2, s2, b2), F32_TOL)
+        torch.backends.cudnn.allow_tf32 = True
+    return rows
+
+
 def _check_decode(boxes, scores, valid, size: int) -> None:
     """Valid boxes ordered, centred in the scene and no larger than it;
     invalid slots zero."""
@@ -931,8 +1199,10 @@ def _large_scene(dev):
     torch.cuda.synchronize()
     launches = _counts()
     print(f"[chip_smoke] large-scene launches: {launches}")
-    if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1}:
-        _fail(f"expected psel 4, dec1 2, pool 2, d2s 2, histeq 1 and no K4 launches per scene, got {launches}")
+    if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
+                    "wconv": 0, "conv_block": 0}:
+        _fail(f"expected psel 4, dec1 2, pool 2, d2s 2, histeq 1 and no K4, K7 or K8 launches per scene, "
+              f"got {launches}")
     g = SCENE // patch
     expect = {"logits": (1, SCENE, SCENE, 2), "pred_bboxes": (1, 4), "pred_confidence": (1, 1), "l_partition": (1,),
               "soft_assignments": (1, g, g, 2), "dense_objectness_logits": (1, g, g), "dense_boxes": (1, g, g, 4)}
@@ -1074,9 +1344,10 @@ def _e2e_path(dev):
     launches = _counts()
     print(f"[chip_smoke] e2e launches over {n} steps: {launches}; last terms "
           f"{ {k: round(float(v), 4) for k, v in auxes[-1].items()} }")
-    if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n}:
-        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3 or K5, got {launches} "
-              f"over {n} steps")
+    if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n,
+                    "wconv": 0, "conv_block": 0}:
+        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, K5, K7 or K8, "
+              f"got {launches} over {n} steps")
     if not _grads_finite(model):
         _fail("an end-to-end parameter has no gradient or a non-finite one")
     # The step gives a leaf the total does not reach a zero gradient (as
@@ -1281,6 +1552,11 @@ def main() -> int:
     _e2e_vs_cpu(dev)
     rows = (_kernel_table(dev, launches, scene_launches) + _d2s_table(dev, launches, scene_launches)
             + _k4_table(dev, train_launches, e2e_launches) + _histeq_table(dev, launches, e2e_launches, scene_launches))
+    # K7 and K8 on the serving forward's own conv-site inputs, captured last
+    # so that no other phase's peak memory holds them.
+    s2d_sites, std_sites = _capture_sites(*_serving_model(dev))
+    rows += (_wconv_table(dev, s2d_sites, launches, scene_launches)
+             + _conv_block_table(dev, std_sites, launches, scene_launches))
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "

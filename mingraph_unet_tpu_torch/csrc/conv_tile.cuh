@@ -336,8 +336,10 @@ __global__ void __launch_bounds__(THREADS) conv_f32_kernel(ConvArgs a) {
   }
 }
 
-template <typename Kern>
-int launch(Kern kern, const ConvArgs& a, size_t smem_bytes, cudaStream_t stream) {
+// Launch `kern` over the TH x TW tiles of the (b, hh, ww) s2d grid of `a`
+// (ConvArgs here, wconv.cu's own arguments there).
+template <typename Kern, typename Args>
+int launch(Kern kern, const Args& a, size_t smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_bytes));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((a.ww + TW - 1) / TW, (a.hh + TH - 1) / TH, a.b);

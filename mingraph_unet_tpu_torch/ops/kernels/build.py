@@ -42,7 +42,7 @@ __all__ = [
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("psel_conv", "dec_conv1", "phase_pool", "d2s", "histeq")
+SOURCES = ("psel_conv", "dec_conv1", "phase_pool", "d2s", "histeq", "wconv", "conv_block")
 _HEADERS = ("conv_tile.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "phase_pool": ("mgu_phase_max_pool", [_P, _P] + [_I] * 5 + [_P]),
     "d2s": ("mgu_depth_to_space", [_P, _P] + [_I] * 4 + [_P]),
     "histeq": ("mgu_histeq", [_P, _P, _P, _I, _I, _P]),
+    "wconv": ("mgu_wconv3x3", [_P] * 4 + [_I] * 14 + [_P]),
+    "conv_block": ("mgu_conv_block", [_P] * 8 + [_I] * 8 + [_P]),
 }
 
 _lock = threading.Lock()

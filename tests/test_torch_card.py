@@ -20,9 +20,11 @@ import pytest
 import torch
 
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
+from mingraph_unet_tpu_torch.ops.kernels import conv_block as t_cb
 from mingraph_unet_tpu_torch.ops.kernels import histeq as t_histeq
 from mingraph_unet_tpu_torch.ops.kernels import pool as t_pool
 from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
+from mingraph_unet_tpu_torch.ops.kernels import wconv as t_wconv
 
 
 def _t(a):
@@ -298,3 +300,98 @@ def test_card_dense_decode_equals_cpu(cuda_device, equal_scores):
     for a, b in zip(card, cpu):
         assert torch.equal(a.cpu(), b)
     assert cpu[2].any()
+
+
+# (B, Hh, Ww, Cin, Cout, groups) for K7: tensor-core widths (one group, the
+# decoder's two), the RGB input (Cin 3), Cin 5, groups (2, 4), odd Ww and an
+# Hh that is not a multiple of the 4-row tile.
+WCONV_CARD_CASES = [(2, 8, 16, 32, 32, ()), (1, 6, 20, 128, 64, (64, 64)), (1, 5, 18, 32, 16, (16, 16)),
+                    (2, 7, 5, 3, 32, ()), (1, 5, 7, 5, 4, ()), (2, 9, 8, 6, 4, (2, 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WCONV_CARD_CASES)
+def test_card_wconv_matches_plain(cuda_device, case, dtype, relu):
+    """K7 against its plain version in f32 on the same input values."""
+    b, hh, ww, cin, cout, groups = case
+    g = torch.Generator().manual_seed(hh * ww + cin)
+    x = torch.randn((b, hh, ww, 4 * cin), generator=g).to(cuda_device, dtype)
+    k = torch.randn((3, 3, cin, cout), generator=g) * (1.0 / (9 * cin)) ** 0.5
+    w2 = t_wconv.wconv3x3_weights(k).to(cuda_device)
+    bias = torch.randn(cout, generator=g).to(cuda_device)
+    before = t_wconv.wconv3x3_s2d.launches
+    got = t_wconv.wconv3x3_s2d(x, w2, bias, groups=groups, relu=relu)
+    torch.cuda.synchronize()
+    assert t_wconv.wconv3x3_s2d.launches == before + 1 and got.dtype == dtype
+    ref = t_wconv.wconv3x3_s2d_plain(x.float(), w2.to(dtype), bias, groups, relu)
+    _assert_close_rel(got.float().cpu(), ref.cpu(), CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_card_wconv_refuses_what_it_does_not_take(cuda_device):
+    w2, bias = torch.zeros((16 * 32, 4 * 32)), torch.zeros(32)
+    x = torch.zeros((1, 4, 4, 128), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        t_wconv.wconv3x3_s2d(x.half(), w2, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_wconv.wconv3x3_s2d(torch.zeros((1, 4, 8, 128), device=cuda_device).transpose(1, 2)[:, :4], w2, bias)
+    with pytest.raises(ValueError, match="aligned"):
+        misaligned = torch.zeros(2049, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 4, 4, 128)
+        t_wconv.wconv3x3_s2d(misaligned, w2, bias)
+    with pytest.raises(ValueError, match="groups"):
+        t_wconv.wconv3x3_s2d(x, w2, bias, groups=(8, 8, 8, 4, 4))
+    with pytest.raises(ValueError, match="no backward"):
+        t_wconv.wconv3x3_s2d(x.float().requires_grad_(), w2, bias)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_wconv.wconv3x3_s2d(torch.zeros((1, 2, 2, 800), device=cuda_device), torch.zeros((3200, 16)), torch.zeros(4))
+
+
+# (B, H, W, Cin, C, every b1 > 0) for K8: Cin 1 and 3 (rows that are not
+# 16-byte multiples), odd H and W, every tile size (C up to 32, 64, 128,
+# 256, 512), and all-positive b1, so an h border left at relu(b1) shows.
+CONV_BLOCK_CARD_CASES = [(1, 8, 8, 1, 1, False), (2, 9, 13, 3, 32, True), (1, 7, 5, 3, 8, True),
+                         (1, 11, 19, 16, 64, False), (1, 6, 10, 64, 128, True), (1, 5, 7, 128, 256, False),
+                         (2, 4, 6, 256, 512, True), (1, 3, 3, 40, 24, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_BLOCK_CARD_CASES)
+def test_card_conv_block_matches_plain(cuda_device, case, dtype):
+    """K8 against its plain version (cuDNN in f32, TF32 off) on the same
+    input values."""
+    b, h, w, cin, c, positive_b1 = case
+    g = torch.Generator().manual_seed(h * w + c)
+    x = torch.randn((b, h, w, cin), generator=g).to(cuda_device, dtype)
+    w1 = torch.randn((3, 3, cin, c), generator=g) * (2.0 / (9 * cin)) ** 0.5
+    w2 = torch.randn((3, 3, c, c), generator=g) * (2.0 / (9 * c)) ** 0.5
+    s1, s2 = torch.rand(c, generator=g) + 0.5, torch.rand(c, generator=g) + 0.5
+    b1 = torch.rand(c, generator=g) + 0.5 if positive_b1 else torch.randn(c, generator=g) * 0.1
+    b2 = torch.randn(c, generator=g) * 0.1
+    args = [t.to(cuda_device) for t in (w1, s1, b1, w2, s2, b2)]
+    before = t_cb.fused_conv_block.launches
+    got = t_cb.fused_conv_block(x, *args)
+    torch.cuda.synchronize()
+    assert t_cb.fused_conv_block.launches == before + 1 and got.dtype == dtype
+    ref = t_cb.fused_conv_block_plain(x.float(), *args)
+    _assert_close_rel(got.float().cpu(), ref.cpu(), CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_card_conv_block_refuses_what_it_does_not_take(cuda_device):
+    def args(cin, c):
+        v = torch.ones(c, device=cuda_device)
+        w1, w2 = torch.zeros((3, 3, cin, c), device=cuda_device), torch.zeros((3, 3, c, c), device=cuda_device)
+        return w1, v, v, w2, v, v
+
+    x = torch.zeros((1, 4, 4, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        t_cb.fused_conv_block(x.half(), *args(8, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_cb.fused_conv_block(torch.zeros((1, 4, 8, 8), device=cuda_device).transpose(1, 2)[:, :4], *args(8, 8))
+    with pytest.raises(ValueError, match="no tile"):
+        t_cb.fused_conv_block(x, *args(8, 520))
+    with pytest.raises(ValueError, match="no backward"):
+        t_cb.fused_conv_block(x.clone().requires_grad_(), *args(8, 8))

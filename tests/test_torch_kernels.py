@@ -22,8 +22,10 @@ from mingraph_unet_tpu.ops import s2d as jax_s2d
 from mingraph_unet_tpu.ops.pallas import pool as jax_pool
 from mingraph_unet_tpu.ops.pallas import psconv as jax_psconv
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
+from mingraph_unet_tpu_torch.ops.kernels import conv_block as t_cb
 from mingraph_unet_tpu_torch.ops.kernels import pool as t_pool
 from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
+from mingraph_unet_tpu_torch.ops.kernels import wconv as t_wconv
 
 REL_TOL = 2e-4
 
@@ -144,16 +146,22 @@ def test_mma_b_fragments_layout():
 
 
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():
-    before = (t_psconv.psel_conv3x3.launches, t_psconv.dec_conv1_fused.launches,
-              t_pool.phase_max_pool_kernel.launches)
+    counters = (t_psconv.psel_conv3x3, t_psconv.dec_conv1_fused, t_pool.phase_max_pool_kernel,
+                t_wconv.wconv3x3_s2d, t_cb.fused_conv_block)
+    before = [f.launches for f in counters]
     x, k, bias = _psel_case((1, 4, 4, 16, 16))
     y = t_psconv.psel_conv3x3(_t(x), _t(k), _t(bias))
     torch.testing.assert_close(y, t_psconv.psel_conv3x3_plain(_t(x), _t(k), _t(bias)), rtol=0, atol=0)
     t_pool.phase_max_pool_kernel(y)
     t_psconv.dec_conv1_fused(*_t_dec1_args(*_dec1_case((1, 4, 4, 16, 32))))
-    after = (t_psconv.psel_conv3x3.launches, t_psconv.dec_conv1_fused.launches,
-             t_pool.phase_max_pool_kernel.launches)
-    assert after == before
+    w2 = t_wconv.wconv3x3_weights(_t(k))
+    torch.testing.assert_close(t_wconv.wconv3x3_s2d(_t(x), w2, _t(bias)),
+                               t_wconv.wconv3x3_s2d_plain(_t(x), w2, _t(bias)), rtol=0, atol=0)
+    xf, s = _t(x[..., :16]), torch.ones(16)
+    torch.testing.assert_close(t_cb.fused_conv_block(xf, _t(k), s, _t(bias), _t(k), s, _t(bias)),
+                               t_cb.fused_conv_block_plain(xf, _t(k), s, _t(bias), _t(k), s, _t(bias)),
+                               rtol=0, atol=0)
+    assert [f.launches for f in counters] == before
 
 
 def test_non_cpu_tensor_never_runs_the_plain_version():
@@ -168,3 +176,8 @@ def test_non_cpu_tensor_never_runs_the_plain_version():
     with pytest.raises(ValueError, match="CUDA tensor"):
         t_psconv.dec_conv1_fused(x, torch.empty((1, 4, 4, 32), device="meta"), k,
                                  torch.zeros((3, 3, 32, 64)), torch.zeros((3, 3, 64)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_wconv.wconv3x3_s2d(x, torch.zeros((256, 64)), torch.zeros(16))
+    v = torch.zeros(16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_cb.fused_conv_block(x, torch.zeros((3, 3, 64, 16)), v, v, k, v, v)
