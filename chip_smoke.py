@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, large-scene serving, segmentation-training
-and end-to-end training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, large-scene serving, segmentation-training,
+end-to-end training and torch.distributed paths on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -89,9 +90,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
    block1) with each block's conv kernels and ``fold_bn`` of its BN: kernel
    vs plain (f32 cuDNN, TF32 off) within ``CONV_TOL``, against the block's
    own bf16 ``ConvBlock.forward`` within ``BLOCK_TOL``, f32 odd shapes
-   (Cin 1 and 3, every b1 > 0 in three, every tile size) within
-   ``F32_TOL``; timed beside its plain version and, as context, the block's
-   two bf16 cuDNN convs.
+   (Cin 1 and 3, every b1 > 0 in three, every tile size, and C 1024 and
+   600 in 512-channel tiles) within ``F32_TOL``; timed beside its plain
+   version and, as context, the block's two bf16 cuDNN convs. K7's odd
+   shapes include five groups (tensor cores and SIMT), f32 Cin 256 and a
+   bf16 Cin 512 halo staged in two chunks.
+12. K9 (``psel_conv3x3_halo``) and K2's sharded entry (``dec_conv1_halo``)
+   on H-shards in one process: the serving forward's captured L0 (8, 256,
+   256, 128) and L1 (8, 128, 128, 256) conv2 inputs and both decoder conv1
+   sites, cut into 4 equal and 4 uneven shards, each given its neighbours'
+   rows by hand. Stitched, they must equal K1 and K2 on the whole tensor
+   bit for bit, in bf16 and f32, and the plain versions within
+   ``CONV_TOL`` / ``F32_TOL``. One inner shard is timed beside its bound,
+   the plain version, the JAX form (concat + K1 + slice) and the library's
+   dense-s2d ``F.conv2d`` on the extended shard.
+13. The torch.distributed paths over NCCL in a group of one rank (the card
+   machine has one card): ``spatial_sharded_apply`` of the serving U-Net
+   at 512² b8 bf16 against the unsharded forward within ``CONV_TOL`` of
+   max |logits|, bit-equal to K1 / K2 at each K9 / sharded-K2 site on the
+   inputs it got, launching K9 4, sharded K2 2, pool 2, d2s 1 and K1, K2
+   never; one data-parallel segmentation step and one e2e step (bf16 512²
+   b8) against the one-card steps within 1e-3 of each loss, gradient and
+   BN statistic, launching K4 4 + 4 (and hist-eq 1) as before. Each step
+   is then timed against the one-card step and against itself with its
+   NCCL calls made no-ops (24 steps a side in chunks of 3, interleaved,
+   median chunk), both are profiled (the kernels and host ops the
+   data-parallel step adds are printed), the host and card time of one
+   all-reduce and of the flat gradient all-reduce are timed, and a
+   collective issued behind a long kernel shows whether it holds the host. Every earlier path launches K9 and sharded K2 never.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -125,6 +151,8 @@ K8_ITERS = 3         # K8 is SIMT f32: ~406 GFLOP over its five sites
 TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
 E2E_WARMUP, E2E_ITERS = 3, 5
 SCENE_WARMUP, SCENE_ITERS = 2, 10
+DP_ROUNDS, DP_STEPS, DP_PROFILE_STEPS, DP_TOP = 4, 3, 3, 8   # phase 13: data-parallel vs one-card steps
+SPIN_CYCLES = 100_000_000   # ~50 ms of card clock: phase 13's test of whether a collective holds the host
 SCENE_CPU_SEED = 13
 LR, WEIGHT_DECAY = 1e-3, 1e-4
 
@@ -162,7 +190,8 @@ def _wrappers():
 
     return {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel,
             "d2s": pool.depth_to_space_kernel, "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad,
-            "histeq": histeq.equalize_channel, "wconv": wconv.wconv3x3_s2d, "conv_block": conv_block.fused_conv_block}
+            "histeq": histeq.equalize_channel, "wconv": wconv.wconv3x3_s2d, "conv_block": conv_block.fused_conv_block,
+            "k9": psconv.psel_conv3x3_halo, "dec1_halo": psconv.dec_conv1_halo}
 
 
 def _reset_counts() -> None:
@@ -375,8 +404,9 @@ def _main_path(dev):
     launches = _counts()
     print(f"[chip_smoke] main path launches: {launches}")
     if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
-                    "wconv": 0, "conv_block": 0}:
-        _fail(f"expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4, K7 or K8 launches per forward, got "
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+        _fail(f"expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4, K7, K8, K9 or sharded K2 launches "
+              f"per forward, got "
               f"{launches}")
     expect = {"logits": (BATCH, SIZE, SIZE, 2), "pred_bboxes": (BATCH, 4), "pred_confidence": (BATCH, 1),
               "l_partition": (BATCH,), "soft_assignments": (BATCH, SIZE // 16, SIZE // 16, 2)}
@@ -446,9 +476,38 @@ def _forward_time(model, x):
     return ms
 
 
-def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15) -> None:
+def _device_ms(label: str, fn, iters: int = 10) -> float:
+    """Device time per call of ``fn``: the summed time of every CUDA kernel
+    it launches (torch.profiler), over ``iters`` calls after a warm-up,
+    printed with its kernels. Where a call is short, the CUDA-event time of
+    ``_time_ms`` is the host's time to issue it; this is the card's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    # The profiler may miss a launch of the window (it records 9 of 10 at
+    # times), so each kernel counts its mean time per recorded launch times
+    # its launches per call, rounded.
+    kernels = [(e.key, e.self_device_time_total / e.count, max(1, round(e.count / iters)))
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+    kernels.sort(key=lambda k: k[1] * k[2], reverse=True)
+    ms = sum(t * n for _, t, n in kernels) / 1e3
+    print(f"[chip_smoke]   device time per call of {label}: {ms * 1e3:.1f} us: " + "; ".join(
+        f"{key[:60]} {t:.1f} us x{n}" for key, t, n in kernels[:4]))
+    return ms
+
+
+def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15):
     """Device time by kernel over ``steps`` calls of ``step`` with
-    torch.profiler, and the busy share of the unprofiled step."""
+    torch.profiler, and the busy share of the unprofiled step. Returns
+    ``{kernel: (ms, launches)}`` and ``{host op: (self ms, calls)}`` per
+    step (the host ops' self time on every thread, under the profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -468,6 +527,9 @@ def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15) ->
     for e in kernels[:top]:
         print(f"[chip_smoke]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
               f"{e.count / steps:5.1f}/step  {e.key[:100]}")
+    host = {e.key: (e.self_cpu_time_total / 1e3 / steps, e.count / steps) for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0}
+    return {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps) for e in kernels}, host
 
 
 def _train_cfg(size: int, bf16: bool, optimizer: str = "adam"):
@@ -546,8 +608,9 @@ def _train_path(dev):
     losses = [float(v) for v in losses]
     print(f"[chip_smoke] train main path launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
     if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0,
-                    "wconv": 0, "conv_block": 0}:
-        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5, K7, K8 or hist-eq, "
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5, K7-K9, sharded K2 "
+              f"or hist-eq, "
               f"got {launches} over {n} steps")
     if not all(math.isfinite(v) for v in losses):
         _fail("a train step's loss is not finite")
@@ -941,9 +1004,9 @@ def _capture_sites(model, x):
     s2d_calls, psel_calls, std_calls = [], [], []
     real_s2d, real_psel = unet_mod.ConvBlock.forward_s2d, unet_mod.psel_conv3x3
 
-    def forward_s2d(block, inp, fused_up=None):
+    def forward_s2d(block, inp, fused_up=None, spatial=None):
         s2d_calls.append((block, inp, fused_up))
-        return real_s2d(block, inp, fused_up)
+        return real_s2d(block, inp, fused_up, spatial)
 
     def psel(inp, k, b):
         psel_calls.append((inp, k, b))
@@ -1072,7 +1135,9 @@ def _wconv_table(dev, s2d_sites, launches, scene_launches):
         # H/2 not a multiple of the 4-row tile, a tensor-core grouped case.
         g = torch.Generator(device=dev).manual_seed(17)
         for b, hh, ww, cin, cout, groups in ((1, 5, 7, 5, 4, ()), (2, 9, 8, 6, 4, (2, 4)), (2, 7, 9, 3, 32, ()),
-                                             (1, 6, 21, 64, 32, (32, 32))):
+                                             (1, 6, 21, 64, 32, (32, 32)), (1, 5, 9, 80, 32, (16,) * 5),
+                                             (1, 5, 9, 20, 8, (2, 3, 4, 5, 6)), (1, 4, 6, 256, 64, (128, 128)),
+                                             (1, 4, 17, 512, 64, (256, 256))):
             x = torch.randn((b, hh, ww, 4 * cin), generator=g, device=dev)
             k = torch.randn((3, 3, cin, cout), generator=g, device=dev) * (1.0 / (9 * cin)) ** 0.5
             bias = torch.randn(cout, generator=g, device=dev)
@@ -1142,7 +1207,8 @@ def _conv_block_table(dev, std_sites, launches, scene_launches):
         torch.backends.cudnn.allow_tf32 = False
         for b, h, w, cin, c, positive_b1 in ((1, 9, 7, 1, 8, True), (2, 13, 11, 3, 32, True),
                                              (1, 11, 19, 16, 64, False), (1, 10, 6, 64, 128, True),
-                                             (1, 5, 9, 96, 256, False), (1, 6, 5, 256, 512, False)):
+                                             (1, 5, 9, 96, 256, False), (1, 6, 5, 256, 512, False),
+                                             (1, 4, 6, 512, 1024, False), (2, 5, 3, 40, 600, True)):
             x = torch.randn((b, h, w, cin), generator=g, device=dev)
             w1 = torch.randn((3, 3, cin, c), generator=g, device=dev) * (2.0 / (9 * cin)) ** 0.5
             w2 = torch.randn((3, 3, c, c), generator=g, device=dev) * (2.0 / (9 * c)) ** 0.5
@@ -1200,8 +1266,9 @@ def _large_scene(dev):
     launches = _counts()
     print(f"[chip_smoke] large-scene launches: {launches}")
     if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
-                    "wconv": 0, "conv_block": 0}:
-        _fail(f"expected psel 4, dec1 2, pool 2, d2s 2, histeq 1 and no K4, K7 or K8 launches per scene, "
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+        _fail(f"expected psel 4, dec1 2, pool 2, d2s 2, histeq 1 and no K4, K7, K8, K9 or sharded K2 launches "
+              f"per scene, "
               f"got {launches}")
     g = SCENE // patch
     expect = {"logits": (1, SCENE, SCENE, 2), "pred_bboxes": (1, 4), "pred_confidence": (1, 1), "l_partition": (1,),
@@ -1345,8 +1412,9 @@ def _e2e_path(dev):
     print(f"[chip_smoke] e2e launches over {n} steps: {launches}; last terms "
           f"{ {k: round(float(v), 4) for k, v in auxes[-1].items()} }")
     if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n,
-                    "wconv": 0, "conv_block": 0}:
-        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, K5, K7 or K8, "
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, K5, K7-K9 or "
+              f"sharded K2, "
               f"got {launches} over {n} steps")
     if not _grads_finite(model):
         _fail("an end-to-end parameter has no gradient or a non-finite one")
@@ -1512,6 +1580,446 @@ def _e2e_vs_cpu(dev) -> None:
           f"limits: ok")
 
 
+def _shard_views(t, cuts):
+    """(shard, top row, bottom row, first row) of each H-shard of ``t``
+    between ``cuts``: the halo exchange done by hand in one process, None
+    at the global borders."""
+    h = t.shape[1]
+    return [(t[:, a:e].contiguous(), t[:, a - 1 : a].contiguous() if a > 0 else None,
+             t[:, e : e + 1].contiguous() if e < h else None, a) for a, e in zip(cuts[:-1], cuts[1:])]
+
+
+def _shard_cuts(h):
+    """Four equal H-shards, and four uneven ones (1 row, then heights that
+    are not multiples of the kernel's 4-row tile)."""
+    return [i * h // 4 for i in range(5)], [0, 1, h // 4 + 1, h // 2 + 3, h]
+
+
+def _k9_table(dev, s2d_sites, launches):
+    """Phase 12: K9 and K2's sharded entry on H-shards, in one process. The
+    serving forward's L0 and L1 conv2 inputs (bf16 and f32) are cut into 4
+    equal and 4 uneven shards, each given its neighbours' rows: the stitched
+    K9 shards must equal K1 on the whole tensor bit for bit, and K1's plain
+    version within CONV_TOL (F32_TOL in f32); the same for K2's sharded
+    entry at both decoder conv1 sites against unsharded K2. One inner shard
+    is timed beside the JAX form (concat + K1 + slice), the plain version,
+    the library's call (dense-s2d ``F.conv2d`` on the extended shard) and
+    its bound: the shard and its two halo rows read, its rows written,
+    at 3.35 TB/s, against 2·9·C² operations a full-res pixel at 989 bf16
+    TFLOP/s (PERF.md's K9 row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    sites = {name: (block, inp, fused_up, conv2) for name, block, inp, fused_up, conv2 in s2d_sites}
+    rows = []
+    torch.backends.cudnn.allow_tf32 = False  # the f32 plain versions are cuDNN convs
+    with torch.no_grad():
+        for level, (enc, dec) in enumerate((("enc0", "dec-L0"), ("enc1", "dec-L1"))):
+            x2, k2, b2 = sites[enc][3]
+            hh = x2.shape[1]
+            for dt, tol in ((torch.bfloat16, CONV_TOL), (torch.float32, F32_TOL)):
+                x = x2.to(dt)
+                whole = psconv.psel_conv3x3(x, k2, b2)
+                for cuts in _shard_cuts(hh):
+                    got = torch.cat([psconv.psel_conv3x3_halo(xs, top, bot, k2, b2)
+                                     for xs, top, bot, _ in _shard_views(x, cuts)], dim=1)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, whole):
+                        _fail(f"sharded_psconv L{level} {dt} shards {cuts}: not bit-equal to K1 on the whole tensor "
+                              f"(max diff {(got.float() - whole.float()).abs().max().item():.3g})")
+                err = _check_close(f"sharded_psconv L{level} {dt} stitched {tuple(x.shape)}", got,
+                                   psconv.psel_conv3x3_plain(x.float(), k2, b2), tol)
+                if dt == torch.bfloat16:
+                    err_bf16 = err
+            print(f"[chip_smoke] sharded_psconv L{level}: 4 equal and 4 uneven shards bit-equal to K1 (bf16, f32)")
+
+            xs, top, bot, _ = _shard_views(x2, _shard_cuts(hh)[0])[1]
+            ext = psconv.extend_rows(xs, top, bot)
+            ms = _time_ms(lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2), KERNEL_ITERS)
+            plain_ms = _time_ms(lambda: psconv.psel_conv3x3_halo_plain(xs, top, bot, k2, b2), KERNEL_ITERS)
+            jax_ms = _time_ms(lambda: psconv.psel_conv3x3(psconv.extend_rows(xs, top, bot), k2, b2)[:, 1:-1],
+                              KERNEL_ITERS)
+            wd = s2d_ops.s2d_conv3x3_kernel(k2).to(xs.dtype).permute(3, 2, 0, 1).contiguous()
+            extn = ext.permute(0, 3, 1, 2)
+            library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=1), KERNEL_ITERS)
+            dev_ms = {k: _device_ms(f"{k} L{level} shard", f) for k, f in (
+                ("k9", lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2)),
+                ("jax", lambda: psconv.psel_conv3x3(psconv.extend_rows(xs, top, bot), k2, b2)[:, 1:-1]),
+                ("library", lambda: F.conv2d(extn, wd, padding=1)))}
+            b, h, w, z = xs.shape
+            c = z // 4
+            t_bytes = (ext.numel() * 2 + xs.numel() * 2 + k2.numel() * 2 + c * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * b * (2 * h) * (2 * w) * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
+            rows.append({
+                "name": f"sharded_psconv L{level}", "route": "cuda",
+                "source": "mingraph_unet_tpu_torch/csrc/psel_conv.cu",
+                "replaces": "mingraph_unet_tpu/parallel/halo.py:84", "launches": launches["k9"],
+                "shape": list(xs.shape), "shards": 4, "max_abs_err": err_bf16, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "jax_form_ms": jax_ms, "device_ms": dev_ms["k9"],
+                "jax_form_device_ms": dev_ms["jax"], "library_device_ms": dev_ms["library"],
+            })
+            print(f"[chip_smoke] sharded_psconv L{level} one inner shard {tuple(xs.shape)}: {ms * 1e3:.1f} us/launch, "
+                  f"JAX form (concat + K1 + slice) {jax_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
+                  f"(dense-s2d F.conv2d on the extended shard) {library_ms * 1e3:.1f} us, bound "
+                  f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}); device time per call (profiler): "
+                  f"K9 {dev_ms['k9'] * 1e3:.1f} us, JAX form {dev_ms['jax'] * 1e3:.1f} us, library "
+                  f"{dev_ms['library'] * 1e3:.1f} us")
+
+            block, inp, (x_prev, wt, bias_up), _ = sites[dec]
+            k1, b1 = block.folded(1)
+            skip_c = inp.shape[-1] // 4
+            k_skip, k_prev = psconv.dec_conv1_weights(k1, skip_c, wt)
+            t9 = psconv.dec_conv1_bias_table(k1, skip_c, bias_up, b1)
+            for dt, tol in ((torch.bfloat16, CONV_TOL), (torch.float32, F32_TOL)):
+                skip, prev = inp.to(dt).contiguous(), x_prev.to(dt).contiguous()
+                whole = psconv.dec_conv1_fused(skip, prev, k_skip, k_prev, t9)
+                for cuts in _shard_cuts(hh):
+                    got = torch.cat([psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, hh)
+                                     for (s, st, sb, row0), (p, pt, pb, _) in zip(_shard_views(skip, cuts),
+                                                                                   _shard_views(prev, cuts))], dim=1)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, whole):
+                        _fail(f"dec_conv1_halo {dec} {dt} shards {cuts}: not bit-equal to unsharded K2 (max diff "
+                              f"{(got.float() - whole.float()).abs().max().item():.3g})")
+                err = _check_close(f"dec_conv1_halo {dec} {dt} stitched {tuple(skip.shape)}", got,
+                                   psconv.dec_conv1_fused_plain(skip.float(), prev.float(), k_skip, k_prev, t9), tol)
+                if dt == torch.bfloat16:
+                    err_bf16 = err
+            print(f"[chip_smoke] dec_conv1_halo {dec}: 4 equal and 4 uneven shards bit-equal to K2 (bf16, f32)")
+            skip, prev = inp.contiguous(), x_prev.to(inp.dtype).contiguous()
+            (s, st, sb, row0), (p, pt, pb, _) = (_shard_views(skip, _shard_cuts(hh)[0])[1],
+                                                 _shard_views(prev, _shard_cuts(hh)[0])[1])
+            ms = _time_ms(lambda: psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, hh),
+                          KERNEL_ITERS)
+            plain_ms = _time_ms(lambda: psconv.dec_conv1_halo_plain(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0,
+                                                                    hh), KERNEL_ITERS)
+            dev_ms = _device_ms(f"dec_conv1_halo {dec} shard",
+                                lambda: psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, hh))
+            b, h, w, z = s.shape
+            c, cp = z // 4, p.shape[-1]
+            t_bytes = ((s.numel() + p.numel()) * (h + 2) // h * 2 + s.numel() * 2
+                       + (k_skip.numel() + k_prev.numel()) * 2 + t9.numel() * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = (2 * b * h * w * cp * 4 * c + 2 * b * (2 * h) * (2 * w) * 9 * (2 * c) * c) / BF16_TENSOR_FLOPS * 1e3
+            rows.append({
+                "name": f"dec_conv1_halo {dec}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/dec_conv1.cu",
+                "replaces": f"{PSCONV_SRC}:599", "launches": launches["dec1_halo"], "shape": list(s.shape),
+                "shards": 4, "max_abs_err": err_bf16, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, "device_ms": dev_ms,
+            })
+            print(f"[chip_smoke] dec_conv1_halo {dec} one inner shard {tuple(s.shape)}: {ms * 1e3:.1f} us/launch, "
+                  f"plain {plain_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}); "
+                  f"device time per call (profiler) {dev_ms * 1e3:.1f} us")
+    torch.backends.cudnn.allow_tf32 = True
+    return rows
+
+
+def _leaf_check(label, got, ref, tol, exact_zero) -> None:
+    """Every gradient and BN statistic of ``got`` within ``tol`` of the
+    leaf's largest value in ``ref``; a gradient zero in exact arithmetic
+    within ``tol`` of the model's largest gradient. Fatal otherwise."""
+    top = max(v.abs().max().item() for (kind, _), v in ref.items() if kind == "grad")
+    worst = (0.0, None)
+    for key, r in ref.items():
+        kind, name = key
+        scale = top if kind == "grad" and exact_zero(name) else r.abs().max().item()
+        rel = (got[key] - r).abs().max().item() / max(scale, 1e-30)
+        if not rel <= tol:
+            _fail(f"{label}: {kind} {name} differs by {rel:.3g} of its scale (tolerance {tol})")
+        worst = max(worst, (rel, name), key=lambda t: t[0])
+    print(f"[chip_smoke] {label}: all {len(ref)} gradients and BN statistics within {tol} of their scale "
+          f"(largest {worst[0]:.3g}, {worst[1]})")
+
+
+def _step_ms(step, steps: int):
+    """(ms/step by CUDA events, host issue ms/step) over ``steps`` calls of
+    ``step`` after one warm-up call."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        step()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, host_ms
+
+
+def _dp_vs_one_card(kind: str, one, dp, params, mesh) -> None:
+    """Phase 13's cost of the data-parallel step at one rank. The one-card
+    step, the data-parallel step, and the data-parallel step with its NCCL
+    calls made no-ops or issued as ``async_op`` + ``wait()`` are timed in
+    DP_ROUNDS rounds of that order and its reverse (DP_STEPS steps a
+    chunk), with the caching allocator's device allocations, frees,
+    retries and syncs; the first two are then profiled,
+    printing the kernels and host ops the data-parallel step adds, largest
+    first. The collectives' own host cost is then timed
+    without the profiler: one BN-sized all-reduce (the step makes two per
+    train-mode BN and one of its metrics) and the flat gradient all-reduce
+    over ``params``, which the step makes once."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from mingraph_unet_tpu_torch.parallel.data import all_reduce_gradients
+
+    real = dist.all_reduce
+
+    def with_all_reduce(form):
+        def run():
+            dist.all_reduce = form
+            try:
+                return dp()
+            finally:
+                dist.all_reduce = real
+        return run
+
+    # At one rank an all-reduce is the identity: the no-op side does all of
+    # the data-parallel step's work but its NCCL calls.
+    fns = {"one card": one, "data-parallel": dp,
+           "data-parallel, all-reduce a no-op": with_all_reduce(lambda *args, **kwargs: None),
+           "data-parallel, all-reduce async_op + wait": with_all_reduce(
+               lambda t, op=dist.ReduceOp.SUM, group=None, async_op=False: real(t, op, group, True).wait())}
+    alloc_keys = ("num_device_alloc", "num_device_free", "num_alloc_retries", "num_sync_all_streams")
+    chunks = {k: [] for k in fns}
+    alloc = {k: [0] * len(alloc_keys) for k in fns}
+    for _ in range(DP_ROUNDS):
+        for side in list(fns) + list(fns)[::-1]:
+            before = torch.cuda.memory_stats()
+            chunks[side].append(_step_ms(fns[side], DP_STEPS))
+            after = torch.cuda.memory_stats()
+            alloc[side] = [n + after.get(k, 0) - before.get(k, 0) for n, k in zip(alloc[side], alloc_keys)]
+    med = {k: [statistics.median(v) for v in zip(*c)] for k, c in chunks.items()}
+    (ms1, _), (ms2, _), (ms3, _), (ms4, _) = med.values()
+    calls = 2 * DP_ROUNDS * (DP_STEPS + 1)
+    print(f"[chip_smoke] {kind} step bf16 {BATCH}x{SIZE}^2, {len(chunks['one card']) * DP_STEPS} steps a side in "
+          f"chunks of {DP_STEPS}, interleaved, median chunk (ms/step, host issue ms/step): "
+          + "; ".join(f"{k} {m:.3f}, {h:.3f}" for k, (m, h) in med.items())
+          + f"; data-parallel / one card {ms2 / ms1:.3f}: its NCCL calls {ms2 - ms3:+.3f} ms, its other work "
+          f"{ms3 - ms1:+.3f} ms; async_op + wait / data-parallel {ms4 / ms2:.3f} (chunks: "
+          + "; ".join(f"{k} {[round(t[0], 3) for t in c]}" for k, c in chunks.items()) + ")")
+    print(f"[chip_smoke]   {kind} caching allocator per step ({', '.join(alloc_keys)}): " + "; ".join(
+        f"{k} {[round(n / calls, 2) for n in v]}" for k, v in alloc.items()))
+    k1, h1 = _profile(f"{kind} step, one card", one, ms1, steps=DP_PROFILE_STEPS, top=0)
+    k2, h2 = _profile(f"{kind} step, data-parallel (NCCL, 1 rank)", dp, ms2, steps=DP_PROFILE_STEPS, top=0)
+    for what, a, b in (("kernels", k1, k2), ("host ops (self time, under the profiler)", h1, h2)):
+        added = sorted(((b.get(k, (0, 0))[0] - a.get(k, (0, 0))[0], b.get(k, (0, 0))[1] - a.get(k, (0, 0))[1], k)
+                        for k in set(a) | set(b)), reverse=True)
+        total = sum(t for t, _ in b.values()) - sum(t for t, _ in a.values())
+        print(f"[chip_smoke]   {kind} data-parallel step adds {total:+.3f} ms/step of {what}; largest: " + "; ".join(
+            f"{k[:50]} {d:+.3f} ms ({n:+.1f}/step)" for d, n, k in added[:DP_TOP]))
+
+    def host_and_card_us(fn, calls: int = 100):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        return host, start.elapsed_time(end) * 1e3 / calls
+
+    stats = torch.zeros((2, 256), device=next(iter(params)).device)
+    ar_host, ar_card = host_and_card_us(lambda: dist.all_reduce(stats, group=mesh.batch_group))
+    g_host, g_card = host_and_card_us(lambda: all_reduce_gradients(params, mesh), calls=20)
+    # Small all-reduces a step: two per train-mode BN (forward, backward),
+    # the metrics, and in the e2e step L_shape's and L_bbox's global counts.
+    small = 2 * params.n_bn + 1 + (2 if kind == "e2e" else 0)
+    print(f"[chip_smoke]   {kind} collectives without the profiler: one BN-sized all-reduce {ar_host:.1f} us of host, "
+          f"{ar_card:.1f} us as timed on the card; the flat gradient all-reduce ({len(params)} tensors) "
+          f"{g_host:.1f} us of host, {g_card:.1f} us on the card; the step's {small} small all-reduces and the "
+          f"gradient all-reduce: ~{(small * ar_host + g_host) / 1e3:.3f} ms of host a step")
+
+
+def _collective_blocking(group, dev) -> None:
+    """Whether a one-rank NCCL all-reduce holds the host until the card
+    reaches it: after a ~SPIN_CYCLES-cycle spin kernel, each form's host
+    time; a plain in-place add returns at once. Prints the NCCL and
+    TORCH_NCCL settings of the environment beside it."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from mingraph_unet_tpu_torch.parallel.data import all_reduce_sum
+
+    x = torch.zeros((2, 256), device=dev)
+    forms = {"add_": lambda: x.add_(1),
+             "all_reduce": lambda: dist.all_reduce(x, group=group),
+             "all_reduce async_op, no wait": lambda: dist.all_reduce(x, group=group, async_op=True),
+             "all_reduce async_op + work.wait": lambda: dist.all_reduce(x, group=group, async_op=True).wait(),
+             "all_reduce async_op + future.wait": lambda: dist.all_reduce(x, group=group,
+                                                                          async_op=True).get_future().wait(),
+             "all_reduce_sum": lambda: all_reduce_sum(x, group)}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    host = {}
+    for name, fn in forms.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        host[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    env = {k: v for k, v in os.environ.items() if k.startswith(("NCCL_", "TORCH_NCCL", "TORCH_DIST"))}
+    print(f"[chip_smoke] host ms of a call issued behind a {start.elapsed_time(end):.3f} ms spin kernel: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in host.items()) + f"; environment {env}")
+
+
+class _Params(list):
+    """A model's parameters, with its number of BatchNorm layers (``n_bn``)."""
+
+    def __init__(self, model):
+        from mingraph_unet_tpu_torch.models.layers import FoldableBatchNorm
+
+        super().__init__(model.parameters())
+        self.n_bn = sum(isinstance(mod, FoldableBatchNorm) for mod in model.modules())
+
+
+def _nccl_paths(dev):
+    """Phase 13: the port's torch.distributed paths over NCCL at world size
+    1 (one rank in a group of one; each collective runs). The serving
+    U-Net through ``spatial_sharded_apply`` at 512² b8 bf16 against the
+    unsharded forward within CONV_TOL of max |logits| (the cuDNN sites may
+    pick another algorithm for a VALID-in-H conv), bit-equal to K1 and K2 at
+    every K9 and sharded-K2 site on the inputs the site got, launching K9 4
+    and sharded K2 2 and K1, K2 never; then one data-parallel segmentation
+    step and one e2e step at 512² b8 bf16 against the one-card steps from
+    the same weights, batch and generator: losses, gradients and BN
+    statistics within 1e-3 (an all-reduced sum may round in another order),
+    each step launching K4 as before, and each timed and profiled beside
+    the one-card step (``_dp_vs_one_card``). A group of one rank exchanges
+    no halo rows and gathers nothing: the halo exchange and the all-gather
+    need two or more cards. Returns the sharded forward's launch counts."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+    from mingraph_unet_tpu_torch.parallel import halo as phalo
+    from mingraph_unet_tpu_torch.parallel import mesh as pmesh
+    from mingraph_unet_tpu_torch.parallel import spatial as pspatial
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
+    from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        print(f"[chip_smoke] NCCL group of 1 rank: mesh {mesh.shape}, backend {dist.get_backend()}")
+        model, x = _serving_model(dev)
+        unet = model.unet
+        sites = []
+        real = {"k9": phalo.psel_conv3x3_halo, "dec1_halo": pspatial.dec_conv1_halo}
+
+        def spy(kind):
+            def call(*args):
+                y = real[kind](*args)
+                sites.append((kind, args, y))
+                return y
+            return call
+
+        def sharded():
+            return pspatial.gather_rows(pspatial.spatial_sharded_apply(
+                lambda xl, spatial: unet(xl, spatial=spatial)["logits"], x, mesh), mesh)
+
+        with torch.no_grad():
+            whole = unet(x)["logits"]
+            phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = spy("k9"), spy("dec1_halo")
+            try:
+                _reset_counts()
+                got = sharded()
+                torch.cuda.synchronize()
+                launches = _counts()
+            finally:
+                phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = real["k9"], real["dec1_halo"]
+            print(f"[chip_smoke] spatial_sharded_apply launches: {launches}")
+            if launches != {"psel": 0, "dec1": 0, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 0,
+                            "wconv": 0, "conv_block": 0, "k9": 4, "dec1_halo": 2}:
+                _fail(f"expected K9 4, sharded K2 2, pool 2, d2s 1 and no K1 or K2 launches in the sharded U-Net, "
+                      f"got {launches}")
+            _check_close("spatial_sharded_apply U-Net logits (NCCL, 1 rank)", got, whole, CONV_TOL,
+                         what="the unsharded forward")
+            for kind, args, y in sites:
+                if kind == "k9":
+                    xs, top, bot, k, b = args[:5]
+                    ref = psconv.psel_conv3x3(xs, k, b)
+                else:
+                    s, st, sb, p, pt, pb, k_skip, k_prev, t9 = args[:9]
+                    ref = psconv.dec_conv1_fused(s, p, k_skip, k_prev, t9)
+                if not torch.equal(y, ref):
+                    _fail(f"{kind} site {tuple(args[0].shape)} in the sharded forward is not bit-equal to the "
+                          f"unsharded kernel on its inputs")
+            whole_ms = _time_ms(lambda: unet(x)["logits"], 5)
+            sharded_ms = _time_ms(sharded, 5)
+            whole_dev = _device_ms("the unsharded U-Net", lambda: unet(x)["logits"], 3)
+            sharded_dev = _device_ms("the sharded U-Net", sharded, 3)
+        print(f"[chip_smoke] spatial_sharded_apply U-Net bf16 {BATCH}x{SIZE}^2 (1 rank): {sharded_ms:.3f} ms "
+              f"({sharded_dev:.3f} ms of kernels) against the unsharded U-Net's {whole_ms:.3f} ms ({whole_dev:.3f} "
+              f"ms of kernels); {len(sites)} K9/K2 sites bit-equal to K1/K2")
+        del model, x, whole, got, sites
+        torch.cuda.empty_cache()
+
+        _collective_blocking(mesh.batch_group, dev)
+        cfg = _train_cfg(SIZE, bf16=True)
+        imgs, masks = _train_batch(BATCH, SIZE, seed=3, dev=dev)
+        for kind in ("seg", "e2e"):
+            weights = (build_unet(cfg) if kind == "seg" else build_mingraph_unet(cfg)).state_dict()
+            sides = {}
+            for side, step_mesh in (("one card", None), ("data-parallel", mesh)):
+                m = build_unet(cfg) if kind == "seg" else build_mingraph_unet(cfg)
+                m.load_state_dict(weights)
+                opt, sched = make_optimizer(m.parameters(), cfg.training, steps_per_epoch=1000)
+                state = TrainState(m, opt, sched)
+                step = (make_train_step(cfg, augment=True, mesh=step_mesh) if kind == "seg"
+                        else make_e2e_train_step(m, opt, cfg, augment=True, mesh=step_mesh))
+                _reset_counts()
+                metrics = step(state, imgs, masks, torch.Generator(device=dev).manual_seed(0))
+                torch.cuda.synchronize()
+                counts = _counts()
+                want = {k: 0 for k in counts}
+                want.update(k4_fwd=4, k4_dgrad=4, histeq=0 if kind == "seg" else 1)
+                if counts != want:
+                    _fail(f"{kind} step ({side}): expected launches {want}, got {counts}")
+                leaves = {("grad", n): p.grad.float().clone() for n, p in m.named_parameters()}
+                leaves.update({("stat", n): b.float().clone() for n, b in m.named_buffers()})
+                gen = torch.Generator(device=dev).manual_seed(1)
+                sides[side] = ({k: float(v) for k, v in metrics.items()}, leaves,
+                               (lambda step=step, state=state, gen=gen: step(state, imgs, masks, gen)), _Params(m))
+            (ref_m, ref_l, one, _), (got_m, got_l, dp, dp_params) = sides["one card"], sides["data-parallel"]
+            for k, v in ref_m.items():
+                if not abs(got_m[k] - v) <= 1e-3 * max(abs(v), 1e-6):
+                    _fail(f"{kind} data-parallel step: {k} {got_m[k]} against the one-card step's {v}")
+            _leaf_check(f"{kind} data-parallel step (NCCL, 1 rank) vs one card", got_l, ref_l, 1e-3,
+                        _feeds_bn if kind == "seg" else _zero_in_exact_arithmetic)
+            _dp_vs_one_card(kind, one, dp, dp_params, mesh)
+            del sides, one, dp, dp_params
+            torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     try:
         import torch
@@ -1557,6 +2065,12 @@ def main() -> int:
     s2d_sites, std_sites = _capture_sites(*_serving_model(dev))
     rows += (_wconv_table(dev, s2d_sites, launches, scene_launches)
              + _conv_block_table(dev, std_sites, launches, scene_launches))
+    del std_sites
+    torch.cuda.empty_cache()
+    # The torch.distributed paths over NCCL (phase 13), then K9 and sharded
+    # K2 on the captured sites (phase 12) with the sharded forward's counts.
+    sharded_launches = _nccl_paths(dev)
+    rows += _k9_table(dev, s2d_sites, sharded_launches)
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "

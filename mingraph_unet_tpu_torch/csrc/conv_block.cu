@@ -22,7 +22,10 @@
 // as C grows so that the accumulators fit, and KC grows as the halo
 // shrinks so that every thread has h pixels to compute: C <= 32: 16 x 16,
 // KC 16; <= 64: 8 x 16, KC 32; <= 128: 8 x 8, KC 32; <= 256: 4 x 8, KC 64;
-// <= 512: 4 x 4, KC 64.
+// <= 512: 4 x 4, KC 64. Wider C runs in output-channel tiles of CT = 512
+// (the 4 x 4 tile's 64 channel groups of 8): each block computes conv2 for
+// one tile of output channels, over all of h, so conv1 is done once per
+// tile (twice for the 1024-channel bottleneck of init_features 64).
 //
 // conv2's SAME padding of h: an h pixel outside the image is zero, not
 // relu(b1) (which conv1 over a zero-padded x would give). The epilogue of
@@ -49,6 +52,7 @@ constexpr int KX = 32;    // x channels per conv1 chunk
 constexpr int PM = 4;     // conv2 pixels per thread (consecutive in a row)
 constexpr int CN = 8;     // conv2 channels per thread
 constexpr int MAXI = 6;   // conv1 h pixels per thread: the halo over THREADS / (KC / 4), rounded up
+constexpr int CT = 512;   // output channels per block at most (the 4 x 4 tile's 64 groups x CN)
 
 struct BlockArgs {
   const void* x;                // (B, H, W, Cin)
@@ -59,6 +63,7 @@ struct BlockArgs {
   void* y;                      // (B, H, W, C)
   int b, h, w, cin, c, c1p, c2p;
   int th, tw;                   // tile
+  int ntiles;                   // output-channel tiles of CT: grid z = b * ntiles
 };
 
 // Shared memory: x chunk (stride KX + 1 words), w1 chunk, h chunk (stride
@@ -89,7 +94,9 @@ __global__ void __launch_bounds__(THREADS) conv_block_kernel(BlockArgs a) {
   float* xs = smem;
   float* w1s = smem + plan.w1_off;
   float* hs = smem + plan.h_off;
-  const int bi = blockIdx.z, y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
+  const int bi = blockIdx.z / a.ntiles, y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
+  const int n0 = (blockIdx.z % a.ntiles) * CT;  // this block's first output channel
+  const int nw = min(CT, a.c2p - n0);           // and how many it computes
   const int t = threadIdx.x;
   const int xw = tw + 4, hw = tw + 2;
   const T* x = reinterpret_cast<const T*>(a.x);
@@ -107,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) conv_block_kernel(BlockArgs a) {
   // conv2: pixel group pg (row r, columns c0..c0+3), channel group cg.
   const int npg = th * tw / PM;
   const int pg = t % npg, cg = t / npg;
-  const bool active2 = cg * CN < a.c2p;
+  const bool active2 = cg * CN < nw;
   const int r2 = pg / (tw / PM), c2 = (pg % (tw / PM)) * PM;
   float acc2[PM][CN];
 #pragma unroll
@@ -175,7 +182,7 @@ __global__ void __launch_bounds__(THREADS) conv_block_kernel(BlockArgs a) {
     if (active2) {
       for (int tap = 0; tap < 9; ++tap) {
         const float* hrow = hs + ((r2 + tap / 3) * hw + c2 + tap % 3) * (KC + 1);
-        const float* wrow = a.w2 + (size_t(tap) * a.c1p + hc) * a.c2p + cg * CN;
+        const float* wrow = a.w2 + (size_t(tap) * a.c1p + hc) * a.c2p + n0 + cg * CN;
 #pragma unroll 4
         for (int kc = 0; kc < KC; ++kc) {
           const float4 wa = __ldg(reinterpret_cast<const float4*>(wrow + size_t(kc) * a.c2p));
@@ -202,7 +209,7 @@ __global__ void __launch_bounds__(THREADS) conv_block_kernel(BlockArgs a) {
     T* out = reinterpret_cast<T*>(a.y) + ((size_t(bi) * a.h + gy) * a.w + gx) * size_t(a.c);
 #pragma unroll
     for (int q = 0; q < CN; ++q) {
-      const int n = cg * CN + q;
+      const int n = n0 + cg * CN + q;
       if (n < a.c) store(out + n, fmaxf(acc2[m][q] * a.s2[n] + a.b2[n], 0.f));
     }
   }
@@ -211,21 +218,22 @@ __global__ void __launch_bounds__(THREADS) conv_block_kernel(BlockArgs a) {
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for C above 512 (no tile keeps its accumulators in
-// registers) or a C1p that is not a multiple of the tile's KC. Weights and
-// scales are f32, padded as the header says; x and y are f32 or bf16.
+// cudaErrorInvalidValue for a C1p that is not a multiple of the tile's KC.
+// Weights and scales are f32, padded as the header says; x and y are f32 or
+// bf16. Any C: above CT the output channels run in tiles of CT.
 extern "C" int mgu_conv_block(const void* x, const float* w1, const float* s1, const float* b1, const float* w2,
                               const float* s2, const float* b2, void* y, int b, int h, int w, int cin, int c,
                               int c1p, int c2p, int is_bf16, void* stream) {
   int th, tw, kc;
-  if (c2p <= 32) th = 16, tw = 16, kc = 16;
-  else if (c2p <= 64) th = 8, tw = 16, kc = 32;
-  else if (c2p <= 128) th = 8, tw = 8, kc = 32;
-  else if (c2p <= 256) th = 4, tw = 8, kc = 64;
-  else if (c2p <= 512) th = 4, tw = 4, kc = 64;
-  else return int(cudaErrorInvalidValue);
+  const int cw = c2p < CT ? c2p : CT;  // channels a block computes
+  if (cw <= 32) th = 16, tw = 16, kc = 16;
+  else if (cw <= 64) th = 8, tw = 16, kc = 32;
+  else if (cw <= 128) th = 8, tw = 8, kc = 32;
+  else if (cw <= 256) th = 4, tw = 8, kc = 64;
+  else th = 4, tw = 4, kc = 64;
   if (c1p % kc) return int(cudaErrorInvalidValue);
-  BlockArgs a{x, w1, s1, b1, w2, s2, b2, y, b, h, w, cin, c, c1p, c2p, th, tw};
+  const int ntiles = (c2p + CT - 1) / CT;
+  BlockArgs a{x, w1, s1, b1, w2, s2, b2, y, b, h, w, cin, c, c1p, c2p, th, tw, ntiles};
   size_t bytes;
   void (*kern)(BlockArgs);
   switch (kc) {
@@ -243,7 +251,7 @@ extern "C" int mgu_conv_block(const void* x, const float* w1, const float* s1, c
   }
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, b);
+  const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, b * ntiles);
   kern<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }

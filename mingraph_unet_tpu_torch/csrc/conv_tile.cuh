@@ -54,6 +54,17 @@
 // full-res im2col and the upsampled decoder tensor out of device memory, and
 // writes each output once in its final layout.
 //
+// Sharded entries (K9, the halo form of psel; dec_conv1's halo form). An
+// H-shard of the s2d grid is computed alone: the s2d rows just above and
+// below it (one each, (B, 1, Ww, channels), from the neighbouring shards)
+// arrive as separate pointers and are staged in place of rows -1 and hh; a
+// null pointer is a global border and reads zero, as the unsharded launch
+// does. Only the shard's own rows are computed and written. dec_conv1's
+// bias field reads its border class from the global row, row0 + gi against
+// hh_glob (the unsharded launch passes 0 and hh). The taps are summed in the
+// same order as the unsharded launch, so stitched shards equal it bit for
+// bit.
+//
 // Requirements (checked by the Python wrappers): all tensors contiguous,
 // 16-byte aligned base pointers. bf16: Cout = C in {32, 64} (the U-Net's two
 // s2d levels) and, for dec_conv1, Cp = 2C. f32: C, Cp and Cout multiples
@@ -99,16 +110,24 @@ struct ConvArgs {
   const float* t9;    // (3, 3, 4Cout) bias + upsample-bias class table (HAS_PREV)
   void* y;            // (B, Hh, Ww, 4Cout) s2d output
   int b, hh, ww, c, cp, cout;
+  // Sharded launches: the rows above and below the shard of x and x_prev,
+  // (B, 1, Ww, channels), null at a global border; the global row of local
+  // row 0 and the global s2d height (the unsharded launch: 0 and hh).
+  const void *x_top = nullptr, *x_bot = nullptr, *xp_top = nullptr, *xp_bot = nullptr;
+  int row0 = 0, hh_glob = 0;
 };
 
 // Copy the HALO_H x HALO_W pixels of an NHWC tensor (B, hh, ww, ch) around
 // grid pixel (i0, j0) of image b into shared memory (pixel stride `stride`
-// elements), zero outside the image (SAME padding), 16 bytes at a time.
+// elements), 16 bytes at a time: channels [c0, c0 + nch) of each pixel
+// (all of them by default; both multiples of 16 bytes). Row -1 is read from
+// `top` and row hh from `bot`, each (B, 1, ww, ch), where given; every other
+// pixel outside the image is zero (SAME padding).
 template <typename T>
-__device__ void stage_halo(T* dst, int stride, const T* src, int b, int i0, int j0,
-                           int hh, int ww, int ch) {
+__device__ void stage_halo(T* dst, int stride, const T* src, int b, int i0, int j0, int hh, int ww, int ch,
+                           const T* top = nullptr, const T* bot = nullptr, int c0 = 0, int nch = -1) {
   constexpr int VE = 16 / sizeof(T);
-  const int vpp = ch / VE;
+  const int vpp = (nch < 0 ? ch : nch) / VE;
   const int total = HALO_PIX * vpp;
 #pragma unroll 4
   for (int i = threadIdx.x; i < total; i += THREADS) {
@@ -116,9 +135,16 @@ __device__ void stage_halo(T* dst, int stride, const T* src, int b, int i0, int 
     const int pix = i / vpp;
     const int gi = i0 - 1 + pix / HALO_W;
     const int gj = j0 - 1 + pix % HALO_W;
+    const size_t off = size_t(c0) + size_t(v) * VE;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gi >= 0 && gi < hh && gj >= 0 && gj < ww)
-      val = *reinterpret_cast<const uint4*>(src + ((size_t(b) * hh + gi) * ww + gj) * size_t(ch) + size_t(v) * VE);
+    if (gj >= 0 && gj < ww) {
+      if (gi >= 0 && gi < hh)
+        val = *reinterpret_cast<const uint4*>(src + ((size_t(b) * hh + gi) * ww + gj) * size_t(ch) + off);
+      else if (gi == -1 && top)
+        val = *reinterpret_cast<const uint4*>(top + (size_t(b) * ww + gj) * size_t(ch) + off);
+      else if (gi == hh && bot)
+        val = *reinterpret_cast<const uint4*>(bot + (size_t(b) * ww + gj) * size_t(ch) + off);
+    }
     *reinterpret_cast<uint4*>(dst + size_t(pix) * stride + size_t(v) * VE) = val;
   }
 }
@@ -137,7 +163,8 @@ __device__ __forceinline__ float epilogue_term(const ConvArgs& a, int gi, int gj
   } else {
     const int z = 4 * a.cout;
     const float* t = a.t9 + p * a.cout + n;
-    const float fr = gi == 0 ? 1.f : 0.f, lr = gi == a.hh - 1 ? 1.f : 0.f;
+    const int row = a.row0 + gi;  // the global row: a shard's first row is interior unless it is row 0
+    const float fr = row == 0 ? 1.f : 0.f, lr = row == a.hh_glob - 1 ? 1.f : 0.f;
     const float fc = gj == 0 ? 1.f : 0.f, lc = gj == a.ww - 1 ? 1.f : 0.f;
     if (fr + lr + fc + lc == 0.f) return t[4 * z];  // interior: class (1, 1)
     const float wr[3] = {fr, 1.f - fr - lr, lr};
@@ -211,9 +238,11 @@ __global__ void __launch_bounds__(THREADS, !HAS_PREV && C <= 32 ? 4 : 2) conv_bf
   bf16* halo = reinterpret_cast<bf16*>(smem);
   bf16* prev = reinterpret_cast<bf16*>(smem + plan.prev_off);
   const int bi = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  stage_halo<bf16>(halo, plan.ss, reinterpret_cast<const bf16*>(a.x), bi, i0, j0, a.hh, a.ww, 4 * C);
+  stage_halo<bf16>(halo, plan.ss, reinterpret_cast<const bf16*>(a.x), bi, i0, j0, a.hh, a.ww, 4 * C,
+                   reinterpret_cast<const bf16*>(a.x_top), reinterpret_cast<const bf16*>(a.x_bot));
   if constexpr (HAS_PREV)
-    stage_halo<bf16>(prev, plan.sp, reinterpret_cast<const bf16*>(a.xp), bi, i0, j0, a.hh, a.ww, CP);
+    stage_halo<bf16>(prev, plan.sp, reinterpret_cast<const bf16*>(a.xp), bi, i0, j0, a.hh, a.ww, CP,
+                     reinterpret_cast<const bf16*>(a.xp_top), reinterpret_cast<const bf16*>(a.xp_bot));
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -287,9 +316,11 @@ __global__ void __launch_bounds__(THREADS) conv_f32_kernel(ConvArgs a) {
   float* halo = reinterpret_cast<float*>(smem);
   float* prev = reinterpret_cast<float*>(smem + plan.prev_off);
   const int bi = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  stage_halo<float>(halo, plan.ss, reinterpret_cast<const float*>(a.x), bi, i0, j0, a.hh, a.ww, 4 * a.c);
+  stage_halo<float>(halo, plan.ss, reinterpret_cast<const float*>(a.x), bi, i0, j0, a.hh, a.ww, 4 * a.c,
+                    reinterpret_cast<const float*>(a.x_top), reinterpret_cast<const float*>(a.x_bot));
   if constexpr (HAS_PREV)
-    stage_halo<float>(prev, plan.sp, reinterpret_cast<const float*>(a.xp), bi, i0, j0, a.hh, a.ww, a.cp);
+    stage_halo<float>(prev, plan.sp, reinterpret_cast<const float*>(a.xp), bi, i0, j0, a.hh, a.ww, a.cp,
+                      reinterpret_cast<const float*>(a.xp_top), reinterpret_cast<const float*>(a.xp_bot));
   __syncthreads();
 
   const float* w = reinterpret_cast<const float*>(a.w);

@@ -117,15 +117,21 @@ class MangoDataset:
 class BatchLoader:
     """Shuffling batch iterator over a :class:`MangoDataset`, yielding
     stacked numpy batches. Epoch ``e`` shuffles with
-    ``np.random.default_rng(seed + e)``, as the JAX loader does."""
+    ``np.random.default_rng(seed + e)``, as the JAX loader does.
+    ``shard=(i, n)``: ``batch_size`` is the global batch, and this loader
+    yields and decodes only its i-th of n equal slices of each (the rows a
+    data-parallel rank takes), in the same epoch order."""
 
     def __init__(self, dataset: MangoDataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.shard = shard
+        if shard[1] > 1 and (batch_size % shard[1] or not drop_last):
+            raise ValueError(f"a global batch of {batch_size} does not split into {shard[1]} equal full slices")
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -136,8 +142,11 @@ class BatchLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + epoch_idx).shuffle(order)
         limit = len(self) * self.batch_size if self.drop_last else len(self.dataset)
+        index, count = self.shard
+        local = self.batch_size // count
         for start in range(0, limit, self.batch_size):
-            items = [self.dataset[int(i)] for i in order[start : start + self.batch_size]]
+            rows = order[start : start + self.batch_size][index * local : (index + 1) * local]
+            items = [self.dataset[int(i)] for i in rows]
             yield tuple(np.stack(c) for c in zip(*items))
 
     def prefetch_epoch(self, epoch_idx: int = 0, prefetch: int = 2) -> Iterator[Tuple[np.ndarray, np.ndarray]]:

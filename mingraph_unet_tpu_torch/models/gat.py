@@ -145,7 +145,7 @@ class GATNetwork(nn.Module):
     mode, drawing from the ``gen`` given to :meth:`forward`."""
 
     def __init__(self, in_features, hidden_dim, output_dim, num_heads, gen, num_layers=1,
-                 alpha=0.2, backend="dense", dtype=torch.float32, dropout_rate=0.0):
+                 alpha=0.2, backend="dense", dtype=torch.float32, dropout_rate=0.1):
         super().__init__()
         cls = LatticeGAT if backend == "lattice" else DenseGAT
         self.backend = backend

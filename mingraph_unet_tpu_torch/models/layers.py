@@ -11,6 +11,11 @@ Random init draws from an explicit ``torch.Generator`` (CPU), with flax's
 initializers: LeCun-normal kernels (truncated normal), zero biases, unit
 BatchNorm scales and variances. :func:`dropout` draws its masks from a
 ``torch.Generator`` on the tensor's device, passed in by the caller.
+
+Inside ``parallel/data.py::data_parallel`` (data-parallel training) the
+batch is this rank's rows of a global batch: train-mode BatchNorm takes
+the statistics of the global batch, and dropout draws the global batch's
+mask and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from mingraph_unet_tpu_torch.parallel import data as dp
 
 __all__ = ["lecun_normal", "xavier_uniform", "dropout", "ConvParams", "Dense", "FoldableBatchNorm"]
 
@@ -50,7 +57,9 @@ def dropout(x: torch.Tensor, p: float, gen: Optional[torch.Generator]) -> torch.
         return x
     if not 0.0 < p < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {p}")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)
+    shard = dp.active()
+    shape = x.shape if shard is None else (shard.total,) + tuple(x.shape[1:])
+    keep = dp.local_rows(torch.rand(shape, generator=gen, device=x.device) < (1.0 - p))
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -89,7 +98,9 @@ class FoldableBatchNorm(nn.Module):
     as flax does), and the running statistics
     updated as ``0.9·running + 0.1·batch`` (flax's decay, and the biased
     variance, where ``nn.BatchNorm2d`` keeps the unbiased one). Gradients
-    flow through the batch mean and variance; the output is in z's dtype."""
+    flow through the batch mean and variance; the output is in z's dtype.
+    In data-parallel training the batch is the global one: Σz and Σz² are
+    summed over the ranks through a differentiable all-reduce."""
 
     MOMENTUM = 0.9  # flax's running-average decay
 
@@ -111,8 +122,13 @@ class FoldableBatchNorm(nn.Module):
             return x * a.to(x.dtype) + c.to(x.dtype)
         axes = tuple(range(x.dim() - 1))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        shard = dp.active()
+        if shard is None:
+            mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
+        else:
+            sums = dp.all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), shard.group)
+            mean, mean2 = sums / (xf.numel() // xf.shape[-1] * shard.count)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -49,7 +49,7 @@ class SegmentPredictor(nn.Module):
     (``gnn_predictor``)."""
 
     def __init__(self, in_features, num_segments, hidden_dim, num_heads, gen, alpha=0.2, dtype=torch.float32,
-                 dropout_rate=0.0):
+                 dropout_rate=0.1):
         super().__init__()
         self.gnn_predictor = GATNetwork(
             in_features, hidden_dim, num_segments, num_heads, gen, 1, alpha, "lattice", dtype, dropout_rate
@@ -64,7 +64,7 @@ class MinCutRefinement(nn.Module):
     lattice (``segment_predictor``)."""
 
     def __init__(self, in_features, num_segments, gen, sigma_ncut=1.0, predictor_hidden=None,
-                 predictor_heads=1, alpha=0.2, dtype=torch.float32, dropout_rate=0.0):
+                 predictor_heads=1, alpha=0.2, dtype=torch.float32, dropout_rate=0.1):
         super().__init__()
         self.sigma_ncut = sigma_ncut
         self.segment_predictor = SegmentPredictor(

@@ -30,6 +30,12 @@ Full-resolution tensors that nothing downstream reads (the encoder skips of
 the s2d levels and the last decoder output) are built only when the caller
 asks for them (``full_res_outputs=True``); under ``jit`` XLA drops them,
 eager PyTorch would write them.
+
+``UNet.forward(x, spatial=shard)`` (eval only) runs on one H-shard of the
+input, ``shard`` a ``parallel/spatial.py::SpatialShard``: every conv site
+exchanges the rows it reads with the neighbouring shards (the s2d conv2s
+through K9, the decoder conv1s through K2's sharded entry), and the rest
+is local. ``parallel/spatial.py::spatial_sharded_apply`` drives it.
 """
 
 from __future__ import annotations
@@ -92,39 +98,48 @@ class ConvBlock(nn.Module):
         a, c = bn.eval_affine()
         return conv.kernel * a, conv.bias * a + c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Standard NHWC path."""
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        """Standard NHWC path; ``spatial`` (eval): x is one H-shard."""
         for i in (1, 2):
             if self.training:
                 conv, bn = (self.conv1, self.bn1) if i == 1 else (self.conv2, self.bn2)
                 x = torch.relu(bn(conv2d_nhwc(x.to(self.dtype), conv.kernel, conv.bias, padding=1)))
             else:
                 k, b = self.folded(i)
-                x = torch.relu(conv2d_nhwc(x.to(self.dtype), k, b, padding=1))
+                x = x.to(self.dtype)
+                x = torch.relu(conv2d_nhwc(x, k, b, padding=1) if spatial is None else spatial.conv_same(x, k, b))
         return x
 
-    def forward_s2d(self, x: torch.Tensor, fused_up: Optional[FusedUp] = None) -> torch.Tensor:
+    def forward_s2d(self, x: torch.Tensor, fused_up: Optional[FusedUp] = None, spatial=None) -> torch.Tensor:
         """s2d path; returns a phase-major (B, H/2, W/2, 4·features) tensor.
 
         Encoder level (``fused_up`` None): x is full-res NHWC and conv1 is
         the windowed stride-2 conv. Decoder level: x is the s2d skip,
         ``fused_up = (x_prev, wt, bias_up)``, and conv1 runs as
-        ``dec_conv1_fused`` over [skip ‖ upsample of x_prev]."""
+        ``dec_conv1_fused`` over [skip ‖ upsample of x_prev]. ``spatial``
+        (eval): x is one H-shard, and each conv runs in its sharded form."""
         if self.training:
             return self._forward_s2d_train(x, fused_up)
         dt = self.dtype
         k, b = self.folded(1)
+        x = x.to(dt)
         if fused_up is None:
-            x = s2d_ops.conv3x3_windowed_down(x.to(dt), s2d_ops.windowed_down_kernel(k))
+            kw = s2d_ops.windowed_down_kernel(k)
+            x = s2d_ops.conv3x3_windowed_down(x, kw) if spatial is None else spatial.windowed_down(x, kw)
             x = torch.relu(x + s2d_ops.s2d_vector(b).to(dt))
         else:
             x_prev, wt, bias_up = fused_up
-            skip_c = x.shape[-1] // 4
+            x_prev, skip_c = x_prev.to(dt), x.shape[-1] // 4
             k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
             t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
-            fused = dec_conv1_fits(dt, skip_c, x_prev.shape[-1], k.shape[-1])
-            x = (dec_conv1_fused if fused else dec_conv1_fused_plain)(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
+            if spatial is not None:
+                x = spatial.dec_conv1(x, x_prev, k_skip, k_prev, t9)
+            else:
+                fused = dec_conv1_fits(dt, skip_c, x_prev.shape[-1], k.shape[-1])
+                x = (dec_conv1_fused if fused else dec_conv1_fused_plain)(x, x_prev, k_skip, k_prev, t9)
         k, b = self.folded(2)
+        if spatial is not None:
+            return spatial.psel(x, k, b)
         psel = psel_conv3x3 if psel_fits(dt, k.shape[2], k.shape[3]) else psel_conv3x3_plain
         return psel(x, k, b)
 
@@ -187,7 +202,7 @@ class UNetEncoder(nn.Module):
             cin, f = f, 2 * f
         self.bottleneck = ConvBlock(cin, f, gen, dtype)
 
-    def forward(self, x: torch.Tensor, s2d_levels: Sequence[int]):
+    def forward(self, x: torch.Tensor, s2d_levels: Sequence[int], spatial=None):
         """Returns ``(skips, bottleneck, skip_s2d, skip_hw)``: ``skips[i]`` is
         the full-res skip of a standard level (None at s2d levels, whose
         phase-major form is ``skip_s2d[i]``); ``skip_hw[i]`` its (H, W)."""
@@ -198,7 +213,7 @@ class UNetEncoder(nn.Module):
             block = getattr(self, f"block{i}")
             skip_hw.append((x.shape[1], x.shape[2]))
             if i in s2d_levels:
-                s = block.forward_s2d(x.to(self.dtype))
+                s = block.forward_s2d(x.to(self.dtype), spatial=spatial)
                 skip_s2d[i] = s
                 skips.append(None)
                 # MaxPool(2,2) = max over phases; amax splits the gradient
@@ -206,10 +221,10 @@ class UNetEncoder(nn.Module):
                 kernel = not self.training and phase_max_pool_fits(s.dtype, s.shape[-1] // 4)
                 x = phase_max_pool_kernel(s) if kernel else s2d_ops.phase_max_pool(s)
             else:
-                x = block(x)
+                x = block(x, spatial)
                 skips.append(x)
                 x = _max_pool_2x2(x)
-        return skips, self.bottleneck(x), skip_s2d, skip_hw
+        return skips, self.bottleneck(x, spatial), skip_s2d, skip_hw
 
 
 class DecoderBlock(nn.Module):
@@ -222,15 +237,15 @@ class DecoderBlock(nn.Module):
         self.upsample = ConvParams(in_features, up_features, (2, 2), gen)
         self.conv_block = ConvBlock(skip_features + up_features, out_features, gen, dtype)
 
-    def forward(self, x_prev: torch.Tensor, x_skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_prev: torch.Tensor, x_skip: torch.Tensor, spatial=None) -> torch.Tensor:
         x_up = conv_transpose2x2_nhwc(x_prev.to(self.dtype), self.upsample.kernel, self.upsample.bias)
         dh = x_skip.shape[1] - x_up.shape[1]
         dw = x_skip.shape[2] - x_up.shape[2]
         if dh or dw:
             x_up = F.pad(x_up, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv_block(torch.cat([x_skip.to(self.dtype), x_up], dim=-1))
+        return self.conv_block(torch.cat([x_skip.to(self.dtype), x_up], dim=-1), spatial)
 
-    def forward_s2d(self, x_prev: torch.Tensor, x_skip_s2d: torch.Tensor) -> torch.Tensor:
+    def forward_s2d(self, x_prev: torch.Tensor, x_skip_s2d: torch.Tensor, spatial=None) -> torch.Tensor:
         """Whole block in s2d layout: the upsample is folded into conv1."""
         if x_prev.shape[:3] != x_skip_s2d.shape[:3]:
             raise ValueError(
@@ -238,7 +253,8 @@ class DecoderBlock(nn.Module):
                 f"vs prev {tuple(x_prev.shape)}"
             )
         wt = s2d_ops.s2d_convt2x2_kernel(self.upsample.kernel)
-        return self.conv_block.forward_s2d(x_skip_s2d, fused_up=(x_prev.to(self.dtype), wt, self.upsample.bias))
+        return self.conv_block.forward_s2d(x_skip_s2d, fused_up=(x_prev.to(self.dtype), wt, self.upsample.bias),
+                                           spatial=spatial)
 
 
 class UNetDecoder(nn.Module):
@@ -255,7 +271,7 @@ class UNetDecoder(nn.Module):
             prev = out
         self.final_conv = ConvParams(prev, num_classes, (1, 1), gen)
 
-    def forward(self, skips, bottleneck, skip_s2d, skip_hw):
+    def forward(self, skips, bottleneck, skip_s2d, skip_hw, spatial=None):
         """Returns ``(logits f32 (f64 in an f64 model), f_u shallow→deep,
         f_u_s2d)``; ``f_u[0]`` is
         None when level 0 ran in s2d (its phase-major form is
@@ -266,12 +282,12 @@ class UNetDecoder(nn.Module):
         for j, i in enumerate(reversed(range(self.depth))):
             block = getattr(self, f"block{j}")
             if i in skip_s2d and skip_hw[i] == (2 * x.shape[1], 2 * x.shape[2]):
-                f = block.forward_s2d(x, skip_s2d[i])
+                f = block.forward_s2d(x, skip_s2d[i], spatial)
                 f_u_s2d[i] = f
                 x = decoder_d2s(f, self.training) if i > 0 else None
             else:
                 skip = skips[i] if skips[i] is not None else s2d_ops.depth_to_space(skip_s2d[i])
-                x = block(x, skip)
+                x = block(x, skip, spatial)
             feats.append(x)
         k, b = self.final_conv.kernel, self.final_conv.bias
         if 0 in f_u_s2d:
@@ -309,10 +325,22 @@ class UNet(nn.Module):
             levels.append(1)
         return tuple(levels)
 
-    def forward(self, x: torch.Tensor, full_res_outputs: bool = False) -> Dict[str, object]:
+    def forward(self, x: torch.Tensor, full_res_outputs: bool = False, spatial=None) -> Dict[str, object]:
+        """``spatial``: a ``parallel/spatial.py::SpatialShard`` when x is one
+        H-shard of the input (eval mode only; the shard's height a multiple
+        of 2^(depth + 1)); every output is then this shard's rows."""
+        if spatial is not None:
+            if self.training:
+                raise NotImplementedError("a sharded U-Net forward in train mode is not ported (ROADMAP A10)")
+            if x.shape[1] % 2 ** (self.depth + 1):
+                raise ValueError(f"an H-shard of {x.shape[1]} rows is not a multiple of 2^(depth + 1) = "
+                                 f"{2 ** (self.depth + 1)}")
+            if x.shape[1] * spatial.count != spatial.h_global:
+                raise ValueError(f"{spatial.count} shards of {x.shape[1]} rows do not make the scene's "
+                                 f"{spatial.h_global}")
         x = x.to(self.dtype)
-        skips, bottleneck, skip_s2d, skip_hw = self.encoder(x, self.s2d_levels(x.shape[1], x.shape[2]))
-        logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw)
+        skips, bottleneck, skip_s2d, skip_hw = self.encoder(x, self.s2d_levels(x.shape[1], x.shape[2]), spatial)
+        logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw, spatial)
         if full_res_outputs:
             skips = [s if s is not None else s2d_ops.depth_to_space(skip_s2d[i]) for i, s in enumerate(skips)]
             f_u = [f if f is not None else decoder_d2s(f_u_s2d[i], self.training) for i, f in enumerate(f_u)]

@@ -53,13 +53,15 @@ _FLAGS = (
 # argument would be cut to 32 bits), every size is c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "psel_conv": ("mgu_psel_conv3x3", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
-    "dec_conv1": ("mgu_dec_conv1", [_P] * 6 + [_I] * 7 + [_P]),
-    "phase_pool": ("mgu_phase_max_pool", [_P, _P] + [_I] * 5 + [_P]),
-    "d2s": ("mgu_depth_to_space", [_P, _P] + [_I] * 4 + [_P]),
-    "histeq": ("mgu_histeq", [_P, _P, _P, _I, _I, _P]),
-    "wconv": ("mgu_wconv3x3", [_P] * 4 + [_I] * 14 + [_P]),
-    "conv_block": ("mgu_conv_block", [_P] * 8 + [_I] * 8 + [_P]),
+    "psel_conv": {"mgu_psel_conv3x3": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+                  "mgu_psel_conv3x3_halo": [_P] * 6 + [_I] * 7 + [_P]},
+    "dec_conv1": {"mgu_dec_conv1": [_P] * 6 + [_I] * 7 + [_P],
+                  "mgu_dec_conv1_halo": [_P] * 10 + [_I] * 9 + [_P]},
+    "phase_pool": {"mgu_phase_max_pool": [_P, _P] + [_I] * 5 + [_P]},
+    "d2s": {"mgu_depth_to_space": [_P, _P] + [_I] * 4 + [_P]},
+    "histeq": {"mgu_histeq": [_P, _P, _P, _I, _I, _P]},
+    "wconv": {"mgu_wconv3x3": [_P] * 4 + [_I] * 7 + [_P] + [_I] * 3 + [_P]},
+    "conv_block": {"mgu_conv_block": [_P] * 8 + [_I] * 8 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -126,10 +128,10 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return _loaded[name]
 

@@ -7,7 +7,9 @@ padding, NHWC, in one device-memory round trip (``csrc/conv_block.cu``).
 The function is f32 inside, as in JAX: taps and weights widened to f32,
 the scale/shift applied to the f32 accumulator, the intermediate h kept in
 f32, only the output cast to x's dtype. The kernel is SIMT f32 FMA, so the
-f32 operation rate bounds it at every U-Net width.
+f32 operation rate bounds it at every U-Net width. It takes any C: above
+512 output channels a block computes one 512-channel tile of conv2 (and
+all of conv1 for it).
 
 :func:`fold_bn` folds inference BatchNorm into the (s, b) pairs it takes.
 No entry point of the port calls the kernel, as none in the JAX package
@@ -31,9 +33,8 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     stream_ptr,
 )
 
-__all__ = ["fold_bn", "fused_conv_block", "fused_conv_block_plain", "MAX_CHANNELS"]
+__all__ = ["fold_bn", "fused_conv_block", "fused_conv_block_plain"]
 
-MAX_CHANNELS = 512  # the widest C the kernel's tiles keep in registers
 # csrc/conv_block.cu: h is padded to a multiple of every tile's h chunk (16,
 # 32 or 64 channels), y to a multiple of the 8 channels a thread writes.
 _H_PAD, _Y_PAD = 64, 8
@@ -72,8 +73,8 @@ def fused_conv_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     s2, b2: (C,) folded BN scale/shift (:func:`fold_bn`). Returns
     (B, H, W, C) in x's dtype. A CPU tensor runs
     :func:`fused_conv_block_plain`; a CUDA tensor launches the kernel (x
-    bf16 or f32, contiguous, 16-byte aligned, C ≤ :data:`MAX_CHANNELS`, any
-    H, W and Cin) or raises."""
+    bf16 or f32, contiguous, 16-byte aligned, any C, H, W and Cin) or
+    raises."""
     if x.device.type == "cpu":
         return fused_conv_block_plain(x, w1, s1, b1, w2, s2, b2)
     require_no_grad("fused_conv_block", x, w1, s1, b1, w2, s2, b2)
@@ -86,7 +87,6 @@ def fused_conv_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     require(tuple(w2.shape) == (3, 3, c, c), f"w2 must be (3, 3, {c}, {c}), got {tuple(w2.shape)}")
     for name, v in (("s1", s1), ("b1", b1), ("s2", s2), ("b2", b2)):
         require(tuple(v.shape) == (c,), f"{name} must be ({c},), got {tuple(v.shape)}")
-    require(c <= MAX_CHANNELS, f"C={c} above {MAX_CHANNELS}: the kernel has no tile for it")
     dev = x.device
     c1p, c2p = -(-c // _H_PAD) * _H_PAD, -(-c // _Y_PAD) * _Y_PAD
     w1p = _pad(w1.to(dev).reshape(9, cin, c), 2, c1p)

@@ -18,6 +18,14 @@ B-fragment order (:func:`mma_b_fragments`) and are instantiated for the
 U-Net's two s2d widths: Cout = Cin (psel), Cout = Cs and Cp = 2·Cs
 (dec-conv1), with Cin, Cs in {32, 64}.
 
+- :func:`psel_conv3x3_halo` (K9) replaces
+  ``mingraph_unet_tpu/parallel/halo.py::sharded_psconv``'s kernel call: K1
+  on one H-shard of the s2d grid, given the rows just above and below the
+  shard (None at a global border). :func:`dec_conv1_halo` is K2 on a shard
+  in the same way, with the bias field's border rows taken from the global
+  row. Both are the same tile as the unsharded launch with the two rows
+  staged in place of the zero padding, so stitched shards equal the
+  unsharded kernel bit for bit.
 - :func:`psconv_train` replaces ``psconv_train``: the raw 3×3 s2d conv
   (no bias, no ReLU) of the training path as a ``torch.autograd.Function``.
   Its forward (:func:`psconv_fwd`) and its dgrad (:func:`psconv_dgrad`, the
@@ -61,6 +69,11 @@ __all__ = [
     "dec_conv1_fused",
     "dec_conv1_fused_plain",
     "dec_conv1_preact",
+    "dec_conv1_halo",
+    "dec_conv1_halo_plain",
+    "psel_conv3x3_halo",
+    "psel_conv3x3_halo_plain",
+    "extend_rows",
     "psconv_train",
     "psconv_train_plain",
     "psconv_fwd",
@@ -122,10 +135,27 @@ def psel_conv3x3_plain(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Te
     return torch.relu(y + s2d_ops.s2d_vector(bias).to(y.dtype))
 
 
+def _check_rows(name: str, row: Optional[torch.Tensor], x: torch.Tensor) -> None:
+    """A halo row of ``x`` as the sharded kernels take it: None, or
+    (B, 1, Ww, channels) of x's dtype on x's device, contiguous."""
+    if row is None:
+        return
+    check_cuda_input(name, row, x.dtype)
+    want = (x.shape[0], 1, x.shape[2], x.shape[3])
+    require(tuple(row.shape) == want, f"{name} must be {want}, got {tuple(row.shape)}")
+    require(row.device == x.device, f"{name} is on {row.device}, x on {x.device}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
-                 relu: bool) -> torch.Tensor:
+                 relu: bool, rows: Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = None
+                 ) -> torch.Tensor:
     """Launch the psel tile on CUDA tensors after checking what it takes;
-    ``bias`` None adds none."""
+    ``bias`` None adds none. ``rows`` = (top, bottom) launches the sharded
+    entry (K9) with those halo rows (None at a global border)."""
     dt = x_s2d.dtype
     require(dt in KERNEL_DTYPES, f"{name}: unsupported dtype {dt}")
     check_cuda_input("x_s2d", x_s2d, dt)
@@ -141,10 +171,16 @@ def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opt
         require(cin == cout and cin in BF16_WIDTHS, f"bf16 kernel needs Cout = Cin in {BF16_WIDTHS}, got {cin} -> {cout}")
     w = _kernel_weights(kernel, x_s2d.device, dt)
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=x_s2d.device)
-    rc = library("psel_conv").mgu_psel_conv3x3(
-        x_s2d.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-        b, hh, ww, cin, cout, int(dt == torch.bfloat16), int(relu), stream_ptr(x_s2d),
-    )
+    lib = library("psel_conv")
+    common = (b, hh, ww, cin, cout, int(dt == torch.bfloat16), int(relu), stream_ptr(x_s2d))
+    if rows is None:
+        rc = lib.mgu_psel_conv3x3(x_s2d.data_ptr(), w.data_ptr(), _ptr(bias), y.data_ptr(), *common)
+    else:
+        top, bottom = rows
+        _check_rows("top", top, x_s2d)
+        _check_rows("bottom", bottom, x_s2d)
+        rc = lib.mgu_psel_conv3x3_halo(x_s2d.data_ptr(), _ptr(top), _ptr(bottom), w.data_ptr(), _ptr(bias),
+                                       y.data_ptr(), *common)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return y
@@ -166,6 +202,44 @@ def psel_conv3x3(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) 
 
 
 psel_conv3x3.launches = 0
+
+
+def extend_rows(x: torch.Tensor, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor],
+                halo: int = 1) -> torch.Tensor:
+    """``x`` (B, H, ...) with ``top`` above and ``bottom`` below it along H,
+    ``halo`` zero rows in place of each None (a global border)."""
+    zero = lambda: x.new_zeros((x.shape[0], halo) + tuple(x.shape[2:]))  # noqa: E731
+    return torch.cat([zero() if top is None else top, x, zero() if bottom is None else bottom], dim=1)
+
+
+def psel_conv3x3_halo_plain(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor],
+                            kernel: torch.Tensor, bias: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """The JAX form of K9: the halo rows concatenated to the shard, the
+    dense s2d conv + bias (ReLU when ``relu``) over the extended block, and
+    its first and last rows dropped."""
+    y = s2d_ops.conv3x3_s2d(extend_rows(x_s2d, top, bottom), s2d_ops.s2d_conv3x3_kernel(kernel))
+    y = y[:, 1:-1] + s2d_ops.s2d_vector(bias).to(y.dtype)
+    return torch.relu(y) if relu else y
+
+
+def psel_conv3x3_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor],
+                      kernel: torch.Tensor, bias: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """K9: the psel conv (ReLU when ``relu``) of one H-shard of an s2d
+    tensor. x_s2d: the shard (B, Hh_local, Ww, 4·Cin); ``top`` / ``bottom``:
+    the s2d row just above / below it (B, 1, Ww, 4·Cin) from the
+    neighbouring shards, None at the global top / bottom. Returns the
+    shard's (B, Hh_local, Ww, 4·Cout) rows of the unsharded conv. On CUDA:
+    the shapes :func:`psel_fits` accepts, bit-equal to :func:`psel_conv3x3`
+    on the whole tensor once stitched."""
+    if x_s2d.device.type == "cpu":
+        return psel_conv3x3_halo_plain(x_s2d, top, bottom, kernel, bias, relu)
+    require_no_grad("psel_conv3x3_halo", *(t for t in (x_s2d, top, bottom, kernel, bias) if t is not None))
+    y = _psel_launch("psel_conv3x3_halo", x_s2d, kernel, bias, relu=relu, rows=(top, bottom))
+    psel_conv3x3_halo.launches += 1
+    return y
+
+
+psel_conv3x3_halo.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -204,18 +278,21 @@ def dec_conv1_bias_table(
     return field + s2d_ops.s2d_vector(bias).float()
 
 
-def bias_table_field(t9: torch.Tensor, hh: int, ww: int) -> torch.Tensor:
+def bias_table_field(t9: torch.Tensor, hh: int, ww: int, row0: int = 0, hh_global: Optional[int] = None
+                     ) -> torch.Tensor:
     """Expand the class table to the (hh, ww, 4·Cout) f32 field. Row (and
     column) weights are (first, 1 − first − last, last): on a grid one pixel
     high a row is first and last, and (1, −1, 1) gives the both-taps-invalid
-    value, as the kernel's epilogue does."""
-    def weights(n: int) -> torch.Tensor:
-        i = torch.arange(n, device=t9.device)
+    value, as the kernel's epilogue does. On an H-shard, local row i is
+    global row ``row0 + i`` of ``hh_global`` (default: the whole grid)."""
+    def weights(n: int, start: int, total: int) -> torch.Tensor:
+        i = torch.arange(start, start + n, device=t9.device)
         f = (i == 0).float()
-        l = (i == n - 1).float()
+        l = (i == total - 1).float()
         return torch.stack([f, 1.0 - f - l, l], dim=1)
 
-    return torch.einsum("yd,xe,deo->yxo", weights(hh), weights(ww), t9.float())
+    rows = weights(hh, row0, hh if hh_global is None else hh_global)
+    return torch.einsum("yd,xe,deo->yxo", rows, weights(ww, 0, ww), t9.float())
 
 
 def dec_conv1_preact(
@@ -249,26 +326,13 @@ def dec_conv1_fused_plain(
     return torch.relu(dec_conv1_preact(x_skip_s2d, x_prev, k_skip, k_prev, t9))
 
 
-def dec_conv1_fused(
-    x_skip_s2d: torch.Tensor,
-    x_prev: torch.Tensor,
-    k_skip: torch.Tensor,
-    k_prev: torch.Tensor,
-    t9: torch.Tensor,
-) -> torch.Tensor:
-    """relu(conv1([skip ‖ ConvTranspose(x_prev)]) + bias) for the s2d
-    decoder block, from :func:`dec_conv1_weights` and
-    :func:`dec_conv1_bias_table`.
-
-    x_skip_s2d: (B, Hh, Ww, 4·Cs); x_prev: (B, Hh, Ww, Cp); returns
-    (B, Hh, Ww, 4·Cout). On CUDA: f32 with Cs, Cp, Cout multiples of 16, or
-    bf16 with Cout = Cs in :data:`BF16_WIDTHS` and Cp = 2·Cs.
-    """
-    if x_skip_s2d.device.type == "cpu":
-        return dec_conv1_fused_plain(x_skip_s2d, x_prev, k_skip, k_prev, t9)
-    require_no_grad("dec_conv1_fused", x_skip_s2d, x_prev, k_skip, k_prev, t9)
+def _dec_conv1_launch(name: str, x_skip_s2d, x_prev, k_skip, k_prev, t9, halo=None) -> torch.Tensor:
+    """Launch the dec-conv1 tile on CUDA tensors after checking what it
+    takes. ``halo`` = (skip_top, skip_bottom, prev_top, prev_bottom, row0,
+    hh_global) launches the sharded entry."""
+    require_no_grad(name, x_skip_s2d, x_prev, k_skip, k_prev, t9)
     dt = x_skip_s2d.dtype
-    require(dt in KERNEL_DTYPES, f"dec_conv1_fused: unsupported dtype {dt}")
+    require(dt in KERNEL_DTYPES, f"{name}: unsupported dtype {dt}")
     check_cuda_input("x_skip_s2d", x_skip_s2d, dt)
     check_cuda_input("x_prev", x_prev, dt)
     b, hh, ww, zs = x_skip_s2d.shape
@@ -287,18 +351,85 @@ def dec_conv1_fused(
     wp = _kernel_weights(k_prev, dev, dt)
     tf = t9.to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
-    rc = library("dec_conv1").mgu_dec_conv1(
-        x_skip_s2d.data_ptr(), x_prev.data_ptr(), ws.data_ptr(), wp.data_ptr(),
-        tf.data_ptr(), y.data_ptr(), b, hh, ww, cs, cp, cout,
-        int(dt == torch.bfloat16), stream_ptr(x_skip_s2d),
-    )
+    lib = library("dec_conv1")
+    tail = (int(dt == torch.bfloat16), stream_ptr(x_skip_s2d))
+    if halo is None:
+        rc = lib.mgu_dec_conv1(x_skip_s2d.data_ptr(), x_prev.data_ptr(), ws.data_ptr(), wp.data_ptr(),
+                               tf.data_ptr(), y.data_ptr(), b, hh, ww, cs, cp, cout, *tail)
+    else:
+        skip_top, skip_bottom, prev_top, prev_bottom, row0, hh_global = halo
+        for row_name, row, of in (("skip_top", skip_top, x_skip_s2d), ("skip_bottom", skip_bottom, x_skip_s2d),
+                                  ("prev_top", prev_top, x_prev), ("prev_bottom", prev_bottom, x_prev)):
+            _check_rows(row_name, row, of)
+        require(0 <= row0 and row0 + hh <= hh_global, f"rows {row0}..{row0 + hh} outside the grid's {hh_global}")
+        rc = lib.mgu_dec_conv1_halo(
+            x_skip_s2d.data_ptr(), _ptr(skip_top), _ptr(skip_bottom), x_prev.data_ptr(), _ptr(prev_top),
+            _ptr(prev_bottom), ws.data_ptr(), wp.data_ptr(), tf.data_ptr(), y.data_ptr(), b, hh, ww, cs, cp, cout,
+            row0, hh_global, *tail)
     if rc != 0:
-        raise RuntimeError(f"dec_conv1_fused launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return y
+
+
+def dec_conv1_fused(
+    x_skip_s2d: torch.Tensor,
+    x_prev: torch.Tensor,
+    k_skip: torch.Tensor,
+    k_prev: torch.Tensor,
+    t9: torch.Tensor,
+) -> torch.Tensor:
+    """relu(conv1([skip ‖ ConvTranspose(x_prev)]) + bias) for the s2d
+    decoder block, from :func:`dec_conv1_weights` and
+    :func:`dec_conv1_bias_table`.
+
+    x_skip_s2d: (B, Hh, Ww, 4·Cs); x_prev: (B, Hh, Ww, Cp); returns
+    (B, Hh, Ww, 4·Cout). On CUDA: f32 with Cs, Cp, Cout multiples of 16, or
+    bf16 with Cout = Cs in :data:`BF16_WIDTHS` and Cp = 2·Cs.
+    """
+    if x_skip_s2d.device.type == "cpu":
+        return dec_conv1_fused_plain(x_skip_s2d, x_prev, k_skip, k_prev, t9)
+    y = _dec_conv1_launch("dec_conv1_fused", x_skip_s2d, x_prev, k_skip, k_prev, t9)
     dec_conv1_fused.launches += 1
     return y
 
 
 dec_conv1_fused.launches = 0
+
+
+def dec_conv1_halo_plain(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9,
+                         row0: int, hh_global: int) -> torch.Tensor:
+    """:func:`dec_conv1_fused_plain` on one H-shard: both inputs extended by
+    their halo rows (zeros for None), the two convs over the extended
+    blocks with their first and last rows dropped, and the bias field of
+    global rows ``row0 ..`` of ``hh_global``."""
+    _, hh, ww, _ = x_skip_s2d.shape
+    dt = x_skip_s2d.dtype
+    y = (s2d_ops.conv3x3_s2d(extend_rows(x_skip_s2d, skip_top, skip_bottom), s2d_ops.s2d_conv3x3_kernel(k_skip))
+         + s2d_ops.conv3x3_s2d(extend_rows(x_prev, prev_top, prev_bottom), k_prev))[:, 1:-1]
+    return torch.relu(y + bias_table_field(t9, hh, ww, row0, hh_global)[None].to(dt))
+
+
+def dec_conv1_halo(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9,
+                   row0: int, hh_global: int) -> torch.Tensor:
+    """K2 on one H-shard of the s2d grid (the sharded U-Net's decoder
+    conv1): as :func:`dec_conv1_fused`, given the rows just above and below
+    the shard of the skip (B, 1, Ww, 4·Cs) and of x_prev (B, 1, Ww, Cp),
+    None at a global border, and the shard's first global row ``row0`` of
+    ``hh_global``, from which the bias field's border rows are read. On
+    CUDA: the widths :func:`dec_conv1_fits` accepts; stitched shards equal
+    :func:`dec_conv1_fused` on the whole tensor bit for bit."""
+    if x_skip_s2d.device.type == "cpu":
+        return dec_conv1_halo_plain(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip,
+                                    k_prev, t9, row0, hh_global)
+    rows = [t for t in (skip_top, skip_bottom, prev_top, prev_bottom) if t is not None]
+    require_no_grad("dec_conv1_halo", *rows)
+    y = _dec_conv1_launch("dec_conv1_halo", x_skip_s2d, x_prev, k_skip, k_prev, t9,
+                          halo=(skip_top, skip_bottom, prev_top, prev_bottom, row0, hh_global))
+    dec_conv1_halo.launches += 1
+    return y
+
+
+dec_conv1_halo.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ and contracts the 16 taps from there, so no patch matrix is written: on
 tensor cores (``mma.sync`` bf16, f32 accumulation) where x is bf16, every
 group width a multiple of 16 and Cout a multiple of 8; in SIMT f32 FMA
 otherwise (f32, the RGB input's Cin = 3). Both round once, after the f32
-bias and ReLU. Memory bounds it at the U-Net's s2d sites.
+bias and ReLU. Memory bounds it at the U-Net's s2d sites. It takes any
+number of groups and any Cin: the halo is staged in channel chunks where
+it does not fit in shared memory at once.
 
 No entry point of the port calls it, as none in the JAX package does; it
 has no backward. ``launches`` counts kernel launches.
@@ -21,6 +23,7 @@ has no backward. ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -43,10 +46,7 @@ __all__ = ["wconv3x3_weights", "wconv3x3_s2d", "wconv3x3_s2d_plain", "wconv_uses
 # phase _PHASE[d].
 _POS = (0, 1, 1, 2)
 _PHASE = (1, 0, 1, 0)
-_MAX_GROUPS = 4
 _SIMT_N = 16          # the SIMT path's column pass; its weights are padded to it
-_HALO_PIX = 6 * 18    # staged s2d pixels per tile (csrc/conv_tile.cuh)
-_SMEM_LIMIT = 232448  # bytes of shared memory a block can use on an H100
 
 
 def wconv3x3_weights(kernel: torch.Tensor) -> torch.Tensor:
@@ -75,6 +75,13 @@ def _groups(cin: int, groups: Sequence[int]) -> Tuple[int, ...]:
     if sum(groups) != cin:
         raise ValueError(f"groups {groups} do not sum to Cin={cin}")
     return groups
+
+
+@lru_cache(maxsize=None)
+def _group_table(groups: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The kernel's (ngroups,) int32 group table on ``device``, cached: a
+    host-to-card copy per call would wait on the stream."""
+    return torch.tensor(groups, dtype=torch.int32).to(device)
 
 
 def _windows(x_s2d: torch.Tensor, groups: Tuple[int, ...]) -> torch.Tensor:
@@ -127,7 +134,7 @@ def wconv3x3_s2d(
     x_s2d: (B, Hh, Ww, 4·Cin) phase-major s2d input; w2: (16·Cin, 4·Cout)
     from :func:`wconv3x3_weights` (cast to x's dtype); bias: (Cout,)
     full-res (the BN-folded bias for inference); groups: full-res widths
-    when x is a concat of separately transformed tensors (at most 4).
+    when x is a concat of separately transformed tensors (any number).
     Returns (B, Hh, Ww, 4·Cout) in x's dtype. A CPU tensor runs
     :func:`wconv3x3_s2d_plain`; a CUDA tensor launches the kernel (bf16 or
     f32, contiguous, 16-byte aligned, any Hh and Ww) or raises."""
@@ -141,7 +148,6 @@ def wconv3x3_s2d(
     require(c4 % 4 == 0, f"x has {c4} s2d channels, not a multiple of 4")
     cin = c4 // 4
     groups = _groups(cin, groups)
-    require(len(groups) <= _MAX_GROUPS, f"at most {_MAX_GROUPS} groups, got {groups}")
     require(w2.dim() == 2 and w2.shape[0] == 16 * cin and w2.shape[1] % 4 == 0,
             f"w2 must be (16*{cin}, 4*Cout), got {tuple(w2.shape)}")
     cout = w2.shape[1] // 4
@@ -152,16 +158,14 @@ def wconv3x3_s2d(
     if use_mma:
         w, npad = mma_b_fragments(w), 4 * cout
     else:
-        require(_HALO_PIX * (4 * cin + 1) * 4 <= _SMEM_LIMIT,
-                f"Cin={cin}: the SIMT path's f32 halo does not fit in shared memory")
         npad = -(-4 * cout // _SIMT_N) * _SIMT_N
         w = F.pad(w.float(), (0, npad - 4 * cout)).contiguous()
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
-    g = list(groups) + [0] * (_MAX_GROUPS - len(groups))
+    table = _group_table(groups, dev)
     rc = library("wconv").mgu_wconv3x3(
         x_s2d.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), b, hh, ww, cin, cout, npad,
-        len(groups), *g, int(dt == torch.bfloat16), int(relu), int(use_mma), stream_ptr(x_s2d),
+        len(groups), table.data_ptr(), int(dt == torch.bfloat16), int(relu), int(use_mma), stream_ptr(x_s2d),
     )
     if rc != 0:
         raise RuntimeError(f"wconv3x3_s2d launch failed: cudaError {rc}")

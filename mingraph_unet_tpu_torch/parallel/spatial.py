@@ -1,19 +1,39 @@
-"""Large-scene tiled inference with halo overlap. Counterpart of
-``mingraph_unet_tpu/parallel/spatial.py`` on one device: the scene is cut
-into overlapping ``tile + 2·halo`` windows, the network runs batched over
-them, and each window's ``tile``-sized cell is stitched back. Border
-windows sit flush with the scene's edge (clamped starts), so the network's
-own zero padding acts at the true border. The mesh-sharded whole-scene
-apply (``spatial_sharded_apply``) waits for the multi-GPU slice.
+"""Large-scene inference. Counterpart of
+``mingraph_unet_tpu/parallel/spatial.py``, with its two strategies:
+
+1. :func:`tiled_inference`, on one device: the scene is cut into
+   overlapping ``tile + 2·halo`` windows, the network runs batched over
+   them, and each window's ``tile``-sized cell is stitched back. Border
+   windows sit flush with the scene's edge (clamped starts), so the
+   network's own zero padding acts at the true border.
+2. :func:`spatial_sharded_apply`, over a mesh: each rank runs the network
+   on its H-shard of the whole scene (and its rows of the batch). JAX lets
+   XLA insert every conv's halo exchange; PyTorch has no partitioner, so
+   the network is handed a :class:`SpatialShard` and exchanges at each
+   conv itself (``models/unet.py``: the cuDNN convs through
+   ``parallel/halo.py::sharded_conv2d_same``'s exchange, the s2d conv2s
+   through K9, the decoder conv1s through K2's sharded entry, the
+   windowed encoder conv1 one full-resolution row each way). Pooling, the
+   2×2 ConvTranspose, K3 and K5 need no exchange when each shard's height
+   is a multiple of the network's downsampling.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["extract_tiles", "stitch_tiles", "tiled_inference"]
+from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+from mingraph_unet_tpu_torch.ops.kernels.psconv import dec_conv1_fits, dec_conv1_halo, dec_conv1_halo_plain, extend_rows
+from mingraph_unet_tpu_torch.parallel.halo import halo_exchange_rows, sharded_conv2d_same, sharded_psconv
+from mingraph_unet_tpu_torch.parallel.mesh import Mesh, shard_batch
+
+__all__ = ["SpatialShard", "extract_tiles", "gather_rows", "spatial_sharded_apply", "stitch_tiles",
+           "tiled_inference"]
 
 
 def _tile_starts(size: int, tile: int, halo: int) -> List[int]:
@@ -68,3 +88,83 @@ def tiled_inference(apply_fn: Callable[[torch.Tensor], torch.Tensor], scene: tor
     else:
         outs = torch.cat([apply_fn(tiles[s : s + tile_batch]) for s in range(0, total, tile_batch)])
     return stitch_tiles(outs, grid, n, (h, w), tile, halo)
+
+
+@dataclass(frozen=True)
+class SpatialShard:
+    """What a network needs to run on one H-shard of a scene: the mesh (its
+    spatial group carries the exchanges), this shard's index and the
+    scene's full-resolution height. Shards are equal, so at any level of
+    the network the shard of a grid of local height h starts at global row
+    ``index · h`` of ``count · h``. Its methods are the sharded forms of
+    the U-Net's conv sites; each returns this shard's rows of the
+    unsharded op."""
+
+    mesh: Mesh
+    index: int
+    h_global: int
+
+    @property
+    def count(self) -> int:
+        return self.mesh.spatial_size
+
+    def conv_same(self, x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """A 'SAME' conv + bias (cuDNN after the exchange)."""
+        return sharded_conv2d_same(x, kernel, self.mesh, bias)
+
+    def windowed_down(self, x_full: torch.Tensor, kernel_win: torch.Tensor) -> torch.Tensor:
+        """``s2d.conv3x3_windowed_down``: the 4×4 stride-2 window of s2d row
+        I reads full-res rows 2I − 1 … 2I + 2, so one row from each
+        neighbour (the unsharded conv on a spatial axis of one rank)."""
+        top, bottom = halo_exchange_rows(x_full, 1, self.mesh)
+        if top is None and bottom is None:
+            return s2d_ops.conv3x3_windowed_down(x_full, kernel_win)
+        return conv2d_nhwc(extend_rows(x_full, top, bottom), kernel_win, stride=2, padding=(0, 1))
+
+    def psel(self, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The s2d conv2 (K1's function): ``sharded_psconv``."""
+        return sharded_psconv(x_s2d, kernel, bias, self.mesh)
+
+    def dec_conv1(self, x_skip_s2d, x_prev, k_skip, k_prev, t9) -> torch.Tensor:
+        """The s2d decoder conv1 (K2's function): one row of both inputs
+        exchanged, then K2's sharded entry with the shard's global rows
+        where the tile fits, else its plain version."""
+        hh = x_skip_s2d.shape[1]
+        fits = dec_conv1_fits(x_skip_s2d.dtype, x_skip_s2d.shape[-1] // 4, x_prev.shape[-1], k_skip.shape[-1])
+        return (dec_conv1_halo if fits else dec_conv1_halo_plain)(
+            x_skip_s2d, *halo_exchange_rows(x_skip_s2d, 1, self.mesh), x_prev,
+            *halo_exchange_rows(x_prev, 1, self.mesh), k_skip, k_prev, t9, self.index * hh, self.count * hh)
+
+
+def spatial_sharded_apply(apply_fn: Callable[..., torch.Tensor], scene: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Whole-scene inference with H sharded over ``mesh``'s spatial axis
+    and N over its batch axis: this rank's part of ``scene`` (NHWC, the
+    whole scene on every rank) goes through ``apply_fn(x_local,
+    spatial=SpatialShard(...))``, which returns this rank's part of a
+    per-pixel output; :func:`gather_rows` assembles the whole. H must
+    split into equal shards; a network adds its own rule (the U-Net: a
+    multiple of 2^(depth + 1) rows a shard)."""
+    n, h = scene.shape[:2]
+    if h % mesh.spatial_size or n % mesh.batch_size:
+        raise ValueError(f"scene {tuple(scene.shape)} does not split into {mesh.batch_size} x {mesh.spatial_size} "
+                         f"equal shards")
+    x_local = shard_batch(scene, mesh, spatial=True)
+    return apply_fn(x_local, spatial=SpatialShard(mesh, mesh.spatial_index, h))
+
+
+def _all_gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
+    if size == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def gather_rows(x_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole output from every rank's shard of it (H over the spatial
+    axis, N over the batch axis), on every rank: the inverse of
+    :func:`spatial_sharded_apply`'s slicing."""
+    if not mesh.distributed:
+        return x_local
+    x = _all_gather(x_local, mesh.spatial_group, mesh.spatial_size, 1)
+    return _all_gather(x, mesh.batch_group, mesh.batch_size, 0)

@@ -9,6 +9,11 @@ Optimizer semantics are the JAX package's (and the reference's):
 - StepLR, ``lr·γ^⌊step / (steps_per_epoch·lr_step_size)⌋``, stepped once
   per optimizer step (a staircase), so the k-th update uses the rate of
   step k as optax's schedule does.
+
+Data parallelism (a mesh with process groups): the loader gives each rank
+its rows of every global batch, the steps reduce as
+``parallel/data.py`` sets out, and only global rank 0 writes logs and
+checkpoints; on resume every rank reads the checkpoint.
 """
 
 from __future__ import annotations
@@ -18,14 +23,19 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from mingraph_unet_tpu_torch.config import TrainingConfig
+from mingraph_unet_tpu_torch.config import PreprocessingConfig, TrainingConfig
 from mingraph_unet_tpu_torch.data.dataset import BatchLoader
+from mingraph_unet_tpu_torch.ops.image import AugmentDraw, draw_augment
+from mingraph_unet_tpu_torch.parallel.data import global_batch, local_rows
+from mingraph_unet_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
 from mingraph_unet_tpu_torch.utils.logging import MetricsLogger
 
-__all__ = ["TrainState", "make_optimizer", "make_lr_schedule", "make_multistep", "run_epochs"]
+__all__ = ["TrainState", "draw_step_augment", "make_optimizer", "make_lr_schedule", "make_multistep",
+           "require_batch_mesh", "run_epochs", "trainer_mesh"]
 
 
 @dataclass
@@ -86,6 +96,31 @@ def make_optimizer(
     return opt, make_lr_schedule(opt, cfg, steps_per_epoch)
 
 
+def trainer_mesh(cfg: TrainingConfig) -> Mesh:
+    """The mesh of ``cfg.data_parallel`` (0: every rank) over the initialized
+    process group, the trivial mesh without one. ``spatial_parallel`` > 1
+    raises: spatial-parallel training is not ported (ROADMAP A10)."""
+    if cfg.spatial_parallel > 1:
+        raise NotImplementedError("spatial_parallel > 1 in training is not ported yet (ROADMAP A10): it needs the "
+                                  "adjoint halo exchange in every conv's backward")
+    return make_mesh(cfg.data_parallel, 1)
+
+
+def require_batch_mesh(mesh: Optional[Mesh]) -> None:
+    """A train step shards the batch only: a spatial axis raises (ROADMAP A10)."""
+    if mesh is not None and mesh.spatial_size > 1:
+        raise NotImplementedError("spatial-parallel training is not ported yet (ROADMAP A10)")
+
+
+def draw_step_augment(gen: torch.Generator, b: int, h: int, w: int, pre: PreprocessingConfig) -> AugmentDraw:
+    """A train step's augmentation parameters for its ``b`` images: drawn for
+    the global batch (``b`` itself outside ``data_parallel``) and cut to
+    this rank's rows, so every rank sees the one-process draws."""
+    draw = draw_augment(gen, global_batch(b), h, w, pre.horizontal_flip_prob, pre.rotation_degrees,
+                        pre.random_crop_prob)
+    return AugmentDraw(*(local_rows(f) for f in draw))
+
+
 def make_multistep(train_step: Callable, window: int) -> Callable:
     """``train_step(state, images, masks, gen) -> metrics`` becomes
     ``multistep(state, images (K, B, ...), masks (K, B, ...), gen)``: the K
@@ -118,7 +153,9 @@ def run_epochs(
     logs every metric to JSONL, prints the epoch's means and saves a
     checkpoint every ``save_epoch_interval`` epochs and after the last.
     Returns ``{"epoch_loss": [...]}``, the mean ``loss_key`` of each epoch
-    run."""
+    run. Under ``torch.distributed`` only global rank 0 logs, prints and
+    writes checkpoints (the steps' metrics are already global); every rank
+    resumes from the checkpoint."""
     dev = next(state.model.parameters()).device
     ckpt = CheckpointManager(cfg.checkpoint_dir, max_to_keep=3, best_metric=cfg.checkpoint_best_metric,
                              best_mode=cfg.checkpoint_best_mode)
@@ -132,7 +169,8 @@ def run_epochs(
 
     window = max(1, cfg.scan_window)
     num_epochs = max_epochs if max_epochs is not None else cfg.num_epochs
-    logger = MetricsLogger(cfg.log_dir, name, cfg.log_interval)
+    writer = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    logger = MetricsLogger(cfg.log_dir, name, cfg.log_interval) if writer else None
     history: Dict[str, Any] = {"epoch_loss": []}
     global_step = start_epoch * steps_per_epoch
 
@@ -152,7 +190,8 @@ def run_epochs(
                     values = {k: float(v) for k, v in metrics.items()}
                     for k, v in values.items():
                         running[k] = running.get(k, 0.0) + v * done
-                    logger.log(gstep, {**values, "lr": epoch_lr, "epoch": epoch})
+                    if logger is not None:
+                        logger.log(gstep, {**values, "lr": epoch_lr, "epoch": epoch})
 
             def run(batches) -> None:
                 nonlocal n_steps, global_step
@@ -188,9 +227,12 @@ def run_epochs(
             avg = {k: v / max(1, n_steps) for k, v in running.items()}
             epoch_loss = avg.get(loss_key, 0.0)
             history["epoch_loss"].append(epoch_loss)
+            if not writer:
+                continue
             print(f"[{name}] epoch {epoch + 1}/{num_epochs} " + " ".join(f"{k}={v:.4f}" for k, v in sorted(avg.items())))
             if (epoch + 1) % cfg.save_epoch_interval == 0 or epoch == num_epochs - 1:
                 ckpt.save(state.step, {"state": state.state_dict(), "epoch": epoch, "rng": gen.get_state()},
                           metrics={"loss": epoch_loss})
-    logger.close()
+    if logger is not None:
+        logger.close()
     return history

@@ -22,11 +22,20 @@ model's ``loss_balance.log_vars`` (the flax tree's
 The trainer adds the two-phase schedule (``graph_warmup_epochs`` epochs with
 the graph terms' weights at 0, then all of them), step-indexed checkpoints
 with exact resume and JSONL metrics, as ``train/segmentation.py``. Entry
-points run on the CUDA card unless ``device="cpu"`` is passed. Not ported
-(they raise ``NotImplementedError``): COCO instance annotations (ROADMAP A5),
-more than one device, and training a model with the dense detection head,
-class scores (A3) or an ablation switch off (A2): ``build_mingraph_unet``
-builds such a model for inference, ``make_e2e_train_step`` refuses it.
+points run on the CUDA card unless ``device="cpu"`` is passed.
+
+Data parallelism as in ``train/segmentation.py``: each rank takes its rows
+of the global batch and the step is the global batch's. BN (the U-Net's
+and the head's) takes the global statistics; L_shape divides by the valid
+objects of all ranks, L_bbox by their positive images; the balancer sees
+the global terms and counts its ``s/2`` once; the augmentation and the
+dropout masks are drawn for the whole batch (``parallel/data.py``).
+
+Not ported (they raise ``NotImplementedError``): COCO instance annotations
+(ROADMAP A5), ``spatial_parallel`` > 1 (A10), and training a model with
+the dense detection head, class scores (A3) or an ablation switch off
+(A2): ``build_mingraph_unet`` builds such a model for inference,
+``make_e2e_train_step`` refuses it.
 """
 
 from __future__ import annotations
@@ -44,9 +53,12 @@ from mingraph_unet_tpu_torch.device import resolve_device
 from mingraph_unet_tpu_torch.models import losses
 from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
 from mingraph_unet_tpu_torch.ops.cc import instance_boxes
-from mingraph_unet_tpu_torch.ops.image import draw_augment
 from mingraph_unet_tpu_torch.ops.patches import patch_reduce_mean
-from mingraph_unet_tpu_torch.train.common import TrainState, make_multistep, make_optimizer, run_epochs
+from mingraph_unet_tpu_torch.parallel.data import (all_reduce_gradients, all_reduce_metrics, batch_mean,
+                                                   data_parallel, replicated)
+from mingraph_unet_tpu_torch.parallel.mesh import Mesh, replicate
+from mingraph_unet_tpu_torch.train.common import (TrainState, draw_step_augment, make_multistep, make_optimizer,
+                                                  require_batch_mesh, run_epochs, trainer_mesh)
 
 __all__ = ["BALANCED_LOSSES", "LossBalance", "build_mingraph_unet", "gt_union_box", "make_e2e_train_step",
            "mingraph_unet_kwargs", "train_end_to_end"]
@@ -132,7 +144,8 @@ def gt_union_box(masks: torch.Tensor, foreground_class: int = 1) -> Tuple[torch.
 
 
 def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: PipelineConfig,
-                        augment: bool = True, train_detection: bool = True) -> Callable:
+                        augment: bool = True, train_detection: bool = True, mesh: Optional[Mesh] = None
+                        ) -> Callable:
     """``train_step(state, images_u8 (B, H, W, 3), masks (B, H, W), gen)``
     takes one optimizer step on ``model`` with ``opt``, which ``state``
     (a ``TrainState``, for the schedule and the step count) must hold, and
@@ -140,7 +153,10 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
     ``l_shape``, ``l_feature``, ``l_partition``, ``l_smooth``, and where
     they apply ``l_partition_sup``, ``bal_s_<term>`` (the log-variance the
     step used), ``l_bbox`` and ``l_conf``. ``gen``, a ``torch.Generator``
-    on the model's device, draws the augmentation and the dropout masks."""
+    on the model's device, draws the augmentation and the dropout masks.
+    With a ``mesh`` that has process groups, the images are this rank's
+    rows of the global batch and the step and its terms are the global
+    batch's; ``gen`` must be seeded alike on every rank."""
     pre = cfg.preprocessing
     lw = cfg.model.losses
     patch = cfg.model.graph_construction.patch_size
@@ -154,6 +170,7 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
         raise NotImplementedError("training with an ablation switch off is not ported yet (ROADMAP A2)")
     if balance and not isinstance(getattr(model, "loss_balance", None), LossBalance):
         raise ValueError("loss_balance 'uncertainty' needs the model's LossBalance (build_mingraph_unet adds it)")
+    require_batch_mesh(mesh)
 
     def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor,
                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -162,54 +179,54 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
         dev = model.device
         images_u8, masks = images_u8.to(dev), masks.to(dev).long()
         b, h, w = masks.shape
-        draw = (draw_augment(gen, b, h, w, pre.horizontal_flip_prob, pre.rotation_degrees, pre.random_crop_prob)
-                if augment else None)
-        imgs, aug_masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
-                                                  draw, num_classes=cfg.dataset.num_classes)
-        model.train()
-        out = model(imgs, gen=gen)
-        logits = out["logits"]
-        l_seg = losses.cross_entropy_loss(logits, aug_masks)
+        with data_parallel(mesh, b):
+            draw = draw_step_augment(gen, b, h, w, pre) if augment else None
+            imgs, aug_masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
+                                                      draw, num_classes=cfg.dataset.num_classes)
+            model.train()
+            out = model(imgs, gen=gen)
+            logits = out["logits"]
+            l_seg = losses.cross_entropy_loss(logits, aug_masks)
 
-        # y_p from the ground truth: foreground fraction per patch > 0.5.
-        with torch.no_grad():
-            fg_frac = patch_reduce_mean((aug_masks == 1).float()[..., None], patch)[..., 0]
-            y_p = (fg_frac > 0.5).float()
-        n_patches = y_p.shape[1] * y_p.shape[2]
-        l_feature = losses.feature_consistency_loss(
-            out["f_unet_patches"].reshape(b, n_patches, -1), out["gat_feats"].reshape(b, n_patches, -1),
-            y_p.reshape(b, n_patches), margin=lw.feature_loss_margin)
-        l_partition = out["l_partition"].mean()
-        probs = torch.softmax(logits, dim=-1)
-        l_shape = losses.elliptical_shape_loss_soft_instances(probs, max_instances=max_instances,
-                                                              exact=exact_instancing)
-        l_smooth = losses.total_variation_loss(probs[..., 1:2])
+            # y_p from the ground truth: foreground fraction per patch > 0.5.
+            with torch.no_grad():
+                fg_frac = patch_reduce_mean((aug_masks == 1).float()[..., None], patch)[..., 0]
+                y_p = (fg_frac > 0.5).float()
+            n_patches = y_p.shape[1] * y_p.shape[2]
+            l_feature = losses.feature_consistency_loss(
+                out["f_unet_patches"].reshape(b, n_patches, -1), out["gat_feats"].reshape(b, n_patches, -1),
+                y_p.reshape(b, n_patches), margin=lw.feature_loss_margin)
+            l_partition = batch_mean(out["l_partition"])
+            probs = torch.softmax(logits, dim=-1)
+            l_shape = losses.elliptical_shape_loss_soft_instances(probs, max_instances=max_instances,
+                                                                  exact=exact_instancing)
+            l_smooth = losses.total_variation_loss(probs[..., 1:2])
 
-        aux = {"l_unet_seg": l_seg, "l_shape": l_shape, "l_feature": l_feature, "l_partition": l_partition,
-               "l_smooth": l_smooth}
-        graph_terms = [("l_shape", l_shape, lw.l_shape_weight), ("l_feature", l_feature, lw.l_feature_weight),
-                       ("l_partition", l_partition, lw.l_partition_weight),
-                       ("l_smooth", l_smooth, lw.l_smooth_weight)]
-        if lw.l_partition_sup_weight > 0.0:
-            l_psup = losses.partition_supervision_loss(out["soft_assignments"], y_p)  # f32 (f64) already
-            aux["l_partition_sup"] = l_psup
-            graph_terms.append(("l_partition_sup", l_psup, lw.l_partition_sup_weight))
-        total = l_seg
-        for name, val, wt in graph_terms:
-            if wt == 0.0:
-                continue
-            if balance:
-                s = model.loss_balance.log_vars[BALANCED_LOSSES.index(name)]
-                total = total + torch.exp(-s) * wt * val + 0.5 * s
-                aux[f"bal_s_{name}"] = s.detach().clone()  # before the update
-            else:
-                total = total + wt * val
-        if train_detection:
-            gt_box, has_obj = gt_union_box(aug_masks)
-            l_bbox, l_conf = losses.detection_losses(out["pred_bboxes"], out["pred_confidence"], gt_box, has_obj)
-            total = total + l_bbox + l_conf
-            aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
-        aux["total"] = total
+            aux = {"l_unet_seg": l_seg, "l_shape": l_shape, "l_feature": l_feature, "l_partition": l_partition,
+                   "l_smooth": l_smooth}
+            graph_terms = [("l_shape", l_shape, lw.l_shape_weight), ("l_feature", l_feature, lw.l_feature_weight),
+                           ("l_partition", l_partition, lw.l_partition_weight),
+                           ("l_smooth", l_smooth, lw.l_smooth_weight)]
+            if lw.l_partition_sup_weight > 0.0:
+                l_psup = losses.partition_supervision_loss(out["soft_assignments"], y_p)  # f32 (f64) already
+                aux["l_partition_sup"] = l_psup
+                graph_terms.append(("l_partition_sup", l_psup, lw.l_partition_sup_weight))
+            total = l_seg
+            for name, val, wt in graph_terms:
+                if wt == 0.0:
+                    continue
+                if balance:
+                    s = model.loss_balance.log_vars[BALANCED_LOSSES.index(name)]
+                    total = total + torch.exp(-s) * wt * val + replicated(0.5 * s)
+                    aux[f"bal_s_{name}"] = s.detach().clone()  # before the update
+                else:
+                    total = total + wt * val
+            if train_detection:
+                gt_box, has_obj = gt_union_box(aug_masks)
+                l_bbox, l_conf = losses.detection_losses(out["pred_bboxes"], out["pred_confidence"], gt_box, has_obj)
+                total = total + l_bbox + l_conf
+                aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
+            aux["total"] = total
 
         opt.zero_grad(set_to_none=True)
         total.backward()
@@ -219,8 +236,10 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_gradients(model.parameters(), mesh)
         state.apply_gradients()
-        return {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        return all_reduce_metrics(aux, mesh, keys=[k for k in aux if not k.startswith("bal_s_")])
 
     return train_step
 
@@ -246,19 +265,19 @@ def train_end_to_end(
     ``{"epoch_loss": [...]}`` (the mean total per epoch run)."""
     cfg = PipelineConfig.from_config_dir(config_dir)
     train_cfg = cfg.training
-    if train_cfg.data_parallel > 1 or train_cfg.spatial_parallel > 1:
-        raise NotImplementedError("data_parallel / spatial_parallel > 1: multi-GPU training is not ported")
+    mesh = trainer_mesh(train_cfg)
     dev = resolve_device(device)
     ds_cfg = cfg.dataset
     data_root = data_root_override or ds_cfg.data_root
-    model = build_mingraph_unet(cfg, dev)
+    model = replicate(build_mingraph_unet(cfg, dev), mesh)
     dataset = MangoDataset(
         image_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.image_folder),
         mask_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.mask_folder),
         image_size=cfg.preprocessing.resize_dim,
         num_classes=cfg.model.unet.out_channels,
     )
-    loader = BatchLoader(dataset, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed)
+    loader = BatchLoader(dataset, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed,
+                         shard=(mesh.batch_index, mesh.batch_size))
     steps_per_epoch = max(1, len(loader))
     if max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
@@ -276,7 +295,7 @@ def train_end_to_end(
         phase = "warmup" if epoch < train_cfg.graph_warmup_epochs else "joint"
         if phase not in phases:
             step = make_e2e_train_step(model, optimizer, _warmup_cfg(cfg) if phase == "warmup" else cfg,
-                                       augment=True, train_detection=train_detection)
+                                       augment=True, train_detection=train_detection, mesh=mesh)
             phases[phase] = (step, make_multistep(step, window))
         return phases[phase]
 

@@ -7,8 +7,17 @@ train mode (its s2d conv2s through the K4 kernel on the card), CE +
 ``dice_weight``·soft-Dice, backward, Adam (or SGD) and the per-step StepLR.
 The trainer adds step-indexed checkpoints with exact resume and JSONL
 metrics. Entry points run on the CUDA card unless ``device="cpu"`` is
-passed. One device only: ``data_parallel`` or ``spatial_parallel`` above 1
-raises (multi-GPU training is not ported yet).
+passed (under ``torchrun``, each rank on its current card).
+
+Data parallelism: with ``torch.distributed`` initialized by the caller,
+``data_parallel`` ranks (0: all of them) each take their rows of every
+global batch of ``batch_size``; the step is the one-process step on the
+global batch (augmentation drawn for the whole batch, BN statistics over
+it, losses and gradients summed over the ranks, ``parallel/data.py``), the
+parameters are broadcast from rank 0 at the start, and rank 0 alone writes
+logs and checkpoints. ``spatial_parallel`` > 1 raises
+``NotImplementedError`` (ROADMAP A10); sharded inference is
+``parallel/spatial.py::spatial_sharded_apply``.
 """
 
 from __future__ import annotations
@@ -25,8 +34,10 @@ from mingraph_unet_tpu_torch.device import resolve_device
 from mingraph_unet_tpu_torch.experiments.metrics import segmentation_metrics
 from mingraph_unet_tpu_torch.models.losses import cross_entropy_loss, dice_loss
 from mingraph_unet_tpu_torch.models.unet import UNet
-from mingraph_unet_tpu_torch.ops.image import draw_augment
-from mingraph_unet_tpu_torch.train.common import TrainState, make_multistep, make_optimizer, run_epochs
+from mingraph_unet_tpu_torch.parallel.data import all_reduce_gradients, all_reduce_metrics, data_parallel
+from mingraph_unet_tpu_torch.parallel.mesh import Mesh, replicate
+from mingraph_unet_tpu_torch.train.common import (TrainState, draw_step_augment, make_multistep, make_optimizer,
+                                                  require_batch_mesh, run_epochs, trainer_mesh)
 
 __all__ = ["build_unet", "make_train_step", "train_unet_segmentation", "evaluate_unet"]
 
@@ -47,13 +58,17 @@ def build_unet(cfg: PipelineConfig, device: Device = None) -> UNet:
     return model.to(dev).train()
 
 
-def make_train_step(cfg: PipelineConfig, augment: bool = True) -> Callable:
+def make_train_step(cfg: PipelineConfig, augment: bool = True, mesh: Optional[Mesh] = None) -> Callable:
     """``train_step(state, images_u8 (B, H, W, 3), masks (B, H, W), gen)``
     takes one optimizer step on ``state`` and returns the step's
     ``{"loss", "ce", "dice"}`` as device tensors. ``gen`` is a
-    ``torch.Generator`` on the model's device; augmentation draws from it."""
+    ``torch.Generator`` on the model's device; augmentation draws from it.
+    With a ``mesh`` that has process groups, the images are this rank's rows
+    of the global batch and the step is the global batch's (the returned
+    values too); ``gen`` must be seeded alike on every rank."""
     pre = cfg.preprocessing
     dice_w = cfg.model.losses.dice_weight
+    require_batch_mesh(mesh)
 
     def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor,
                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -61,19 +76,20 @@ def make_train_step(cfg: PipelineConfig, augment: bool = True) -> Callable:
         dev = next(model.parameters()).device
         images_u8, masks = images_u8.to(dev), masks.to(dev).long()
         b, h, w = masks.shape
-        draw = (draw_augment(gen, b, h, w, pre.horizontal_flip_prob, pre.rotation_degrees, pre.random_crop_prob)
-                if augment else None)
-        imgs, masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
-                                              draw, num_classes=cfg.dataset.num_classes)
-        model.train()
-        logits = model(imgs)["logits"]
-        ce = cross_entropy_loss(logits, masks)
-        dice = dice_loss(logits, masks)
-        loss = ce + dice_w * dice
+        with data_parallel(mesh, b):
+            draw = draw_step_augment(gen, b, h, w, pre) if augment else None
+            imgs, masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
+                                                  draw, num_classes=cfg.dataset.num_classes)
+            model.train()
+            logits = model(imgs)["logits"]
+            ce = cross_entropy_loss(logits, masks)
+            dice = dice_loss(logits, masks)
+            loss = ce + dice_w * dice
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_gradients(model.parameters(), mesh)
         state.apply_gradients()
-        return {"loss": loss.detach(), "ce": ce.detach(), "dice": dice.detach()}
+        return all_reduce_metrics({"loss": loss.detach(), "ce": ce.detach(), "dice": dice.detach()}, mesh)
 
     return train_step
 
@@ -90,8 +106,7 @@ def train_unet_segmentation(
     ``{"epoch_loss": [...]}`` of the epochs run."""
     cfg = PipelineConfig.from_config_dir(config_dir)
     train_cfg = cfg.training
-    if train_cfg.data_parallel > 1 or train_cfg.spatial_parallel > 1:
-        raise NotImplementedError("data_parallel / spatial_parallel > 1: multi-GPU training is not ported")
+    mesh = trainer_mesh(train_cfg)
     dev = resolve_device(device)
     ds_cfg = cfg.dataset
     data_root = data_root_override or ds_cfg.data_root
@@ -101,16 +116,17 @@ def train_unet_segmentation(
         image_size=cfg.preprocessing.resize_dim,
         num_classes=cfg.model.unet.out_channels,
     )
-    loader = BatchLoader(dataset, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed)
+    loader = BatchLoader(dataset, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed,
+                         shard=(mesh.batch_index, mesh.batch_size))
     steps_per_epoch = max(1, len(loader))
     if max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
 
-    model = build_unet(cfg, dev)
+    model = replicate(build_unet(cfg, dev), mesh)
     optimizer, scheduler = make_optimizer(model.parameters(), cfg.training, steps_per_epoch)
     state = TrainState(model, optimizer, scheduler)
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
-    train_step = make_train_step(cfg, augment=True)
+    train_step = make_train_step(cfg, augment=True, mesh=mesh)
     steps = (train_step, make_multistep(train_step, max(1, train_cfg.scan_window)))
     history = run_epochs(state, gen, loader, train_cfg, steps_per_epoch, lambda epoch: steps, loss_key="loss",
                          name="train_segmentation", max_epochs=max_epochs)

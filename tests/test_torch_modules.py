@@ -314,3 +314,17 @@ def test_convert_is_strict():
     bad = {"params": {"heads": dict(tree["params"]["heads"], W=np.zeros((2, 4, 3)))}}
     with pytest.raises(ValueError, match="shape"):
         load_jax_variables(tm, bad)
+
+
+@pytest.mark.parametrize("name", [("gat", "GATNetwork"), ("mincut", "SegmentPredictor"),
+                                  ("mincut", "MinCutRefinement")])
+def test_dropout_defaults_match_flax(name):
+    """Each module's default ``dropout_rate`` is the flax field's."""
+    import inspect
+
+    module, cls = name
+    flax_cls = getattr({"gat": jax_gat, "mincut": jax_mincut}[module], cls)
+    port_cls = getattr({"gat": t_gat, "mincut": t_mincut}[module], cls)
+    want = flax_cls.__dataclass_fields__["dropout_rate"].default
+    assert want == 0.1
+    assert inspect.signature(port_cls.__init__).parameters["dropout_rate"].default == want
