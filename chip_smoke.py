@@ -27,7 +27,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
 4. Time the forward (ms/step, images/s, and the host's time to issue a
    step) and each kernel at each shape with CUDA events, beside its plain
    version, its one-call PyTorch counterpart where there is one, and its
-   bound on an H100 SXM (3.35 TB/s, 989 bf16 TFLOP/s dense).
+   bound on an H100 SXM (3.35 TB/s, 989 bf16 TFLOP/s dense). K1 (and K4
+   in phase 6) also gets its device time (torch.profiler: the kernel
+   alone, and the whole call with the wrapper's weight packing), the
+   library call's device time, and K1 prints the bytes of weights its
+   tiling moves from L2 into shared memory a call (worked out, not
+   measured, so not in the kernels line).
 5. Train the U-Net of the repo's model widths (``configs/model.yaml``: init
    32, depth 4, 2 classes) in bf16 at 512² b8 with the segmentation
    trainer's step (augmentation, CE + Dice, backward, Adam lr 1e-3 weight
@@ -81,9 +86,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (32, 32) → 32) and their conv2s. Kernel vs plain within ``CONV_TOL``
    (bf16) and ``F32_TOL`` (f32), whole output and borders; at the conv2
    sites against K1 within ``CONV_TOL``; odd shapes (Cin 5, groups (2, 4),
-   Cin 3, odd W/2, H/2 not a multiple of the tile) in both dtypes. Timed
+   Cin 3, odd Cout, odd W/2, H/2 not a multiple of the tile) in both
+   dtypes. Timed
    beside its plain version, the dense-s2d ``F.conv2d`` and the op the
-   serving forward runs at the site (K1, K2 or the windowed cuDNN conv).
+   serving forward runs at the site (K1, K2 or the windowed cuDNN conv),
+   with the kernel's and the library call's device time (torch.profiler),
+   and, on the printed lines only (they are worked out, not measured), the
+   windowed form's floor (its 16/9 of the operations at the bf16 rate) and
+   the L2 -> SM weight bytes of its tiling against the compulsory bytes.
    The serving forward, the scene and both trainers launch K7 and K8 never.
 11. Hold the fused ConvBlock (K8) at the five standard-layout ConvBlocks of
    the same forward (enc block2, enc block3, bottleneck, dec block0, dec
@@ -93,8 +103,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (Cin 1 and 3, every b1 > 0 in three, every tile size, and C 1024 and
    600 in 512-channel tiles) within ``F32_TOL``; timed beside its plain
    version and, as context, the block's two bf16 cuDNN convs. K7's odd
-   shapes include five groups (tensor cores and SIMT), f32 Cin 256 and a
-   bf16 Cin 512 halo staged in two chunks.
+   shapes include five groups (tensor cores in bf16, SIMT in f32), f32 Cin
+   256 (a halo staged in two chunks) and bf16 Cin 512 (128 K chunks).
 12. K9 (``psel_conv3x3_halo``) and K2's sharded entry (``dec_conv1_halo``)
    on H-shards in one process: the serving forward's captured L0 (8, 256,
    256, 128) and L1 (8, 128, 128, 256) conv2 inputs and both decoder conv1
@@ -103,7 +113,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bit for bit, in bf16 and f32, and the plain versions within
    ``CONV_TOL`` / ``F32_TOL``. One inner shard is timed beside its bound,
    the plain version, the JAX form (concat + K1 + slice) and the library's
-   dense-s2d ``F.conv2d`` on the extended shard.
+   dense-s2d ``F.conv2d`` on the extended shard, each by CUDA events and by
+   device time, with K9's L2 -> SM weight bytes worked out from its tiling
+   (printed only).
 13. The torch.distributed paths over NCCL in a group of one rank (the card
    machine has one card): ``spatial_sharded_apply`` of the serving U-Net
    at 512² b8 bf16 against the unsharded forward within ``CONV_TOL`` of
@@ -328,6 +340,17 @@ def _kernel_table(dev, launches, scene_launches):
             library_ms = None
         t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = case["ops"] / case["rate"] * 1e3
+        extra = {}
+        if case["kind"] == "psel":
+            # The card's time: the kernel alone, and the call (the wrapper's
+            # weight packing and casts too); the weights it moves L2 -> SM.
+            call_ms, dev_ms = _device_ms(tag, lambda: kernel_fn(*args), own="psel_wgmma_kernel")
+            lib_dev_ms = _device_ms(f"{tag} library", lambda: F.conv2d(xn, w, padding=1))
+            extra = {"device_ms": dev_ms, "call_device_ms": call_ms, "library_device_ms": lib_dev_ms}
+            print(f"[chip_smoke] {name} L{case['level']}: device {dev_ms * 1e3:.1f} us (call {call_ms * 1e3:.1f}), "
+                  f"library device {lib_dev_ms * 1e3:.1f} us; weights L2 -> SM (from the tiling) "
+                  f"{_psel_weight_l2_bytes(shape, dev) / 1e6:.2f} MB a call against {case['bytes'] / 1e6:.1f} MB "
+                  f"compulsory")
         rows.append({
             "name": f"{name} L{case['level']}",
             "route": "cuda",
@@ -342,6 +365,7 @@ def _kernel_table(dev, launches, scene_launches):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
+            **extra,
         })
         print(f"[chip_smoke] {name} L{case['level']}: {ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} us, "
               f"library {'-' if library_ms is None else f'{library_ms * 1e3:.1f} us'}, "
@@ -476,11 +500,40 @@ def _forward_time(model, x):
     return ms
 
 
-def _device_ms(label: str, fn, iters: int = 10) -> float:
+def _psel_weight_l2_bytes(shape, dev) -> int:
+    """Bytes of weights the bf16 psel kernel (K1, K4, K9) moves from L2 into
+    shared memory a call, worked out from its tiling in
+    ``csrc/psel_conv.cu``, not read from the card: one 9·C·C bf16 copy a
+    block of its persistent grid, min(tiles, SMs) blocks over tiles of
+    TH × 16 s2d pixels (TH 8 at C = 32, 4 at C = 64)."""
+    import torch
+
+    b, hh, ww, c4 = shape
+    c = c4 // 4
+    th = 8 if c == 32 else 4
+    tiles = b * -(-hh // th) * -(-ww // 16)
+    return min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count) * 9 * c * c * 2
+
+
+def _wconv_weight_l2_bytes(shape, packed) -> int:
+    """Bytes of weights the bf16 K7 kernel moves from L2 into shared memory
+    a call, worked out from its tiling in ``csrc/wconv.cu``, not read from
+    the card: every block tile (8 × 16 s2d pixels at N = 256, 16 × 16 below)
+    of every column block loads each chunk's 4 × 16 × N slab once, so the
+    call moves its packed weights (``wgmma_weight_chunks``: column blocks,
+    chunks, 4, N/8, 2, 8, 8) once a tile position."""
+    b, hh, ww, _ = shape
+    th = 8 if packed.shape[3] == 32 else 16
+    return b * -(-hh // th) * -(-ww // 16) * packed.numel() * 2
+
+
+def _device_ms(label: str, fn, iters: int = 10, own: str = ""):
     """Device time per call of ``fn``: the summed time of every CUDA kernel
     it launches (torch.profiler), over ``iters`` calls after a warm-up,
     printed with its kernels. Where a call is short, the CUDA-event time of
-    ``_time_ms`` is the host's time to issue it; this is the card's."""
+    ``_time_ms`` is the host's time to issue it; this is the card's. With
+    ``own``, returns (the call's time, the time of the kernels whose name
+    holds ``own``: the hand-written kernel without the wrapper's packing)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -500,7 +553,12 @@ def _device_ms(label: str, fn, iters: int = 10) -> float:
     ms = sum(t * n for _, t, n in kernels) / 1e3
     print(f"[chip_smoke]   device time per call of {label}: {ms * 1e3:.1f} us: " + "; ".join(
         f"{key[:60]} {t:.1f} us x{n}" for key, t, n in kernels[:4]))
-    return ms
+    if not own:
+        return ms
+    own_ms = sum(t * n for key, t, n in kernels if own in key) / 1e3
+    if own_ms <= 0:
+        _fail(f"{label}: the profiler recorded no kernel named {own!r}")
+    return ms, own_ms
 
 
 def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15):
@@ -832,16 +890,19 @@ def _k4_table(dev, launches, e2e_launches):
             w = s2d_ops.s2d_conv3x3_kernel(kd).to(inp.dtype).permute(3, 2, 0, 1).contiguous()
             xn = inp.permute(0, 3, 1, 2)
             library_ms = _time_ms(lambda: F.conv2d(xn, w, padding=1), KERNEL_ITERS)
+            call_ms, dev_ms = _device_ms(tag, lambda: fn(inp, kk), own="psel_wgmma_kernel")
             rows.append({
-                "name": f"{name} L{lvl}", "route": "cuda", "source": source,
+                "name": f"{name} L{lvl}", "route": "cuda", "source": source, "device_ms": dev_ms,
+                "call_device_ms": call_ms,
                 "replaces": f"{PSCONV_SRC}:{line}", "launches": launches[f"k4_{name.split('_')[1]}"],
                 "launches_e2e": e2e_launches[f"k4_{name.split('_')[1]}"],
                 "shape": list(inp.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms,
             })
-            print(f"[chip_smoke] {name} L{lvl}: {ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} us, "
-                  f"library {library_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")
+            print(f"[chip_smoke] {name} L{lvl}: {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us, plain "
+                  f"{plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
+                  f"({rows[-1]['bound_by']})")
 
         # The autograd Function's dx and dK for the seeded cotangent, bf16
         # and f32, against the plain version under ordinary autograd in f32
@@ -1115,9 +1176,16 @@ def _wconv_table(dev, s2d_sites, launches, scene_launches):
             xf = xf.contiguous().permute(0, 3, 1, 2)
             wf = k.to(x1.dtype).permute(3, 2, 0, 1).contiguous()
             fullres_ms = _time_ms(lambda: F.conv2d(xf, wf, padding=1), KERNEL_ITERS)
-            t_bytes = (x1.numel() * 2 + b * hh * ww * 4 * cout * 2 + w2.numel() * 2 + cout * 4) / HBM_BYTES_PER_S * 1e3
+            compulsory = x1.numel() * 2 + b * hh * ww * 4 * cout * 2 + w2.numel() * 2 + cout * 4
+            t_bytes = compulsory / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * b * (2 * hh) * (2 * ww) * 9 * cin * cout / BF16_TENSOR_FLOPS * 1e3
-            path = "mma" if wconv.wconv_uses_mma(x1.dtype, groups or (cin,), cout) else "simt"
+            # The windowed form's own floor: its 16/9 of the operations at the dense bf16 rate.
+            form_ms = max(t_bytes, t_ops * 16 / 9)
+            path = "wgmma" if wconv.wconv_uses_mma(x1.dtype) else "simt"
+            call_ms, dev_ms = _device_ms(tag, lambda: wconv.wconv3x3_s2d(x1, w2, bias, groups),
+                                         own="wconv_wgmma_kernel")
+            lib_dev_ms = _device_ms(f"{tag} library", lambda: F.conv2d(xn, wd, padding=1))
+            weight_l2 = _wconv_weight_l2_bytes(x1.shape, wconv.wgmma_weight_chunks(w2.to(x1.dtype), groups, cout))
             rows.append({
                 "name": f"wconv3x3_s2d {name}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/wconv.cu",
                 "replaces": f"{WCONV_SRC}:122", "launches": launches["wconv"],
@@ -1125,16 +1193,21 @@ def _wconv_table(dev, s2d_sites, launches, scene_launches):
                 "cout": cout, "path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms, "serving_site_ms": model_ms, "fullres_cudnn_ms": fullres_ms,
+                "device_ms": dev_ms, "call_device_ms": call_ms, "library_device_ms": lib_dev_ms,
             })
             print(f"[chip_smoke] wconv3x3_s2d {name} ({path}): {ms * 1e3:.1f} us/launch, "
                   f"plain {plain_ms * 1e3:.1f} us, "
                   f"library (dense s2d F.conv2d) {library_ms * 1e3:.1f} us, serving forward's op here "
-                  f"{model_ms * 1e3:.1f} us, full-res cuDNN conv {fullres_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")
+                  f"{model_ms * 1e3:.1f} us, full-res cuDNN conv {fullres_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}), "
+                  f"form floor {form_ms * 1e3:.1f} us; device {dev_ms * 1e3:.1f} us (call {call_ms * 1e3:.1f}), library "
+                  f"device {lib_dev_ms * 1e3:.1f} us; weights L2 -> SM (from the tiling) {weight_l2 / 1e6:.1f} MB a call against "
+                  f"{compulsory / 1e6:.1f} MB compulsory")
 
-        # Odd shapes: Cin 5, groups (2, 4), the RGB input's Cin 3, odd W/2,
-        # H/2 not a multiple of the 4-row tile, a tensor-core grouped case.
+        # Odd shapes: Cin 5, groups (2, 4), the RGB input's Cin 3, odd Cout, odd W/2,
+        # H/2 not a multiple of the tile, widths that are no multiple of 16.
         g = torch.Generator(device=dev).manual_seed(17)
         for b, hh, ww, cin, cout, groups in ((1, 5, 7, 5, 4, ()), (2, 9, 8, 6, 4, (2, 4)), (2, 7, 9, 3, 32, ()),
+                                             (1, 5, 9, 5, 3, ()), (1, 6, 7, 6, 5, (2, 4)),
                                              (1, 6, 21, 64, 32, (32, 32)), (1, 5, 9, 80, 32, (16,) * 5),
                                              (1, 5, 9, 20, 8, (2, 3, 4, 5, 6)), (1, 4, 6, 256, 64, (128, 128)),
                                              (1, 4, 17, 512, 64, (256, 256))):
@@ -1667,7 +1740,8 @@ def _k9_table(dev, s2d_sites, launches):
                   f"(dense-s2d F.conv2d on the extended shard) {library_ms * 1e3:.1f} us, bound "
                   f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}); device time per call (profiler): "
                   f"K9 {dev_ms['k9'] * 1e3:.1f} us, JAX form {dev_ms['jax'] * 1e3:.1f} us, library "
-                  f"{dev_ms['library'] * 1e3:.1f} us")
+                  f"{dev_ms['library'] * 1e3:.1f} us; weights L2 -> SM (from the tiling) "
+                  f"{_psel_weight_l2_bytes(xs.shape, xs.device) / 1e6:.2f} MB")
 
             block, inp, (x_prev, wt, bias_up), _ = sites[dec]
             k1, b1 = block.folded(1)

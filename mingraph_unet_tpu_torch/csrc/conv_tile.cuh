@@ -1,8 +1,10 @@
-// Tiled 3x3 'SAME' conv on a phase-major space-to-depth (s2d) tensor.
-//
-// Shared by psel_conv.cu (the s2d ConvBlock's conv2; without ReLU, the raw
-// training conv's forward and dgrad) and dec_conv1.cu (the s2d decoder's
-// conv1 with the ConvTranspose folded in).
+// Tiled 3x3 'SAME' conv on a phase-major space-to-depth (s2d) tensor: the
+// mma.sync tile of dec_conv1.cu (the s2d decoder's conv1 with the
+// ConvTranspose folded in; K2, bf16 and f32), and the f32 FMA kernel that
+// psel_conv.cu also runs for f32 inputs (the s2d ConvBlock's conv2; without
+// ReLU, the raw training conv's forward and dgrad). psel's bf16 path is
+// its own Hopper kernel (psel_conv.cu, hopper.cuh); wconv.cu takes the
+// halo geometry, ldmatrix and the launch helper from here.
 //
 // Layout. An s2d tensor is (B, Hh, Ww, 4C) with channel index ph*C + c,
 // ph = 2*py + px. Full-resolution pixel (y, x, c) lives at s2d
@@ -10,8 +12,9 @@
 // conv on that layout: the useful FLOPs only, not the dense s2d form's 4x or
 // the TPU phase-select form's 16/9x.
 //
-// Work split. One block of 256 threads owns a 4 x 16 s2d tile (8 x 32
-// full-res pixels) of one image and all output channels. It copies the
+// Work split (dec_conv1 in bf16, and both in f32). One block of 256
+// threads owns a 4 x 16 s2d tile (8 x 32 full-res pixels) of one image and
+// all output channels. It copies the
 // tile's s2d input halo (6 x 18 s2d pixels, all 4C channels, zero outside the
 // image) into shared memory once, then runs an implicit GEMM over it:
 // M = the tile's pixels, N = Cout, K = 9 taps x C.
@@ -25,14 +28,13 @@
 //         weights arrive pre-packed in B-fragment order (psconv.py): a lane
 //         reads its 4 values as one 8-byte load, and the 8 warps share them
 //         through L1. Accumulators stay in registers; the epilogue adds the
-//         bias, applies ReLU when RELU is set (psel, dec_conv1; the raw
-//         training conv leaves it off) and writes bf16 pairs in the s2d
-//         layout. The
-//         unroll depth and blocks per SM were picked by timing variants at
-//         the serving shapes on an H100 (PERF.md).
+//         bias field, applies the ReLU and writes bf16 pairs in the s2d
+//         layout. The unroll depth and blocks per SM were picked by timing
+//         variants at the serving shapes on an H100 (PERF.md).
 //   f32:  plain FMA, one full-res pixel per thread, weights in their HWIO
-//         layout. This path exists so that a card run can be held against
-//         the CPU in f32; it is not tuned.
+//         layout, ReLU when RELU is set (psel, dec_conv1; the raw training
+//         conv leaves it off). This path exists so that a card run can be
+//         held against the CPU in f32; it is not tuned.
 //
 // The optional second source (HAS_PREV) is dec_conv1's x_prev term: a 3x3
 // conv on x_prev's own (Hh, Ww) grid with ConvTranspose-folded weights
@@ -40,10 +42,7 @@
 // Warp w's pixels all have phase p, so they read one column block of those
 // weights, and its rows read 16 consecutive x_prev halo pixels.
 //
-// Bound. At the U-Net's s2d levels (C = Cout = 32 or 64) psel does 2*9*C*C
-// operations per full-res pixel and moves 2C values; on the H100 the bf16
-// tensor-core rate puts it below the memory line, so memory bounds it.
-// dec_conv1's function needs at least 2*20*C*C operations per full-res
+// Bound. dec_conv1's function needs at least 2*20*C*C operations per full-res
 // pixel (the ConvTranspose, then the conv over [skip ‖ up]) and moves 2.5C
 // values; that puts its bound on the memory line at level 0 and on the
 // tensor-core line at level 1. The folded form this kernel runs does
@@ -54,7 +53,8 @@
 // full-res im2col and the upsampled decoder tensor out of device memory, and
 // writes each output once in its final layout.
 //
-// Sharded entries (K9, the halo form of psel; dec_conv1's halo form). An
+// Sharded entries (K9 in f32, the halo form of psel; dec_conv1's halo
+// form). An
 // H-shard of the s2d grid is computed alone: the s2d rows just above and
 // below it (one each, (B, 1, Ww, channels), from the neighbouring shards)
 // arrive as separate pointers and are staged in place of rows -1 and hh; a
@@ -224,25 +224,24 @@ __device__ __forceinline__ void mma_term(float (&acc)[2][NT][4], AOf a_of, int r
   }
 }
 
-// bf16 tensor-core kernel; C = Cout, Cp = 2C (compile time, so the loops
-// unroll and the accumulators stay in registers). Blocks per SM: 4 for a
-// narrow psel (64 registers suffice), else 2 (128 registers).
-template <int C, bool HAS_PREV, bool RELU>
-__global__ void __launch_bounds__(THREADS, !HAS_PREV && C <= 32 ? 4 : 2) conv_bf16_kernel(ConvArgs a) {
+// bf16 tensor-core kernel of dec_conv1 (the x_prev term and the ReLU always
+// on); C = Cout, Cp = 2C (compile time, so the loops unroll and the
+// accumulators stay in registers). 2 blocks per SM (128 registers).
+template <int C>
+__global__ void __launch_bounds__(THREADS, 2) conv_bf16_kernel(ConvArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int COUT = C, CP = 2 * C;
   constexpr int NCH = COUT < 64 ? COUT : 64;  // output channels per pass
   constexpr int NT = NCH / 8;                 // mma column tiles per pass
   extern __shared__ __align__(128) unsigned char smem[];
-  const SmemPlan<bf16> plan(C, CP, HAS_PREV);
+  const SmemPlan<bf16> plan(C, CP, true);
   bf16* halo = reinterpret_cast<bf16*>(smem);
   bf16* prev = reinterpret_cast<bf16*>(smem + plan.prev_off);
   const int bi = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
   stage_halo<bf16>(halo, plan.ss, reinterpret_cast<const bf16*>(a.x), bi, i0, j0, a.hh, a.ww, 4 * C,
                    reinterpret_cast<const bf16*>(a.x_top), reinterpret_cast<const bf16*>(a.x_bot));
-  if constexpr (HAS_PREV)
-    stage_halo<bf16>(prev, plan.sp, reinterpret_cast<const bf16*>(a.xp), bi, i0, j0, a.hh, a.ww, CP,
-                     reinterpret_cast<const bf16*>(a.xp_top), reinterpret_cast<const bf16*>(a.xp_bot));
+  stage_halo<bf16>(prev, plan.sp, reinterpret_cast<const bf16*>(a.xp), bi, i0, j0, a.hh, a.ww, CP,
+                   reinterpret_cast<const bf16*>(a.xp_top), reinterpret_cast<const bf16*>(a.xp_bot));
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -273,11 +272,10 @@ __global__ void __launch_bounds__(THREADS, !HAS_PREV && C <= 32 ? 4 : 2) conv_bf
         HALO_W * SS, reinterpret_cast<const uint2*>(a.w), COUT / 8, nc / 8, lane);
     // x_prev term: tap (di, dj) reads x_prev halo pixel (I + di, J + dj) and
     // the column block of phase p.
-    if constexpr (HAS_PREV)
-      mma_term<CP, NT>(
-          acc,
-          [&](int tap) { return prev + ((ib + tap / 3) * HALO_W + lrow + tap % 3) * SP + lk; },
-          HALO_W * SP, reinterpret_cast<const uint2*>(a.wp), 4 * COUT / 8, p * (COUT / 8) + nc / 8, lane);
+    mma_term<CP, NT>(
+        acc,
+        [&](int tap) { return prev + ((ib + tap / 3) * HALO_W + lrow + tap % 3) * SP + lk; },
+        HALO_W * SP, reinterpret_cast<const uint2*>(a.wp), 4 * COUT / 8, p * (COUT / 8) + nc / 8, lane);
 
     // Epilogue: lane (g, t) holds pixels J = g and g + 8 of each s2d row,
     // channels 2t and 2t + 1 of each column tile.
@@ -294,12 +292,8 @@ __global__ void __launch_bounds__(THREADS, !HAS_PREV && C <= 32 ? 4 : 2) conv_bf
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int n = nc + j * 8 + 2 * t;
-          float v0 = acc[mi][j][2 * h] + epilogue_term<HAS_PREV>(a, gi, gj, p, n);
-          float v1 = acc[mi][j][2 * h + 1] + epilogue_term<HAS_PREV>(a, gi, gj, p, n + 1);
-          if constexpr (RELU) {
-            v0 = fmaxf(v0, 0.f);
-            v1 = fmaxf(v1, 0.f);
-          }
+          const float v0 = fmaxf(acc[mi][j][2 * h] + epilogue_term<true>(a, gi, gj, p, n), 0.f);
+          const float v1 = fmaxf(acc[mi][j][2 * h + 1] + epilogue_term<true>(a, gi, gj, p, n + 1), 0.f);
           *reinterpret_cast<__nv_bfloat162*>(out + n) = __floats2bfloat162_rn(v0, v1);
         }
       }
@@ -378,16 +372,15 @@ int launch(Kern kern, const Args& a, size_t smem_bytes, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// Launch on `stream`; returns cudaGetLastError() after the launch, or
+// dec_conv1 on `stream`; returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a bf16 width without an instantiation.
-template <bool HAS_PREV, bool RELU>
-int launch_conv_tile(const ConvArgs& a, bool is_bf16, cudaStream_t stream) {
+inline int launch_dec_conv1(const ConvArgs& a, bool is_bf16, cudaStream_t stream) {
   if (!is_bf16)
-    return launch(conv_f32_kernel<HAS_PREV, RELU>, a, SmemPlan<float>(a.c, a.cp, HAS_PREV).bytes, stream);
-  const size_t bytes = SmemPlan<__nv_bfloat16>(a.c, 2 * a.c, HAS_PREV).bytes;
+    return launch(conv_f32_kernel<true, true>, a, SmemPlan<float>(a.c, a.cp, true).bytes, stream);
+  const size_t bytes = SmemPlan<__nv_bfloat16>(a.c, 2 * a.c, true).bytes;
   switch (a.c) {
-    case 32: return launch(conv_bf16_kernel<32, HAS_PREV, RELU>, a, bytes, stream);
-    case 64: return launch(conv_bf16_kernel<64, HAS_PREV, RELU>, a, bytes, stream);
+    case 32: return launch(conv_bf16_kernel<32>, a, bytes, stream);
+    case 64: return launch(conv_bf16_kernel<64>, a, bytes, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }

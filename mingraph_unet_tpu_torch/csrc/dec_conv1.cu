@@ -19,7 +19,7 @@ extern "C" int mgu_dec_conv1(const void* xs, const void* xp, const void* ws, con
   mgu::ConvArgs a{xs, ws, xp, wp, nullptr, t9, y, b, hh, ww, cs, cp, cout};
   a.hh_glob = hh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mgu::launch_conv_tile<true, true>(a, is_bf16 != 0, s);
+  return mgu::launch_dec_conv1(a, is_bf16 != 0, s);
 }
 
 extern "C" int mgu_dec_conv1_halo(const void* xs, const void* xs_top, const void* xs_bot, const void* xp,
@@ -34,5 +34,5 @@ extern "C" int mgu_dec_conv1_halo(const void* xs, const void* xs_top, const void
   a.row0 = row0;
   a.hh_glob = hh_glob;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mgu::launch_conv_tile<true, true>(a, is_bf16 != 0, s);
+  return mgu::launch_dec_conv1(a, is_bf16 != 0, s);
 }

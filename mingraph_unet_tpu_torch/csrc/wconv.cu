@@ -14,180 +14,398 @@
 // output, so the product IS the output block.
 // Pixels outside the image read zero (the conv's SAME padding).
 //
-// Work split. One block of 256 threads owns a 4 x 16 s2d tile of one image.
-// It stages the tile's s2d halo (6 x 18 pixels, zero outside the image) in
-// shared memory, in chunks of kch s2d channels (all 4*Cin at once where
-// they fit: every U-Net site in bf16); the contraction reads its 16 taps
-// from there, chunk by chunk, so no patch matrix is ever written. The group
-// table is read from device memory, so any number of groups runs.
-//   mma (bf16, every group width a multiple of 16, Cout a multiple of 8):
-//     implicit GEMM on tensor cores, mma.sync m16n8k16 with f32 accumulate
-//     (conv_tile.cuh's fragments). Warp w owns s2d rows 2*(w & 1) and
-//     2*(w & 1) + 1 and output phase w >> 1 (Cout columns). A 16-wide k step
-//     lies inside one group and one phase, so the 16 pixels of a row read 16
-//     consecutive staged pixels: one ldmatrix.x4 each. Weights come packed in
-//     B-fragment order (psconv.py::mma_b_fragments).
-//   simt (f32, and bf16 at other widths such as the RGB input's Cin = 3):
-//     the halo staged as f32 (at most 512 channels a chunk, so Cin 256 and
-//     more fit), one s2d pixel per thread and 16 output columns at a time,
-//     weights f32 (the x-dtype values) padded to 16 columns. With more than
-//     one chunk the halo is staged anew for every 16-column pass.
-// Both accumulate in f32 and add the bias, apply ReLU and round once in the
-// epilogue.
-//
-// Bound. The function needs 2*9*Cin*Cout operations per full-res pixel and
-// moves x and y once; at the U-Net's s2d sites (Cin, Cout <= 128 per pixel,
-// bf16) that puts it on the memory line of an H100. The windowed form does
-// 16/9 of the useful operations; the tile reads its input once apart from
-// the halo (6 x 18 staged per 4 x 16 computed, mostly L2 hits) and writes
-// each output once in its final layout.
+// bf16, every width: a Hopper kernel (wconv_wgmma_kernel).
+//   Bound. The function needs 2*9*Cin*Cout operations a full-res pixel and
+//   moves x and y once: at the U-Net's s2d sites the H100's memory line
+//   bounds it, except dec-L1 conv1. The windowed form does 16/9 of those
+//   operations (its "form floor", 68.8 GFLOP at 64 -> 64: 70 us at the dense
+//   bf16 rate). What held the mma.sync kernel back was the weights: every
+//   64-pixel tile streamed the whole (16*Cin, 4*Cout) matrix from L2, once a
+//   warp, 0.5-2.1 GB a call.
+//   Design.
+//   - One wgmma.m64nNk16 with N = 4*Cout (padded to 16, 32, 64, 128 or 256;
+//     wider outputs run in 256-column blocks) covers all four output phases,
+//     so each A fragment is loaded once a tap, not once an output phase.
+//   - Block tiles of 128 s2d pixels (N = 256: 8 x 16) or 256 (N <= 128:
+//     16 x 16), two consumer warpgroups of 64 rows (one or two m-tiles each),
+//     persistent blocks walking the tiles. The weights cross L2 once a block
+//     tile: 2-4x less than the mma.sync kernel.
+//   - K streams in chunks of 16 input channels, each feeding the 4 window
+//     taps of one input phase. Where every group width is a multiple of 16
+//     (every U-Net site but the image's), a chunk is one 16-channel step of
+//     one (group, phase) block: no operation is wasted. Otherwise (the RGB
+//     input's Cin 3, odd test widths) a chunk is 16 consecutive s2d channels
+//     taken four times, once per tap phase, with zero weight rows for the
+//     channels of the other phases: for Cin <= 4 that is the same work.
+//     The wrapper packs w2 into chunks with those zero rows and resolves the
+//     group layout into a chunk table (source channel, valid channels,
+//     phase, copy size), staged in shared memory once a block.
+//   - A producer warpgroup (setmaxnreg hands its registers to the
+//     consumers) fills a ring of stages: the chunk's 4 x 16 x N weight slab
+//     by one bulk copy and its halo box (TH + 2 rows x 18 columns x 16
+//     channels) by one TMA tile load from a 4-D tensor map over x, whose
+//     out-of-bounds zeros are the SAME padding, both completing on the
+//     stage's mbarrier. The box lands with the 32-byte swizzle
+//     (hopper.cuh::swz32), so the 8 rows of an ldmatrix fall in 8 bank
+//     groups. Where the pixel stride is not 16-byte aligned (odd widths, no
+//     tensor map) the producer threads copy the same layout by cp.async, 8
+//     bytes at a time with zero fill. The consumers release a stage on a
+//     second mbarrier once their wgmma have read it, so the next chunks'
+//     loads overlap this chunk's products.
+//   - Epilogue: bias (pre-tiled to the four phases), ReLU flag, bf16 in
+//     registers, staged in shared memory and written with 16-byte stores.
+//   L2 -> SM weight bytes a call, worked out from the tiling: tiles x chunks
+//   x 128*N bytes (chip_smoke.py prints it beside the compulsory bytes).
+// f32: SIMT FMA (wconv_simt_kernel), for the card's f32 checks: the halo
+//   staged as f32 (at most 512 channels a chunk, so Cin 256 and more fit),
+//   one s2d pixel a thread and 16 output columns at a time, weights padded
+//   to 16 columns; the group table in device memory.
+// Both accumulate in f32 and add the bias, apply ReLU and round once.
 #include "conv_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using mgu::HALO_PIX;
-using mgu::HALO_W;
-using mgu::launch;
-using mgu::PAD;
-using mgu::TH;
-using mgu::THREADS;
-using mgu::TW;
+using bf16 = __nv_bfloat16;
+namespace sm90 = mgu::sm90;
 
 // Tap geometry: window tap row (or column) t in 0..3 reads s2d row
 // I - 1 + pos(t) at phase phase(t), i.e. pos = (0, 1, 1, 2) and
 // phase = (1, 0, 1, 0) (wconv.py's _POS and _PHASE).
 __device__ __forceinline__ int pos(int t) { return (t + 1) >> 1; }
 __device__ __forceinline__ int phase(int t) { return (t + 1) & 1; }
-constexpr int SIMT_N = 16;  // output columns per SIMT pass (weights padded to it)
 
-struct WconvArgs {
-  const void* x;      // (B, Hh, Ww, 4*Cin) s2d
-  const void* w;      // mma: bf16 B fragments of (16*Cin, 4*Cout); simt: f32 (16*Cin, npad)
-  const float* bias;  // (Cout,) full-res bias
-  void* y;            // (B, Hh, Ww, 4*Cout) s2d
-  int b, hh, ww, cin, cout, npad;
-  int ngroups;
-  const int* groups;  // (ngroups,) full-res group widths, in device memory
-  int kch;            // s2d channels staged per chunk (mma: a multiple of 16)
+// ---------------------------------------------------------------------------
+// bf16: wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 384;    // two consumer warpgroups, then the producer warpgroup
+constexpr int CONSUMERS = 256;
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // setmaxnreg: 128 * 56 + 256 * 224 <= 65536
+constexpr int SM90_SHARED = 232448;
+constexpr int MAX_STAGES = 8;
+
+template <int NP>
+struct WPlan {
+  static constexpr int MT = NP <= 128 ? 2 : 1;  // m-tiles (64 rows) a warpgroup
+  static constexpr int TH = 8 * MT, TW = 16;     // s2d tile
+  static constexpr int HW = TW + 2, HPIX = (TH + 2) * HW;
+  static constexpr int A_BYTES = (HPIX * 32 + 1023) / 1024 * 1024;  // 16 channels a pixel, 32-byte swizzle
+  static constexpr int B_BYTES = 4 * 16 * NP * 2;  // 4 taps x 16 k x NP columns
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int OS = NP + 8;                // staged output pixel stride
+  static constexpr int OUT_BYTES = TH * TW * OS * 2;
+  // Bytes beside the ring: the output tile, 2 mbarriers a stage, the chunk table.
+  static constexpr int fixed(int nchunks) { return OUT_BYTES + 2 * MAX_STAGES * 8 + nchunks * 16; }
+  static constexpr int stages(int nchunks) {
+    const int s = (SM90_SHARED - fixed(nchunks)) / STAGE;
+    return s < MAX_STAGES ? s : MAX_STAGES;
+  }
+  static constexpr int bytes(int nchunks) { return stages(nchunks) * STAGE + fixed(nchunks); }
 };
 
-template <int NT, bool RELU>
-__global__ void __launch_bounds__(THREADS, 1) wconv_mma_kernel(WconvArgs a) {
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* halo = reinterpret_cast<bf16*>(smem);
-  const int c4 = 4 * a.cin, ss = a.kch + PAD;
-  const int nchunk = (c4 + a.kch - 1) / a.kch;
-  const int bi = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  const bf16* x = reinterpret_cast<const bf16*>(a.x);
+struct WgArgs {
+  const bf16* x;              // (B, Hh, Ww, c4)
+  const unsigned char* w;     // (ncb, nchunks, 4, NP/8, 2, 8, 8) bf16 chunks (wconv.py::wgmma_weight_chunks)
+  const float* bias4;         // (4*Cout,) bias tiled to the four phases
+  bf16* y;                    // (B, Hh, Ww, 4*Cout)
+  const int4* table;          // (nchunks,) (source channel, valid channels, input phase, 0)
+  int b, hh, ww, c4, n_out, nchunks, ncb, stages, tiles_w, tiles_h, ntiles;
+  int tma;                    // halo chunks by TMA (every group width a multiple of 16), else cp.async
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ib = 2 * (warp & 1);  // first of the warp's two s2d rows
-  const int ph_out = warp >> 1;   // the warp's output phase (Cout columns)
-  const int lrow = lane & 15, lk = (lane >> 4) * 8;
-  const int cout = a.cout, ncols8 = 4 * cout / 8;
-  const uint2* bp = reinterpret_cast<const uint2*>(a.w);
-  const int row_step = HALO_W * ss;
+struct Tile {
+  int cb, bi, i0, j0;
+};
 
-  for (int nc = 0; nc < cout; nc += NT * 8) {
-    float acc[2][NT][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-    const int col0 = (ph_out * cout + nc) / 8;
+template <int NP>
+__device__ __forceinline__ Tile decode(const WgArgs& a, int t) {
+  Tile r;
+  r.cb = t % a.ncb;
+  t /= a.ncb;
+  r.j0 = (t % a.tiles_w) * WPlan<NP>::TW;
+  t /= a.tiles_w;
+  r.i0 = (t % a.tiles_h) * WPlan<NP>::TH;
+  r.bi = t / a.tiles_h;
+  return r;
+}
 
-    for (int ck = 0; ck < nchunk; ++ck) {
-      const int c0 = ck * a.kch, c1 = min(c4, c0 + a.kch);
-      if (nchunk > 1 || nc == 0) {  // one chunk stays staged for every pass
-        __syncthreads();
-        mgu::stage_halo<bf16>(halo, ss, x, bi, i0, j0, a.hh, a.ww, c4, nullptr, nullptr, c0, c1 - c0);
-        __syncthreads();
+// The producer warpgroup: fills stage after stage with a chunk's weight
+// slab (one bulk copy) and its halo box (one TMA load, or cp.async by every
+// producer thread), all completing on the stage's `full` barrier.
+template <int NP>
+__device__ void produce(const WgArgs& a, const CUtensorMap* tmap, unsigned char* ring, uint64_t* full, uint64_t* empty,
+                        const int4* table) {
+  using P = WPlan<NP>;
+  const int ptid = threadIdx.x - CONSUMERS;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+    const Tile tl = decode<NP>(a, t);
+    const unsigned char* wsrc = a.w + size_t(tl.cb) * a.nchunks * P::B_BYTES;
+    const size_t img = size_t(tl.bi) * a.hh;
+    for (int k = 0; k < a.nchunks; ++k) {
+      sm90::mbar_wait(&empty[s], ph ^ 1);
+      unsigned char* as = ring + size_t(s) * P::STAGE;
+      const int4 e = table[k];
+      if (ptid == 0) {
+        sm90::mbar_arrive_expect_tx(&full[s], P::B_BYTES + (a.tma ? P::HPIX * 32 : 0));
+        sm90::bulk_copy(as + P::A_BYTES, wsrc + size_t(k) * P::B_BYTES, P::B_BYTES, &full[s]);
+        // The halo box: 16 channels x (TW + 2) columns x (TH + 2) rows of one
+        // image, from (channel, col, row) = (source, j0 - 1, i0 - 1).
+        if (a.tma) sm90::tma_load_4d(as, tmap, e.x, tl.j0 - 1, tl.i0 - 1, tl.bi, &full[s]);
       }
-      for (int d = 0; d < 16; ++d) {
-        const int dy = d >> 2, dx = d & 3;
-        const int ph = phase(dy) * 2 + phase(dx);
-        const bf16* pix = halo + ((ib + pos(dy)) * HALO_W + lrow + pos(dx)) * ss + lk - c0;
-        int off = 0, goff = 0;
-        for (int g = 0; g < a.ngroups; ++g) {
-          const int gw = __ldg(a.groups + g);
-          // The 16-channel k steps of this group and phase that lie in the chunk.
-          const int base = off + ph * gw;
-          const int ks0 = max(0, (c0 - base) / 16), ks1 = min(gw, c1 - base) / 16;
-          const bf16* arow = pix + base;
-          for (int ks = ks0; ks < ks1; ++ks) {
-            uint32_t af[2][4];
-            mgu::ldmatrix_x4(af[0], arow + ks * 16);
-            mgu::ldmatrix_x4(af[1], arow + row_step + ks * 16);
-            const int kstep = (d * a.cin + goff) / 16 + ks;
-            const uint2* bk = bp + (size_t(kstep) * ncols8 + col0) * 32 + lane;
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-              const uint2 bv = __ldg(bk + j * 32);
-              mgu::mma_bf16(acc[0][j], af[0], bv);
-              mgu::mma_bf16(acc[1][j], af[1], bv);
-            }
-          }
-          off += 4 * gw;
-          goff += gw;
+      if (a.tma) {
+        sm90::mbar_arrive(&full[s]);
+      } else {
+        // 8 bytes (4 channels) at a time: an s2d pixel is 8*Cin bytes.
+        for (int i = ptid; i < P::HPIX * 4; i += 128) {
+          const int pix = i >> 2, u = i & 3;
+          const int gi = tl.i0 - 1 + pix / P::HW, gj = tl.j0 - 1 + pix % P::HW;
+          const bool in = gi >= 0 && gi < a.hh && gj >= 0 && gj < a.ww;
+          const int nb = in ? min(8, max(0, 2 * (e.y - 4 * u))) : 0;
+          sm90::cp_async8(as + sm90::swz32(pix, u >> 1) + (u & 1) * 8,
+                          nb ? a.x + ((img + gi) * a.ww + gj) * a.c4 + e.x + 4 * u : a.x, nb);
         }
+        sm90::cp_async_arrive(&full[s]);
+      }
+      if (++s == a.stages) {
+        s = 0;
+        ph ^= 1;
       }
     }
+  }
+  // Leave only when the consumers have released every stage.
+  for (int i = 0; i < a.stages; ++i) {
+    sm90::mbar_wait(&empty[s], ph ^ 1);
+    if (++s == a.stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+}
 
-    // Epilogue: lane (g, t) holds pixels J = g and g + 8 of each s2d row,
-    // columns 2t and 2t + 1 of each column tile.
-    const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+template <int NP, bool RELU>
+__device__ void consume(const WgArgs& a, unsigned char* ring, bf16* outs, uint64_t* full, uint64_t* empty,
+                        const int4* table) {
+  using P = WPlan<NP>;
+  constexpr int MT = P::MT, NR = NP / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wp = warp & 3;
+  const int lrow = lane & 15;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;  // releases the warpgroup's stages
+  int s = 0, prev = 0;
+  uint32_t ph = 0;
+  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+    const Tile tl = decode<NP>(a, t);
+    float acc[MT][NR];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int gi = i0 + ib + mi;
-      if (gi >= a.hh) continue;
+    for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gj = j0 + g + 8 * h;
-        if (gj >= a.ww) continue;
-        bf16* out = reinterpret_cast<bf16*>(a.y) + ((size_t(bi) * a.hh + gi) * a.ww + gj) * size_t(4 * cout) +
-                    ph_out * cout;
+      for (int r = 0; r < NR; ++r) acc[mi][r] = 0.f;
+    for (int k = 0; k < a.nchunks; ++k) {
+      sm90::mbar_wait(&full[s], ph);
+      // The previous chunk's products are done: its A registers may be
+      // rewritten and its stage goes back to the producer. (A second
+      // register buffer, to overlap this ldmatrix with those products, makes
+      // ptxas serialize every wgmma: C7513.)
+      sm90::wgmma_wait<0>();
+      if (k > 0 && leader) sm90::mbar_arrive(&empty[prev]);
+      const int4 e = table[k];
+      // The chunk's input phase (py, px) is read by the taps dy with
+      // phase(dy) = py: dy in (1, 3) for py = 0 (pos 1, 2), (0, 2) for py = 1
+      // (pos 0, 1); likewise dx.
+      const int oy = (e.z >> 1) ? 0 : 1, ox = (e.z & 1) ? 0 : 1;
+      const unsigned char* as = ring + size_t(s) * P::STAGE;
+      const unsigned char* bs = as + P::A_BYTES;
+      uint32_t af[4][MT][4];
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int n = nc + j * 8 + 2 * t;
-          float v0 = acc[mi][j][2 * h] + a.bias[n];
-          float v1 = acc[mi][j][2 * h + 1] + a.bias[n + 1];
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          const int r = (wg * MT + mi) * 4 + wp;  // the warp's s2d row in the tile
+          const int pix = (r + oy + (j >> 1)) * P::HW + lrow + ox + (j & 1);
+          mgu::ldmatrix_x4(af[j][mi], reinterpret_cast<const bf16*>(as + sm90::swz32(pix, lane >> 4)));
+        }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t desc = sm90::desc_b(bs + j * 16 * NP * 2);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) sm90::Wgmma<NP>::run(acc[mi], af[j][mi], desc);
+      }
+      sm90::wgmma_commit();
+      prev = s;
+      if (++s == a.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    sm90::wgmma_wait<0>();
+    if (leader) sm90::mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) sm90::fence_operand(acc[mi]);
+
+    // Epilogue: lane (g, t4) holds pixels g and g + 8 of its row in each
+    // m-tile, columns 8j + 2*t4 and 8j + 2*t4 + 1 of the column block.
+    const int col0 = tl.cb * 256;
+    const int ncols = min(NP, a.n_out - col0);
+    consumer_sync();  // the last tile's stores have read the staging buffer
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j) {
+      const int n = 8 * j + 2 * t4;
+      const float b0 = n < ncols ? __ldg(a.bias4 + col0 + n) : 0.f;
+      const float b1 = n + 1 < ncols ? __ldg(a.bias4 + col0 + n + 1) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wg * MT + mi) * 4 + wp;
+          float v0 = acc[mi][4 * j + 2 * h] + b0, v1 = acc[mi][4 * j + 2 * h + 1] + b1;
           if (RELU) {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + n) = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(outs + (r * P::TW + g + 8 * h) * P::OS + n) = __floats2bfloat162_rn(v0, v1);
         }
+    }
+    consumer_sync();
+    const int ctid = threadIdx.x;  // 0..255
+    if (a.n_out % 8 == 0) {        // 16-byte stores, each tile row's pixels one after another
+      const int vpp = ncols / 8;
+      for (int i = ctid; i < P::TH * P::TW * vpp; i += 256) {
+        const int v = i % vpp, pix = i / vpp;
+        const int gi = tl.i0 + pix / P::TW, gj = tl.j0 + pix % P::TW;
+        if (gi < a.hh && gj < a.ww)
+          *reinterpret_cast<uint4*>(a.y + ((size_t(tl.bi) * a.hh + gi) * a.ww + gj) * a.n_out + col0 + 8 * v) =
+              *reinterpret_cast<const uint4*>(outs + pix * P::OS + 8 * v);
+      }
+    } else {
+      for (int i = ctid; i < P::TH * P::TW * ncols; i += 256) {
+        const int n = i % ncols, pix = i / ncols;
+        const int gi = tl.i0 + pix / P::TW, gj = tl.j0 + pix % P::TW;
+        if (gi < a.hh && gj < a.ww)
+          a.y[((size_t(tl.bi) * a.hh + gi) * a.ww + gj) * a.n_out + col0 + n] = outs[pix * P::OS + n];
       }
     }
   }
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+template <int NP, bool RELU>
+__global__ void __launch_bounds__(WG_THREADS, 1) wconv_wgmma_kernel(WgArgs a, const __grid_constant__ CUtensorMap tmap) {
+  // Registers move from the producer warpgroup to the consumers (setmaxnreg):
+  // the launch gives every thread 168, the consumers' accumulators (up to
+  // 128 a thread) and A fragments need more, the producer far fewer.
+  using P = WPlan<NP>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* ring = smem;
+  bf16* outs = reinterpret_cast<bf16*>(smem + size_t(a.stages) * P::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + size_t(a.stages) * P::STAGE + P::OUT_BYTES);
+  uint64_t* empty = full + MAX_STAGES;
+  int4* table = reinterpret_cast<int4*>(empty + MAX_STAGES);
+  for (int i = threadIdx.x; i < a.nchunks; i += WG_THREADS) table[i] = a.table[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      sm90::mbar_init(&full[s], 129);  // each producer thread, and the expected bytes of the copies
+      sm90::mbar_init(&empty[s], 2);  // one release a consumer warpgroup
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    produce<NP>(a, &tmap, ring, full, empty, table);
+  } else {
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    consume<NP, RELU>(a, ring, outs, full, empty, table);
+  }
+}
+
+// The halo's tensor map: x as (c4, Ww, Hh, B), a box of 16 channels x
+// (TW + 2) x (TH + 2) x 1 with the 32-byte swizzle, zeros out of bounds.
+template <int NP>
+bool halo_map(CUtensorMap* m, const WgArgs& a) {
+  using P = WPlan<NP>;
+  const cuuint32_t box[4] = {16, P::HW, P::TH + 2, 1};
+  return sm90::nhwc_map(m, a.x, a.b, a.hh, a.ww, a.c4, box, CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+template <int NP, bool RELU>
+int launch_wgmma_np(WgArgs a, cudaStream_t stream) {
+  using P = WPlan<NP>;
+  a.tiles_w = (a.ww + P::TW - 1) / P::TW;
+  a.tiles_h = (a.hh + P::TH - 1) / P::TH;
+  a.ntiles = a.ncb * a.b * a.tiles_w * a.tiles_h;
+  a.stages = P::stages(a.nchunks);
+  if (a.ntiles == 0) return 0;
+  if (a.stages < 2) return int(cudaErrorInvalidValue);
+  const int bytes = P::bytes(a.nchunks);
+  cudaError_t err = cudaFuncSetAttribute(wconv_wgmma_kernel<NP, RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = a.ntiles < sms ? a.ntiles : sms;  // one block a SM: the plan takes its shared memory
+  CUtensorMap tmap = {};
+  if (a.tma && !halo_map<NP>(&tmap, a)) return int(cudaErrorInvalidValue);
+  wconv_wgmma_kernel<NP, RELU><<<grid, WG_THREADS, bytes, stream>>>(a, tmap);
+  return int(cudaGetLastError());
+}
+
+template <bool RELU>
+int launch_wgmma(const WgArgs& a, int np, cudaStream_t stream) {
+  switch (np) {
+    case 16: return launch_wgmma_np<16, RELU>(a, stream);
+    case 32: return launch_wgmma_np<32, RELU>(a, stream);
+    case 64: return launch_wgmma_np<64, RELU>(a, stream);
+    case 128: return launch_wgmma_np<128, RELU>(a, stream);
+    case 256: return launch_wgmma_np<256, RELU>(a, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: SIMT
+// ---------------------------------------------------------------------------
+
+using mgu::HALO_PIX;
+using mgu::HALO_W;
+using mgu::TH;
+using mgu::THREADS;
+using mgu::TW;
+constexpr int SIMT_N = 16;  // output columns per SIMT pass (weights padded to it)
+
+struct SimtArgs {
+  const float* x;     // (B, Hh, Ww, 4*Cin) s2d
+  const float* w;     // (16*Cin, npad)
+  const float* bias;  // (Cout,) full-res bias
+  float* y;           // (B, Hh, Ww, 4*Cout) s2d
+  int b, hh, ww, cin, cout, npad;
+  int ngroups;
+  const int* groups;  // (ngroups,) full-res group widths, in device memory
+  int kch;            // s2d channels staged per chunk
+};
 
 // Staged f32 pixel stride for a chunk of nch channels: nch + 1 words, so
 // the 32 pixels a warp reads at one channel fall in 32 different banks.
 __host__ __device__ inline int simt_stride(int nch) { return nch + 1; }
 
-template <typename T, bool RELU>
-__global__ void __launch_bounds__(THREADS) wconv_simt_kernel(WconvArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+template <bool RELU>
+__global__ void __launch_bounds__(THREADS) wconv_simt_kernel(SimtArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
   float* halo = reinterpret_cast<float*>(smem);
   const int c4 = 4 * a.cin, ss = simt_stride(a.kch);
   const int nchunk = (c4 + a.kch - 1) / a.kch;
   const int bi = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  const T* x = reinterpret_cast<const T*>(a.x);
 
   const int p = threadIdx.x % (TH * TW), cg = threadIdx.x / (TH * TW);  // 4 column groups
   const int i = p / TW, j = p % TW;
   const int gi = i0 + i, gj = j0 + j;
   const int n_out = 4 * a.cout;
-  const float* w = reinterpret_cast<const float*>(a.w);
   // Every thread runs the same number of passes, so the barriers of the
   // chunked staging are reached by all.
   const int npass = (a.npad / SIMT_N + THREADS / (TH * TW) - 1) / (THREADS / (TH * TW));
@@ -205,7 +423,7 @@ __global__ void __launch_bounds__(THREADS) wconv_simt_kernel(WconvArgs a) {
           const int hi = i0 - 1 + pix / HALO_W, hj = j0 - 1 + pix % HALO_W;
           float v = 0.f;
           if (hi >= 0 && hi < a.hh && hj >= 0 && hj < a.ww)
-            v = to_f32(x[((size_t(bi) * a.hh + hi) * a.ww + hj) * size_t(c4) + c0 + c]);
+            v = a.x[((size_t(bi) * a.hh + hi) * a.ww + hj) * size_t(c4) + c0 + c];
           halo[pix * ss + c] = v;
         }
         __syncthreads();
@@ -222,7 +440,7 @@ __global__ void __launch_bounds__(THREADS) wconv_simt_kernel(WconvArgs a) {
           const int base = off + ph * gw;
           const int lo = max(0, c0 - base), hi = min(gw, c1 - base);
           const float* src = pix + base;
-          const float* wk = w + size_t(d * a.cin + goff) * a.npad + n0;
+          const float* wk = a.w + size_t(d * a.cin + goff) * a.npad + n0;
           for (int c = lo; c < hi; ++c) {
             const float v = src[c];
             const float4* w4 = reinterpret_cast<const float4*>(wk + size_t(c) * a.npad);
@@ -242,57 +460,46 @@ __global__ void __launch_bounds__(THREADS) wconv_simt_kernel(WconvArgs a) {
     }
     if (n0 >= a.npad) continue;
     if (gi < a.hh && gj < a.ww) {
-      T* out = reinterpret_cast<T*>(a.y) + ((size_t(bi) * a.hh + gi) * a.ww + gj) * size_t(n_out);
+      float* out = a.y + ((size_t(bi) * a.hh + gi) * a.ww + gj) * size_t(n_out);
 #pragma unroll
       for (int q = 0; q < SIMT_N; ++q) {
         const int n = n0 + q;
         if (n < n_out) {
           const float v = acc[q] + a.bias[n % a.cout];
-          store(out + n, RELU ? fmaxf(v, 0.f) : v);
+          out[n] = RELU ? fmaxf(v, 0.f) : v;
         }
       }
     }
   }
 }
 
-template <bool RELU>
-int launch_mma(const WconvArgs& a, cudaStream_t stream) {
-  const size_t bytes = size_t(HALO_PIX) * (a.kch + PAD) * sizeof(__nv_bfloat16);
-  if (a.cout % 64 == 0) return launch(wconv_mma_kernel<8, RELU>, a, bytes, stream);
-  if (a.cout % 32 == 0) return launch(wconv_mma_kernel<4, RELU>, a, bytes, stream);
-  if (a.cout % 16 == 0) return launch(wconv_mma_kernel<2, RELU>, a, bytes, stream);
-  return launch(wconv_mma_kernel<1, RELU>, a, bytes, stream);
-}
-
-template <bool RELU>
-int launch_simt(const WconvArgs& a, bool is_bf16, cudaStream_t stream) {
-  const size_t bytes = size_t(HALO_PIX) * simt_stride(a.kch) * sizeof(float);
-  return is_bf16 ? launch(wconv_simt_kernel<__nv_bfloat16, RELU>, a, bytes, stream)
-                 : launch(wconv_simt_kernel<float, RELU>, a, bytes, stream);
-}
-
-// Channels a chunk of the staged halo holds: everything where it fits in
-// shared memory (232,448 bytes a block on an H100), else 1024 (mma, bf16)
-// or 512 (simt, f32) s2d channels.
-int chunk_channels(int c4, bool use_mma) {
-  if (use_mma) return size_t(HALO_PIX) * (c4 + PAD) * 2 <= 232448 ? c4 : 1024;
-  return c4 <= 512 ? c4 : 512;
-}
-
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch. The
-// wrapper (ops/kernels/wconv.py) checks shapes and picks the path: use_mma
-// needs bf16, every group width a multiple of 16 and Cout a multiple of 8,
-// and the weights in B-fragment order; otherwise f32 weights padded to npad
-// columns. `groups` is the (ngroups,) int32 table of group widths in device
-// memory.
-extern "C" int mgu_wconv3x3(const void* x, const void* w, const float* bias, void* y, int b, int hh, int ww,
-                            int cin, int cout, int npad, int ngroups, const int* groups, int is_bf16, int relu,
-                            int use_mma, void* stream) {
-  if (ngroups < 1) return int(cudaErrorInvalidValue);
-  WconvArgs a{x, w, bias, y, b, hh, ww, cin, cout, npad, ngroups, groups, chunk_channels(4 * cin, use_mma != 0)};
+// bf16 on `stream`; returns cudaGetLastError() after the launch. w: the
+// (ncb, nchunks, 4, 16, np) weight chunks in wgmma B layout
+// (wconv.py::wgmma_weight_chunks), np in {16, 32, 64, 128, 256} and
+// ncb = ceil(4*Cout / 256) column blocks; bias4: (4*Cout,) f32; table: the
+// (nchunks, 4) int32 chunk table in device memory; tma: every group width a
+// multiple of 16 (the halo by TMA), else 0 (by cp.async).
+extern "C" int mgu_wconv3x3_wgmma(const void* x, const void* w, const float* bias4, void* y, int b, int hh, int ww,
+                                  int cin, int cout, int np, int ncb, int nchunks, const int* table, int tma, int relu,
+                                  void* stream) {
+  if (nchunks < 1) return int(cudaErrorInvalidValue);
+  WgArgs a{static_cast<const bf16*>(x), static_cast<const unsigned char*>(w), bias4, static_cast<bf16*>(y),
+           reinterpret_cast<const int4*>(table), b, hh, ww, 4 * cin, 4 * cout, nchunks, ncb, 0, 0, 0, 0, tma != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_mma) return relu ? launch_mma<true>(a, s) : launch_mma<false>(a, s);
-  return relu ? launch_simt<true>(a, is_bf16 != 0, s) : launch_simt<false>(a, is_bf16 != 0, s);
+  return relu ? launch_wgmma<true>(a, np, s) : launch_wgmma<false>(a, np, s);
+}
+
+// f32 on `stream`: weights (16*Cin, npad) f32, `groups` the (ngroups,) int32
+// table of group widths in device memory.
+extern "C" int mgu_wconv3x3_simt(const void* x, const void* w, const float* bias, void* y, int b, int hh, int ww,
+                                 int cin, int cout, int npad, int ngroups, const int* groups, int relu, void* stream) {
+  if (ngroups < 1) return int(cudaErrorInvalidValue);
+  const int c4 = 4 * cin, kch = c4 <= 512 ? c4 : 512;
+  SimtArgs a{static_cast<const float*>(x), static_cast<const float*>(w), bias, static_cast<float*>(y), b, hh, ww,
+             cin, cout, npad, ngroups, groups, kch};
+  const size_t bytes = size_t(HALO_PIX) * simt_stride(kch) * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return relu ? mgu::launch(wconv_simt_kernel<true>, a, bytes, s) : mgu::launch(wconv_simt_kernel<false>, a, bytes, s);
 }

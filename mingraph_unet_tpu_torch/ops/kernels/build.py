@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` into ``build/<name>-<hash>.so``, where the hash
-covers the source, the shared headers and the flags; a library whose file
-exists is not rebuilt. The libraries are loaded with ``ctypes``: their C
+covers the source, every header in ``csrc`` (``*.cuh``) and the flags; a
+library whose file exists is not rebuilt. The libraries are loaded with ``ctypes``: their C
 functions take raw device pointers and the CUDA stream and return
 ``cudaGetLastError()`` after the launch.
 
@@ -43,7 +43,6 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("psel_conv", "dec_conv1", "phase_pool", "d2s", "histeq", "wconv", "conv_block")
-_HEADERS = ("conv_tile.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,7 +59,8 @@ _SIGNATURES = {
     "phase_pool": {"mgu_phase_max_pool": [_P, _P] + [_I] * 5 + [_P]},
     "d2s": {"mgu_depth_to_space": [_P, _P] + [_I] * 4 + [_P]},
     "histeq": {"mgu_histeq": [_P, _P, _P, _I, _I, _P]},
-    "wconv": {"mgu_wconv3x3": [_P] * 4 + [_I] * 7 + [_P] + [_I] * 3 + [_P]},
+    "wconv": {"mgu_wconv3x3_wgmma": [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P],
+              "mgu_wconv3x3_simt": [_P] * 4 + [_I] * 7 + [_P, _I, _P]},
     "conv_block": {"mgu_conv_block": [_P] * 8 + [_I] * 8 + [_P]},
 }
 
@@ -78,8 +78,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (f"{name}.cu",) + _HEADERS:
-        h.update((CSRC / f).read_bytes())
+    for f in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

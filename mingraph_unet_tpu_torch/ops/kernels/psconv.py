@@ -8,15 +8,19 @@ PyTorch versions. Counterpart of ``mingraph_unet_tpu/ops/pallas/psconv.py``.
   the upsample folded into x_prev's tap weights and the border-attenuated
   upsample-bias field applied as a (3, 3) class table.
 
-Both kernels are one tile design (``csrc/conv_tile.cuh``): an implicit GEMM
-over a staged s2d input halo that reads the layout as full-resolution
-pixels, so it does the conv's useful FLOPs (not the TPU form's 16/9× or the
-dense s2d form's 4×), on tensor cores in bf16. Memory bounds psel on the
-H100; dec-conv1 is bound by memory at level 0 and by operations at level 1
-(see the header). In bf16 the kernels take their weights in mma.sync
-B-fragment order (:func:`mma_b_fragments`) and are instantiated for the
-U-Net's two s2d widths: Cout = Cin (psel), Cout = Cs and Cp = 2·Cs
-(dec-conv1), with Cin, Cs in {32, 64}.
+Both kernels are implicit GEMMs over a staged s2d input halo that read the
+layout as full-resolution pixels, so they do the conv's useful FLOPs (not
+the TPU form's 16/9× or the dense s2d form's 4×), on tensor cores in bf16.
+psel's bf16 kernel is a Hopper design (``csrc/psel_conv.cu``: persistent
+warp-specialised blocks, weights resident in shared memory in wgmma's B
+layout, :func:`wgmma_b_layout`, the halo staged by TMA through a ring of
+stages, ``wgmma`` over all four output phases at once); dec-conv1 keeps the
+``mma.sync`` tile of ``csrc/conv_tile.cuh`` with weights in B-fragment
+order (:func:`mma_b_fragments`). Memory bounds psel on the H100 at level 0
+and puts it on the ridge at level 1; dec-conv1 is bound by memory at level 0
+and by operations at level 1. In bf16 both are instantiated for the U-Net's
+two s2d widths: Cout = Cin (psel), Cout = Cs and Cp = 2·Cs (dec-conv1),
+with Cin, Cs in {32, 64}.
 
 - :func:`psel_conv3x3_halo` (K9) replaces
   ``mingraph_unet_tpu/parallel/halo.py::sharded_psconv``'s kernel call: K1
@@ -62,6 +66,7 @@ __all__ = [
     "psel_fits",
     "dec_conv1_fits",
     "mma_b_fragments",
+    "wgmma_b_layout",
     "psel_conv3x3",
     "psel_conv3x3_plain",
     "dec_conv1_weights",
@@ -114,12 +119,21 @@ def mma_b_fragments(w2d: torch.Tensor) -> torch.Tensor:
     return w2d.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
 
 
-def _kernel_weights(w: torch.Tensor, dev: torch.device, dt: torch.dtype) -> torch.Tensor:
-    """(3, 3, K, N) weights as the kernel reads them: HWIO in f32, packed
-    B fragments over (9·K, N) in bf16."""
+def wgmma_b_layout(w2d: torch.Tensor) -> torch.Tensor:
+    """(K, N) weights → wgmma's K-major B layout without swizzle
+    (K/16, N/8, 2, 8, 8): ``B[16s + 8h + kk, 8j + r]`` at ``[s, j, h, r, kk]``.
+    Each 16-row slab ``s`` is N/8 × 2 core matrices of 8 columns × 8 k, one
+    contiguous 128-byte line each (``csrc/hopper.cuh``)."""
+    k, n = w2d.shape
+    return w2d.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2).contiguous()
+
+
+def _kernel_weights(w: torch.Tensor, dev: torch.device, dt: torch.dtype, pack=mma_b_fragments) -> torch.Tensor:
+    """(3, 3, K, N) weights as the kernel reads them: HWIO in f32, ``pack``
+    over (9·K, N) in bf16."""
     w = w.to(device=dev, dtype=dt)
     if dt == torch.bfloat16:
-        return mma_b_fragments(w.reshape(-1, w.shape[-1]))
+        return pack(w.reshape(-1, w.shape[-1]))
     return w.contiguous()
 
 
@@ -169,7 +183,7 @@ def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opt
         bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
     if dt == torch.bfloat16:
         require(cin == cout and cin in BF16_WIDTHS, f"bf16 kernel needs Cout = Cin in {BF16_WIDTHS}, got {cin} -> {cout}")
-    w = _kernel_weights(kernel, x_s2d.device, dt)
+    w = _kernel_weights(kernel, x_s2d.device, dt, wgmma_b_layout)
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=x_s2d.device)
     lib = library("psel_conv")
     common = (b, hh, ww, cin, cout, int(dt == torch.bfloat16), int(relu), stream_ptr(x_s2d))

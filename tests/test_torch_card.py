@@ -81,9 +81,16 @@ CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 DK_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-4}
 
 
+# The bf16 psel kernel's persistent grid (a block a SM) walks 8 x 16 s2d tiles
+# at C = 32 and 4 x 16 at C = 64: Hh and Ww that are not multiples of the
+# tile, batch 1 with fewer tiles than SMs, and more tiles than the grid has
+# blocks.
+PSEL_RAGGED = [(1, 7, 37, 64, 64), (1, 13, 37, 32, 32), (2, 101, 99, 32, 32), (3, 66, 70, 64, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 8, 8, 32, 32), (1, 6, 20, 64, 64), (1, 5, 3, 32, 32)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32, 32), (1, 6, 20, 64, 64), (1, 5, 3, 32, 32)] + PSEL_RAGGED)
 def test_card_psel_matches_plain(cuda_device, shape, dtype):
     x, k, bias = (_t(a).to(cuda_device) for a in _psel_case(shape))
     x = x.to(dtype)
@@ -134,7 +141,7 @@ def test_card_bf16_conv_rejects_uninstantiated_widths(cuda_device):
 
 # (B, Hh, Ww, C): the train path's two widths, an odd grid and a grid one
 # s2d pixel wide.
-PSCONV_SHAPES = [(2, 8, 8, 32), (1, 6, 20, 64), (1, 5, 3, 32), (2, 4, 1, 32)]
+PSCONV_SHAPES = [(2, 8, 8, 32), (1, 6, 20, 64), (1, 5, 3, 32), (2, 4, 1, 32), (1, 7, 37, 64), (2, 101, 99, 32)]
 
 
 @pytest.mark.cuda
@@ -306,7 +313,12 @@ def test_card_dense_decode_equals_cpu(cuda_device, equal_scores):
 # decoder's two), the RGB input (Cin 3), Cin 5, groups (2, 4), odd Ww and an
 # Hh that is not a multiple of the 4-row tile.
 WCONV_CARD_CASES = [(2, 8, 16, 32, 32, ()), (1, 6, 20, 128, 64, (64, 64)), (1, 5, 18, 32, 16, (16, 16)),
-                    (2, 7, 5, 3, 32, ()), (1, 5, 7, 5, 4, ()), (2, 9, 8, 6, 4, (2, 4))]
+                    (2, 7, 5, 3, 32, ()), (1, 5, 7, 5, 4, ()), (2, 9, 8, 6, 4, (2, 4)),
+                    # odd Cout: 4*Cout not a multiple of 8, so the epilogue's element-wise stores
+                    (1, 5, 9, 5, 3, ()), (1, 6, 7, 6, 5, (2, 4)),
+                    # the bf16 kernel's tiles (8 x 16 s2d pixels at 4*Cout = 256, 16 x 16 below):
+                    # ragged edges, more tiles than SMs, 4*Cout above 256 (two column blocks)
+                    (1, 17, 33, 64, 64, ()), (8, 70, 70, 32, 32, ()), (1, 5, 9, 16, 70, ())]
 
 
 @pytest.mark.cuda
@@ -321,6 +333,8 @@ def test_card_wconv_matches_plain(cuda_device, case, dtype, relu):
     k = torch.randn((3, 3, cin, cout), generator=g) * (1.0 / (9 * cin)) ** 0.5
     w2 = t_wconv.wconv3x3_weights(k).to(cuda_device)
     bias = torch.randn(cout, generator=g).to(cuda_device)
+    # Every bf16 width, the odd ones included, runs on tensor cores (wgmma); f32 in SIMT.
+    assert t_wconv.wconv_uses_mma(dtype) == (dtype == torch.bfloat16)
     before = t_wconv.wconv3x3_s2d.launches
     got = t_wconv.wconv3x3_s2d(x, w2, bias, groups=groups, relu=relu)
     torch.cuda.synchronize()
@@ -452,8 +466,12 @@ def _shards(t, n, cuts=None):
 
 
 # (B, Hh, Ww, C, row cuts) for K9 and K2's halo form: four equal shards, and
-# uneven ones (heights 1, 3, 5) that are not multiples of the 4-row tile.
-HALO_CASES = [(2, 16, 20, 32, None), (1, 9, 18, 64, [0, 1, 4, 9])]
+# uneven ones (heights 1, 3, 5) that are not multiples of the 4-row tile;
+# shards exactly one tile high over a ragged width (the bf16 psel tile is 4
+# rows at C = 64, 8 at C = 32); and shards of many tiles, more than the
+# persistent grid holds, cut at heights 1, 4, 33 and 32.
+HALO_CASES = [(2, 16, 20, 32, None), (1, 9, 18, 64, [0, 1, 4, 9]), (2, 16, 37, 64, [0, 4, 8, 12, 16]),
+              (2, 32, 37, 32, [0, 8, 16, 24, 32]), (2, 70, 100, 32, [0, 1, 5, 38, 70])]
 
 
 @pytest.mark.cuda

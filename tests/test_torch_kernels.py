@@ -145,6 +145,23 @@ def test_mma_b_fragments_layout():
         assert packed[s, j, g, t, h, e] == w[16 * s + 8 * h + 2 * t + e, 8 * j + g]
 
 
+@pytest.mark.parametrize("k,n", [(32, 24), (9 * 32, 32), (9 * 64, 64)])
+def test_wgmma_b_layout(k, n):
+    """The bf16 psel kernel's weights: B[16s + 8h + kk, 8j + r] at
+    [s, j, h, r, kk], so each 8 × 8 core matrix (8 columns, 8 values of k)
+    is one contiguous 128-byte line, the two k halves of a slab 128 bytes
+    apart and its 8-column groups 256 bytes apart (wgmma's K-major B layout
+    without swizzle)."""
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    packed = t_psconv.wgmma_b_layout(w)
+    assert packed.shape == (k // 16, n // 8, 2, 8, 8) and packed.is_contiguous()
+    flat = packed.flatten()
+    for kk, nn in itertools.product(range(k), range(n)):
+        s, r = divmod(kk, 16)
+        byte = s * 16 * n * 2 + ((nn // 8) * 2 + r // 8) * 128 + (nn % 8) * 16 + (r % 8) * 2
+        assert flat[byte // 2] == w[kk, nn]
+
+
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     counters = (t_psconv.psel_conv3x3, t_psconv.dec_conv1_fused, t_pool.phase_max_pool_kernel,
                 t_wconv.wconv3x3_s2d, t_cb.fused_conv_block)

@@ -143,3 +143,71 @@ def test_serving_forward_calls_neither_k7_nor_k8(monkeypatch):
     out = model(torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(4)))
     assert torch.isfinite(out["logits"]).all()
     assert calls == []
+
+
+def _unpack_wgmma_chunks(packed, groups, cout):
+    """The bf16 kernel's weight chunks read back into w2 (16·Cin, 4·Cout).
+    Chunk order: s2d channels in steps of 16, one chunk a step where every
+    group width is a multiple of 16 (the step's own phase), else four (one
+    a phase). A chunk of phase (py, px) holds 4 slabs, slab j for window
+    tap (dy, dx) with dy the j // 2-th tap reading input-phase row py (1, 3
+    for py = 0; 0, 2 for py = 1), dx likewise from j % 2; slab row s is s2d
+    channel 16·step + s, which tap d reads as w2 row d·Cin + (its group's
+    offset) + c when the channel is phase (py, px) of its group, and which
+    must be zero otherwise. Within a slab, (k, n) sits at
+    [n // 8, k // 8, n % 8, k % 8]. Returns w2 and the largest entry that
+    should have been zero."""
+    cin = sum(groups)
+    owner, goff = [], 0
+    for gw in groups:
+        owner += [(goff, ph, c) for ph in range(4) for c in range(gw)]
+        goff += gw
+    dense = any(g % 16 for g in groups)
+    chunks = [(st, ph) for st in range(0, 4 * cin, 16) for ph in (range(4) if dense else [owner[st][1]])]
+    assert packed.shape[1] == len(chunks)
+    taps = ((1, 3), (0, 2))
+    ncb, np_ = packed.shape[0], packed.shape[3] * 8
+    w = torch.zeros((16 * cin, ncb * np_), dtype=packed.dtype)
+    stray = 0.0
+    for i, (st, ph) in enumerate(chunks):
+        for j in range(4):
+            d = 4 * taps[ph >> 1][j >> 1] + taps[ph & 1][j & 1]
+            block = torch.cat([packed[cb, i, j].permute(1, 3, 0, 2).reshape(16, np_) for cb in range(ncb)], dim=1)
+            for k in range(16):
+                ch = st + k
+                if ch < 4 * cin and owner[ch][1] == ph:
+                    w[d * cin + owner[ch][0] + owner[ch][2]] = block[k]
+                else:
+                    stray = max(stray, block[k].abs().max().item())
+            if block.shape[1] > 4 * cout:  # the columns past 4·Cout
+                stray = max(stray, block[:, 4 * cout :].abs().max().item())
+    return w[:, : 4 * cout], stray
+
+
+@pytest.mark.parametrize("groups,cout", [((3,), 32), ((5,), 4), ((2, 4), 4), ((64, 64), 64), ((16,), 70),
+                                         ((5,), 3), ((2, 4), 5)])
+def test_wgmma_weight_chunks_zero_padding_reproduces_plain(groups, cout):
+    """The bf16 kernel's K packing: chunks of 16 channels, zero rows for the
+    pad and for channels of another phase, 4·Cout padded to the wgmma width
+    (and cut in 256-column blocks above it). Unpacked by an independent
+    formula, it holds w2 and zeros elsewhere, and the plain version run
+    with it gives the plain result exactly (integer data: every sum is
+    exact)."""
+    cin = sum(groups)
+    rng = np.random.default_rng(cin + cout)
+    x = _t(rng.integers(-3, 4, (2, 5, 7, 4 * cin)).astype(np.float64))
+    w2 = _t(rng.integers(-3, 4, (16 * cin, 4 * cout)).astype(np.float64))
+    bias = _t(rng.integers(-3, 4, cout).astype(np.float64))
+    packed = t_wconv.wgmma_weight_chunks(w2, groups, cout)
+    w2u, stray = _unpack_wgmma_chunks(packed, groups, cout)
+    assert stray == 0
+    torch.testing.assert_close(t_wconv.wconv3x3_s2d_plain(x, w2u, bias, groups),
+                               t_wconv.wconv3x3_s2d_plain(x, w2, bias, groups), rtol=0, atol=0)
+    torch.testing.assert_close(w2u, w2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,mma", [(torch.bfloat16, True), (torch.float32, False)])
+def test_wconv_uses_tensor_cores_for_every_bf16_width(dtype, mma):
+    """bf16 runs wgmma at every width (the odd ones through the zero padding
+    above), f32 the SIMT kernel."""
+    assert t_wconv.wconv_uses_mma(dtype) is mma
