@@ -32,7 +32,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    alone, and the whole call with the wrapper's weight packing), the
    library call's device time, and K1 prints the bytes of weights its
    tiling moves from L2 into shared memory a call (worked out, not
-   measured, so not in the kernels line).
+   measured, so not in the kernels line). K2 gets its device time the same
+   way, its L2 -> SM bytes of weights and halos (worked out, printed only),
+   and as context, having no one-call library counterpart, the same
+   function by cuDNN (``conv_transpose2d``, ``cat``, ``conv2d``: held
+   against K2's plain version within ``CONV_TOL``, timed by events and
+   device time). K2's bound counts its least work, 2·17·C² operations a
+   full-resolution pixel (the skip taps and the ConvTranspose folded into
+   the four live x_prev taps of the pixel's phase).
 5. Train the U-Net of the repo's model widths (``configs/model.yaml``: init
    32, depth 4, 2 classes) in bf16 at 512² b8 with the segmentation
    trainer's step (augmentation, CE + Dice, backward, Adam lr 1e-3 weight
@@ -273,13 +280,14 @@ def _kernel_cases(dev):
         k_skip, k_prev = psconv.dec_conv1_weights(kernel, c, s2d_ops.s2d_convt2x2_kernel(kt))
         t9 = psconv.dec_conv1_bias_table(kernel, c, bias_up, bias)
         cases.append(dict(
-            kind="dec1", level=lvl, args=(x_skip, x_prev, k_skip, k_prev, t9),
+            kind="dec1", level=lvl, args=(x_skip, x_prev, k_skip, k_prev, t9), unfolded=(kernel, bias, kt, bias_up),
             bytes=(x_skip.numel() + x_prev.numel() + x_skip.numel()) * 2
             + (k_skip.numel() + k_prev.numel()) * 2 + t9.numel() * 4,
-            # Least work: the explicit ConvTranspose (Cp -> 4c per s2d pixel),
-            # then the 3x3 conv over the 2c channels of [skip ‖ up]. The
-            # kernel's folded form does 27 instead of 20 c² per pixel.
-            ops=2 * b * hh * hh * cp * 4 * c + 2 * full_px * 9 * (2 * c) * c,
+            # Least work: the skip taps (9 c² a full-res pixel) and, of the
+            # ConvTranspose folded into x_prev's taps, the 4 live taps of the
+            # pixel's phase (4 · 2c · c): 17 c², less than the explicit
+            # ConvTranspose then the conv over [skip ‖ up] (20 c²).
+            ops=2 * full_px * 17 * c * c,
             rate=BF16_TENSOR_FLOPS,
         ))
         y = rnd(b, hh, hh, 4 * c).to(torch.bfloat16)
@@ -341,6 +349,20 @@ def _kernel_table(dev, launches, scene_launches):
         t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = case["ops"] / case["rate"] * 1e3
         extra = {}
+        if case["kind"] == "dec1":
+            # The card's time of the kernel alone and of the call, and as
+            # context (no one-call library) the same function by cuDNN.
+            call_ms, dev_ms = _device_ms(tag, lambda: kernel_fn(*args), own="dec1_wgmma_kernel")
+            cudnn = _dec1_cudnn(args[0], args[1], *case["unfolded"])
+            c_err = _check_close(f"{tag} cuDNN route", _s2d_of(cudnn().relu()), ref, CONV_TOL, what="K2's plain version")
+            cudnn_ms = _time_ms(cudnn, KERNEL_ITERS)
+            cudnn_dev_ms = _device_ms(f"{tag} cuDNN route", cudnn)
+            extra = {"device_ms": dev_ms, "call_device_ms": call_ms, "context_cudnn_route_ms": cudnn_ms,
+                     "context_cudnn_route_device_ms": cudnn_dev_ms}
+            print(f"[chip_smoke] {name} L{case['level']}: device {dev_ms * 1e3:.1f} us (call {call_ms * 1e3:.1f}); "
+                  f"cuDNN route (conv_transpose2d, cat, conv2d: 3 calls, ReLU not counted; max_abs_err {c_err:.4g}) "
+                  f"{cudnn_ms * 1e3:.1f} us, device {cudnn_dev_ms * 1e3:.1f} us; L2 -> SM (from the tiling) "
+                  f"{_dec1_l2_bytes(shape, dev) / 1e6:.1f} MB a call against {case['bytes'] / 1e6:.1f} MB compulsory")
         if case["kind"] == "psel":
             # The card's time: the kernel alone, and the call (the wrapper's
             # weight packing and casts too); the weights it moves L2 -> SM.
@@ -525,6 +547,53 @@ def _wconv_weight_l2_bytes(shape, packed) -> int:
     b, hh, ww, _ = shape
     th = 8 if packed.shape[3] == 32 else 16
     return b * -(-hh // th) * -(-ww // 16) * packed.numel() * 2
+
+
+def _dec1_l2_bytes(shape, dev) -> int:
+    """Bytes of live weights and halos the bf16 K2 kernel moves from L2 into
+    shared memory a call, worked out from its tiling in
+    ``csrc/dec_conv1.cu``, not read from the card: 4 × 16 s2d tiles, each
+    tile's two halos (6 × 18 pixels of 4C + 2C channels) once (at C = 64
+    once a cluster of four blocks, by multicast), and the live weights once
+    a block: all of them (9C² + 32C²) on min(tiles, SMs) blocks at C = 32,
+    W_skip and one phase's block (9C² + 8C²) on each block of min(tiles,
+    SMs / 4) clusters at C = 64 (at most: the card may hold fewer)."""
+    import torch
+
+    b, hh, ww, c4 = shape
+    c = c4 // 4
+    tiles = b * -(-hh // 4) * -(-ww // 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    halo = tiles * 6 * 18 * 6 * c * 2
+    if c == 32:
+        return halo + min(tiles, sms) * 41 * c * c * 2
+    return halo + 4 * min(tiles, sms // 4) * 17 * c * c * 2
+
+
+def _dec1_cudnn(x_skip, x_prev, kernel, bias, kt, bias_up):
+    """K2's function by cuDNN, as context (the port never calls it): the
+    ConvTranspose (flax applies its kernel flipped), the concat with the
+    full-resolution skip, the 3x3 conv with bias; three calls on
+    channels-last NCHW views in bf16, before the ReLU."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+
+    dt = x_skip.dtype
+    skip_full = s2d_ops.depth_to_space(x_skip).permute(0, 3, 1, 2)
+    xp = x_prev.permute(0, 3, 1, 2)
+    wt = kt.flip(0, 1).permute(2, 3, 0, 1).to(dt).contiguous(memory_format=torch.channels_last)
+    wc = kernel.permute(3, 2, 0, 1).to(dt).contiguous(memory_format=torch.channels_last)
+    bu, bc = bias_up.to(dt), bias.to(dt)
+    return lambda: F.conv2d(torch.cat([skip_full, F.conv_transpose2d(xp, wt, bu, stride=2)], dim=1), wc, bc, padding=1)
+
+
+def _s2d_of(y_nchw):
+    """A full-resolution NCHW tensor in the s2d layout (B, H/2, W/2, 4C)."""
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+
+    return s2d_ops.space_to_depth(y_nchw.permute(0, 2, 3, 1))
 
 
 def _device_ms(label: str, fn, iters: int = 10, own: str = ""):
@@ -1771,22 +1840,24 @@ def _k9_table(dev, s2d_sites, launches):
                           KERNEL_ITERS)
             plain_ms = _time_ms(lambda: psconv.dec_conv1_halo_plain(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0,
                                                                     hh), KERNEL_ITERS)
-            dev_ms = _device_ms(f"dec_conv1_halo {dec} shard",
-                                lambda: psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, hh))
+            call_ms, dev_ms = _device_ms(f"dec_conv1_halo {dec} shard",
+                                         lambda: psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0,
+                                                                       hh), own="dec1_wgmma_kernel")
             b, h, w, z = s.shape
             c, cp = z // 4, p.shape[-1]
             t_bytes = ((s.numel() + p.numel()) * (h + 2) // h * 2 + s.numel() * 2
                        + (k_skip.numel() + k_prev.numel()) * 2 + t9.numel() * 4) / HBM_BYTES_PER_S * 1e3
-            t_ops = (2 * b * h * w * cp * 4 * c + 2 * b * (2 * h) * (2 * w) * 9 * (2 * c) * c) / BF16_TENSOR_FLOPS * 1e3
+            t_ops = 2 * b * (2 * h) * (2 * w) * 17 * c * c / BF16_TENSOR_FLOPS * 1e3  # K2's least work, as above
             rows.append({
                 "name": f"dec_conv1_halo {dec}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/dec_conv1.cu",
                 "replaces": f"{PSCONV_SRC}:599", "launches": launches["dec1_halo"], "shape": list(s.shape),
                 "shards": 4, "max_abs_err": err_bf16, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, "device_ms": dev_ms,
+                "call_device_ms": call_ms,
             })
             print(f"[chip_smoke] dec_conv1_halo {dec} one inner shard {tuple(s.shape)}: {ms * 1e3:.1f} us/launch, "
                   f"plain {plain_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}); "
-                  f"device time per call (profiler) {dev_ms * 1e3:.1f} us")
+                  f"device time (profiler) {dev_ms * 1e3:.1f} us, the call {call_ms * 1e3:.1f} us")
     torch.backends.cudnn.allow_tf32 = True
     return rows
 

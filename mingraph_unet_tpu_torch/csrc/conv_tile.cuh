@@ -1,10 +1,10 @@
-// Tiled 3x3 'SAME' conv on a phase-major space-to-depth (s2d) tensor: the
-// mma.sync tile of dec_conv1.cu (the s2d decoder's conv1 with the
-// ConvTranspose folded in; K2, bf16 and f32), and the f32 FMA kernel that
-// psel_conv.cu also runs for f32 inputs (the s2d ConvBlock's conv2; without
-// ReLU, the raw training conv's forward and dgrad). psel's bf16 path is
-// its own Hopper kernel (psel_conv.cu, hopper.cuh); wconv.cu takes the
-// halo geometry, ldmatrix and the launch helper from here.
+// Tiled 3x3 'SAME' conv on a phase-major space-to-depth (s2d) tensor in
+// f32: the FMA kernel that psel_conv.cu runs for f32 inputs (the s2d
+// ConvBlock's conv2; without ReLU, the raw training conv's forward and
+// dgrad) and dec_conv1.cu runs for f32 inputs (the s2d decoder's conv1 with
+// the ConvTranspose folded in). Both bf16 paths are their own Hopper kernels
+// (psel_conv.cu, dec_conv1.cu, hopper.cuh); they and wconv.cu take the
+// argument block, ldmatrix and the launch helper from here.
 //
 // Layout. An s2d tensor is (B, Hh, Ww, 4C) with channel index ph*C + c,
 // ph = 2*py + px. Full-resolution pixel (y, x, c) lives at s2d
@@ -12,49 +12,21 @@
 // conv on that layout: the useful FLOPs only, not the dense s2d form's 4x or
 // the TPU phase-select form's 16/9x.
 //
-// Work split (dec_conv1 in bf16, and both in f32). One block of 256
-// threads owns a 4 x 16 s2d tile (8 x 32 full-res pixels) of one image and
-// all output channels. It copies the
-// tile's s2d input halo (6 x 18 s2d pixels, all 4C channels, zero outside the
-// image) into shared memory once, then runs an implicit GEMM over it:
-// M = the tile's pixels, N = Cout, K = 9 taps x C.
-//   bf16: tensor cores through mma.sync m16n8k16 (f32 accumulate). Warp w
-//         owns the 32 pixels of phase p = w % 4 in s2d rows 2*(w / 4) and
-//         2*(w / 4) + 1. Their 16-pixel rows read 16 consecutive halo pixels
-//         for every tap (the tap picks the halo row, column offset and
-//         input phase), so each A fragment is one ldmatrix.x4 from shared
-//         memory. Staged pixels are padded by 16 bytes, which puts the 8 row
-//         addresses of an ldmatrix phase in 8 different bank groups. The
-//         weights arrive pre-packed in B-fragment order (psconv.py): a lane
-//         reads its 4 values as one 8-byte load, and the 8 warps share them
-//         through L1. Accumulators stay in registers; the epilogue adds the
-//         bias field, applies the ReLU and writes bf16 pairs in the s2d
-//         layout. The unroll depth and blocks per SM were picked by timing
-//         variants at the serving shapes on an H100 (PERF.md).
-//   f32:  plain FMA, one full-res pixel per thread, weights in their HWIO
-//         layout, ReLU when RELU is set (psel, dec_conv1; the raw training
-//         conv leaves it off). This path exists so that a card run can be
-//         held against the CPU in f32; it is not tuned.
+// Work split. One block of 256 threads owns a 4 x 16 s2d tile (8 x 32
+// full-res pixels) of one image and all output channels. It copies the
+// tile's s2d input halo (6 x 18 s2d pixels, all 4C channels, zero outside
+// the image) into shared memory once, then each thread computes one
+// full-res pixel by plain FMA, weights in their HWIO layout, ReLU when RELU
+// is set. This path exists so that a card run can be held against the CPU
+// in f32; it is not tuned.
 //
 // The optional second source (HAS_PREV) is dec_conv1's x_prev term: a 3x3
-// conv on x_prev's own (Hh, Ww) grid with ConvTranspose-folded weights
-// (3, 3, Cp, 4Cout) whose output columns depend on the output pixel's phase.
-// Warp w's pixels all have phase p, so they read one column block of those
-// weights, and its rows read 16 consecutive x_prev halo pixels.
+// conv on x_prev's own (Hh, Ww) grid with the dense ConvTranspose-folded
+// weights (3, 3, Cp, 4Cout), whose output columns depend on the output
+// pixel's phase; the bias arrives as dec_conv1's (3, 3, 4Cout) border-class
+// table.
 //
-// Bound. dec_conv1's function needs at least 2*20*C*C operations per full-res
-// pixel (the ConvTranspose, then the conv over [skip ‖ up]) and moves 2.5C
-// values; that puts its bound on the memory line at level 0 and on the
-// tensor-core line at level 1. The folded form this kernel runs does
-// 2*27*C*C (the x_prev term runs at Cp = 2C with 4Cout columns per s2d
-// pixel) in exchange for never writing the upsampled tensor. The tile
-// reads every input byte from device memory once apart from the halo
-// (18 x 6 s2d pixels staged per 16 x 4 computed, mostly L2 hits), keeps the
-// full-res im2col and the upsampled decoder tensor out of device memory, and
-// writes each output once in its final layout.
-//
-// Sharded entries (K9 in f32, the halo form of psel; dec_conv1's halo
-// form). An
+// Sharded entries (K9, the halo form of psel; dec_conv1's halo form). An
 // H-shard of the s2d grid is computed alone: the s2d rows just above and
 // below it (one each, (B, 1, Ww, channels), from the neighbouring shards)
 // arrive as separate pointers and are staged in place of rows -1 and hh; a
@@ -66,9 +38,7 @@
 // bit.
 //
 // Requirements (checked by the Python wrappers): all tensors contiguous,
-// 16-byte aligned base pointers. bf16: Cout = C in {32, 64} (the U-Net's two
-// s2d levels) and, for dec_conv1, Cp = 2C. f32: C, Cp and Cout multiples
-// of 16.
+// 16-byte aligned base pointers; C, Cp and Cout multiples of 16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -103,9 +73,9 @@ struct SmemPlan {
 
 struct ConvArgs {
   const void* x;      // (B, Hh, Ww, 4C) s2d input
-  const void* w;      // full-res (3, 3, C, Cout) weights: f32 HWIO, or bf16 in B-fragment order
+  const void* w;      // full-res (3, 3, C, Cout) weights: f32 HWIO (bf16: as the Hopper kernel packs them)
   const void* xp;     // (B, Hh, Ww, Cp) x_prev (HAS_PREV only)
-  const void* wp;     // folded (3, 3, Cp, 4Cout) x_prev weights, laid out as w (HAS_PREV only)
+  const void* wp;     // x_prev weights (HAS_PREV only): f32 the dense folded (3, 3, Cp, 4Cout) HWIO
   const float* bias;  // (Cout,) when !HAS_PREV; null adds none
   const float* t9;    // (3, 3, 4Cout) bias + upsample-bias class table (HAS_PREV)
   void* y;            // (B, Hh, Ww, 4Cout) s2d output
@@ -185,122 +155,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
                : "r"(addr));
 }
 
-// acc += A (16x16, row-major, from ldmatrix_x4) * B (16x8, packed pair).
-__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4], uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// One GEMM term of a warp: acc[mi][j] += sum over 9 taps and K / 16 steps of
-// A(rows of s2d row ib + mi) * B(step, column tile col0 + j). `a_of(tap)`
-// gives the shared-memory address of the warp's first A row for s2d row ib
-// (lane offsets included); `row_step` is the staged distance to row ib + 1.
-// B is packed as (9 * K / 16, ncols / 8, 32 lanes) uint2 (psconv.py).
-template <int K, int NT, typename AOf>
-__device__ __forceinline__ void mma_term(float (&acc)[2][NT][4], AOf a_of, int row_step,
-                                         const uint2* __restrict__ bp, int ncols8, int col0,
-                                         int lane) {
-  // Unrolling the taps at K > 64 lets the compiler hoist more B loads than
-  // 128 registers hold; the spills cost 4x at dec_conv1's level-1 width.
-  constexpr int kTapUnroll = K <= 64 ? 9 : 1;
-#pragma unroll kTapUnroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const __nv_bfloat16* arow = a_of(tap);
-#pragma unroll
-    for (int ks = 0; ks < K / 16; ++ks) {
-      uint32_t af[2][4];
-      ldmatrix_x4(af[0], arow + ks * 16);
-      ldmatrix_x4(af[1], arow + row_step + ks * 16);
-      const uint2* bk = bp + (size_t(tap * (K / 16) + ks) * ncols8 + col0) * 32 + lane;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint2 b = __ldg(bk + j * 32);
-        mma_bf16(acc[0][j], af[0], b);
-        mma_bf16(acc[1][j], af[1], b);
-      }
-    }
-  }
-}
-
-// bf16 tensor-core kernel of dec_conv1 (the x_prev term and the ReLU always
-// on); C = Cout, Cp = 2C (compile time, so the loops unroll and the
-// accumulators stay in registers). 2 blocks per SM (128 registers).
-template <int C>
-__global__ void __launch_bounds__(THREADS, 2) conv_bf16_kernel(ConvArgs a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int COUT = C, CP = 2 * C;
-  constexpr int NCH = COUT < 64 ? COUT : 64;  // output channels per pass
-  constexpr int NT = NCH / 8;                 // mma column tiles per pass
-  extern __shared__ __align__(128) unsigned char smem[];
-  const SmemPlan<bf16> plan(C, CP, true);
-  bf16* halo = reinterpret_cast<bf16*>(smem);
-  bf16* prev = reinterpret_cast<bf16*>(smem + plan.prev_off);
-  const int bi = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  stage_halo<bf16>(halo, plan.ss, reinterpret_cast<const bf16*>(a.x), bi, i0, j0, a.hh, a.ww, 4 * C,
-                   reinterpret_cast<const bf16*>(a.x_top), reinterpret_cast<const bf16*>(a.x_bot));
-  stage_halo<bf16>(prev, plan.sp, reinterpret_cast<const bf16*>(a.xp), bi, i0, j0, a.hh, a.ww, CP,
-                   reinterpret_cast<const bf16*>(a.xp_top), reinterpret_cast<const bf16*>(a.xp_bot));
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = warp & 3, py = p >> 1, px = p & 1;
-  const int ib = 2 * (warp >> 2);              // first of the warp's two s2d rows
-  const int lrow = lane & 15, lk = (lane >> 4) * 8;  // ldmatrix row (= s2d col) and k offset
-  constexpr int SS = 4 * C + PAD, SP = CP + PAD;
-
-  for (int nc = 0; nc < COUT; nc += NCH) {
-    float acc[2][NT][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-
-    // Main term: output pixel (2I+py, 2J+px), tap (ky, kx) reads full-res
-    // (2I+py+ky-1, 2J+px+kx-1): halo s2d pixel (I + (py+ky+1)/2,
-    // J + (px+kx+1)/2), input phase ((py+ky+1)%2, (px+kx+1)%2).
-    mma_term<C, NT>(
-        acc,
-        [&](int tap) {
-          const int ky = tap / 3, kx = tap % 3;
-          const int q = ((py + ky + 1) & 1) * 2 + ((px + kx + 1) & 1);
-          return halo + ((ib + ((py + ky + 1) >> 1)) * HALO_W + lrow + ((px + kx + 1) >> 1)) * SS + q * C + lk;
-        },
-        HALO_W * SS, reinterpret_cast<const uint2*>(a.w), COUT / 8, nc / 8, lane);
-    // x_prev term: tap (di, dj) reads x_prev halo pixel (I + di, J + dj) and
-    // the column block of phase p.
-    mma_term<CP, NT>(
-        acc,
-        [&](int tap) { return prev + ((ib + tap / 3) * HALO_W + lrow + tap % 3) * SP + lk; },
-        HALO_W * SP, reinterpret_cast<const uint2*>(a.wp), 4 * COUT / 8, p * (COUT / 8) + nc / 8, lane);
-
-    // Epilogue: lane (g, t) holds pixels J = g and g + 8 of each s2d row,
-    // channels 2t and 2t + 1 of each column tile.
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int gi = i0 + ib + mi;
-      if (gi >= a.hh) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gj = j0 + g + 8 * h;
-        if (gj >= a.ww) continue;
-        bf16* out = reinterpret_cast<bf16*>(a.y) + ((size_t(bi) * a.hh + gi) * a.ww + gj) * size_t(4 * COUT) + p * COUT;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int n = nc + j * 8 + 2 * t;
-          const float v0 = fmaxf(acc[mi][j][2 * h] + epilogue_term<true>(a, gi, gj, p, n), 0.f);
-          const float v1 = fmaxf(acc[mi][j][2 * h + 1] + epilogue_term<true>(a, gi, gj, p, n + 1), 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(out + n) = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-  }
-}
-
 // f32 FMA kernel: one full-res output pixel per thread, 16 output channels
 // at a time, sizes at run time.
 template <bool HAS_PREV, bool RELU>
@@ -370,19 +224,6 @@ int launch(Kern kern, const Args& a, size_t smem_bytes, cudaStream_t stream) {
   const dim3 grid((a.ww + TW - 1) / TW, (a.hh + TH - 1) / TH, a.b);
   kern<<<grid, THREADS, smem_bytes, stream>>>(a);
   return int(cudaGetLastError());
-}
-
-// dec_conv1 on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a bf16 width without an instantiation.
-inline int launch_dec_conv1(const ConvArgs& a, bool is_bf16, cudaStream_t stream) {
-  if (!is_bf16)
-    return launch(conv_f32_kernel<true, true>, a, SmemPlan<float>(a.c, a.cp, true).bytes, stream);
-  const size_t bytes = SmemPlan<__nv_bfloat16>(a.c, 2 * a.c, true).bytes;
-  switch (a.c) {
-    case 32: return launch(conv_bf16_kernel<32>, a, bytes, stream);
-    case 64: return launch(conv_bf16_kernel<64>, a, bytes, stream);
-    default: return int(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace mgu

@@ -1,25 +1,621 @@
 // relu(conv3x3([skip | ConvTranspose2x2(x_prev)]) + bias) in s2d layout: the
 // s2d decoder block's conv1 with the upsample folded in. Replaces
-// mingraph_unet_tpu/ops/pallas/psconv.py::dec_conv1_fused. The skip term is
-// the conv_tile.cuh main term; the x_prev term runs on x_prev's own grid
-// with ConvTranspose-folded weights; the upsample-bias field and the bias
-// arrive as a (3, 3, 4Cout) border-class table applied in the epilogue.
+// mingraph_unet_tpu/ops/pallas/psconv.py::dec_conv1_fused (its body
+// _dec1_kernel).
+//
+// Layout. skip is (B, Hh, Ww, 4C) with channel ph*C + c, ph = 2*py + px:
+// full-resolution pixel (2I + py, 2J + px). x_prev is (B, Hh, Ww, Cp) on the
+// same s2d grid. The output is (B, Hh, Ww, 4C) like skip. The skip term is
+// the 3x3 conv of the full-resolution skip, computed on the s2d layout as
+// K1 does. The x_prev term is a 3x3 conv on x_prev's own grid with the
+// ConvTranspose folded into its weights, k_prev (3, 3, Cp, 4C): for output
+// phase p = (py, px) only the 2x2 taps {py, py+1} x {px, px+1} of p's column
+// block are non-zero. The upsample's bias and conv1's bias arrive as a
+// (3, 3, 4C) table of (row class, column class) in {first, interior, last}
+// and are added in the epilogue.
 //
 // mgu_dec_conv1_halo is the same conv on one H-shard of the s2d grid (the
 // spatially sharded U-Net's decoder conv1): the rows above and below the
 // shard of both inputs arrive apart (null at a global border), and the bias
-// field's border class is taken from the global row (row0 + local row
-// against hh_glob), so an inner shard's first row is interior and not the
-// SAME padding of the upsample.
+// table's row class is taken from the global row (row0 + local row against
+// hh_glob), so an inner shard's first row is interior.
+//
+// bf16 (C = Cout in {32, 64}, Cp = 2C: the U-Net's two s2d levels): a Hopper
+// kernel.
+//   Bound. The function needs 2*17*C^2 operations a full-res pixel (9C^2 for
+//   the skip taps, 4 * 2C * C for the live x_prev taps) against 2.5C bf16
+//   values moved (skip, x_prev read once, y written once): memory bounds it
+//   on the H100 at C = 32 (L0: 336 MB, 100 us), the tensor cores at C = 64
+//   (L1: 73 GFLOP, 74 us).
+//   Design.
+//   - A tile is 4 x 16 s2d pixels of one image. A wgmma.m64nCk16 covers the
+//     tile's 64 pixels in ONE output phase (warp w takes s2d row w, lane r
+//     of its ldmatrix pixel r), so its B is shared by all 64 rows: W_skip[tap]
+//     for the skip term, the phase's own live x_prev block for the x_prev
+//     term. Each phase sums its 9 skip taps x C/16 k-steps, then its 4 live
+//     x_prev taps x Cp/16: no zero block of k_prev is read or multiplied.
+//   - Live weights resident in shared memory for the block's life, copied
+//     once by bulk (TMA) copies in wgmma's K-major B layout (hopper.cuh;
+//     packed by psconv.py::dec_conv1_live_weights and wgmma_b_layout).
+//   - Warp specialised and persistent, as K1 (psel_conv.cu): a producer
+//     warpgroup (its registers handed to the consumers by setmaxnreg)
+//     stages each tile's two halos (6 x 18 s2d pixels, all channels) by TMA,
+//     one box a 64-channel plane landing with the 128-byte swizzle, into two
+//     rings, one for skip and one for x_prev, with full / empty mbarriers.
+//     The two consumer warpgroups take alternate tiles (ping-pong), so one's
+//     epilogue and halo waits overlap the other's products; a tile's skip
+//     stage is released as soon as its skip term is done, so the next tile's
+//     skip halo loads while the x_prev term runs.
+//   - L0 (C = 32): a block computes all four phases of its tiles; live
+//     weights 18,432 + 65,536 bytes, 3 stages of 43,008. A is loaded once
+//     for each distinct source and fed to every phase that reads it: 16
+//     full-res offsets for the 36 (phase, skip tap) pairs, 9 x_prev pixels
+//     for the 16 (phase, live tap) pairs.
+//   - L1 (C = 64): all live weights (335,872 bytes) do not fit in a block,
+//     so a cluster of 4 blocks shares each tile, block r computing phase r
+//     and holding W_skip (73,728) and its phase's live block (65,536). Each
+//     halo (82,944 bytes) is loaded once per cluster: block 0 multicasts it
+//     to the four (TMA .multicast::cluster) once every block has released
+//     the slot (remote mbarrier arrivals on block 0's cluster-empty
+//     barriers). One stage of each ring fits beside the weights.
+//   - Epilogue in registers: the bias table's column block of the phase,
+//     chosen by border class, ReLU, bf16 rounding; the four lanes of a quad
+//     exchange their channel pairs (shuffles) so each lane holds 8
+//     consecutive channels, written with one 16-byte store.
+//   - Sharded launches: tiles whose halo holds a neighbour's row (row -1 or
+//     hh, passed apart) stage both halos by cp.async into the same swizzled
+//     layout (each block of an L1 cluster its own copy). The per-pixel sum
+//     runs in one order wherever a tile or shard starts, so stitched shards
+//     equal the unsharded launch bit for bit.
+// f32: conv_tile.cuh's FMA kernel over the dense k_prev, for the card-vs-CPU
+// f32 checks.
 #include "conv_tile.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace sm90 = mgu::sm90;
+
+constexpr int TH = 4, TW = 16;  // s2d tile: one wgmma's 64 rows
+constexpr int HALO_W = TW + 2, HALO_PIX = (TH + 2) * HALO_W;
+constexpr int THREADS = 384;    // two consumer warpgroups, then the producer warpgroup
+constexpr int CONSUMERS = 256;
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // setmaxnreg: 128 * 56 + 256 * 224 <= 65536
+constexpr int SM90_SHARED = 232448;                     // dynamic shared memory a block may use
+constexpr int BOX_BYTES = HALO_PIX * 128;               // one TMA box: 64 channels of a halo
+constexpr int PLANE_BYTES = (BOX_BYTES + 1023) / 1024 * 1024;  // the 128-byte swizzle repeats every 1024
+
+// Shared memory of the bf16 kernel: the live weights, the skip ring, the
+// x_prev ring, the mbarriers.
+template <int C>
+struct Plan {
+  static constexpr int CP = 2 * C;
+  static constexpr int KS = C / 16, KP = CP / 16;      // k-steps of a skip tap, of an x_prev tap
+  static constexpr int CLUSTER = C <= 32 ? 1 : 4;      // blocks sharing a tile
+  static constexpr int PHASES = 4 / CLUSTER;           // output phases a block computes
+  static constexpr int WS_BYTES = 9 * C * C * 2;
+  static constexpr int WP_BYTES = PHASES * 4 * CP * C * 2;
+  static constexpr int SPL = 4 * C / 64, PPL = CP / 64;  // 64-channel planes of the skip, x_prev halos
+  static constexpr int S_BYTES = SPL * PLANE_BYTES, P_BYTES = PPL * PLANE_BYTES;
+  static constexpr int STAGES = C <= 32 ? 3 : 1;
+  static constexpr int RING = WS_BYTES + WP_BYTES;
+  static constexpr int BAR = RING + STAGES * (S_BYTES + P_BYTES);
+  static constexpr int BYTES = BAR + (1 + 8 * STAGES) * 8;
+  // Uses of a stage by one consumer warpgroup come every LCM-th tile (the
+  // warpgroups take alternate tiles).
+  static constexpr int LCM = STAGES % 2 ? 2 * STAGES : STAGES;
+  static_assert(RING % 1024 == 0, "the halo rings must start 1024-byte aligned");
+  static_assert(BYTES <= SM90_SHARED, "dec-conv1 plan exceeds shared memory");
+};
+
+struct Dec1Args {
+  const bf16 *xs, *xp;  // skip (B, Hh, Ww, 4C), x_prev (B, Hh, Ww, Cp)
+  const bf16 *ws, *wp;  // k_skip (9C, C); live k_prev (4 phases, 4 taps, Cp, C) as (16Cp, C): wgmma B layout
+  const float* t9;      // (3, 3, 4C) bias class table
+  bf16* y;              // (B, Hh, Ww, 4C)
+  const bf16 *xs_top, *xs_bot, *xp_top, *xp_bot;  // (B, 1, Ww, ch) rows of a shard, null at a global border
+  int b, hh, ww, row0, hh_glob, tiles_w, tiles_h, ntiles;
+};
+
+struct Tile {
+  int bi, i0, j0;
+};
+
+__device__ __forceinline__ Tile decode(const Dec1Args& a, int t) {
+  const int tx = t % a.tiles_w, rest = t / a.tiles_w;
+  return Tile{rest / a.tiles_h, (rest % a.tiles_h) * TH, tx * TW};
+}
+
+// The barriers: the weights', then for each ring (skip, x_prev) full, one
+// set for each consumer warpgroup (a tile's halo completes on the barrier of
+// the warpgroup that takes the tile, so each waits its own phases in order),
+// empty (released by that warpgroup) and cluster-empty (by that warpgroup in
+// every block of the cluster, on block 0, which issues the multicast).
+template <int C>
+struct Bars {
+  static constexpr int S = Plan<C>::STAGES;
+  uint64_t* w;  // then, for ring r: full of warpgroup 0, of warpgroup 1, empty, cluster-empty (S each)
+  __device__ explicit Bars(unsigned char* smem) : w(reinterpret_cast<uint64_t*>(smem + Plan<C>::BAR)) {}
+  __device__ uint64_t* full(int r, int g, int s) const { return w + 1 + r * 4 * S + g * S + s; }
+  __device__ uint64_t* empty(int r, int s) const { return w + 1 + r * 4 * S + 2 * S + s; }
+  __device__ uint64_t* cempty(int r, int s) const { return w + 1 + r * 4 * S + 3 * S + s; }
+};
+
+// The producer warpgroup meets (named barrier 1; the consumers use none).
+__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+// Whether tile tl's halo of one input holds a shard's neighbour row (row -1
+// from `top`, row hh from `bot`), which TMA cannot fetch.
+__device__ __forceinline__ bool neighbour_rows(const Dec1Args& a, const Tile& tl, const bf16* top, const bf16* bot) {
+  return (tl.i0 == 0 && top) || (tl.i0 + TH >= a.hh && bot);
+}
+
+// Stage one input's halo of tile `tl` (`planes` 64-channel planes of `ch`
+// channels a pixel) into `dst` by TMA boxes from `map` (out-of-bounds zeros
+// are the SAME padding; block 0 of a cluster multicasts to all). One
+// producer thread; `full` completes on the boxes' bytes.
+template <int CLUSTER>
+__device__ void fill_tma(unsigned char* dst, int planes, const CUtensorMap* map, const Tile& tl, uint64_t* full,
+                         uint32_t rank) {
+  sm90::mbar_arrive_expect_tx(full, planes * BOX_BYTES);
+  if (rank != 0) return;
+  for (int pl = 0; pl < planes; ++pl) {
+    if constexpr (CLUSTER == 1)
+      sm90::tma_load_4d(dst + pl * PLANE_BYTES, map, 64 * pl, tl.j0 - 1, tl.i0 - 1, tl.bi, full);
+    else
+      sm90::tma_load_4d_multicast(dst + pl * PLANE_BYTES, map, 64 * pl, tl.j0 - 1, tl.i0 - 1, tl.bi, full,
+                                  uint16_t((1 << CLUSTER) - 1));
+  }
+}
+
+// The same halo by cp.async of the same swizzled layout, every producer
+// thread copying, where a neighbour row falls in it; the rows of the
+// neighbours come from `top` and `bot`. Each thread's arrival is counted by
+// the barrier itself (cp_async_arrive_inc); the producer warpgroup then
+// meets, and its first thread arrives once, completing the phase when the
+// copies have landed.
+__device__ void fill_rows(unsigned char* dst, int planes, int ch, const bf16* x, const bf16* top, const bf16* bot,
+                          const Dec1Args& a, const Tile& tl, uint64_t* full) {
+  const int ptid = threadIdx.x - CONSUMERS;
+  for (int i = ptid; i < planes * HALO_PIX * 8; i += 128) {
+    const int ck = i & 7, pix = (i >> 3) % HALO_PIX, pl = (i >> 3) / HALO_PIX;
+    const int gi = tl.i0 - 1 + pix / HALO_W, gj = tl.j0 - 1 + pix % HALO_W;
+    const bf16* src = nullptr;
+    if (gj >= 0 && gj < a.ww) {
+      if (gi >= 0 && gi < a.hh)
+        src = x + ((size_t(tl.bi) * a.hh + gi) * a.ww + gj) * ch;
+      else if (gi == -1 && top)
+        src = top + (size_t(tl.bi) * a.ww + gj) * ch;
+      else if (gi == a.hh && bot)
+        src = bot + (size_t(tl.bi) * a.ww + gj) * ch;
+    }
+    sm90::cp_async16(dst + pl * PLANE_BYTES + sm90::swz128(pix, ck), src ? src + 64 * pl + 8 * ck : x, src ? 16 : 0);
+  }
+  sm90::cp_async_arrive_inc(full);
+  producer_sync();
+  if (ptid == 0) sm90::mbar_arrive(full);
+}
+
+// Wait until stage s of ring r is free: released by this block's consumers
+// and, on block 0 of a cluster, by every block's.
+template <int C>
+__device__ __forceinline__ void acquire(const Bars<C>& bars, int r, int s, uint32_t ph, uint32_t rank) {
+  sm90::mbar_wait(bars.empty(r, s), ph ^ 1);
+  if constexpr (Plan<C>::CLUSTER > 1)
+    if (rank == 0) sm90::mbar_wait(bars.cempty(r, s), ph ^ 1);
+}
+
+// The producer warpgroup: the live weights once, then each tile's skip and
+// x_prev halos into the next free stage of their rings, the full barrier of
+// the consumer warpgroup that takes the tile. Its first thread tracks the
+// stages and issues the TMA boxes; the whole warpgroup copies the halos
+// that hold a neighbour's row, after meeting, so that every thread waits on
+// a stage only when the first thread has waited on all the ones before.
+template <int C>
+__device__ void produce(const Dec1Args& a, const CUtensorMap* smap, const CUtensorMap* pmap, unsigned char* smem,
+                        const Bars<C>& bars, uint32_t rank, int first, int step) {
+  using P = Plan<C>;
+  const bool lead = threadIdx.x == CONSUMERS;
+  if (lead) {
+    sm90::mbar_arrive_expect_tx(bars.w, P::WS_BYTES + P::WP_BYTES);
+    sm90::bulk_copy(smem, a.ws, P::WS_BYTES, bars.w);
+    sm90::bulk_copy(smem + P::WS_BYTES, a.wp + size_t(rank) * (P::WP_BYTES / 2), P::WP_BYTES, bars.w);
+  }
+  unsigned char* sring = smem + P::RING;
+  unsigned char* pring = sring + P::STAGES * P::S_BYTES;
+  int s = 0, k = 0;  // the block's k-th tile, for consumer warpgroup k % 2
+  uint32_t ph = 0;
+  for (int t = first; t < a.ntiles; t += step, ++k) {
+    const Tile tl = decode(a, t);
+    for (int r = 0; r < 2; ++r) {
+      unsigned char* dst = r == 0 ? sring + s * P::S_BYTES : pring + s * P::P_BYTES;
+      const bf16 *x = r == 0 ? a.xs : a.xp, *top = r == 0 ? a.xs_top : a.xp_top, *bot = r == 0 ? a.xs_bot : a.xp_bot;
+      const int planes = r == 0 ? P::SPL : P::PPL;
+      uint64_t* full = bars.full(r, k & 1, s);
+      if (neighbour_rows(a, tl, top, bot)) {
+        producer_sync();
+        acquire<C>(bars, r, s, ph, rank);
+        fill_rows(dst, planes, 64 * planes, x, top, bot, a, tl, full);
+      } else if (lead) {
+        acquire<C>(bars, r, s, ph, rank);
+        fill_tma<P::CLUSTER>(dst, planes, r == 0 ? smap : pmap, tl, full, rank);
+      }
+    }
+    if (++s == P::STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  if (!lead) return;
+  for (int i = 0; i < P::STAGES; ++i) {  // leave only when every stage is released
+    acquire<C>(bars, 0, s, ph, rank);
+    acquire<C>(bars, 1, s, ph, rank);
+    if (++s == P::STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+}
+
+// Give stage s of ring r back: to this block's producer and, in a cluster,
+// to block 0's (after the warpgroup's last wgmma has read the stage). The
+// warpgroup's first thread arrives, by predicated instructions: the release
+// of the skip ring falls between two wgmma groups.
+template <int C>
+__device__ __forceinline__ void release(const Bars<C>& bars, int r, int s, bool leader) {
+  sm90::mbar_arrive_if(bars.empty(r, s), leader);
+  if constexpr (Plan<C>::CLUSTER > 1) sm90::mbar_arrive_cluster(bars.cempty(r, s), 0, leader);
+}
+
+// Lane t4 of a quad holds channel pairs (2t4, 2t4 + 1) of the four 8-channel
+// groups j as m[j]; it returns group t4 whole, pair q in word q: a 4 x 4
+// transpose across the quad, by exchanges with lane t4 ^ 1, then t4 ^ 2.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&m)[4], int t4) {
+  const bool b0 = t4 & 1, b1 = t4 & 2;
+  uint32_t a[4];
+#pragma unroll
+  for (int c = 0; c < 4; c += 2) {  // swap the words whose index differs from t4 in bit 0
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, b0 ? m[c] : m[c + 1], 1);
+    a[c] = b0 ? r : m[c];
+    a[c + 1] = b0 ? m[c + 1] : r;
+  }
+  uint32_t o[4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {  // then in bit 1
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, b1 ? a[c] : a[c + 2], 2);
+    o[c] = b1 ? r : a[c];
+    o[c + 2] = b1 ? a[c + 2] : r;
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// A lane's ldmatrix of the A fragment of one k-step: 16 consecutive halo
+// pixels from `pix` (lanes 0-15, channels ch .. ch + 7; lanes 16-31 the next
+// 8) in a halo of 64-channel planes with the 128-byte swizzle.
+__device__ __forceinline__ void load_a(uint32_t (&r)[4], const unsigned char* halo, int pix, int ch) {
+  mgu::ldmatrix_x4(r, reinterpret_cast<const bf16*>(halo + (ch >> 6) * PLANE_BYTES + sm90::swz128(pix, (ch & 63) >> 3)));
+}
+
+// The products of one tile for a consumer warpgroup (lane rows: s2d row w,
+// pixel lrow; k offset lk), into acc[phase of the block]. Each phase sums
+// its skip taps in raster order, then its live x_prev taps in raster order,
+// k-steps inside each: one order wherever the tile starts. The wgmmas go in
+// a few large groups (a row of taps each), each behind one wgmma.fence and
+// closed by one commit and wait, rather than one group a tap.
+//   L0 (all four phases): A is loaded once for each distinct source and fed
+//   to every phase that reads it: the 16 full-res offsets (fy, fx) in
+//   {-1..2}^2 of the skip term (36 phase-tap pairs), in 4 groups by fy; the
+//   9 x_prev pixels (16 pairs), in 3 groups by row.
+//   L1 (phase p of the cluster's block): its 9 skip taps in 3 groups by ky,
+//   its 4 live taps in 2 groups by row.
+template <int C>
+__device__ __forceinline__ void products(float (&acc)[Plan<C>::PHASES][C / 2], const unsigned char* hs,
+                                         const unsigned char* hp, const bf16* wsk, const bf16* wpr,
+                                         const Bars<C>& bars, int s, int wg, uint32_t par, bool leader, int p,
+                                         int w, int lrow, int lk) {
+  using P = Plan<C>;
+  constexpr int KS = P::KS, KP = P::KP;
+  const auto wsk_desc = [&](int tap, int ks) { return sm90::desc_b(wsk + (tap * KS + ks) * 16 * C); };
+  const auto wpr_desc = [&](int blk, int u, int ks) { return sm90::desc_b(wpr + ((blk * 4 + u) * KP + ks) * 16 * C); };
+  if constexpr (P::PHASES == 4) {
+#pragma unroll
+    for (int fy = -1; fy <= 2; ++fy) {
+      // Full-res offset (fy, fx) of s2d pixel (I, J): halo pixel
+      // (I + (fy+2)/2, J + (fx+2)/2), input phase (fy%2, fx%2); phase
+      // (py, px) reads it as tap (fy - py + 1, fx - px + 1).
+      uint32_t af[4][KS][4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          load_a(af[f][ks], hs, (w + ((fy + 2) >> 1)) * HALO_W + lrow + ((f + 1) >> 1),
+                 ((fy & 1) * 2 + ((f + 1) & 1)) * C + 16 * ks + lk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+#pragma unroll
+        for (int ph = 0; ph < 4; ++ph) {
+          const int ky = fy - (ph >> 1) + 1, kx = f - (ph & 1);
+          if (ky < 0 || ky > 2 || kx < 0 || kx > 2) continue;  // decided at compile time
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) sm90::Wgmma<C>::run(acc[ph], af[f][ks], wsk_desc(ky * 3 + kx, ks));
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();  // the group has read its A registers
+    }
+  } else {
+    const int py = p >> 1, px = p & 1;
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      uint32_t af[3][KS][4];
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          load_a(af[kx][ks], hs, (w + ((py + ky + 1) >> 1)) * HALO_W + lrow + ((px + kx + 1) >> 1),
+                 (((py + ky + 1) & 1) * 2 + ((px + kx + 1) & 1)) * C + 16 * ks + lk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) sm90::Wgmma<C>::run(acc[0], af[kx][ks], wsk_desc(ky * 3 + kx, ks));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+  }
+  release<C>(bars, 0, s, leader);
+
+  sm90::mbar_wait(bars.full(1, wg, s), par);
+  if constexpr (P::PHASES == 4) {
+#pragma unroll
+    for (int di = 0; di < 3; ++di) {
+      // x_prev halo pixel (I + di, J + dj): live tap (di - py, dj - px)
+      // of phase (py, px) where both are 0 or 1.
+      uint32_t af[3][KP][4];
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+        for (int ks = 0; ks < KP; ++ks) load_a(af[dj][ks], hp, (w + di) * HALO_W + lrow + dj, 16 * ks + lk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+        for (int ph = 0; ph < 4; ++ph) {
+          const int ua = di - (ph >> 1), ub = dj - (ph & 1);
+          if (ua < 0 || ua > 1 || ub < 0 || ub > 1) continue;  // decided at compile time
+#pragma unroll
+          for (int ks = 0; ks < KP; ++ks) sm90::Wgmma<C>::run(acc[ph], af[dj][ks], wpr_desc(ph, 2 * ua + ub, ks));
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+  } else {
+    const int py = p >> 1, px = p & 1;
+#pragma unroll
+    for (int ua = 0; ua < 2; ++ua) {
+      uint32_t af[2][KP][4];
+#pragma unroll
+      for (int ub = 0; ub < 2; ++ub)
+#pragma unroll
+        for (int ks = 0; ks < KP; ++ks)
+          load_a(af[ub][ks], hp, (w + py + ua) * HALO_W + lrow + px + ub, 16 * ks + lk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ub = 0; ub < 2; ++ub)
+#pragma unroll
+        for (int ks = 0; ks < KP; ++ks) sm90::Wgmma<C>::run(acc[0], af[ub][ks], wpr_desc(0, 2 * ua + ub, ks));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < P::PHASES; ++i) sm90::fence_operand(acc[i]);
+  release<C>(bars, 1, s, leader);
+}
+
+// A consumer warpgroup: every other tile of the block (ping-pong, so one
+// warpgroup's epilogue overlaps the other's products), all of the block's
+// output phases and channels (wgmma.m64nCk16).
+template <int C>
+__device__ void consume(const Dec1Args& a, const unsigned char* smem, const Bars<C>& bars, uint32_t rank, int first,
+                        int step) {
+  using P = Plan<C>;
+  constexpr int PH = P::PHASES, NR = C / 2;
+  const bf16* wsk = reinterpret_cast<const bf16*>(smem);
+  const bf16* wpr = reinterpret_cast<const bf16*>(smem + P::WS_BYTES);
+  const unsigned char* sring = smem + P::RING;
+  const unsigned char* pring = sring + P::STAGES * P::S_BYTES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, w = warp & 3;
+  const int lrow = lane & 15, lk = (lane >> 4) * 8, g = lane >> 2, t4 = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  const int z = 4 * C;
+  sm90::mbar_wait(bars.w, 0);  // the weights are resident for the block's life
+  int k = wg;                  // the block's k-th tile uses stage k % STAGES of both rings
+  for (int t = first + wg * step; t < a.ntiles; t += 2 * step, k += 2) {
+    const Tile tl = decode(a, t);
+    const int s = k % P::STAGES;
+    const uint32_t par = (k / P::LCM) & 1;
+    float acc[PH][NR];
+#pragma unroll
+    for (int i = 0; i < PH; ++i) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) acc[i][r] = 0.f;
+      sm90::fence_operand(acc[i]);
+    }
+    sm90::mbar_wait(bars.full(0, wg, s), par);
+    products<C>(acc, sring + s * P::S_BYTES, pring + s * P::P_BYTES, wsk, wpr, bars, s, wg, par, leader, int(rank),
+                w, lrow, lk);
+
+    // Epilogue: lane (g, t4) holds pixels J = g and g + 8 of s2d row w,
+    // channels 8j + 2t4 and 8j + 2t4 + 1 of each 8-channel group j. The
+    // table's class weights (first, 1 - first - last, last) of the pixel's
+    // global row and column give the value with both border taps invalid on
+    // a grid one pixel high or wide; on any other grid they are one-hot and
+    // the value is the table's entry of the pixel's class. Interior warps
+    // (uniform: the warp's row and every column of the tile), border warps
+    // and warps of a grid one pixel high or wide run three separate straight
+    // copies of the body: interleaved per value, the paths' code made the
+    // kernel a third slower on an H100 (every value jumps over the others).
+    const int gi = tl.i0 + w;
+    const int row = a.row0 + gi;
+    const float fr = row == 0 ? 1.f : 0.f, lr = row == a.hh_glob - 1 ? 1.f : 0.f;
+    const float wr[3] = {fr, 1.f - fr - lr, lr};
+    const int rc = row == 0 ? 0 : row == a.hh_glob - 1 ? 2 : 1;
+    const auto body = [&](auto bias_of) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gj = tl.j0 + g + 8 * h;
+        const float fc = gj == 0 ? 1.f : 0.f, lc = gj == a.ww - 1 ? 1.f : 0.f;
+        const float wc[3] = {fc, 1.f - fc - lc, lc};
+        const int cls = rc * 3 + (gj == 0 ? 0 : gj == a.ww - 1 ? 2 : 1);
+#pragma unroll
+        for (int i = 0; i < PH; ++i) {
+          const int ph = PH == 4 ? i : int(rank);
+#pragma unroll
+          for (int jc = 0; jc < C / 32; ++jc) {  // 32 channels: four 8-channel groups
+            uint32_t m[4];
+#pragma unroll
+            for (int j4 = 0; j4 < 4; ++j4) {
+              const int j = 4 * jc + j4;
+              const float v0 = fmaxf(acc[i][4 * j + 2 * h] + bias_of(ph, 2 * j, cls, wc), 0.f);
+              const float v1 = fmaxf(acc[i][4 * j + 2 * h + 1] + bias_of(ph, 2 * j + 1, cls, wc), 0.f);
+              const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+              m[j4] = *reinterpret_cast<const uint32_t*>(&pair);
+            }
+            const uint4 out = quad_transpose(m, t4);
+            if (gi < a.hh && gj < a.ww)
+              *reinterpret_cast<uint4*>(a.y + ((size_t(tl.bi) * a.hh + gi) * a.ww + gj) * z + ph * C + 32 * jc +
+                                        8 * t4) = out;
+          }
+        }
+      }
+    };
+    // Channel 8 * (c / 2) + 2 * t4 + c % 2 of phase ph: c = 2j + e.
+    const auto entry = [&](int ph, int c, int k) {
+      return __ldg(a.t9 + k * z + ph * C + 8 * (c >> 1) + 2 * t4 + (c & 1));
+    };
+    if (fr + lr == 0.f && tl.j0 > 0 && tl.j0 + TW < a.ww)
+      body([&](int ph, int c, int, const float(&)[3]) { return entry(ph, c, 4); });  // class (1, 1)
+    else if (a.hh_glob > 1 && a.ww > 1)
+      body([&](int ph, int c, int cls, const float(&)[3]) { return entry(ph, c, cls); });
+    else
+      body([&](int ph, int c, int, const float(&wc)[3]) {
+        float bias = 0.f;
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) bias += wr[r] * wc[q] * entry(ph, c, r * 3 + q);
+        return bias;
+      });
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+    dec1_wgmma_kernel(Dec1Args a, const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap pmap) {
+  using P = Plan<C>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Bars<C> bars(smem);
+  uint32_t rank = 0;
+  int first = blockIdx.x, step = gridDim.x;
+  if constexpr (P::CLUSTER > 1) {
+    rank = sm90::cluster_rank();
+    first = sm90::cluster_id();
+    step = sm90::cluster_count();
+  }
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bars.w, 1);
+    for (int r = 0; r < 2; ++r)
+      for (int i = 0; i < P::STAGES; ++i) {
+        for (int g = 0; g < 2; ++g)
+          sm90::mbar_init(bars.full(r, g, i), 1);  // the producer's first thread (and the bytes or copies)
+        sm90::mbar_init(bars.empty(r, i), 1);   // the consumer warpgroup of the stage's tile
+        sm90::mbar_init(bars.cempty(r, i), P::CLUSTER);
+      }
+    sm90::fence_mbar_init();
+  }
+  if constexpr (P::CLUSTER > 1)
+    sm90::cluster_sync();  // no multicast or remote arrival before every block's barriers exist
+  else
+    __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    produce<C>(a, &smap, &pmap, smem, bars, rank, first, step);
+  } else {
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    consume<C>(a, smem, bars, rank, first, step);
+  }
+  if constexpr (P::CLUSTER > 1) sm90::cluster_sync();  // no block leaves while another may still signal it
+}
+
+// Persistent grid: one block a SM (the plan takes its shared memory), at
+// most one tile a block, or a cluster; 0 where the card cannot say how many
+// clusters it holds.
+template <int C>
+int grid_blocks(int ntiles) {
+  using P = Plan<C>;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int units = sms;
+  if constexpr (P::CLUSTER > 1) units = sm90::max_active_clusters(dec1_wgmma_kernel<C>, THREADS, P::BYTES, P::CLUSTER);
+  return (ntiles < units ? ntiles : units) * P::CLUSTER;
+}
+
+template <int C>
+int launch_wgmma(Dec1Args a, cudaStream_t stream) {
+  using P = Plan<C>;
+  a.tiles_w = (a.ww + TW - 1) / TW;
+  a.tiles_h = (a.hh + TH - 1) / TH;
+  a.ntiles = a.b * a.tiles_w * a.tiles_h;
+  if (a.ntiles == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(dec1_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (err != cudaSuccess) return int(err);
+  // Both inputs as (channels, Ww, Hh, B) in boxes of 64 channels x 18 x 6 x 1.
+  CUtensorMap smap, pmap;
+  const cuuint32_t box[4] = {64, HALO_W, TH + 2, 1};
+  if (!sm90::nhwc_map(&smap, a.xs, a.b, a.hh, a.ww, 4 * C, box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::nhwc_map(&pmap, a.xp, a.b, a.hh, a.ww, P::CP, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return int(cudaErrorInvalidValue);
+  const int grid = grid_blocks<C>(a.ntiles);
+  if (grid == 0) return int(cudaErrorInvalidConfiguration);
+  if constexpr (P::CLUSTER == 1) {
+    dec1_wgmma_kernel<C><<<grid, THREADS, P::BYTES, stream>>>(a, smap, pmap);
+    return int(cudaGetLastError());
+  } else {
+    return sm90::launch_cluster(dec1_wgmma_kernel<C>, grid, THREADS, P::BYTES, P::CLUSTER, stream, a, smap, pmap);
+  }
+}
+
+// dec_conv1 on `stream`; returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a bf16 width without an instantiation. bf16
+// weights as Dec1Args says, f32 weights HWIO with the dense k_prev.
+int launch(const mgu::ConvArgs& a, bool is_bf16, cudaStream_t stream) {
+  if (!is_bf16)
+    return mgu::launch(mgu::conv_f32_kernel<true, true>, a, mgu::SmemPlan<float>(a.c, a.cp, true).bytes, stream);
+  if (a.cout != a.c || a.cp != 2 * a.c) return int(cudaErrorInvalidValue);
+  const Dec1Args d{static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.xp), static_cast<const bf16*>(a.w),
+                   static_cast<const bf16*>(a.wp), a.t9, static_cast<bf16*>(a.y),
+                   static_cast<const bf16*>(a.x_top), static_cast<const bf16*>(a.x_bot),
+                   static_cast<const bf16*>(a.xp_top), static_cast<const bf16*>(a.xp_bot),
+                   a.b, a.hh, a.ww, a.row0, a.hh_glob, 0, 0, 0};
+  switch (a.c) {
+    case 32: return launch_wgmma<32>(d, stream);
+    case 64: return launch_wgmma<64>(d, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
 
 extern "C" int mgu_dec_conv1(const void* xs, const void* xp, const void* ws, const void* wp,
                              const float* t9, void* y, int b, int hh, int ww, int cs, int cp,
                              int cout, int is_bf16, void* stream) {
   mgu::ConvArgs a{xs, ws, xp, wp, nullptr, t9, y, b, hh, ww, cs, cp, cout};
   a.hh_glob = hh;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mgu::launch_dec_conv1(a, is_bf16 != 0, s);
+  return launch(a, is_bf16 != 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mgu_dec_conv1_halo(const void* xs, const void* xs_top, const void* xs_bot, const void* xp,
@@ -33,6 +629,5 @@ extern "C" int mgu_dec_conv1_halo(const void* xs, const void* xs_top, const void
   a.xp_bot = xp_bot;
   a.row0 = row0;
   a.hh_glob = hh_glob;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mgu::launch_dec_conv1(a, is_bf16 != 0, s);
+  return launch(a, is_bf16 != 0, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: mbarriers,
-// cp.async with zero fill, the bulk (TMA) copy, wgmma with A in registers
-// and B in shared memory, and the shared-memory matrix descriptor.
+// cp.async with zero fill, the bulk (TMA) copy and its multicast across a
+// thread block cluster, remote mbarrier arrival and the cluster launch,
+// wgmma with A in registers and B in shared memory, and the shared-memory
+// matrix descriptor.
 //
 // B layout. The kernels keep B in wgmma's canonical K-major layout without
 // swizzle: a 16 (k) x N (n) slab is N/8 x 2 "core matrices" of 8 n-rows x
@@ -32,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace mgu {
 namespace sm90 {
@@ -77,6 +81,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+// mbar_arrive where `pred` holds, as one predicated instruction (see
+// mbar_arrive_cluster).
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(int(pred))
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
@@ -118,6 +131,13 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+// The same, but first adding one to the barrier's expected arrivals of the
+// current phase: the phase cannot complete before this thread's copies land,
+// whatever count the barrier was given.
+__device__ __forceinline__ void cp_async_arrive_inc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Bulk (TMA, no tensor map) copy of `bytes` (a multiple of 16, both ends
 // 16-byte aligned) global -> shared, completing on `bar`'s transaction count.
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
@@ -137,6 +157,58 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tmap, 
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
       "[%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same load into the same shared-memory offset of every CTA of the
+// cluster named in `cta_mask`, each completing on its own barrier at
+// `bar`'s offset (each CTA expects the bytes on its own barrier).
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* tmap, int c0, int c1, int c2,
+                                                      int c3, uint64_t* bar, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, "
+      "{%2, %3, %4, %5}], [%6], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)), "h"(cta_mask)
+      : "memory");
+}
+
+// ---- thread block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return int(r);
+}
+
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return int(r);
+}
+
+// Every thread of every CTA of the cluster: earlier shared-memory writes
+// (barrier initialisations included) are visible cluster-wide after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Where `pred` holds, arrive on the barrier at `bar`'s offset in CTA `rank`
+// of the cluster, after this thread's earlier shared-memory reads. One
+// predicated instruction, no branch: a branch between two wgmma groups of a
+// warpgroup makes ptxas serialize them (C7520).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank, bool pred) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n.reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank), "r"(int(pred))
       : "memory");
 }
 
@@ -271,6 +343,48 @@ inline bool nhwc_map(CUtensorMap* m, const void* base, int n, int h, int w, int 
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- cluster launch (host) ----
+
+// Launch `kern` on `grid` blocks (a multiple of `cluster`) in clusters of
+// `cluster` blocks along x; returns cudaGetLastError() after the launch.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kern)(Params...), int grid, int threads, size_t smem_bytes, int cluster,
+                   cudaStream_t stream, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, std::forward<Args>(args)...);
+  return err != cudaSuccess ? int(err) : int(cudaGetLastError());
+}
+
+// How many clusters of `cluster` blocks of `kern` the card holds at once
+// (0 where the query fails).
+template <typename... Params>
+int max_active_clusters(void (*kern)(Params...), int threads, size_t smem_bytes, int cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kern), &cfg) == cudaSuccess ? n : 0;
 }
 
 }  // namespace sm90

@@ -11,16 +11,18 @@ PyTorch versions. Counterpart of ``mingraph_unet_tpu/ops/pallas/psconv.py``.
 Both kernels are implicit GEMMs over a staged s2d input halo that read the
 layout as full-resolution pixels, so they do the conv's useful FLOPs (not
 the TPU form's 16/9× or the dense s2d form's 4×), on tensor cores in bf16.
-psel's bf16 kernel is a Hopper design (``csrc/psel_conv.cu``: persistent
-warp-specialised blocks, weights resident in shared memory in wgmma's B
-layout, :func:`wgmma_b_layout`, the halo staged by TMA through a ring of
-stages, ``wgmma`` over all four output phases at once); dec-conv1 keeps the
-``mma.sync`` tile of ``csrc/conv_tile.cuh`` with weights in B-fragment
-order (:func:`mma_b_fragments`). Memory bounds psel on the H100 at level 0
-and puts it on the ridge at level 1; dec-conv1 is bound by memory at level 0
-and by operations at level 1. In bf16 both are instantiated for the U-Net's
-two s2d widths: Cout = Cin (psel), Cout = Cs and Cp = 2·Cs (dec-conv1),
-with Cin, Cs in {32, 64}.
+Both bf16 kernels are Hopper designs: persistent warp-specialised blocks,
+weights resident in shared memory in wgmma's B layout
+(:func:`wgmma_b_layout`), halos staged by TMA through rings of stages.
+psel (``csrc/psel_conv.cu``) runs ``wgmma`` over all four output phases at
+once; dec-conv1 (``csrc/dec_conv1.cu``) one output phase per ``wgmma``, so
+its x_prev term multiplies only the phase's four live taps of the folded
+weights (:func:`dec_conv1_live_weights`), and at level 1 a cluster of four
+blocks, one a phase, shares each halo by TMA multicast. Memory bounds psel
+on the H100 at level 0 and puts it on the ridge at level 1; dec-conv1 is
+bound by memory at level 0 and by operations at level 1. In bf16 both are
+instantiated for the U-Net's two s2d widths: Cout = Cin (psel), Cout = Cs
+and Cp = 2·Cs (dec-conv1), with Cin, Cs in {32, 64}.
 
 - :func:`psel_conv3x3_halo` (K9) replaces
   ``mingraph_unet_tpu/parallel/halo.py::sharded_psconv``'s kernel call: K1
@@ -65,11 +67,11 @@ __all__ = [
     "BF16_WIDTHS",
     "psel_fits",
     "dec_conv1_fits",
-    "mma_b_fragments",
     "wgmma_b_layout",
     "psel_conv3x3",
     "psel_conv3x3_plain",
     "dec_conv1_weights",
+    "dec_conv1_live_weights",
     "dec_conv1_bias_table",
     "dec_conv1_fused",
     "dec_conv1_fused_plain",
@@ -87,7 +89,7 @@ __all__ = [
     "psconv_wgrad",
 ]
 
-# Channel widths with a bf16 kernel instantiation (csrc/conv_tile.cuh).
+# Channel widths with a bf16 kernel instantiation (csrc/psel_conv.cu, csrc/dec_conv1.cu).
 BF16_WIDTHS = (32, 64)
 
 
@@ -110,15 +112,6 @@ def dec_conv1_fits(dtype: torch.dtype, cs: int, cp: int, cout: int) -> bool:
     return dtype == torch.bfloat16 and cout == cs and cp == 2 * cs and cs in BF16_WIDTHS
 
 
-def mma_b_fragments(w2d: torch.Tensor) -> torch.Tensor:
-    """(K, N) weights → mma.sync m16n8k16 B-fragment order
-    (K/16, N/8, 8, 4, 2, 2): lane ``4g + t`` of a warp finds
-    ``B[16s + 8h + 2t + e, 8j + g]`` at ``[s, j, g, t, h, e]``, its four
-    values of k-step ``s`` and column tile ``j`` as one 8-byte load."""
-    k, n = w2d.shape
-    return w2d.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
-
-
 def wgmma_b_layout(w2d: torch.Tensor) -> torch.Tensor:
     """(K, N) weights → wgmma's K-major B layout without swizzle
     (K/16, N/8, 2, 8, 8): ``B[16s + 8h + kk, 8j + r]`` at ``[s, j, h, r, kk]``.
@@ -128,12 +121,12 @@ def wgmma_b_layout(w2d: torch.Tensor) -> torch.Tensor:
     return w2d.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2).contiguous()
 
 
-def _kernel_weights(w: torch.Tensor, dev: torch.device, dt: torch.dtype, pack=mma_b_fragments) -> torch.Tensor:
-    """(3, 3, K, N) weights as the kernel reads them: HWIO in f32, ``pack``
-    over (9·K, N) in bf16."""
+def _kernel_weights(w: torch.Tensor, dev: torch.device, dt: torch.dtype) -> torch.Tensor:
+    """(..., K, N) weights as the kernel reads them: as they are in f32,
+    :func:`wgmma_b_layout` over (rows, N) in bf16."""
     w = w.to(device=dev, dtype=dt)
     if dt == torch.bfloat16:
-        return pack(w.reshape(-1, w.shape[-1]))
+        return wgmma_b_layout(w.reshape(-1, w.shape[-1]))
     return w.contiguous()
 
 
@@ -183,7 +176,7 @@ def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opt
         bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
     if dt == torch.bfloat16:
         require(cin == cout and cin in BF16_WIDTHS, f"bf16 kernel needs Cout = Cin in {BF16_WIDTHS}, got {cin} -> {cout}")
-    w = _kernel_weights(kernel, x_s2d.device, dt, wgmma_b_layout)
+    w = _kernel_weights(kernel, x_s2d.device, dt)
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=x_s2d.device)
     lib = library("psel_conv")
     common = (b, hh, ww, cin, cout, int(dt == torch.bfloat16), int(relu), stream_ptr(x_s2d))
@@ -278,6 +271,25 @@ def dec_conv1_weights(
     return kernel[:, :, :skip_c, :], k_prev
 
 
+def dec_conv1_live_weights(k_prev: torch.Tensor) -> torch.Tensor:
+    """The non-zero blocks of :func:`dec_conv1_weights`' ``k_prev`` (3, 3,
+    Cp, 4·Cout): (4 phases, 4 taps, Cp, Cout), where phase p = 2·py + px,
+    tap u = 2·a + b is ``k_prev[py + a, px + b, :, p·Cout:(p + 1)·Cout]``.
+    Every other (tap, phase) block of k_prev is zero (the ConvTranspose
+    feeds phase p's 3 × 3 window from 2 × 2 x_prev pixels only), so the
+    x_prev term of output phase p is a 2 × 2 conv on x_prev's grid with
+    these weights at offset (py − 1, px − 1): 8·C² multiply-adds a
+    full-resolution pixel instead of the dense form's 18·C². Views and one
+    reshape, so the wrapper's per-call packing stays a few host ops."""
+    cp, cout = k_prev.shape[2], k_prev.shape[3] // 4
+    # Every 2 x 2 window of taps: (oy, ox, Cp, phase, Cout, a, b).
+    win = k_prev.reshape(3, 3, cp, 4, cout).unfold(0, 2, 1).unfold(1, 2, 1)
+    # Phase p takes the window at offset (p // 2, p % 2): the diagonal of
+    # (phase, window offset).
+    win = win.permute(3, 0, 1, 5, 6, 2, 4).reshape(4, 4, 4, cp, cout)
+    return torch.diagonal(win, dim1=0, dim2=1).permute(3, 0, 1, 2)
+
+
 def dec_conv1_bias_table(
     kernel: torch.Tensor, skip_c: int, bias_up: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
@@ -362,7 +374,7 @@ def _dec_conv1_launch(name: str, x_skip_s2d, x_prev, k_skip, k_prev, t9, halo=No
                 f"bf16 kernel needs Cout = Cs in {BF16_WIDTHS} and Cp = 2·Cs, got Cs={cs}, Cp={cp}, Cout={cout}")
     dev = x_skip_s2d.device
     ws = _kernel_weights(k_skip, dev, dt)
-    wp = _kernel_weights(k_prev, dev, dt)
+    wp = _kernel_weights(dec_conv1_live_weights(k_prev) if dt == torch.bfloat16 else k_prev, dev, dt)
     tf = t9.to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
     lib = library("dec_conv1")

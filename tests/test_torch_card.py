@@ -100,9 +100,19 @@ def test_card_psel_matches_plain(cuda_device, shape, dtype):
     _assert_close_rel(got.float().cpu(), ref.cpu(), CARD_TOL[dtype])
 
 
+# The bf16 dec-conv1 kernel's persistent grid walks 4 x 16 s2d tiles, a block
+# a SM at C = 32 and a cluster of four blocks (one output phase each) a tile
+# at C = 64: Hh and Ww that are not multiples of the tile, batch 1 with
+# fewer tiles than the grid has clusters, Hh = 1, and more tiles than the
+# grid has blocks (or clusters).
+DEC1_RAGGED = [(1, 7, 37, 64, 128), (1, 13, 37, 32, 64), (1, 1, 21, 64, 128), (1, 1, 40, 32, 64),
+               (2, 101, 99, 32, 64), (3, 66, 70, 64, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 6, 8, 32, 64), (1, 5, 20, 64, 128), (2, 8, 1, 32, 64), (1, 1, 1, 32, 64)])
+@pytest.mark.parametrize("shape", [(2, 6, 8, 32, 64), (1, 5, 20, 64, 128), (2, 8, 1, 32, 64), (1, 1, 1, 32, 64)]
+                         + DEC1_RAGGED)
 def test_card_dec_conv1_matches_plain(cuda_device, shape, dtype):
     args = [a.to(cuda_device) for a in _dec1_args(shape)]
     got = t_psconv.dec_conv1_fused(args[0].to(dtype), args[1].to(dtype), *args[2:])
@@ -494,7 +504,7 @@ def test_card_psel_halo_stitches_to_k1_bit_for_bit(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", HALO_CASES)
+@pytest.mark.parametrize("case", HALO_CASES + [(2, 22, 37, 64, [0, 3, 10, 13, 22]), (1, 6, 40, 32, [0, 2, 3, 6])])
 def test_card_dec_conv1_halo_stitches_to_k2_bit_for_bit(cuda_device, case, dtype):
     b, hh, ww, c, cuts = case
     x_skip, x_prev, k_skip, k_prev, t9 = _dec1_args((b, hh, ww, c, 2 * c))

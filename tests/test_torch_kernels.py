@@ -133,18 +133,6 @@ def test_pool_plain_matches_pallas_bit_equal(shape, dtype):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
 
 
-def test_mma_b_fragments_layout():
-    """Lane 4g + t of a warp finds B[16s + 8h + 2t + e, 8j + g] at
-    [s, j, g, t, h, e]: the mma.sync m16n8k16 B-fragment order the bf16
-    conv kernels read."""
-    k, n = 32, 24
-    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
-    packed = t_psconv.mma_b_fragments(w)
-    assert packed.shape == (2, 3, 8, 4, 2, 2) and packed.is_contiguous()
-    for s, j, g, t, h, e in itertools.product(range(2), range(3), range(8), range(4), range(2), range(2)):
-        assert packed[s, j, g, t, h, e] == w[16 * s + 8 * h + 2 * t + e, 8 * j + g]
-
-
 @pytest.mark.parametrize("k,n", [(32, 24), (9 * 32, 32), (9 * 64, 64)])
 def test_wgmma_b_layout(k, n):
     """The bf16 psel kernel's weights: B[16s + 8h + kk, 8j + r] at
