@@ -9,7 +9,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 1. Build the hand-written CUDA kernels from ``mingraph_unet_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) into
-   ``mingraph_unet_tpu_torch/build/``.
+   ``mingraph_unet_tpu_torch/build/``, and print each one's registers,
+   spills and any ptxas warning that it serializes wgmma instructions
+   (fatal for K8, whose tensor-core path must not be serialized).
 2. Hold each kernel against its plain PyTorch version at the shapes the
    512² b8 serving path gives it, on seeded bf16 inputs. The plain version
    runs in f32 on the same (bf16) inputs; a conv kernel must agree within
@@ -55,8 +57,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bf16 inputs within ``DK_TOL``: it is summed and returned in f32), and
    time them and the kernel gradient (PyTorch) beside their bounds.
 7. Hold the hist-eq kernel (K6) bit for bit against its plain version on
-   the orchard-like luma at 512² b8, a constant image, a two-valued image
-   and an odd shape (3, 37, 53), and time it at 512² b8.
+   the orchard-like luma at 512² b8, a constant image, a two-valued image,
+   an odd shape (3, 37, 53) and a 1024² scene luma; it must put one device
+   operation on the card a call (torch.profiler: no memset, no second
+   kernel). Timed at 512² b8 and at the scene (one thread block cluster).
 8. Train the end-to-end MinGraphUNet (``PipelineConfig()``: init 32, depth
    4, GAT 128/64 with 4 heads, patch 16, the reference-exact full-resolution
    detection path, fast instancing) in bf16 at 512² b8 with
@@ -107,9 +111,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    block1) with each block's conv kernels and ``fold_bn`` of its BN: kernel
    vs plain (f32 cuDNN, TF32 off) within ``CONV_TOL``, against the block's
    own bf16 ``ConvBlock.forward`` within ``BLOCK_TOL``, f32 odd shapes
-   (Cin 1 and 3, every b1 > 0 in three, every tile size, and C 1024 and
-   600 in 512-channel tiles) within ``F32_TOL``; timed beside its plain
-   version and, as context, the block's two bf16 cuDNN convs. K7's odd
+   (Cin 1 and 3, every b1 > 0 in four, every channel tile, and C 1024 and
+   600 in several 256-channel tiles) within ``F32_TOL``; timed beside its
+   plain version and, as context, the block's two bf16 cuDNN convs, with
+   its device time (torch.profiler), its bound (the split form's bf16
+   products at 989 TFLOP/s: the kernel computes the f32 function on the
+   tensor cores) and, printed only, the f32-FMA figure the SIMT kernel it
+   replaced was held to and the weight bytes its tiling moves from L2
+   (worked out). K7's odd
    shapes include five groups (tensor cores in bf16, SIMT in f32), f32 Cin
    256 (a halo staged in two chunks) and bf16 Cin 512 (128 K chunks).
 12. K9 (``psel_conv3x3_halo``) and K2's sharded entry (``dec_conv1_halo``)
@@ -166,7 +175,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_SIMT_FLOPS = 67e12
 FORWARD_ITERS, KERNEL_ITERS = 20, 20
-K8_ITERS = 3         # K8 is SIMT f32: ~406 GFLOP over its five sites
+K8_ITERS = 3         # K8's plain version (f32 cuDNN, TF32 off): up to ~27 ms a call
 TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
 E2E_WARMUP, E2E_ITERS = 3, 5
 SCENE_WARMUP, SCENE_ITERS = 2, 10
@@ -363,6 +372,10 @@ def _kernel_table(dev, launches, scene_launches):
                   f"cuDNN route (conv_transpose2d, cat, conv2d: 3 calls, ReLU not counted; max_abs_err {c_err:.4g}) "
                   f"{cudnn_ms * 1e3:.1f} us, device {cudnn_dev_ms * 1e3:.1f} us; L2 -> SM (from the tiling) "
                   f"{_dec1_l2_bytes(shape, dev) / 1e6:.1f} MB a call against {case['bytes'] / 1e6:.1f} MB compulsory")
+        if case["kind"] == "pool":
+            dev_ms = _device_ms(tag, lambda: kernel_fn(*args))
+            extra = {"device_ms": dev_ms}
+            print(f"[chip_smoke] {name} L{case['level']}: device {dev_ms * 1e3:.1f} us")
         if case["kind"] == "psel":
             # The card's time: the kernel alone, and the call (the wrapper's
             # weight packing and casts too); the weights it moves L2 -> SM.
@@ -596,29 +609,41 @@ def _s2d_of(y_nchw):
     return s2d_ops.space_to_depth(y_nchw.permute(0, 2, 3, 1))
 
 
-def _device_ms(label: str, fn, iters: int = 10, own: str = ""):
-    """Device time per call of ``fn``: the summed time of every CUDA kernel
-    it launches (torch.profiler), over ``iters`` calls after a warm-up,
-    printed with its kernels. Where a call is short, the CUDA-event time of
-    ``_time_ms`` is the host's time to issue it; this is the card's. With
-    ``own``, returns (the call's time, the time of the kernels whose name
-    holds ``own``: the hand-written kernel without the wrapper's packing)."""
+def _device_ops(fn, iters: int):
+    """Every operation ``fn`` puts on the card (kernels, memsets, copies),
+    by torch.profiler over ``iters`` calls after a warm-up, as (name, µs a
+    launch, launches a call), the longest first. The profiler may miss a
+    launch of the window (it records 9 of 10 at times), so each operation
+    counts its mean time per recorded launch times its launches per call,
+    rounded. Now and then it records no device operation at all in a
+    window whose calls ran; such a window is taken again, up to three
+    times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # The profiler may miss a launch of the window (it records 9 of 10 at
-    # times), so each kernel counts its mean time per recorded launch times
-    # its launches per call, rounded.
-    kernels = [(e.key, e.self_device_time_total / e.count, max(1, round(e.count / iters)))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ops = [(e.key, e.self_device_time_total / e.count, max(1, round(e.count / iters)))
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
-    kernels.sort(key=lambda k: k[1] * k[2], reverse=True)
+        if ops:
+            break
+    return sorted(ops, key=lambda k: k[1] * k[2], reverse=True)
+
+
+def _device_ms(label: str, fn, iters: int = 10, own: str = ""):
+    """Device time per call of ``fn``: the summed time of every CUDA kernel
+    it launches (``_device_ops``), printed with its kernels. Where a call
+    is short, the CUDA-event time of ``_time_ms`` is the host's time to
+    issue it; this is the card's. With ``own``, returns (the call's time,
+    the time of the kernels whose name holds ``own``: the hand-written
+    kernel without the wrapper's packing)."""
+    kernels = _device_ops(fn, iters)
     ms = sum(t * n for _, t, n in kernels) / 1e3
     print(f"[chip_smoke]   device time per call of {label}: {ms * 1e3:.1f} us: " + "; ".join(
         f"{key[:60]} {t:.1f} us x{n}" for key, t, n in kernels[:4]))
@@ -997,10 +1022,12 @@ def _k4_table(dev, launches, e2e_launches):
         # back through the tap map): least work = read x and g once, write
         # dK in f32; 2·9·C² operations per full-res pixel.
         dk_ms = _time_ms(lambda: psconv.psconv_wgrad(x, cot, k), KERNEL_ITERS)
+        dk_dev_ms = _device_ms(f"psconv_wgrad L{lvl}", lambda: psconv.psconv_wgrad(x, cot, k))
         b_bytes = ((x.numel() + cot.numel()) * 2 + k.numel() * 4) / HBM_BYTES_PER_S * 1e3
         b_ops = 2 * full_px * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
-        print(f"[chip_smoke] psconv_wgrad L{lvl} (PyTorch): {dk_ms * 1e3:.1f} us/call, bound "
-              f"{max(b_bytes, b_ops) * 1e3:.1f} us ({'bytes' if b_bytes >= b_ops else 'operations'})")
+        print(f"[chip_smoke] psconv_wgrad L{lvl} (PyTorch): {dk_ms * 1e3:.1f} us/call, device "
+              f"{dk_dev_ms * 1e3:.1f} us, bound {max(b_bytes, b_ops) * 1e3:.1f} us "
+              f"({'bytes' if b_bytes >= b_ops else 'operations'})")
     return rows
 
 
@@ -1044,29 +1071,38 @@ def _histeq_table(dev, launches, e2e_launches, scene_launches):
     plain_ms = _time_ms(lambda: histeq.equalize_channel_plain(orchard), KERNEL_ITERS)
     bound_ms = 2 * orchard.numel() / HBM_BYTES_PER_S * 1e3
     # A call is short enough that the wrapper's host work may set the timed
-    # rate: the card's own time per call (memset and both kernels) from
-    # torch.profiler beside it.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(KERNEL_ITERS):
-            histeq.equalize_channel(orchard)
-        torch.cuda.synchronize()
-    parts = {e.key[:40]: e.self_device_time_total / 1e3 / KERNEL_ITERS for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-    device_ms = sum(parts.values())
-    print(f"[chip_smoke] equalize_channel {tuple(orchard.shape)}: {ms * 1e3:.1f} us/launch, plain "
-          f"{plain_ms * 1e3:.1f} us, library -, bound {bound_ms * 1e3:.2f} us (bytes); card time per call "
-          f"{device_ms * 1e3:.1f} us ({', '.join(f'{k} {v * 1e3:.1f}' for k, v in parts.items())})")
+    # rate: the card's own time per call from torch.profiler beside it, and
+    # the device operations a call, which must be the one kernel.
+    device_ms, ops = _histeq_device(lambda: histeq.equalize_channel(orchard))
+    scene = _luma_u8(torch.randint(0, 256, (1, SCENE, SCENE, 3), generator=g, device=dev).to(torch.uint8))
+    if not torch.equal(histeq.equalize_channel(scene), histeq.equalize_channel_plain(scene)):
+        _fail("equalize_channel disagrees with its plain version on the 1024^2 scene luma")
+    scene_ms = _time_ms(lambda: histeq.equalize_channel(scene), KERNEL_ITERS)
+    scene_device_ms, scene_ops = _histeq_device(lambda: histeq.equalize_channel(scene))
+    for tag, n in (("512^2 b8", ops), ("1024^2 scene", scene_ops)):
+        print(f"[chip_smoke] equalize_channel {tag}: {n} device operations a call (one kernel): "
+              f"{'ok' if n == 1 else 'FAIL'}")
+        if n != 1:
+            _fail(f"equalize_channel at {tag} runs {n} device operations a call, not one kernel")
+    print(f"[chip_smoke] equalize_channel {tuple(orchard.shape)}: {ms * 1e3:.1f} us/launch, device "
+          f"{device_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, library -, bound {bound_ms * 1e3:.2f} us "
+          f"(bytes); scene {tuple(scene.shape)} (one cluster): {scene_ms * 1e3:.1f} us/launch, device "
+          f"{scene_device_ms * 1e3:.2f} us")
     return [{
         "name": "equalize_channel", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/histeq.cu",
         "replaces": f"{HISTEQ_SRC}:88", "launches": launches["histeq"], "launches_e2e": e2e_launches["histeq"],
         "launches_scene": scene_launches["histeq"],
         "shape": list(orchard.shape), "max_abs_err": errs["orchard luma 512^2 b8"], "ms": ms, "device_ms": device_ms,
+        "device_ops": ops, "scene_ms": scene_ms, "scene_device_ms": scene_device_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None,
     }]
+
+
+def _histeq_device(fn):
+    """(device ms, device operations) a call of K6."""
+    ops = _device_ops(fn, KERNEL_ITERS)
+    return sum(t * n for _, t, n in ops) / 1e3, sum(n for _, _, n in ops)
 
 
 def _d2s_table(dev, launches, scene_launches):
@@ -1109,14 +1145,17 @@ def _d2s_table(dev, launches, scene_launches):
         library_ms = _time_ms(lambda: y.view(b, hh, ww, 2, 2, cc // 4).permute(0, 1, 3, 2, 4, 5).contiguous(),
                               KERNEL_ITERS)
         bound_ms = 2 * y.numel() * y.element_size() / HBM_BYTES_PER_S * 1e3
+        dev_ms = _device_ms(f"depth_to_space {name}", lambda: pool.depth_to_space_kernel(y))
         rows.append({
             "name": f"depth_to_space {name}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/d2s.cu",
             "replaces": f"{POOL_SRC}:168", "launches": counts["d2s"], "launches_serving": launches["d2s"],
             "launches_scene": scene_launches["d2s"], "shape": list(shape), "max_abs_err": errs[f"{name} bf16"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms,
         })
-        print(f"[chip_smoke] depth_to_space {name} {tuple(shape)}: {ms * 1e3:.1f} us/launch, plain "
-              f"{plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us (bytes)")
+        print(f"[chip_smoke] depth_to_space {name} {tuple(shape)}: {ms * 1e3:.1f} us/launch, device "
+              f"{dev_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, bound "
+              f"{bound_ms * 1e3:.1f} us (bytes)")
     return rows
 
 
@@ -1292,6 +1331,21 @@ def _wconv_table(dev, s2d_sites, launches, scene_launches):
     return rows
 
 
+def _conv_block_l2_bytes(shape, c) -> int:
+    """Bytes of weights the K8 kernel moves from L2 into shared memory a
+    call, worked out from its tiling in ``csrc/conv_block.cu``, not read
+    from the card: every block (an 8 × 16 output tile of one channel tile)
+    streams its channel tile's whole hi/lo weight stream once
+    (``conv_block.pack_weights``: 16 KB stages)."""
+    from mingraph_unet_tpu_torch.ops.kernels import conv_block as cb
+
+    b, h, w, cin = shape
+    nt = cb.channel_tile(c)
+    blocks = -(-c // nt) * b * -(-h // 8) * -(-w // 16)
+    stages = -(-c // 64) * 9 * (-(-cin // 64) + nt // 64)
+    return blocks * stages * cb.STAGE_BYTES
+
+
 def _conv_block_table(dev, std_sites, launches, scene_launches):
     """Phase 11: K8 at the five standard-layout ConvBlocks of the serving
     U-Net, on their captured bf16 inputs, with each block's own conv kernels
@@ -1299,11 +1353,18 @@ def _conv_block_table(dev, std_sites, launches, scene_launches):
     (f32 cuDNN, TF32 off) within CONV_TOL, and against the block's own
     ``ConvBlock.forward`` (bf16 folded weights, bf16 h, cuDNN) within
     BLOCK_TOL; f32 at small odd shapes within F32_TOL (Cin 1 and 3, every
-    b1 > 0 in two of them, every tile size); then timed (few launches: it
-    is ~406 GFLOP over the five sites in f32) beside its plain version and,
-    as context, the block's two cuDNN convs. Bound: x and y once, f32
-    weights, against 2·9·(Cin·C + C·C) operations per pixel at the f32
-    FMA rate (67 TFLOP/s): the function is f32 inside."""
+    b1 > 0 in four of them, every channel tile, C 1024 and 600 in several
+    tiles); then timed beside its plain version (few launches: the f32
+    cuDNN pair takes up to ~27 ms a call) and, as context, the block's two
+    bf16 cuDNN convs, with the kernel's device time (torch.profiler). Bound:
+    x and y once, f32 weights, against the split form's operations at the
+    bf16 tensor rate (989 TFLOP/s): the function is f32 inside, and the
+    least work that computes it to f32 accuracy on the tensor cores is two
+    bf16 products a conv1 term of bf16 x and three a conv2 term, 2·9·(2·Cin·C
+    + 3·C·C) operations per pixel. Beside it, on the printed line only
+    (worked out, not measured): the f32-FMA figure, 2·9·(Cin·C + C·C)
+    operations per pixel at 67 TFLOP/s (what a SIMT kernel could reach, and
+    the kernel beats), and the weight bytes its tiling moves from L2."""
     import torch
 
     from mingraph_unet_tpu_torch.ops.kernels import conv_block as cb
@@ -1326,24 +1387,30 @@ def _conv_block_table(dev, std_sites, launches, scene_launches):
             plain_ms = _time_ms(lambda: cb.fused_conv_block_plain(x, *args), K8_ITERS)
             torch.backends.cudnn.allow_tf32 = True
             _check_close(f"{tag} vs the block's ConvBlock.forward", got, block(x), BLOCK_TOL, what="ConvBlock.forward")
-            ms = _time_ms(lambda: cb.fused_conv_block(x, *args), K8_ITERS)
+            ms = _time_ms(lambda: cb.fused_conv_block(x, *args), KERNEL_ITERS)
+            call_ms, dev_ms = _device_ms(tag, lambda: cb.fused_conv_block(x, *args), own="conv_block_kernel")
             pair_ms = _time_ms(lambda: block(x), KERNEL_ITERS)
-            flops = 2 * bn_ * h * w * 9 * (cin * c + c * c)
-            t_bytes = (x.numel() * 2 + bn_ * h * w * c * 2 + 9 * (cin * c + c * c) * 4 + 4 * c * 4) / HBM_BYTES_PER_S
+            px = bn_ * h * w
+            fma_ms = 2 * px * 9 * (cin * c + c * c) / F32_SIMT_FLOPS * 1e3
+            t_bytes = (x.numel() * 2 + px * c * 2 + 9 * (cin * c + c * c) * 4 + 4 * c * 4) / HBM_BYTES_PER_S
             t_bytes *= 1e3
-            t_ops = flops / F32_SIMT_FLOPS * 1e3
+            t_ops = 2 * px * 9 * (2 * cin * c + 3 * c * c) / BF16_TENSOR_FLOPS * 1e3
+            l2 = _conv_block_l2_bytes(tuple(x.shape), c)
             rows.append({
                 "name": f"fused_conv_block {name}", "route": "cuda",
                 "source": "mingraph_unet_tpu_torch/csrc/conv_block.cu", "replaces": f"{CONV_BLOCK_SRC}:135",
                 "launches": launches["conv_block"], "launches_scene": scene_launches["conv_block"],
-                "shape": list(x.shape), "cout": c, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "shape": list(x.shape), "cout": c, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "call_device_ms": call_ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None, "context_cudnn_pair_bf16_ms": pair_ms,
             })
-            print(f"[chip_smoke] fused_conv_block {name}: {ms * 1e3:.1f} us/launch ({flops / ms / 1e9:.1f} "
-                  f"f32 TFLOP/s), plain (f32 cuDNN, TF32 off) {plain_ms * 1e3:.1f} us, library -, context: the "
-                  f"block's two bf16 cuDNN convs {pair_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
-                  f"({rows[-1]['bound_by']})")
+            print(f"[chip_smoke] fused_conv_block {name}: {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us "
+                  f"(call {call_ms * 1e3:.1f}: the wrapper's split and packing), plain (f32 cuDNN, TF32 off) "
+                  f"{plain_ms * 1e3:.1f} us, library -, context: the block's two bf16 cuDNN convs "
+                  f"{pair_ms * 1e3:.1f} us; bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}; the "
+                  f"bf16 split's products at 989 TFLOP/s {t_ops * 1e3:.1f} us), f32-FMA figure {fma_ms * 1e3:.1f} us "
+                  f"(67 TFLOP/s, context only); weights L2 -> SM (from the tiling) {l2 / 1e6:.1f} MB a call")
 
         g = torch.Generator(device=dev).manual_seed(19)
         torch.backends.cudnn.allow_tf32 = False
@@ -2191,7 +2258,11 @@ def main() -> int:
         log = build.compiler_log(name).splitlines()
         regs = [ln.split(":", 1)[-1].strip() for ln in log if "registers" in ln]
         spills = [ln.strip() for ln in log if "spill stores" in ln and " 0 bytes spill stores" not in ln]
-        print(f"[chip_smoke]   {name}: {'; '.join(regs)}; spills: {'; '.join(spills) or 'none'}")
+        serial = [ln.strip() for ln in log if "wgmma.mma_async instructions are serialized" in ln]
+        print(f"[chip_smoke]   {name}: {'; '.join(regs)}; spills: {'; '.join(spills) or 'none'}; "
+              f"wgmma serialized: {'; '.join(serial) or 'none'}")
+        if serial and name == "conv_block":
+            _fail("ptxas serializes K8's wgmma instructions")
 
     model, x, launches = _main_path(dev)
     fwd_ms = _forward_time(model, x)

@@ -4,7 +4,7 @@
 // dgrad) and dec_conv1.cu runs for f32 inputs (the s2d decoder's conv1 with
 // the ConvTranspose folded in). Both bf16 paths are their own Hopper kernels
 // (psel_conv.cu, dec_conv1.cu, hopper.cuh); they and wconv.cu take the
-// argument block, ldmatrix and the launch helper from here.
+// argument block and the launch helper from here.
 //
 // Layout. An s2d tensor is (B, Hh, Ww, 4C) with channel index ph*C + c,
 // ph = 2*py + px. Full-resolution pixel (y, x, c) lives at s2d
@@ -146,13 +146,6 @@ __device__ __forceinline__ float epilogue_term(const ConvArgs& a, int gi, int gj
       for (int q = 0; q < 3; ++q) s += wr[r] * wc[q] * t[(r * 3 + q) * z];
     return s;
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // f32 FMA kernel: one full-res output pixel per thread, 16 output channels

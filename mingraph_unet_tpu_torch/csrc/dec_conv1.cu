@@ -294,7 +294,7 @@ __device__ __forceinline__ uint4 quad_transpose(const uint32_t (&m)[4], int t4) 
 // pixels from `pix` (lanes 0-15, channels ch .. ch + 7; lanes 16-31 the next
 // 8) in a halo of 64-channel planes with the 128-byte swizzle.
 __device__ __forceinline__ void load_a(uint32_t (&r)[4], const unsigned char* halo, int pix, int ch) {
-  mgu::ldmatrix_x4(r, reinterpret_cast<const bf16*>(halo + (ch >> 6) * PLANE_BYTES + sm90::swz128(pix, (ch & 63) >> 3)));
+  sm90::ldmatrix_x4(r, reinterpret_cast<const bf16*>(halo + (ch >> 6) * PLANE_BYTES + sm90::swz128(pix, (ch & 63) >> 3)));
 }
 
 // The products of one tile for a consumer warpgroup (lane rows: s2d row w,

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: mbarriers,
 // cp.async with zero fill, the bulk (TMA) copy and its multicast across a
-// thread block cluster, remote mbarrier arrival and the cluster launch,
-// wgmma with A in registers and B in shared memory, and the shared-memory
-// matrix descriptor.
+// thread block cluster, remote mbarrier arrival, distributed shared memory
+// stores and the cluster launch, ldmatrix of A fragments, wgmma with A in
+// registers and B in shared memory, and the shared-memory matrix descriptor.
 //
 // B layout. The kernels keep B in wgmma's canonical K-major layout without
 // swizzle: a 16 (k) x N (n) slab is N/8 x 2 "core matrices" of 8 n-rows x
@@ -58,6 +58,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// Four 8 x 8 b16 matrices from shared memory into mma / wgmma A fragments:
+// lane l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
 __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
   const uint32_t a = smem_u32(smem);
   return uint64_t((a & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
@@ -93,6 +101,15 @@ __device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+
+// mbar_arrive_expect_tx where `pred` holds, as one predicated instruction.
+__device__ __forceinline__ void mbar_arrive_expect_tx_if(uint64_t* bar, uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"(int(pred))
+      : "memory");
 }
 
 // Wait until the phase of parity `parity` has completed.
@@ -147,6 +164,16 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
                : "memory");
 }
 
+// bulk_copy where `pred` holds, as one predicated instruction.
+__device__ __forceinline__ void bulk_copy_if(void* dst, const void* src, uint32_t bytes, uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n}\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "r"(int(pred))
+      : "memory");
+}
+
 // TMA tile load of a 4-D tensor map at coordinates (c0 innermost .. c3),
 // completing on `bar`'s transaction count; out-of-bounds elements (negative
 // coordinates included) arrive as zeros. `tmap` lives in kernel parameter
@@ -186,6 +213,12 @@ __device__ __forceinline__ int cluster_id() {
   return int(r);
 }
 
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return int(r);
+}
+
 __device__ __forceinline__ int cluster_count() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
@@ -196,6 +229,31 @@ __device__ __forceinline__ int cluster_count() {
 // (barrier initialisations included) are visible cluster-wide after it.
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// cluster_sync in two halves: arrive without ordering any memory access, and
+// later wait for every thread of the cluster to have arrived. Between them
+// the thread may work; after the wait every CTA of the cluster has started,
+// so its shared memory may be accessed through distributed shared memory.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Distributed shared memory: the address of `p` (this CTA's shared memory)
+// in the shared memory of CTA `rank` of the cluster, and a 32-bit store to
+// such an address.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // Where `pred` holds, arrive on the barrier at `bar`'s offset in CTA `rank`

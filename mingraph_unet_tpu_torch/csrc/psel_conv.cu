@@ -230,7 +230,7 @@ __device__ void consume(const PselArgs& a, const bf16* wsm, bf16* outs, const un
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           const int ch = q * C + 16 * ks + lk;  // the lane's 8 channels: plane ch / 64, chunk ch % 64 / 8
-          mgu::ldmatrix_x4(af[mi][ks], reinterpret_cast<const bf16*>(
+          sm90::ldmatrix_x4(af[mi][ks], reinterpret_cast<const bf16*>(
                                             hb + (ch >> 6) * P::PLANE_BYTES + sm90::swz128(pix + mi * HALO_W, (ch & 63) >> 3)));
         }
       sm90::wgmma_fence();

@@ -228,7 +228,7 @@ __device__ void consume(const WgArgs& a, unsigned char* ring, bf16* outs, uint64
         for (int mi = 0; mi < MT; ++mi) {
           const int r = (wg * MT + mi) * 4 + wp;  // the warp's s2d row in the tile
           const int pix = (r + oy + (j >> 1)) * P::HW + lrow + ox + (j & 1);
-          mgu::ldmatrix_x4(af[j][mi], reinterpret_cast<const bf16*>(as + sm90::swz32(pix, lane >> 4)));
+          sm90::ldmatrix_x4(af[j][mi], reinterpret_cast<const bf16*>(as + sm90::swz32(pix, lane >> 4)));
         }
       sm90::wgmma_fence();
 #pragma unroll

@@ -58,10 +58,10 @@ _SIGNATURES = {
                   "mgu_dec_conv1_halo": [_P] * 10 + [_I] * 9 + [_P]},
     "phase_pool": {"mgu_phase_max_pool": [_P, _P] + [_I] * 5 + [_P]},
     "d2s": {"mgu_depth_to_space": [_P, _P] + [_I] * 4 + [_P]},
-    "histeq": {"mgu_histeq": [_P, _P, _P, _I, _I, _P]},
+    "histeq": {"mgu_histeq": [_P, _P, _I, _I, _P]},
     "wconv": {"mgu_wconv3x3_wgmma": [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P],
               "mgu_wconv3x3_simt": [_P] * 4 + [_I] * 7 + [_P, _I, _P]},
-    "conv_block": {"mgu_conv_block": [_P] * 8 + [_I] * 8 + [_P]},
+    "conv_block": {"mgu_conv_block": [_P] * 7 + [_I] * 7 + [_P]},
 }
 
 _lock = threading.Lock()

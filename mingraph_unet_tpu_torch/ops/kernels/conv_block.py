@@ -6,9 +6,13 @@ PyTorch version. Counterpart of ``mingraph_unet_tpu/ops/pallas/conv_block.py``.
 padding, NHWC, in one device-memory round trip (``csrc/conv_block.cu``).
 The function is f32 inside, as in JAX: taps and weights widened to f32,
 the scale/shift applied to the f32 accumulator, the intermediate h kept in
-f32, only the output cast to x's dtype. The kernel is SIMT f32 FMA, so the
-f32 operation rate bounds it at every U-Net width. It takes any C: above
-512 output channels a block computes one 512-channel tile of conv2 (and
+f32, only the output cast to x's dtype. The kernel runs both convs on the
+tensor cores (``wgmma``) with each f32 operand split into a bf16 pair
+``hi = bf16(a)``, ``lo = bf16(a − hi)`` and each product taken as
+``hi·hi + hi·lo + lo·hi`` (two products where x is bf16, whose lo is 0).
+:func:`pack_weights` splits and packs the weights once a call into the
+stream of 16 KB stages the kernel consumes. It takes any C, Cin, H and W:
+above 256 output channels a block computes one channel tile of conv2 (and
 all of conv1 for it).
 
 :func:`fold_bn` folds inference BatchNorm into the (s, b) pairs it takes.
@@ -33,11 +37,21 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     stream_ptr,
 )
 
-__all__ = ["fold_bn", "fused_conv_block", "fused_conv_block_plain"]
+__all__ = ["channel_tile", "fold_bn", "fused_conv_block", "fused_conv_block_plain", "pack_weights", "split_bf16"]
 
-# csrc/conv_block.cu: h is padded to a multiple of every tile's h chunk (16,
-# 32 or 64 channels), y to a multiple of the 8 channels a thread writes.
-_H_PAD, _Y_PAD = 64, 8
+# csrc/conv_block.cu: h in chunks of 64 channels, x in chunks of 64 input
+# channels, the weight stream in stages of 16 KB.
+CHUNK, STAGE_BYTES = 64, 16384
+
+
+def channel_tile(c: int) -> int:
+    """Output channels a block computes (N of conv2's wgmma): 64, 128 or
+    256; a wider C runs in several tiles."""
+    return 64 if c <= 64 else 128 if c <= 128 else 256
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def fold_bn(conv_bias, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,10 +74,38 @@ def fused_conv_block_plain(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     return stage(stage(x, w1, s1, b1), w2, s2, b2).to(x.dtype)
 
 
-def _pad(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
-    """``t`` zero-padded along ``dim`` to ``size``, f32 and contiguous."""
-    pad = [0, 0] * (t.dim() - 1 - dim) + [0, size - t.shape[dim]]
-    return F.pad(t.float(), pad).contiguous()
+def split_bf16(w: torch.Tensor) -> torch.Tensor:
+    """f32 values as the bf16 pair (hi, lo) stacked on a new first axis:
+    ``hi = bf16(w)``, ``lo = bf16(w − hi)``; each rounding keeps 8 significant
+    bits, so ``hi + lo`` is ``w`` within 2^-16 of |w|."""
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    return torch.stack([hi, (w - hi.float()).to(torch.bfloat16)])
+
+
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The weight stream of ``csrc/conv_block.cu``: (channel tiles, h
+    chunks, bytes) as bf16, for ``channel_tile(C)`` output channels a tile.
+
+    Input channels are padded with zeros to a multiple of 64 (x chunks), h
+    channels to C1p = 64·ceil(C/64), output channels to the tile. For each
+    channel tile and h chunk: conv1's stages, one per (x chunk, tap): its 64
+    input rows as 4 k-steps, each the hi then the lo 16 × 64 slab; then
+    conv2's, one per tap: the chunk's 64 h rows as 4 k-steps, each the hi
+    then the lo 16 × NT slab (16 KB stages of 1, 2 or 4 k-steps). A slab is
+    in wgmma's K-major B layout (``psconv.wgmma_b_layout``): element (k, n)
+    at ``[n // 8, k // 8, n % 8, k % 8]``."""
+    cin, c = w1.shape[2], w1.shape[3]
+    nt = channel_tile(c)
+    xc, hc, ntl = -(-cin // CHUNK), _up(c, CHUNK) // CHUNK, -(-c // nt)
+    w1p = F.pad(w1.float().reshape(9, cin, c), (0, hc * CHUNK - c, 0, xc * CHUNK - cin))
+    w2p = F.pad(w2.float().reshape(9, c, c), (0, ntl * nt - c, 0, hc * CHUNK - c))
+    # (hl, tap, xc, ks, k1, k0, hc, n1, n0) -> (hc, xc, tap, ks, hl, n1, k1, n0, k0)
+    one = split_bf16(w1p).reshape(2, 9, xc, 4, 2, 8, hc, 8, 8).permute(6, 2, 1, 3, 0, 7, 4, 8, 5)
+    # (hl, tap, hc, ks, k1, k0, nt, n1, n0) -> (nt, hc, tap, ks, hl, n1, k1, n0, k0)
+    two = split_bf16(w2p).reshape(2, 9, hc, 4, 2, 8, ntl, nt // 8, 8).permute(6, 2, 1, 3, 0, 7, 4, 8, 5)
+    one = one.reshape(1, hc, -1).expand(ntl, hc, -1)
+    return torch.cat([one, two.reshape(ntl, hc, -1)], dim=2).contiguous()
 
 
 def fused_conv_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
@@ -88,15 +130,14 @@ def fused_conv_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     for name, v in (("s1", s1), ("b1", b1), ("s2", s2), ("b2", b2)):
         require(tuple(v.shape) == (c,), f"{name} must be ({c},), got {tuple(v.shape)}")
     dev = x.device
-    c1p, c2p = -(-c // _H_PAD) * _H_PAD, -(-c // _Y_PAD) * _Y_PAD
-    w1p = _pad(w1.to(dev).reshape(9, cin, c), 2, c1p)
-    w2p = _pad(_pad(w2.to(dev).reshape(9, c, c), 1, c1p), 2, c2p)
-    s1p, b1p = _pad(s1.to(dev), 0, c1p), _pad(b1.to(dev), 0, c1p)
-    s2p, b2p = _pad(s2.to(dev), 0, c2p), _pad(b2.to(dev), 0, c2p)
+    nt = channel_tile(c)
+    c1p, c2p = _up(c, CHUNK), _up(c, nt)
+    stream = pack_weights(w1.to(dev), w2.to(dev))
+    s1p, b1p, s2p, b2p = (F.pad(v.to(dev).float(), (0, n - c)) for v, n in ((s1, c1p), (b1, c1p), (s2, c2p), (b2, c2p)))
     y = torch.empty((bn, h, w, c), dtype=dt, device=dev)
     rc = library("conv_block").mgu_conv_block(
-        x.data_ptr(), w1p.data_ptr(), s1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(), s2p.data_ptr(),
-        b2p.data_ptr(), y.data_ptr(), bn, h, w, cin, c, c1p, c2p, int(dt == torch.bfloat16), stream_ptr(x),
+        x.data_ptr(), stream.data_ptr(), s1p.data_ptr(), b1p.data_ptr(), s2p.data_ptr(), b2p.data_ptr(),
+        y.data_ptr(), bn, h, w, cin, c, nt, int(dt == torch.bfloat16), stream_ptr(x),
     )
     if rc != 0:
         raise RuntimeError(f"fused_conv_block launch failed: cudaError {rc}")

@@ -4,10 +4,13 @@ with its plain PyTorch version. Counterpart of
 
 :func:`equalize_channel` replaces ``equalize_channel_pallas``: OpenCV
 ``equalizeHist`` per image on (B, H, W) uint8 luma → (B, H, W) uint8. The
-kernel (``csrc/histeq.cu``) counts a 256-bin histogram per image in shared
-memory, then rebuilds each image's LUT from it per block and maps the
-pixels, bit-exact with the plain version. It takes the luma as one byte per
-pixel and any H·W up to 2^24 (its CDF is exact in f32 up to there).
+kernel (``csrc/histeq.cu``) is one launch with one thread block cluster per
+image: each block counts its slice of the image into shared memory, the
+cluster sums the counts through distributed shared memory, and every block
+builds the image's LUT and maps its slice, bit-exact with the plain
+version; nothing but y and the output touches device memory. It takes the
+luma as one byte per pixel and any H·W up to 2^24 (its CDF is exact in f32
+up to there).
 """
 
 from __future__ import annotations
@@ -52,8 +55,7 @@ def equalize_channel(y_u8: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(y_u8)
     if b == 0 or n == 0:
         return out
-    hist = torch.empty((b, 256), dtype=torch.int32, device=y_u8.device)
-    rc = library("histeq").mgu_histeq(y_u8.data_ptr(), out.data_ptr(), hist.data_ptr(), b, n, stream_ptr(y_u8))
+    rc = library("histeq").mgu_histeq(y_u8.data_ptr(), out.data_ptr(), b, n, stream_ptr(y_u8))
     if rc != 0:
         raise RuntimeError(f"equalize_channel launch failed: cudaError {rc}")
     equalize_channel.launches += 1

@@ -259,6 +259,38 @@ def test_card_histeq_bit_equal(cuda_device, shape, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512, 512), (1, 1024, 1024), (1, 4096, 4096)])
+def test_card_histeq_bit_equal_at_cluster_sizes(cuda_device, shape):
+    """K6 at the serving batch (eight clusters of 8 blocks), the large
+    scene (one cluster, 64 KB slices in shared memory) and the largest
+    image it takes (slices counted and mapped from device memory)."""
+    y = _luma_case("noise", shape).to(cuda_device)
+    got = t_histeq.equalize_channel(y)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, t_histeq.equalize_channel_plain(y), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_card_histeq_is_one_device_operation(cuda_device):
+    """One call is one kernel launch on the card: no memset, no scratch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    y = _luma_case("noise", (8, 512, 512)).to(cuda_device)
+    out = torch.empty_like(y)
+    t_histeq.equalize_channel(y)
+    torch.cuda.synchronize()
+    calls = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            out = t_histeq.equalize_channel(y)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count}
+    assert sum(ops.values()) == calls and all("histeq" in k for k in ops), ops
+    torch.testing.assert_close(out, t_histeq.equalize_channel_plain(y), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 def test_card_histeq_refuses_what_it_does_not_take(cuda_device):
     y = torch.zeros((2, 4, 4), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="uint8"):
@@ -399,6 +431,33 @@ def test_card_conv_block_matches_plain(cuda_device, case, dtype):
     assert t_cb.fused_conv_block.launches == before + 1 and got.dtype == dtype
     ref = t_cb.fused_conv_block_plain(x.float(), *args)
     _assert_close_rel(got.float().cpu(), ref.cpu(), CARD_TOL[dtype])
+
+
+# The five standard-layout ConvBlocks of the serving U-Net (init 32, depth
+# 4, 512² b8): enc block2, enc block3, the bottleneck, dec block0, dec
+# block1, as (B, H, W, Cin, C).
+CONV_BLOCK_SITES = [(8, 128, 128, 64, 128), (8, 64, 64, 128, 256), (8, 32, 32, 256, 512), (8, 64, 64, 512, 256),
+                    (8, 128, 128, 256, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", CONV_BLOCK_SITES)
+def test_card_conv_block_standard_sites(cuda_device, site, dtype):
+    """K8 at the serving U-Net's five standard sites against its plain
+    version (cuDNN in f32, TF32 off) on the same input values."""
+    b, h, w, cin, c = site
+    g = torch.Generator(device=cuda_device).manual_seed(cin + c)
+    x = torch.randn((b, h, w, cin), generator=g, device=cuda_device).to(dtype)
+    w1 = torch.randn((3, 3, cin, c), generator=g, device=cuda_device) * (2.0 / (9 * cin)) ** 0.5
+    w2 = torch.randn((3, 3, c, c), generator=g, device=cuda_device) * (2.0 / (9 * c)) ** 0.5
+    s1, s2 = (torch.rand(c, generator=g, device=cuda_device) + 0.5 for _ in range(2))
+    b1, b2 = (torch.randn(c, generator=g, device=cuda_device) * 0.1 for _ in range(2))
+    got = t_cb.fused_conv_block(x, w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    ref = t_cb.fused_conv_block_plain(x.float(), w1, s1, b1, w2, s2, b2)
+    err = (got.float() - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= CARD_TOL[dtype], f"max error {err:.3g} of max |ref| > {CARD_TOL[dtype]}"
 
 
 @pytest.mark.cuda

@@ -8,6 +8,11 @@ reference (the same f32 products summed in another order, through two
 convs); bf16 outputs 2^-7 of max |JAX| (both sides compute in f32 and round
 once, so they differ by at most one bf16 step where the f32 results
 straddle a rounding boundary); the port's ConvBlock in f32 1e-5.
+
+The card kernel's own arithmetic is checked here too: its weight packing
+(hi + lo within 2^-16 of each weight: two roundings to 8 significant bits)
+and a plain f32 emulation of its bf16 hi/lo split, held to the card's f32
+tolerance, 1e-4 of max |reference|.
 """
 
 import jax
@@ -15,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mingraph_unet_tpu.ops.pallas import conv_block as jax_cb
 from mingraph_unet_tpu_torch.models.unet import UNet
@@ -122,3 +128,148 @@ def test_fused_conv_block_plain_equals_unet_standard_block():
             got = t_cb.fused_conv_block_plain(x, *args)
             ref = block(x)
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The card kernel's arithmetic: weights split into bf16 hi/lo pairs and packed
+# into its stream of 16 KB stages, and products taken as hi·hi + hi·lo + lo·hi.
+# ---------------------------------------------------------------------------
+
+F32_TOL = 1e-4  # the card's f32 tolerance (chip_smoke.py, test_torch_card.py), of max |reference|
+
+# chip_smoke.py's odd f32 shapes (B, H, W, Cin, C, every b1 > 0): Cin 1 and 3,
+# every channel tile, C 1024 and 600 in several tiles.
+ODD_SHAPES = [(1, 9, 7, 1, 8, True), (2, 13, 11, 3, 32, True), (1, 11, 19, 16, 64, False),
+              (1, 10, 6, 64, 128, True), (1, 5, 9, 96, 256, False), (1, 6, 5, 256, 512, False),
+              (1, 4, 6, 512, 1024, False), (2, 5, 3, 40, 600, True)]
+
+
+def _card_params(rng, cin, c, positive_b1):
+    """Weights at He scale and BN-like scales, as chip_smoke.py draws them."""
+    w1 = (rng.standard_normal((3, 3, cin, c)) * (2.0 / (9 * cin)) ** 0.5).astype(np.float32)
+    w2 = (rng.standard_normal((3, 3, c, c)) * (2.0 / (9 * c)) ** 0.5).astype(np.float32)
+    s1, s2 = (rng.random(c) + 0.5).astype(np.float32), (rng.random(c) + 0.5).astype(np.float32)
+    b1 = (rng.random(c) + 0.5 if positive_b1 else rng.standard_normal(c) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    return w1, s1, b1, w2, s2, b2
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 1e30])
+def test_split_bf16_rebuilds_f32(scale):
+    """hi + lo is the f32 value within 2^-16 of its magnitude, at any scale;
+    hi is the value rounded to bf16."""
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal(4096).astype(np.float32) * scale)
+    hi, lo = t_cb.split_bf16(w)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    torch.testing.assert_close(hi, w.to(torch.bfloat16), rtol=0, atol=0)
+    err = (hi.double() + lo.double() - w.double()).abs()
+    assert (err <= 2.0**-16 * w.double().abs()).all(), (err / w.double().abs()).max()
+
+
+def _unpack(stream, cin, c):
+    """The weights (9, Cin_p, C1p) and (9, C1p, C2p) that ``stream`` holds
+    (hi + lo), read back by the layout ``csrc/conv_block.cu`` consumes:
+    per channel tile and h chunk, conv1's stages (x chunk, tap, 4 k-steps of
+    a hi and a lo 16 × 64 slab), then conv2's (tap, 4 k-steps of a hi and a
+    lo 16 × NT slab); a slab holds (k, n) at ((n // 8) * 2 + k // 8) * 64 +
+    (n % 8) * 8 + k % 8."""
+    nt = t_cb.channel_tile(c)
+    ntl, hc, _ = stream.shape
+    xc = -(-cin // 64)
+    s = stream.float().numpy()
+    k, n1, n = np.arange(16)[:, None], np.arange(64)[None, :], np.arange(nt)[None, :]
+    at1 = ((n1 // 8) * 2 + k // 8) * 64 + (n1 % 8) * 8 + k % 8
+    at2 = ((n // 8) * 2 + k // 8) * 64 + (n % 8) * 8 + k % 8
+    w1 = np.zeros((ntl, 9, xc * 64, hc * 64), np.float32)
+    w2 = np.zeros((9, hc * 64, ntl * nt), np.float32)
+    one = xc * 9 * 4 * 2 * 1024
+    for t in range(ntl):
+        for h in range(hc):
+            for x in range(xc):
+                for tap in range(9):
+                    for ks in range(4):
+                        base = (((x * 9 + tap) * 4 + ks) * 2) * 1024
+                        w1[t, tap, x * 64 + ks * 16:x * 64 + ks * 16 + 16, h * 64:h * 64 + 64] = (
+                            s[t, h, base + at1] + s[t, h, base + 1024 + at1])
+            for tap in range(9):
+                for ks in range(4):
+                    base = one + ((tap * 4 + ks) * 2) * 16 * nt
+                    w2[tap, h * 64 + ks * 16:h * 64 + ks * 16 + 16, t * nt:t * nt + nt] = (
+                        s[t, h, base + at2] + s[t, h, base + 16 * nt + at2])
+    assert all((w1[t] == w1[0]).all() for t in range(ntl)), "conv1's stages differ between channel tiles"
+    return w1[0], w2
+
+
+@pytest.mark.parametrize("cin,c", [(1, 8), (3, 32), (16, 64), (64, 128), (96, 256), (40, 600), (256, 512)])
+def test_pack_weights_unpacks_to_the_weights(cin, c):
+    """The stream rebuilds both kernels within the split's 2^-16, holds the
+    stage count the kernel walks, and is zero wherever it pads: input
+    channels to a multiple of 64 (Cin 1 and 3 fill one k-step of 16 of a
+    64-channel chunk), h channels to C1p, output channels to whole tiles."""
+    rng = np.random.default_rng(cin + c)
+    w1 = _t(rng.standard_normal((3, 3, cin, c)).astype(np.float32))
+    w2 = _t(rng.standard_normal((3, 3, c, c)).astype(np.float32))
+    stream = t_cb.pack_weights(w1, w2)
+    nt = t_cb.channel_tile(c)
+    ntl, hc, xc = -(-c // nt), -(-c // 64), -(-cin // 64)
+    assert stream.dtype == torch.bfloat16 and stream.is_contiguous()
+    assert tuple(stream.shape) == (ntl, hc, 9 * (xc + nt // 64) * t_cb.STAGE_BYTES // 2)
+    got1, got2 = _unpack(stream, cin, c)
+    ref1, ref2 = w1.reshape(9, cin, c).numpy(), w2.reshape(9, c, c).numpy()
+    np.testing.assert_allclose(got1[:, :cin, :c], ref1, rtol=2.0**-16, atol=0)
+    np.testing.assert_allclose(got2[:, :c, :c], ref2, rtol=2.0**-16, atol=0)
+    assert not got1[:, cin:].any() and not got1[:, :, c:].any()
+    assert not got2[:, c:].any() and not got2[:, :, c:].any()
+
+
+def _split_f32(t):
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _split_emulation(x, w1, s1, b1, w2, s2, b2):
+    """The card kernel's arithmetic in plain f32: each conv as
+    hi·hi + hi·lo + lo·hi over bf16-rounded operands (products of two bf16
+    values are exact in f32), a bf16 x's lo being zero; h split the same
+    way before conv2. Only the summation order differs from the card."""
+
+    def conv(a, w):
+        return F.conv2d(a.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+
+    def split_conv(a, w):
+        (ah, al), (wh, wl) = _split_f32(a), _split_f32(w)
+        return conv(ah, wh) + conv(ah, wl) + conv(al, wh)
+
+    h = torch.relu(split_conv(x.float(), w1) * s1 + b1)
+    return torch.relu(split_conv(h, w2) * s2 + b2)
+
+
+@pytest.mark.parametrize("shape", ODD_SHAPES)
+def test_split_arithmetic_matches_pallas_f32(shape):
+    """The split arithmetic meets the card's f32 tolerance against the JAX
+    Pallas kernel (interpret mode, f32 x) at the card's odd shapes, before
+    the card runs it."""
+    b, h, w, cin, c, positive_b1 = shape
+    rng = np.random.default_rng(b * h * w + c)
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+    params = _card_params(rng, cin, c, positive_b1)
+    ref = _jax(jnp.asarray(x), params)
+    got = _split_emulation(_t(x), *map(_t, params)).numpy()
+    assert np.abs(got - ref).max() <= F32_TOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64, 128), (1, 8, 8, 128, 256), (1, 6, 5, 256, 512)])
+def test_split_arithmetic_matches_reference_bf16_x(shape):
+    """On bf16 x (lo zero: conv1 takes two products) the split arithmetic
+    meets the f32 tolerance against JAX's ``conv_block_reference`` on the
+    same values, widened to f32."""
+    b, h, w, cin, c = shape
+    rng = np.random.default_rng(cin * c)
+    x = np.asarray(jnp.asarray(rng.standard_normal((b, h, w, cin)), jnp.bfloat16).astype(jnp.float32))
+    params = _card_params(rng, cin, c, False)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(jax_cb.conv_block_reference(jnp.asarray(x), *map(jnp.asarray, params)), np.float32)
+    xt = _t(x)
+    assert torch.equal(xt, xt.to(torch.bfloat16).float())
+    got = _split_emulation(xt, *map(_t, params)).numpy()
+    assert np.abs(got - ref).max() <= F32_TOL * np.abs(ref).max()

@@ -1,0 +1,229 @@
+#!/usr/bin/env python3
+"""Time the port's kernels, and the paths that run them, of several
+checkouts of this repository on one CUDA card, in turns, on the same seeded
+inputs.
+
+    python3 tools/kernel_ab.py [--cases K2,K6,K8,paths] PARENT . . PARENT
+
+Each checkout argument is the root of a checkout (for example the parent
+commit unpacked with ``git archive`` into a git-ignored directory, and
+``.``). For each, in the order given, a fresh process imports that
+checkout's port and builds its kernels, then runs the cases named by
+``--cases`` (all of them by default), with this checkout's
+``chip_smoke.py`` as the source of shapes, tolerances and timers:
+
+- ``K2``: ``dec_conv1_fused`` at ``chip_smoke.py``'s K2 cases (the serving
+  U-Net's two s2d levels, 512² b8 bf16), held against its plain version
+  within ``CONV_TOL``, beside the same function by cuDNN
+  (``conv_transpose2d``, ``cat``, ``conv2d``);
+- ``K8``: ``fused_conv_block`` at the shapes of the serving U-Net's five
+  standard-layout ConvBlocks (init 32, depth 4, 512² b8: enc block2, enc
+  block3, bottleneck, dec block0, dec block1) on seeded bf16 x, He-scaled
+  weights and BN-like scales, held against its plain version (f32 cuDNN,
+  TF32 off) within ``CONV_TOL``;
+- ``K6``: ``equalize_channel`` on the orchard luma at 512² b8 and a 1024²
+  scene luma (``chip_smoke.py`` phase 7's inputs), held bit for bit
+  against its plain version;
+- ``paths``: the three paths that launch K6 (the bf16 serving forward at
+  512² b8, the 1024² large scene with its dense head and decode, and the
+  bf16 end-to-end train step at 512² b8), built as ``chip_smoke.py``
+  builds them.
+
+It prints one JSON line a case: CUDA-event µs a call (wrapper included),
+the device µs of the case's own kernels and of the whole call, and the
+device operations a call (torch.profiler, through
+``chip_smoke._device_ops``); for a path, its device time and the part of it
+spent in K6 and K8. Naming the checkouts as parent, change, change, parent
+compares two versions on one card. It prints the card's name and power
+limit first and exits non-zero if any check or process fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+K8_SITES = [("enc block2", (8, 128, 128, 64, 128)), ("enc block3", (8, 64, 64, 128, 256)),
+            ("bottleneck", (8, 32, 32, 256, 512)), ("dec block0", (8, 64, 64, 512, 256)),
+            ("dec block1", (8, 128, 128, 256, 128))]
+PATH_ITERS = 5
+
+
+def _device(cs, fn, own: tuple, iters: int):
+    """(µs of the whole call, µs of the kernels whose name holds one of
+    ``own``, device operations a call) on the card."""
+    ops = cs._device_ops(fn, iters)
+    return (sum(t * n for _, t, n in ops), sum(t * n for k, t, n in ops if any(o in k for o in own)),
+            sum(n for _, _, n in ops))
+
+
+def _row(cs, tree: str, kernel: str, fn, own: tuple, iters: int, device_iters: int, **fields) -> dict:
+    call_us, own_us, ops = _device(cs, fn, own, device_iters)
+    return {"tree": tree, "kernel": kernel, **fields, "us": cs._time_ms(fn, iters) * 1e3, "device_us": own_us,
+            "call_device_us": call_us, "device_ops": ops}
+
+
+def _k2(cs, tree, dev):
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    for case in cs._kernel_cases(dev):
+        if case["kind"] != "dec1":
+            continue
+        args = case["args"]
+        tag = f"{tree} K2 L{case['level']}"
+        ref = psconv.dec_conv1_fused_plain(args[0].float(), args[1].float(), *args[2:])
+        err = cs._check_close(tag, psconv.dec_conv1_fused(*args), ref, cs.CONV_TOL)
+        cudnn = cs._dec1_cudnn(args[0], args[1], *case["unfolded"])
+        cs._check_close(f"{tag} cuDNN route", cs._s2d_of(cudnn().relu()), ref, cs.CONV_TOL)
+        row = _row(cs, tree, "K2", lambda: psconv.dec_conv1_fused(*args), ("dec1_wgmma_kernel", "conv_bf16_kernel"),
+                   cs.KERNEL_ITERS, 10, level=case["level"], shape=list(args[0].shape), max_abs_err=err)
+        row["cudnn_us"] = cs._time_ms(cudnn, cs.KERNEL_ITERS) * 1e3
+        row["cudnn_device_us"] = _device(cs, cudnn, (), 10)[0]
+        yield row
+
+
+def _k8(cs, tree, dev):
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import conv_block
+
+    torch.backends.cudnn.allow_tf32 = False
+    for name, (b, h, w, cin, c) in K8_SITES:
+        g = torch.Generator(device=dev).manual_seed(cin + c)
+        x = torch.randn((b, h, w, cin), generator=g, device=dev).to(torch.bfloat16)
+        w1 = torch.randn((3, 3, cin, c), generator=g, device=dev) * (2.0 / (9 * cin)) ** 0.5
+        w2 = torch.randn((3, 3, c, c), generator=g, device=dev) * (2.0 / (9 * c)) ** 0.5
+        s1, s2 = (torch.rand(c, generator=g, device=dev) + 0.5 for _ in range(2))
+        b1, b2 = (torch.randn(c, generator=g, device=dev) * 0.1 for _ in range(2))
+        args = (x, w1, s1, b1, w2, s2, b2)
+        ref = conv_block.fused_conv_block_plain(x.float(), *args[1:])
+        err = cs._check_close(f"{tree} K8 {name}", conv_block.fused_conv_block(*args), ref, cs.CONV_TOL)
+        yield _row(cs, tree, "K8", lambda: conv_block.fused_conv_block(*args), ("conv_block_kernel",), 5, 5,
+                   site=name, shape=[b, h, w, cin], cout=c, max_abs_err=err)
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _k6(cs, tree, dev):
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import histeq
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    lumas = {"orchard luma 512^2 b8": cs._luma_u8(cs._train_batch(cs.BATCH, cs.SIZE, seed=8, dev=dev)[0]),
+             "scene luma 1024^2": cs._luma_u8(torch.randint(0, 256, (1, cs.SCENE, cs.SCENE, 3), generator=g,
+                                                            device=dev).to(torch.uint8))}
+    for name, y in lumas.items():
+        if not torch.equal(histeq.equalize_channel(y), histeq.equalize_channel_plain(y)):
+            cs._fail(f"{tree}: K6 differs from its plain version on the {name}")
+        yield _row(cs, tree, "K6", lambda: histeq.equalize_channel(y), ("histeq",), cs.KERNEL_ITERS,
+                   cs.KERNEL_ITERS, input=name, shape=list(y.shape))
+
+
+def _paths(cs, tree, dev):
+    import torch
+
+    from mingraph_unet_tpu_torch.models.detection import decode_dense_detections
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
+    from mingraph_unet_tpu_torch.train.infer import pipeline_forward_large
+
+    def row(path, step):
+        for _ in range(2):
+            step()
+        ops = cs._device_ops(step, PATH_ITERS)
+
+        def part(name):
+            return sum(t * n for k, t, n in ops if name in k)
+
+        return {"tree": tree, "path": path, "ms": cs._time_ms(step, PATH_ITERS),
+                "device_ms": sum(t * n for _, t, n in ops) / 1e3, "device_ops": sum(n for _, _, n in ops),
+                "k6_device_us": part("histeq"), "k8_device_us": part("conv_block_kernel")}
+
+    with torch.no_grad():
+        model, x = cs._serving_model(dev)
+        sink = torch.zeros((), device=dev)
+        yield row("serving forward bf16 512^2 b8", lambda: sink.add_(model(x)["logits"].sum()))
+        del model, x
+        model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, use_dense_detection=True, device=dev,
+                             seed=0)
+        cs._perturb_bn(model, seed=1)
+        scene = cs._images(1, cs.SCENE, seed=12).to(dev)
+
+        def serve():
+            out = pipeline_forward_large(model, scene, tile=cs.TILE, halo=cs.HALO)
+            _, scores, valid = decode_dense_detections(out["dense_objectness_logits"], out["dense_boxes"],
+                                                       (cs.SCENE, cs.SCENE), cell_size=model.patch_size, top_k=32,
+                                                       score_threshold=0.5, iou_threshold=0.5)
+            sink.add_(out["logits"].sum() + scores.sum() + valid.sum())
+
+        yield row("large scene bf16 1024^2", serve)
+        del model, scene
+    torch.cuda.empty_cache()
+    cfg = cs._train_cfg(cs.SIZE, bf16=True)
+    model = build_mingraph_unet(cfg)
+    opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
+    state = TrainState(model, opt, sched)
+    step = make_e2e_train_step(model, opt, cfg, augment=True, train_detection=True)
+    imgs, masks = cs._train_batch(cs.BATCH, cs.SIZE, seed=9, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    yield row("e2e train step bf16 512^2 b8", lambda: step(state, imgs, masks, gen))
+
+
+CASES = {"K2": _k2, "K6": _k6, "K8": _k8, "paths": _paths}
+
+
+def one(tree: str, cases: list) -> int:
+    """Run ``cases`` on the checkout at ``tree`` (this process imports it)."""
+    import importlib.util
+
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import build
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")  # this checkout's
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    if not torch.cuda.is_available():
+        print("[kernel_ab] no CUDA device", file=sys.stderr)
+        return 2
+    build.build_all()
+    dev = torch.device("cuda", 0)
+    for name in cases:
+        with torch.no_grad() if name != "paths" else torch.enable_grad():
+            for row in CASES[name](cs, tree, dev):
+                print(json.dumps(row), flush=True)
+    return 0
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--cases", default=",".join(CASES), help="comma-separated, of " + ", ".join(CASES))
+    p.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("trees", nargs="+")
+    a = p.parse_args()
+    cases = a.cases.split(",")
+    unknown = [c for c in cases if c not in CASES]
+    if unknown:
+        p.error(f"unknown cases {unknown}")
+    if a.one:
+        return one(a.trees[0], cases)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip() or "nvidia-smi gave nothing", flush=True)
+    for tree in a.trees:
+        rc = subprocess.run([sys.executable, __file__, "--one", "--cases", a.cases, tree], timeout=1500).returncode
+        if rc != 0:
+            print(f"[kernel_ab] {tree}: exit code {rc}", file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
