@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, large-scene serving, segmentation-training,
-end-to-end training and torch.distributed paths on one CUDA card and check
-them.
+end-to-end training, torch.distributed and spatial-parallel training paths
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -146,6 +146,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    data-parallel step adds are printed), the host and card time of one
    all-reduce and of the flat gradient all-reduce are timed, and a
    collective issued behind a long kernel shows whether it holds the host. Every earlier path launches K9 and sharded K2 never.
+14. Spatial-parallel training, the spatial train path: the segmentation and
+   the e2e train step (bf16 512² b8) made on a one-rank NCCL mesh with
+   their spatial switch set on (one card holds no spatial axis of two
+   ranks), so that the U-Net runs on its one H-shard through every sharded
+   train site and its outputs go through the gather; each step must launch
+   K4 on a shard 4 forward and 4 dgrad (hist-eq once in e2e), K4 itself
+   and K1-K3 never, and agree with the one-card step within 1e-3. Then K4
+   on H-shards (``psconv_fwd_halo``, ``psconv_dgrad_halo``) at the train
+   shapes L0 (8, 256, 256, 128) and L1 (8, 128, 128, 256), bf16 and f32,
+   on 4 equal and 4 uneven shards cut in one process with the halo rows by
+   hand: the stitched forward and dx bit-equal to K4 (``psconv_fwd``,
+   ``psconv_dgrad``) on the whole tensor, directly and through the autograd
+   Function ``psconv_train_halo``, the shards' kernel gradients summed
+   within ``DK_TOL`` of the whole one; one inner shard's forward and dgrad
+   timed beside their bound, the plain version, the library's dense-s2d
+   ``F.conv2d`` and the unsharded K4's device time over 4. Every earlier
+   path launches K4 on a shard never.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -219,7 +236,8 @@ def _wrappers():
     return {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel,
             "d2s": pool.depth_to_space_kernel, "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad,
             "histeq": histeq.equalize_channel, "wconv": wconv.wconv3x3_s2d, "conv_block": conv_block.fused_conv_block,
-            "k9": psconv.psel_conv3x3_halo, "dec1_halo": psconv.dec_conv1_halo}
+            "k9": psconv.psel_conv3x3_halo, "dec1_halo": psconv.dec_conv1_halo,
+            "k4_fwd_halo": psconv.psconv_fwd_halo, "k4_dgrad_halo": psconv.psconv_dgrad_halo}
 
 
 def _reset_counts() -> None:
@@ -463,7 +481,8 @@ def _main_path(dev):
     launches = _counts()
     print(f"[chip_smoke] main path launches: {launches}")
     if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
-                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
+                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
         _fail(f"expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4, K7, K8, K9 or sharded K2 launches "
               f"per forward, got "
               f"{launches}")
@@ -760,7 +779,8 @@ def _train_path(dev):
     losses = [float(v) for v in losses]
     print(f"[chip_smoke] train main path launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
     if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0,
-                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
+                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
         _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5, K7-K9, sharded K2 "
               f"or hist-eq, "
               f"got {launches} over {n} steps")
@@ -1475,7 +1495,8 @@ def _large_scene(dev):
     launches = _counts()
     print(f"[chip_smoke] large-scene launches: {launches}")
     if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
-                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
+                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
         _fail(f"expected psel 4, dec1 2, pool 2, d2s 2, histeq 1 and no K4, K7, K8, K9 or sharded K2 launches "
               f"per scene, "
               f"got {launches}")
@@ -1621,7 +1642,8 @@ def _e2e_path(dev):
     print(f"[chip_smoke] e2e launches over {n} steps: {launches}; last terms "
           f"{ {k: round(float(v), 4) for k, v in auxes[-1].items()} }")
     if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n,
-                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0}:
+                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
+                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
         _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, K5, K7-K9 or "
               f"sharded K2, "
               f"got {launches} over {n} steps")
@@ -2167,7 +2189,8 @@ def _nccl_paths(dev):
                 phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = real["k9"], real["dec1_halo"]
             print(f"[chip_smoke] spatial_sharded_apply launches: {launches}")
             if launches != {"psel": 0, "dec1": 0, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 0,
-                            "wconv": 0, "conv_block": 0, "k9": 4, "dec1_halo": 2}:
+                            "wconv": 0, "conv_block": 0, "k9": 4, "dec1_halo": 2,
+                            "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
                 _fail(f"expected K9 4, sharded K2 2, pool 2, d2s 1 and no K1 or K2 launches in the sharded U-Net, "
                       f"got {launches}")
             _check_close("spatial_sharded_apply U-Net logits (NCCL, 1 rank)", got, whole, CONV_TOL,
@@ -2232,6 +2255,215 @@ def _nccl_paths(dev):
         dist.destroy_process_group()
 
 
+def _spatial_train_path(dev):
+    """Phase 14, this slice's path: both train steps' spatial-parallel path
+    (``make_train_step`` / ``make_e2e_train_step`` on a mesh, the U-Net
+    through ``spatial_sharded_unet``) over NCCL in a group of one rank. One
+    card can hold no spatial axis of two ranks, so the steps are made with
+    their spatial switch (``spatial_step``) set on for the one-rank mesh:
+    the U-Net then runs on its single H-shard through every sharded train
+    site (K4 on the shard at the four s2d conv2s, no row exchanged), its
+    outputs go through the gather and the rest of the step as on a spatial
+    group. Each bf16 512² b8 step (seg, e2e) must launch K4 on a shard 4
+    forward and 4 dgrad (hist-eq once in e2e) and K4 itself, K1-K3 never,
+    and agree with the one-card step from the same weights, batch and
+    generator within 1e-3 (losses, every gradient and BN statistic).
+    Returns each step's launch counts."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from mingraph_unet_tpu_torch.parallel import mesh as pmesh
+    from mingraph_unet_tpu_torch.train import end_to_end, segmentation
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        cfg = _train_cfg(SIZE, bf16=True)
+        imgs, masks = _train_batch(BATCH, SIZE, seed=5, dev=dev)
+        launches = {}
+        for kind, module in (("seg", segmentation), ("e2e", end_to_end)):
+            build = segmentation.build_unet if kind == "seg" else end_to_end.build_mingraph_unet
+            weights = build(cfg).state_dict()
+            sides = {}
+            for side in ("one card", "spatial"):
+                m = build(cfg)
+                m.load_state_dict(weights)
+                opt, sched = make_optimizer(m.parameters(), cfg.training, steps_per_epoch=1000)
+                state = TrainState(m, opt, sched)
+                real = module.spatial_step
+                if side == "spatial":
+                    module.spatial_step = lambda mesh: True
+                try:
+                    step = (segmentation.make_train_step(cfg, augment=True, mesh=mesh if side == "spatial" else None)
+                            if kind == "seg" else
+                            end_to_end.make_e2e_train_step(m, opt, cfg, augment=True,
+                                                           mesh=mesh if side == "spatial" else None))
+                finally:
+                    module.spatial_step = real
+                _reset_counts()
+                metrics = step(state, imgs, masks, torch.Generator(device=dev).manual_seed(0))
+                torch.cuda.synchronize()
+                counts = _counts()
+                want = {k: 0 for k in counts}
+                if side == "spatial":
+                    want.update(k4_fwd_halo=4, k4_dgrad_halo=4, histeq=0 if kind == "seg" else 1)
+                else:
+                    want.update(k4_fwd=4, k4_dgrad=4, histeq=0 if kind == "seg" else 1)
+                print(f"[chip_smoke] {kind} step ({side}) launches: {counts}")
+                if counts != want:
+                    _fail(f"{kind} step ({side}): expected launches {want}, got {counts}")
+                if not _grads_finite(m):
+                    _fail(f"{kind} step ({side}): a gradient is missing or not finite")
+                leaves = {("grad", n): p.grad.float().clone() for n, p in m.named_parameters()}
+                leaves.update({("stat", n): b.float().clone() for n, b in m.named_buffers()})
+                gen = torch.Generator(device=dev).manual_seed(1)
+                sides[side] = ({k: float(v) for k, v in metrics.items()}, leaves, counts,
+                               lambda step=step, state=state, gen=gen: step(state, imgs, masks, gen))
+            (ref_m, ref_l, _, one), (got_m, got_l, counts, sp) = sides["one card"], sides["spatial"]
+            for k, v in ref_m.items():
+                if not abs(got_m[k] - v) <= 1e-3 * max(abs(v), 1e-6):
+                    _fail(f"{kind} spatial step: {k} {got_m[k]} against the one-card step's {v}")
+            _leaf_check(f"{kind} spatial step (NCCL, 1 rank) vs one card", got_l, ref_l, 1e-3,
+                        _feeds_bn if kind == "seg" else _zero_in_exact_arithmetic)
+            one_ms, one_host = _step_ms(one, 3)
+            sp_ms, sp_host = _step_ms(sp, 3)
+            print(f"[chip_smoke] {kind} spatial step (1 rank) {sp_ms:.3f} ms/step (host {sp_host:.3f}) against the "
+                  f"one-card step's {one_ms:.3f} ms (host {one_host:.3f}), bf16 {BATCH}x{SIZE}^2")
+            launches[kind] = counts
+            del sides, one, sp
+            torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _spatial_k4_table(dev, launches):
+    """Phase 14's kernels: K4 on H-shards (``psconv_fwd_halo``,
+    ``psconv_dgrad_halo``: K9's entry with no bias and no ReLU) at the
+    segmentation step's train shapes, L0 (8, 256, 256, 128) and L1 (8, 128,
+    128, 256), in bf16 and f32, on seeded inputs and cotangents cut into 4
+    equal and 4 uneven shards with the halo rows by hand: the stitched
+    forward must equal ``psconv_fwd`` on the whole tensor bit for bit, the
+    stitched dx (from the cotangent's rows) ``psconv_dgrad``, and the
+    plain versions within CONV_TOL / F32_TOL; the shards' kernel gradients
+    (``psconv_wgrad`` over each shard and its x rows, VALID in H) must sum
+    to the whole one within DK_TOL. The autograd Function
+    (``psconv_train_halo``), driven with the rows by hand, must give the
+    same forward and dx bit for bit and its dK sum within DK_TOL. One
+    inner shard's forward and dgrad (bf16) are timed by events and device
+    time beside their bound (the shard and its 2 rows read, its rows
+    written, the weights, at 3.35 TB/s, against 2·9·C² operations a
+    full-res pixel at 989 TFLOP/s), the plain version, the library's
+    dense-s2d ``F.conv2d`` on the extended shard, and the unsharded K4's
+    device time over 4."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale  # noqa: E731
+    source = "mingraph_unet_tpu_torch/csrc/psel_conv.cu"
+    rows = []
+
+    def dgrad_plain(t, top, bottom, kk):
+        return psconv.psconv_halo_plain(t, top, bottom, kk.flip(0, 1).transpose(2, 3))
+
+    for lvl, c in ((0, 32), (1, 64)):
+        hh = SIZE // 2 ** (lvl + 1)
+        x32, cot32 = rnd(BATCH, hh, hh, 4 * c), rnd(BATCH, hh, hh, 4 * c)
+        k = rnd(3, 3, c, c, scale=(1.0 / (9 * c)) ** 0.5)
+        errs = {}
+        torch.backends.cudnn.allow_tf32 = False  # the f32 plain versions are cuDNN convs
+        for dt, tol in ((torch.bfloat16, CONV_TOL), (torch.float32, F32_TOL)):
+            x, cot = x32.to(dt), cot32.to(dt)
+            dname = "bf16" if dt == torch.bfloat16 else "f32"
+            with torch.no_grad():
+                whole = {"fwd": psconv.psconv_fwd(x, k), "dgrad": psconv.psconv_dgrad(cot, k)}
+                dk_whole = psconv.psconv_wgrad(x, cot, k)
+            for cuts in _shard_cuts(hh):
+                xv, gv = _shard_views(x, cuts), _shard_views(cot, cuts)
+                with torch.no_grad():
+                    got = {"fwd": torch.cat([psconv.psconv_fwd_halo(xs, t, b, k) for xs, t, b, _ in xv], dim=1),
+                           "dgrad": torch.cat([psconv.psconv_dgrad_halo(gs, t, b, k) for gs, t, b, _ in gv], dim=1)}
+                    dk = sum(psconv.psconv_wgrad(xs, gs, k, rows=(xt, xb))
+                             for (xs, xt, xb, _), (gs, _, _, _) in zip(xv, gv))
+                torch.cuda.synchronize()
+                for name in ("fwd", "dgrad"):
+                    if not torch.equal(got[name], whole[name]):
+                        _fail(f"psconv_{name}_halo L{lvl} {dname} shards {cuts}: not bit-equal to psconv_{name} on "
+                              f"the whole tensor (max diff "
+                              f"{(got[name].float() - whole[name].float()).abs().max().item():.3g})")
+                _check_close(f"psconv_wgrad on shards L{lvl} {dname} {cuts}, summed", dk[None], dk_whole[None],
+                             DK_TOL, border=False, what="the whole tensor's kernel gradient")
+                fy, fdx, fdk = [], [], 0
+                for (xs, xt, xb, _), (gs, gt, gb, _) in zip(xv, gv):
+                    xi, ki = xs.clone().requires_grad_(), k.clone().requires_grad_()
+                    y = psconv.psconv_train_halo(xi, xt, xb, ki, lambda t, r=(gt, gb): r)
+                    y.backward(gs)
+                    fy.append(y.detach())
+                    fdx.append(xi.grad)
+                    fdk = fdk + ki.grad
+                torch.cuda.synchronize()
+                if not (torch.equal(torch.cat(fy, 1), whole["fwd"]) and torch.equal(torch.cat(fdx, 1), whole["dgrad"])):
+                    _fail(f"psconv_train_halo L{lvl} {dname} shards {cuts}: forward or dx not bit-equal to K4's")
+                _check_close(f"psconv_train_halo dK L{lvl} {dname} {cuts}, summed", fdk[None], dk_whole[None],
+                             DK_TOL, border=False, what="the whole tensor's kernel gradient")
+            errs[dt] = {
+                "fwd": _check_close(f"psconv_fwd_halo L{lvl} {dname} stitched", got["fwd"],
+                                    psconv.psconv_train_plain(x.float(), k), tol),
+                "dgrad": _check_close(f"psconv_dgrad_halo L{lvl} {dname} stitched", got["dgrad"],
+                                      psconv.psconv_dgrad_plain(cot.float(), k), tol)}
+            print(f"[chip_smoke] K4 on shards L{lvl} {dname}: 4 equal and 4 uneven shards bit-equal to K4 (forward, "
+                  f"dgrad, the autograd Function), dK within {DK_TOL}")
+        torch.backends.cudnn.allow_tf32 = True
+
+        x, cot = x32.to(torch.bfloat16), cot32.to(torch.bfloat16)
+        for name, fn, plain, inp, kk, line in (
+            ("fwd", psconv.psconv_fwd_halo, psconv.psconv_halo_plain, x, k, 416),
+            ("dgrad", psconv.psconv_dgrad_halo, dgrad_plain, cot, k, 433),
+        ):
+            xs, top, bot, _ = _shard_views(inp, _shard_cuts(hh)[0])[1]
+            kd = kk if name == "fwd" else kk.flip(0, 1).transpose(2, 3)
+            wd = s2d_ops.s2d_conv3x3_kernel(kd).to(xs.dtype).permute(3, 2, 0, 1).contiguous()
+            extn = psconv.extend_rows(xs, top, bot).permute(0, 3, 1, 2)
+            ms = _time_ms(lambda: fn(xs, top, bot, kk), KERNEL_ITERS)
+            plain_ms = _time_ms(lambda: plain(xs, top, bot, kk), KERNEL_ITERS)
+            library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=(0, 1)), KERNEL_ITERS)
+            call_ms, dev_ms = _device_ms(f"psconv_{name}_halo L{lvl} shard", lambda: fn(xs, top, bot, kk),
+                                         own="psel_wgmma_kernel")
+            whole_fn = psconv.psconv_fwd if name == "fwd" else psconv.psconv_dgrad
+            _, whole_dev = _device_ms(f"psconv_{name} L{lvl} whole", lambda: whole_fn(inp, kk), own="psel_wgmma_kernel")
+            library_dev = _device_ms(f"library L{lvl} shard", lambda: F.conv2d(extn, wd, padding=(0, 1)))
+            b, h, w, z = xs.shape
+            t_bytes = ((xs.numel() + top.numel() + bot.numel()) * 2 + xs.numel() * 2 + kk.numel() * 2) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * b * (2 * h) * (2 * w) * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
+            rows.append({
+                "name": f"psconv_{name}_halo L{lvl}", "route": "cuda", "source": source,
+                "replaces": f"{PSCONV_SRC}:{line}", "launches": launches["seg"][f"k4_{name}_halo"],
+                "launches_e2e": launches["e2e"][f"k4_{name}_halo"], "shape": list(xs.shape), "shards": 4,
+                "max_abs_err": errs[torch.bfloat16][name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "device_ms": dev_ms, "call_device_ms": call_ms,
+                "library_device_ms": library_dev, "unsharded_device_ms_over_4": whole_dev / 4,
+            })
+            print(f"[chip_smoke] psconv_{name}_halo L{lvl} one inner shard {tuple(xs.shape)} + 2 rows: {ms * 1e3:.1f} "
+                  f"us/launch, device {dev_ms * 1e3:.1f} us (the call {call_ms * 1e3:.1f} us), plain "
+                  f"{plain_ms * 1e3:.1f} us, library (dense-s2d F.conv2d, VALID in H) {library_ms * 1e3:.1f} us / "
+                  f"device {library_dev * 1e3:.1f} us, unsharded K4 device / 4 {whole_dev / 4 * 1e3:.1f} us, bound "
+                  f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2287,6 +2519,11 @@ def main() -> int:
     # K2 on the captured sites (phase 12) with the sharded forward's counts.
     sharded_launches = _nccl_paths(dev)
     rows += _k9_table(dev, s2d_sites, sharded_launches)
+    del s2d_sites
+    torch.cuda.empty_cache()
+    # Spatial-parallel training (phase 14): the steps' spatial path, then K4
+    # on shards with that path's counts.
+    rows += _spatial_k4_table(dev, _spatial_train_path(dev))
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "

@@ -14,8 +14,9 @@ BatchNorm scales and variances. :func:`dropout` draws its masks from a
 
 Inside ``parallel/data.py::data_parallel`` (data-parallel training) the
 batch is this rank's rows of a global batch: train-mode BatchNorm takes
-the statistics of the global batch, and dropout draws the global batch's
-mask and keeps this rank's rows.
+the statistics of the global batch (of every H-shard of it inside
+``spatial_norm``), and dropout draws the global batch's mask and keeps
+this rank's rows.
 """
 
 from __future__ import annotations
@@ -100,7 +101,9 @@ class FoldableBatchNorm(nn.Module):
     variance, where ``nn.BatchNorm2d`` keeps the unbiased one). Gradients
     flow through the batch mean and variance; the output is in z's dtype.
     In data-parallel training the batch is the global one: Σz and Σz² are
-    summed over the ranks through a differentiable all-reduce."""
+    summed over the ranks through a differentiable all-reduce, over the
+    batch group and, inside ``parallel/data.py::spatial_norm`` (the
+    H-sharded U-Net), the spatial group first."""
 
     MOMENTUM = 0.9  # flax's running-average decay
 
@@ -122,12 +125,12 @@ class FoldableBatchNorm(nn.Module):
             return x * a.to(x.dtype) + c.to(x.dtype)
         axes = tuple(range(x.dim() - 1))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        shard = dp.active()
-        if shard is None:
+        groups, parts = dp.norm_groups()
+        if not groups:
             mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
         else:
-            sums = dp.all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), shard.group)
-            mean, mean2 = sums / (xf.numel() // xf.shape[-1] * shard.count)
+            sums = dp.all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), *groups)
+            mean, mean2 = sums / (xf.numel() // xf.shape[-1] * parts)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM

@@ -17,9 +17,13 @@ Detection input, decided from the shape as in JAX:
   pixels, and the head (after its own average pool when
   ``detection_pre_pool`` is set) runs its convs on that map.
 
-``forward(..., unet_outputs=(logits, [skip0], [f_u0]))`` skips the U-Net and
-reads its full-resolution outputs instead (the large-scene forward,
-``train/infer.py::pipeline_forward_large``, runs the U-Net tile by tile).
+``forward(..., unet_outputs=u)`` skips the U-Net and reads its outputs from
+``u``, a dict with the U-Net's keys: ``logits``, level 0's full-resolution
+``skips[0]`` and ``f_u[0]``, or their s2d forms ``skip_s2d[0]`` and
+``f_u_s2d[0]``, which are pooled as the U-Net's own are (the large-scene
+forward, ``train/infer.py::pipeline_forward_large``, runs the U-Net tile by
+tile; the spatial-parallel trainer gathers the H-sharded U-Net's outputs,
+``parallel/spatial.py::spatial_sharded_unet``).
 
 ``model.eval()`` (the default) runs under ``torch.no_grad()`` with the BN
 running statistics, and the U-Net's s2d sites launch K1–K3 and K5 on the
@@ -43,7 +47,7 @@ weights from ``torch.Generator().manual_seed(seed)``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -177,11 +181,11 @@ class MinGraphUNet(nn.Module):
 
     def forward(self, images: torch.Tensor, gen: Optional[torch.Generator] = None,
                 full_res_outputs: bool = False,
-                unet_outputs: Optional[Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]] = None,
-                ) -> Dict[str, object]:
-        """``unet_outputs``: precomputed full-resolution ``(logits, skips,
-        f_u)`` of the U-Net (``skips[0]`` and ``f_u[0]`` are read), which
-        then does not run; its parameters are unused in that call."""
+                unet_outputs: Optional[Dict[str, object]] = None) -> Dict[str, object]:
+        """``unet_outputs``: precomputed outputs of the U-Net, as its forward
+        returns them (``logits``, and level 0 as ``skips[0]`` / ``f_u[0]``
+        or as ``skip_s2d[0]`` / ``f_u_s2d[0]``); the U-Net then does not
+        run, and its parameters are unused in that call."""
         if not self.training:
             with torch.no_grad():
                 return self._forward(images, None, full_res_outputs, unet_outputs)
@@ -202,13 +206,9 @@ class MinGraphUNet(nn.Module):
         acc = torch.promote_types(dt, torch.float32)  # JAX's f32 tensors: f64 in an f64 model
 
         # Stage 1: U-Net. Level 0 in s2d layout is pooled from that layout.
-        skip0_s2d = f_u0_s2d = None
-        if unet_outputs is not None:
-            logits, skips, f_u = unet_outputs
-        else:
-            u = self.unet(images, full_res_outputs=full_res_outputs)
-            logits, skips, f_u = u["logits"], u["skips"], u["f_u"]
-            skip0_s2d, f_u0_s2d = u["skip_s2d"].get(0), u["f_u_s2d"].get(0)
+        u = self.unet(images, full_res_outputs=full_res_outputs) if unet_outputs is None else unet_outputs
+        logits, skips, f_u = u["logits"], u["skips"], u["f_u"]
+        skip0_s2d, f_u0_s2d = u.get("skip_s2d", {}).get(0), u.get("f_u_s2d", {}).get(0)
 
         # Stage 2: patch-node features. Sobel and hist-eq are functions of
         # the input image alone: no gradient reaches them.

@@ -31,11 +31,16 @@ the s2d levels and the last decoder output) are built only when the caller
 asks for them (``full_res_outputs=True``); under ``jit`` XLA drops them,
 eager PyTorch would write them.
 
-``UNet.forward(x, spatial=shard)`` (eval only) runs on one H-shard of the
-input, ``shard`` a ``parallel/spatial.py::SpatialShard``: every conv site
-exchanges the rows it reads with the neighbouring shards (the s2d conv2s
-through K9, the decoder conv1s through K2's sharded entry), and the rest
-is local. ``parallel/spatial.py::spatial_sharded_apply`` drives it.
+``UNet.forward(x, spatial=shard)`` runs on one H-shard of the input,
+``shard`` a ``parallel/spatial.py::SpatialShard``: every conv site
+exchanges the rows it reads with the neighbouring shards, and the rest
+(pools, the 2×2 ConvTranspose, the final 1×1 conv) is local. At inference
+the s2d conv2s run K9 and the decoder conv1s K2's sharded entry
+(``parallel/spatial.py::spatial_sharded_apply`` drives it); in training
+the s2d conv2s run K4 on the shard, every exchange is differentiable (its
+backward returns the halo rows' cotangents to their shards) and BN sums
+its statistics over the spatial group as well
+(``parallel/spatial.py::spatial_sharded_unet`` drives it).
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from mingraph_unet_tpu_torch.ops.kernels.psconv import (
     psel_conv3x3_plain,
     psel_fits,
 )
+from mingraph_unet_tpu_torch.parallel import data as dp
 
 __all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet", "decoder_d2s"]
 
@@ -99,11 +105,14 @@ class ConvBlock(nn.Module):
         return conv.kernel * a, conv.bias * a + c
 
     def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
-        """Standard NHWC path; ``spatial`` (eval): x is one H-shard."""
+        """Standard NHWC path; ``spatial``: x is one H-shard."""
         for i in (1, 2):
             if self.training:
                 conv, bn = (self.conv1, self.bn1) if i == 1 else (self.conv2, self.bn2)
-                x = torch.relu(bn(conv2d_nhwc(x.to(self.dtype), conv.kernel, conv.bias, padding=1)))
+                x = x.to(self.dtype)
+                z = (conv2d_nhwc(x, conv.kernel, conv.bias, padding=1) if spatial is None
+                     else spatial.conv_same(x, conv.kernel, conv.bias))
+                x = torch.relu(bn(z))
             else:
                 k, b = self.folded(i)
                 x = x.to(self.dtype)
@@ -116,10 +125,10 @@ class ConvBlock(nn.Module):
         Encoder level (``fused_up`` None): x is full-res NHWC and conv1 is
         the windowed stride-2 conv. Decoder level: x is the s2d skip,
         ``fused_up = (x_prev, wt, bias_up)``, and conv1 runs as
-        ``dec_conv1_fused`` over [skip ‖ upsample of x_prev]. ``spatial``
-        (eval): x is one H-shard, and each conv runs in its sharded form."""
+        ``dec_conv1_fused`` over [skip ‖ upsample of x_prev]. ``spatial``:
+        x is one H-shard, and each conv runs in its sharded form."""
         if self.training:
-            return self._forward_s2d_train(x, fused_up)
+            return self._forward_s2d_train(x, fused_up, spatial)
         dt = self.dtype
         k, b = self.folded(1)
         x = x.to(dt)
@@ -143,27 +152,35 @@ class ConvBlock(nn.Module):
         psel = psel_conv3x3 if psel_fits(dt, k.shape[2], k.shape[3]) else psel_conv3x3_plain
         return psel(x, k, b)
 
-    def _forward_s2d_train(self, x: torch.Tensor, fused_up: Optional[FusedUp]) -> torch.Tensor:
+    def _forward_s2d_train(self, x: torch.Tensor, fused_up: Optional[FusedUp], spatial=None) -> torch.Tensor:
         """Train mode: each conv is bias → BN over (B, H/2, W/2, 4, C), so the
         statistics are per full-res channel as on the standard path → ReLU.
         conv1 is differentiable PyTorch (the windowed conv, or the decoder's
         split form with the upsample-bias field, bias included); conv2 is
-        ``psconv_train`` (K4) where the tile has an instantiation."""
+        ``psconv_train`` (K4) where the tile has an instantiation. On an
+        H-shard (``spatial``) each runs in its sharded form, K4 on the
+        shard at conv2."""
         dt = self.dtype
         k, b = self.conv1.kernel, self.conv1.bias
         if fused_up is None:
-            x = s2d_ops.conv3x3_windowed_down(x.to(dt), s2d_ops.windowed_down_kernel(k))
+            kw = s2d_ops.windowed_down_kernel(k)
+            x = x.to(dt)
+            x = s2d_ops.conv3x3_windowed_down(x, kw) if spatial is None else spatial.windowed_down(x, kw)
             x = x + s2d_ops.s2d_vector(b).to(dt)
         else:
             x_prev, wt, bias_up = fused_up
             skip_c = x.shape[-1] // 4
             k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
             t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
-            x = dec_conv1_preact(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
+            preact = dec_conv1_preact if spatial is None else spatial.dec_conv1_train
+            x = preact(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
         x = self._bn_relu_s2d(x, self.bn1)
         k = self.conv2.kernel
-        conv = psconv_train if psel_fits(dt, k.shape[2], k.shape[3]) else psconv_train_plain
-        x = conv(x, k) + s2d_ops.s2d_vector(self.conv2.bias).to(dt)
+        if spatial is not None:
+            x = spatial.psel_train(x, k)
+        else:
+            x = (psconv_train if psel_fits(dt, k.shape[2], k.shape[3]) else psconv_train_plain)(x, k)
+        x = x + s2d_ops.s2d_vector(self.conv2.bias).to(dt)
         return self._bn_relu_s2d(x, self.bn2)
 
     @staticmethod
@@ -327,11 +344,10 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, full_res_outputs: bool = False, spatial=None) -> Dict[str, object]:
         """``spatial``: a ``parallel/spatial.py::SpatialShard`` when x is one
-        H-shard of the input (eval mode only; the shard's height a multiple
-        of 2^(depth + 1)); every output is then this shard's rows."""
+        H-shard of the input (the shard's height a multiple of
+        2^(depth + 1), in eval and in train mode); every output is then this
+        shard's rows, and train-mode BN takes the statistics of every shard."""
         if spatial is not None:
-            if self.training:
-                raise NotImplementedError("a sharded U-Net forward in train mode is not ported (ROADMAP A10)")
             if x.shape[1] % 2 ** (self.depth + 1):
                 raise ValueError(f"an H-shard of {x.shape[1]} rows is not a multiple of 2^(depth + 1) = "
                                  f"{2 ** (self.depth + 1)}")
@@ -339,8 +355,9 @@ class UNet(nn.Module):
                 raise ValueError(f"{spatial.count} shards of {x.shape[1]} rows do not make the scene's "
                                  f"{spatial.h_global}")
         x = x.to(self.dtype)
-        skips, bottleneck, skip_s2d, skip_hw = self.encoder(x, self.s2d_levels(x.shape[1], x.shape[2]), spatial)
-        logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw, spatial)
+        with dp.spatial_norm(None if spatial is None else spatial.mesh):
+            skips, bottleneck, skip_s2d, skip_hw = self.encoder(x, self.s2d_levels(x.shape[1], x.shape[2]), spatial)
+            logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw, spatial)
         if full_res_outputs:
             skips = [s if s is not None else s2d_ops.depth_to_space(skip_s2d[i]) for i, s in enumerate(skips)]
             f_u = [f if f is not None else decoder_d2s(f_u_s2d[i], self.training) for i, f in enumerate(f_u)]

@@ -38,6 +38,13 @@ and Cp = 2·Cs (dec-conv1), with Cin, Cs in {32, 64}.
   same conv on the cotangent with the flipped, in/out-transposed kernel) are
   the psel tile with the ReLU epilogue compiled out; its kernel gradient
   (:func:`psconv_wgrad`) is PyTorch, as the JAX package computes it in XLA.
+- :func:`psconv_train_halo` is K4 on one H-shard (spatial-parallel
+  training), its own ``torch.autograd.Function``: the forward
+  (:func:`psconv_fwd_halo`) and the dgrad (:func:`psconv_dgrad_halo`) are
+  K9's entry without bias or ReLU, given the x rows (forward) and the
+  cotangent's rows (dgrad) from the neighbouring shards, so stitched shards
+  equal :func:`psconv_fwd` and :func:`psconv_dgrad` bit for bit; the kernel
+  gradient is :func:`psconv_wgrad` over the shard extended by its x rows.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (or raises). ``launches``
@@ -49,11 +56,12 @@ from the shapes alone, with :func:`psel_fits` and :func:`dec_conv1_fits`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
 from mingraph_unet_tpu_torch.ops.kernels.build import (
     KERNEL_DTYPES,
     check_cuda_input,
@@ -78,6 +86,7 @@ __all__ = [
     "dec_conv1_preact",
     "dec_conv1_halo",
     "dec_conv1_halo_plain",
+    "dec_conv1_halo_preact",
     "psel_conv3x3_halo",
     "psel_conv3x3_halo_plain",
     "extend_rows",
@@ -87,6 +96,10 @@ __all__ = [
     "psconv_dgrad",
     "psconv_dgrad_plain",
     "psconv_wgrad",
+    "psconv_train_halo",
+    "psconv_halo_plain",
+    "psconv_fwd_halo",
+    "psconv_dgrad_halo",
 ]
 
 # Channel widths with a bf16 kernel instantiation (csrc/psel_conv.cu, csrc/dec_conv1.cu).
@@ -293,32 +306,37 @@ def dec_conv1_live_weights(k_prev: torch.Tensor) -> torch.Tensor:
 def dec_conv1_bias_table(
     kernel: torch.Tensor, skip_c: int, bias_up: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
-    """(3, 3, 4·Cout) f32 table: conv1's bias plus the upsample-bias field
-    for each (row class, col class) in {first, interior, last}²."""
+    """(3, 3, 4·Cout) f32 table (f64 for an f64 kernel): conv1's bias plus
+    the upsample-bias field for each (row class, col class) in {first,
+    interior, last}²."""
+    acc = torch.promote_types(kernel.dtype, torch.float32)
     t = torch.einsum(
-        "yxio,i->yxo", _k2b(kernel, skip_c).float(), s2d_ops.s2d_vector(bias_up).float()
+        "yxio,i->yxo", _k2b(kernel, skip_c).to(acc), s2d_ops.s2d_vector(bias_up).to(acc)
     )
-    rsel = torch.ones((3, 3), device=t.device)  # rows of the class table a tap reaches
+    rsel = torch.ones((3, 3), dtype=acc, device=t.device)  # rows of the class table a tap reaches
     rsel[0, 0] = rsel[2, 2] = 0.0
     field = torch.einsum("ad,be,deo->abo", rsel, rsel, t)
-    return field + s2d_ops.s2d_vector(bias).float()
+    return field + s2d_ops.s2d_vector(bias).to(acc)
 
 
 def bias_table_field(t9: torch.Tensor, hh: int, ww: int, row0: int = 0, hh_global: Optional[int] = None
                      ) -> torch.Tensor:
-    """Expand the class table to the (hh, ww, 4·Cout) f32 field. Row (and
-    column) weights are (first, 1 − first − last, last): on a grid one pixel
-    high a row is first and last, and (1, −1, 1) gives the both-taps-invalid
-    value, as the kernel's epilogue does. On an H-shard, local row i is
-    global row ``row0 + i`` of ``hh_global`` (default: the whole grid)."""
+    """Expand the class table to the (hh, ww, 4·Cout) f32 field (f64 for an
+    f64 table). Row (and column) weights are (first, 1 − first − last,
+    last): on a grid one pixel high a row is first and last, and (1, −1, 1)
+    gives the both-taps-invalid value, as the kernel's epilogue does. On an
+    H-shard, local row i is global row ``row0 + i`` of ``hh_global``
+    (default: the whole grid)."""
+    acc = torch.promote_types(t9.dtype, torch.float32)
+
     def weights(n: int, start: int, total: int) -> torch.Tensor:
         i = torch.arange(start, start + n, device=t9.device)
-        f = (i == 0).float()
-        l = (i == total - 1).float()
+        f = (i == 0).to(acc)
+        l = (i == total - 1).to(acc)
         return torch.stack([f, 1.0 - f - l, l], dim=1)
 
     rows = weights(hh, row0, hh if hh_global is None else hh_global)
-    return torch.einsum("yd,xe,deo->yxo", rows, weights(ww, 0, ww), t9.float())
+    return torch.einsum("yd,xe,deo->yxo", rows, weights(ww, 0, ww), t9.to(acc))
 
 
 def dec_conv1_preact(
@@ -422,17 +440,26 @@ def dec_conv1_fused(
 dec_conv1_fused.launches = 0
 
 
-def dec_conv1_halo_plain(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9,
-                         row0: int, hh_global: int) -> torch.Tensor:
-    """:func:`dec_conv1_fused_plain` on one H-shard: both inputs extended by
+def dec_conv1_halo_preact(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9,
+                          row0: int, hh_global: int) -> torch.Tensor:
+    """:func:`dec_conv1_preact` on one H-shard: both inputs extended by
     their halo rows (zeros for None), the two convs over the extended
     blocks with their first and last rows dropped, and the bias field of
-    global rows ``row0 ..`` of ``hh_global``."""
+    global rows ``row0 ..`` of ``hh_global``. Differentiable in the inputs,
+    the rows and the weights: the sharded training path's decoder conv1."""
     _, hh, ww, _ = x_skip_s2d.shape
     dt = x_skip_s2d.dtype
     y = (s2d_ops.conv3x3_s2d(extend_rows(x_skip_s2d, skip_top, skip_bottom), s2d_ops.s2d_conv3x3_kernel(k_skip))
          + s2d_ops.conv3x3_s2d(extend_rows(x_prev, prev_top, prev_bottom), k_prev))[:, 1:-1]
-    return torch.relu(y + bias_table_field(t9, hh, ww, row0, hh_global)[None].to(dt))
+    return y + bias_table_field(t9, hh, ww, row0, hh_global)[None].to(dt)
+
+
+def dec_conv1_halo_plain(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9,
+                         row0: int, hh_global: int) -> torch.Tensor:
+    """``relu`` of :func:`dec_conv1_halo_preact`: the plain version of
+    :func:`dec_conv1_halo`."""
+    return torch.relu(dec_conv1_halo_preact(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom,
+                                            k_skip, k_prev, t9, row0, hh_global))
 
 
 def dec_conv1_halo(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9,
@@ -512,7 +539,8 @@ def psconv_dgrad(g_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 psconv_dgrad.launches = 0
 
 
-def psconv_wgrad(x_s2d: torch.Tensor, g_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def psconv_wgrad(x_s2d: torch.Tensor, g_s2d: torch.Tensor, kernel: torch.Tensor,
+                 rows: Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = None) -> torch.Tensor:
     """The full-res kernel gradient of the raw conv, (3, 3, Cin, Cout) in at
     least f32, summed in f32 from the exact products of bf16 inputs, as the
     JAX package's ``preferred_element_type=f32`` does. PyTorch, as the JAX
@@ -520,11 +548,19 @@ def psconv_wgrad(x_s2d: torch.Tensor, g_s2d: torch.Tensor, kernel: torch.Tensor)
     convolution backward on the s2d tensors as they lie, no relayout) on
     the inputs widened to f32, so that its output is not rounded to bf16
     (a bf16 value is exact in TF32, so cuDNN's TF32 path loses nothing),
-    pulled back through ``s2d_conv3x3_kernel``'s tap map by its adjoint."""
+    pulled back through ``s2d_conv3x3_kernel``'s tap map by its adjoint.
+
+    ``rows`` = (top, bottom): x is one H-shard and g its rows of the
+    cotangent; x is extended by the rows just above and below the shard
+    (zeros for None, a global border) and the gradient taken VALID in H:
+    the shard's share, whose sum over the shards is the whole gradient."""
     cin, cout = kernel.shape[2], kernel.shape[3]
     dt = torch.promote_types(kernel.dtype, torch.float32)
+    pad = 1
+    if rows is not None and (rows[0] is not None or rows[1] is not None):
+        x_s2d, pad = extend_rows(x_s2d, *rows), (0, 1)
     dw = torch.nn.grad.conv2d_weight(
-        x_s2d.to(dt).permute(0, 3, 1, 2), (4 * cout, 4 * cin, 3, 3), g_s2d.to(dt).permute(0, 3, 1, 2), padding=1
+        x_s2d.to(dt).permute(0, 3, 1, 2), (4 * cout, 4 * cin, 3, 3), g_s2d.to(dt).permute(0, 3, 1, 2), padding=pad
     )
     return s2d_ops.s2d_conv3x3_kernel_adjoint(dw.permute(2, 3, 1, 0))
 
@@ -550,3 +586,96 @@ def psconv_train(x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     gradient through :func:`psconv_wgrad`. On the CPU the two wrappers run
     their plain versions, so the same backward is testable there."""
     return _PsconvTrain.apply(x_s2d, kernel)
+
+
+# ---------------------------------------------------------------------------
+# K4 on an H-shard (spatial-parallel training)
+# ---------------------------------------------------------------------------
+
+
+def psconv_halo_plain(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor],
+                      kernel: torch.Tensor) -> torch.Tensor:
+    """The raw s2d conv of one H-shard, given the s2d rows just above and
+    below it (None at a global border): the dense s2d conv, VALID in H,
+    over the shard extended by them (zeros for None); with no row at all,
+    :func:`psconv_train_plain` itself. Differentiable in x, the rows and
+    the kernel: the plain version of :func:`psconv_train_halo` (whose rows
+    then come from a differentiable exchange) and of its two kernel
+    entries (the dgrad's with the adjoint kernel)."""
+    if top is None and bottom is None:
+        return psconv_train_plain(x_s2d, kernel)
+    return conv2d_nhwc(extend_rows(x_s2d, top, bottom), s2d_ops.s2d_conv3x3_kernel(kernel), padding=(0, 1))
+
+
+def psconv_fwd_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor],
+                    kernel: torch.Tensor) -> torch.Tensor:
+    """K4 forward on one H-shard: the raw conv of the shard (B, Hh_local,
+    Ww, 4·Cin) given the row just above and below it (B, 1, Ww, 4·Cin),
+    None at a global border. On CUDA: K9's entry with no bias and no ReLU,
+    for the shapes :func:`psel_fits` accepts; stitched shards equal
+    :func:`psconv_fwd` on the whole tensor bit for bit."""
+    if x_s2d.device.type == "cpu":
+        return psconv_halo_plain(x_s2d, top, bottom, kernel)
+    y = _psel_launch("psconv_fwd_halo", x_s2d, kernel, None, relu=False, rows=(top, bottom))
+    psconv_fwd_halo.launches += 1
+    return y
+
+
+psconv_fwd_halo.launches = 0
+
+
+def psconv_dgrad_halo(g_s2d: torch.Tensor, g_top: Optional[torch.Tensor], g_bottom: Optional[torch.Tensor],
+                      kernel: torch.Tensor) -> torch.Tensor:
+    """K4 dgrad on one H-shard: dx of the shard's rows from the cotangent
+    (B, Hh_local, Ww, 4·Cout) and its rows just above and below the shard
+    (the neighbours' cotangent rows, None at a global border): the same
+    conv with the adjoint kernel, so the neighbours' outputs' share in the
+    shard's edge rows is in it. On CUDA: K9's entry with no bias and no
+    ReLU; stitched shards equal :func:`psconv_dgrad` bit for bit (one tap
+    order)."""
+    if g_s2d.device.type == "cpu":
+        return psconv_halo_plain(g_s2d, g_top, g_bottom, _adjoint(kernel))
+    y = _psel_launch("psconv_dgrad_halo", g_s2d, _adjoint(kernel), None, relu=False, rows=(g_top, g_bottom))
+    psconv_dgrad_halo.launches += 1
+    return y
+
+
+psconv_dgrad_halo.launches = 0
+
+
+class _PsconvTrainHalo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_s2d, kernel, top, bottom, exchange):
+        ctx.save_for_backward(x_s2d, kernel, top, bottom)
+        ctx.exchange = exchange
+        return psconv_fwd_halo(x_s2d, top, bottom, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_s2d, kernel, top, bottom = ctx.saved_tensors
+        g = g.contiguous()  # autograd may hand the cotangent over strided or expanded
+        g_top, g_bottom = ctx.exchange(g)  # on every rank, whatever it needs: the neighbours wait for its rows
+        dx = psconv_dgrad_halo(g, g_top, g_bottom, kernel).to(x_s2d.dtype) if ctx.needs_input_grad[0] else None
+        dk = (psconv_wgrad(x_s2d, g, kernel, rows=(top, bottom)).to(kernel.dtype) if ctx.needs_input_grad[1]
+              else None)
+        return dx, dk, None, None, None
+
+
+def psconv_train_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor],
+                      kernel: torch.Tensor, exchange: Callable[[torch.Tensor], Tuple[Optional[torch.Tensor],
+                                                                                       Optional[torch.Tensor]]]
+                      ) -> torch.Tensor:
+    """K4 on one H-shard, differentiable: the raw 3×3 'SAME' s2d conv of
+    the shard's rows of the whole tensor. ``top`` / ``bottom``: the x rows
+    just above / below the shard (None at a global border), which get no
+    gradient; ``exchange(t)`` returns the rows of the same kind for a
+    tensor t shaped as the output (the halo exchange over the spatial
+    group, ``parallel/halo.py::halo_exchange_rows(t, 1, mesh)``; the rows
+    by hand in one process), and the backward calls it on the cotangent.
+    Forward :func:`psconv_fwd_halo`; dx :func:`psconv_dgrad_halo` of the
+    cotangent and its exchanged rows, which holds the neighbouring shards'
+    outputs' share of the shard's edge rows (so the x rows need no
+    gradient of their own); the kernel gradient :func:`psconv_wgrad` over
+    the shard extended by its x rows, VALID in H, summed over the ranks by
+    the caller. On the CPU the two wrappers run their plain versions."""
+    return _PsconvTrainHalo.apply(x_s2d, kernel, top, bottom, exchange)

@@ -1,13 +1,15 @@
-"""Data-parallel training over the mesh's batch axis (dcn × data).
+"""Data-parallel training over the mesh's batch axis (dcn × data), and
+spatial-parallel training over its spatial axis.
 
 In JAX the sharded train step is the one-device step on the global batch:
 XLA partitions it and inserts the reductions. Here each rank runs its own
 step on its slice of the global batch, and this module makes that step the
 global one:
 
-- :class:`AllReduceSum` is an all-reduce whose backward all-reduces the
-  cotangent. Train-mode BatchNorm sums its Σz, Σz² through it, so the
-  statistics and their gradient are those of the global batch.
+- :class:`AllReduceSum` is an all-reduce (over one or more groups in turn)
+  whose backward all-reduces the cotangent the same way. Train-mode
+  BatchNorm sums its Σz, Σz² through it, so the statistics and their
+  gradient are those of the global batch.
 - **The loss rule, in one place.** Inside :func:`data_parallel` every loss
   returns this rank's *contribution*: its part of the global loss, such
   that the contributions of all ranks sum to the one-process loss
@@ -19,6 +21,17 @@ global one:
   rank's gradient: :func:`all_reduce_gradients` sums, it does not average,
   and :func:`all_reduce_metrics` sums the contributions into the global
   values that are logged.
+- **Spatial ranks.** On a mesh with a spatial axis of S ranks, every rank
+  of a spatial group holds the same images; only the U-Net runs on its H
+  rows (``parallel/spatial.py::spatial_sharded_unet``), and what follows
+  its gathered outputs runs replicated over the group. Each rank's
+  contribution is then also multiplied by 1/S (:func:`spatial_share`), and
+  :func:`all_reduce_gradients` sums over the spatial group and then the
+  batch group. BatchNorm inside :func:`spatial_norm` (the U-Net's, which
+  sees H-shards) sums its statistics over batch × spatial; outside it (the
+  heads', which see whole images) over the batch group only. The logged
+  values are summed over the batch group only: the spatial ranks hold
+  them alike.
 - Random draws over the batch (augmentation, dropout) are drawn for the
   whole global batch from one generator seeded alike on every rank, and
   each rank keeps its rows (:func:`local_rows`): the one-process step's
@@ -32,7 +45,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from contextvars import ContextVar
-from typing import Any, Dict, Iterable, Iterator, NamedTuple, Optional
+from typing import Any, Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,17 +53,20 @@ import torch.distributed as dist
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["AllReduceSum", "BatchShard", "active", "all_reduce_gradients", "all_reduce_metrics", "all_reduce_sum",
-           "batch_mean", "data_parallel", "global_batch", "global_count", "local_rows", "replicated"]
+           "batch_mean", "data_parallel", "global_batch", "global_count", "local_rows", "norm_groups", "replicated",
+           "spatial_norm", "spatial_share"]
 
 
 class BatchShard(NamedTuple):
     """This rank's rows of the global batch: ``local`` images from
-    ``index · local`` of ``count · local``, reduced over ``group``."""
+    ``index · local`` of ``count · local``, reduced over ``group``; the
+    ``spatial_count`` ranks of its spatial group hold them alike."""
 
     group: Any
     index: int
     count: int
     local: int
+    spatial_count: int = 1
 
     @property
     def total(self) -> int:
@@ -65,6 +81,9 @@ class BatchShard(NamedTuple):
 # step's BatchNorm, dropout and losses see it without a parameter threaded
 # through every module, and another thread's work does not.
 _shard: ContextVar[Optional[BatchShard]] = ContextVar("batch_shard", default=None)
+# The enclosing spatial_norm's (spatial group, ranks): BatchNorm inside it
+# sees one H-shard of each image.
+_spatial: ContextVar[Optional[Tuple[Any, int]]] = ContextVar("spatial_norm", default=None)
 
 
 def active() -> Optional[BatchShard]:
@@ -81,7 +100,7 @@ def data_parallel(mesh: Optional[Mesh], local_batch: int) -> Iterator[Optional[B
     if mesh is None or not mesh.distributed:
         yield None
         return
-    shard = BatchShard(mesh.batch_group, mesh.batch_index, mesh.batch_size, local_batch)
+    shard = BatchShard(mesh.batch_group, mesh.batch_index, mesh.batch_size, local_batch, mesh.spatial_size)
     token = _shard.set(shard)
     try:
         yield shard
@@ -89,28 +108,63 @@ def data_parallel(mesh: Optional[Mesh], local_batch: int) -> Iterator[Optional[B
         _shard.reset(token)
 
 
+@contextmanager
+def spatial_norm(mesh: Optional[Mesh]) -> Iterator[None]:
+    """Within: train-mode BatchNorm sees one H-shard of each image, so it
+    sums its statistics over ``mesh``'s spatial group too (the sharded
+    U-Net's forward). Nothing changes for a spatial axis of one rank or a
+    mesh without process groups."""
+    if mesh is None or not mesh.distributed or mesh.spatial_size == 1:
+        yield
+        return
+    token = _spatial.set((mesh.spatial_group, mesh.spatial_size))
+    try:
+        yield
+    finally:
+        _spatial.reset(token)
+
+
+def norm_groups() -> Tuple[Tuple[Any, ...], int]:
+    """The groups train-mode BatchNorm sums its statistics over, in order
+    (the spatial group inside :func:`spatial_norm`, then the batch group
+    inside :func:`data_parallel`), and the number of equal parts the
+    statistics' batch is cut into; ``((), 1)`` in one process."""
+    groups, count = [], 1
+    spatial, shard = _spatial.get(), _shard.get()
+    if spatial is not None:
+        groups.append(spatial[0])
+        count *= spatial[1]
+    if shard is not None:
+        groups.append(shard.group)
+        count *= shard.count
+    return tuple(groups), count
+
+
 class AllReduceSum(torch.autograd.Function):
-    """``y = Σ_ranks x`` over ``group``; the backward is the same all-reduce
-    of the cotangent, since every rank's loss reads y: ∂L/∂x_r =
-    Σ_r' ∂ℓ_r'/∂y."""
+    """``y = Σ_ranks x`` over ``groups`` (one all-reduce each, in order);
+    the backward is the same all-reduces of the cotangent, since every
+    rank's loss reads y: ∂L/∂x_r = Σ_r' ∂ℓ_r'/∂y."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor, groups) -> torch.Tensor:
+        ctx.groups = groups
         y = x.clone()
-        dist.all_reduce(y, group=group)
+        for group in groups:
+            dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
         return g, None
 
 
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Differentiable sum of ``x`` over the ranks of ``group``."""
-    return AllReduceSum.apply(x, group)
+def all_reduce_sum(x: torch.Tensor, *groups) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of ``groups`` (all of
+    them: over one group, then the next)."""
+    return AllReduceSum.apply(x, groups)
 
 
 def global_batch(local: int) -> int:
@@ -146,6 +200,14 @@ def replicated(v):
     return v if shard is None else v / shard.count
 
 
+def spatial_share(v):
+    """A rank's contribution to the loss it backpropagates: 1/S of its
+    batch contribution ``v``, the S ranks of its spatial group holding ``v``
+    alike (``v`` itself without a spatial axis)."""
+    shard = _shard.get()
+    return v if shard is None else v / shard.spatial_count
+
+
 def local_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """This rank's rows (along dim 0) of a draw made for the global batch."""
     shard = _shard.get()
@@ -163,15 +225,18 @@ def _outside(name: str) -> None:
 
 
 def all_reduce_gradients(params: Iterable[torch.nn.Parameter], mesh: Optional[Mesh]) -> None:
-    """Sum every parameter's ``.grad`` over the batch axis, in one flat
-    all-reduce (the loss rule above makes the sum the global gradient).
-    Each ``.grad`` becomes a view of the reduced buffer, with no copy back.
+    """Sum every parameter's ``.grad`` over the spatial axis (where it has
+    more than one rank) and then the batch axis, in one flat all-reduce a
+    group (the loss rule above makes the sum the global gradient). Each
+    ``.grad`` becomes a view of the reduced buffer, with no copy back.
     Called after the step's :func:`data_parallel` context."""
     _outside("all_reduce_gradients")
     if mesh is None or not mesh.distributed:
         return
     params = [p for p in params if p.grad is not None]
     flat = torch.cat([p.grad.reshape(-1) for p in params])
+    if mesh.spatial_size > 1:
+        dist.all_reduce(flat, group=mesh.spatial_group)
     dist.all_reduce(flat, group=mesh.batch_group)
     off = 0
     for p in params:
@@ -184,8 +249,8 @@ def all_reduce_metrics(metrics: Dict[str, torch.Tensor], mesh: Optional[Mesh],
                        keys: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
     """The global values of loss contributions: ``metrics[k]`` summed over
     the batch axis for each k of ``keys`` (default all), the rest as they
-    are (values every rank holds alike). Called after the step's
-    :func:`data_parallel` context."""
+    are (values every rank holds alike; so are all of them over the
+    spatial axis). Called after the step's :func:`data_parallel` context."""
     _outside("all_reduce_metrics")
     if mesh is None or not mesh.distributed:
         return metrics

@@ -16,24 +16,35 @@
    windowed encoder conv1 one full-resolution row each way). Pooling, the
    2×2 ConvTranspose, K3 and K5 need no exchange when each shard's height
    is a multiple of the network's downsampling.
+
+Spatial-parallel training (:func:`spatial_sharded_unet`): every rank of a
+spatial group holds the whole images of its batch rows, runs the U-Net in
+train mode on its H rows (the train-mode sites of :class:`SpatialShard`:
+each exchange differentiable, ``parallel/halo.py::halo_rows``, and K4 on
+the shard, ``psconv_train_halo``, exchanging the cotangent's rows in its
+backward), and :func:`gather_spatial` assembles the outputs the rest of
+the step reads, differentiably: its backward gives each rank its rows of
+the sum of every rank's cotangent.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
-from mingraph_unet_tpu_torch.ops.kernels.psconv import dec_conv1_fits, dec_conv1_halo, dec_conv1_halo_plain, extend_rows
-from mingraph_unet_tpu_torch.parallel.halo import halo_exchange_rows, sharded_conv2d_same, sharded_psconv
+from mingraph_unet_tpu_torch.ops.kernels.psconv import (dec_conv1_fits, dec_conv1_halo, dec_conv1_halo_plain,
+                                                        dec_conv1_halo_preact, dec_conv1_preact, psconv_halo_plain,
+                                                        psconv_train_halo, psconv_train_plain, psel_fits)
+from mingraph_unet_tpu_torch.parallel.halo import halo_exchange_rows, halo_rows, sharded_conv2d_same, sharded_psconv
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh, shard_batch
 
-__all__ = ["SpatialShard", "extract_tiles", "gather_rows", "spatial_sharded_apply", "stitch_tiles",
-           "tiled_inference"]
+__all__ = ["SpatialShard", "extract_tiles", "gather_rows", "gather_spatial", "spatial_sharded_apply",
+           "spatial_sharded_unet", "stitch_tiles", "tiled_inference"]
 
 
 def _tile_starts(size: int, tile: int, halo: int) -> List[int]:
@@ -115,15 +126,33 @@ class SpatialShard:
     def windowed_down(self, x_full: torch.Tensor, kernel_win: torch.Tensor) -> torch.Tensor:
         """``s2d.conv3x3_windowed_down``: the 4×4 stride-2 window of s2d row
         I reads full-res rows 2I − 1 … 2I + 2, so one row from each
-        neighbour (the unsharded conv on a spatial axis of one rank)."""
-        top, bottom = halo_exchange_rows(x_full, 1, self.mesh)
-        if top is None and bottom is None:
+        neighbour (:func:`halo_rows`, differentiable; the unsharded conv on
+        a spatial axis of one rank)."""
+        if self.count == 1:
             return s2d_ops.conv3x3_windowed_down(x_full, kernel_win)
-        return conv2d_nhwc(extend_rows(x_full, top, bottom), kernel_win, stride=2, padding=(0, 1))
+        top, bottom = halo_rows(x_full, 1, self.mesh)
+        return conv2d_nhwc(torch.cat([top, x_full, bottom], dim=1), kernel_win, stride=2, padding=(0, 1))
 
     def psel(self, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         """The s2d conv2 (K1's function): ``sharded_psconv``."""
         return sharded_psconv(x_s2d, kernel, bias, self.mesh)
+
+    def psel_train(self, x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        """The s2d conv2 in training (K4's function: no bias, no ReLU): K4 on
+        the shard (``psconv_train_halo``, its forward and dgrad through K9's
+        entry; the x rows and, in its backward, the cotangent's rows
+        exchanged with the neighbours) where :func:`psel_fits` accepts the
+        widths, even on a spatial axis of one rank (no row then: bit-equal
+        to K4); else the plain form over the rows of a differentiable
+        exchange, and on one rank the unsharded plain conv."""
+        if psel_fits(x_s2d.dtype, kernel.shape[2], kernel.shape[3]):
+            def exchange(t):
+                return halo_exchange_rows(t, 1, self.mesh)
+
+            return psconv_train_halo(x_s2d, *exchange(x_s2d), kernel, exchange)
+        if self.count == 1:
+            return psconv_train_plain(x_s2d, kernel)
+        return psconv_halo_plain(x_s2d, *halo_rows(x_s2d, 1, self.mesh), kernel)
 
     def dec_conv1(self, x_skip_s2d, x_prev, k_skip, k_prev, t9) -> torch.Tensor:
         """The s2d decoder conv1 (K2's function): one row of both inputs
@@ -134,6 +163,18 @@ class SpatialShard:
         return (dec_conv1_halo if fits else dec_conv1_halo_plain)(
             x_skip_s2d, *halo_exchange_rows(x_skip_s2d, 1, self.mesh), x_prev,
             *halo_exchange_rows(x_prev, 1, self.mesh), k_skip, k_prev, t9, self.index * hh, self.count * hh)
+
+    def dec_conv1_train(self, x_skip_s2d, x_prev, k_skip, k_prev, t9) -> torch.Tensor:
+        """The s2d decoder conv1 in training, before its BN (the function of
+        ``dec_conv1_preact``): one row of both inputs through a
+        differentiable exchange, the bias field's border rows read from the
+        shard's global rows; ``dec_conv1_preact`` itself on one rank."""
+        if self.count == 1:
+            return dec_conv1_preact(x_skip_s2d, x_prev, k_skip, k_prev, t9)
+        hh = x_skip_s2d.shape[1]
+        return dec_conv1_halo_preact(x_skip_s2d, *halo_rows(x_skip_s2d, 1, self.mesh), x_prev,
+                                     *halo_rows(x_prev, 1, self.mesh), k_skip, k_prev, t9, self.index * hh,
+                                     self.count * hh)
 
 
 def spatial_sharded_apply(apply_fn: Callable[..., torch.Tensor], scene: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -152,19 +193,69 @@ def spatial_sharded_apply(apply_fn: Callable[..., torch.Tensor], scene: torch.Te
     return apply_fn(x_local, spatial=SpatialShard(mesh, mesh.spatial_index, h))
 
 
-def _all_gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
-    if size == 1:
-        return x
-    parts = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+class _Gather(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order over
+    ``group``; the backward takes this rank's part of the sum of every
+    rank's cotangent (each rank's loss reads the whole). gloo has no
+    reduce-scatter, so it is an all-reduce and a slice, on both backends."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, size: int, index: int, dim: int) -> torch.Tensor:
+        ctx.group, ctx.index, ctx.dim, ctx.n = group, index, dim, x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone(memory_format=torch.contiguous_format)  # the all-reduce writes in place
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None, None
+
+
+def gather_spatial(x_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole images from every spatial rank's H-shard of them (dim 1,
+    over the spatial group), on every rank of the group; differentiable.
+    ``x_local`` itself on a spatial axis of one rank."""
+    if not mesh.distributed or mesh.spatial_size == 1:
+        return x_local
+    return _Gather.apply(x_local, mesh.spatial_group, mesh.spatial_size, mesh.spatial_index, 1)
 
 
 def gather_rows(x_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The whole output from every rank's shard of it (H over the spatial
     axis, N over the batch axis), on every rank: the inverse of
-    :func:`spatial_sharded_apply`'s slicing."""
-    if not mesh.distributed:
-        return x_local
-    x = _all_gather(x_local, mesh.spatial_group, mesh.spatial_size, 1)
-    return _all_gather(x, mesh.batch_group, mesh.batch_size, 0)
+    :func:`spatial_sharded_apply`'s slicing. Differentiable."""
+    x = gather_spatial(x_local, mesh)
+    if not mesh.distributed or mesh.batch_size == 1:
+        return x
+    return _Gather.apply(x, mesh.batch_group, mesh.batch_size, mesh.batch_index, 0)
+
+
+def spatial_sharded_unet(unet, images: torch.Tensor, mesh: Mesh, level0: bool = False) -> Dict[str, Any]:
+    """The train-mode U-Net of a spatial-parallel step. ``images`` (B, H, W,
+    C) are the whole images of this rank's batch rows (alike on every rank
+    of its spatial group); the U-Net runs on this rank's H rows
+    (``unet(x_local, spatial=SpatialShard(...))``: every conv site
+    exchanges its rows, BN sums over batch × spatial) and the outputs the
+    step reads are gathered over the spatial group (:func:`gather_spatial`).
+    Returns the U-Net's output dict with ``logits`` (B, H, W, classes) and,
+    with ``level0``, level 0's skip and decoder output (``skip_s2d[0]``,
+    ``f_u_s2d[0]`` where level 0 runs in s2d, else ``skips[0]``, ``f_u[0]``),
+    the tensors ``models/pipeline.py`` reads from the U-Net. H must split
+    into equal shards of a multiple of 2^(depth + 1) rows."""
+    h = images.shape[1]
+    if h % mesh.spatial_size:
+        raise ValueError(f"{h} rows do not split into {mesh.spatial_size} equal shards")
+    rows = h // mesh.spatial_size
+    x_local = images.narrow(1, mesh.spatial_index * rows, rows)
+    u = unet(x_local, spatial=SpatialShard(mesh, mesh.spatial_index, h))
+    out: Dict[str, Any] = {"logits": gather_spatial(u["logits"], mesh), "skips": [None], "f_u": [None],
+                           "skip_s2d": {}, "f_u_s2d": {}}
+    if level0:
+        for full, s2d in (("skips", "skip_s2d"), ("f_u", "f_u_s2d")):
+            if 0 in u[s2d]:
+                out[s2d][0] = gather_spatial(u[s2d][0], mesh)
+            else:
+                out[full][0] = gather_spatial(u[full][0], mesh)
+    return out

@@ -10,10 +10,11 @@ Optimizer semantics are the JAX package's (and the reference's):
   per optimizer step (a staircase), so the k-th update uses the rate of
   step k as optax's schedule does.
 
-Data parallelism (a mesh with process groups): the loader gives each rank
-its rows of every global batch, the steps reduce as
-``parallel/data.py`` sets out, and only global rank 0 writes logs and
-checkpoints; on resume every rank reads the checkpoint.
+Data and spatial parallelism (a mesh with process groups): the loader
+gives each rank its rows of every global batch (the ranks of a spatial
+group the same rows, whose H rows they then split in the U-Net), the steps
+reduce as ``parallel/data.py`` sets out, and only global rank 0 writes logs
+and checkpoints; on resume every rank reads the checkpoint.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
 from mingraph_unet_tpu_torch.utils.logging import MetricsLogger
 
 __all__ = ["TrainState", "draw_step_augment", "make_optimizer", "make_lr_schedule", "make_multistep",
-           "require_batch_mesh", "run_epochs", "trainer_mesh"]
+           "run_epochs", "spatial_step", "trainer_mesh"]
 
 
 @dataclass
@@ -97,19 +98,24 @@ def make_optimizer(
 
 
 def trainer_mesh(cfg: TrainingConfig) -> Mesh:
-    """The mesh of ``cfg.data_parallel`` (0: every rank) over the initialized
-    process group, the trivial mesh without one. ``spatial_parallel`` > 1
-    raises: spatial-parallel training is not ported (ROADMAP A10)."""
-    if cfg.spatial_parallel > 1:
-        raise NotImplementedError("spatial_parallel > 1 in training is not ported yet (ROADMAP A10): it needs the "
-                                  "adjoint halo exchange in every conv's backward")
-    return make_mesh(cfg.data_parallel, 1)
+    """The (data, spatial) mesh of ``cfg.data_parallel`` (0: every rank the
+    spatial axis leaves) × ``cfg.spatial_parallel`` over the initialized
+    process group, the trivial mesh without one (``make_mesh`` raises
+    ``ValueError`` where the ranks do not match)."""
+    return make_mesh(cfg.data_parallel, cfg.spatial_parallel)
 
 
-def require_batch_mesh(mesh: Optional[Mesh]) -> None:
-    """A train step shards the batch only: a spatial axis raises (ROADMAP A10)."""
-    if mesh is not None and mesh.spatial_size > 1:
-        raise NotImplementedError("spatial-parallel training is not ported yet (ROADMAP A10)")
+def spatial_step(mesh: Optional[Mesh]) -> bool:
+    """Whether a train step on ``mesh`` runs the U-Net H-sharded over its
+    spatial axis. A spatial axis of more than one rank without process
+    groups raises ``ValueError``: there is no one to exchange rows with,
+    and the step never falls back to the unsharded U-Net."""
+    if mesh is None or mesh.spatial_size == 1:
+        return False
+    if not mesh.distributed:
+        raise ValueError(f"a spatial axis of {mesh.spatial_size} ranks needs the mesh's process groups "
+                         "(make_mesh under an initialized torch.distributed)")
+    return True
 
 
 def draw_step_augment(gen: torch.Generator, b: int, h: int, w: int, pre: PreprocessingConfig) -> AugmentDraw:

@@ -31,11 +31,22 @@ objects of all ranks, L_bbox by their positive images; the balancer sees
 the global terms and counts its ``s/2`` once; the augmentation and the
 dropout masks are drawn for the whole batch (``parallel/data.py``).
 
+Spatial parallelism (``spatial_parallel`` > 1) as in
+``train/segmentation.py``: only the U-Net runs H-sharded
+(``parallel/spatial.py::spatial_sharded_unet``, BN over batch × spatial);
+its logits and level 0's skip and ``f_u[0]`` (in the s2d form the
+one-process step pools from) are gathered over the spatial group, and
+everything after them (hist-eq, Sobel, the graph branch, fusion, both
+heads, instancing, every loss) runs on the whole images, alike on every
+rank of the group, its BN over the batch group only. Each rank
+backpropagates 1/S of its total; the gradients are summed over every rank.
+The gathered full-resolution tensors and the heads are held whole on every
+spatial rank.
+
 Not ported (they raise ``NotImplementedError``): COCO instance annotations
-(ROADMAP A5), ``spatial_parallel`` > 1 (A10), and training a model with
-the dense detection head, class scores (A3) or an ablation switch off
-(A2): ``build_mingraph_unet`` builds such a model for inference,
-``make_e2e_train_step`` refuses it.
+(ROADMAP A5), and training a model with the dense detection head, class
+scores (A3) or an ablation switch off (A2): ``build_mingraph_unet`` builds
+such a model for inference, ``make_e2e_train_step`` refuses it.
 """
 
 from __future__ import annotations
@@ -55,10 +66,11 @@ from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
 from mingraph_unet_tpu_torch.ops.cc import instance_boxes
 from mingraph_unet_tpu_torch.ops.patches import patch_reduce_mean
 from mingraph_unet_tpu_torch.parallel.data import (all_reduce_gradients, all_reduce_metrics, batch_mean,
-                                                   data_parallel, replicated)
+                                                   data_parallel, replicated, spatial_share)
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh, replicate
+from mingraph_unet_tpu_torch.parallel.spatial import spatial_sharded_unet
 from mingraph_unet_tpu_torch.train.common import (TrainState, draw_step_augment, make_multistep, make_optimizer,
-                                                  require_batch_mesh, run_epochs, trainer_mesh)
+                                                  run_epochs, spatial_step, trainer_mesh)
 
 __all__ = ["BALANCED_LOSSES", "LossBalance", "build_mingraph_unet", "gt_union_box", "make_e2e_train_step",
            "mingraph_unet_kwargs", "train_end_to_end"]
@@ -155,8 +167,9 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
     step used), ``l_bbox`` and ``l_conf``. ``gen``, a ``torch.Generator``
     on the model's device, draws the augmentation and the dropout masks.
     With a ``mesh`` that has process groups, the images are this rank's
-    rows of the global batch and the step and its terms are the global
-    batch's; ``gen`` must be seeded alike on every rank."""
+    rows of the global batch (the same rows on every rank of a spatial
+    group, whose U-Net then runs H-sharded) and the step and its terms are
+    the global batch's; ``gen`` must be seeded alike on every rank."""
     pre = cfg.preprocessing
     lw = cfg.model.losses
     patch = cfg.model.graph_construction.patch_size
@@ -170,7 +183,7 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
         raise NotImplementedError("training with an ablation switch off is not ported yet (ROADMAP A2)")
     if balance and not isinstance(getattr(model, "loss_balance", None), LossBalance):
         raise ValueError("loss_balance 'uncertainty' needs the model's LossBalance (build_mingraph_unet adds it)")
-    require_batch_mesh(mesh)
+    spatial = spatial_step(mesh)
 
     def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor,
                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -184,7 +197,8 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
             imgs, aug_masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
                                                       draw, num_classes=cfg.dataset.num_classes)
             model.train()
-            out = model(imgs, gen=gen)
+            u = spatial_sharded_unet(model.unet, imgs, mesh, level0=True) if spatial else None
+            out = model(imgs, gen=gen, unet_outputs=u)
             logits = out["logits"]
             l_seg = losses.cross_entropy_loss(logits, aug_masks)
 
@@ -227,9 +241,10 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
                 total = total + l_bbox + l_conf
                 aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
             aux["total"] = total
+            share = spatial_share(total)
 
         opt.zero_grad(set_to_none=True)
-        total.backward()
+        share.backward()
         # A parameter the total does not reach (the MinCut predictor while
         # the graph terms are off) has a zero gradient in JAX, which the
         # optimizer still applies (weight decay moves it): the same here.

@@ -172,6 +172,6 @@ def pipeline_forward_large(model: MinGraphUNet, scene: torch.Tensor, tile: int =
         else:
             stacked = tiled_inference(unet_tile, scene, tile=tile, halo=halo)
         logits, skip0, f_u0 = stacked[..., :ncls], stacked[..., ncls : ncls + f0], stacked[..., ncls + f0 :]
-        return model(scene, unet_outputs=(logits, [skip0], [f_u0]))
+        return model(scene, unet_outputs={"logits": logits, "skips": [skip0], "f_u": [f_u0]})
     finally:
         model.train(was_training)

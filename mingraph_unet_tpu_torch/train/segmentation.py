@@ -15,9 +15,17 @@ global batch of ``batch_size``; the step is the one-process step on the
 global batch (augmentation drawn for the whole batch, BN statistics over
 it, losses and gradients summed over the ranks, ``parallel/data.py``), the
 parameters are broadcast from rank 0 at the start, and rank 0 alone writes
-logs and checkpoints. ``spatial_parallel`` > 1 raises
-``NotImplementedError`` (ROADMAP A10); sharded inference is
-``parallel/spatial.py::spatial_sharded_apply``.
+logs and checkpoints.
+
+Spatial parallelism (``spatial_parallel`` > 1, data × spatial ranks): the
+ranks of a spatial group hold the same batch rows, augment the whole
+images alike, and each runs the U-Net on its H rows of them
+(``parallel/spatial.py::spatial_sharded_unet``: every conv exchanges its
+halo rows, K4 runs on the shard, BN sums over batch × spatial); the
+gathered logits feed CE + Dice, computed alike on every rank of the group,
+each rank backpropagating 1/S of its loss and the gradients summed over
+every rank. H / spatial_parallel must be a multiple of 2^(depth + 1).
+Sharded inference is ``parallel/spatial.py::spatial_sharded_apply``.
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ from mingraph_unet_tpu_torch.device import resolve_device
 from mingraph_unet_tpu_torch.experiments.metrics import segmentation_metrics
 from mingraph_unet_tpu_torch.models.losses import cross_entropy_loss, dice_loss
 from mingraph_unet_tpu_torch.models.unet import UNet
-from mingraph_unet_tpu_torch.parallel.data import all_reduce_gradients, all_reduce_metrics, data_parallel
+from mingraph_unet_tpu_torch.parallel.data import (all_reduce_gradients, all_reduce_metrics, data_parallel,
+                                                   spatial_share)
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh, replicate
+from mingraph_unet_tpu_torch.parallel.spatial import spatial_sharded_unet
 from mingraph_unet_tpu_torch.train.common import (TrainState, draw_step_augment, make_multistep, make_optimizer,
-                                                  require_batch_mesh, run_epochs, trainer_mesh)
+                                                  run_epochs, spatial_step, trainer_mesh)
 
 __all__ = ["build_unet", "make_train_step", "train_unet_segmentation", "evaluate_unet"]
 
@@ -64,11 +74,13 @@ def make_train_step(cfg: PipelineConfig, augment: bool = True, mesh: Optional[Me
     ``{"loss", "ce", "dice"}`` as device tensors. ``gen`` is a
     ``torch.Generator`` on the model's device; augmentation draws from it.
     With a ``mesh`` that has process groups, the images are this rank's rows
-    of the global batch and the step is the global batch's (the returned
-    values too); ``gen`` must be seeded alike on every rank."""
+    of the global batch (the same rows on every rank of a spatial group,
+    whose U-Net then runs H-sharded) and the step is the global batch's
+    (the returned values too); ``gen`` must be seeded alike on every
+    rank."""
     pre = cfg.preprocessing
     dice_w = cfg.model.losses.dice_weight
-    require_batch_mesh(mesh)
+    spatial = spatial_step(mesh)
 
     def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor,
                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -81,12 +93,13 @@ def make_train_step(cfg: PipelineConfig, augment: bool = True, mesh: Optional[Me
             imgs, masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
                                                   draw, num_classes=cfg.dataset.num_classes)
             model.train()
-            logits = model(imgs)["logits"]
+            logits = (spatial_sharded_unet(model, imgs, mesh) if spatial else model(imgs))["logits"]
             ce = cross_entropy_loss(logits, masks)
             dice = dice_loss(logits, masks)
             loss = ce + dice_w * dice
+            share = spatial_share(loss)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        share.backward()
         all_reduce_gradients(model.parameters(), mesh)
         state.apply_gradients()
         return all_reduce_metrics({"loss": loss.detach(), "ce": ce.detach(), "dice": dice.detach()}, mesh)

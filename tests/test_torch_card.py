@@ -593,3 +593,39 @@ def test_card_halo_kernels_refuse_what_they_do_not_take(cuda_device):
     args = [t.to(cuda_device) for t in _dec1_args((1, 8, 16, 32, 64))]
     with pytest.raises(ValueError, match="outside the grid"):
         t_psconv.dec_conv1_halo(args[0], None, None, args[1], None, None, *args[2:], 4, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", HALO_CASES)
+def test_card_psconv_train_halo_stitches_to_k4_bit_for_bit(cuda_device, case, dtype):
+    """K4 on shards (the training conv of the spatial-parallel U-Net):
+    forward and dx (from the cotangent's rows), through the wrappers and
+    through the autograd Function with the rows by hand, stitched equal to
+    K4 on the whole tensor bit for bit; the shards' kernel gradients sum to
+    the whole one."""
+    b, hh, ww, c, cuts = case
+    x, k, _ = (_t(a) for a in _psel_case((b, hh, ww, c, c)))
+    cot = _t(np.random.default_rng(4).standard_normal(x.shape).astype(np.float32))
+    x, cot, k = x.to(cuda_device, dtype), cot.to(cuda_device, dtype), k.to(cuda_device)
+    y_whole, dx_whole = t_psconv.psconv_fwd(x, k), t_psconv.psconv_dgrad(cot, k)
+    dk_whole = t_psconv.psconv_wgrad(x, cot, k)
+    before = (t_psconv.psconv_fwd_halo.launches, t_psconv.psconv_dgrad_halo.launches)
+    xs, gs = _shards(x, 4, cuts), _shards(cot, 4, cuts)
+    y = torch.cat([t_psconv.psconv_fwd_halo(s, top, bot, k) for s, top, bot, _ in xs], dim=1)
+    dx = torch.cat([t_psconv.psconv_dgrad_halo(s, top, bot, k) for s, top, bot, _ in gs], dim=1)
+    torch.cuda.synchronize()
+    assert (t_psconv.psconv_fwd_halo.launches, t_psconv.psconv_dgrad_halo.launches) == (before[0] + len(xs),
+                                                                                         before[1] + len(gs))
+    assert torch.equal(y, y_whole) and torch.equal(dx, dx_whole)
+    fy, fdx, fdk = [], [], 0
+    for (s, top, bot, _), (g, gt, gb, _) in zip(xs, gs):
+        si, ki = s.clone().requires_grad_(), k.clone().requires_grad_()
+        out = t_psconv.psconv_train_halo(si, top, bot, ki, lambda t, r=(gt, gb): r)
+        out.backward(g)
+        fy.append(out.detach())
+        fdx.append(si.grad)
+        fdk = fdk + ki.grad
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(fy, 1), y_whole) and torch.equal(torch.cat(fdx, 1), dx_whole)
+    _assert_close_rel(fdk.cpu(), dk_whole.cpu(), DK_TOL[dtype])

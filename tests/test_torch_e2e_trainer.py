@@ -138,14 +138,14 @@ def test_trainer_warmup_balance_and_resume(tmp_path):
 
 
 def test_trainer_refuses_multi_device(tmp_path):
-    """Data parallelism needs the caller's process group (without one the
-    mesh has a single rank), and spatial-parallel training is not ported."""
+    """Data and spatial parallelism need the caller's process group
+    (without one the mesh has a single rank)."""
     cfg_dir = make_dummy_run(str(tmp_path), num_images=2, image_size=(16, 16), batch_size=2)
     _rewrite_yaml(os.path.join(cfg_dir, "training.yaml"), data_parallel=2)
     with pytest.raises(ValueError, match="needs 2 ranks, only 1 available"):
         t_e2e.train_end_to_end(cfg_dir, device="cpu")
     _rewrite_yaml(os.path.join(cfg_dir, "training.yaml"), data_parallel=1, spatial_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="needs 2 ranks, only 1 available"):
         t_e2e.train_end_to_end(cfg_dir, device="cpu")
 
 

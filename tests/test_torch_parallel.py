@@ -22,6 +22,15 @@ cancelling terms such as the lattice GAT's ``a_dst``) to 3e-5 of a leaf
 and more. The f32 data-parallel step is held against JAX's step on a
 data-4 virtual mesh at ``tests/test_torch_train.py``'s tolerances, and the
 trainers' f32 runs at world size 1 against the runs without a group.
+
+Spatial-parallel training has its own fixture and groups (4 and 2 ranks,
+each with its own time limit): the halo exchange under autograd against
+its transpose and against ``jax.vjp`` of JAX's ``halo_exchange_rows``; the
+sharded convs' gradients; the train-mode sharded U-Net; both train steps
+with a spatial axis against the one-process steps in f64 at ``DP_TOL``
+(the cuDNN-style sites sum a shard's two edge rows in another order, so
+they are not bit-equal), the f32 segmentation step against JAX's H-sharded
+step; and both trainers under ``spatial_parallel: 2``.
 """
 
 import dataclasses
@@ -33,6 +42,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from jax import shard_map
+from jax.sharding import PartitionSpec as P
 
 from mingraph_unet_tpu.config import PipelineConfig as JaxPipelineConfig
 from mingraph_unet_tpu.ops import s2d as jax_s2d
@@ -61,6 +73,8 @@ from torch_parallel_workers import e2e_cfg, run_checks, seg_cfg, train_step
 DP_TOL = 1e-5
 VAL_TOL, GRAD_TOL = 2e-4, 1e-3  # against JAX (tests/test_torch_train.py)
 JOB_TIMEOUT = {4: 150, 2: 120, 1: 90}  # seconds each group of ranks may take
+SPATIAL_TIMEOUT = {4: 150, 2: 120}  # the spatial-training groups' own limits
+F64_TOL = 1e-9  # the f64 train-mode sharded U-Net against the unsharded one, of each leaf's largest value
 
 
 def _np_tree(tree):
@@ -441,15 +455,20 @@ def test_spatial_sharded_apply_conv_matches_jax(runs):
 
 
 def test_sharded_forward_refuses_what_it_cannot_shard():
+    """Shard heights off the rule raise, in eval and in train mode; a train
+    forward on one shard (no row exchanged, every site its unsharded op) is
+    the unsharded train forward bit for bit."""
     mesh = t_mesh.make_mesh()
     model = _unet(UNET_CASES["depth2"][0], seed=3)
-    with pytest.raises(ValueError, match="multiple of 2\\^\\(depth \\+ 1\\)"):
-        model(torch.zeros((1, 12, 16, 3)), spatial=t_spatial.SpatialShard(mesh, 0, 12))
-    with pytest.raises(ValueError, match="do not make the scene"):
-        model(torch.zeros((1, 16, 16, 3)), spatial=t_spatial.SpatialShard(mesh, 0, 32))
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        model(torch.zeros((1, 16, 16, 3)), spatial=t_spatial.SpatialShard(mesh, 0, 16))
+    for train in (False, True):
+        model.train(train)
+        with pytest.raises(ValueError, match="multiple of 2\\^\\(depth \\+ 1\\)"):
+            model(torch.zeros((1, 12, 16, 3)), spatial=t_spatial.SpatialShard(mesh, 0, 12))
+        with pytest.raises(ValueError, match="do not make the scene"):
+            model(torch.zeros((1, 16, 16, 3)), spatial=t_spatial.SpatialShard(mesh, 0, 32))
+    x = torch.from_numpy(_scene((2, 16, 16, 3), 9))
+    assert model.training
+    assert torch.equal(model(x, spatial=t_spatial.SpatialShard(mesh, 0, 16))["logits"], model(x)["logits"])
     spatial2 = t_mesh.Mesh((1, 1, 2), (0, 0, 0))
     with pytest.raises(ValueError, match="equal shards"):
         t_spatial.spatial_sharded_apply(lambda x, spatial: x, torch.zeros((1, 9, 4, 3)), spatial2)
@@ -510,37 +529,49 @@ def test_data_parallel_segmentation_step_matches_one_process(runs, case):
         _check_leaves(got, ref, _feeds_bn, seg_cfg(**SEG_CFG).training.learning_rate)
 
 
-def test_data_parallel_segmentation_step_matches_jax(runs):
-    """The data-4 step (no augmentation) against the JAX trainer's step on a
-    data-4 virtual mesh, at tests/test_torch_train.py's tolerances."""
-    imgs, masks = runs["seg_batch"]
+def _check_against_jax_step(runs, mesh, imgs, masks, spatial, got, exact=None):
+    """Each rank's f32 step without augmentation (``got``) against the JAX
+    trainer's step on the virtual ``mesh`` (the batch sharded over H too
+    with ``spatial``), at tests/test_torch_train.py's tolerances. With
+    ``exact`` (the parameters after the f64 one-process step), a leaf's
+    tolerance also takes JAX's own distance from it: the port is not held
+    closer to JAX's f32 step than that step is to the exact one."""
     jcfg = JaxPipelineConfig()
     jcfg.model.unet = dataclasses.replace(jcfg.model.unet, init_features=SEG_CFG["init"], depth=2)
     jcfg.training = dataclasses.replace(jcfg.training, optimizer="sgd")
     jm = jax_seg.build_unet(jcfg)
     tx, _ = jax_common.make_optimizer(jcfg.training, 1)
     variables = runs["seg_vars"]
-    mesh = jax_mesh.make_mesh(4, 1)
     with mesh, jax.default_matmul_precision("highest"):
         jstate, jmetrics = jax.jit(jax_seg.make_train_step(jm, tx, jcfg, augment=False))(
-            jax_common.TrainState.create(variables, tx), jax_mesh.shard_batch(jnp.asarray(imgs), mesh),
-            jax_mesh.shard_batch(jnp.asarray(masks), mesh), jax.random.key(0))
+            jax_common.TrainState.create(variables, tx), jax_mesh.shard_batch(jnp.asarray(imgs), mesh, spatial),
+            jax_mesh.shard_batch(jnp.asarray(masks), mesh, spatial), jax.random.key(0))
     ref_p = variables_from_jax({"params": _np_tree(jstate.params)})
     start = variables_from_jax({"params": _np_tree(variables["params"])})
     ref_s = variables_from_jax({"batch_stats": _np_tree(jstate.batch_stats)})
-    for got in runs["pick"](4, "train_step", sorted(SEG_CASES).index("f32_data4_jax")):
+    for res in got:
         for k in ("loss", "ce", "dice"):
-            assert abs(got["metrics"][k] - float(jmetrics[k])) <= VAL_TOL * abs(float(jmetrics[k])), k
+            assert abs(res["metrics"][k] - float(jmetrics[k])) <= VAL_TOL * abs(float(jmetrics[k])), k
         top = max(np.abs(r.numpy() - start[n].numpy()).max() for n, r in ref_p.items())
         for n, r in ref_p.items():
-            upd, upd_ref = got[f"param:{n}"] - start[n].numpy(), r.numpy() - start[n].numpy()
+            upd, upd_ref = res[f"param:{n}"] - start[n].numpy(), r.numpy() - start[n].numpy()
             # A bias that feeds BN has a zero gradient in exact arithmetic:
             # its update is rounding noise, held to the largest update.
             scale = top if _feeds_bn(n) else np.abs(upd_ref).max()
             tol = GRAD_TOL * scale + 2 * np.spacing(np.abs(r.numpy())).max()
+            if exact is not None:
+                tol += np.abs(r.numpy() - exact[f"param:{n}"]).max()
             assert np.abs(upd - upd_ref).max() <= tol, n
         for n, r in ref_s.items():
-            assert np.abs(got[f"stat:{n}"] - r.numpy()).max() <= VAL_TOL * np.abs(r.numpy()).max(), n
+            assert np.abs(res[f"stat:{n}"] - r.numpy()).max() <= VAL_TOL * np.abs(r.numpy()).max(), n
+
+
+def test_data_parallel_segmentation_step_matches_jax(runs):
+    """The data-4 step (no augmentation) against the JAX trainer's step on a
+    data-4 virtual mesh, at tests/test_torch_train.py's tolerances."""
+    imgs, masks = runs["seg_batch"]
+    _check_against_jax_step(runs, jax_mesh.make_mesh(4, 1), imgs, masks, spatial=False,
+                            got=runs["pick"](4, "train_step", sorted(SEG_CASES).index("f32_data4_jax")))
 
 
 @pytest.mark.parametrize("case", sorted(E2E_CASES))
@@ -591,13 +622,15 @@ def test_trainers_at_world_size_1_equal_the_trainers_without_a_group(runs, train
 
 
 def test_train_steps_refuse_a_spatial_mesh():
+    """A spatial axis without process groups has no one to exchange rows
+    with: both step factories raise, never running the unsharded step."""
     spatial2 = t_mesh.Mesh((1, 1, 2), (0, 0, 0))
     cfg = seg_cfg(**SEG_CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="needs the mesh's process groups"):
         t_seg.make_train_step(cfg, mesh=spatial2)
     ecfg = e2e_cfg(balance="none")
     model = t_e2e.build_mingraph_unet(ecfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="needs the mesh's process groups"):
         t_e2e.make_e2e_train_step(model, torch.optim.SGD(model.parameters(), lr=0.1), ecfg, mesh=spatial2)
 
 
@@ -637,3 +670,264 @@ def test_batch_loader_gives_each_rank_its_slice_in_epoch_order():
         np.testing.assert_array_equal(np.concatenate([parts[0][n], parts[1][n]]), batch)
     with pytest.raises(ValueError, match="equal full slices"):
         BatchLoader(Items(), 3, shard=(0, 2))
+
+
+# ---------------------------------------------------------------------------
+# Spatial-parallel training
+# ---------------------------------------------------------------------------
+
+_r21 = np.random.default_rng(21)
+HALO_T = {h: (_r21.standard_normal((2, 16, 5, 3)), _r21.standard_normal((2, 4 * (4 + 2 * h), 5, 3))) for h in (1, 2)}
+_r22 = np.random.default_rng(22)
+CONV_T = tuple(_r22.standard_normal(s) for s in ((2, 32, 16, 3), (3, 3, 3, 5), (5,), (2, 32, 16, 5)))
+_r23 = np.random.default_rng(23)
+PS_T = (_r23.standard_normal((2, 16, 5, 64)).astype(np.float32),
+        (_r23.standard_normal((3, 3, 16, 16)) * 0.2).astype(np.float32),
+        _r23.standard_normal((2, 16, 5, 64)).astype(np.float32))
+# (U-Net case, data, spatial): depth 2 on 4 shards of 8 rows and on data 2 x spatial 2; depth 3 (a
+# standard encoder level and decoder block too) on 4 shards of 16 rows.
+UNET_TRAIN = {"depth2_sp4": ("depth2", 1, 4), "depth2_dp2_sp2": ("depth2", 2, 2), "depth3_sp4": ("depth3", 1, 4)}
+UNET_TRAIN_COT = {k: _scene(UNET_CASES[k][1][:3] + (2,), 31) for k in UNET_CASES}
+# Spatial segmentation steps on 4 ranks: (data, spatial, augmentation, dtype).
+SP_SEG = {"f64_sp4": (1, 4, True, "float64"), "f64_dp2_sp2": (2, 2, True, "float64"),
+          "f32_dp2_sp2_jax": (2, 2, False, "float32")}
+
+
+def _unet64(case):
+    """The U-Net of ``UNET_CASES[case]`` in f64, seeded, train mode."""
+    return UNet(torch.Generator().manual_seed(3), **UNET_CASES[case][0], dtype=torch.float64).double().train()
+
+
+@pytest.fixture(scope="module")
+def spatial_runs(tmp_path_factory):
+    """The spatial-training checks: a 4-rank group and a 2-rank group (the
+    trainers under ``spatial_parallel: 2``), each with its own limit."""
+    seg_state, seg_vars = _seg_start()
+    seg_imgs, seg_masks = _seg_batch()
+    e2e_state = _e2e_start()
+    four = [("halo_transpose", {"x": x, "cot": c, "halo": h}) for h, (x, c) in sorted(HALO_T.items())]
+    four += [("sharded_conv_grad", dict(zip(("x", "k", "bias", "cot"), CONV_T))),
+             ("psconv_halo_train", dict(zip(("x", "k", "cot"), PS_T)))]
+    for k in sorted(UNET_TRAIN):
+        case, dp, sp = UNET_TRAIN[k]
+        four.append(("sharded_unet_train", dict(unet_state=_state(_unet64(case)), unet_args=UNET_CASES[case][0],
+                                                x=_scene(UNET_CASES[case][1], 9), cot=UNET_TRAIN_COT[case], dp=dp,
+                                                sp=sp)))
+    for k in sorted(SP_SEG):
+        dp, sp, augment, dtype = SP_SEG[k]
+        four.append(("train_step", dict(kind="seg", state=seg_state, cfg_args=SEG_CFG, imgs=seg_imgs, masks=seg_masks,
+                                        dtype=dtype, seed=4, dp=dp, sp=sp, augment=augment)))
+    e2e_imgs, e2e_masks = _e2e_batch(True)
+    four.append(("train_step", dict(kind="e2e", state=e2e_state, cfg_args={}, imgs=e2e_imgs, masks=e2e_masks,
+                                    dtype="float64", seed=7, dp=2, sp=2)))
+    dirs = _dummy_runs(str(tmp_path_factory.mktemp("spatial")))
+    for key in ("seg", "e2e"):
+        path = os.path.join(dirs[key, "gloo"], "training.yaml")
+        text = open(path).read()
+        assert "spatial_parallel: 1" in text
+        open(path, "w").write(text.replace("spatial_parallel: 1", "spatial_parallel: 2"))
+    two = [("trainers", {"seg_dir": dirs["seg", "gloo"], "e2e_dir": dirs["e2e", "gloo"]})]
+    results = {w: run_checks(checks, w, SPATIAL_TIMEOUT[w]) for w, checks in ((4, four), (2, two))}
+
+    def pick(world, name, index=0):
+        position = [i for i, (n, _) in enumerate({4: four, 2: two}[world]) if n == name][index]
+        out = [rank_results[position] for rank_results in results[world]]
+        for res in out:
+            if isinstance(res, dict) and "error" in res:
+                pytest.fail(f"{name} failed on a rank:\n{res['error']}")
+        return out
+
+    return dict(pick=pick, seg_state=seg_state, seg_vars=seg_vars, seg_batch=(seg_imgs, seg_masks),
+                e2e_state=e2e_state, e2e_batch=(e2e_imgs, e2e_masks), dirs=dirs)
+
+
+@pytest.mark.parametrize("halo", [1, 2])
+def test_halo_rows_backward_is_the_transpose_of_the_exchange(spatial_runs, halo):
+    """Over 4 ranks, ⟨A x, c⟩ = ⟨x, Aᵀ c⟩ for the exchange A (each shard
+    extended by its neighbours' rows, zeros at the borders) and the
+    backward Aᵀ, summed over the ranks."""
+    got = spatial_runs["pick"](4, "halo_transpose", halo - 1)
+    fwd, bwd = sum(g["fwd"] for g in got), sum(g["bwd"] for g in got)
+    assert abs(fwd - bwd) <= 1e-12 * max(abs(fwd), 1.0), (fwd, bwd)
+
+
+@pytest.mark.parametrize("halo", [1, 2])
+def test_halo_rows_matches_jax_vjp_of_halo_exchange_rows(spatial_runs, halo):
+    """The extended blocks and the gradient against ``jax.vjp`` of JAX's
+    ``halo_exchange_rows`` (``ppermute``) in ``shard_map`` on a spatial-4
+    virtual mesh: JAX's transpose is the reverse ``ppermute``."""
+    x, cot = HALO_T[halo]
+    with jax.enable_x64(True):
+        spec = P(None, "spatial", None, None)
+        fn = shard_map(lambda xl: jax_halo.halo_exchange_rows(xl, halo), mesh=jax_mesh.make_mesh(1, 4),
+                       in_specs=spec, out_specs=spec)
+        block, vjp = jax.vjp(fn, jnp.asarray(x))
+        (dx,) = vjp(jnp.asarray(cot))
+        block, dx = np.asarray(block), np.asarray(dx)
+    got = spatial_runs["pick"](4, "halo_transpose", halo - 1)
+    np.testing.assert_array_equal(np.concatenate([g["block"] for g in got], axis=1), block)
+    np.testing.assert_allclose(np.concatenate([g["dx"] for g in got], axis=1), dx, rtol=1e-12, atol=1e-12)
+
+
+def test_sharded_conv2d_same_gradients_match_unsharded(spatial_runs):
+    """``sharded_conv2d_same`` + bias on 4 ranks under autograd: output, dx
+    (stitched), dK and the bias gradient (summed over the ranks) against
+    the unsharded conv's, in f64."""
+    from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+
+    x, k, bias, cot = (torch.from_numpy(a.copy()).requires_grad_() for a in CONV_T)
+    y = conv2d_nhwc(x, k, bias, padding=1)
+    (y * cot).sum().backward()
+    got = spatial_runs["pick"](4, "sharded_conv_grad")
+    for key, ref, parts in (("y", y.detach(), "cat"), ("dx", x.grad, "cat"), ("dk", k.grad, "sum"),
+                            ("db", bias.grad, "sum")):
+        g = np.concatenate([r[key] for r in got], axis=1) if parts == "cat" else sum(r[key] for r in got)
+        assert _rel_err(g, ref.numpy()) <= F64_TOL, key
+
+
+def _psconv_whole(x, k, cot):
+    """``psconv_train`` (K4's Function, its plain forward and dgrad on the
+    CPU) on the whole tensor: y, dx, dK for the cotangent."""
+    xx, kk = torch.from_numpy(x).requires_grad_(), torch.from_numpy(k).requires_grad_()
+    y = t_psconv.psconv_train(xx, kk)
+    (y * torch.from_numpy(cot)).sum().backward()
+    return {"y": y.detach().numpy(), "dx": xx.grad.numpy(), "dk": kk.grad.numpy()}
+
+
+def _check_psconv_shards(parts, ref):
+    """Stitched outputs and dx, dK summed over the shards, against the
+    whole tensor's, f32 at 1e-5 of max (another summation order at the
+    shard edges and in dK)."""
+    assert _rel_err(np.concatenate([p["y"] for p in parts], axis=1), ref["y"]) <= 1e-5
+    assert _rel_err(np.concatenate([p["dx"] for p in parts], axis=1), ref["dx"]) <= 1e-5
+    assert _rel_err(sum(p["dk"] for p in parts), ref["dk"]) <= 1e-5
+
+
+@pytest.mark.parametrize("cuts", [[0, 4, 8, 12, 16], [0, 1, 5, 11, 16]])
+def test_psconv_train_halo_stitches_in_one_process(cuts):
+    """K4 on shards (``psconv_train_halo``, the rows exchanged by hand: x's
+    in the forward, the cotangent's in the backward) against
+    ``psconv_train`` on the whole tensor, equal and uneven shards; and the
+    plain form under ordinary autograd with the halo rows' gradients
+    handed back by hand."""
+    x, k, cot = PS_T
+    assert t_psconv.psel_fits(torch.float32, 16, 16)
+    ref = _psconv_whole(x, k, cot)
+    xt, ct = torch.from_numpy(x), torch.from_numpy(cot)
+    rows = lambda t, a, e: (t[:, a - 1 : a] if a > 0 else None, t[:, e : e + 1] if e < t.shape[1] else None)  # noqa: E731
+    parts = []
+    for a, e in zip(cuts[:-1], cuts[1:]):
+        xs, kk = xt[:, a:e].clone().requires_grad_(), torch.from_numpy(k).requires_grad_()
+        y = t_psconv.psconv_train_halo(xs, *rows(xt, a, e), kk, lambda g, a=a, e=e: rows(ct, a, e))
+        (y * ct[:, a:e]).sum().backward()
+        parts.append({"y": y.detach().numpy(), "dx": xs.grad.numpy(), "dk": kk.grad.numpy()})
+    _check_psconv_shards(parts, ref)
+
+    xx, kk = xt.clone().requires_grad_(), torch.from_numpy(k).requires_grad_()
+    y = torch.cat([t_psconv.psconv_halo_plain(xx[:, a:e], *rows(xx, a, e), kk) for a, e in zip(cuts[:-1], cuts[1:])],
+                  dim=1)
+    (y * ct).sum().backward()
+    assert _rel_err(y.detach().numpy(), ref["y"]) <= 1e-5
+    assert _rel_err(xx.grad.numpy(), ref["dx"]) <= 1e-5 and _rel_err(kk.grad.numpy(), ref["dk"]) <= 1e-5
+
+
+@pytest.mark.parametrize("form", ["function", "plain"])
+def test_psconv_train_halo_over_4_ranks(spatial_runs, form):
+    """K4 on 4 shards over gloo: ``psconv_train_halo`` (its backward
+    exchanges the cotangent's rows) and the plain form over the
+    differentiable exchange, stitched against ``psconv_train``."""
+    x, k, cot = PS_T
+    _check_psconv_shards([g[form] for g in spatial_runs["pick"](4, "psconv_halo_train")], _psconv_whole(x, k, cot))
+
+
+@pytest.mark.parametrize("case", sorted(UNET_TRAIN))
+def test_train_mode_sharded_unet_matches_unsharded(spatial_runs, case):
+    """The train-mode U-Net in f64 through ``spatial_sharded_unet`` (spatial
+    4, or data 2 × spatial 2, BN over batch × spatial) for the loss
+    ⟨logits, cot⟩: logits, the input gradient (each spatial rank's rows),
+    every parameter gradient and the BN running statistics against the
+    one-process train U-Net, at F64_TOL of each leaf's largest value; a
+    bias that feeds BN (zero gradient in exact arithmetic) against the
+    largest gradient."""
+    unet_case, dp, sp = UNET_TRAIN[case]
+    model = _unet64(unet_case)
+    x = torch.from_numpy(_scene(UNET_CASES[unet_case][1], 9)).requires_grad_()
+    logits = model(x)["logits"]
+    (logits * torch.from_numpy(UNET_TRAIN_COT[unet_case])).sum().backward()
+    ref = {f"grad:{n}": p.grad.numpy() for n, p in model.named_parameters()}
+    ref.update({f"stat:{n}": b.numpy() for n, b in model.named_buffers()})
+    top = max(np.abs(v).max() for k, v in ref.items() if k.startswith("grad:"))
+    got = spatial_runs["pick"](4, "sharded_unet_train", sorted(UNET_TRAIN).index(case))
+    nb = x.shape[0] // dp
+    for r, g in enumerate(got):
+        b = r // sp
+        assert _rel_err(g["logits"], logits.detach().numpy()[b * nb : (b + 1) * nb]) <= F64_TOL
+        for k, v in ref.items():
+            scale = top if _feeds_bn(k.split(":", 1)[1]) and k.startswith("grad:") else np.abs(v).max()
+            assert np.abs(g[k] - v).max() <= F64_TOL * scale, k
+    for b in range(dp):
+        dx = sum(got[b * sp + s]["dx"] for s in range(sp))
+        assert _rel_err(dx, x.grad.numpy()[b * nb : (b + 1) * nb]) <= F64_TOL
+
+
+@pytest.mark.parametrize("case", [c for c in sorted(SP_SEG) if c.startswith("f64")])
+def test_spatial_segmentation_step_matches_one_process(spatial_runs, case):
+    """One segmentation step on 4 ranks with a spatial axis (spatial 4, or
+    data 2 × spatial 2), augmentation on, f64, against the one-process
+    step: CE + Dice, every gradient, the SGD update, the BN statistics."""
+    dp, sp, augment, dtype = SP_SEG[case]
+    imgs, masks = spatial_runs["seg_batch"]
+    ref = _one_process("seg", spatial_runs["seg_state"], imgs, masks,
+                       dict(cfg_args=SEG_CFG, dtype=dtype, seed=4, augment=augment))
+    for got in spatial_runs["pick"](4, "train_step", sorted(SP_SEG).index(case)):
+        _check_leaves(got, ref, _feeds_bn, seg_cfg(**SEG_CFG).training.learning_rate)
+
+
+def test_spatial_segmentation_step_matches_jax(spatial_runs):
+    """The f32 data 2 × spatial 2 step (no augmentation) against the JAX
+    trainer's step on a ``make_mesh(2, 2)`` virtual mesh with the batch
+    sharded over H as well (``shard_batch(..., spatial=True)``), at
+    tests/test_torch_train.py's tolerances, each widened by the distance
+    of JAX's step from the f64 one-process step. That distance matters at
+    one leaf: decoder block0's bn1 bias, whose gradient is a sum of
+    cancelling terms, is 3.4e-3 of its update away from f64 in JAX's f32
+    step on this mesh (and unsharded), 1.8e-6 in its data-4 step and
+    5e-7 in the port's f32 steps."""
+    imgs, masks = spatial_runs["seg_batch"]
+    exact = _one_process("seg", spatial_runs["seg_state"], imgs, masks,
+                         dict(cfg_args=SEG_CFG, dtype="float64", seed=4, augment=False))
+    _check_against_jax_step(spatial_runs, jax_mesh.make_mesh(2, 2), imgs, masks, spatial=True,
+                            got=spatial_runs["pick"](4, "train_step", sorted(SP_SEG).index("f32_dp2_sp2_jax")),
+                            exact=exact)
+
+
+def test_spatial_e2e_step_matches_one_process(spatial_runs):
+    """One end-to-end step on data 2 × spatial 2 (augmentation, dropout,
+    the uncertainty balancer, detection trained; the second batch rank's
+    images hold no object) in f64 against the one-process step."""
+    imgs, masks = spatial_runs["e2e_batch"]
+    ref = _one_process("e2e", spatial_runs["e2e_state"], imgs, masks, dict(cfg_args={}, dtype="float64", seed=7))
+    assert ref["metrics"]["l_shape"] > 0.0 and "bal_s_l_shape" in ref["metrics"]
+    for got in spatial_runs["pick"](4, "train_step", len(SP_SEG)):
+        _check_leaves(got, ref, _zero_in_exact_arithmetic, e2e_cfg().training.learning_rate)
+
+
+@pytest.mark.parametrize("trainer", ["seg", "e2e"])
+def test_trainers_with_spatial_parallel_2_equal_the_trainers_without_a_group(spatial_runs, trainer):
+    """``train_unet_segmentation`` and ``train_end_to_end`` (two SGD steps)
+    with ``spatial_parallel: 2`` under a 2-rank gloo group end where they
+    end without a group."""
+    got = spatial_runs["pick"](2, "trainers")
+    cfg_dir = spatial_runs["dirs"][trainer, "none"]
+    if trainer == "seg":
+        state, _ = t_seg.train_unet_segmentation(cfg_dir, max_epochs=1, max_steps_per_epoch=2, device="cpu")
+    else:
+        state, _ = t_e2e.train_end_to_end(cfg_dir, max_epochs=1, max_steps_per_epoch=2, device="cpu")
+    ref = _state(state.model)
+    largest = max(np.abs(r).max() for r in ref.values())
+    for rank in got:
+        res = rank[trainer]
+        assert sorted(res) == sorted(ref) and state.step == 2
+        for k, r in ref.items():
+            scale = largest if (_feeds_bn if trainer == "seg" else _zero_in_exact_arithmetic)(k) else np.abs(r).max()
+            assert np.abs(res[k] - r).max() <= DP_TOL * scale, k

@@ -644,8 +644,8 @@ def test_trainer_reduces_loss_on_learnable_task(tmp_path):
 
 
 def test_trainer_refuses_multi_device(tmp_path):
-    """Data parallelism needs the caller's process group (without one the
-    mesh has a single rank), and spatial-parallel training is not ported."""
+    """Data and spatial parallelism need the caller's process group
+    (without one the mesh has a single rank)."""
     cfg_dir = make_dummy_run(str(tmp_path), num_images=2, image_size=(16, 16), batch_size=2)
     path = os.path.join(cfg_dir, "training.yaml")
     text = open(path).read()
@@ -653,7 +653,7 @@ def test_trainer_refuses_multi_device(tmp_path):
     with pytest.raises(ValueError, match="needs 2 ranks, only 1 available"):
         t_seg.train_unet_segmentation(cfg_dir, device="cpu")
     open(path, "w").write(text.replace("spatial_parallel: 1", "spatial_parallel: 2"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="needs 2 ranks, only 1 available"):
         t_seg.train_unet_segmentation(cfg_dir, device="cpu")
 
 

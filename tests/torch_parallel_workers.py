@@ -158,6 +158,87 @@ def spatial_apply(unet_state: Dict[str, np.ndarray], unet_args: Dict[str, Any], 
             "conv": _np(t_spatial.gather_rows(conv, mesh))}
 
 
+def halo_transpose(x: np.ndarray, cot: np.ndarray, halo: int) -> Dict[str, Any]:
+    """:func:`halo_rows` on a (1, world) mesh under autograd: this shard
+    extended by its halo rows (JAX's ``halo_exchange_rows`` block), the
+    gradient of ⟨block, cot's block⟩ in the shard, and both sides of the
+    transpose identity ⟨A x, c⟩ = ⟨x, Aᵀ c⟩ as this rank's terms."""
+    n = dist.get_world_size()
+    mesh = t_mesh.make_mesh(1, n)
+    xl = t_mesh.shard_batch(torch.from_numpy(x), mesh, spatial=True).clone().requires_grad_()
+    top, bottom = t_halo.halo_rows(xl, halo, mesh)
+    block = torch.cat([top, xl, bottom], dim=1)
+    rows = block.shape[1]
+    c = torch.from_numpy(cot[:, mesh.spatial_index * rows : (mesh.spatial_index + 1) * rows])
+    (dx,) = torch.autograd.grad(block, xl, c)
+    return {"block": _np(block), "dx": _np(dx), "fwd": float((block * c).sum()), "bwd": float((xl * dx).sum())}
+
+
+def sharded_conv_grad(x: np.ndarray, k: np.ndarray, bias: np.ndarray, cot: np.ndarray) -> Dict[str, np.ndarray]:
+    """:func:`sharded_conv2d_same` (+ bias) on a (1, world) mesh under
+    autograd for the cotangent ``cot``: this rank's output rows and the
+    gradients of x's shard, the kernel and the bias (this rank's share)."""
+    mesh = t_mesh.make_mesh(1, dist.get_world_size())
+    rows = lambda a: t_mesh.shard_batch(torch.from_numpy(a), mesh, spatial=True)  # noqa: E731
+    xl = rows(x).clone().requires_grad_()
+    kk, bb = torch.from_numpy(k).requires_grad_(), torch.from_numpy(bias).requires_grad_()
+    y = t_halo.sharded_conv2d_same(xl, kk, mesh, bb)
+    (y * rows(cot)).sum().backward()
+    return {"y": _np(y), "dx": _np(xl.grad), "dk": _np(kk.grad), "db": _np(bb.grad)}
+
+
+def psconv_halo_train(x: np.ndarray, k: np.ndarray, cot: np.ndarray) -> Dict[str, Dict[str, np.ndarray]]:
+    """K4 on a shard of a (1, world) mesh under autograd for ``cot``:
+    ``psconv_train_halo`` (the exchanged x rows, and the cotangent's rows in
+    its backward; its plain forward and dgrad on the CPU) and the plain form
+    over a differentiable exchange (``psconv_halo_plain`` of ``halo_rows``).
+    Each: this rank's output rows, dx of its shard and its dK share."""
+    from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
+
+    mesh = t_mesh.make_mesh(1, dist.get_world_size())
+    rows = lambda a: t_mesh.shard_batch(torch.from_numpy(a), mesh, spatial=True)  # noqa: E731
+    out = {}
+    for form in ("function", "plain"):
+        xl = rows(x).clone().requires_grad_()
+        kk = torch.from_numpy(k).requires_grad_()
+        if form == "function":
+            def exchange(t):
+                return t_halo.halo_exchange_rows(t, 1, mesh)
+
+            y = t_psconv.psconv_train_halo(xl, *exchange(xl), kk, exchange)
+        else:
+            y = t_psconv.psconv_halo_plain(xl, *t_halo.halo_rows(xl, 1, mesh), kk)
+        (y * rows(cot)).sum().backward()
+        out[form] = {"y": _np(y), "dx": _np(xl.grad), "dk": _np(kk.grad)}
+    return out
+
+
+def sharded_unet_train(unet_state: Dict[str, np.ndarray], unet_args: Dict[str, Any], x: np.ndarray,
+                       cot: np.ndarray, dp: int, sp: int) -> Dict[str, Any]:
+    """The train-mode U-Net on a (data ``dp``, spatial ``sp``) mesh through
+    ``spatial_sharded_unet`` (this rank's batch rows, H-sharded over its
+    spatial group, BN over batch × spatial) for the loss ⟨logits, cot⟩:
+    the gathered logits of its batch rows, the input gradient of its batch
+    rows (nonzero in its H rows only), every parameter gradient summed over
+    the mesh, and the BN running statistics."""
+    from mingraph_unet_tpu_torch.models.unet import UNet
+
+    mesh = t_mesh.make_mesh(dp, sp)
+    model = UNet(torch.Generator(), **unet_args, dtype=torch.float64).double()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in unet_state.items()})
+    model.train()
+    xb = t_mesh.shard_batch(torch.from_numpy(x), mesh).clone().requires_grad_()
+    with t_data.data_parallel(mesh, xb.shape[0]):
+        logits = t_spatial.spatial_sharded_unet(model, xb, mesh)["logits"]
+        share = t_data.spatial_share((logits * t_mesh.shard_batch(torch.from_numpy(cot), mesh)).sum())
+    share.backward()
+    t_data.all_reduce_gradients(model.parameters(), mesh)
+    out = {"logits": _np(logits), "dx": _np(xb.grad)}
+    out.update({f"grad:{n}": _np(p.grad) for n, p in model.named_parameters()})
+    out.update({f"stat:{n}": _np(b) for n, b in model.named_buffers()})
+    return out
+
+
 def all_reduce_grad() -> Dict[str, float]:
     """Rank r holds x_r and the loss ℓ_r = (r + 1)·Σx: the global loss is
     Σ_r ℓ_r, so each x_r's gradient is Σ_r (r + 1)."""
@@ -213,14 +294,15 @@ def build_model(kind: str, cfg: PipelineConfig, dtype: str, state: Dict[str, np.
 
 def train_step(kind: str, state: Dict[str, np.ndarray], cfg_args: Dict[str, Any], imgs: np.ndarray,
                masks: np.ndarray, dtype: str, seed: int, dp: int = 0, dcn: int = 1, augment: bool = True,
-               mesh: Any = "auto") -> Dict[str, Any]:
+               mesh: Any = "auto", sp: int = 1) -> Dict[str, Any]:
     """One train step (``kind`` "seg" or "e2e") on this rank's rows of the
-    global batch (``mesh`` "auto": data ``dp`` × dcn ``dcn`` over the
-    process group; None: the whole batch in one process). Returns the
-    metrics and every parameter, gradient and BN statistic after it."""
+    global batch (``mesh`` "auto": data ``dp`` × spatial ``sp`` × dcn
+    ``dcn`` over the process group, the ranks of a spatial group on the
+    same rows; None: the whole batch in one process). Returns the metrics
+    and every parameter, gradient and BN statistic after it."""
     from mingraph_unet_tpu_torch.train import common, end_to_end, segmentation
 
-    mesh = t_mesh.make_mesh(dp, 1, dcn) if mesh == "auto" else mesh
+    mesh = t_mesh.make_mesh(dp, sp, dcn) if mesh == "auto" else mesh
     cfg = seg_cfg(**cfg_args) if kind == "seg" else e2e_cfg(**cfg_args)
     model = t_mesh.replicate(build_model(kind, cfg, dtype, state), mesh) if mesh else build_model(kind, cfg, dtype,
                                                                                                   state)
@@ -238,7 +320,7 @@ def train_step(kind: str, state: Dict[str, np.ndarray], cfg_args: Dict[str, Any]
 
 def trainers(seg_dir: str, e2e_dir: str) -> Dict[str, Any]:
     """Both trainers' entry points for one epoch of two steps, here under
-    the caller's process group."""
+    the caller's process group (the mesh their ``training.yaml`` sets)."""
     from mingraph_unet_tpu_torch.train.end_to_end import train_end_to_end
     from mingraph_unet_tpu_torch.train.segmentation import train_unet_segmentation
 
@@ -249,6 +331,7 @@ def trainers(seg_dir: str, e2e_dir: str) -> Dict[str, Any]:
 
 
 CHECKS = {f.__name__: f for f in (mesh_layout, halo_rows, sharded_conv, sharded_psconv, spatial_apply,
+                                   halo_transpose, sharded_conv_grad, psconv_halo_train, sharded_unet_train,
                                    all_reduce_grad, train_step, trainers)}
 
 
