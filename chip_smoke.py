@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, large-scene serving, segmentation-training,
-end-to-end training, torch.distributed and spatial-parallel training paths
-on one CUDA card and check them.
+end-to-end training, torch.distributed and spatial-parallel training paths,
+and the model options the trainers take, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -163,6 +163,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
    timed beside their bound, the plain version, the library's dense-s2d
    ``F.conv2d`` and the unsharded K4's device time over 4. Every earlier
    path launches K4 on a shard never.
+15. The model options the trainers take, at ``PipelineConfig()`` widths in
+   bf16 at 512² b8: (a) the e2e step with the dense detection head, trained
+   on connected-component ground truth (fast instancing): 3 warm-up and 5
+   timed steps, every term (``l_dense_obj``, ``l_dense_box`` too) finite,
+   K4 4 + 4 and hist-eq 1 a step and K1-K3, K5 never, a non-zero gradient
+   in every leaf of the dense head, a total that falls over 10 steps on a
+   fixed batch, the stencil CC's calls a step and device operations a call;
+   at 128² b2 the card's f32 step against the CPU f64 step that replays its
+   decisions, under fast and exact instancing. (b) Each ablation variant
+   (``ABLATION_VARIANTS``), ``use_fusion=False`` and class scores: 2 steps
+   each, the launches as in (a), a finite, non-zero gradient in every leaf
+   the total reaches. (c) The U-Net without BN: the serving forward
+   (launches psel 4, dec-conv1 2, pool 2, d2s 1, hist-eq 1; batch-1 f32 vs
+   CPU within ``CPU_TOL``) and the segmentation step (K4 4 + 4; 128² b2 vs
+   the CPU f64 step). (d) Remat: one segmentation and one e2e step with
+   ``remat=True`` against the same step without, from the same weights,
+   batch and generator: losses, gradients and BN statistics within 1e-3,
+   the running statistics equal; K4's launches a step and both steps' peak
+   memory and time printed, the segmentation step's peak lower with remat.
+   (e) ``sobel_kernel_size`` 5 and 7 in the serving forward as (c). (f)
+   Phase 14's spatial e2e step at one NCCL rank with the dense head on,
+   against the one-card step within 1e-3. The kernels line gives each
+   kernel's launches on these paths (``launches_options``).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -195,6 +218,7 @@ FORWARD_ITERS, KERNEL_ITERS = 20, 20
 K8_ITERS = 3         # K8's plain version (f32 cuDNN, TF32 off): up to ~27 ms a call
 TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
 E2E_WARMUP, E2E_ITERS = 3, 5
+OPTION_STEPS = 2     # phase 15 (b), (c): steps of each model option
 SCENE_WARMUP, SCENE_ITERS = 2, 10
 DP_ROUNDS, DP_STEPS, DP_PROFILE_STEPS, DP_TOP = 4, 3, 3, 8   # phase 13: data-parallel vs one-card steps
 SPIN_CYCLES = 100_000_000   # ~50 ms of card clock: phase 13's test of whether a collective holds the host
@@ -454,37 +478,39 @@ def _perturb_bn(model, seed: int) -> None:
             buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
 
 
-def _serving_model(dev):
-    """The serving configuration with seeded weights, perturbed BN running
-    statistics, and its seeded batch of images."""
+def _serving_model(dev, **options):
+    """The serving configuration (with the model ``options``) with seeded
+    weights, perturbed BN running statistics, and its seeded batch of
+    images."""
     import torch
 
     from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
 
-    model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, device=dev, seed=0)
+    model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, device=dev, seed=0, **options)
     _perturb_bn(model, seed=1)
     return model, _images(BATCH, SIZE, seed=2).to(dev)
 
 
-def _main_path(dev):
+def _main_path(dev, label: str = "main path", **options):
     """Phase 3: the serving forward through the kernels, then batch-1 card
-    vs CPU. Returns (model, images, launch counts)."""
+    vs CPU (phase 15: with the model ``options``). Returns (model, images,
+    launch counts)."""
     import torch
 
     from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
 
-    model, x = _serving_model(dev)
+    model, x = _serving_model(dev, **options)
 
     _reset_counts()
     out = model(x)
     torch.cuda.synchronize()
     launches = _counts()
-    print(f"[chip_smoke] main path launches: {launches}")
+    print(f"[chip_smoke] {label} launches: {launches}")
     if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
                     "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
                     "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
-        _fail(f"expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4, K7, K8, K9 or sharded K2 launches "
-              f"per forward, got "
+        _fail(f"{label}: expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4, K7, K8, K9 or sharded K2 "
+              f"launches per forward, got "
               f"{launches}")
     expect = {"logits": (BATCH, SIZE, SIZE, 2), "pred_bboxes": (BATCH, 4), "pred_confidence": (BATCH, 1),
               "l_partition": (BATCH,), "soft_assignments": (BATCH, SIZE // 16, SIZE // 16, 2)}
@@ -498,8 +524,8 @@ def _main_path(dev):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     state = {k: v.float().cpu() for k, v in model.state_dict().items()}
-    card = MinGraphUNet(dtype=torch.float32, detection_pre_pool=32, device=dev)
-    cpu = MinGraphUNet(dtype=torch.float32, detection_pre_pool=32, device="cpu")
+    card = MinGraphUNet(dtype=torch.float32, detection_pre_pool=32, device=dev, **options)
+    cpu = MinGraphUNet(dtype=torch.float32, detection_pre_pool=32, device="cpu", **options)
     card.load_state_dict(state)
     cpu.load_state_dict(state)
     x1 = _images(1, SIZE, seed=4)  # both segments populated, top-2 margin ~1e-3 on CPU
@@ -510,7 +536,7 @@ def _main_path(dev):
     soft = o_cpu["soft_assignments"].topk(2, dim=-1).values
     margin = (soft[..., 0] - soft[..., 1]).min().item()
     labels_equal = torch.equal(o_cpu["hard_patch_labels"], o_card["hard_patch_labels"].cpu())
-    print(f"[chip_smoke] batch-1 f32 card vs CPU ({time.perf_counter() - t0:.1f}s): "
+    print(f"[chip_smoke] {label} batch-1 f32 card vs CPU ({time.perf_counter() - t0:.1f}s): "
           f"hard labels equal {labels_equal}, min top-2 margin {margin:.3g}")
     for k in ("logits", "pred_bboxes", "pred_confidence", "l_partition"):
         ref, got = o_cpu[k], o_card[k].cpu()
@@ -520,7 +546,7 @@ def _main_path(dev):
         print(f"[chip_smoke]   {k}: max_abs_err {err:.3g}, tolerance {CPU_TOL} * max|cpu| = "
               f"{CPU_TOL * scale:.3g}: {'ok' if ok else 'FAIL'}")
         if not ok:
-            _fail(f"card and CPU disagree on {k}")
+            _fail(f"{label}: card and CPU disagree on {k}")
     torch.backends.cudnn.allow_tf32 = True
     del card, cpu
     return model, x, launches
@@ -744,15 +770,19 @@ def _grads_finite(model) -> bool:
     return all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
 
-def _train_path(dev):
-    """Phase 5 on the card: the bf16 512² b8 train steps through K4, then
-    the loss on a fixed batch. Returns the launch counts and timings."""
+def _train_path(dev, cfg, label: str, warmup: int, iters: int, fixed: bool = True):
+    """Train the U-Net of ``cfg`` (bf16 512² b8, augmentation) for ``warmup``
+    untimed and ``iters`` timed steps through K4, checking the launches
+    (K4 4 + 4 a step, no other kernel), a finite loss, a finite gradient in
+    every leaf and a non-zero one in every leaf but the conv biases that
+    feed BN, and moved BN statistics (where it has BN); with ``fixed``, the
+    loss then falls on a fixed batch. Returns the launches a step and the
+    timings."""
     import torch
 
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
     from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
 
-    cfg = _train_cfg(SIZE, bf16=True)
     model = build_unet(cfg)
     stats0 = {n: b.clone() for n, b in model.named_buffers()}
     state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
@@ -761,50 +791,51 @@ def _train_path(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
 
     _reset_counts()
-    losses = [step(state, imgs, masks, gen)["loss"] for _ in range(TRAIN_WARMUP)]
+    losses = [step(state, imgs, masks, gen)["loss"] for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for _ in range(TRAIN_ITERS):
+    for _ in range(iters):
         losses.append(step(state, imgs, masks, gen)["loss"])
     end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_ITERS
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / TRAIN_ITERS
+    ms = start.elapsed_time(end) / iters
     launches = _counts()
-    n = TRAIN_WARMUP + TRAIN_ITERS
+    n = warmup + iters
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
-    print(f"[chip_smoke] train main path launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
-    if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": 0,
-                    "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
-                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
-        _fail(f"expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5, K7-K9, sharded K2 "
-              f"or hist-eq, "
-              f"got {launches} over {n} steps")
+    print(f"[chip_smoke] {label} launches over {n} steps: {launches}; losses {[f'{v:.4f}' for v in losses]}")
+    if launches != dict({k: 0 for k in launches}, k4_fwd=4 * n, k4_dgrad=4 * n):
+        _fail(f"{label}: expected K4 forward 4 and dgrad 4 launches per train step and no K1-K3, K5, K7-K9, "
+              f"sharded K2 or hist-eq, got {launches} over {n} steps")
     if not all(math.isfinite(v) for v in losses):
-        _fail("a train step's loss is not finite")
+        _fail(f"{label}: a train step's loss is not finite")
     if not _grads_finite(model):
-        _fail("a parameter has no gradient or a non-finite one")
+        _fail(f"{label}: a parameter has no gradient or a non-finite one")
+    zero = [k for k, p in model.named_parameters() if not (stats0 and _feeds_bn(k)) and not bool(p.grad.ne(0).any())]
+    if zero:
+        _fail(f"{label}: leaves with an all-zero gradient: {zero[:5]}")
     unmoved = [k for k, b in model.named_buffers() if torch.equal(b, stats0[k])]
-    if unmoved:
-        _fail(f"BN running statistics did not move: {unmoved[:5]}")
-    print(f"[chip_smoke] train bf16 {BATCH}x{SIZE}^2: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} images/s, "
-          f"host issue time {host_ms:.3f} ms/step, peak memory {peak:.2f} GiB; all {len(list(model.parameters()))} "
-          f"parameters have finite gradients; all {len(stats0)} BN statistics moved")
-    _profile("train step", lambda: step(state, imgs, masks, gen), ms, steps=3)
-
-    # The same trainer on one fixed batch, without augmentation: the loss falls.
-    del state, model
-    model = build_unet(cfg)
-    state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
-    fixed = make_train_step(cfg, augment=False)
-    fixed_losses = [float(fixed(state, imgs, masks, gen)["loss"]) for _ in range(FIXED_BATCH_STEPS)]
-    print(f"[chip_smoke] fixed batch losses {[f'{v:.4f}' for v in fixed_losses]}")
-    if not fixed_losses[-1] < fixed_losses[0]:
-        _fail(f"the loss did not fall on a fixed batch: {fixed_losses[0]} -> {fixed_losses[-1]}")
+    if unmoved or cfg.model.unet.use_batchnorm != bool(stats0):
+        _fail(f"{label}: BN running statistics did not move: {unmoved[:5]} ({len(stats0)} in all)")
+    print(f"[chip_smoke] {label} train bf16 {BATCH}x{SIZE}^2: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} images/s, "
+          f"host issue time {host_ms:.3f} ms/step, peak memory {peak:.2f} GiB; all "
+          f"{len(list(model.parameters()))} parameters have finite gradients; all {len(stats0)} BN statistics "
+          f"moved")
+    if fixed:
+        _profile(f"{label} step", lambda: step(state, imgs, masks, gen), ms, steps=3)
+        # The same trainer on one fixed batch, without augmentation: the loss falls.
+        del state, model
+        model = build_unet(cfg)
+        state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
+        fixed_step = make_train_step(cfg, augment=False)
+        fixed_losses = [float(fixed_step(state, imgs, masks, gen)["loss"]) for _ in range(FIXED_BATCH_STEPS)]
+        print(f"[chip_smoke] {label} fixed batch losses {[f'{v:.4f}' for v in fixed_losses]}")
+        if not fixed_losses[-1] < fixed_losses[0]:
+            _fail(f"{label}: the loss did not fall on a fixed batch: {fixed_losses[0]} -> {fixed_losses[-1]}")
     del state, model
     torch.cuda.empty_cache()
     return {k: v // n for k, v in launches.items()}, ms, host_ms, peak
@@ -884,7 +915,7 @@ class _Decisions:
         return False
 
 
-def _train_vs_cpu(dev) -> None:
+def _train_vs_cpu(dev, change=None, exact_zero=None, label: str = "train step") -> None:
     """Phase 5, card vs CPU: one f32 train step at batch 2, 128², TF32 off,
     same weights and batch, held against the same step in f64 on the CPU.
     SGD with momentum, so that the update is linear in the gradient: Adam's
@@ -902,23 +933,28 @@ def _train_vs_cpu(dev) -> None:
     |f64|. A conv bias before a train-mode BN has a zero gradient in exact
     arithmetic; its gradient is held to CPU_TOL of the model's largest
     gradient and its update to lr times that. The CPU's f32 step is held to
-    the same limits the same way."""
+    the same limits the same way. Phase 15 passes a config ``change`` (the
+    U-Net without BN, whose biases have no zero gradient: ``exact_zero``)."""
     import torch
 
     from mingraph_unet_tpu_torch.models.unet import UNet
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
     from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
 
+    exact_zero = exact_zero or _feeds_bn
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _train_cfg(128, bf16=False, optimizer="sgd")
+    if change:
+        change(cfg)
     u = cfg.model.unet
     weights = build_unet(cfg, device="cpu").state_dict()
     imgs, masks = _train_batch(2, 128, seed=5, dev="cpu")
 
     def step(where, dtype, decisions):
         if dtype == torch.float64:
-            model = UNet(torch.Generator(), u.in_channels, u.out_channels, u.init_features, u.depth, dtype)
+            model = UNet(torch.Generator(), u.in_channels, u.out_channels, u.init_features, u.depth, dtype,
+                         u.use_batchnorm, u.remat)
             model = model.double().train()
         else:
             model = build_unet(cfg, device=where)
@@ -943,13 +979,13 @@ def _train_vs_cpu(dev) -> None:
             kind, n = key
             err, own = (got[key] - r).abs().max().item(), r.abs().max().item()
             plain_err = (got[key] - plain[key]).abs().max().item() / max(plain[key].abs().max().item(), 1e-30)
-            limit = CPU_TOL * top_grad * (1.0 if kind == "grad" else LR) if _feeds_bn(n) else CPU_TOL * own
-            rows.append((err / limit, kind, n, err / max(own, 1e-30), plain_err, _feeds_bn(n)))
+            limit = CPU_TOL * top_grad * (1.0 if kind == "grad" else LR) if exact_zero(n) else CPU_TOL * own
+            rows.append((err / limit, kind, n, err / max(own, 1e-30), plain_err, exact_zero(n)))
         rows.sort(reverse=True)
         results[name] = (abs(loss - ref_loss) / abs(ref_loss), rows, ref.flips, ref.total)
     torch.cuda.synchronize()
     torch.backends.cudnn.allow_tf32 = True
-    print(f"[chip_smoke] train step f32 vs f64, batch 2, 128^2, TF32 off ({time.perf_counter() - t0:.1f}s): "
+    print(f"[chip_smoke] {label} f32 vs f64, batch 2, 128^2, TF32 off ({time.perf_counter() - t0:.1f}s): "
           f"f64 loss {plain_loss:.9f}")
     for name, (loss_rel, rows, flips, total) in results.items():
         worst_plain = max((r for r in rows if not r[5]), key=lambda r: r[4])
@@ -961,9 +997,9 @@ def _train_vs_cpu(dev) -> None:
             print(f"[chip_smoke]     {share:.3g}  {kind} {n}: {rel:.3g}")
         outside = [(kind, n) for share, kind, n, *_ in rows if not share <= 1.0]
         if loss_rel > CPU_TOL or outside:
-            _fail(f"train step {name} f32 vs f64: loss rel err {loss_rel:.3g}, {len(outside)} leaves outside "
+            _fail(f"{label} {name} f32 vs f64: loss rel err {loss_rel:.3g}, {len(outside)} leaves outside "
                   f"their limit, first {outside[:3]}")
-    print(f"[chip_smoke] train step f32 card and CPU vs f64: loss and all {len(rows)} leaves within their "
+    print(f"[chip_smoke] {label} f32 card and CPU vs f64: loss and all {len(rows)} leaves within their "
           f"limits: ok")
 
 
@@ -1594,32 +1630,36 @@ def _large_scene_vs_cpu(dev) -> None:
 GRAPH_BRANCH = ("patch_gat", "mincut", "region_gat", "feature_consistency_proj", "detection_head")
 
 
-def _e2e_path(dev):
-    """Phase 8 on the card: the bf16 512² b8 end-to-end train steps, then the
-    total loss on a fixed batch. Returns the launch counts per step and the
-    timings."""
+def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: bool = True):
+    """Train the end-to-end model of ``cfg`` (bf16 512² b8, augmentation)
+    for ``warmup`` untimed and ``iters`` timed steps, checking every term of
+    every step is finite, the launches (K4 4 + 4, hist-eq 1 a step, K1-K3,
+    K5, K7-K9 and sharded K2 never), a finite gradient in every leaf and a
+    non-zero one in every leaf the total reaches (all but the exact zeros
+    and the unreached class branch), and moved BN statistics of the U-Net
+    (where it has BN) and the head. Returns the model, its state and step,
+    the batch, the generator, the launches a step and the timings."""
     import torch
 
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
     from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
 
-    cfg = _train_cfg(SIZE, bf16=True)
     model = build_mingraph_unet(cfg)
     stats0 = {n: b.clone() for n, b in model.named_buffers()}
     opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
     state = TrainState(model, opt, sched)
-    step = make_e2e_train_step(model, opt, cfg, augment=True, train_detection=True)
+    step = make_e2e_train_step(model, opt, cfg, augment=True, train_detection=train_detection)
     imgs, masks = _train_batch(BATCH, SIZE, seed=9, dev=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def check(aux, i):
         bad = [k for k, v in aux.items() if not bool(torch.isfinite(v))]
         if bad:
-            _fail(f"end-to-end step {i}: non-finite terms {bad}")
+            _fail(f"{label} step {i}: non-finite terms {bad}")
 
     _reset_counts()
     t0 = time.perf_counter()
-    for i in range(E2E_WARMUP):
+    for i in range(warmup):
         check(step(state, imgs, masks, gen), i)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1628,60 +1668,90 @@ def _e2e_path(dev):
     auxes = []
     t0 = time.perf_counter()
     start.record()
-    for _ in range(E2E_ITERS):
+    for _ in range(iters):
         auxes.append(step(state, imgs, masks, gen))
     end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3 / E2E_ITERS
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / E2E_ITERS
+    ms = start.elapsed_time(end) / iters
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, aux in enumerate(auxes):
-        check(aux, E2E_WARMUP + i)
-    n = E2E_WARMUP + E2E_ITERS
+        check(aux, warmup + i)
+    n = warmup + iters
     launches = _counts()
-    print(f"[chip_smoke] e2e launches over {n} steps: {launches}; last terms "
+    print(f"[chip_smoke] {label} launches over {n} steps: {launches}; last terms "
           f"{ {k: round(float(v), 4) for k, v in auxes[-1].items()} }")
     if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n,
                     "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
                     "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
-        _fail(f"expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, K5, K7-K9 or "
-              f"sharded K2, "
-              f"got {launches} over {n} steps")
+        _fail(f"{label}: expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, K5, "
+              f"K7-K9 or sharded K2, got {launches} over {n} steps")
     if not _grads_finite(model):
-        _fail("an end-to-end parameter has no gradient or a non-finite one")
+        _fail(f"{label}: a parameter has no gradient or a non-finite one")
     # The step gives a leaf the total does not reach a zero gradient (as
     # JAX does), so "has a gradient" proves nothing: every leaf whose
     # gradient is not zero in exact arithmetic must have a non-zero one.
     zero = [n for n, p in model.named_parameters()
-            if not _zero_in_exact_arithmetic(n) and not bool(p.grad.ne(0).any())]
+            if not _zero_in_exact_arithmetic(n) and not _unreached(n, model) and not bool(p.grad.ne(0).any())]
     if zero:
-        _fail(f"end-to-end leaves with an all-zero gradient: {zero[:5]} ({len(zero)} in all)")
-    norms = {m: sum(float(p.grad.float().norm()) for p in getattr(model, m).parameters()) for m in GRAPH_BRANCH}
+        _fail(f"{label}: leaves with an all-zero gradient: {zero[:5]} ({len(zero)} in all)")
+    norms = {m: sum(float(p.grad.float().norm()) for p in getattr(model, m).parameters())
+             for m in GRAPH_BRANCH if hasattr(model, m)}
     unmoved = [k for k, b in model.named_buffers() if torch.equal(b, stats0[k])]
     if unmoved or not any(k.startswith("detection_head.") for k in stats0):
-        _fail(f"BN running statistics did not move: {unmoved[:5]}")
-    print(f"[chip_smoke] e2e train bf16 {BATCH}x{SIZE}^2: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} images/s, "
-          f"host issue time {host_ms:.3f} ms/step, peak memory {peak:.2f} GiB, first {E2E_WARMUP} steps "
+        _fail(f"{label}: BN running statistics did not move: {unmoved[:5]}")
+    print(f"[chip_smoke] {label} train bf16 {BATCH}x{SIZE}^2: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} images/s, "
+          f"host issue time {host_ms:.3f} ms/step, peak memory {peak:.2f} GiB, first {warmup} steps "
           f"{first_s:.1f}s; all {len(list(model.parameters()))} parameters have finite gradients, non-zero but "
-          f"for the exact zeros, graph-branch "
+          f"for the exact zeros and the unreached, graph-branch "
           f"gradient norms { {k: f'{v:.3g}' for k, v in norms.items()} }; all {len(stats0)} BN statistics "
-          f"(U-Net and detection head) moved")
-    _profile("e2e train step", lambda: step(state, imgs, masks, gen), ms, steps=2)
+          f"moved")
+    return dict(model=model, state=state, step=step, imgs=imgs, masks=masks, gen=gen,
+                launches={k: v // n for k, v in launches.items()}, ms=ms, host_ms=host_ms, peak=peak)
 
-    # The same trainer on one fixed batch, without augmentation: the total falls.
-    del state, model, opt, sched, step
-    torch.cuda.empty_cache()
+
+def _e2e_fixed(cfg, imgs, masks, gen, label: str) -> None:
+    """The end-to-end trainer of ``cfg`` on one fixed batch, without
+    augmentation, FIXED_BATCH_STEPS steps: the total must fall."""
+    import torch
+
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
+
     model = build_mingraph_unet(cfg)
     opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
     state = TrainState(model, opt, sched)
     fixed = make_e2e_train_step(model, opt, cfg, augment=False, train_detection=True)
     totals = [float(fixed(state, imgs, masks, gen)["total"]) for _ in range(FIXED_BATCH_STEPS)]
-    print(f"[chip_smoke] e2e fixed batch totals {[f'{v:.4f}' for v in totals]}")
+    print(f"[chip_smoke] {label} fixed batch totals {[f'{v:.4f}' for v in totals]}")
     if not totals[-1] < totals[0]:
-        _fail(f"the end-to-end total did not fall on a fixed batch: {totals[0]} -> {totals[-1]}")
+        _fail(f"{label}: the total did not fall on a fixed batch: {totals[0]} -> {totals[-1]}")
     del state, model, opt, sched, fixed
     torch.cuda.empty_cache()
-    return {k: v // n for k, v in launches.items()}, ms, host_ms, peak
+
+
+def _e2e_path(dev):
+    """Phase 8 on the card: the bf16 512² b8 end-to-end train steps, then the
+    total loss on a fixed batch. Returns the launch counts per step and the
+    timings."""
+    import torch
+
+    cfg = _train_cfg(SIZE, bf16=True)
+    r = _e2e_run(dev, cfg, "e2e", E2E_WARMUP, E2E_ITERS)
+    _profile("e2e train step", lambda: r["step"](r["state"], r["imgs"], r["masks"], r["gen"]), r["ms"], steps=2)
+    imgs, masks, gen = r["imgs"], r["masks"], r["gen"]
+    out = r["launches"], r["ms"], r["host_ms"], r["peak"]
+    del r
+    torch.cuda.empty_cache()
+    _e2e_fixed(cfg, imgs, masks, gen, "e2e")
+    return out
+
+
+def _unreached(name: str, model) -> bool:
+    """A leaf no loss reaches, whose gradient is 0 in JAX as here: the
+    single-box head's class scores (JAX trains no class loss) and, without
+    fusion, the region GAT (its embeddings feed only the fused map)."""
+    return ".fc_class_scores." in name or (not model.use_fusion and name.startswith("region_gat."))
 
 
 def _zero_in_exact_arithmetic(name: str) -> bool:
@@ -1695,7 +1765,7 @@ class _E2EDecisions(_Decisions):
     """``_Decisions`` plus the end-to-end model's other discrete decisions:
     the GAT's leaky-ReLU signs, the MinCut argmax labels and the
     connected-component instance masks (the CC threshold at 0.5 and the
-    instance selection)."""
+    instance selection, under either instancing)."""
 
     def __enter__(self):
         import torch
@@ -1704,8 +1774,8 @@ class _E2EDecisions(_Decisions):
         from mingraph_unet_tpu_torch.ops import cc
 
         super().__enter__()
-        self._saved_e2e = (gat.leaky_relu, torch.argmax, cc.top_instances_dense)
-        leaky, argmax, top_dense = self._saved_e2e
+        self._saved_e2e = (gat.leaky_relu, torch.argmax, cc.top_instances_dense, cc.top_instances)
+        leaky, argmax, top_dense, top_exact = self._saved_e2e
 
         def leaky_d(x, alpha):
             positive = self._decide(x >= 0)
@@ -1714,11 +1784,14 @@ class _E2EDecisions(_Decisions):
         def argmax_d(x, *args, **kwargs):
             return self._decide(argmax(x, *args, **kwargs))
 
-        def top_dense_d(labels, *args, **kwargs):
-            masks, areas = top_dense(labels, *args, **kwargs)
-            return self._decide(masks), areas
+        def top_d(top):
+            def top_decided(labels, *args, **kwargs):
+                masks, areas = top(labels, *args, **kwargs)
+                return self._decide(masks), areas
+            return top_decided
 
-        gat.leaky_relu, torch.argmax, cc.top_instances_dense = leaky_d, argmax_d, top_dense_d
+        gat.leaky_relu, torch.argmax = leaky_d, argmax_d
+        cc.top_instances_dense, cc.top_instances = top_d(top_dense), top_d(top_exact)
         return self
 
     def __exit__(self, *exc):
@@ -1727,11 +1800,11 @@ class _E2EDecisions(_Decisions):
         from mingraph_unet_tpu_torch.models import gat
         from mingraph_unet_tpu_torch.ops import cc
 
-        gat.leaky_relu, torch.argmax, cc.top_instances_dense = self._saved_e2e
+        gat.leaky_relu, torch.argmax, cc.top_instances_dense, cc.top_instances = self._saved_e2e
         return super().__exit__(*exc)
 
 
-def _e2e_vs_cpu(dev) -> None:
+def _e2e_vs_cpu(dev, change=None, label: str = "e2e step") -> None:
     """Phase 8, card vs CPU: one f32 end-to-end step at batch 2, 128², TF32
     off, dropout the identity, SGD with momentum (an update linear in the
     gradient), against the same step in f64 on the CPU that replays the
@@ -1740,7 +1813,8 @@ def _e2e_vs_cpu(dev) -> None:
     shape loss has instances. Every leaf (gradient, updated parameter) must
     lie within CPU_TOL of its own max |f64|; a leaf whose gradient is zero
     in exact arithmetic (or up to f64 rounding) is held to CPU_TOL of the
-    model's largest gradient (and its update to lr times that)."""
+    model's largest gradient (and its update to lr times that). Phase 15
+    passes a config ``change`` (the dense head, exact instancing)."""
     import torch
 
     from mingraph_unet_tpu_torch.models import layers
@@ -1752,6 +1826,8 @@ def _e2e_vs_cpu(dev) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _train_cfg(128, bf16=False, optimizer="sgd")
+    if change:
+        change(cfg)
     weights = build_mingraph_unet(cfg, device="cpu").state_dict()
     weights["unet.decoder.final_conv.kernel"] *= 4.0
     weights["unet.decoder.final_conv.bias"] += torch.tensor([-0.5, 0.5])
@@ -1794,20 +1870,22 @@ def _e2e_vs_cpu(dev) -> None:
         rows.append((err / max(limit, 1e-300), kind, n, err / max(own, 1e-30)))
     rows.sort(reverse=True)
     terms = {k: abs(aux[k] - ref_aux[k]) / max(abs(ref_aux[k]), 1e-30) for k in ref_aux}
-    print(f"[chip_smoke] e2e step f32 card vs f64 CPU, batch 2, 128^2, TF32 off ({time.perf_counter() - t0:.1f}s): "
+    print(f"[chip_smoke] {label} f32 card vs f64 CPU, batch 2, 128^2, TF32 off ({time.perf_counter() - t0:.1f}s): "
           f"f64 terms { {k: round(v, 6) for k, v in ref_aux.items()} }; {ref_dec.flips} of {ref_dec.total} "
           f"decisions replayed against the f64 step's own; worst term rel err {max(terms.values()):.3g}; worst "
           f"leaves, share of limit, error of max |f64 leaf|:")
     for share, kind, n, rel in rows[:5]:
         print(f"[chip_smoke]     {share:.3g}  {kind} {n}: {rel:.3g}")
     if ref_aux["l_shape"] == 0.0 or ref_aux["l_feature"] == 0.0:
-        _fail("the f32-vs-f64 end-to-end step must exercise the shape and feature losses")
+        _fail(f"{label}: the f32-vs-f64 end-to-end step must exercise the shape and feature losses")
+    if "l_dense_obj" in ref_aux and not (ref_aux["l_dense_obj"] > 0.0 and ref_aux["l_dense_box"] > 0.0):
+        _fail(f"{label}: the f32-vs-f64 end-to-end step must exercise both dense terms")
     outside = [(kind, n) for share, kind, n, _ in rows if not share <= 1.0]
     bad_terms = [k for k, v in terms.items() if not v <= CPU_TOL]
     if outside or bad_terms:
-        _fail(f"e2e step f32 card vs f64: terms outside {bad_terms}, {len(outside)} leaves outside their limit, "
+        _fail(f"{label} f32 card vs f64: terms outside {bad_terms}, {len(outside)} leaves outside their limit, "
               f"first {outside[:3]}")
-    print(f"[chip_smoke] e2e step f32 card vs f64: all {len(terms)} terms and {len(rows)} leaves within their "
+    print(f"[chip_smoke] {label} f32 card vs f64: all {len(terms)} terms and {len(rows)} leaves within their "
           f"limits: ok")
 
 
@@ -2268,6 +2346,7 @@ def _spatial_train_path(dev):
     forward and 4 dgrad (hist-eq once in e2e) and K4 itself, K1-K3 never,
     and agree with the one-card step from the same weights, batch and
     generator within 1e-3 (losses, every gradient and BN statistic).
+    Phase 15 (f): the e2e step with the dense head on, the same way.
     Returns each step's launch counts."""
     import socket
 
@@ -2285,10 +2364,11 @@ def _spatial_train_path(dev):
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
     try:
         mesh = pmesh.make_mesh(1, 1)
-        cfg = _train_cfg(SIZE, bf16=True)
         imgs, masks = _train_batch(BATCH, SIZE, seed=5, dev=dev)
         launches = {}
-        for kind, module in (("seg", segmentation), ("e2e", end_to_end)):
+        for kind, module in (("seg", segmentation), ("e2e", end_to_end), ("e2e dense", end_to_end)):
+            cfg = _train_cfg(SIZE, bf16=True)
+            cfg.model.fusion_detection.use_dense_detection = kind == "e2e dense"
             build = segmentation.build_unet if kind == "seg" else end_to_end.build_mingraph_unet
             weights = build(cfg).state_dict()
             sides = {}
@@ -2332,10 +2412,14 @@ def _spatial_train_path(dev):
                     _fail(f"{kind} spatial step: {k} {got_m[k]} against the one-card step's {v}")
             _leaf_check(f"{kind} spatial step (NCCL, 1 rank) vs one card", got_l, ref_l, 1e-3,
                         _feeds_bn if kind == "seg" else _zero_in_exact_arithmetic)
-            one_ms, one_host = _step_ms(one, 3)
-            sp_ms, sp_host = _step_ms(sp, 3)
-            print(f"[chip_smoke] {kind} spatial step (1 rank) {sp_ms:.3f} ms/step (host {sp_host:.3f}) against the "
-                  f"one-card step's {one_ms:.3f} ms (host {one_host:.3f}), bf16 {BATCH}x{SIZE}^2")
+            if kind == "e2e dense":
+                if not (ref_m["l_dense_obj"] > 0.0 and ref_m["l_dense_box"] > 0.0):
+                    _fail(f"{kind} spatial step: the dense terms must be positive, got {ref_m}")
+            else:
+                one_ms, one_host = _step_ms(one, 3)
+                sp_ms, sp_host = _step_ms(sp, 3)
+                print(f"[chip_smoke] {kind} spatial step (1 rank) {sp_ms:.3f} ms/step (host {sp_host:.3f}) against "
+                      f"the one-card step's {one_ms:.3f} ms (host {one_host:.3f}), bf16 {BATCH}x{SIZE}^2")
             launches[kind] = counts
             del sides, one, sp
             torch.cuda.empty_cache()
@@ -2464,6 +2548,188 @@ def _spatial_k4_table(dev, launches):
     return rows
 
 
+# The stage switches of each ablation variant of the JAX package's
+# experiments/ablation_study.py (VARIANT_TOGGLES) but "combined", the
+# default model of phase 8; copied, as this script imports nothing of it.
+ABLATION_VARIANTS = {
+    "mincut_only": {"use_patch_gat": False, "use_partition": True, "use_region_gat": False},
+    "graph_unet_only": {"use_patch_gat": True, "use_partition": False, "use_region_gat": False},
+    "graph_construction": {"use_patch_gat": False, "use_partition": False, "use_region_gat": False},
+    "graph_traversal": {"use_patch_gat": True, "use_partition": True, "use_region_gat": False},
+}
+# Row name of the kernels line → the launch counter it reads.
+ROW_COUNTER = {"psel_conv3x3": "psel", "dec_conv1_fused": "dec1", "phase_max_pool": "pool", "depth_to_space": "d2s",
+               "psconv_fwd": "k4_fwd", "psconv_dgrad": "k4_dgrad", "equalize_channel": "histeq",
+               "wconv3x3_s2d": "wconv", "fused_conv_block": "conv_block", "sharded_psconv": "k9",
+               "dec_conv1_halo": "dec1_halo", "psconv_fwd_halo": "k4_fwd_halo", "psconv_dgrad_halo": "k4_dgrad_halo"}
+
+
+def _dense(cfg) -> None:
+    cfg.model.fusion_detection.use_dense_detection = True
+
+
+def _no_bn(cfg) -> None:
+    cfg.model.unet.use_batchnorm = False
+
+
+def _remat_vs_plain(dev, kind: str):
+    """Phase 15 (d): one bf16 512² b8 train step (``kind`` "seg" or "e2e")
+    of the plain and the rematerialized model from the same weights, batch
+    and generator. Losses, every gradient and BN statistic within 1e-3 of
+    their scale, the BN running statistics equal; K4's launches of each
+    step and both steps' peak memory and time printed; the segmentation
+    step's peak must be lower with remat. Returns the remat step's
+    launches."""
+    import torch
+
+    from mingraph_unet_tpu_torch.train import end_to_end, segmentation
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+
+    build = segmentation.build_unet if kind == "seg" else end_to_end.build_mingraph_unet
+    weights = {k: v.clone() for k, v in build(_train_cfg(SIZE, bf16=True)).state_dict().items()}
+    imgs, masks = _train_batch(BATCH, SIZE, seed=3 if kind == "seg" else 9, dev=dev)
+    sides = {}
+    for remat in (False, True):
+        cfg = _train_cfg(SIZE, bf16=True)
+        cfg.model.unet.remat = remat
+        m = build(cfg)
+        m.load_state_dict(weights)
+        opt, sched = make_optimizer(m.parameters(), cfg.training, steps_per_epoch=1000)
+        state = TrainState(m, opt, sched)
+        step = (segmentation.make_train_step(cfg, augment=True) if kind == "seg"
+                else end_to_end.make_e2e_train_step(m, opt, cfg, augment=True))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        metrics = step(state, imgs, masks, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        leaves = {("grad", n): p.grad.float().clone() for n, p in m.named_parameters()}
+        leaves.update({("stat", n): b.float().clone() for n, b in m.named_buffers()})
+        stats = {n: b.clone() for n, b in m.named_buffers()}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        ms, host_ms = _step_ms(lambda: step(state, imgs, masks, gen), 3)
+        sides[remat] = ({k: float(v) for k, v in metrics.items()}, leaves, stats, counts, peak, ms, host_ms)
+        del m, state, step, opt, sched
+        torch.cuda.empty_cache()
+    (ref_m, ref_l, ref_s, ref_c, ref_peak, ref_ms, ref_host) = sides[False]
+    (got_m, got_l, got_s, got_c, got_peak, got_ms, got_host) = sides[True]
+    label = f"{kind} remat step"
+    print(f"[chip_smoke] {label} launches {got_c} (plain {ref_c})")
+    hist = 0 if kind == "seg" else 1
+    # Remat runs every block's forward again in the backward: K4's forward
+    # twice, its dgrad once.
+    if (ref_c != dict({k: 0 for k in ref_c}, k4_fwd=4, k4_dgrad=4, histeq=hist)
+            or got_c != dict(ref_c, k4_fwd=2 * ref_c["k4_fwd"])):
+        _fail(f"{label}: unexpected launches {got_c} (plain step {ref_c})")
+    for k, v in ref_m.items():
+        if not abs(got_m[k] - v) <= 1e-3 * max(abs(v), 1e-6):
+            _fail(f"{label}: {k} {got_m[k]} against the plain step's {v}")
+    _leaf_check(f"{label} vs the plain step", got_l, ref_l, 1e-3, _feeds_bn if kind == "seg" else
+                _zero_in_exact_arithmetic)
+    unequal = [n for n, b in ref_s.items() if not torch.equal(b, got_s[n])]
+    if unequal:
+        _fail(f"{label}: BN running statistics differ from the plain step's: {unequal[:5]}")
+    print(f"[chip_smoke] {label}: BN running statistics equal to the plain step's ({len(ref_s)}); K4 forward "
+          f"{got_c['k4_fwd']} and dgrad {got_c['k4_dgrad']} launches a step (plain {ref_c['k4_fwd']} + "
+          f"{ref_c['k4_dgrad']}); peak memory {got_peak:.3f} GiB with remat, {ref_peak:.3f} GiB without; "
+          f"{got_ms:.3f} ms/step (host {got_host:.3f}) with remat, {ref_ms:.3f} ms/step (host {ref_host:.3f}) "
+          f"without, bf16 {BATCH}x{SIZE}^2")
+    if kind == "seg" and not got_peak < ref_peak:
+        _fail(f"{label}: peak memory {got_peak:.3f} GiB with remat is not below {ref_peak:.3f} GiB without")
+    return {k: v for k, v in got_c.items()}
+
+
+def _options_path(dev):
+    """Phase 15: the model options the trainers take, at ``PipelineConfig()``
+    widths in bf16 at 512² b8 (see the module docstring). Returns the
+    launches a step (a forward) of each path and the dense-head step's
+    timings."""
+    import torch
+
+    from mingraph_unet_tpu_torch.ops import cc
+
+    launches = {}
+    # (a) The dense head, trained on the CC fallback's ground truth.
+    cfg = _train_cfg(SIZE, bf16=True)
+    _dense(cfg)
+    stencil = cc.label_components_stencil
+    calls = []
+    cc.label_components_stencil = lambda *a, **k: calls.append(1) or stencil(*a, **k)
+    try:
+        r = _e2e_run(dev, cfg, "e2e dense", E2E_WARMUP, E2E_ITERS)
+    finally:
+        cc.label_components_stencil = stencil
+    n = E2E_WARMUP + E2E_ITERS
+    head = {name: float(p.grad.float().norm()) for name, p in r["model"].dense_detection_head.named_parameters()}
+    if not all(v > 0.0 for v in head.values()):
+        _fail(f"e2e dense: the dense head has a zero gradient: {head}")
+    fg = (r["masks"] == 1).to(torch.int32)
+    ops = _device_ops(lambda: stencil(fg), 3)
+    per_call = sum(c for _, _, c in ops)
+    print(f"[chip_smoke] e2e dense: dense head gradient norms { {k: f'{v:.3g}' for k, v in head.items()} }; "
+          f"stencil CC {len(calls) / n:.0f} calls a step (L_shape's and the dense loss's ground truth), "
+          f"{per_call} device operations a call ({', '.join(f'{key[:40]} x{c}' for key, _, c in ops[:3])})")
+    launches["e2e dense"] = r["launches"]
+    dense = dict(ms=r["ms"], host_ms=r["host_ms"], peak=r["peak"], cc_calls=len(calls) / n, cc_ops=per_call)
+    _profile("e2e dense train step", lambda: r["step"](r["state"], r["imgs"], r["masks"], r["gen"]), r["ms"], steps=2)
+    imgs, masks, gen = r["imgs"], r["masks"], r["gen"]
+    del r
+    torch.cuda.empty_cache()
+    _e2e_fixed(cfg, imgs, masks, gen, "e2e dense")
+    _e2e_vs_cpu(dev, _dense, "e2e dense step (fast instancing)")
+
+    def dense_exact(c):
+        _dense(c)
+        c.training.instancing = "exact"
+
+    _e2e_vs_cpu(dev, dense_exact, "e2e dense step (exact instancing)")
+
+    # (b) Each ablation variant, the single-box head without fusion, class scores.
+    variants = {f"e2e {v}": ("ablation", t) for v, t in ABLATION_VARIANTS.items()}
+    variants.update({"e2e no fusion": ("ablation", {"use_fusion": False}),
+                     "e2e class scores": ("dataset", {"num_detection_classes": 2})})
+    for label, (section, toggles) in variants.items():
+        cfg = _train_cfg(SIZE, bf16=True)
+        target = cfg.dataset if section == "dataset" else cfg.model.ablation
+        for k, v in toggles.items():
+            setattr(target, k, v)
+        r = _e2e_run(dev, cfg, label, 1, OPTION_STEPS - 1)
+        launches[label] = r["launches"]
+        del r
+        torch.cuda.empty_cache()
+
+    # (c) The U-Net without BN: the serving forward, the segmentation step.
+    model, _, launches["serving no-BN"] = _main_path(dev, "serving no-BN", use_batchnorm=False)
+    del model
+    torch.cuda.empty_cache()
+    cfg = _train_cfg(SIZE, bf16=True)
+    _no_bn(cfg)
+    launches["seg no-BN"] = _train_path(dev, cfg, "seg no-BN", 1, OPTION_STEPS - 1, fixed=False)[0]
+    _train_vs_cpu(dev, _no_bn, exact_zero=lambda name: False, label="seg no-BN step")
+
+    # (d) Remat against the plain steps.
+    for kind in ("seg", "e2e"):
+        launches[f"{kind} remat"] = _remat_vs_plain(dev, kind)
+
+    # (e) Other Sobel sizes in the serving forward.
+    for k in (5, 7):
+        model, _, launches[f"serving sobel {k}"] = _main_path(dev, f"serving sobel {k}", sobel_kernel_size=k)
+        del model
+        torch.cuda.empty_cache()
+    return launches, dense
+
+
+def _attach_launches(rows, paths) -> None:
+    """Each kernel row gets ``launches_options``: its launches a step (a
+    forward) on each of phase 15's paths."""
+    for row in rows:
+        counter = ROW_COUNTER[row["name"].split(" ")[0]]
+        row["launches_options"] = {path: counts[counter] for path, counts in paths.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -2502,7 +2768,8 @@ def main() -> int:
     del model, x
     torch.cuda.empty_cache()
     scene_launches, scene_ms, scene_host_ms, scene_peak = _large_scene(dev)
-    train_launches, train_ms, train_host_ms, train_peak = _train_path(dev)
+    train_launches, train_ms, train_host_ms, train_peak = _train_path(dev, _train_cfg(SIZE, bf16=True), "train",
+                                                                       TRAIN_WARMUP, TRAIN_ITERS)
     _train_vs_cpu(dev)
     e2e_launches, e2e_ms, e2e_host_ms, e2e_peak = _e2e_path(dev)
     _e2e_vs_cpu(dev)
@@ -2523,13 +2790,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Spatial-parallel training (phase 14): the steps' spatial path, then K4
     # on shards with that path's counts.
-    rows += _spatial_k4_table(dev, _spatial_train_path(dev))
+    spatial_launches = _spatial_train_path(dev)
+    rows += _spatial_k4_table(dev, spatial_launches)
+    # The model options the trainers take (phase 15), (f) in phase 14's group.
+    option_launches, dense = _options_path(dev)
+    option_launches["e2e dense spatial"] = spatial_launches["e2e dense"]
+    _attach_launches(rows, option_launches)
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "
           f"train_host_ms {train_host_ms:.4f} train_peak_gib {train_peak:.3f}")
     print(f"[chip_smoke] e2e_ms {e2e_ms:.4f} e2e_images_per_s {BATCH / e2e_ms * 1e3:.2f} "
           f"e2e_host_ms {e2e_host_ms:.4f} e2e_peak_gib {e2e_peak:.3f}")
+    print(f"[chip_smoke] e2e_dense_ms {dense['ms']:.4f} e2e_dense_host_ms {dense['host_ms']:.4f} "
+          f"e2e_dense_peak_gib {dense['peak']:.3f} stencil_cc_calls_per_step {dense['cc_calls']:.0f} "
+          f"stencil_cc_ops_per_call {dense['cc_ops']}")
     print(f"[chip_smoke] scene_ms {scene_ms:.4f} scene_mpix_per_s {SCENE * SCENE / 1e6 / scene_ms * 1e3:.3f} "
           f"scene_host_ms {scene_host_ms:.4f} scene_peak_gib {scene_peak:.3f}")
     print(card_line)

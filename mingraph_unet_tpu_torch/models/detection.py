@@ -29,6 +29,7 @@ from mingraph_unet_tpu_torch.models.layers import ConvParams, Dense, FoldableBat
 from mingraph_unet_tpu_torch.ops.boxes import cxcywh_to_xyxy, nms
 from mingraph_unet_tpu_torch.ops.cc import _top_k_stable, instance_boxes
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+from mingraph_unet_tpu_torch.parallel.data import batch_mean, global_count
 
 __all__ = ["DetectionHead", "DenseDetectionHead", "decode_dense_detections", "dense_detection_loss"]
 
@@ -152,7 +153,9 @@ def dense_detection_loss(outputs: Dict[str, torch.Tensor], gt_instance_masks: to
     ``outputs`` against ground-truth instance masks (B, O, H, W) (all-zero
     rows pad). Each instance activates the cell holding its box centre
     (cell indices truncated from f32, as JAX's int32 cast), which regresses
-    its (offset, size)."""
+    its (offset, size). Inside ``parallel/data.py::data_parallel`` both
+    terms are this rank's contributions to the global batch's: the BCE's
+    mean over every image's cells, the L1 over every rank's instances."""
     obj_logits = outputs["objectness_logits"]
     pred_boxes = outputs["boxes"]
     b, gh, gw = obj_logits.shape
@@ -169,8 +172,8 @@ def dense_detection_loss(outputs: Dict[str, torch.Tensor], gt_instance_masks: to
             1, cell_flat, has.to(obj_logits.dtype), reduce="amax", include_self=True).reshape(b, gh, gw)
         gt_reg = torch.stack([cx / cell_size - cell_x, cy / cell_size - cell_y,
                               (x1 - x0 + 1.0) / w, (y1 - y0 + 1.0) / h], dim=-1)
-    obj_bce = (torch.clamp(obj_logits, min=0) - obj_logits * tgt + torch.log1p(torch.exp(-obj_logits.abs()))).mean()
+    obj_bce = batch_mean(torch.clamp(obj_logits, min=0) - obj_logits * tgt + torch.log1p(torch.exp(-obj_logits.abs())))
     pred_at_cells = torch.gather(pred_boxes.reshape(b, gh * gw, 4), 1, cell_flat[..., None].expand(*cell_flat.shape, 4))
     l1 = (pred_at_cells - gt_reg.to(pred_at_cells.dtype)).abs().sum(-1)
     has_f = has.to(l1.dtype)
-    return obj_bce, (l1 * has_f).sum() / torch.clamp(has_f.sum(), min=1.0)
+    return obj_bce, (l1 * has_f).sum() / torch.clamp(global_count(has_f.sum()), min=1.0)

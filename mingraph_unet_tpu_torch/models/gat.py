@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -24,7 +25,16 @@ from mingraph_unet_tpu_torch.models import layers
 from mingraph_unet_tpu_torch.models.layers import xavier_uniform
 from mingraph_unet_tpu_torch.ops import lattice as lattice_ops
 
-__all__ = ["fully_connected_adjacency", "DenseGAT", "LatticeGAT", "GATNetwork"]
+__all__ = ["adjacency_from_edge_index", "fully_connected_adjacency", "DenseGAT", "LatticeGAT", "GATNetwork"]
+
+
+def adjacency_from_edge_index(edge_index, num_nodes: int, device=None) -> torch.Tensor:
+    """COO (2, E) edges (row 0 source, row 1 target) → the dense f32 mask
+    ``adj[target, source] = 1``; repeated edges count once."""
+    ei = torch.as_tensor(np.asarray(edge_index), dtype=torch.long, device=device)
+    adj = torch.zeros((num_nodes, num_nodes), device=device)
+    adj[ei[1], ei[0]] = 1.0
+    return adj
 
 
 def fully_connected_adjacency(num_nodes: int, device=None) -> torch.Tensor:

@@ -17,19 +17,41 @@ batch is this rank's rows of a global batch: train-mode BatchNorm takes
 the statistics of the global batch (of every H-shard of it inside
 ``spatial_norm``), and dropout draws the global batch's mask and keeps
 this rank's rows.
+
+Inside :func:`recomputing` (a rematerialized block's recompute in the
+backward) train-mode BatchNorm normalizes as in the forward but leaves its
+running statistics alone: the forward has updated them once, as flax's
+``nn.remat`` does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from contextlib import contextmanager
+from contextvars import ContextVar
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from mingraph_unet_tpu_torch.parallel import data as dp
 
-__all__ = ["lecun_normal", "xavier_uniform", "dropout", "ConvParams", "Dense", "FoldableBatchNorm"]
+__all__ = ["lecun_normal", "xavier_uniform", "dropout", "recomputing", "ConvParams", "Dense", "FoldableBatchNorm"]
+
+_recomputing: ContextVar[bool] = ContextVar("recomputing", default=False)
+
+
+@contextmanager
+def recomputing(ctx: dp.NormContext) -> Iterator[None]:
+    """Within: a recompute of a forward that ran under the norm groups
+    ``ctx`` (``parallel/data.py::norm_context``), which it restores; BN
+    leaves its running statistics alone."""
+    token = _recomputing.set(True)
+    try:
+        with dp.restored(ctx):
+            yield
+    finally:
+        _recomputing.reset(token)
 
 
 def lecun_normal(shape: Sequence[int], fan_in: int, gen: torch.Generator) -> torch.Tensor:
@@ -98,7 +120,8 @@ class FoldableBatchNorm(nn.Module):
     the biased variance ``E[z²] − E[z]²`` (clipped at 0 against rounding,
     as flax does), and the running statistics
     updated as ``0.9·running + 0.1·batch`` (flax's decay, and the biased
-    variance, where ``nn.BatchNorm2d`` keeps the unbiased one). Gradients
+    variance, where ``nn.BatchNorm2d`` keeps the unbiased one), but not in
+    a :func:`recomputing` pass. Gradients
     flow through the batch mean and variance; the output is in z's dtype.
     In data-parallel training the batch is the global one: Σz and Σz² are
     summed over the ranks through a differentiable all-reduce, over the
@@ -132,10 +155,11 @@ class FoldableBatchNorm(nn.Module):
             sums = dp.all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), *groups)
             mean, mean2 = sums / (xf.numel() // xf.shape[-1] * parts)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.MOMENTUM
-            self.mean.copy_(m * self.mean + (1 - m) * mean)
-            self.var.copy_(m * self.var + (1 - m) * var)
+        if not _recomputing.get():
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
         a = self.scale * torch.rsqrt(var + self.epsilon)
         c = self.bias - mean * a
         return x * a.to(x.dtype) + c.to(x.dtype)

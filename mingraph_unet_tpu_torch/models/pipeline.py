@@ -35,9 +35,9 @@ input image only) stay outside autograd. The dtype casts follow JAX's, so
 the same tensors are f32 in a bf16 model (and f64 in an f64 model, a
 reference for the f32 one).
 
-Not ported: Sobel kernels other than 3×3 (``NotImplementedError``).
-Training the dense head, the class scores or an ablated model waits for the
-next slice (``train/end_to_end.py::make_e2e_train_step`` refuses them).
+``use_batchnorm`` and ``remat`` are the U-Net's (``models/unet.py``);
+``sobel_kernel_size`` picks the Sobel patch feature's kernel
+(``ops/filters.py::sobel_patch_mean``).
 
 The parameter tree is flax's (``unet/encoder/block0/conv1/kernel``, ...), so
 ``convert.py`` loads a JAX checkpoint by renaming; an ablation switch that
@@ -122,6 +122,8 @@ class MinGraphUNet(nn.Module):
         use_region_gat: bool = True,
         use_fusion: bool = True,
         in_channels: int = 3,
+        use_batchnorm: bool = True,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
         seed: int = 0,
@@ -129,13 +131,14 @@ class MinGraphUNet(nn.Module):
         super().__init__()
         if num_segments < 2:
             raise ValueError("num_segments must be at least 2 (the region graph needs two nodes)")
-        if sobel_kernel_size != 3:
-            raise NotImplementedError(f"sobel_kernel_size={sobel_kernel_size}: only the 3x3 Sobel is ported")
+        if sobel_kernel_size % 2 == 0 or sobel_kernel_size < 3:
+            raise ValueError(f"sobel_kernel_size={sobel_kernel_size} must be odd and >= 3")
         dev = resolve_device(device)
         self.dtype = dtype
         self.num_classes = num_classes
         self.init_features = init_features
         self.patch_size = patch_size
+        self.sobel_kernel_size = sobel_kernel_size
         self.normalization_mean = tuple(normalization_mean)[:3]
         self.normalization_std = tuple(normalization_std)[:3]
         self.num_segments = num_segments
@@ -147,7 +150,7 @@ class MinGraphUNet(nn.Module):
         self.use_region_gat = use_region_gat
         self.use_fusion = use_fusion
         gen = torch.Generator().manual_seed(seed)
-        self.unet = UNet(gen, in_channels, num_classes, init_features, depth, dtype)
+        self.unet = UNet(gen, in_channels, num_classes, init_features, depth, dtype, use_batchnorm, remat)
         self.patch_feature_proj = Dense(init_features, unet_patch_feature_dim, gen, dtype)
         if use_patch_gat:
             self.patch_gat = GATNetwork(unet_patch_feature_dim + 4, gat_hidden_dim, gat_output_dim, gat_num_heads,
@@ -221,7 +224,7 @@ class MinGraphUNet(nn.Module):
             rgb255 = torch.clamp(
                 denormalize(images[..., :3].float(), self.normalization_mean, self.normalization_std), 0.0, 1.0
             ) * 255.0
-            sobel_patch = filters.sobel_patch_mean(rgb255, p)
+            sobel_patch = filters.sobel_patch_mean(rgb255, p, self.sobel_kernel_size)
             histeq = filters.equalize_histogram_rgb_batched(
                 torch.clamp(torch.round(rgb255), 0, 255).to(torch.uint8)
             ).float()

@@ -4,7 +4,14 @@
 - ``ConvBlock``: (Conv3x3 → BN → ReLU) ×2. ``model.eval()``: BN folded into
   the conv in f32 and the folded weights cast to the compute dtype.
   ``model.train()``: conv + bias → BN over the batch statistics (which
-  updates the running ones) → ReLU, differentiable.
+  updates the running ones) → ReLU, differentiable. ``use_batchnorm=False``
+  drops both BNs (and their parameters): conv + bias → ReLU, the raw
+  weights at every site. ``remat=True`` recomputes each block's train-mode
+  forward in the backward instead of keeping its activations
+  (``torch.utils.checkpoint``, JAX's ``nn.remat`` of every ``ConvBlock``):
+  the recompute restores the norm groups its forward ran under and leaves
+  the BN running statistics alone (``models/layers.py::recomputing``), and
+  it launches the block's kernels (K4) and collectives again.
 - The full-resolution levels 0 and 1 run in 2×2 space-to-depth (s2d)
   layout, phase-major ``(B, H/2, W/2, 4C)``, with the JAX package's
   lowering: conv1 of an encoder level is the windowed stride-2 conv from the
@@ -45,13 +52,15 @@ its statistics over the spatial group as well
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm
+from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm, recomputing
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc, conv_transpose2x2_nhwc
 from mingraph_unet_tpu_torch.ops.kernels.pool import (
@@ -80,9 +89,20 @@ __all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNe
 FusedUp = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x_prev, wt, bias_up)
 
 
+def _remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+    """``fn(*args)`` with its activations recomputed in the backward. The
+    recompute runs after the step's contexts have closed, on the autograd
+    engine's thread: it restores the norm groups this forward runs under
+    and keeps BN from updating its running statistics a second time."""
+    ctx = dp.norm_context()
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing(ctx)))
+
+
 class ConvBlock(nn.Module):
     """(Conv3x3 'SAME' → BN → ReLU) ×2 with the flax tree
-    ``conv{1,2}/{kernel,bias}``, ``bn{1,2}/{scale,bias,mean,var}``."""
+    ``conv{1,2}/{kernel,bias}``, ``bn{1,2}/{scale,bias,mean,var}`` (no
+    ``bn{1,2}`` without BatchNorm)."""
 
     def __init__(
         self,
@@ -90,29 +110,44 @@ class ConvBlock(nn.Module):
         features: int,
         gen: torch.Generator,
         dtype: torch.dtype = torch.float32,
+        use_batchnorm: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.conv1 = ConvParams(in_features, features, (3, 3), gen)
         self.conv2 = ConvParams(features, features, (3, 3), gen)
-        self.bn1 = FoldableBatchNorm(features)
-        self.bn2 = FoldableBatchNorm(features)
+        if use_batchnorm:
+            self.bn1 = FoldableBatchNorm(features)
+            self.bn2 = FoldableBatchNorm(features)
+
+    def _conv_bn(self, i: int) -> Tuple[ConvParams, Optional[FoldableBatchNorm]]:
+        return getattr(self, f"conv{i}"), getattr(self, f"bn{i}", None)
 
     def folded(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(kernel, bias) of conv ``i`` (1 or 2) with its BN folded in, f32."""
-        conv, bn = (self.conv1, self.bn1) if i == 1 else (self.conv2, self.bn2)
+        """(kernel, bias) of conv ``i`` (1 or 2) with its BN folded in, f32
+        (the raw ones without BN)."""
+        conv, bn = self._conv_bn(i)
+        if bn is None:
+            return conv.kernel, conv.bias
         a, c = bn.eval_affine()
         return conv.kernel * a, conv.bias * a + c
 
     def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
         """Standard NHWC path; ``spatial``: x is one H-shard."""
+        if self.training and self.remat:
+            return _remat(self._forward, x, spatial)
+        return self._forward(x, spatial)
+
+    def _forward(self, x: torch.Tensor, spatial) -> torch.Tensor:
         for i in (1, 2):
             if self.training:
-                conv, bn = (self.conv1, self.bn1) if i == 1 else (self.conv2, self.bn2)
+                conv, bn = self._conv_bn(i)
                 x = x.to(self.dtype)
                 z = (conv2d_nhwc(x, conv.kernel, conv.bias, padding=1) if spatial is None
                      else spatial.conv_same(x, conv.kernel, conv.bias))
-                x = torch.relu(bn(z))
+                x = torch.relu(z if bn is None else bn(z))
             else:
                 k, b = self.folded(i)
                 x = x.to(self.dtype)
@@ -128,6 +163,8 @@ class ConvBlock(nn.Module):
         ``dec_conv1_fused`` over [skip ‖ upsample of x_prev]. ``spatial``:
         x is one H-shard, and each conv runs in its sharded form."""
         if self.training:
+            if self.remat:
+                return _remat(self._forward_s2d_train, x, fused_up, spatial)
             return self._forward_s2d_train(x, fused_up, spatial)
         dt = self.dtype
         k, b = self.folded(1)
@@ -154,7 +191,8 @@ class ConvBlock(nn.Module):
 
     def _forward_s2d_train(self, x: torch.Tensor, fused_up: Optional[FusedUp], spatial=None) -> torch.Tensor:
         """Train mode: each conv is bias → BN over (B, H/2, W/2, 4, C), so the
-        statistics are per full-res channel as on the standard path → ReLU.
+        statistics are per full-res channel as on the standard path (no BN
+        without BatchNorm) → ReLU.
         conv1 is differentiable PyTorch (the windowed conv, or the decoder's
         split form with the upsample-bias field, bias included); conv2 is
         ``psconv_train`` (K4) where the tile has an instantiation. On an
@@ -174,17 +212,19 @@ class ConvBlock(nn.Module):
             t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
             preact = dec_conv1_preact if spatial is None else spatial.dec_conv1_train
             x = preact(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
-        x = self._bn_relu_s2d(x, self.bn1)
+        x = self._bn_relu_s2d(x, self._conv_bn(1)[1])
         k = self.conv2.kernel
         if spatial is not None:
             x = spatial.psel_train(x, k)
         else:
             x = (psconv_train if psel_fits(dt, k.shape[2], k.shape[3]) else psconv_train_plain)(x, k)
         x = x + s2d_ops.s2d_vector(self.conv2.bias).to(dt)
-        return self._bn_relu_s2d(x, self.bn2)
+        return self._bn_relu_s2d(x, self._conv_bn(2)[1])
 
     @staticmethod
-    def _bn_relu_s2d(x: torch.Tensor, bn: FoldableBatchNorm) -> torch.Tensor:
+    def _bn_relu_s2d(x: torch.Tensor, bn: Optional[FoldableBatchNorm]) -> torch.Tensor:
+        if bn is None:
+            return torch.relu(x)
         b, hh, ww, z = x.shape
         return torch.relu(bn(x.reshape(b, hh, ww, 4, z // 4)).reshape(b, hh, ww, z))
 
@@ -209,15 +249,16 @@ class UNetEncoder(nn.Module):
     """``depth`` ConvBlock+MaxPool stages and a bottleneck (``block{i}``,
     ``bottleneck``)."""
 
-    def __init__(self, in_channels, init_features, depth, gen, dtype=torch.float32):
+    def __init__(self, in_channels, init_features, depth, gen, dtype=torch.float32, use_batchnorm=True,
+                 remat=False):
         super().__init__()
         self.depth = depth
         self.dtype = dtype
         cin, f = in_channels, init_features
         for i in range(depth):
-            self.add_module(f"block{i}", ConvBlock(cin, f, gen, dtype))
+            self.add_module(f"block{i}", ConvBlock(cin, f, gen, dtype, use_batchnorm, remat))
             cin, f = f, 2 * f
-        self.bottleneck = ConvBlock(cin, f, gen, dtype)
+        self.bottleneck = ConvBlock(cin, f, gen, dtype, use_batchnorm, remat)
 
     def forward(self, x: torch.Tensor, s2d_levels: Sequence[int], spatial=None):
         """Returns ``(skips, bottleneck, skip_s2d, skip_hw)``: ``skips[i]`` is
@@ -248,11 +289,12 @@ class DecoderBlock(nn.Module):
     """ConvTranspose(k2, s2) halving channels → pad to the skip's size →
     concat [skip, up] → ConvBlock (``upsample``, ``conv_block``)."""
 
-    def __init__(self, in_features, skip_features, out_features, up_features, gen, dtype=torch.float32):
+    def __init__(self, in_features, skip_features, out_features, up_features, gen, dtype=torch.float32,
+                 use_batchnorm=True, remat=False):
         super().__init__()
         self.dtype = dtype
         self.upsample = ConvParams(in_features, up_features, (2, 2), gen)
-        self.conv_block = ConvBlock(skip_features + up_features, out_features, gen, dtype)
+        self.conv_block = ConvBlock(skip_features + up_features, out_features, gen, dtype, use_batchnorm, remat)
 
     def forward(self, x_prev: torch.Tensor, x_skip: torch.Tensor, spatial=None) -> torch.Tensor:
         x_up = conv_transpose2x2_nhwc(x_prev.to(self.dtype), self.upsample.kernel, self.upsample.bias)
@@ -277,14 +319,15 @@ class DecoderBlock(nn.Module):
 class UNetDecoder(nn.Module):
     """Upsampling path (``block{j}``, ``final_conv``)."""
 
-    def __init__(self, num_classes, init_features, depth, gen, dtype=torch.float32):
+    def __init__(self, num_classes, init_features, depth, gen, dtype=torch.float32, use_batchnorm=True,
+                 remat=False):
         super().__init__()
         self.depth = depth
         self.dtype = dtype
         prev = init_features * 2**depth
         for j, i in enumerate(reversed(range(depth))):
             out = init_features * 2**i
-            self.add_module(f"block{j}", DecoderBlock(prev, out, out, prev // 2, gen, dtype))
+            self.add_module(f"block{j}", DecoderBlock(prev, out, out, prev // 2, gen, dtype, use_batchnorm, remat))
             prev = out
         self.final_conv = ConvParams(prev, num_classes, (1, 1), gen)
 
@@ -324,15 +367,16 @@ class UNet(nn.Module):
 
     The s2d levels follow from the shape alone: level 0 runs in s2d layout
     when H and W are even, level 1 when ``depth ≥ 2`` and H, W are multiples
-    of 4 (the JAX package's TPU profitability gate is not carried over)."""
+    of 4 (the JAX package's TPU profitability gate is not carried over).
+    ``use_batchnorm`` and ``remat`` apply to every ``ConvBlock``."""
 
     def __init__(self, gen, in_channels=3, num_classes=2, init_features=32, depth=4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_batchnorm=True, remat=False):
         super().__init__()
         self.depth = depth
         self.dtype = dtype
-        self.encoder = UNetEncoder(in_channels, init_features, depth, gen, dtype)
-        self.decoder = UNetDecoder(num_classes, init_features, depth, gen, dtype)
+        self.encoder = UNetEncoder(in_channels, init_features, depth, gen, dtype, use_batchnorm, remat)
+        self.decoder = UNetDecoder(num_classes, init_features, depth, gen, dtype, use_batchnorm, remat)
 
     def s2d_levels(self, h: int, w: int) -> Tuple[int, ...]:
         levels = []

@@ -53,8 +53,8 @@ import torch.distributed as dist
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["AllReduceSum", "BatchShard", "active", "all_reduce_gradients", "all_reduce_metrics", "all_reduce_sum",
-           "batch_mean", "data_parallel", "global_batch", "global_count", "local_rows", "norm_groups", "replicated",
-           "spatial_norm", "spatial_share"]
+           "batch_mean", "data_parallel", "global_batch", "global_count", "local_rows", "norm_context", "norm_groups",
+           "replicated", "restored", "spatial_norm", "spatial_share"]
 
 
 class BatchShard(NamedTuple):
@@ -138,6 +138,30 @@ def norm_groups() -> Tuple[Tuple[Any, ...], int]:
         groups.append(shard.group)
         count *= shard.count
     return tuple(groups), count
+
+
+NormContext = Tuple[Optional[BatchShard], Optional[Tuple[Any, int]]]
+
+
+def norm_context() -> NormContext:
+    """The enclosing :func:`data_parallel` shard and :func:`spatial_norm`
+    group, as :func:`restored` takes them back: a rematerialized block's
+    recompute runs in the backward, outside those contexts and on the
+    autograd engine's thread, and must see the groups its forward saw."""
+    return _shard.get(), _spatial.get()
+
+
+@contextmanager
+def restored(ctx: NormContext) -> Iterator[None]:
+    """Within: the shard and spatial group of :func:`norm_context`'s
+    ``ctx``, whatever encloses this."""
+    shard, spatial = ctx
+    t_shard, t_spatial = _shard.set(shard), _spatial.set(spatial)
+    try:
+        yield
+    finally:
+        _spatial.reset(t_spatial)
+        _shard.reset(t_shard)
 
 
 class AllReduceSum(torch.autograd.Function):

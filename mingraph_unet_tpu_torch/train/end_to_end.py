@@ -6,15 +6,20 @@ on the device, ``MinGraphUNet`` in train mode (K4 at the U-Net's s2d
 conv2s, hist-eq through K6, dropout from the step's generator), and
 
 ``L_total = CE + λ1·L_shape + λ2·L_feature + λ3·L_partition + λ4·L_smooth
-[+ λ5·L_partition_sup] + L_bbox + L_conf``
+[+ λ5·L_partition_sup] + L_bbox + L_conf [+ L_dense_obj + L_dense_box]``
 
 with the JAX trainer's terms: L_feature between the pooled-decoder
 projection and the GAT patch features with patch labels ``y_p`` from the
 ground-truth mask (foreground fraction > 0.5); L_shape per predicted
 instance (connected components of the thresholded foreground probability,
 no gradient through the instancing); L_smooth the TV of the foreground
-probability; the detection head against the mask's union box. A term whose
-weight is 0 is left out. ``loss_balance="uncertainty"`` replaces each
+probability; the detection head against the mask's union box; with the
+dense head (``use_dense_detection``, whether or not detection is trained, as
+in JAX) ``models/detection.py::dense_detection_loss`` against ground-truth
+instances cut from the augmented mask by connected components, without
+gradient (``instancing="fast"``: the stencil CC and the dense top-K;
+``"exact"``: hook-and-jump CC and the exact top-K; ``max_instances`` slots,
+10 pixels at least). A term whose weight is 0 is left out. ``loss_balance="uncertainty"`` replaces each
 active graph term by ``exp(−s)·λ·L + s/2`` with a learnable ``s`` in the
 model's ``loss_balance.log_vars`` (the flax tree's
 ``params/loss_balance/log_vars``), trained by the same optimizer.
@@ -43,10 +48,11 @@ backpropagates 1/S of its total; the gradients are summed over every rank.
 The gathered full-resolution tensors and the heads are held whole on every
 spatial rank.
 
-Not ported (they raise ``NotImplementedError``): COCO instance annotations
-(ROADMAP A5), and training a model with the dense detection head, class
-scores (A3) or an ablation switch off (A2): ``build_mingraph_unet`` builds
-such a model for inference, ``make_e2e_train_step`` refuses it.
+Every model the config builds trains: the dense head, class scores (no
+loss reaches them, as in JAX: the class branch moves by weight decay
+alone), each ablation switch, the U-Net without BatchNorm or
+rematerialized, any odd Sobel size. Not ported (``NotImplementedError``):
+COCO instance annotations (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -62,8 +68,9 @@ from mingraph_unet_tpu_torch.config import PipelineConfig
 from mingraph_unet_tpu_torch.data.dataset import BatchLoader, MangoDataset, device_preprocess_batch
 from mingraph_unet_tpu_torch.device import resolve_device
 from mingraph_unet_tpu_torch.models import losses
+from mingraph_unet_tpu_torch.models.detection import dense_detection_loss
 from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
-from mingraph_unet_tpu_torch.ops.cc import instance_boxes
+from mingraph_unet_tpu_torch.ops import cc
 from mingraph_unet_tpu_torch.ops.patches import patch_reduce_mean
 from mingraph_unet_tpu_torch.parallel.data import (all_reduce_gradients, all_reduce_metrics, batch_mean,
                                                    data_parallel, replicated, spatial_share)
@@ -96,12 +103,12 @@ def mingraph_unet_kwargs(cfg: PipelineConfig) -> Dict[str, Any]:
     m = cfg.model
     if cfg.dataset.annotations_file:
         raise NotImplementedError("COCO instance annotations are not ported yet (ROADMAP A5)")
-    if not m.unet.use_batchnorm or m.unet.remat:
-        raise NotImplementedError("the port's U-Net has BatchNorm and no rematerialization")
     return dict(
         num_classes=m.unet.out_channels,
         init_features=m.unet.init_features,
         depth=m.unet.depth,
+        use_batchnorm=m.unet.use_batchnorm,
+        remat=m.unet.remat,
         patch_size=m.graph_construction.patch_size,
         unet_patch_feature_dim=m.graph_construction.unet_patch_feature_dim,
         sobel_kernel_size=cfg.preprocessing.sobel_kernel_size,
@@ -148,11 +155,24 @@ def gt_union_box(masks: torch.Tensor, foreground_class: int = 1) -> Tuple[torch.
     has-object flag."""
     b, h, w = masks.shape
     fg = masks == foreground_class
-    x_min, y_min, x_max, y_max = instance_boxes(fg).unbind(-1)
+    x_min, y_min, x_max, y_max = cc.instance_boxes(fg).unbind(-1)
     has = fg.any(dim=2).any(dim=1)
     box = torch.stack([(x_min + x_max + 1.0) / 2.0 / w, (y_min + y_max + 1.0) / 2.0 / h,
                        (x_max - x_min + 1.0) / w, (y_max - y_min + 1.0) / h], dim=-1)
     return torch.where(has[:, None], box, torch.zeros_like(box)), has
+
+
+@torch.no_grad()
+def _gt_instances(masks: torch.Tensor, max_instances: int, exact: bool) -> torch.Tensor:
+    """The dense head's ground truth without annotations: the ``max_instances``
+    largest connected components (10 pixels at least) of each mask's
+    foreground, as (B, O, H, W) f32 masks."""
+    fg = (masks == 1).to(torch.int32)
+    if exact:
+        inst, _ = cc.top_instances(cc.label_components(fg), max_instances, min_area=10)
+    else:
+        inst, _ = cc.top_instances_dense(cc.label_components_stencil(fg), max_instances, min_area=10)
+    return inst
 
 
 def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: PipelineConfig,
@@ -164,7 +184,8 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
     returns the step's terms as device scalars: ``total``, ``l_unet_seg``,
     ``l_shape``, ``l_feature``, ``l_partition``, ``l_smooth``, and where
     they apply ``l_partition_sup``, ``bal_s_<term>`` (the log-variance the
-    step used), ``l_bbox`` and ``l_conf``. ``gen``, a ``torch.Generator``
+    step used), ``l_bbox``, ``l_conf``, ``l_dense_obj`` and
+    ``l_dense_box``. ``gen``, a ``torch.Generator``
     on the model's device, draws the augmentation and the dropout masks.
     With a ``mesh`` that has process groups, the images are this rank's
     rows of the global batch (the same rows on every rank of a spatial
@@ -176,11 +197,6 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
     max_instances = cfg.model.fusion_detection.max_instances
     exact_instancing = cfg.training.instancing == "exact"
     balance = cfg.training.loss_balance == "uncertainty"
-    if model.use_dense_detection or model.num_detection_classes > 1:
-        raise NotImplementedError("training the dense detection head or class scores (num_detection_classes > 1) "
-                                  "is not ported yet (ROADMAP A3)")
-    if not (model.use_patch_gat and model.use_partition and model.use_region_gat and model.use_fusion):
-        raise NotImplementedError("training with an ablation switch off is not ported yet (ROADMAP A2)")
     if balance and not isinstance(getattr(model, "loss_balance", None), LossBalance):
         raise ValueError("loss_balance 'uncertainty' needs the model's LossBalance (build_mingraph_unet adds it)")
     spatial = spatial_step(mesh)
@@ -240,6 +256,12 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
                 l_bbox, l_conf = losses.detection_losses(out["pred_bboxes"], out["pred_confidence"], gt_box, has_obj)
                 total = total + l_bbox + l_conf
                 aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
+            if "dense_objectness_logits" in out:
+                l_dense_obj, l_dense_box = dense_detection_loss(
+                    {"objectness_logits": out["dense_objectness_logits"], "boxes": out["dense_boxes"]},
+                    _gt_instances(aug_masks, max_instances, exact_instancing), patch)
+                total = total + l_dense_obj + l_dense_box
+                aux["l_dense_obj"], aux["l_dense_box"] = l_dense_obj, l_dense_box
             aux["total"] = total
             share = spatial_share(total)
 

@@ -57,14 +57,13 @@ Device = Optional[Union[str, torch.device]]
 def build_unet(cfg: PipelineConfig, device: Device = None) -> UNet:
     """The U-Net of ``cfg.model.unet`` in train mode, weights drawn from
     ``cfg.training.seed``, compute dtype bf16 when ``cfg.training.bf16``
-    (parameters stay f32). Its s2d levels follow from the input shape."""
+    (parameters stay f32), with or without BatchNorm and rematerialized as
+    ``cfg.model.unet`` says. Its s2d levels follow from the input shape."""
     u = cfg.model.unet
-    if not u.use_batchnorm or u.remat:
-        raise NotImplementedError("the port's U-Net has BatchNorm and no rematerialization")
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg.training.bf16 else torch.float32
     gen = torch.Generator().manual_seed(cfg.training.seed)
-    model = UNet(gen, u.in_channels, u.out_channels, u.init_features, u.depth, dtype)
+    model = UNet(gen, u.in_channels, u.out_channels, u.init_features, u.depth, dtype, u.use_batchnorm, u.remat)
     return model.to(dev).train()
 
 

@@ -296,11 +296,22 @@ def _orchard_batches(seed, steps=3):
     return out
 
 
+def fast_compile(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` at XLA's CPU optimization level
+    1: the default level's backend passes take most of a small model's
+    compile time (12 s of a train step's, 9 s of an init's) and change
+    nothing here (an init's weights bit-equal, a train step's terms within
+    f32 rounding over three steps; level 0 miscompiles the train step, NaN
+    from its second call)."""
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 1})
+
+
 def _start_variables(jm, jcfg):
     """The JAX model's init, with the final 1×1 conv scaled so that the
     foreground probability crosses 0.5 in blobs (the shape loss then has
     instances) and clear of it elsewhere."""
-    v = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((B, S, S, 3)))
+    args = (jax.random.key(0), jnp.zeros((B, S, S, 3)))
+    v = fast_compile(jm.init, *args)(*args)
     params = jax.tree_util.tree_map(lambda a: a, v["params"])
     fc = params["unet"]["decoder"]["final_conv"]
     fc["kernel"] = fc["kernel"] * 4.0
@@ -316,53 +327,64 @@ E2E_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(E2E_CASES))
-def test_three_e2e_train_steps_match_jax(case, no_dropout, decisions):
-    kw = E2E_CASES[case]
-    jcfg, cfg = _small_cfg(True, **kw), _small_cfg(False, **kw)
+def three_e2e_steps_vs_jax(jcfg, cfg, decisions, train_detection=True, zero_exact=_zero_in_exact_arithmetic,
+                           batch_seed=46, start=_start_variables):
+    """Three ``make_e2e_train_step`` steps of the port against the JAX
+    trainer's from the same start (``_start_variables``) on
+    ``_orchard_batches(batch_seed)``: every term of every step at VAL_TOL,
+    the updates after three steps at GRAD_TOL as ``tests/test_torch_train.py``
+    compares them (``zero_exact``: the leaves whose gradient is zero in
+    exact arithmetic), the BN statistics, the learning-rate schedule, and
+    every discrete decision clear of its kink. ``start(jm, jcfg)`` gives the
+    starting variables. Returns the port's terms of each step."""
     jm = jax_e2e.build_mingraph_unet(jcfg, dtype=jnp.float32)
     tx, _ = jax_common.make_optimizer(jcfg.training, steps_per_epoch=2)
-    variables = _start_variables(jm, jcfg)
+    variables = start(jm, jcfg)
     jstate = jax_common.TrainState.create(variables, tx)
-    jstep = jax.jit(jax_e2e.make_e2e_train_step(jm, tx, jcfg, augment=False))
+    batches = _orchard_batches(batch_seed)
+    with jax.default_matmul_precision("highest"):
+        jstep = fast_compile(jax_e2e.make_e2e_train_step(jm, tx, jcfg, augment=False, train_detection=train_detection),
+                             jstate, jnp.asarray(batches[0][0]), jnp.asarray(batches[0][1]), jax.random.key(0))
 
     model = t_e2e.build_mingraph_unet(cfg, device="cpu")
     load_jax_variables(model, _np_tree(variables))
     opt, sched = t_common.make_optimizer(model.parameters(), cfg.training, steps_per_epoch=2)
     state = t_common.TrainState(model, opt, sched)
-    step = t_e2e.make_e2e_train_step(model, opt, cfg, augment=False)
+    step = t_e2e.make_e2e_train_step(model, opt, cfg, augment=False, train_detection=train_detection)
     argmax = []
-    model.mincut.register_forward_hook(_argmax_margin_hook(argmax))
+    if model.use_partition:
+        model.mincut.register_forward_hook(_argmax_margin_hook(argmax))
     gen = torch.Generator().manual_seed(0)
-    for i, (imgs, masks) in enumerate(_orchard_batches(46)):
-        with jax.default_matmul_precision("highest"):
-            jstate, ref = jstep(jstate, jnp.asarray(imgs), jnp.asarray(masks), jax.random.key(i))
+    terms = []
+    for i, (imgs, masks) in enumerate(batches):
+        jstate, ref = jstep(jstate, jnp.asarray(imgs), jnp.asarray(masks), jax.random.key(i))
         got = step(state, _t(imgs), _t(masks), gen)
         assert sorted(got) == sorted(ref), i
         for k in ref:
             assert _rel_err(got[k], np.asarray(ref[k])) <= VAL_TOL, (i, k)
         assert float(ref["l_shape"]) > 0.0, "the shape loss must see instances"
-        if kw.get("warmup"):
-            assert float(got["total"]) == pytest.approx(
-                float(got["l_unet_seg"] + got["l_bbox"] + got["l_conf"]), rel=1e-6)
-    _check_margins(dict(decisions, argmax=argmax), MARGINS)
+        terms.append(got)
+    kinds = ["relu", "pool", "cc"] + (["leaky"] if model.use_patch_gat or model.use_partition else []) + (
+        ["argmax"] if model.use_partition else [])
+    _check_margins(dict(decisions, argmax=argmax), kinds)
     assert state.step == int(jstate.step) == 3
     assert opt.param_groups[0]["lr"] == pytest.approx(cfg.training.learning_rate * 0.5)
 
     # Updates from the same start, as tests/test_torch_train.py compares them.
     lr = cfg.training.learning_rate
+    adam = cfg.training.optimizer == "adam"
     ref_p = variables_from_jax({"params": _np_tree(jstate.params)})
     start = variables_from_jax({"params": _np_tree(variables["params"])})
     names = [n for n, _ in model.named_parameters()]
     assert sorted(names) == sorted(ref_p)
-    assert ("loss_balance.log_vars" in ref_p) == (kw.get("balance") == "uncertainty")
+    assert ("loss_balance.log_vars" in ref_p) == (cfg.training.loss_balance == "uncertainty")
     for n, p in model.named_parameters():
         upd, upd_ref = p.detach().numpy() - start[n].numpy(), ref_p[n].numpy() - start[n].numpy()
         diff = np.abs(upd - upd_ref)
         tol = GRAD_TOL * np.abs(upd_ref).max() + 2 * np.spacing(np.abs(ref_p[n].numpy())).max()
-        if _zero_in_exact_arithmetic(n):
+        if zero_exact(n):
             assert diff.max() <= 3 * lr, n
-        elif kw["optimizer"] == "adam":
+        elif adam:
             # Adam moves an element by about lr·sign(g) whatever |g|: an
             # element whose gradient is at rounding level may differ by up
             # to lr a step. At most one element, or 0.1%, of a leaf.
@@ -370,14 +392,84 @@ def test_three_e2e_train_steps_match_jax(case, no_dropout, decisions):
             assert far.sum() <= max(1, 1e-3 * far.size) and diff.max() <= 3 * lr, n
         else:
             assert diff.max() <= tol, n
-    if kw.get("psup") and kw.get("balance"):
+    if cfg.model.losses.l_partition_sup_weight and cfg.training.loss_balance == "uncertainty":
         assert np.abs(ref_p["loss_balance.log_vars"].numpy()).min() > 0.0  # every slot in use
     ref_s = variables_from_jax({"batch_stats": _np_tree(jstate.batch_stats)})
     # A running mean takes 0.1 of its conv's bias each step, and under Adam
     # such a bias may differ by up to 3·lr (above): 0.1·(0.9·3 + 3)·lr after
     # the steps that see a moved bias.
-    mean_atol = 0.6 * lr if kw["optimizer"] == "adam" else 0.0
-    for n, buf in model.named_buffers():
+    mean_atol = 0.6 * lr if adam else 0.0
+    bufs = dict(model.named_buffers())
+    assert sorted(bufs) == sorted(ref_s)
+    for n, buf in bufs.items():
         r = ref_s[n].numpy()
         atol = mean_atol if n.endswith(".mean") else 0.0
         assert np.abs(buf.numpy() - r).max() <= VAL_TOL * np.abs(r).max() + atol, n
+    return terms
+
+
+def test_fast_compile_matches_the_default_level(no_dropout):
+    """``fast_compile``, which builds every JAX reference of the parity
+    tests, against ``jax.jit`` at XLA's default level on the same inputs:
+    the init bit for bit, the eval forward at VAL_TOL, and three e2e train
+    steps (SGD, the uncertainty balancer, L_partition_sup): every term of
+    every step and the BN statistics at VAL_TOL, the updates at GRAD_TOL
+    (the leaves whose gradient is zero in exact arithmetic to 3·lr)."""
+    jcfg = _small_cfg(True, **E2E_CASES["sgd_uncertainty_psup"])
+    jm = jax_e2e.build_mingraph_unet(jcfg, dtype=jnp.float32)
+    args = (jax.random.key(0), jnp.zeros((B, S, S, 3)))
+    fast, default = _np_tree(fast_compile(jm.init, *args)(*args)), _np_tree(jax.jit(jm.init)(*args))
+    assert jax.tree_util.tree_structure(fast) == jax.tree_util.tree_structure(default)
+    assert all(np.array_equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(fast),
+                                                    jax.tree_util.tree_leaves(default)))
+
+    variables = _start_variables(jm, jcfg)
+    batches = _orchard_batches(46)
+    x = jnp.asarray(batches[0][0], jnp.float32) / 255.0
+    tx, _ = jax_common.make_optimizer(jcfg.training, steps_per_epoch=2)
+    fn = jax_e2e.make_e2e_train_step(jm, tx, jcfg, augment=False)
+    first = (jax_common.TrainState.create(variables, tx), jnp.asarray(batches[0][0]), jnp.asarray(batches[0][1]),
+             jax.random.key(0))
+    runs = {}
+    with jax.default_matmul_precision("highest"):
+        for name, compiled, apply in (("fast", fast_compile(fn, *first), fast_compile(jm.apply, variables, x)),
+                                      ("default", jax.jit(fn), jax.jit(jm.apply))):
+            state, terms = jax_common.TrainState.create(variables, tx), []
+            for i, (imgs, masks) in enumerate(batches):
+                state, aux = compiled(state, jnp.asarray(imgs), jnp.asarray(masks), jax.random.key(i))
+                terms.append(_np_tree(aux))
+            runs[name] = (_np_tree(apply(variables, x)), terms, state)
+    (out_f, terms_f, state_f), (out_d, terms_d, state_d) = runs["fast"], runs["default"]
+    for a, b in zip(jax.tree_util.tree_leaves(out_f), jax.tree_util.tree_leaves(out_d)):
+        assert _rel_err(a, b) <= VAL_TOL
+    for i, (got, ref) in enumerate(zip(terms_f, terms_d)):
+        assert sorted(got) == sorted(ref), i
+        for k in ref:
+            assert _rel_err(got[k], ref[k]) <= VAL_TOL, (i, k)
+    lr = jcfg.training.learning_rate
+    start = variables_from_jax({"params": _np_tree(variables["params"])})
+    got_p = variables_from_jax({"params": _np_tree(state_f.params)})
+    ref_p = variables_from_jax({"params": _np_tree(state_d.params)})
+    assert sorted(got_p) == sorted(ref_p)
+    for n in ref_p:
+        upd, upd_ref = got_p[n].numpy() - start[n].numpy(), ref_p[n].numpy() - start[n].numpy()
+        diff = np.abs(upd - upd_ref).max()
+        if _zero_in_exact_arithmetic(n):
+            assert diff <= 3 * lr, n
+        else:
+            assert diff <= GRAD_TOL * np.abs(upd_ref).max() + 2 * np.spacing(np.abs(ref_p[n].numpy())).max(), n
+    got_s = variables_from_jax({"batch_stats": _np_tree(state_f.batch_stats)})
+    ref_s = variables_from_jax({"batch_stats": _np_tree(state_d.batch_stats)})
+    assert sorted(got_s) == sorted(ref_s)
+    for n, r in ref_s.items():
+        assert _rel_err(got_s[n], r.numpy()) <= VAL_TOL, n
+
+
+@pytest.mark.parametrize("case", sorted(E2E_CASES))
+def test_three_e2e_train_steps_match_jax(case, no_dropout, decisions):
+    kw = E2E_CASES[case]
+    terms = three_e2e_steps_vs_jax(_small_cfg(True, **kw), _small_cfg(False, **kw), decisions)
+    if kw.get("warmup"):
+        for got in terms:
+            assert float(got["total"]) == pytest.approx(
+                float(got["l_unet_seg"] + got["l_bbox"] + got["l_conf"]), rel=1e-6)

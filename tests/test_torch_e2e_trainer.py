@@ -70,20 +70,35 @@ def test_convert_loads_a_jax_e2e_train_state():
 
 @pytest.mark.parametrize("change,match", [
     (lambda c: setattr(c.dataset, "annotations_file", "ann.json"), "ROADMAP A5"),
-    (lambda c: setattr(c.model.fusion_detection, "use_dense_detection", True), "ROADMAP A3"),
-    (lambda c: setattr(c.dataset, "num_detection_classes", 2), "ROADMAP A3"),
-    (lambda c: setattr(c.model.ablation, "use_region_gat", False), "ROADMAP A2"),
-    (lambda c: setattr(c.preprocessing, "sobel_kernel_size", 5), "Sobel"),
 ])
 def test_build_refuses_what_is_not_ported(change, match):
-    """COCO instances and other Sobel sizes stop the build; the dense head,
-    class scores and the ablation switches build a model for inference,
-    whose end-to-end train step is refused."""
+    """COCO instance annotations stop the build."""
     cfg = _small_cfg(False)
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
-        model = t_e2e.build_mingraph_unet(cfg, device="cpu")
-        t_e2e.make_e2e_train_step(model, torch.optim.SGD(model.parameters(), lr=0.1), cfg)
+        t_e2e.build_mingraph_unet(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    lambda c: setattr(c.model.fusion_detection, "use_dense_detection", True),
+    lambda c: setattr(c.dataset, "num_detection_classes", 2),
+    lambda c: setattr(c.model.ablation, "use_region_gat", False),
+    lambda c: setattr(c.preprocessing, "sobel_kernel_size", 5),
+], ids=["dense_head", "class_scores", "no_region_gat", "sobel5"])
+def test_build_trains_what_it_once_refused(change):
+    """The dense head, class scores, an ablation switch and the 5×5 Sobel
+    build a model whose end-to-end step runs: one step, every term finite
+    (``tests/test_torch_e2e_variants.py`` holds each against JAX)."""
+    cfg = _small_cfg(False)
+    change(cfg)
+    model = t_e2e.build_mingraph_unet(cfg, device="cpu")
+    opt, sched = t_common.make_optimizer(model.parameters(), cfg.training, 1)
+    step = t_e2e.make_e2e_train_step(model, opt, cfg)
+    imgs, masks = _orchard_batches(1, steps=1)[0]
+    aux = step(t_common.TrainState(model, opt, sched), _t(imgs), _t(masks), torch.Generator().manual_seed(0))
+    assert aux and all(bool(torch.isfinite(v)) for v in aux.values())
+    assert ("l_dense_obj" in aux) == cfg.model.fusion_detection.use_dense_detection
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
 
 
 def test_build_follows_the_config():

@@ -30,7 +30,10 @@ sharded convs' gradients; the train-mode sharded U-Net; both train steps
 with a spatial axis against the one-process steps in f64 at ``DP_TOL``
 (the cuDNN-style sites sum a shard's two edge rows in another order, so
 they are not bit-equal), the f32 segmentation step against JAX's H-sharded
-step; and both trainers under ``spatial_parallel: 2``.
+step; and both trainers under ``spatial_parallel: 2``. The model options:
+the e2e step with the dense detection head on data 2 and on spatial 2,
+and the segmentation step with the rematerialized U-Net on spatial 2,
+each against the plain one-process step in f64.
 """
 
 import dataclasses
@@ -117,7 +120,9 @@ PSCONV_X, PSCONV_K, PSCONV_B = _psconv_case(16)
 ODD_X, ODD_K, ODD_B = _psconv_case(12, seed=3, b=2)  # s2d shards of 3 rows: not a multiple of the 4-row tile
 
 UNET_CASES = {"depth2": (dict(in_channels=3, num_classes=2, init_features=4, depth=2), (2, 32, 16, 3)),
-              "depth3": (dict(in_channels=3, num_classes=2, init_features=4, depth=3), (1, 64, 16, 3))}
+              "depth3": (dict(in_channels=3, num_classes=2, init_features=4, depth=3), (1, 64, 16, 3)),
+              "depth2_no_bn": (dict(in_channels=3, num_classes=2, init_features=4, depth=2, use_batchnorm=False),
+                               (2, 32, 16, 3))}
 _r7, _r6 = np.random.default_rng(7), np.random.default_rng(6)
 JAX_CONV_SCENE = _r7.random((1, 64, 64, 3)).astype(np.float32)
 JAX_CONV_K = _r6.random((3, 3, 3, 2)).astype(np.float32)
@@ -183,16 +188,19 @@ def _e2e_batch(empty_rank1: bool, seed=46):
     return np.clip(img, 0, 255).astype(np.uint8), mask
 
 
-def _e2e_start():
+def _e2e_start(dense: bool = False):
+    """The JAX model's start (``_start_variables``) as the port's state;
+    ``dense``: with the dense detection head."""
     jcfg = JaxPipelineConfig()
     jcfg.preprocessing = dataclasses.replace(jcfg.preprocessing, resize_dim=(E2E_S, E2E_S))
     jcfg.model.unet = dataclasses.replace(jcfg.model.unet, init_features=4, depth=2)
     jcfg.model.gat = dataclasses.replace(jcfg.model.gat, hidden_dim=8, output_dim=4, num_heads=2)
     jcfg.model.graph_construction = dataclasses.replace(jcfg.model.graph_construction, patch_size=8,
                                                         unet_patch_feature_dim=4)
+    jcfg.model.fusion_detection = dataclasses.replace(jcfg.model.fusion_detection, use_dense_detection=dense)
     jcfg.training = dataclasses.replace(jcfg.training, loss_balance="uncertainty")
     jm = jax_e2e.build_mingraph_unet(jcfg, dtype=jnp.float32)
-    model = t_e2e.build_mingraph_unet(e2e_cfg(), device="cpu")
+    model = t_e2e.build_mingraph_unet(e2e_cfg(dense=dense), device="cpu")
     return _state(load_jax_variables(model, _np_tree(_start_variables(jm, jcfg))))
 
 
@@ -220,13 +228,14 @@ def runs(tmp_path_factory):
     """Every multi-process check, in three spawned groups (4, 2, 1 ranks)."""
     seg_state, seg_vars = _seg_start()
     seg_imgs, seg_masks = _seg_batch()
-    e2e_state = _e2e_start()
+    e2e_state, dense_state = _e2e_start(), _e2e_start(dense=True)
     unets = {k: _unet(args, seed=3) for k, (args, _) in UNET_CASES.items()}
     four = [("mesh_layout", {}), ("halo_rows", {"x": HALO_X}), ("sharded_conv", {"x": CONV3[0], "k": CONV3[1]}),
             ("sharded_psconv", {"cases": [(m, PSCONV_X, PSCONV_K, PSCONV_B) for m in PSCONV_MESHES]
                                 + [((1, 4), ODD_X, ODD_K, ODD_B)]}),
             ("all_reduce_grad", {})]
-    for k, (args, shape) in UNET_CASES.items():
+    for k in sorted(UNET_CASES):
+        args, shape = UNET_CASES[k]
         four.append(("spatial_apply", {"unet_state": _state(unets[k]), "unet_args": args,
                                        "scene": _scene(shape, 9), "conv_scene": JAX_CONV_SCENE,
                                        "conv_k": JAX_CONV_K}))
@@ -239,6 +248,9 @@ def runs(tmp_path_factory):
         imgs, masks = _e2e_batch(E2E_CASES[k])
         two.append(("train_step", dict(kind="e2e", state=e2e_state, cfg_args={}, imgs=imgs, masks=masks,
                                        dtype="float64", seed=7)))
+    imgs, masks = _e2e_batch(True)
+    two.append(("train_step", dict(kind="e2e", state=dense_state, cfg_args={"dense": True}, imgs=imgs, masks=masks,
+                                   dtype="float64", seed=7)))
     dirs = _dummy_runs(str(tmp_path_factory.mktemp("dummy")))
     one = [("trainers", {"seg_dir": dirs["seg", "gloo"], "e2e_dir": dirs["e2e", "gloo"]})]
     results = {w: run_checks(checks, w, JOB_TIMEOUT[w]) for w, checks in ((4, four), (2, two), (1, one))}
@@ -253,7 +265,7 @@ def runs(tmp_path_factory):
         return out
 
     return dict(pick=pick, seg_state=seg_state, seg_vars=seg_vars, seg_batch=(seg_imgs, seg_masks),
-                e2e_state=e2e_state, unets=unets, dirs=dirs)
+                e2e_state=e2e_state, dense_state=dense_state, unets=unets, dirs=dirs)
 
 
 # ---------------------------------------------------------------------------
@@ -600,6 +612,21 @@ def test_data_parallel_e2e_step_matches_one_process(runs, case, monkeypatch):
         _check_leaves(got, ref, _zero_in_exact_arithmetic, e2e_cfg().training.learning_rate)
 
 
+def test_data_parallel_e2e_step_with_the_dense_head_matches_one_process(runs):
+    """One end-to-end step with the dense detection head on 2 ranks of a
+    global batch of 4, the second rank's images without an object, equals
+    the one-process step: the dense loss's BCE is the mean over every
+    image's cells and its L1 is over every rank's instances (a per-rank
+    mean or count would differ here)."""
+    imgs, masks = _e2e_batch(True)
+    ref = _one_process("e2e", runs["dense_state"], imgs, masks, dict(cfg_args={"dense": True}, dtype="float64",
+                                                                     seed=7))
+    assert ref["metrics"]["l_dense_obj"] > 0.0 and ref["metrics"]["l_dense_box"] > 0.0
+    assert any(k.startswith("grad:dense_detection_head.") for k in ref)
+    for got in runs["pick"](2, "train_step", len(E2E_CASES)):
+        _check_leaves(got, ref, _zero_in_exact_arithmetic, e2e_cfg().training.learning_rate)
+
+
 @pytest.mark.parametrize("trainer", ["seg", "e2e"])
 def test_trainers_at_world_size_1_equal_the_trainers_without_a_group(runs, trainer):
     """``train_unet_segmentation`` and ``train_end_to_end`` (two SGD steps)
@@ -685,8 +712,9 @@ PS_T = (_r23.standard_normal((2, 16, 5, 64)).astype(np.float32),
         (_r23.standard_normal((3, 3, 16, 16)) * 0.2).astype(np.float32),
         _r23.standard_normal((2, 16, 5, 64)).astype(np.float32))
 # (U-Net case, data, spatial): depth 2 on 4 shards of 8 rows and on data 2 x spatial 2; depth 3 (a
-# standard encoder level and decoder block too) on 4 shards of 16 rows.
-UNET_TRAIN = {"depth2_sp4": ("depth2", 1, 4), "depth2_dp2_sp2": ("depth2", 2, 2), "depth3_sp4": ("depth3", 1, 4)}
+# standard encoder level and decoder block too) on 4 shards of 16 rows; depth 2 without BN on 4 shards.
+UNET_TRAIN = {"depth2_sp4": ("depth2", 1, 4), "depth2_dp2_sp2": ("depth2", 2, 2), "depth3_sp4": ("depth3", 1, 4),
+              "depth2_no_bn_sp4": ("depth2_no_bn", 1, 4)}
 UNET_TRAIN_COT = {k: _scene(UNET_CASES[k][1][:3] + (2,), 31) for k in UNET_CASES}
 # Spatial segmentation steps on 4 ranks: (data, spatial, augmentation, dtype).
 SP_SEG = {"f64_sp4": (1, 4, True, "float64"), "f64_dp2_sp2": (2, 2, True, "float64"),
@@ -720,13 +748,18 @@ def spatial_runs(tmp_path_factory):
     e2e_imgs, e2e_masks = _e2e_batch(True)
     four.append(("train_step", dict(kind="e2e", state=e2e_state, cfg_args={}, imgs=e2e_imgs, masks=e2e_masks,
                                     dtype="float64", seed=7, dp=2, sp=2)))
+    dense_state = _e2e_start(dense=True)
     dirs = _dummy_runs(str(tmp_path_factory.mktemp("spatial")))
     for key in ("seg", "e2e"):
         path = os.path.join(dirs[key, "gloo"], "training.yaml")
         text = open(path).read()
         assert "spatial_parallel: 1" in text
         open(path, "w").write(text.replace("spatial_parallel: 1", "spatial_parallel: 2"))
-    two = [("trainers", {"seg_dir": dirs["seg", "gloo"], "e2e_dir": dirs["e2e", "gloo"]})]
+    two = [("trainers", {"seg_dir": dirs["seg", "gloo"], "e2e_dir": dirs["e2e", "gloo"]}),
+           ("train_step", dict(kind="e2e", state=dense_state, cfg_args={"dense": True}, imgs=e2e_imgs,
+                               masks=e2e_masks, dtype="float64", seed=7, dp=1, sp=2)),
+           ("train_step", dict(kind="seg", state=seg_state, cfg_args=dict(SEG_CFG, remat=True), imgs=seg_imgs,
+                               masks=seg_masks, dtype="float64", seed=4, dp=1, sp=2))]
     results = {w: run_checks(checks, w, SPATIAL_TIMEOUT[w]) for w, checks in ((4, four), (2, two))}
 
     def pick(world, name, index=0):
@@ -738,7 +771,7 @@ def spatial_runs(tmp_path_factory):
         return out
 
     return dict(pick=pick, seg_state=seg_state, seg_vars=seg_vars, seg_batch=(seg_imgs, seg_masks),
-                e2e_state=e2e_state, e2e_batch=(e2e_imgs, e2e_masks), dirs=dirs)
+                e2e_state=e2e_state, dense_state=dense_state, e2e_batch=(e2e_imgs, e2e_masks), dirs=dirs)
 
 
 @pytest.mark.parametrize("halo", [1, 2])
@@ -910,6 +943,33 @@ def test_spatial_e2e_step_matches_one_process(spatial_runs):
     assert ref["metrics"]["l_shape"] > 0.0 and "bal_s_l_shape" in ref["metrics"]
     for got in spatial_runs["pick"](4, "train_step", len(SP_SEG)):
         _check_leaves(got, ref, _zero_in_exact_arithmetic, e2e_cfg().training.learning_rate)
+
+
+def test_spatial_e2e_step_with_the_dense_head_matches_one_process(spatial_runs):
+    """One end-to-end step with the dense detection head on spatial 2 (the
+    heads and every loss replicated over the group after the gather, the
+    dense loss counted once through ``spatial_share``) in f64 against the
+    one-process step."""
+    imgs, masks = spatial_runs["e2e_batch"]
+    ref = _one_process("e2e", spatial_runs["dense_state"], imgs, masks,
+                       dict(cfg_args={"dense": True}, dtype="float64", seed=7))
+    assert ref["metrics"]["l_dense_obj"] > 0.0 and ref["metrics"]["l_dense_box"] > 0.0
+    for got in spatial_runs["pick"](2, "train_step", 0):
+        _check_leaves(got, ref, _zero_in_exact_arithmetic, e2e_cfg().training.learning_rate)
+
+
+def test_spatial_remat_segmentation_step_matches_one_process(spatial_runs):
+    """The segmentation step with the rematerialized U-Net on spatial 2, in
+    f64, against the plain one-process step: every ConvBlock's recompute
+    in the backward restores the batch × spatial BN groups of its forward
+    (local statistics there would give other gradients) and sends its halo
+    exchanges again, in the same order on both ranks; the BN running
+    statistics are updated once."""
+    imgs, masks = spatial_runs["seg_batch"]
+    ref = _one_process("seg", spatial_runs["seg_state"], imgs, masks,
+                       dict(cfg_args=SEG_CFG, dtype="float64", seed=4))
+    for got in spatial_runs["pick"](2, "train_step", 1):
+        _check_leaves(got, ref, _feeds_bn, seg_cfg(**SEG_CFG).training.learning_rate)
 
 
 @pytest.mark.parametrize("trainer", ["seg", "e2e"])

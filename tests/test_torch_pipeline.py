@@ -25,6 +25,7 @@ from mingraph_unet_tpu.models.pipeline import MinGraphUNet as JaxMinGraphUNet
 from mingraph_unet_tpu_torch.config import PipelineConfig
 from mingraph_unet_tpu_torch.convert import load_jax_variables
 from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
 from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
 
 B, H = 2, 64
@@ -120,26 +121,28 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked():
         MinGraphUNet(device="cuda", **CONFIG)
 
 
-def test_unported_paths_raise():
-    """The reference-exact (non-pooled) detection path runs; a config that
-    asks for the dense head, class scores or an ablation switch builds its
-    model for inference, and the end-to-end train step refuses it."""
-    model = MinGraphUNet(device="cpu", init_features=8, depth=2, detection_pre_pool=None)
-    out = model(torch.zeros(1, 32, 32, 3), full_res_outputs=True)
-    assert out["fused"].shape == (1, 32, 32, 8 + 64) and torch.isfinite(out["pred_bboxes"]).all()
-    for section, key, value, match in (("fusion_detection", "use_dense_detection", True, "ROADMAP A3"),
-                                       (None, "num_detection_classes", 2, "ROADMAP A3"),
-                                       ("ablation", "use_patch_gat", False, "ROADMAP A2"),
-                                       ("ablation", "use_partition", False, "ROADMAP A2"),
-                                       ("ablation", "use_region_gat", False, "ROADMAP A2"),
-                                       ("ablation", "use_fusion", False, "ROADMAP A2")):
-        cfg = PipelineConfig()
-        cfg.model.unet.init_features, cfg.model.unet.depth = 8, 2
-        setattr(cfg.dataset if section is None else getattr(cfg.model, section), key, value)
-        model = build_mingraph_unet(cfg, device="cpu")
-        assert getattr(model, key) == value
-        out = model.eval()(torch.zeros(1, 32, 32, 3))
-        assert torch.isfinite(out["pred_bboxes"]).all()
-        opt = torch.optim.SGD(model.parameters(), lr=0.1)
-        with pytest.raises(NotImplementedError, match=match):
-            make_e2e_train_step(model, opt, cfg)
+@pytest.mark.parametrize("section,key,value", [
+    ("fusion_detection", "use_dense_detection", True), (None, "num_detection_classes", 2),
+    ("ablation", "use_patch_gat", False), ("ablation", "use_partition", False),
+    ("ablation", "use_region_gat", False), ("ablation", "use_fusion", False)],
+    ids=["dense_head", "class_scores", "no_patch_gat", "no_partition", "no_region_gat", "no_fusion"])
+def test_each_config_trains_one_step(section, key, value):
+    """A config that asks for the dense head, class scores or an ablation
+    switch builds its model, serves on the reference-exact (non-pooled)
+    path and takes one end-to-end train step with finite terms."""
+    cfg = PipelineConfig()
+    cfg.preprocessing.resize_dim = (32, 32)
+    cfg.model.unet.init_features, cfg.model.unet.depth = 8, 2
+    setattr(cfg.dataset if section is None else getattr(cfg.model, section), key, value)
+    model = build_mingraph_unet(cfg, device="cpu")
+    assert getattr(model, key) == value
+    out = model.eval()(torch.zeros(1, 32, 32, 3), full_res_outputs=True)
+    width = cfg.model.unet.init_features + (cfg.model.gat.output_dim if model.use_fusion else 0)
+    assert out["fused"].shape == (1, 32, 32, width) and torch.isfinite(out["pred_bboxes"]).all()
+    model.train()
+    opt, sched = make_optimizer(model.parameters(), cfg.training, 1)
+    state = TrainState(model, opt, sched)
+    imgs = torch.from_numpy(np.clip(_images(IMAGE_SEED)[:, :32, :32] * 60 + 120, 0, 255).astype(np.uint8))
+    masks = (imgs[..., 0] > 120).to(torch.uint8)
+    aux = make_e2e_train_step(model, opt, cfg, augment=False)(state, imgs, masks, torch.Generator().manual_seed(0))
+    assert all(bool(torch.isfinite(v)) for v in aux.values()) and state.step == 1

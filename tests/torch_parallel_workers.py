@@ -250,22 +250,27 @@ def all_reduce_grad() -> Dict[str, float]:
     return {"y": float(y), "grad": float(x.grad)}
 
 
-def seg_cfg(size: int, init: int, batch: int, optimizer: str = "sgd") -> PipelineConfig:
-    """The small segmentation config of the data-parallel step tests."""
+def seg_cfg(size: int, init: int, batch: int, optimizer: str = "sgd", remat: bool = False) -> PipelineConfig:
+    """The small segmentation config of the data-parallel step tests
+    (``remat``: the rematerialized U-Net)."""
     cfg = PipelineConfig()
     cfg.preprocessing.resize_dim = (size, size)
     cfg.model.unet.init_features, cfg.model.unet.depth = init, 2
+    cfg.model.unet.remat = remat
     cfg.training.optimizer, cfg.training.batch_size = optimizer, batch
     return cfg
 
 
-def e2e_cfg(size: int = 32, optimizer: str = "sgd", balance: str = "uncertainty") -> PipelineConfig:
-    """The small end-to-end config of ``tests/test_torch_e2e.py``."""
+def e2e_cfg(size: int = 32, optimizer: str = "sgd", balance: str = "uncertainty", dense: bool = False
+            ) -> PipelineConfig:
+    """The small end-to-end config of ``tests/test_torch_e2e.py`` (``dense``:
+    with the dense detection head)."""
     cfg = PipelineConfig()
     cfg.preprocessing.resize_dim = (size, size)
     cfg.model.unet.init_features, cfg.model.unet.depth = 4, 2
     cfg.model.gat.hidden_dim, cfg.model.gat.output_dim, cfg.model.gat.num_heads = 8, 4, 2
     cfg.model.graph_construction.patch_size, cfg.model.graph_construction.unet_patch_feature_dim = 8, 4
+    cfg.model.fusion_detection.use_dense_detection = dense
     cfg.training.optimizer, cfg.training.loss_balance = optimizer, balance
     return cfg
 
@@ -283,7 +288,8 @@ def build_model(kind: str, cfg: PipelineConfig, dtype: str, state: Dict[str, np.
                  else end_to_end.build_mingraph_unet(cfg, device="cpu"))
     elif kind == "seg":
         u = cfg.model.unet
-        model = UNet(torch.Generator(), u.in_channels, u.out_channels, u.init_features, u.depth, torch.float64)
+        model = UNet(torch.Generator(), u.in_channels, u.out_channels, u.init_features, u.depth, torch.float64,
+                     u.use_batchnorm, u.remat)
     else:
         model = MinGraphUNet(**end_to_end.mingraph_unet_kwargs(cfg), dtype=torch.float64, device="cpu")
         model.loss_balance = end_to_end.LossBalance()
