@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, large-scene serving, segmentation-training,
 end-to-end training, torch.distributed and spatial-parallel training paths,
-and the model options the trainers take, on one CUDA card and check them.
+the model options the trainers take, training on annotated instances and
+the paper's evaluations, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -186,6 +187,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
    Phase 14's spatial e2e step at one NCCL rank with the dense head on,
    against the one-card step within 1e-3. The kernels line gives each
    kernel's launches on these paths (``launches_options``).
+16. Annotated training and the paper's evaluations, at ``PipelineConfig()``
+   widths with the dense head, bf16 512² b8, ``max_instances`` 16: (a) the
+   e2e step on seeded instance masks (8, 16, 512, 512) of rotated ellipses
+   drawn with torch (between 8 and 16 an image), the mask their union: 3
+   warm-up and 5 timed steps, every term finite, K4 4 + 4 and hist-eq 1 a
+   step, K1-K3 and K5 never, no connected-component call (phase 15 (a)
+   makes 2 a step), a non-zero gradient in every dense-head leaf, a total
+   that falls over 10 steps on a fixed batch, the augmented instances
+   inside their warped mask; timed beside phase 15 (a)'s step; at 128² b2
+   with the uncertainty balancer the card's f32 step against the CPU f64
+   step that replays its decisions (``_e2e_vs_cpu``). (b) (a)'s weights
+   saved by the port's checkpoint manager and read back by
+   ``load_variables``; each detector's device function
+   (``segmentation_count_detect`` for ``unet``, ``mingraph-unet`` and
+   ``mingraph-unet-refined``, ``dense_head_detect``) at batch 1 on 8
+   seeded 512² images: launches a forward psel 4, dec-conv1 2, pool 2 and
+   d2s 1 for the U-Net (its level-1 handoff), d2s 2 and hist-eq 1 for the
+   MinGraph-UNet forms (``f_u[0]`` at full resolution, as the dense head
+   and the config's full-resolution fusion need it), the dense decode and
+   the CC instancing equal to the plain ones on the CPU over the card's own
+   outputs (boxes and areas bit for bit), finite yield metrics and AP,
+   images/s; ``evaluate_segmentation_model``'s forward at batch 8 for the
+   three forms (the same launches, finite Table-1 metrics) and
+   ``region_blend_logits`` against the CPU within ``F32_TOL``. (c) The C++
+   PNG loader built with g++ and held bit for bit against 8 RGB and 8 gray
+   512² PNGs written by a zlib + struct writer in this script (every row
+   filter). The kernels line gives each kernel's launches on (a) and (b)
+   (``launches_annotated``).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -197,6 +226,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1630,15 +1660,17 @@ def _large_scene_vs_cpu(dev) -> None:
 GRAPH_BRANCH = ("patch_gat", "mincut", "region_gat", "feature_consistency_proj", "detection_head")
 
 
-def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: bool = True):
+def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: bool = True, batch=None):
     """Train the end-to-end model of ``cfg`` (bf16 512² b8, augmentation)
     for ``warmup`` untimed and ``iters`` timed steps, checking every term of
     every step is finite, the launches (K4 4 + 4, hist-eq 1 a step, K1-K3,
     K5, K7-K9 and sharded K2 never), a finite gradient in every leaf and a
     non-zero one in every leaf the total reaches (all but the exact zeros
     and the unreached class branch), and moved BN statistics of the U-Net
-    (where it has BN) and the head. Returns the model, its state and step,
-    the batch, the generator, the launches a step and the timings."""
+    (where it has BN) and the head. ``batch``: (images, masks, instances)
+    of annotated data, else ``_train_batch``'s. Returns the model, its
+    state and step, the batch (``extra``: the step's instance argument),
+    the generator, the launches a step and the timings."""
     import torch
 
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
@@ -1649,7 +1681,8 @@ def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: boo
     opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
     state = TrainState(model, opt, sched)
     step = make_e2e_train_step(model, opt, cfg, augment=True, train_detection=train_detection)
-    imgs, masks = _train_batch(BATCH, SIZE, seed=9, dev=dev)
+    imgs, masks, *inst = batch or _train_batch(BATCH, SIZE, seed=9, dev=dev)
+    extra = {"instances": inst[0]} if inst else {}
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def check(aux, i):
@@ -1660,7 +1693,7 @@ def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: boo
     _reset_counts()
     t0 = time.perf_counter()
     for i in range(warmup):
-        check(step(state, imgs, masks, gen), i)
+        check(step(state, imgs, masks, gen, **extra), i)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -1669,7 +1702,7 @@ def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: boo
     t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
-        auxes.append(step(state, imgs, masks, gen))
+        auxes.append(step(state, imgs, masks, gen, **extra))
     end.record()
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
@@ -1706,13 +1739,14 @@ def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: boo
           f"for the exact zeros and the unreached, graph-branch "
           f"gradient norms { {k: f'{v:.3g}' for k, v in norms.items()} }; all {len(stats0)} BN statistics "
           f"moved")
-    return dict(model=model, state=state, step=step, imgs=imgs, masks=masks, gen=gen,
+    return dict(model=model, state=state, step=step, imgs=imgs, masks=masks, extra=extra, gen=gen,
                 launches={k: v // n for k, v in launches.items()}, ms=ms, host_ms=host_ms, peak=peak)
 
 
-def _e2e_fixed(cfg, imgs, masks, gen, label: str) -> None:
-    """The end-to-end trainer of ``cfg`` on one fixed batch, without
-    augmentation, FIXED_BATCH_STEPS steps: the total must fall."""
+def _e2e_fixed(cfg, imgs, masks, gen, label: str, extra=None) -> None:
+    """The end-to-end trainer of ``cfg`` on one fixed batch (``extra``: its
+    instances), without augmentation, FIXED_BATCH_STEPS steps: the total
+    must fall."""
     import torch
 
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
@@ -1722,7 +1756,7 @@ def _e2e_fixed(cfg, imgs, masks, gen, label: str) -> None:
     opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
     state = TrainState(model, opt, sched)
     fixed = make_e2e_train_step(model, opt, cfg, augment=False, train_detection=True)
-    totals = [float(fixed(state, imgs, masks, gen)["total"]) for _ in range(FIXED_BATCH_STEPS)]
+    totals = [float(fixed(state, imgs, masks, gen, **(extra or {}))["total"]) for _ in range(FIXED_BATCH_STEPS)]
     print(f"[chip_smoke] {label} fixed batch totals {[f'{v:.4f}' for v in totals]}")
     if not totals[-1] < totals[0]:
         _fail(f"{label}: the total did not fall on a fixed batch: {totals[0]} -> {totals[-1]}")
@@ -1804,7 +1838,7 @@ class _E2EDecisions(_Decisions):
         return super().__exit__(*exc)
 
 
-def _e2e_vs_cpu(dev, change=None, label: str = "e2e step") -> None:
+def _e2e_vs_cpu(dev, change=None, label: str = "e2e step", annotated: bool = False) -> None:
     """Phase 8, card vs CPU: one f32 end-to-end step at batch 2, 128², TF32
     off, dropout the identity, SGD with momentum (an update linear in the
     gradient), against the same step in f64 on the CPU that replays the
@@ -1814,14 +1848,16 @@ def _e2e_vs_cpu(dev, change=None, label: str = "e2e step") -> None:
     lie within CPU_TOL of its own max |f64|; a leaf whose gradient is zero
     in exact arithmetic (or up to f64 rounding) is held to CPU_TOL of the
     model's largest gradient (and its update to lr times that). Phase 15
-    passes a config ``change`` (the dense head, exact instancing)."""
+    passes a config ``change`` (the dense head, exact instancing); phase 16
+    ``annotated`` (the batch's instance masks as the step's ground truth)
+    and the uncertainty balancer, whose log-variances are leaves too."""
     import torch
 
     from mingraph_unet_tpu_torch.models import layers
     from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
     from mingraph_unet_tpu_torch.train.end_to_end import (
-        build_mingraph_unet, make_e2e_train_step, mingraph_unet_kwargs)
+        LossBalance, build_mingraph_unet, make_e2e_train_step, mingraph_unet_kwargs)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1831,19 +1867,25 @@ def _e2e_vs_cpu(dev, change=None, label: str = "e2e step") -> None:
     weights = build_mingraph_unet(cfg, device="cpu").state_dict()
     weights["unet.decoder.final_conv.kernel"] *= 4.0
     weights["unet.decoder.final_conv.bias"] += torch.tensor([-0.5, 0.5])
-    imgs, masks = _train_batch(2, 128, seed=5, dev="cpu")
+    imgs, masks, *inst = (_annotated_batch(2, 128, cfg.model.fusion_detection.max_instances, seed=5, dev="cpu")
+                          if annotated else _train_batch(2, 128, seed=5, dev="cpu"))
     dropout = layers.dropout
     layers.dropout = lambda x, p, gen: x
 
     def step(where, dtype, decisions):
-        model = MinGraphUNet(**mingraph_unet_kwargs(cfg), dtype=dtype, device=where).to(dtype=dtype)
+        model = MinGraphUNet(**mingraph_unet_kwargs(cfg), dtype=dtype, device=where)
+        if cfg.training.loss_balance == "uncertainty":
+            model.loss_balance = LossBalance().to(where)
+        model = model.to(dtype=dtype)
         model.load_state_dict(weights)
         model.train()
         opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
         state = TrainState(model, opt, sched)
         gen = torch.Generator(device=where)
+        extra = {"instances": inst[0].to(where)} if inst else {}
         with decisions:
-            aux = make_e2e_train_step(model, opt, cfg, augment=False)(state, imgs.to(where), masks.to(where), gen)
+            aux = make_e2e_train_step(model, opt, cfg, augment=False)(state, imgs.to(where), masks.to(where), gen,
+                                                                      **extra)
         return ({k: float(v) for k, v in aux.items()},
                 {(kind, n): (p.grad if kind == "grad" else p.detach()).cpu().double()
                  for n, p in model.named_parameters() for kind in ("grad", "param")})
@@ -2722,12 +2764,315 @@ def _options_path(dev):
     return launches, dense
 
 
-def _attach_launches(rows, paths) -> None:
-    """Each kernel row gets ``launches_options``: its launches a step (a
-    forward) on each of phase 15's paths."""
+MAX_INSTANCES = 16   # phase 16: instance slots (the config's max_instances)
+EVAL_IMAGES = 8      # phase 16 (b): images each detector counts at batch 1
+EVAL_FORMS = ("unet", "mingraph-unet", "mingraph-unet-refined")
+
+
+def _annotated_batch(b: int, size: int, o: int, seed: int, dev):
+    """Seeded uint8 orchard-like images with ``o`` instance slots each: rotated
+    ellipses of mango-like axis ratios (between o/2 and o of them per image,
+    the rest of the slots empty; later ones may overlap earlier ones),
+    drawn with torch. Returns images, the union mask and the instance
+    masks (B, O, H, W), uint8, on ``dev``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ar = torch.arange(size, dtype=torch.float32)
+    yy, xx = ar[:, None], ar[None, :]
+    cy, cx = (0.1 + 0.8 * torch.rand((2, b, o, 1, 1), generator=g)) * size
+    a = (0.03 + 0.04 * torch.rand((b, o, 1, 1), generator=g)) * size
+    r = a * (0.68 + 0.2 * torch.rand((b, o, 1, 1), generator=g))
+    t = torch.rand((b, o, 1, 1), generator=g) * math.pi
+    dy, dx = yy - cy, xx - cx
+    u, v = dx * torch.cos(t) + dy * torch.sin(t), dy * torch.cos(t) - dx * torch.sin(t)
+    inst = (u / a) ** 2 + (v / r) ** 2 < 1.0
+    inst &= (torch.arange(o) < torch.randint(o // 2, o + 1, (b, 1), generator=g))[..., None, None]
+    mask = inst.any(1)
+    ground, fruit = torch.tensor([40.0, 110.0, 35.0]), torch.tensor([230.0, 140.0, 30.0])
+    img = torch.where(mask[..., None], fruit, ground) + 20.0 * torch.randn((b, size, size, 3), generator=g)
+    return (img.clamp(0, 255).to(torch.uint8).to(dev), mask.to(torch.uint8).to(dev), inst.to(torch.uint8).to(dev))
+
+
+def _annotated_step(dev, ckpt_dir: str, dense: dict):
+    """Phase 16 (a): the e2e step with the dense head on annotated instances
+    (see the module docstring). Saves the trained model with the port's
+    checkpoint manager under ``ckpt_dir``. Returns its launches a step, its
+    timings and the saved state dict."""
+    import torch
+
+    from mingraph_unet_tpu_torch.data.dataset import device_preprocess_batch
+    from mingraph_unet_tpu_torch.ops import cc
+    from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
+    from mingraph_unet_tpu_torch.train.common import draw_step_augment
+
+    cfg = _train_cfg(SIZE, bf16=True)
+    _dense(cfg)
+    cfg.model.fusion_detection.max_instances = MAX_INSTANCES
+    batch = _annotated_batch(BATCH, SIZE, MAX_INSTANCES, seed=11, dev=dev)
+    imgs, masks, inst = batch
+    saved = cc.label_components_stencil, cc.label_components
+    calls = []
+    cc.label_components_stencil = lambda *a, **k: calls.append(1) or saved[0](*a, **k)
+    cc.label_components = lambda *a, **k: calls.append(1) or saved[1](*a, **k)
+    try:
+        r = _e2e_run(dev, cfg, "e2e annotated", E2E_WARMUP, E2E_ITERS, batch=batch)
+    finally:
+        cc.label_components_stencil, cc.label_components = saved
+    if calls:
+        _fail(f"e2e annotated: {len(calls)} connected-component calls over {E2E_WARMUP + E2E_ITERS} steps (expected 0)")
+    head = {name: float(p.grad.float().norm()) for name, p in r["model"].dense_detection_head.named_parameters()}
+    if not all(v > 0.0 for v in head.values()):
+        _fail(f"e2e annotated: the dense head has a zero gradient: {head}")
+    # The instances after augmentation stay inside their warped mask.
+    pre = cfg.preprocessing
+    draw = draw_step_augment(torch.Generator(device=dev).manual_seed(5), BATCH, SIZE, SIZE, pre)
+    _, aug_masks, aug_inst = device_preprocess_batch(imgs, masks.long(), pre.normalization_mean,
+                                                     pre.normalization_std, draw, num_classes=cfg.dataset.num_classes,
+                                                     instances=inst)
+    outside = int(((aug_inst > 0) & (aug_masks != 1)[:, None]).sum())
+    inside = int((aug_inst > 0).sum())
+    if outside or not inside or torch.equal(aug_inst.to(torch.uint8), inst):
+        _fail(f"e2e annotated: {outside} augmented instance pixels outside their warped mask ({inside} inside)")
+    print(f"[chip_smoke] e2e annotated: 0 connected-component calls a step; dense head gradient norms "
+          f"{ {k: f'{v:.3g}' for k, v in head.items()} }; augmented instances: {inside} pixels, all inside their "
+          f"warped mask")
+    _profile("e2e annotated train step", lambda: r["step"](r["state"], r["imgs"], r["masks"], r["gen"], **r["extra"]),
+             r["ms"], steps=2)
+    CheckpointManager(ckpt_dir).save(r["state"].step, {"state": r["state"].state_dict(), "epoch": 0})
+    weights = {k: v.detach().cpu().clone() for k, v in r["model"].state_dict().items()}
+    out = dict(launches=r["launches"], ms=r["ms"], host_ms=r["host_ms"], peak=r["peak"])
+    gen = r["gen"]
+    del r
+    torch.cuda.empty_cache()
+    _e2e_fixed(cfg, imgs, masks, gen, "e2e annotated", extra={"instances": inst})
+
+    def balanced(c):
+        _dense(c)
+        c.training.loss_balance = "uncertainty"
+
+    _e2e_vs_cpu(dev, balanced, "e2e annotated step (balancer)", annotated=True)
+    print(f"[chip_smoke] e2e annotated bf16 {BATCH}x{SIZE}^2: {out['ms']:.3f} ms/step (host {out['host_ms']:.3f}), "
+          f"peak {out['peak']:.3f} GiB, 0 stencil-CC calls a step; the CC-ground-truth dense step of phase 15 (a): "
+          f"{dense['ms']:.3f} ms/step (host {dense['host_ms']:.3f}), peak {dense['peak']:.3f} GiB, "
+          f"{dense['cc_calls']:.0f} stencil-CC calls a step")
+    return out, weights
+
+
+def _objects(inst_masks):
+    """Ground-truth objects of one image's instance masks (O, H, W): the
+    yield metrics' schema, xyxy boxes of the non-empty slots."""
+    from mingraph_unet_tpu_torch.ops import cc
+
+    boxes = cc.instance_boxes(inst_masks).cpu().tolist()
+    keep = inst_masks.flatten(1).any(1).cpu().tolist()
+    return [{"bbox": bx, "class_id": 0, "occluded": False} for bx, k in zip(boxes, keep) if k]
+
+
+def _eval_path(dev, ckpt_dir: str, weights):
+    """Phase 16 (b): the evaluation path on the card (see the module
+    docstring). Returns the launches a forward of each form."""
+    import torch
+
+    from mingraph_unet_tpu_torch.experiments import segmentation_performance as sp
+    from mingraph_unet_tpu_torch.experiments import yield_estimation_performance as yp
+    from mingraph_unet_tpu_torch.experiments.metrics import (average_precision, segmentation_metrics,
+                                                             yield_estimation_metrics)
+    from mingraph_unet_tpu_torch.models.detection import decode_dense_detections
+    from mingraph_unet_tpu_torch.train.infer import load_variables
+
+    loaded = load_variables(ckpt_dir)
+    if sorted(loaded) != sorted(weights) or not all(torch.equal(loaded[k], weights[k]) for k in weights):
+        _fail("phase 16 (b): the checkpoint's weights differ from the trained model's")
+    cfg = _train_cfg(SIZE, bf16=True)
+    _dense(cfg)
+    models = {"unet": sp.build_eval_model(cfg, "unet", {k[5:]: v for k, v in loaded.items() if k.startswith("unet.")},
+                                          dev),
+              "mingraph-unet": sp.build_eval_model(cfg, "mingraph-unet", loaded, dev)}
+    imgs, masks, inst = _annotated_batch(EVAL_IMAGES, SIZE, MAX_INSTANCES, seed=21, dev=dev)
+    gt = [_objects(inst[i]) for i in range(EVAL_IMAGES)]
+    expect = {"unet": dict(psel=4, dec1=2, pool=2, d2s=1, histeq=0)}
+    expect.update({f: dict(psel=4, dec1=2, pool=2, d2s=2, histeq=1) for f in EVAL_FORMS[1:] + ("dense",)})
+    launches = {}
+
+    def counted(label, fn, x):
+        _reset_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        got = _counts()
+        if got != dict({k: 0 for k in got}, **expect[label]):
+            _fail(f"eval {label}: launches a forward {got}, expected {expect[label]}")
+        launches[f"eval {label}"] = got
+        return out
+
+    detectors = {f: (lambda x, f=f: yp.segmentation_count_detect(models["unet" if f == "unet" else "mingraph-unet"],
+                                                                 cfg, x, f)) for f in EVAL_FORMS}
+    detectors["dense"] = lambda x: yp.dense_head_detect(models["mingraph-unet"], cfg, x)
+    for label, fn in detectors.items():
+        dets = []
+        for i in range(EVAL_IMAGES):
+            x = imgs[i : i + 1]
+            out = counted(label, fn, x) if i == 0 else fn(x)
+            if label == "dense":
+                # The card's decode against the plain decode on the CPU over the card's own dense outputs, at
+                # the detector's score threshold and at 0 (every NMS survivor valid: the check is not empty).
+                raw = sp.eval_forward(models["mingraph-unet"], cfg, x)
+                dense_out = raw["dense_objectness_logits"], raw["dense_boxes"]
+                for thr in (0.5, 0.0):
+                    args = dict(image_hw=(SIZE, SIZE), cell_size=cfg.model.graph_construction.patch_size, top_k=32,
+                                score_threshold=thr)
+                    card = decode_dense_detections(*dense_out, **args)
+                    cpu = decode_dense_detections(*(t.cpu() for t in dense_out), **args)
+                    if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)) or not bool(cpu[2].any() or thr):
+                        _fail(f"eval dense image {i}: the card's decode differs from the CPU's (threshold {thr})")
+                    if thr and not all(torch.equal(a, b) for a, b in zip(out, card)):
+                        _fail(f"eval dense image {i}: the detector's device function is not deterministic")
+                boxes, scores, valid = (t[0].cpu() for t in out)
+                dets.append([{"bbox": bx.tolist(), "class_id": 0, "confidence": float(sc)}
+                             for bx, sc, v in zip(boxes, scores, valid) if v])
+            else:
+                # The CC instancing over the card's logits against the CPU's over the same logits.
+                logits = sp.segmentation_logits(models["unet" if label == "unet" else "mingraph-unet"], cfg, x, label)
+                card, cpu = yp.instances_from_logits(logits), yp.instances_from_logits(logits.cpu())
+                same = torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])
+                if not same or not torch.allclose(card[2].cpu(), cpu[2], rtol=1e-5, atol=1e-6):
+                    _fail(f"eval {label} image {i}: the card's CC instances differ from the CPU's")
+                if not all(torch.equal(a, b) for a, b in zip(out, card)):
+                    _fail(f"eval {label} image {i}: the detector's device function is not deterministic")
+                boxes, areas, conf = (t.cpu() for t in out)
+                dets.append([{"bbox": bx.tolist(), "class_id": 0, "confidence": float(c)}
+                             for bx, a, c in zip(boxes[0], areas[0], conf[0]) if a > 0])
+        # images/s at batch 1, the host's resize left out (the images are at the config's size).
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(EVAL_IMAGES):
+            fn(imgs[i : i + 1])
+        torch.cuda.synchronize()
+        per_s = EVAL_IMAGES / (time.perf_counter() - t0)
+        metrics = yield_estimation_metrics([len(g) for g in gt], [len(d) for d in dets], gt, dets)
+        metrics["ap50_perc"] = 100.0 * average_precision(gt, dets, 0.5)
+        if not all(math.isfinite(v) for v in metrics.values()):
+            _fail(f"eval {label}: non-finite yield metrics {metrics}")
+        print(f"[chip_smoke] eval {label} detector, batch 1 bf16 {SIZE}^2: {per_s:.2f} images/s; "
+              f"{sum(len(d) for d in dets)} detections on {EVAL_IMAGES} images; yield metrics "
+              f"{ {k: round(v, 3) for k, v in metrics.items()} }; launches a forward {launches[f'eval {label}']}; "
+              f"decode / CC instancing equal to the CPU's: ok")
+    # Table 1's forward at batch 8.
+    trues = masks.cpu().numpy().reshape(-1)
+    for form in EVAL_FORMS:
+        model = models["unet" if form == "unet" else "mingraph-unet"]
+        fwd = lambda x, form=form, model=model: sp.segmentation_logits(model, cfg, x, form)  # noqa: E731
+        _reset_counts()
+        logits = fwd(imgs)
+        torch.cuda.synchronize()
+        got = _counts()
+        if got != dict({k: 0 for k in got}, **expect[form]):
+            _fail(f"eval {form} Table-1 forward at batch {EVAL_IMAGES}: launches {got}, expected {expect[form]}")
+        ms = _time_ms(lambda: fwd(imgs), 5)
+        res = segmentation_metrics(trues, logits.argmax(-1).cpu().numpy().reshape(-1), 2)
+        if not all(math.isfinite(v) for v in (res["mean_iou"], res["mean_f1"])) or not torch.isfinite(logits).all():
+            _fail(f"eval {form}: non-finite Table-1 metrics or logits")
+        print(f"[chip_smoke] eval {form} Table-1 forward bf16 {EVAL_IMAGES}x{SIZE}^2: {ms:.3f} ms, "
+              f"{EVAL_IMAGES / ms * 1e3:.1f} images/s; mean IoU {res['mean_iou']:.4f}, mean F1 {res['mean_f1']:.4f}")
+    out = sp.eval_forward(models["mingraph-unet"], cfg, imgs)
+    blend = lambda: sp.region_blend_logits(out["logits"].float(), out["hard_patch_labels"],  # noqa: E731
+                                           cfg.model.graph_construction.patch_size, cfg.dataset.num_semantic_regions)
+    got, ref = blend(), sp.region_blend_logits(out["logits"].float().cpu(), out["hard_patch_labels"].cpu(),
+                                              cfg.model.graph_construction.patch_size, cfg.dataset.num_semantic_regions)
+    _check_close("region_blend_logits (card vs CPU)", got.cpu(), ref, F32_TOL, border=False, what="the CPU")
+    print(f"[chip_smoke] region_blend_logits bf16 logits {EVAL_IMAGES}x{SIZE}^2: {_time_ms(blend, 10):.3f} ms")
+    return launches
+
+
+def _png_bytes(arr) -> bytes:
+    """A PNG of a uint8 (H, W) gray or (H, W, 3) RGB array written with zlib
+    and struct only, the rows taking the five filter types in turn."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = arr.shape[:2]
+    c = 1 if arr.ndim == 2 else 3
+    x = arr.reshape(h, w * c).astype(np.int16)
+    prev = np.zeros(w * c, np.int16)
+    rows = []
+    for y in range(h):
+        cur, ft = x[y], y % 5
+        left = np.concatenate([np.zeros(c, np.int16), cur[:-c]])
+        upleft = np.concatenate([np.zeros(c, np.int16), prev[:-c]])
+        if ft == 4:
+            p = left + prev - upleft
+            pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        else:
+            pred = (0, left, prev, (left + prev) // 2)[ft]
+        rows.append(bytes([ft]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        prev = cur
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + chunk(b"IEND", b""))
+
+
+def _native_loader() -> None:
+    """Phase 16 (c): the C++ PNG loader built with g++ on the card's machine
+    and held bit for bit against the arrays a stdlib writer wrote."""
+    import tempfile
+
+    import numpy as np
+
+    from mingraph_unet_tpu_torch.data import native_loader
+    from mingraph_unet_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build.host_library("decode")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    imgs = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), np.uint8)
+    imgs[:, ::7] //= 3   # runs of equal and smooth values beside the noise
+    masks = (rng.random((BATCH, SIZE, SIZE)) < 0.3).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i in range(BATCH):
+            for kind, arr in (("img", imgs[i]), ("mask", masks[i])):
+                path = os.path.join(d, f"{kind}{i}.png")
+                with open(path, "wb") as f:
+                    f.write(_png_bytes(arr))
+                paths.append(path)
+        t0 = time.perf_counter()
+        out = native_loader.load_batch(paths[0::2], paths[1::2], (SIZE, SIZE), threads=8)
+        load_s = time.perf_counter() - t0
+    if out is None or not (np.array_equal(out[0], imgs) and np.array_equal(out[1], masks)):
+        _fail("the native loader's decode differs from the PNGs' arrays")
+    print(f"[chip_smoke] native loader: built in {build_s:.1f}s; {BATCH} RGB + {BATCH} gray {SIZE}^2 PNGs (five "
+          f"filter types) decoded bit-equal in {load_s * 1e3:.1f} ms ({BATCH / load_s:.1f} images/s, 8 threads)")
+
+
+def _annotated_path(dev, dense: dict):
+    """Phase 16: (a) the annotated e2e step, (b) the evaluation path on its
+    saved weights, (c) the native loader. Returns the launches a step (a
+    forward) of each path and the annotated step's timings."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        step, weights = _annotated_step(dev, ckpt_dir, dense)
+        launches = {"e2e annotated": step["launches"]}
+        launches.update(_eval_path(dev, ckpt_dir, weights))
+    _native_loader()
+    return launches, step
+
+
+def _attach_launches(rows, paths, key: str = "launches_options") -> None:
+    """Each kernel row gets ``key``: its launches a step (a forward) on each
+    of the phase's ``paths`` (phase 15: ``launches_options``, phase 16:
+    ``launches_annotated``)."""
     for row in rows:
         counter = ROW_COUNTER[row["name"].split(" ")[0]]
-        row["launches_options"] = {path: counts[counter] for path, counts in paths.items()}
+        row[key] = {path: counts[counter] for path, counts in paths.items()}
 
 
 def main() -> int:
@@ -2796,6 +3141,9 @@ def main() -> int:
     option_launches, dense = _options_path(dev)
     option_launches["e2e dense spatial"] = spatial_launches["e2e dense"]
     _attach_launches(rows, option_launches)
+    # Annotated training and the evaluations on its weights (phase 16).
+    annotated_launches, annotated = _annotated_path(dev, dense)
+    _attach_launches(rows, annotated_launches, "launches_annotated")
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "
@@ -2805,6 +3153,8 @@ def main() -> int:
     print(f"[chip_smoke] e2e_dense_ms {dense['ms']:.4f} e2e_dense_host_ms {dense['host_ms']:.4f} "
           f"e2e_dense_peak_gib {dense['peak']:.3f} stencil_cc_calls_per_step {dense['cc_calls']:.0f} "
           f"stencil_cc_ops_per_call {dense['cc_ops']}")
+    print(f"[chip_smoke] e2e_annotated_ms {annotated['ms']:.4f} e2e_annotated_host_ms {annotated['host_ms']:.4f} "
+          f"e2e_annotated_peak_gib {annotated['peak']:.3f}")
     print(f"[chip_smoke] scene_ms {scene_ms:.4f} scene_mpix_per_s {SCENE * SCENE / 1e6 / scene_ms * 1e3:.3f} "
           f"scene_host_ms {scene_host_ms:.4f} scene_peak_gib {scene_peak:.3f}")
     print(card_line)

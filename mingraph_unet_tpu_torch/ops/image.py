@@ -45,6 +45,7 @@ __all__ = [
     "rotate",
     "resized_crop",
     "augment_image",
+    "augment_labels",
     "augment_pair",
 ]
 
@@ -214,11 +215,15 @@ def augment_image(img: torch.Tensor, draw: AugmentDraw) -> torch.Tensor:
     return img if draw.crop is None else resized_crop(img, draw.crop)
 
 
+def augment_labels(labels: torch.Tensor, draw: AugmentDraw) -> torch.Tensor:
+    """The geometry of :func:`augment_image` on float label planes
+    (B, H, W, C), every channel resampled nearest."""
+    m = rotate(hflip(labels, draw.flip), draw.angle, nearest=True)
+    return m if draw.crop is None else resized_crop(m, draw.crop, nearest=True)
+
+
 def augment_pair(img: torch.Tensor, mask: torch.Tensor, draw: AugmentDraw) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`augment_image` for images (B, H, W, C) with the same geometry
     on label masks (B, H, W), which are resampled nearest."""
-    m = hflip(mask, draw.flip)[..., None].float()
-    m = rotate(m, draw.angle, nearest=True)
-    if draw.crop is not None:
-        m = resized_crop(m, draw.crop, nearest=True)
+    m = augment_labels(mask[..., None].float(), draw)
     return augment_image(img, draw), torch.round(m[..., 0]).to(mask.dtype)

@@ -9,6 +9,12 @@ functions take raw device pointers and the CUDA stream and return
 
 Nothing here runs at import time: the first kernel launch on a CUDA tensor
 calls :func:`library`, which builds what is missing.
+
+Host code has a second route: :func:`host_library` compiles a ``csrc/*.cc``
+file with ``g++ -O3 -shared`` (linking zlib and
+pthread) into ``build/<name>-<hash>.so`` at its first use, also to a
+temporary name renamed into place, so that processes building it at once
+(parallel test workers) never load a half-written file.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ __all__ = [
     "build_all",
     "check_cuda_input",
     "compiler_log",
+    "host_library",
     "library",
     "nvcc_path",
     "require",
@@ -62,6 +69,15 @@ _SIGNATURES = {
     "wconv": {"mgu_wconv3x3_wgmma": [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P],
               "mgu_wconv3x3_simt": [_P] * 4 + [_I] * 7 + [_P, _I, _P]},
     "conv_block": {"mgu_conv_block": [_P] * 7 + [_I] * 7 + [_P]},
+}
+
+# Host libraries (g++): name → C signatures.
+_HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+_HOST_LIBS = ("-lz", "-lpthread")
+_S = ctypes.c_char_p
+_HOST_SIGNATURES = {
+    "decode": {"mgu_load_image": [_S, _I, _I, _P], "mgu_load_mask": [_S, _I, _I, _P],
+               "mgu_load_batch": [_P, _P, _I, _I, _I, _P, _P, _I]},
 }
 
 _lock = threading.Lock()
@@ -130,6 +146,55 @@ def library(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             lib = ctypes.CDLL(str(path))
             for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _loaded[name] = lib
+        return _loaded[name]
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cc").read_bytes())
+    h.update(" ".join(_HOST_FLAGS + _HOST_LIBS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build_host(name: str, out: Path) -> None:
+    """Compile ``csrc/<name>.cc`` into ``out`` through a file of this
+    process's own, renamed into place; raises ``RuntimeError`` with the
+    compiler's first error line."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: the host library {name!r} cannot be built")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([gxx, *_HOST_FLAGS, str(CSRC / f"{name}.cc"), *_HOST_LIBS, "-o", str(tmp)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        lines = (proc.stderr or proc.stdout).splitlines()
+        first = next((ln for ln in lines if "error" in ln), lines[0] if lines else f"rc {proc.returncode}")
+        raise RuntimeError(f"g++ failed to build {name!r}: {first.strip()}")
+    os.replace(tmp, out)
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` (``csrc/<name>.cc``), compiled at
+    its first use; raises ``RuntimeError`` when it cannot be
+    built or loaded."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _loaded:
+            path = _host_target(name)
+            if not path.exists():
+                _build_host(name, path)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise RuntimeError(f"cannot load the host library {path}: {e}") from e
+            for fn_name, argtypes in _HOST_SIGNATURES[name].items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

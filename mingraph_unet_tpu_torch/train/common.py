@@ -128,14 +128,16 @@ def draw_step_augment(gen: torch.Generator, b: int, h: int, w: int, pre: Preproc
 
 
 def make_multistep(train_step: Callable, window: int) -> Callable:
-    """``train_step(state, images, masks, gen) -> metrics`` becomes
-    ``multistep(state, images (K, B, ...), masks (K, B, ...), gen)``: the K
-    steps in order, returning each metric averaged over them."""
+    """``train_step(state, images, masks, gen[, instances]) -> metrics``
+    becomes ``multistep(state, images (K, B, ...), masks (K, B, ...), gen,
+    instances=None)`` (instances (K, B, ...) where the batches carry them):
+    the K steps in order, returning each metric averaged over them."""
 
-    def multistep(state: TrainState, images, masks, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    def multistep(state: TrainState, images, masks, gen: torch.Generator, instances=None) -> Dict[str, torch.Tensor]:
         if len(images) != window or len(masks) != window:
             raise ValueError(f"multistep expects {window} batches, got {len(images)} and {len(masks)}")
-        steps = [train_step(state, images[i], masks[i], gen) for i in range(window)]
+        extra = [{} if instances is None else {"instances": instances[i]} for i in range(window)]
+        steps = [train_step(state, images[i], masks[i], gen, **extra[i]) for i in range(window)]
         return {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
 
     return multistep
@@ -155,7 +157,8 @@ def run_epochs(
     """The trainers' host loop. Resumes ``state`` and ``gen`` from the newest
     checkpoint in ``cfg.checkpoint_dir`` when ``cfg.resume`` is set, then
     runs each epoch's steps (``steps_for_epoch(epoch) -> (train_step,
-    multistep)``, the latter over ``cfg.scan_window`` batches at once),
+    multistep)``, the latter over ``cfg.scan_window`` batches at once; a
+    batch's third column, instance masks, goes in as ``instances``),
     logs every metric to JSONL, prints the epoch's means and saves a
     checkpoint every ``save_epoch_interval`` epochs and after the last.
     Returns ``{"epoch_loss": [...]}``, the mean ``loss_key`` of each epoch
@@ -204,14 +207,13 @@ def run_epochs(
                 i = 0
                 while i < len(batches):
                     if len(batches) - i >= window:
-                        chunk = batches[i : i + window]
-                        imgs = torch.from_numpy(np.stack([b[0] for b in chunk]))
-                        masks = torch.from_numpy(np.stack([b[1] for b in chunk]).astype(np.uint8))
-                        metrics, done = multistep(state, imgs, masks, gen), window
+                        chunk, fn, done = batches[i : i + window], multistep, window
+                        cols = [np.stack(c) for c in zip(*chunk)]
                     else:
-                        imgs = torch.from_numpy(batches[i][0])
-                        masks = torch.from_numpy(batches[i][1].astype(np.uint8))
-                        metrics, done = train_step(state, imgs, masks, gen), 1
+                        cols, fn, done = list(batches[i]), train_step, 1
+                    imgs, masks = torch.from_numpy(cols[0]), torch.from_numpy(cols[1].astype(np.uint8))
+                    extra = {"instances": torch.from_numpy(cols[2])} if len(cols) == 3 else {}
+                    metrics = fn(state, imgs, masks, gen, **extra)
                     i += done
                     n_steps += done
                     global_step += done

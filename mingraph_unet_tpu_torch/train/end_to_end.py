@@ -19,7 +19,13 @@ in JAX) ``models/detection.py::dense_detection_loss`` against ground-truth
 instances cut from the augmented mask by connected components, without
 gradient (``instancing="fast"``: the stencil CC and the dense top-K;
 ``"exact"``: hook-and-jump CC and the exact top-K; ``max_instances`` slots,
-10 pixels at least). A term whose weight is 0 is left out. ``loss_balance="uncertainty"`` replaces each
+10 pixels at least). A term whose weight is 0 is left out.
+
+With COCO instance annotations (``dataset.annotations_file``: the batches
+carry (B, O, H, W) instance masks, augmented with their images) L_shape is
+the ellipse prior on the augmented ground-truth instances and the dense
+head trains against them: the step then runs no connected components at
+all. ``loss_balance="uncertainty"`` replaces each
 active graph term by ``exp(−s)·λ·L + s/2`` with a learnable ``s`` in the
 model's ``loss_balance.log_vars`` (the flax tree's
 ``params/loss_balance/log_vars``), trained by the same optimizer.
@@ -46,13 +52,13 @@ heads, instancing, every loss) runs on the whole images, alike on every
 rank of the group, its BN over the batch group only. Each rank
 backpropagates 1/S of its total; the gradients are summed over every rank.
 The gathered full-resolution tensors and the heads are held whole on every
-spatial rank.
+spatial rank; so are the instance masks, as the masks are.
 
 Every model the config builds trains: the dense head, class scores (no
 loss reaches them, as in JAX: the class branch moves by weight decay
 alone), each ablation switch, the U-Net without BatchNorm or
-rematerialized, any odd Sobel size. Not ported (``NotImplementedError``):
-COCO instance annotations (ROADMAP A5).
+rematerialized, any odd Sobel size, on COCO instance annotations or on
+masks alone.
 """
 
 from __future__ import annotations
@@ -101,8 +107,6 @@ def mingraph_unet_kwargs(cfg: PipelineConfig) -> Dict[str, Any]:
     """The ``MinGraphUNet`` arguments that ``cfg`` sets, all but the dtype
     and the device."""
     m = cfg.model
-    if cfg.dataset.annotations_file:
-        raise NotImplementedError("COCO instance annotations are not ported yet (ROADMAP A5)")
     return dict(
         num_classes=m.unet.out_channels,
         init_features=m.unet.init_features,
@@ -178,8 +182,8 @@ def _gt_instances(masks: torch.Tensor, max_instances: int, exact: bool) -> torch
 def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: PipelineConfig,
                         augment: bool = True, train_detection: bool = True, mesh: Optional[Mesh] = None
                         ) -> Callable:
-    """``train_step(state, images_u8 (B, H, W, 3), masks (B, H, W), gen)``
-    takes one optimizer step on ``model`` with ``opt``, which ``state``
+    """``train_step(state, images_u8 (B, H, W, 3), masks (B, H, W), gen,
+    instances=None)`` takes one optimizer step on ``model`` with ``opt``, which ``state``
     (a ``TrainState``, for the schedule and the step count) must hold, and
     returns the step's terms as device scalars: ``total``, ``l_unet_seg``,
     ``l_shape``, ``l_feature``, ``l_partition``, ``l_smooth``, and where
@@ -187,6 +191,9 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
     step used), ``l_bbox``, ``l_conf``, ``l_dense_obj`` and
     ``l_dense_box``. ``gen``, a ``torch.Generator``
     on the model's device, draws the augmentation and the dropout masks.
+    ``instances`` (B, O, H, W), annotated ground-truth instance masks, are
+    L_shape's objects and the dense head's ground truth (no connected
+    components).
     With a ``mesh`` that has process groups, the images are this rank's
     rows of the global batch (the same rows on every rank of a spatial
     group, whose U-Net then runs H-sharded) and the step and its terms are
@@ -201,17 +208,21 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
         raise ValueError("loss_balance 'uncertainty' needs the model's LossBalance (build_mingraph_unet adds it)")
     spatial = spatial_step(mesh)
 
-    def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor,
-                   gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor, gen: torch.Generator,
+                   instances: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         if state.model is not model or state.optimizer is not opt:
             raise ValueError("state must hold the model and optimizer this step was made for")
         dev = model.device
         images_u8, masks = images_u8.to(dev), masks.to(dev).long()
+        if instances is not None:
+            instances = instances.to(dev)
         b, h, w = masks.shape
         with data_parallel(mesh, b):
             draw = draw_step_augment(gen, b, h, w, pre) if augment else None
-            imgs, aug_masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
-                                                      draw, num_classes=cfg.dataset.num_classes)
+            imgs, aug_masks, *aug_inst = device_preprocess_batch(
+                images_u8, masks, pre.normalization_mean, pre.normalization_std, draw,
+                num_classes=cfg.dataset.num_classes, instances=instances)
+            aug_inst = aug_inst[0] if aug_inst else None
             model.train()
             u = spatial_sharded_unet(model.unet, imgs, mesh, level0=True) if spatial else None
             out = model(imgs, gen=gen, unet_outputs=u)
@@ -228,8 +239,11 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
                 y_p.reshape(b, n_patches), margin=lw.feature_loss_margin)
             l_partition = batch_mean(out["l_partition"])
             probs = torch.softmax(logits, dim=-1)
-            l_shape = losses.elliptical_shape_loss_soft_instances(probs, max_instances=max_instances,
-                                                                  exact=exact_instancing)
+            if aug_inst is not None:  # the ellipse prior on the annotated instances: no gradient into the model
+                l_shape = losses.elliptical_shape_loss(aug_inst.float())
+            else:
+                l_shape = losses.elliptical_shape_loss_soft_instances(probs, max_instances=max_instances,
+                                                                      exact=exact_instancing)
             l_smooth = losses.total_variation_loss(probs[..., 1:2])
 
             aux = {"l_unet_seg": l_seg, "l_shape": l_shape, "l_feature": l_feature, "l_partition": l_partition,
@@ -257,9 +271,9 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
                 total = total + l_bbox + l_conf
                 aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
             if "dense_objectness_logits" in out:
+                gt = aug_inst if aug_inst is not None else _gt_instances(aug_masks, max_instances, exact_instancing)
                 l_dense_obj, l_dense_box = dense_detection_loss(
-                    {"objectness_logits": out["dense_objectness_logits"], "boxes": out["dense_boxes"]},
-                    _gt_instances(aug_masks, max_instances, exact_instancing), patch)
+                    {"objectness_logits": out["dense_objectness_logits"], "boxes": out["dense_boxes"]}, gt, patch)
                 total = total + l_dense_obj + l_dense_box
                 aux["l_dense_obj"], aux["l_dense_box"] = l_dense_obj, l_dense_box
             aux["total"] = total
@@ -298,7 +312,8 @@ def train_end_to_end(
     device: Device = None,
 ) -> Tuple[TrainState, Dict[str, Any]]:
     """Train from a config directory; resumes from the newest checkpoint
-    when ``training.resume`` is set. Returns the state and
+    when ``training.resume`` is set. A relative ``annotations_file`` that
+    does not exist as given is looked up in the train split's directory. Returns the state and
     ``{"epoch_loss": [...]}`` (the mean total per epoch run)."""
     cfg = PipelineConfig.from_config_dir(config_dir)
     train_cfg = cfg.training
@@ -307,11 +322,16 @@ def train_end_to_end(
     ds_cfg = cfg.dataset
     data_root = data_root_override or ds_cfg.data_root
     model = replicate(build_mingraph_unet(cfg, dev), mesh)
+    ann_file = ds_cfg.annotations_file
+    if ann_file and not os.path.isabs(ann_file) and not os.path.exists(ann_file):
+        ann_file = os.path.join(data_root, ds_cfg.train_dir, ann_file)
     dataset = MangoDataset(
         image_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.image_folder),
         mask_dir=os.path.join(data_root, ds_cfg.train_dir, ds_cfg.mask_folder),
         image_size=cfg.preprocessing.resize_dim,
         num_classes=cfg.model.unet.out_channels,
+        annotations_file=ann_file,
+        max_instances=cfg.model.fusion_detection.max_instances,
     )
     loader = BatchLoader(dataset, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed,
                          shard=(mesh.batch_index, mesh.batch_size))

@@ -629,3 +629,105 @@ def test_card_psconv_train_halo_stitches_to_k4_bit_for_bit(cuda_device, case, dt
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(fy, 1), y_whole) and torch.equal(torch.cat(fdx, 1), dx_whole)
     _assert_close_rel(fdk.cpu(), dk_whole.cpu(), DK_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# Annotated training and the evaluations (small widths, bf16 and f32).
+# ---------------------------------------------------------------------------
+
+
+def _small_cfg(size=64, bf16=True):
+    from mingraph_unet_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    cfg.preprocessing.resize_dim = (size, size)
+    cfg.model.unet.init_features, cfg.model.unet.depth = 32, 2
+    cfg.model.gat.hidden_dim, cfg.model.gat.output_dim, cfg.model.gat.num_heads = 16, 8, 2
+    cfg.model.graph_construction.patch_size = 8
+    cfg.model.fusion_detection.use_dense_detection = True
+    cfg.model.fusion_detection.max_instances = 4
+    cfg.training.bf16 = bf16
+    return cfg
+
+
+def _instances(b=2, o=4, size=64, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    inst = np.zeros((b, o, size, size), np.uint8)
+    for i in range(b):
+        for k in range(o - i):
+            cy, cx = rng.uniform(0.2 * size, 0.8 * size, 2)
+            inst[i, k] = (yy - cy) ** 2 + ((xx - cx) * 1.3) ** 2 < (rng.uniform(0.06, 0.12) * size) ** 2
+    mask = inst.any(1).astype(np.uint8)
+    img = np.where(mask[..., None] == 1, np.array([230, 140, 30]), np.array([40, 110, 35]))
+    img = np.clip(img + rng.normal(0, 20, img.shape), 0, 255).astype(np.uint8)
+    return _t(img), _t(mask), _t(inst)
+
+
+@pytest.mark.cuda
+def test_card_annotated_e2e_step_runs_no_connected_components(cuda_device, monkeypatch):
+    """The annotated e2e step on the card (bf16, the dense head on): K4 4 + 4
+    and hist-eq 1, no connected components, every term finite."""
+    from mingraph_unet_tpu_torch.ops import cc
+    from mingraph_unet_tpu_torch.train import common, end_to_end
+
+    def no_cc(*args, **kwargs):
+        raise AssertionError("an annotated step ran connected components")
+
+    monkeypatch.setattr(cc, "label_components_stencil", no_cc)
+    monkeypatch.setattr(cc, "label_components", no_cc)
+    cfg = _small_cfg()
+    model = end_to_end.build_mingraph_unet(cfg, cuda_device)
+    opt, sched = common.make_optimizer(model.parameters(), cfg.training, 1)
+    step = end_to_end.make_e2e_train_step(model, opt, cfg)
+    imgs, masks, inst = (t.to(cuda_device) for t in _instances())
+    for k in (t_psconv.psconv_fwd, t_psconv.psconv_dgrad, t_histeq.equalize_channel):
+        k.launches = 0
+    aux = step(common.TrainState(model, opt, sched), imgs, masks, torch.Generator(device=cuda_device).manual_seed(0),
+               instances=inst)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in aux.values()) and float(aux["l_dense_box"]) > 0.0
+    assert (t_psconv.psconv_fwd.launches, t_psconv.psconv_dgrad.launches, t_histeq.equalize_channel.launches) == (
+        4, 4, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["unet", "mingraph-unet", "mingraph-unet-refined", "dense"])
+def test_card_detectors_match_their_cpu_halves(cuda_device, form):
+    """Each detector's device function on the card: its CC instancing (or
+    the dense decode) equals the CPU's over the card's own logits (dense
+    outputs), boxes and areas bit for bit."""
+    from mingraph_unet_tpu_torch.experiments import segmentation_performance as sp
+    from mingraph_unet_tpu_torch.experiments import yield_estimation_performance as yp
+    from mingraph_unet_tpu_torch.models.detection import decode_dense_detections
+    from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet
+
+    cfg = _small_cfg()
+    weights = build_mingraph_unet(cfg, "cpu").state_dict()
+    if form == "unet":
+        weights = {k[5:]: v for k, v in weights.items() if k.startswith("unet.")}
+    model = sp.build_eval_model(cfg, "unet" if form == "unet" else "mingraph-unet", weights, cuda_device)
+    imgs = _instances()[0].to(cuda_device)
+    if form == "dense":
+        out = sp.eval_forward(model, cfg, imgs)
+        args = dict(image_hw=(64, 64), cell_size=8, top_k=16)
+        card = decode_dense_detections(out["dense_objectness_logits"], out["dense_boxes"], **args)
+        cpu = decode_dense_detections(out["dense_objectness_logits"].cpu(), out["dense_boxes"].cpu(), **args)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+        assert all(torch.equal(a, b) for a, b in zip(yp.dense_head_detect(model, cfg, imgs, top_k=16), card))
+        return
+    logits = sp.segmentation_logits(model, cfg, imgs, form)
+    card, cpu = yp.instances_from_logits(logits), yp.instances_from_logits(logits.cpu())
+    assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])
+    _assert_close_rel(card[2].cpu().numpy(), cpu[2].numpy(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_card_region_blend_matches_cpu(cuda_device):
+    from mingraph_unet_tpu_torch.experiments.segmentation_performance import region_blend_logits
+
+    rng = np.random.default_rng(2)
+    logits, labels = _t(rng.standard_normal((2, 64, 64, 2)).astype(np.float32)), _t(rng.integers(0, 3, (2, 8, 8)))
+    for tau in (None, 0.05):
+        got = region_blend_logits(logits.to(cuda_device), labels.to(cuda_device), 8, 3, 0.5, tau)
+        _assert_close_rel(got.cpu().numpy(), region_blend_logits(logits, labels, 8, 3, 0.5, tau).numpy(), 1e-5)

@@ -277,22 +277,26 @@ def _small_cfg(jax_side, optimizer="adam", balance="none", psup=0.0, warmup=Fals
     return cfg
 
 
-def _orchard_batches(seed, steps=3):
+def _orchard_batches(seed, steps=3, instances=0):
     """uint8 orchard-like images (green ground, orange discs, noise) and
-    their disc masks."""
+    their disc masks; with ``instances`` also each disc as an instance
+    mask, (B, instances, S, S) uint8 (the same draws either way)."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:S, :S]
     out = []
     for _ in range(steps):
         mask = np.zeros((B, S, S), np.uint8)
+        inst = np.zeros((B, max(instances, 2), S, S), np.uint8)
         for i in range(B):
-            for _ in range(2):
+            for k in range(2):
                 cy, cx = rng.uniform(0.2 * S, 0.8 * S, 2)
                 r = rng.uniform(0.1 * S, 0.2 * S)
-                mask[i] |= ((yy - cy) ** 2 + (xx - cx) ** 2 < r * r).astype(np.uint8)
+                inst[i, k] = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+                mask[i] |= inst[i, k]
         img = np.where(mask[..., None] == 1, np.array([230, 140, 30]), np.array([40, 110, 35]))
         img = img + rng.normal(0, 25, (B, S, S, 3))
-        out.append((np.clip(img, 0, 255).astype(np.uint8), mask))
+        batch = (np.clip(img, 0, 255).astype(np.uint8), mask)
+        out.append(batch + (inst[:, :instances],) if instances else batch)
     return out
 
 
@@ -328,7 +332,7 @@ E2E_CASES = {
 
 
 def three_e2e_steps_vs_jax(jcfg, cfg, decisions, train_detection=True, zero_exact=_zero_in_exact_arithmetic,
-                           batch_seed=46, start=_start_variables):
+                           batch_seed=46, start=_start_variables, instances=0):
     """Three ``make_e2e_train_step`` steps of the port against the JAX
     trainer's from the same start (``_start_variables``) on
     ``_orchard_batches(batch_seed)``: every term of every step at VAL_TOL,
@@ -336,15 +340,21 @@ def three_e2e_steps_vs_jax(jcfg, cfg, decisions, train_detection=True, zero_exac
     compares them (``zero_exact``: the leaves whose gradient is zero in
     exact arithmetic), the BN statistics, the learning-rate schedule, and
     every discrete decision clear of its kink. ``start(jm, jcfg)`` gives the
-    starting variables. Returns the port's terms of each step."""
+    starting variables. With ``instances`` the batches carry that many
+    annotated instance masks (each disc one), which both steps take as
+    their ground truth. Returns the port's terms of each step."""
     jm = jax_e2e.build_mingraph_unet(jcfg, dtype=jnp.float32)
     tx, _ = jax_common.make_optimizer(jcfg.training, steps_per_epoch=2)
     variables = start(jm, jcfg)
     jstate = jax_common.TrainState.create(variables, tx)
-    batches = _orchard_batches(batch_seed)
+    batches = _orchard_batches(batch_seed, instances=instances)
+
+    def jax_masks(batch):
+        return (jnp.asarray(batch[1]), jnp.asarray(batch[2])) if instances else jnp.asarray(batch[1])
+
     with jax.default_matmul_precision("highest"):
         jstep = fast_compile(jax_e2e.make_e2e_train_step(jm, tx, jcfg, augment=False, train_detection=train_detection),
-                             jstate, jnp.asarray(batches[0][0]), jnp.asarray(batches[0][1]), jax.random.key(0))
+                             jstate, jnp.asarray(batches[0][0]), jax_masks(batches[0]), jax.random.key(0))
 
     model = t_e2e.build_mingraph_unet(cfg, device="cpu")
     load_jax_variables(model, _np_tree(variables))
@@ -356,15 +366,15 @@ def three_e2e_steps_vs_jax(jcfg, cfg, decisions, train_detection=True, zero_exac
         model.mincut.register_forward_hook(_argmax_margin_hook(argmax))
     gen = torch.Generator().manual_seed(0)
     terms = []
-    for i, (imgs, masks) in enumerate(batches):
-        jstate, ref = jstep(jstate, jnp.asarray(imgs), jnp.asarray(masks), jax.random.key(i))
-        got = step(state, _t(imgs), _t(masks), gen)
+    for i, batch in enumerate(batches):
+        jstate, ref = jstep(jstate, jnp.asarray(batch[0]), jax_masks(batch), jax.random.key(i))
+        got = step(state, _t(batch[0]), _t(batch[1]), gen, **({"instances": _t(batch[2])} if instances else {}))
         assert sorted(got) == sorted(ref), i
         for k in ref:
             assert _rel_err(got[k], np.asarray(ref[k])) <= VAL_TOL, (i, k)
         assert float(ref["l_shape"]) > 0.0, "the shape loss must see instances"
         terms.append(got)
-    kinds = ["relu", "pool", "cc"] + (["leaky"] if model.use_patch_gat or model.use_partition else []) + (
+    kinds = ["relu", "pool"] + ([] if instances else ["cc"]) + (["leaky"] if model.use_patch_gat or model.use_partition else []) + (
         ["argmax"] if model.use_partition else [])
     _check_margins(dict(decisions, argmax=argmax), kinds)
     assert state.step == int(jstate.step) == 3

@@ -1,8 +1,9 @@
 """The end-to-end trainer's host side in mingraph_unet_tpu_torch:
 ``convert.py`` on a JAX end-to-end train state, what ``build_mingraph_unet``
-refuses and follows from the config, the train step's guards, and
+builds and follows from the config, the train step's guards, and
 ``train_end_to_end`` (warm-up phase, uncertainty balancer, resume,
-multi-step windows) on a ``make_dummy_run`` dataset on the CPU. The small
+multi-step windows, COCO instance annotations) on a ``make_dummy_run``
+dataset on the CPU. The small
 configuration and data are ``test_torch_e2e.py``'s.
 """
 
@@ -68,15 +69,18 @@ def test_convert_loads_a_jax_e2e_train_state():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("change,match", [
-    (lambda c: setattr(c.dataset, "annotations_file", "ann.json"), "ROADMAP A5"),
-])
-def test_build_refuses_what_is_not_ported(change, match):
-    """COCO instance annotations stop the build."""
-    cfg = _small_cfg(False)
-    change(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        t_e2e.build_mingraph_unet(cfg, device="cpu")
+def _annotated_batch(tmp_path, cfg):
+    """One batch of ``make_dummy_run(with_annotations=True)`` data at the
+    small configuration's size, ``(imgs, masks, instances)``, with
+    ``cfg.dataset.annotations_file`` pointing at its annotations."""
+    from mingraph_unet_tpu_torch.data.dataset import BatchLoader, MangoDataset
+
+    make_dummy_run(str(tmp_path), num_images=B, image_size=(S, S), with_annotations=True)
+    train = os.path.join(str(tmp_path), "data", "train")
+    cfg.dataset.annotations_file = os.path.join(train, "annotations.json")
+    ds = MangoDataset(os.path.join(train, "images"), os.path.join(train, "masks"), image_size=(S, S),
+                      annotations_file=cfg.dataset.annotations_file, max_instances=4)
+    return next(BatchLoader(ds, B, shuffle=False).epoch(0))
 
 
 @pytest.mark.parametrize("change", [
@@ -84,18 +88,28 @@ def test_build_refuses_what_is_not_ported(change, match):
     lambda c: setattr(c.dataset, "num_detection_classes", 2),
     lambda c: setattr(c.model.ablation, "use_region_gat", False),
     lambda c: setattr(c.preprocessing, "sobel_kernel_size", 5),
-], ids=["dense_head", "class_scores", "no_region_gat", "sobel5"])
-def test_build_trains_what_it_once_refused(change):
-    """The dense head, class scores, an ablation switch and the 5×5 Sobel
-    build a model whose end-to-end step runs: one step, every term finite
+    "annotations",
+], ids=["dense_head", "class_scores", "no_region_gat", "sobel5", "annotations"])
+def test_build_trains_what_it_once_refused(change, tmp_path):
+    """The dense head, class scores, an ablation switch, the 5×5 Sobel and
+    COCO instance annotations (one step on ``make_dummy_run(
+    with_annotations=True)`` data, the dense head on) build a model whose
+    end-to-end step runs: one step, every term finite
     (``tests/test_torch_e2e_variants.py`` holds each against JAX)."""
     cfg = _small_cfg(False)
-    change(cfg)
+    if change == "annotations":
+        cfg.model.fusion_detection.use_dense_detection = True
+        imgs, masks, inst = _annotated_batch(tmp_path, cfg)
+        assert inst.shape == (B, 4, S, S) and inst.any()
+        extra = {"instances": _t(inst)}
+    else:
+        change(cfg)
+        imgs, masks = _orchard_batches(1, steps=1)[0]
+        extra = {}
     model = t_e2e.build_mingraph_unet(cfg, device="cpu")
     opt, sched = t_common.make_optimizer(model.parameters(), cfg.training, 1)
     step = t_e2e.make_e2e_train_step(model, opt, cfg)
-    imgs, masks = _orchard_batches(1, steps=1)[0]
-    aux = step(t_common.TrainState(model, opt, sched), _t(imgs), _t(masks), torch.Generator().manual_seed(0))
+    aux = step(t_common.TrainState(model, opt, sched), _t(imgs), _t(masks), torch.Generator().manual_seed(0), **extra)
     assert aux and all(bool(torch.isfinite(v)) for v in aux.values())
     assert ("l_dense_obj" in aux) == cfg.model.fusion_detection.use_dense_detection
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
@@ -170,3 +184,34 @@ def test_trainer_scan_window_runs_the_steps_in_order(tmp_path):
     _rewrite_yaml(os.path.join(cfg_dir, "training.yaml"), scan_window=2)
     state, history = t_e2e.train_end_to_end(cfg_dir, max_epochs=1, device="cpu")
     assert state.step == 3 and np.isfinite(history["epoch_loss"][0])
+
+
+@pytest.mark.parametrize("window", [1, 2], ids=["steps", "scan_window"])
+def test_trainer_trains_on_annotations(tmp_path, window, monkeypatch):
+    """``train_end_to_end`` on ``make_dummy_run(with_annotations=True)``
+    data, the annotation file named relative to the train split as
+    ``scripts/run_results.py`` names it, the dense head on: every batch
+    carries its instances into the step (single steps and scan windows),
+    so no step runs connected components."""
+    from mingraph_unet_tpu_torch.ops import cc as t_cc
+
+    def no_cc(*args, **kwargs):
+        raise AssertionError("an annotated step ran connected components")
+
+    for name in ("label_components", "label_components_stencil"):
+        monkeypatch.setattr(t_cc, name, no_cc)
+    cfg_dir = make_dummy_run(str(tmp_path), num_images=4, image_size=(32, 32), batch_size=2, num_epochs=1,
+                             patch_size=8, init_features=4, depth=2, with_annotations=True)
+    _rewrite_yaml(os.path.join(cfg_dir, "dataset.yaml"), annotations_file="annotations.json")
+    model_yaml = os.path.join(cfg_dir, "model.yaml")
+    import yaml
+
+    data = yaml.safe_load(open(model_yaml))
+    data["fusion_detection"]["use_dense_detection"] = True
+    yaml.safe_dump(data, open(model_yaml, "w"))
+    tc = _rewrite_yaml(os.path.join(cfg_dir, "training.yaml"), scan_window=window, log_interval=1)
+    state, history = t_e2e.train_end_to_end(cfg_dir, max_epochs=1, device="cpu")
+    assert state.step == 2 and np.isfinite(history["epoch_loss"][0])
+    (log_file,) = [f for f in os.listdir(tc["log_dir"]) if f.endswith(".jsonl")]
+    rows = [json.loads(line) for line in open(os.path.join(tc["log_dir"], log_file))]
+    assert rows and all(r["l_shape"] > 0.0 and r["l_dense_box"] > 0.0 for r in rows)

@@ -1,8 +1,9 @@
 """Every end-to-end model configuration the JAX trainer trains, trained by
 the port's ``make_e2e_train_step`` against it on the CPU: the dense
 detection head (its loss on connected-component ground truth, fast and
-exact instancing, with and without the single-box head trained), class
-scores, each ablation variant of ``experiments/ablation_study.py``,
+exact instancing, with and without the single-box head trained; or on
+annotated instance masks, with L_shape on them and the uncertainty
+balancer, under Adam and SGD), class scores, each ablation variant of ``experiments/ablation_study.py``,
 ``use_fusion=False``, the U-Net without BatchNorm or rematerialized, and
 the 5×5 Sobel feature.
 
@@ -21,6 +22,7 @@ import torch
 
 from mingraph_unet_tpu.experiments.ablation_study import VARIANT_TOGGLES
 from mingraph_unet_tpu_torch.models import detection as t_det
+from mingraph_unet_tpu_torch.ops import cc as t_cc
 from mingraph_unet_tpu_torch.train import common as t_common
 from mingraph_unet_tpu_torch.train import end_to_end as t_e2e
 from test_torch_e2e import (_orchard_batches, _small_cfg, _start_variables, _t,  # noqa: F401
@@ -58,6 +60,8 @@ CASES = {
 # The batch seed of a case whose decisions seed 34 does not keep clear of
 # their kinks (the test checks every decision's margin).
 SEEDS = {"dense_fast": 82, "dense_exact": 82, "dense_no_box_head": 125, "sobel5": 36}
+# The batch seed of each annotated case (the same check).
+ANNOTATED_SEEDS = {"adam": 82, "sgd": 101}
 CASES.update({f"ablation_{v}": ([_set("model.ablation", **t)], True) for v, t in VARIANT_TOGGLES.items()
               if v != "combined"})
 
@@ -114,6 +118,29 @@ def test_three_e2e_steps_match_jax(case, no_dropout, decisions):
             assert float(got["l_dense_obj"]) > 0.0 and float(got["l_dense_box"]) > 0.0
         if not cfg.model.ablation.use_partition:
             assert float(got["l_partition"]) == 0.0
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_three_annotated_e2e_steps_match_jax(optimizer, no_dropout, decisions, monkeypatch):
+    """COCO-annotated batches (each disc an instance, 3 slots): L_shape on
+    the ground-truth instances, the dense head trained against them, the
+    uncertainty balancer on (L_shape's value reaches ``log_vars``). Three
+    steps against JAX's as every case above; the port's step runs no
+    connected components."""
+    def no_cc(*args, **kwargs):
+        raise AssertionError("an annotated step ran connected components")
+
+    for name in ("label_components", "label_components_stencil"):
+        monkeypatch.setattr(t_cc, name, no_cc)
+    cfgs = _small_cfg(True, optimizer=optimizer, balance="uncertainty"), _small_cfg(False, optimizer=optimizer,
+                                                                                    balance="uncertainty")
+    for cfg in cfgs:
+        DENSE(cfg)
+        cfg.model.fusion_detection.max_instances = 3
+    terms = three_e2e_steps_vs_jax(*cfgs, decisions, batch_seed=ANNOTATED_SEEDS[optimizer], instances=3)
+    for got in terms:
+        assert float(got["l_dense_obj"]) > 0.0 and float(got["l_dense_box"]) > 0.0
+        assert float(got["l_shape"]) > 0.0 and "bal_s_l_shape" in got
 
 
 @pytest.mark.parametrize("exact", [False, True], ids=["fast", "exact"])

@@ -29,6 +29,12 @@ print(len(names), bad)
 """
 
 
+# The data and evaluation modules, which the walk must reach.
+DATA_AND_EVAL_MODULES = ("data.annotations", "data.synthetic", "data.native_loader", "data.collection",
+                   "experiments.segmentation_performance", "experiments.yield_estimation_performance",
+                   "experiments.ablation_study", "utils.bootstrap")
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
@@ -37,6 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().splitlines()[-1].split(" ", 1)
-    expected = len(list(pkgutil.walk_packages(mingraph_unet_tpu_torch.__path__, "mingraph_unet_tpu_torch.")))
-    assert int(count) == expected > 10
+    walked = {m.name for m in pkgutil.walk_packages(mingraph_unet_tpu_torch.__path__, "mingraph_unet_tpu_torch.")}
+    assert int(count) == len(walked) > 10
+    assert {f"mingraph_unet_tpu_torch.{m}" for m in DATA_AND_EVAL_MODULES} <= walked
     assert bad == "[]", f"the port pulled in {bad}"

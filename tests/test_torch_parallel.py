@@ -31,8 +31,9 @@ with a spatial axis against the one-process steps in f64 at ``DP_TOL``
 (the cuDNN-style sites sum a shard's two edge rows in another order, so
 they are not bit-equal), the f32 segmentation step against JAX's H-sharded
 step; and both trainers under ``spatial_parallel: 2``. The model options:
-the e2e step with the dense detection head on data 2 and on spatial 2,
-and the segmentation step with the rematerialized U-Net on spatial 2,
+the e2e step with the dense detection head on data 2 (on connected
+components and on annotated instances) and on spatial 2, and the
+segmentation step with the rematerialized U-Net on spatial 2,
 each against the plain one-process step in f64.
 """
 
@@ -62,6 +63,7 @@ from mingraph_unet_tpu.utils.bootstrap import make_dummy_run
 from mingraph_unet_tpu_torch.convert import load_jax_variables, variables_from_jax
 from mingraph_unet_tpu_torch.models import losses as t_losses
 from mingraph_unet_tpu_torch.models.unet import UNet
+from mingraph_unet_tpu_torch.ops import cc as t_cc
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
 from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
 from mingraph_unet_tpu_torch.parallel import data as t_data
@@ -170,22 +172,27 @@ def _seg_start():
 E2E_B, E2E_S = 4, 32
 
 
-def _e2e_batch(empty_rank1: bool, seed=46):
+def _e2e_batch(empty_rank1: bool, seed=46, instances: bool = False):
     """Orchard-like images with fruit discs; with ``empty_rank1`` the second
-    rank's two images are bare ground (no object, no positive image)."""
+    rank's two images are bare ground (no object, no positive image); with
+    ``instances`` also each disc as an annotated instance, (B, 2, S, S)
+    uint8 (the same draws either way)."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:E2E_S, :E2E_S]
     mask = np.zeros((E2E_B, E2E_S, E2E_S), np.uint8)
+    inst = np.zeros((E2E_B, 2, E2E_S, E2E_S), np.uint8)
     for i in range(E2E_B):
         if empty_rank1 and i >= E2E_B // 2:
             continue
-        for _ in range(1 + i % 2):
+        for k in range(1 + i % 2):
             cy, cx = rng.uniform(0.25 * E2E_S, 0.75 * E2E_S, 2)
             r = rng.uniform(0.12 * E2E_S, 0.2 * E2E_S)
-            mask[i] |= ((yy - cy) ** 2 + (xx - cx) ** 2 < r * r).astype(np.uint8)
+            inst[i, k] = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+            mask[i] |= inst[i, k]
     img = np.where(mask[..., None] == 1, np.array([230, 140, 30]), np.array([40, 110, 35]))
     img = img + rng.normal(0, 25, (E2E_B, E2E_S, E2E_S, 3))
-    return np.clip(img, 0, 255).astype(np.uint8), mask
+    batch = np.clip(img, 0, 255).astype(np.uint8), mask
+    return batch + (inst,) if instances else batch
 
 
 def _e2e_start(dense: bool = False):
@@ -251,6 +258,9 @@ def runs(tmp_path_factory):
     imgs, masks = _e2e_batch(True)
     two.append(("train_step", dict(kind="e2e", state=dense_state, cfg_args={"dense": True}, imgs=imgs, masks=masks,
                                    dtype="float64", seed=7)))
+    imgs, masks, inst = _e2e_batch(True, instances=True)
+    two.append(("train_step", dict(kind="e2e", state=dense_state, cfg_args={"dense": True}, imgs=imgs, masks=masks,
+                                   instances=inst, dtype="float64", seed=7)))
     dirs = _dummy_runs(str(tmp_path_factory.mktemp("dummy")))
     one = [("trainers", {"seg_dir": dirs["seg", "gloo"], "e2e_dir": dirs["e2e", "gloo"]})]
     results = {w: run_checks(checks, w, JOB_TIMEOUT[w]) for w, checks in ((4, four), (2, two), (1, one))}
@@ -625,6 +635,26 @@ def test_data_parallel_e2e_step_with_the_dense_head_matches_one_process(runs):
     assert any(k.startswith("grad:dense_detection_head.") for k in ref)
     for got in runs["pick"](2, "train_step", len(E2E_CASES)):
         _check_leaves(got, ref, _zero_in_exact_arithmetic, e2e_cfg().training.learning_rate)
+
+
+def test_data_parallel_annotated_e2e_step_matches_one_process(runs, monkeypatch):
+    """One end-to-end step on annotated instances (each disc one; the dense
+    head on, augmentation, the uncertainty balancer) on 2 ranks of a global
+    batch of 4, the second rank's images without an object, equals the
+    one-process step. L_shape on the instances has no gradient into the
+    model, but its value reaches ``log_vars``: its sum over valid objects
+    and their count must be global (a per-rank mean would differ here,
+    every valid object being on the first rank)."""
+    imgs, masks, inst = _e2e_batch(True, instances=True)
+    monkeypatch.setattr(t_cc, "label_components_stencil", lambda *a, **k: pytest.fail("an annotated step ran CC"))
+    ref = _one_process("e2e", runs["dense_state"], imgs, masks, dict(cfg_args={"dense": True}, dtype="float64",
+                                                                     seed=7, instances=inst))
+    assert ref["metrics"]["l_shape"] > 0.0 and ref["metrics"]["l_dense_box"] > 0.0
+    assert inst[2:].sum() == 0 and inst[:2].sum() > 0
+    got = runs["pick"](2, "train_step", len(E2E_CASES) + 1)
+    for res in got:
+        _check_leaves(res, ref, _zero_in_exact_arithmetic, e2e_cfg().training.learning_rate)
+    assert got[0]["param:loss_balance.log_vars"][0] != runs["dense_state"]["loss_balance.log_vars"][0]
 
 
 @pytest.mark.parametrize("trainer", ["seg", "e2e"])

@@ -23,7 +23,7 @@ import tempfile
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -300,12 +300,13 @@ def build_model(kind: str, cfg: PipelineConfig, dtype: str, state: Dict[str, np.
 
 def train_step(kind: str, state: Dict[str, np.ndarray], cfg_args: Dict[str, Any], imgs: np.ndarray,
                masks: np.ndarray, dtype: str, seed: int, dp: int = 0, dcn: int = 1, augment: bool = True,
-               mesh: Any = "auto", sp: int = 1) -> Dict[str, Any]:
+               mesh: Any = "auto", sp: int = 1, instances: Optional[np.ndarray] = None) -> Dict[str, Any]:
     """One train step (``kind`` "seg" or "e2e") on this rank's rows of the
     global batch (``mesh`` "auto": data ``dp`` × spatial ``sp`` × dcn
     ``dcn`` over the process group, the ranks of a spatial group on the
-    same rows; None: the whole batch in one process). Returns the metrics
-    and every parameter, gradient and BN statistic after it."""
+    same rows; None: the whole batch in one process), the e2e step with
+    annotated ``instances`` where given. Returns the metrics and every
+    parameter, gradient and BN statistic after it."""
     from mingraph_unet_tpu_torch.train import common, end_to_end, segmentation
 
     mesh = t_mesh.make_mesh(dp, sp, dcn) if mesh == "auto" else mesh
@@ -316,7 +317,9 @@ def train_step(kind: str, state: Dict[str, np.ndarray], cfg_args: Dict[str, Any]
     step = (segmentation.make_train_step(cfg, augment=augment, mesh=mesh) if kind == "seg"
             else end_to_end.make_e2e_train_step(model, opt, cfg, augment=augment, mesh=mesh))
     rows = (lambda a: t_mesh.shard_batch(torch.from_numpy(a), mesh)) if mesh else torch.from_numpy
-    metrics = step(common.TrainState(model, opt, sched), rows(imgs), rows(masks), torch.Generator().manual_seed(seed))
+    extra = {} if instances is None else {"instances": rows(instances)}
+    metrics = step(common.TrainState(model, opt, sched), rows(imgs), rows(masks), torch.Generator().manual_seed(seed),
+                   **extra)
     out = {"metrics": {k: float(v) for k, v in metrics.items()}}
     out.update({f"param:{n}": _np(p) for n, p in model.named_parameters()})
     out.update({f"grad:{n}": _np(p.grad) for n, p in model.named_parameters()})
