@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, large-scene serving, segmentation-training,
 end-to-end training, torch.distributed and spatial-parallel training paths,
-the model options the trainers take, training on annotated instances and
-the paper's evaluations, on one CUDA card and check them.
+the model options the trainers take, training on annotated instances, the
+paper's evaluations, the command-line entry points and the profiling
+hooks, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -212,9 +213,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    three forms (the same launches, finite Table-1 metrics) and
    ``region_blend_logits`` against the CPU within ``F32_TOL``. (c) The C++
    PNG loader built with g++ and held bit for bit against 8 RGB and 8 gray
-   512² PNGs written by a zlib + struct writer in this script (every row
-   filter). The kernels line gives each kernel's launches on (a) and (b)
+   512² PNGs written by the package's zlib + struct writer
+   (``data/png.py``, every row filter). The kernels line gives each kernel's launches on (a) and (b)
    (``launches_annotated``).
+17. The CLIs, in process through each ``main(argv)`` without ``--cpu``,
+   at ``configs/*.yaml``'s widths (U-Net init 32, depth 4; patch 16; GAT
+   128/64, 4 heads; f32, as ``training.yaml`` says): two config
+   directories read from ``configs/`` and written back by the port's YAML
+   code (512², batch 8, one epoch, their own checkpoint and log
+   directories), 16 orchard-like RGB 512² PNGs with masks, a 512² image and
+   a 1024² scene written by ``data/png.py``. ``train_segmentation`` and
+   ``train_end_to_end`` (2 steps each): every batch decoded by the C++
+   loader, K4 4 + 4 a step (and hist-eq 1 in e2e) and nothing else, a
+   finite epoch loss, the checkpoint read back bit-equal to the trained
+   weights; ``infer_segmentation`` on the image and with ``--large_scene
+   --tile 512 --halo 64`` on the scene: psel 4, dec-conv1 2, pool 2, d2s 1
+   (the four 640² windows in one forward), the label PNG decoded by the C++
+   loader equal to the labels returned; ``graph_refinement``: hist-eq 1, a
+   finite L_partition; no CLI imports OpenCV. Then ``setup_host()`` and
+   ``trace_if`` around 5 serving forwards (as phase 3), ``parse_device_trace``
+   and ``attribute_stages``: each hand-written kernel in the rows as often
+   a forward as its counter says, from its wrapper's frame, in a stage; the
+   stage sums equal to the rows' total; ``StepTimer`` within 5% of CUDA
+   events. Prints each CLI's wall seconds and peak memory and the training
+   images/s; the kernels line gives each kernel's launches a step (a call)
+   of each CLI and of the traced forward (``launches_cli``).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -2984,40 +3007,6 @@ def _eval_path(dev, ckpt_dir: str, weights):
     return launches
 
 
-def _png_bytes(arr) -> bytes:
-    """A PNG of a uint8 (H, W) gray or (H, W, 3) RGB array written with zlib
-    and struct only, the rows taking the five filter types in turn."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    h, w = arr.shape[:2]
-    c = 1 if arr.ndim == 2 else 3
-    x = arr.reshape(h, w * c).astype(np.int16)
-    prev = np.zeros(w * c, np.int16)
-    rows = []
-    for y in range(h):
-        cur, ft = x[y], y % 5
-        left = np.concatenate([np.zeros(c, np.int16), cur[:-c]])
-        upleft = np.concatenate([np.zeros(c, np.int16), prev[:-c]])
-        if ft == 4:
-            p = left + prev - upleft
-            pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
-            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
-        else:
-            pred = (0, left, prev, (left + prev) // 2)[ft]
-        rows.append(bytes([ft]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
-        prev = cur
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
-
-    header = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(b"".join(rows)))
-            + chunk(b"IEND", b""))
-
-
 def _native_loader() -> None:
     """Phase 16 (c): the C++ PNG loader built with g++ on the card's machine
     and held bit for bit against the arrays a stdlib writer wrote."""
@@ -3026,6 +3015,7 @@ def _native_loader() -> None:
     import numpy as np
 
     from mingraph_unet_tpu_torch.data import native_loader
+    from mingraph_unet_tpu_torch.data.png import png_bytes
     from mingraph_unet_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
@@ -3041,7 +3031,7 @@ def _native_loader() -> None:
             for kind, arr in (("img", imgs[i]), ("mask", masks[i])):
                 path = os.path.join(d, f"{kind}{i}.png")
                 with open(path, "wb") as f:
-                    f.write(_png_bytes(arr))
+                    f.write(png_bytes(arr))
                 paths.append(path)
         t0 = time.perf_counter()
         out = native_loader.load_batch(paths[0::2], paths[1::2], (SIZE, SIZE), threads=8)
@@ -3073,6 +3063,291 @@ def _attach_launches(rows, paths, key: str = "launches_options") -> None:
     for row in rows:
         counter = ROW_COUNTER[row["name"].split(" ")[0]]
         row[key] = {path: counts[counter] for path, counts in paths.items()}
+
+
+CLI_IMAGES = 16       # phase 17: the mask dataset the training CLIs read (2 steps of batch 8)
+TRACE_FORWARDS = 5    # phase 17: serving forwards under trace_if
+# Phase 17: each hand-written kernel of the serving forward → (its device
+# function's name, the wrapper module whose frame launches it).
+TRACED_KERNELS = {"psel": ("psel_wgmma_kernel", "ops/kernels/psconv.py"),
+                  "dec1": ("dec1_wgmma_kernel", "ops/kernels/psconv.py"),
+                  "pool": ("phase_max_pool_kernel", "ops/kernels/pool.py"),
+                  "d2s": ("depth_to_space_kernel", "ops/kernels/pool.py"),
+                  "histeq": ("histeq_kernel", "ops/kernels/histeq.py")}
+# The stages of the port's serving forward, by source (first match wins),
+# as the JAX package's bench.py folds its trace.
+STAGE_RULES = [
+    ("unet", ("models/unet.py", "ops/kernels/psconv.py", "ops/kernels/pool.py", "ops/s2d.py", "ops/conv.py")),
+    ("detection", ("models/detection.py",)),
+    ("aux_filters", ("ops/filters.py", "ops/kernels/histeq.py")),
+    ("graph_fusion", ("models/gat.py", "models/mincut.py", "models/fusion.py", "ops/segment.py",
+                      "ops/patches.py", "ops/lattice.py", "models/pipeline.py")),
+]
+
+
+def _cli_dataset(root: str) -> tuple:
+    """Phase 17's files, all PNGs by the package's stdlib writer: a mask
+    dataset of ``CLI_IMAGES`` orchard-like RGB images (orange discs on
+    green with noise) under ``root/data/train``, one more image and a
+    1024² scene. Returns (test image path, scene path)."""
+    import numpy as np
+
+    from mingraph_unet_tpu_torch.data.png import write_png
+
+    rng = np.random.default_rng(17)
+
+    def scene(size: int):
+        img = np.empty((size, size, 3), np.float32)
+        img[:] = (40, 110, 35)
+        img += rng.normal(0, 12, img.shape)
+        mask = np.zeros((size, size), np.uint8)
+        yy, xx = np.mgrid[:size, :size]
+        for _ in range(int(rng.integers(3, 9)) * (size // 512) ** 2):
+            cy, cx = rng.uniform(0.1, 0.9, 2) * size
+            ry, rx = rng.uniform(0.03, 0.08, 2) * size
+            disc = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+            img[disc] = (230, 140, 30) + rng.normal(0, 10, (int(disc.sum()), 3))
+            mask[disc] = 1
+        return np.clip(img, 0, 255).astype(np.uint8), mask
+
+    train = os.path.join(root, "data", "train")
+    os.makedirs(os.path.join(train, "images"))
+    os.makedirs(os.path.join(train, "masks"))
+    for i in range(CLI_IMAGES):
+        img, mask = scene(SIZE)
+        write_png(os.path.join(train, "images", f"img_{i:03d}.png"), img)
+        write_png(os.path.join(train, "masks", f"img_{i:03d}.png"), mask)
+    image = write_png(os.path.join(root, "test_image.png"), scene(SIZE)[0])
+    return image, write_png(os.path.join(root, "scene.png"), scene(SCENE)[0])
+
+
+def _cli_configs(root: str, name: str) -> str:
+    """A config directory from the repo's ``configs/*.yaml`` (read and
+    written by the port's YAML code) at 512², batch 8, one epoch, its own
+    checkpoint and log directories."""
+    from mingraph_unet_tpu_torch.config import load_yaml, write_yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg_dir = os.path.join(root, name, "configs")
+    os.makedirs(cfg_dir)
+    changes = {"dataset.yaml": {"data_root": os.path.join(root, "data"), "image_height": SIZE, "image_width": SIZE},
+               "model.yaml": {},
+               "preprocessing.yaml": {"resize_dim": [SIZE, SIZE]},
+               "training.yaml": {"batch_size": BATCH, "num_epochs": 1,
+                                 "checkpoint_dir": os.path.join(root, name, "checkpoints"),
+                                 "log_dir": os.path.join(root, name, "logs")}}
+    for file, update in changes.items():
+        data = load_yaml(os.path.join(here, "configs", file))
+        missing = set(update) - set(data)
+        if missing:
+            _fail(f"phase 17: configs/{file} has no {sorted(missing)}")
+        write_yaml(os.path.join(cfg_dir, file), {**data, **update})
+    return cfg_dir
+
+
+def _timed_cli(label: str, main, argv):
+    """One CLI ``main(argv)`` in process with the launch counters from 0:
+    (its result, launches, wall seconds, peak GiB)."""
+    import torch
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if "cv2" in sys.modules:
+        _fail(f"phase 17: {label} imported OpenCV")
+    print(f"[chip_smoke] {label}: {wall:.3f} s wall, peak {peak:.3f} GiB, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return out, launches, wall, peak
+
+
+def _expect_launches(label: str, launches, want) -> None:
+    full = {k: 0 for k in _wrappers()}
+    full.update(want)
+    if launches != full:
+        _fail(f"phase 17: {label} launched {launches}, expected {full}")
+
+
+def _train_cli(label: str, main, cfg_dir: str, per_step):
+    """A training CLI for one epoch: every batch decoded by the C++
+    loader, the launches a step, finite losses, the checkpoint read back
+    bit-equal to the trained weights."""
+    import math
+
+    import torch
+
+    from mingraph_unet_tpu_torch.data import native_loader
+    from mingraph_unet_tpu_torch.train.infer import load_variables
+
+    decoded = []
+    real = native_loader.load_batch
+    native_loader.load_batch = lambda *a, **k: decoded.append(len(a[0])) or real(*a, **k)
+    try:
+        (state, history), launches, wall, peak = _timed_cli(label, main, ["--config_path", cfg_dir, "--epochs", "1"])
+    finally:
+        native_loader.load_batch = real
+    steps = CLI_IMAGES // BATCH
+    if decoded != [BATCH] * steps:
+        _fail(f"phase 17: {label}: the native loader decoded batches {decoded}, expected {steps} of {BATCH}")
+    _expect_launches(label, launches, {k: n * steps for k, n in per_step.items()})
+    if len(history["epoch_loss"]) != 1 or not math.isfinite(history["epoch_loss"][0]):
+        _fail(f"phase 17: {label}: epoch losses {history['epoch_loss']}")
+    saved = load_variables(os.path.join(os.path.dirname(cfg_dir), "checkpoints"))
+    own = state.model.state_dict()
+    if sorted(saved) != sorted(own) or not all(torch.equal(saved[k], v.cpu()) for k, v in own.items()):
+        _fail(f"phase 17: {label}: the checkpoint read back differs from the trained weights")
+    print(f"[chip_smoke] {label}: {steps} steps, epoch loss {history['epoch_loss'][0]:.4f}, "
+          f"{CLI_IMAGES / wall:.2f} images/s over the whole call (set-up included), checkpoint read back "
+          f"bit-equal ({len(own)} tensors)")
+    return dict(per_step), wall, peak
+
+
+def _infer_cli(label: str, argv, size: int, main):
+    """An inference CLI on the card: the launches of one U-Net forward and
+    the label PNG, decoded by the C++ loader, equal to the labels the
+    call returned."""
+    import numpy as np
+
+    from mingraph_unet_tpu_torch.data import native_loader
+
+    out, launches, wall, _ = _timed_cli(label, main, argv)
+    _expect_launches(label, launches, {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1})
+    labels = out["labels"]
+    decoded = native_loader.load_mask(out["label_path"], (size, size))
+    if labels.shape != (size, size) or decoded is None or not np.array_equal(decoded, labels.astype(np.uint8)):
+        _fail(f"phase 17: {label}: the label PNG differs from the labels returned")
+    print(f"[chip_smoke] {label}: labels {labels.shape}, foreground share {float((labels == 1).mean()):.4f}, "
+          f"label PNG decoded equal")
+    return launches, wall
+
+
+def _traced_forwards(dev):
+    """``setup_host()``, then ``trace_if`` around ``TRACE_FORWARDS`` serving
+    forwards, ``parse_device_trace`` and ``attribute_stages``: every
+    hand-written kernel in the rows, launched as often as the counters
+    say, from its wrapper, in a stage; the stage sums equal the rows'
+    total; ``StepTimer`` within 5% of CUDA events."""
+    import tempfile
+
+    import torch
+
+    from mingraph_unet_tpu_torch.utils.env import setup_host
+    from mingraph_unet_tpu_torch.utils.profiling import StepTimer, attribute_stages, parse_device_trace, trace_if
+
+    if setup_host() != dev:
+        _fail(f"phase 17: setup_host() gave another device than {dev}")
+    model, x = _serving_model(dev)
+    with torch.no_grad():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as trace_dir:
+            _reset_counts()
+            t0 = time.perf_counter()
+            with trace_if(trace_dir):
+                for _ in range(TRACE_FORWARDS):
+                    out = model(x)
+                torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+            launches = _counts()
+            t0 = time.perf_counter()
+            rows = parse_device_trace(trace_dir, TRACE_FORWARDS)
+            parse_s = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(trace_dir, f)) for f in os.listdir(trace_dir))
+        timer = StepTimer()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        timer.start()
+        for _ in range(TRACE_FORWARDS):
+            out = model(x)
+        end.record()
+        timer_ms = timer.stop(out["logits"])
+        event_ms = start.elapsed_time(end)
+    _expect_launches("traced serving forwards", launches,
+                     {k: n * TRACE_FORWARDS for k, n in {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "histeq": 1}.items()})
+    stages = attribute_stages(rows, STAGE_RULES)
+    total_ms = sum(r["us_per_step"] for r in rows) / 1e3
+    print(f"[chip_smoke] traced {TRACE_FORWARDS} serving forwards in {traced_s:.1f} s (trace {size / 2**20:.1f} MiB "
+          f"gzipped, parsed in {parse_s:.1f} s): {len(rows)} rows, {total_ms:.3f} ms of device time a forward, "
+          f"{sum(r['launches_per_step'] for r in rows):.0f} device operations a forward; stages (ms/forward) {stages}")
+    if not rows or abs(sum(stages.values()) - total_ms) > 5e-4 * len(stages):
+        _fail(f"phase 17: the stage sums {stages} differ from the rows' total {total_ms:.3f} ms")
+    for r in rows[:8]:
+        print(f"[chip_smoke]   {r['us_per_step']:9.1f} us/forward {r['launches_per_step']:5.1f}x  "
+              f"{r['op'][:60]}  <- {r['source'][:70]}")
+    for counter, (kernel, module) in TRACED_KERNELS.items():
+        mine = [r for r in rows if kernel in r["op"]]
+        per_step = sum(r["launches_per_step"] for r in mine)
+        sources = sorted({r["source"] for r in mine})
+        if per_step != launches[counter] / TRACE_FORWARDS:
+            _fail(f"phase 17: the trace holds {per_step} {kernel} a forward, the counter {launches[counter]} "
+                  f"in {TRACE_FORWARDS}")
+        if not all(module in src for src in sources) or "other" in attribute_stages(mine, STAGE_RULES):
+            _fail(f"phase 17: {kernel} attributed to {sources}, not to its wrapper in {module}")
+        print(f"[chip_smoke]   {kernel}: {per_step:.0f} a forward, {sum(r['us_per_step'] for r in mine):.1f} us, "
+              f"from {sources}")
+    if abs(timer_ms - event_ms) > 0.05 * event_ms:
+        _fail(f"phase 17: StepTimer {timer_ms:.3f} ms against CUDA events {event_ms:.3f} ms")
+    print(f"[chip_smoke] StepTimer {timer_ms:.3f} ms against CUDA events {event_ms:.3f} ms over {TRACE_FORWARDS} "
+          f"forwards ({timer_ms / event_ms:.4f})")
+    del model, x, out
+    return {k: v // TRACE_FORWARDS for k, v in launches.items()}
+
+
+def _cli_path(dev):
+    """Phase 17: the CLIs on the card at ``configs/*.yaml``'s widths from a
+    config directory written by the port's YAML code, then the profiling
+    hooks. Returns the launches a step (a call) of each."""
+    import math
+    import tempfile
+
+    import torch
+
+    from mingraph_unet_tpu_torch.scripts import graph_refinement, infer_segmentation, train_end_to_end
+    from mingraph_unet_tpu_torch.scripts import train_segmentation
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        image, scene = _cli_dataset(root)
+        seg_cfg, e2e_cfg = _cli_configs(root, "seg"), _cli_configs(root, "e2e")
+        print(f"[chip_smoke] phase 17: {CLI_IMAGES} + 2 PNGs and two config directories written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        paths = {}
+        paths["train_segmentation step"], seg_s, seg_peak = _train_cli(
+            "train_segmentation", train_segmentation.main, seg_cfg, {"k4_fwd": 4, "k4_dgrad": 4})
+        paths["train_end_to_end step"], e2e_s, e2e_peak = _train_cli(
+            "train_end_to_end", train_end_to_end.main, e2e_cfg, {"k4_fwd": 4, "k4_dgrad": 4, "histeq": 1})
+        weights = os.path.join(root, "seg", "checkpoints")
+        common = ["--config_path", seg_cfg, "--weights_path", weights]
+        paths["infer_segmentation"], infer_s = _infer_cli(
+            "infer_segmentation", common + ["--image_path", image, "--output_dir", os.path.join(root, "out")],
+            SIZE, infer_segmentation.main)
+        paths["infer_segmentation --large_scene"], scene_s = _infer_cli(
+            "infer_segmentation --large_scene", common + ["--image_path", scene, "--output_dir",
+                                                          os.path.join(root, "out"), "--large_scene", "--tile",
+                                                          str(TILE), "--halo", str(HALO)],
+            SCENE, infer_segmentation.main)
+        (l_part, hard), launches, graph_s, _ = _timed_cli(
+            "graph_refinement", graph_refinement.main, ["--config_path", seg_cfg, "--image_path", image])
+        _expect_launches("graph_refinement", launches, {"histeq": 1})
+        if not math.isfinite(l_part) or hard.shape != (SIZE // 16, SIZE // 16):
+            _fail(f"phase 17: graph_refinement gave L_partition {l_part}, labels {hard.shape}")
+        paths["graph_refinement"] = launches
+    torch.cuda.empty_cache()
+    paths["traced serving forward"] = _traced_forwards(dev)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[chip_smoke] cli_seconds train_segmentation {seg_s:.3f} train_end_to_end {e2e_s:.3f} "
+          f"infer_segmentation {infer_s:.3f} infer_large_scene {scene_s:.3f} graph_refinement {graph_s:.3f} "
+          f"phase_17 {phase_s:.1f}")
+    print(f"[chip_smoke] cli_train_images_per_s segmentation {CLI_IMAGES / seg_s:.2f} end_to_end "
+          f"{CLI_IMAGES / e2e_s:.2f} (f32, configs/training.yaml's bf16: false; whole calls) peak_gib segmentation "
+          f"{seg_peak:.3f} end_to_end {e2e_peak:.3f}; graph_refinement L_partition {l_part:.6f}")
+    return {k: {c: v.get(c, 0) for c in _wrappers()} for k, v in paths.items()}
 
 
 def main() -> int:
@@ -3144,6 +3419,8 @@ def main() -> int:
     # Annotated training and the evaluations on its weights (phase 16).
     annotated_launches, annotated = _annotated_path(dev, dense)
     _attach_launches(rows, annotated_launches, "launches_annotated")
+    # The CLIs and the profiling hooks (phase 17).
+    _attach_launches(rows, _cli_path(dev), "launches_cli")
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "

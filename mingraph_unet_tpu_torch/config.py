@@ -12,11 +12,21 @@ but as validated dataclasses. The reference ships a malformed
 ``configs/dataset.yaml:1-7``) which silently breaks ``yaml.safe_load`` — the
 loader here strips Markdown code fences before parsing and validates the
 result, so that failure mode is caught loudly instead.
+
+YAML is read and written by this module's own code (:func:`parse_yaml`,
+:func:`dump_yaml`), not PyYAML: the subset the configs use, with PyYAML's
+``safe_load`` meaning for every scalar (its YAML 1.1 resolver). Block
+mappings, block lists (also unindented under a key), flow lists and
+mappings, plain, single- and double-quoted scalars, comments and the
+``---`` / ``...`` markers; anything else (anchors, tags, block scalars,
+lists of mappings) raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 import os
 import re
 from dataclasses import dataclass, field
@@ -35,6 +45,9 @@ __all__ = [
     "TrainingConfig",
     "PipelineConfig",
     "load_yaml",
+    "parse_yaml",
+    "dump_yaml",
+    "write_yaml",
     "get_by_path",
     "load_config",
 ]
@@ -61,18 +74,371 @@ def _strip_markdown(text: str) -> str:
     return text
 
 
+# PyYAML's implicit resolvers (yaml/resolver.py), so that a plain scalar
+# means here what it means to ``yaml.safe_load``.
+_BOOL_RE = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF)$")
+_INT_RE = re.compile(r"""^(?:[-+]?0b[0-1_]+
+    |[-+]?0[0-7_]+
+    |[-+]?(?:0|[1-9][0-9_]*)
+    |[-+]?0x[0-9a-fA-F_]+
+    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_FLOAT_RE = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+    |\.[0-9_]+(?:[eE][-+][0-9]+)?
+    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+    |[-+]?\.(?:inf|Inf|INF)
+    |\.(?:nan|NaN|NAN))$""", re.X)
+_NULL_RE = re.compile(r"^(?:~|null|Null|NULL|)$")
+_TIMESTAMP_RE = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
+_BOOL_TRUE = {"yes", "true", "on"}
+
+
+def _sexagesimal(text: str, base):
+    value = 0
+    for part in text.split(":"):
+        value = value * 60 + base(part)
+    return value
+
+
+def _resolve_plain(text: str) -> Any:
+    """A plain scalar as ``yaml.safe_load`` reads it."""
+    if _NULL_RE.match(text):
+        return None
+    if _BOOL_RE.match(text):
+        return text.lower() in _BOOL_TRUE
+    if _INT_RE.match(text):
+        t = text.replace("_", "")
+        sign = -1 if t[0] == "-" else 1
+        t = t.lstrip("+-")
+        if t == "0":
+            return 0
+        if t.startswith("0b"):
+            return sign * int(t[2:], 2)
+        if t.startswith("0x"):
+            return sign * int(t[2:], 16)
+        if t[0] == "0":
+            return sign * int(t, 8)
+        if ":" in t:
+            return sign * _sexagesimal(t, int)
+        return sign * int(t)
+    if _FLOAT_RE.match(text):
+        t = text.replace("_", "").lower()
+        sign = -1.0 if t[0] == "-" else 1.0
+        t = t.lstrip("+-")
+        if t == ".inf":
+            return sign * math.inf
+        if t == ".nan":
+            return math.nan
+        if ":" in t:
+            return sign * _sexagesimal(t, float)
+        return sign * float(t)
+    if _TIMESTAMP_RE.match(text):
+        raise ValueError(f"YAML timestamps are not supported: {text!r}")
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """The line without its ``#`` comment (a ``#`` at the start or after
+    whitespace, outside quotes)."""
+    quote, i = None, 0
+    while i < len(line):
+        ch = line[i]
+        if quote:
+            if quote == '"' and ch == "\\":
+                i += 1
+            elif ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or line[i - 1] in " \t[{,:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+        i += 1
+    return line.rstrip()
+
+
+def _quoted(text: str) -> Tuple[str, str]:
+    """The quoted scalar at the start of ``text`` and the text after it."""
+    if text[0] == "'":
+        i, out = 1, []
+        while i < len(text):
+            if text[i] == "'":
+                if text[i + 1 : i + 2] != "'":
+                    return "".join(out), text[i + 1 :]
+                i += 1  # '' is one quote
+            out.append(text[i])
+            i += 1
+    else:
+        i = 1
+        while i < len(text):
+            if text[i] == "\\":
+                i += 1
+            elif text[i] == '"':
+                return json.loads(text[: i + 1]), text[i + 1 :]
+            i += 1
+    raise ValueError(f"unterminated quoted scalar: {text!r}")
+
+
+def _scalar(text: str) -> Any:
+    """A node written on one line: a flow collection, a quoted or a plain
+    scalar."""
+    text = text.strip()
+    if text[:1] in ("[", "{", "'", '"'):
+        value, rest = _flow_node(text, "")
+        if rest.strip():
+            raise ValueError(f"text after a node: {text!r}")
+        return value
+    if text[:1] in ("&", "*", "!", "|", ">", "%", "@", "`"):
+        raise ValueError(f"unsupported YAML: {text!r}")
+    return _resolve_plain(text)
+
+
+def _flow_node(text: str, stops: str) -> Tuple[Any, str]:
+    """The flow node at the start of ``text`` (a plain one ends at a
+    character of ``stops``) and the text after it."""
+    if text[:1] in ("[", "{"):
+        return _flow(text)
+    if text[:1] in ("'", '"'):
+        return _quoted(text)
+    raw = re.match(f"[^{re.escape(stops)}]*", text).group(0) if stops else text
+    return _scalar(raw) if raw.strip() else None, text[len(raw) :]
+
+
+def _flow(text: str) -> Tuple[Any, str]:
+    """The flow list or mapping at the start of ``text`` and the text after
+    it."""
+    close = "]" if text[0] == "[" else "}"
+    out: Any = [] if close == "]" else {}
+    rest = text[1:].lstrip()
+    while rest[:1] != close:
+        if not rest:
+            raise ValueError(f"unterminated flow collection: {text!r}")
+        if close == "]":
+            item, rest = _flow_node(rest, ",]")
+            out.append(item)
+        else:
+            key, rest = _flow_node(rest, ":,}")
+            rest = rest.lstrip()
+            if rest[:1] != ":":
+                raise ValueError(f"flow mapping entry without a value: {text!r}")
+            out[key], rest = _flow_node(rest[1:].lstrip(), ",}")
+        rest = rest.lstrip()
+        if rest[:1] == ",":
+            rest = rest[1:].lstrip()
+        elif rest[:1] != close:
+            raise ValueError(f"malformed flow collection: {text!r}")
+    return out, rest[1:]
+
+
+def _is_item(content: str) -> bool:
+    return content == "-" or content.startswith("- ")
+
+
+def _split_key(content: str) -> Optional[Tuple[Any, str]]:
+    """``key: value`` → (key, value text); None when the line is no
+    mapping entry."""
+    if _is_item(content) or content[:1] in ("[", "{"):
+        return None
+    if content[:1] in ("'", '"'):
+        key, rest = _quoted(content)
+        if rest == ":" or rest.startswith(": "):
+            return key, rest[1:].strip()
+        return None
+    idx = content.find(": ")
+    if idx < 0:
+        if not content.endswith(":"):
+            return None
+        idx = len(content) - 1
+    return _resolve_plain(content[:idx].strip()), content[idx + 1 :].strip()
+
+
+def parse_yaml(text: str) -> Any:
+    """The YAML document ``text`` as ``yaml.safe_load`` gives it, for the
+    subset this module reads (the module docstring); ``ValueError`` on
+    anything else."""
+    lines = []
+    for raw in text.splitlines():
+        if "\t" in raw[: len(raw) - len(raw.lstrip())]:
+            raise ValueError(f"tab in indentation: {raw!r}")
+        content = _strip_comment(raw)
+        if not content.strip():
+            continue
+        if content.startswith("%"):
+            raise ValueError(f"YAML directives are not supported: {raw!r}")
+        if content == "---" or content == "...":
+            if lines and content == "---":
+                raise ValueError("more than one YAML document")
+            continue
+        lines.append((len(content) - len(content.lstrip(" ")), content.strip()))
+    if not lines:
+        return None
+    value, i = _block(lines, 0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"unexpected line {lines[i][1]!r}")
+    return value
+
+
+def _block(lines, i: int, indent: int) -> Tuple[Any, int]:
+    """The block node whose first line is ``lines[i]``, at ``indent``, and
+    the index of the line after it."""
+    content = lines[i][1]
+    if _is_item(content):
+        return _sequence(lines, i, indent)
+    if _split_key(content) is not None:
+        return _mapping(lines, i, indent)
+    return _folded(lines, i, indent, content)
+
+
+def _folded(lines, i: int, indent: int, first: str) -> Tuple[Any, int]:
+    """A scalar that starts on ``lines[i]`` with ``first``, a plain one
+    folded over the more-indented lines that follow."""
+    parts = [first]
+    i += 1
+    while i < len(lines) and lines[i][0] > indent and first[:1] not in ("'", '"', "[", "{"):
+        if _is_item(lines[i][1]) or _split_key(lines[i][1]) is not None:
+            raise ValueError(f"unexpected entry in a scalar: {lines[i][1]!r}")
+        parts.append(lines[i][1])
+        i += 1
+    return _scalar(" ".join(parts)), i
+
+
+def _sequence(lines, i: int, indent: int) -> Tuple[list, int]:
+    out = []
+    while i < len(lines) and lines[i][0] == indent and _is_item(lines[i][1]):
+        rest = lines[i][1][1:].strip()
+        if not rest:
+            if i + 1 < len(lines) and lines[i + 1][0] > indent:
+                value, i = _block(lines, i + 1, lines[i + 1][0])
+            else:
+                value, i = None, i + 1
+        elif _is_item(rest) or _split_key(rest) is not None:
+            raise ValueError(f"block collections inside a list item are not supported: {lines[i][1]!r}")
+        else:
+            value, i = _folded(lines, i, indent, rest)
+        out.append(value)
+    return out, i
+
+
+def _mapping(lines, i: int, indent: int) -> Tuple[dict, int]:
+    out: Dict[Any, Any] = {}
+    while i < len(lines) and lines[i][0] == indent:
+        entry = _split_key(lines[i][1])
+        if entry is None:
+            raise ValueError(f"expected a mapping entry: {lines[i][1]!r}")
+        key, rest = entry
+        if rest:
+            out[key], i = _folded(lines, i, indent, rest)
+        elif i + 1 < len(lines) and lines[i + 1][0] > indent:
+            out[key], i = _block(lines, i + 1, lines[i + 1][0])
+        elif i + 1 < len(lines) and lines[i + 1][0] == indent and _is_item(lines[i + 1][1]):
+            out[key], i = _sequence(lines, i + 1, indent)  # a list not indented under its key
+        else:
+            out[key], i = None, i + 1
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"bad indentation at {lines[i][1]!r}")
+    return out, i
+
+
+_SPECIAL_START = tuple("-?:,[]{}#&*!|>'\"%@`") + (" ",)
+
+
+def _plain_ok(text: str) -> bool:
+    """Whether ``text`` can be written unquoted and read back as itself."""
+    if not text or text != text.strip() or text[0] in _SPECIAL_START and not (
+            text[0] == "-" and len(text) > 1 and text[1] != " "):
+        return False
+    if any(c in text for c in "\n\r\t") or ": " in text or " #" in text or text.endswith(":"):
+        return False
+    if any(c in text for c in ",[]{}") or text in ("=", "<<"):  # "=" and "<<" are PyYAML's value and merge keys
+        return False
+    if not text.isascii() or not text.isprintable():
+        return False
+    try:
+        return _resolve_plain(text) == text
+    except ValueError:
+        return False
+
+
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        mant, e, exp = text.partition("e")
+        if "." not in mant:
+            mant += ".0"
+        if e and exp[0] not in "+-":
+            exp = "+" + exp
+        return mant + (f"e{exp}" if e else "")
+    if isinstance(value, str):
+        if _plain_ok(value):
+            return value
+        if value.isascii() and value.isprintable():
+            return "'" + value.replace("'", "''") + "'"  # PyYAML's choice, so its files and these agree
+        return json.dumps(value)
+    raise TypeError(f"cannot write {type(value).__name__} as YAML")
+
+
+def _dump_flow(value: Any) -> str:
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_dump_flow(v) for v in value) + "]"
+    if isinstance(value, dict):
+        return "{" + ", ".join(f"{_dump_scalar(k)}: {_dump_flow(v)}" for k, v in value.items()) + "}"
+    return _dump_scalar(value)
+
+
+def _dump_lines(value: Any, indent: int) -> list:
+    pad = " " * indent
+    lines = []
+    if isinstance(value, dict):
+        for k, v in value.items():
+            key = _dump_scalar(k)
+            if isinstance(v, dict) and v:
+                lines.append(f"{pad}{key}:")
+                lines += _dump_lines(v, indent + 2)
+            elif isinstance(v, (list, tuple)) and v:
+                lines.append(f"{pad}{key}:")
+                lines += _dump_lines(v, indent)
+            else:
+                lines.append(f"{pad}{key}: {_dump_flow(v)}")
+        return lines
+    if isinstance(value, (list, tuple)):
+        for v in value:
+            if isinstance(v, dict) and v:
+                raise TypeError("lists of mappings are not written")
+            lines.append(f"{pad}- {_dump_flow(v)}")
+        return lines
+    return [pad + _dump_flow(value)]
+
+
+def dump_yaml(data: Any) -> str:
+    """``data`` (mappings, lists and tuples, scalars) as block YAML that
+    ``parse_yaml`` and ``yaml.safe_load`` read back equal; keys keep their
+    order and tuples become lists."""
+    return "\n".join(_dump_lines(data, 0)) + "\n"
+
+
+def write_yaml(path: str, data: Any) -> None:
+    with open(path, "w") as f:
+        f.write(dump_yaml(data))
+
+
 def load_yaml(path: str) -> Dict[str, Any]:
     """Load a YAML file into a dict, tolerating Markdown-wrapped bodies."""
-    import yaml
-
     with open(path, "r") as f:
         raw = f.read()
     try:
-        data = yaml.safe_load(raw)
-    except yaml.YAMLError:
+        data = parse_yaml(raw)
+    except ValueError:
         data = None
     if not isinstance(data, dict):
-        data = yaml.safe_load(_strip_markdown(raw))
+        data = parse_yaml(_strip_markdown(raw))
     if not isinstance(data, dict):
         raise ValueError(f"Config file {path!r} did not parse to a mapping (got {type(data).__name__}).")
     return data
@@ -516,8 +882,6 @@ class PipelineConfig:
         """Write the four default YAML files (used by self-bootstrapping
         script ``__main__`` smoke paths, mirroring e.g.
         ``scripts/train_end_to_end.py:532-550``)."""
-        import yaml
-
         os.makedirs(config_dir, exist_ok=True)
         cfg = PipelineConfig()
         domains = {
@@ -527,13 +891,5 @@ class PipelineConfig:
             "training.yaml": dataclasses.asdict(cfg.training),
         }
         for name, data in domains.items():
-            with open(os.path.join(config_dir, name), "w") as f:
-                yaml.safe_dump(_tuples_to_lists(data), f, sort_keys=False)
+            write_yaml(os.path.join(config_dir, name), data)
 
-
-def _tuples_to_lists(obj: Any) -> Any:
-    if isinstance(obj, dict):
-        return {k: _tuples_to_lists(v) for k, v in obj.items()}
-    if isinstance(obj, (tuple, list)):
-        return [_tuples_to_lists(v) for v in obj]
-    return obj

@@ -8,7 +8,7 @@
   numpy-seeded epoch order as the JAX loader, so both yield the same
   batches; PNG batches without instances decoded by the C++ loader of
   ``data/native_loader.py``). OpenCV is imported only where an image is
-  read.
+  read by it; :func:`read_image` reads a PNG through the C++ loader.
 - Device side: :func:`device_preprocess_batch`, the synced augmentation and
   normalization of a uint8 batch (and its instance masks) on the device it
   lies on.
@@ -25,11 +25,11 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mingraph_unet_tpu_torch.data import native_loader
+from mingraph_unet_tpu_torch.data import native_loader, png
 from mingraph_unet_tpu_torch.data.annotations import CocoAnnotations
 from mingraph_unet_tpu_torch.ops.image import AugmentDraw, augment_image, augment_labels, augment_pair, normalize
 
-__all__ = ["MangoDataset", "BatchLoader", "device_preprocess_batch", "load_image_rgb", "load_mask"]
+__all__ = ["MangoDataset", "BatchLoader", "device_preprocess_batch", "load_image_rgb", "load_mask", "read_image"]
 
 
 def load_image_rgb(path: str) -> np.ndarray:
@@ -58,6 +58,20 @@ def _resize(img: np.ndarray, hw: Tuple[int, int], nearest: bool) -> np.ndarray:
     import cv2
 
     return cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR)
+
+
+def read_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """An image file as RGB uint8 HWC at ``size`` (bilinear; the file's own
+    size when None): a PNG decoded by the C++ loader, another format by
+    OpenCV (which raises ``ImportError`` where it is not installed)."""
+    if path.lower().endswith(".png"):
+        hw = tuple(size) if size is not None else png.png_size(path)
+        img = native_loader.load_image(path, hw)
+        if img is None:
+            raise FileNotFoundError(f"Image not found or undecodable: {path}")
+        return img
+    img = load_image_rgb(path)
+    return img if size is None else _resize(img, size, nearest=False)
 
 
 class MangoDataset:

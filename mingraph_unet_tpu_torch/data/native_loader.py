@@ -19,7 +19,7 @@ import numpy as np
 
 from mingraph_unet_tpu_torch.ops.kernels import build
 
-__all__ = ["load_batch", "load_image", "load_mask"]
+__all__ = ["available", "load_batch", "load_image", "load_mask"]
 
 
 def _lib() -> ctypes.CDLL:
@@ -28,6 +28,15 @@ def _lib() -> ctypes.CDLL:
     except RuntimeError as e:
         raise RuntimeError(f"the native PNG loader is unavailable ({e}); pass use_native=False to MangoDataset "
                            "to decode with OpenCV") from e
+
+
+def available() -> bool:
+    """Whether the library builds and loads here."""
+    try:
+        build.host_library("decode")
+    except RuntimeError:
+        return False
+    return True
 
 
 def _ptr(arr: Optional[np.ndarray]) -> Optional[int]:

@@ -19,11 +19,13 @@ Missing weights are reported as such; the reference's mock numbers
 (``U(80, 95)`` / ``U(5, 15)``) come only with ``allow_mock=True`` and carry
 ``"mocked": True``. :func:`run_ablation_study_trained` trains every variant
 on a synthetic annotated dataset and evaluates it: no mock anywhere. Runs
-on the CUDA card unless ``device="cpu"`` is passed.
+on the CUDA card unless ``device="cpu"`` is passed; :func:`main` (``python
+-m mingraph_unet_tpu_torch.experiments.ablation_study``) unless ``--cpu``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from typing import Dict, List, Optional, Union
@@ -31,7 +33,9 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from mingraph_unet_tpu_torch.config import load_yaml, write_yaml
 from mingraph_unet_tpu_torch.experiments.yield_estimation_performance import evaluate_yield_model
+from mingraph_unet_tpu_torch.utils.env import setup_host
 
 __all__ = [
     "ABLATION_VARIANTS",
@@ -40,6 +44,7 @@ __all__ = [
     "run_ablation_experiment",
     "run_ablation_study",
     "run_ablation_study_trained",
+    "main",
 ]
 
 ABLATION_VARIANTS: Dict[str, str] = {
@@ -149,20 +154,16 @@ def run_ablation_study(
 def _variant_config_dir(base_cfg_dir: str, out_dir: str, slug: str) -> str:
     """A copy of a config directory with the variant's ablation switches and
     its own checkpoint and log directories."""
-    import yaml
-
     os.makedirs(out_dir, exist_ok=True)
     for name in ("dataset.yaml", "model.yaml", "preprocessing.yaml", "training.yaml"):
-        with open(os.path.join(base_cfg_dir, name)) as f:
-            data = yaml.safe_load(f) or {}
+        data = load_yaml(os.path.join(base_cfg_dir, name))
         if name == "model.yaml":
             data["ablation"] = dict(VARIANT_TOGGLES[slug])
         if name == "training.yaml":
             root = os.path.dirname(out_dir)  # .../variants/<slug>
             data["checkpoint_dir"] = os.path.join(root, "checkpoints")
             data["log_dir"] = os.path.join(root, "logs")
-        with open(os.path.join(out_dir, name), "w") as f:
-            yaml.safe_dump(data, f, sort_keys=False)
+        write_yaml(os.path.join(out_dir, name), data)
     return out_dir
 
 
@@ -216,3 +217,31 @@ def run_ablation_study_trained(
             f"{r['yield_estimation_error_perc']:>15.2f}"
         )
     return rows
+
+
+def main(argv=None):
+    """The JAX module's CLI: Table 3 from weights under ``--weights_root``
+    (mock rows for missing ones unless ``--no_mock``), or with ``--train
+    DIR`` every variant trained first. Returns the rows."""
+    parser = argparse.ArgumentParser(description="Run the ablation study")
+    parser.add_argument("--config_path", default=None)
+    parser.add_argument("--weights_root", default=None)
+    parser.add_argument("--num_images", type=int, default=8)
+    parser.add_argument("--no_mock", action="store_true")
+    parser.add_argument("--cpu", action="store_true")
+    parser.add_argument(
+        "--train", metavar="DIR", default=None,
+        help="train every variant on a synthetic annotated dataset under DIR "
+        "and produce a real Table 3 (no mocks)",
+    )
+    parser.add_argument("--epochs", type=int, default=3)
+    args = parser.parse_args(argv)
+    device = setup_host(force_cpu=args.cpu)
+    if args.train:
+        return run_ablation_study_trained(args.train, epochs=args.epochs, device=device)
+    return run_ablation_study(args.config_path, args.weights_root, args.num_images, allow_mock=not args.no_mock,
+                              device=device)
+
+
+if __name__ == "__main__":
+    main()

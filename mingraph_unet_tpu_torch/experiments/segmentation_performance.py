@@ -9,11 +9,14 @@ MinGraph-UNet's logits blended with their MinCut region's mean,
 :func:`region_blend_logits`). Weights are the port's checkpoints
 (``train/checkpoint.py``, read by ``train/infer.py::load_variables``); a
 JAX checkpoint comes in through ``convert.py``. Runs on the CUDA card
-unless ``device="cpu"`` is passed.
+unless ``device="cpu"`` is passed; :func:`main` (``python -m
+mingraph_unet_tpu_torch.experiments.segmentation_performance``) unless
+``--cpu``.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 from typing import Any, Dict, Optional, Union
 
@@ -23,8 +26,9 @@ import torch
 from mingraph_unet_tpu_torch.config import PipelineConfig
 from mingraph_unet_tpu_torch.data.dataset import BatchLoader, MangoDataset, device_preprocess_batch
 from mingraph_unet_tpu_torch.experiments.metrics import segmentation_metrics
+from mingraph_unet_tpu_torch.utils.env import setup_host
 
-__all__ = ["MODEL_TYPES", "build_eval_model", "eval_forward", "evaluate_segmentation_model", "print_table1",
+__all__ = ["main", "MODEL_TYPES", "build_eval_model", "eval_forward", "evaluate_segmentation_model", "print_table1",
            "region_blend_logits", "segmentation_logits"]
 
 Device = Optional[Union[str, torch.device]]
@@ -168,3 +172,22 @@ def print_table1(results: Dict[str, Any], model_name: str, mango_class: int = 1)
         per_class = results[per_class_key]
         mango = per_class[mango_class] if len(per_class) > mango_class else float("nan")
         print(f"{name:<12} {mango:>14.4f} {results[mean_key]:>12.4f}")
+
+
+def main(argv=None):
+    """The JAX module's CLI: Table 1 for ``--weights_path``. Returns the
+    metrics."""
+    parser = argparse.ArgumentParser(description="Evaluate segmentation performance")
+    parser.add_argument("--config_path", required=True)
+    parser.add_argument("--weights_path", required=True)
+    parser.add_argument("--model_type", default="unet")
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--cpu", action="store_true")
+    args = parser.parse_args(argv)
+    device = setup_host(force_cpu=args.cpu)
+    return evaluate_segmentation_model(args.config_path, args.weights_path, args.model_type, args.batch_size,
+                                       device=device)
+
+
+if __name__ == "__main__":
+    main()

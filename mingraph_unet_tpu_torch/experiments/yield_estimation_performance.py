@@ -16,11 +16,14 @@ Each detector's device work is one function of ``(model, cfg, images_u8)``
 classes wrap one jitted ``detect``; the classes build the model from a
 config directory and the port's checkpoint, and map boxes back to the
 image's own size on the host. Runs on the CUDA card unless
-``device="cpu"`` is passed.
+``device="cpu"`` is passed; :func:`main` (``python -m
+mingraph_unet_tpu_torch.experiments.yield_estimation_performance``)
+unless ``--cpu``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -32,8 +35,10 @@ from mingraph_unet_tpu_torch.experiments.metrics import average_precision, yield
 from mingraph_unet_tpu_torch.experiments.segmentation_performance import (build_eval_model, eval_forward,
                                                                          segmentation_logits)
 from mingraph_unet_tpu_torch.ops import cc
+from mingraph_unet_tpu_torch.utils.env import setup_host
 
 __all__ = [
+    "main",
     "DummyYieldDataset",
     "MockDetector",
     "SegmentationCountDetector",
@@ -250,3 +255,24 @@ def evaluate_yield_model(
     for k, v in results.items():
         print(f"  {k}: {v:.3f}")
     return results
+
+
+def main(argv=None):
+    """The JAX module's CLI: Table 2 of one detector. Returns the
+    metrics."""
+    parser = argparse.ArgumentParser(description="Evaluate yield estimation")
+    parser.add_argument("--config_path", default=None)
+    parser.add_argument("--weights_path", default=None)
+    parser.add_argument("--model_type", default="mock")
+    parser.add_argument("--num_images", type=int, default=8)
+    parser.add_argument("--image_dir", default=None, help="real-image eval dir")
+    parser.add_argument("--ann_file", default=None, help="COCO-style annotation JSON")
+    parser.add_argument("--cpu", action="store_true")
+    args = parser.parse_args(argv)
+    device = setup_host(force_cpu=args.cpu)
+    return evaluate_yield_model(args.config_path, args.weights_path, args.model_type, args.num_images,
+                                image_dir=args.image_dir, ann_file=args.ann_file, device=device)
+
+
+if __name__ == "__main__":
+    main()

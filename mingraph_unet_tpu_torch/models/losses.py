@@ -34,6 +34,7 @@ __all__ = [
     "partition_supervision_loss",
     "total_variation_loss",
     "elliptical_shape_loss",
+    "elliptical_shape_loss_from_probs",
     "elliptical_shape_loss_soft",
     "elliptical_shape_loss_soft_instances",
     "detection_losses",
@@ -136,6 +137,16 @@ def elliptical_shape_loss(object_masks: torch.Tensor, min_pixels: int = 10, epsi
     total = torch.where(valid, per_obj, torch.zeros_like(per_obj)).sum()
     count = global_count(valid.sum())
     return torch.where(count > 0, total / torch.clamp(count, min=1), torch.zeros_like(total))
+
+
+def elliptical_shape_loss_from_probs(segmentation_probs: torch.Tensor, foreground_class: int = 1,
+                                     min_pixels: int = 10, epsilon: float = 1e-6) -> torch.Tensor:
+    """L_shape with each image's argmax foreground (B, H, W, C) as one hard
+    object (the reference's semantic fallback)."""
+    if segmentation_probs.shape[-1] <= foreground_class:
+        return torch.zeros((), dtype=torch.float32, device=segmentation_probs.device)
+    masks = (segmentation_probs.argmax(dim=-1) == foreground_class).to(torch.float32)[:, None]
+    return elliptical_shape_loss(masks, min_pixels, epsilon)
 
 
 def elliptical_shape_loss_soft(segmentation_probs: torch.Tensor, foreground_class: int = 1,

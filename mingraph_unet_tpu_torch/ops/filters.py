@@ -1,6 +1,5 @@
-"""Auxiliary patch features: Sobel magnitude and histogram equalization.
-Counterpart of ``mingraph_unet_tpu/ops/filters.py`` for the functions the
-model runs.
+"""Auxiliary patch features: Sobel magnitude, histogram equalization and
+Gaussian smoothing. Counterpart of ``mingraph_unet_tpu/ops/filters.py``.
 
 - :func:`sobel_patch_mean` computes the Sobel patch feature the direct way:
   gray, reflect-101 pad, 3×3 stencil, magnitude, per-image min/max, patch
@@ -11,7 +10,9 @@ model runs.
 - :func:`equalize_histogram_rgb_batched` is OpenCV ``equalizeHist`` on the
   luma in YUV space, bit-exact with the JAX package's nibble-factored form.
   The luma goes as uint8 to ``ops/kernels/histeq.py::equalize_channel``,
-  the K6 kernel on the card and its plain version on the CPU.
+  the K6 kernel on the card and its plain version on the CPU; the
+  unbatched :func:`equalize_histogram_rgb` and
+  :func:`equalize_histogram_gray` run it on a batch of one.
 """
 
 from __future__ import annotations
@@ -25,7 +26,16 @@ import torch.nn.functional as F
 from mingraph_unet_tpu_torch.ops.image import rgb_to_gray
 from mingraph_unet_tpu_torch.ops.kernels.histeq import equalize_channel
 
-__all__ = ["sobel_kernels", "sobel_magnitude", "sobel_patch_mean", "equalize_histogram_rgb_batched"]
+__all__ = [
+    "sobel_kernels",
+    "sobel_magnitude",
+    "sobel_patch_mean",
+    "equalize_histogram_gray",
+    "equalize_histogram_rgb",
+    "equalize_histogram_rgb_batched",
+    "gaussian_kernel_1d",
+    "gaussian_blur",
+]
 
 # OpenCV RGB↔YUV (analog, 8-bit offset 128) coefficients.
 _RGB2YUV = np.array(
@@ -135,3 +145,45 @@ def equalize_histogram_rgb_batched(rgb_u8: torch.Tensor) -> torch.Tensor:
     b2 = float(mi[2, 0]) * y_eq + float(mi[2, 1]) * u
     rgb_eq = torch.stack([r2, g2, b2], dim=-1)
     return torch.clamp(torch.round(rgb_eq), 0, 255).to(torch.uint8)
+
+
+def equalize_histogram_gray(gray_u8: torch.Tensor) -> torch.Tensor:
+    """OpenCV ``equalizeHist`` of a uint8 grayscale image (HW)."""
+    return equalize_channel(gray_u8.to(torch.uint8)[None])[0]
+
+
+def equalize_histogram_rgb(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """Equalize the luma of one (H, W, 3) uint8 image in YUV space."""
+    return equalize_histogram_rgb_batched(rgb_u8[None])[0]
+
+
+def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
+    """``cv2.getGaussianKernel`` weights (normalized, f64); ``sigma <= 0``
+    takes OpenCV's default for the size."""
+    if ksize % 2 == 0:
+        raise ValueError("Gaussian kernel size must be odd")
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    xs = np.arange(ksize) - (ksize - 1) / 2.0
+    k = np.exp(-(xs**2) / (2.0 * sigma**2))
+    return k / k.sum()
+
+
+def gaussian_blur(img: torch.Tensor, ksize: Tuple[int, int] = (5, 5), sigma: float = 1.0) -> torch.Tensor:
+    """Separable Gaussian blur of an HWC / NHWC image with reflect-101
+    borders, ``ksize`` in OpenCV's (w, h) order as the JAX package takes it
+    (the vertical pass uses ``ksize[0]`` taps, H is padded by
+    ``ksize[1] // 2``); an integer image is rounded and clipped to [0, 255]."""
+    single = img.dim() == 3
+    x = (img[None] if single else img).float().permute(0, 3, 1, 2)
+    c = x.shape[1]
+    kv = torch.from_numpy(gaussian_kernel_1d(ksize[0], sigma)).float().to(x.device)
+    kh = torch.from_numpy(gaussian_kernel_1d(ksize[1], sigma)).float().to(x.device)
+    ph, pw = ksize[1] // 2, ksize[0] // 2
+    x = F.pad(x, (pw, pw, ph, ph), mode="reflect")
+    x = F.conv2d(x, kv.reshape(1, 1, -1, 1).expand(c, 1, -1, 1), groups=c)
+    x = F.conv2d(x, kh.reshape(1, 1, 1, -1).expand(c, 1, 1, -1), groups=c)
+    x = x.permute(0, 2, 3, 1)
+    if not img.is_floating_point():
+        x = torch.clamp(torch.round(x), 0, 255).to(img.dtype)
+    return x[0] if single else x

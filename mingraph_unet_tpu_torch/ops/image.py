@@ -1,6 +1,12 @@
-"""Image transforms: normalization and the trainer's synced geometric
+"""Image transforms: resizing, normalization and the synced geometric
 augmentation. Counterpart of ``mingraph_unet_tpu/ops/image.py`` (the port
 keeps its own copy of the constants).
+
+:func:`resize_bilinear` computes ``jax.image.resize(..., "linear",
+antialias=True)``: when it downsamples, its triangle kernel widens by the
+scale factor and each output's weights are normalized, which is not
+``F.interpolate(antialias=True)``'s kernel; it is applied as one
+(out, in) weight matrix per resized axis.
 
 Every random transform of the JAX package is split in two: a draw of its
 parameters, per image, from an explicit ``torch.Generator`` (``draw_*``),
@@ -14,6 +20,11 @@ the same flip, angle and crop window instead.
 | ``random_rotation`` | :func:`draw_angle` | :func:`rotate` |
 | ``random_resized_crop`` | :func:`draw_crop` | :func:`resized_crop` |
 | ``augment_image`` / ``augment_pair`` | :func:`draw_augment` | :func:`augment_image` / :func:`augment_pair` |
+
+:func:`random_horizontal_flip`, :func:`random_rotation` and
+:func:`random_resized_crop` are the JAX functions' unbatched (HWC image, HW
+mask) forms: each draws its parameters from a ``torch.Generator`` on the
+image's device, then warps.
 
 The warps are batched: images (B, H, W, C) and masks (B, H, W) with one
 parameter per image. Resampling is a two-tap linear (or rounded-nearest)
@@ -36,6 +47,13 @@ __all__ = [
     "normalize",
     "denormalize",
     "rgb_to_gray",
+    "resize_bilinear",
+    "resize_nearest",
+    "preprocess_image",
+    "preprocess_mask",
+    "random_horizontal_flip",
+    "random_rotation",
+    "random_resized_crop",
     "AugmentDraw",
     "draw_flip",
     "draw_angle",
@@ -78,6 +96,66 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """RGB→gray with OpenCV weights: (…, H, W, 3) → (…, H, W)."""
     w = _GRAY_WEIGHTS
     return w[0] * img[..., 0] + w[1] * img[..., 1] + w[2] * img[..., 2]
+
+
+def _resize_weights(in_size: int, out_size: int, antialias: bool, device: torch.device) -> torch.Tensor:
+    """(in, out) linear-interpolation weights of ``jax.image.resize``: tent
+    weights at the sample positions, widened by 1/scale when downsampling
+    with ``antialias``, normalized per output, zero for a sample outside
+    the input."""
+    inv_scale = 1.0 / (out_size / in_size)  # as jax.image.resize rounds it
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    u = torch.arange(in_size, dtype=torch.float32, device=device)
+    w = torch.clamp(1.0 - torch.abs(sample[None, :] - u[:, None]) / kernel_scale, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_bilinear(img: torch.Tensor, size: Tuple[int, int], antialias: bool = True) -> torch.Tensor:
+    """Bilinear resize of an HWC / NHWC image to ``size = (H, W)``, half-pixel
+    centres; ``antialias`` low-passes when downsampling. An integer image
+    comes back as f32."""
+    h_axis = img.dim() - 3
+    if tuple(img.shape[h_axis : h_axis + 2]) == tuple(size):
+        return img
+    x = img if img.is_floating_point() else img.float()
+    if x.shape[h_axis] != size[0]:
+        w = _resize_weights(x.shape[h_axis], size[0], antialias, x.device).to(x.dtype)
+        x = torch.einsum("...hwc,ho->...owc", x, w)
+    if x.shape[h_axis + 1] != size[1]:
+        w = _resize_weights(x.shape[h_axis + 1], size[1], antialias, x.device).to(x.dtype)
+        x = torch.einsum("...hwc,wo->...hoc", x, w)
+    return x
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """OpenCV ``INTER_NEAREST`` resize of an HW or NHW label map: source
+    index ``floor(d · src / dst)``."""
+    if x.dim() not in (2, 3):
+        raise ValueError("resize_nearest expects HW or NHW arrays")
+    h_axis = x.dim() - 2
+    src_h, src_w = x.shape[h_axis], x.shape[h_axis + 1]
+    dst_h, dst_w = size
+    if (src_h, src_w) == (dst_h, dst_w):
+        return x
+    rows = torch.clamp(torch.arange(dst_h, device=x.device) * src_h // dst_h, max=src_h - 1)
+    cols = torch.clamp(torch.arange(dst_w, device=x.device) * src_w // dst_w, max=src_w - 1)
+    return x.index_select(h_axis, rows).index_select(h_axis + 1, cols)
+
+
+def preprocess_image(img_u8: torch.Tensor, size: Tuple[int, int], mean: Sequence[float] = IMAGENET_MEAN,
+                     std: Sequence[float] = IMAGENET_STD) -> torch.Tensor:
+    """uint8 RGB HWC → normalized f32 HWC at ``size``."""
+    return normalize(resize_bilinear(img_u8.float() / 255.0, size), mean, std)
+
+
+def preprocess_mask(mask: torch.Tensor, size: Tuple[int, int], num_classes: int) -> torch.Tensor:
+    """Label map HW (or NHW) → int32 at ``size``, clipped to [0, C − 1]."""
+    return torch.clamp(resize_nearest(mask, size).to(torch.int32), 0, num_classes - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -227,3 +305,39 @@ def augment_pair(img: torch.Tensor, mask: torch.Tensor, draw: AugmentDraw) -> Tu
     on label masks (B, H, W), which are resampled nearest."""
     m = augment_labels(mask[..., None].float(), draw)
     return augment_image(img, draw), torch.round(m[..., 0]).to(mask.dtype)
+
+
+def _labels_warp(mask: torch.Tensor, warp) -> torch.Tensor:
+    """An HW label map through ``warp`` of (1, H, W, 1) float planes,
+    rounded back to its dtype."""
+    return torch.round(warp(mask[None, ..., None].float())[0, ..., 0]).to(mask.dtype)
+
+
+def random_horizontal_flip(gen: torch.Generator, img: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                           prob: float = 0.5):
+    """Mirror an HWC image (and its HW mask) with probability ``prob``, one
+    coin for both."""
+    flip = draw_flip(gen, 1, prob)
+    out = hflip(img[None], flip)[0]
+    return out if mask is None else (out, hflip(mask[None], flip)[0])
+
+
+def random_rotation(gen: torch.Generator, img: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                    degrees: float = 15.0):
+    """Rotate an HWC image about its centre by U(−degrees, degrees), linear
+    with zero fill, and its HW mask by the same angle, nearest."""
+    angle = draw_angle(gen, 1, degrees)
+    out = rotate(img[None], angle)[0]
+    return out if mask is None else (out, _labels_warp(mask, lambda m: rotate(m, angle, nearest=True)))
+
+
+def random_resized_crop(gen: torch.Generator, img: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        prob: float = 0.5, scale: Tuple[float, float] = (0.8, 1.0),
+                        ratio: Tuple[float, float] = (0.75, 4.0 / 3.0)):
+    """RandomResizedCrop of an HWC image with probability ``prob`` (area
+    fraction U(scale), aspect U(log ratio)), resampled back to its size,
+    bilinear; its HW mask through the same window, nearest."""
+    h, w = img.shape[:2]
+    window = draw_crop(gen, 1, h, w, prob, scale, ratio)
+    out = resized_crop(img[None], window)[0]
+    return out if mask is None else (out, _labels_warp(mask, lambda m: resized_crop(m, window, nearest=True)))

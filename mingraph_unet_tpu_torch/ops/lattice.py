@@ -12,7 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["DIRECTIONS", "lattice_edge_index", "shift", "neighbor_mask"]
+__all__ = ["DIRECTIONS", "lattice_edge_index", "shift", "neighbor_mask", "neighbor_stack"]
 
 # Incoming-neighbour offsets (dr, dc): the neighbour at (r+dr, c+dc) sends a
 # message to (r, c). Order: up, down, left, right.
@@ -64,3 +64,13 @@ def shift(x: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
         out = torch.roll(out, -dc, dims=w_axis)
     mask = neighbor_mask(x.shape[h_axis], x.shape[w_axis], dr, dc, x.dtype, x.device)
     return out * mask[..., None]
+
+
+def neighbor_stack(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four incoming-neighbour views of a grid ``(..., nph, npw, C)``:
+    ``neigh (..., nph, npw, 4, C)`` (zeros off the grid) and ``valid
+    (nph, npw, 4)``, each direction's validity mask in x's dtype."""
+    nph, npw = x.shape[-3], x.shape[-2]
+    neigh = torch.stack([shift(x, dr, dc) for dr, dc in DIRECTIONS], dim=-2)
+    valid = torch.stack([neighbor_mask(nph, npw, dr, dc, x.dtype, x.device) for dr, dc in DIRECTIONS], dim=-1)
+    return neigh, valid

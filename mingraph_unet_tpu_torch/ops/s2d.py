@@ -29,6 +29,8 @@ __all__ = [
     "s2d_convt2x2_kernel",
     "s2d_1x1_kernel",
     "phase_max_pool",
+    "phase_mean",
+    "depth_to_space_grouped",
     "patch_reduce_mean_s2d",
     "conv3x3_s2d",
     "conv3x3_s2d_const",
@@ -135,6 +137,23 @@ def phase_max_pool(y_s2d: torch.Tensor, r: int = _R) -> torch.Tensor:
     (B, H/r, W/r, r²·C) → (B, H/r, W/r, C)."""
     b, hh, ww, cc = y_s2d.shape
     return y_s2d.reshape(b, hh, ww, r * r, cc // (r * r)).amax(dim=3)
+
+
+def phase_mean(y_s2d: torch.Tensor, r: int = _R) -> torch.Tensor:
+    """AvgPool(r, r) analog of :func:`phase_max_pool`."""
+    b, hh, ww, cc = y_s2d.shape
+    return y_s2d.reshape(b, hh, ww, r * r, cc // (r * r)).mean(dim=3)
+
+
+def depth_to_space_grouped(x_s2d: torch.Tensor, groups: Sequence[int], r: int = _R) -> torch.Tensor:
+    """Inverse layout of a channel concat of separately s2d-transformed
+    tensors (each group phase-major within itself): d2s per group, concat.
+    (B, H/r, W/r, r²·ΣG) → (B, H, W, ΣG)."""
+    groups = tuple(groups)
+    if len(groups) <= 1:
+        return depth_to_space(x_s2d, r)
+    bounds = np.cumsum((0,) + tuple(r * r * g for g in groups))
+    return torch.cat([depth_to_space(x_s2d[..., a:b], r) for a, b in zip(bounds[:-1], bounds[1:])], dim=-1)
 
 
 def patch_reduce_mean_s2d(x_s2d: torch.Tensor, patch: int, r: int = _R) -> torch.Tensor:

@@ -3,11 +3,11 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["segment_mean", "gather_rows"]
+__all__ = ["segment_mean", "segment_sum_matmul", "gather_rows", "bincount_fixed"]
 
 
 def _one_hot(labels: torch.Tensor, k: int, dtype: torch.dtype) -> torch.Tensor:
@@ -26,6 +26,21 @@ def segment_mean(
     sums = torch.einsum("...nk,...nd->...kd", onehot, values)
     counts = onehot.sum(dim=-2)
     return sums / torch.clamp(counts, min=1.0)[..., None], counts
+
+
+def segment_sum_matmul(values: torch.Tensor, labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Sum ``values (..., N, D)`` into ``num_segments`` buckets keyed by
+    ``labels (..., N)`` by a one-hot matmul: (..., K, D)."""
+    return torch.einsum("...nk,...nd->...kd", _one_hot(labels, num_segments, values.dtype), values)
+
+
+def bincount_fixed(labels: torch.Tensor, num_bins: int, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shape-static bincount over the last axis, f32 (the weights' dtype
+    with ``weights``); labels outside [0, num_bins) are not counted."""
+    onehot = _one_hot(labels, num_bins, torch.float32 if weights is None else weights.dtype)
+    if weights is None:
+        return onehot.sum(dim=-2)
+    return torch.einsum("...nk,...n->...k", onehot, weights)
 
 
 def gather_rows(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

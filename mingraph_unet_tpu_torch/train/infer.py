@@ -13,7 +13,10 @@
 Weights are the port's own checkpoints (``train/checkpoint.py``): a trainer's
 composite checkpoint or a bare state dict. A JAX checkpoint comes in through
 ``convert.py``. Entry points run on the CUDA card unless ``device="cpu"``
-is passed; OpenCV is imported only where a PNG is read or written.
+is passed. A PNG is read by the C++ loader (``data/dataset.py::
+read_image``; OpenCV only for other formats) and the outputs are written
+by ``data/png.py``: a label PNG and a visualization PNG whose decoded BGR
+equals the BGR visualization array, as OpenCV's ``imwrite`` writes it.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from mingraph_unet_tpu_torch.config import PipelineConfig
-from mingraph_unet_tpu_torch.data.dataset import _resize, load_image_rgb
+from mingraph_unet_tpu_torch.data.dataset import read_image
+from mingraph_unet_tpu_torch.data.png import write_png
 from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
 from mingraph_unet_tpu_torch.ops.image import normalize
 from mingraph_unet_tpu_torch.parallel.spatial import tiled_inference
@@ -91,14 +95,12 @@ def _segmentation_model(config_dir: str, weights_path: str, device: Device):
 
 
 def _write_pngs(labels: np.ndarray, vis: np.ndarray, output_dir: str, image_path: str, kind: str) -> Dict[str, Any]:
-    import cv2
-
     os.makedirs(output_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(image_path))[0]
     label_path = os.path.join(output_dir, f"{stem}_{kind}_labels.png")
     vis_path = os.path.join(output_dir, f"{stem}_{kind}_visualization.png")
-    cv2.imwrite(label_path, labels.astype(np.uint8))
-    cv2.imwrite(vis_path, vis)
+    write_png(label_path, labels.astype(np.uint8))
+    write_png(vis_path, vis[..., ::-1])  # the file holds RGB; the array is BGR
     print(f"[infer] wrote {label_path} and {vis_path}")
     return {"labels": labels, "visualization": vis, "label_path": label_path, "vis_path": vis_path}
 
@@ -110,7 +112,7 @@ def infer_segmentation(config_dir: str, image_path: str, weights_path: str,
     ``<stem>_seg_labels.png`` and ``<stem>_seg_visualization.png``."""
     cfg, model = _segmentation_model(config_dir, weights_path, device)
     pre = cfg.preprocessing
-    img = _resize(load_image_rgb(image_path), pre.resize_dim, nearest=False)
+    img = read_image(image_path, pre.resize_dim)
     dev = next(model.parameters()).device
     x = normalize(torch.from_numpy(img).to(dev).float() / 255.0, pre.normalization_mean, pre.normalization_std)
     logits = model(x[None])["logits"]
@@ -128,7 +130,7 @@ def infer_segmentation_large(config_dir: str, image_path: str, weights_path: str
     ``<stem>_scene_visualization.png``."""
     cfg, model = _segmentation_model(config_dir, weights_path, device)
     pre = cfg.preprocessing
-    img = load_image_rgb(image_path)
+    img = read_image(image_path)
     dev = next(model.parameters()).device
     x = normalize(torch.from_numpy(img).to(dev).float() / 255.0, pre.normalization_mean,
                   pre.normalization_std)[None]

@@ -1,18 +1,18 @@
 """Dummy configs and a tiny dataset for smoke runs and tests. The port's
 own copy of ``mingraph_unet_tpu/utils/bootstrap.py``: the same seed writes
-the same images, masks, annotation JSON and YAML (OpenCV and PyYAML are
-imported on use).
+the same images, masks, annotation JSON and YAML (OpenCV is imported on
+use; the YAML is ``config.py``'s writer).
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import replace
+from dataclasses import asdict, replace
 from typing import Tuple
 
 import numpy as np
 
-from mingraph_unet_tpu_torch.config import PipelineConfig, _tuples_to_lists
+from mingraph_unet_tpu_torch.config import PipelineConfig, write_yaml
 
 __all__ = ["make_dummy_run"]
 
@@ -111,16 +111,7 @@ def make_dummy_run(
     os.makedirs(cfg_dir, exist_ok=True)
     PipelineConfig.write_defaults(cfg_dir)  # writes defaults...
     # ...then overwrite with the run-specific values.
-    import dataclasses
-
-    import yaml
-
-    def dump(name, data):
-        with open(os.path.join(cfg_dir, name), "w") as f:
-            yaml.safe_dump(_tuples_to_lists(dataclasses.asdict(data)), f, sort_keys=False)
-
-    dump("dataset.yaml", cfg.dataset)
-    dump("model.yaml", cfg.model)
-    dump("preprocessing.yaml", cfg.preprocessing)
-    dump("training.yaml", cfg.training)
+    for name, section in (("dataset.yaml", cfg.dataset), ("model.yaml", cfg.model),
+                          ("preprocessing.yaml", cfg.preprocessing), ("training.yaml", cfg.training)):
+        write_yaml(os.path.join(cfg_dir, name), asdict(section))
     return cfg_dir

@@ -731,3 +731,45 @@ def test_card_region_blend_matches_cpu(cuda_device):
     for tau in (None, 0.05):
         got = region_blend_logits(logits.to(cuda_device), labels.to(cuda_device), 8, 3, 0.5, tau)
         _assert_close_rel(got.cpu().numpy(), region_blend_logits(logits, labels, 8, 3, 0.5, tau).numpy(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_card_unbatched_histeq_runs_k6_once(cuda_device):
+    """``equalize_histogram_rgb`` and ``equalize_histogram_gray`` on the card
+    are K6 on a batch of one, bit-equal to the CPU."""
+    from mingraph_unet_tpu_torch.ops import filters
+
+    rng = np.random.default_rng(4)
+    rgb = _t(rng.integers(0, 256, (96, 80, 3)).astype(np.uint8))
+    gray = _luma_case("noise", (70, 90))
+    for fn, x in ((filters.equalize_histogram_rgb, rgb), (filters.equalize_histogram_gray, gray)):
+        before = t_histeq.equalize_channel.launches
+        got = fn(x.to(cuda_device))
+        torch.cuda.synchronize()
+        assert t_histeq.equalize_channel.launches == before + 1
+        torch.testing.assert_close(got.cpu(), fn(x), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_card_setup_host_and_trace_attribution(cuda_device, tmp_path):
+    """``setup_host()`` gives the card with every library built;
+    ``parse_device_trace`` finds K1, launched through ctypes, once a step
+    and from its wrapper's module."""
+    from mingraph_unet_tpu_torch.ops.kernels import build
+    from mingraph_unet_tpu_torch.utils.env import setup_host
+    from mingraph_unet_tpu_torch.utils.profiling import attribute_stages, parse_device_trace, trace_if
+
+    assert setup_host().type == "cuda"
+    assert all(build._target(name).exists() for name in build.SOURCES)
+    x, k, bias = (_t(a).to(cuda_device) for a in _psel_case((2, 16, 16, 64, 64)))
+    x = x.to(torch.bfloat16)
+    t_psconv.psel_conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    with trace_if(str(tmp_path)):
+        for _ in range(3):
+            t_psconv.psel_conv3x3(x, k, bias)
+        torch.cuda.synchronize()
+    rows = [r for r in parse_device_trace(str(tmp_path), 3) if "psel_wgmma_kernel" in r["op"]]
+    assert len(rows) == 1 and rows[0]["launches_per_step"] == 1.0 and rows[0]["us_per_step"] > 0
+    assert "mingraph_unet_tpu_torch/ops/kernels/psconv.py" in rows[0]["source"]
+    assert attribute_stages(rows, [("kernels", ("ops/kernels/",))]) == {"kernels": round(rows[0]["us_per_step"] / 1e3, 3)}

@@ -29,10 +29,14 @@ print(len(names), bad)
 """
 
 
-# The data and evaluation modules, which the walk must reach.
+# The data and evaluation modules and the command-line entry points, which
+# the walk must reach.
 DATA_AND_EVAL_MODULES = ("data.annotations", "data.synthetic", "data.native_loader", "data.collection",
                    "experiments.segmentation_performance", "experiments.yield_estimation_performance",
                    "experiments.ablation_study", "utils.bootstrap")
+CLI_MODULES = ("data.png", "utils.env", "utils.profiling", "scripts.train_segmentation", "scripts.train_end_to_end",
+               "scripts.infer_segmentation", "scripts.graph_refinement", "scripts.run_results",
+               "scripts.run_value_study")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -45,5 +49,5 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     count, bad = proc.stdout.strip().splitlines()[-1].split(" ", 1)
     walked = {m.name for m in pkgutil.walk_packages(mingraph_unet_tpu_torch.__path__, "mingraph_unet_tpu_torch.")}
     assert int(count) == len(walked) > 10
-    assert {f"mingraph_unet_tpu_torch.{m}" for m in DATA_AND_EVAL_MODULES} <= walked
+    assert {f"mingraph_unet_tpu_torch.{m}" for m in DATA_AND_EVAL_MODULES + CLI_MODULES} <= walked
     assert bad == "[]", f"the port pulled in {bad}"
