@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving, large-scene serving, segmentation-training,
 end-to-end training, torch.distributed and spatial-parallel training paths,
 the model options the trainers take, training on annotated instances, the
-paper's evaluations, the command-line entry points and the profiling
-hooks, on one CUDA card and check them.
+paper's evaluations, the command-line entry points, the profiling hooks
+and the data layer on image files without OpenCV, on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -238,6 +239,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
    events. Prints each CLI's wall seconds and peak memory and the training
    images/s; the kernels line gives each kernel's launches a step (a call)
    of each CLI and of the traced forward (``launches_cli``).
+18. The data layer on files, without OpenCV: the phase runs with
+   ``sys.modules["cv2"] = None``, so that ``import cv2`` fails there
+   whether or not the machine has OpenCV (it says which), and fails if an
+   earlier phase or the data layer imported it; at
+   ``configs/*.yaml``'s widths: (a) every fixture of ``tests/fixtures/jpeg``
+   (the 1024×768 scene JPEG, grey, 4:4:4, 4:2:2, progressive, restart,
+   EXIF-rotated and odd-sized JPEGs, a 16-bit and an interlaced PNG)
+   decoded by the port (``data/native_loader.py::decode``) in colour and
+   grey, each array's SHA-256 equal to that of ``cv2.imread``'s recorded
+   in the fixtures' manifest; the scene's decode rate on one thread and
+   ``load_batch`` on 4 threads into 8 × 512². (b)
+   ``generate_orchard_dataset`` writes 16 scenes of 512² (images/s), and
+   the seeded 512² scene's mask and instance list equal the JAX
+   generator's digests in the manifest. (c) ``train_end_to_end`` (its CLI)
+   on 8 copies of the scene JPEG with a COCO file of its fruit polygons
+   (written from the committed ``scene.json``), bf16, the dense head,
+   512² b8, 2 epochs of one step: both batches decoded by the thread pool
+   with OpenCV's semantics, K4 4 + 4 and hist-eq 1 a step and nothing
+   else, finite losses. (d) ``infer_segmentation`` on the scene JPEG with
+   seeded U-Net weights, then with ``--large_scene --tile 512 --halo 64``
+   (four windows of the 768×1024 scene in one forward): psel 4, dec-conv1
+   2, pool 2, d2s 1 each, the label PNG equal to the labels returned. (e)
+   The four CLIs with no arguments (their ``make_dummy_run`` smoke runs)
+   and ``run_results --quick`` end to end on the card: Tables 1-3 finite.
+   Prints each call's wall seconds and peak memory, the decode and
+   generation rates; the kernels line gives each kernel's launches a step
+   (a call) of (c) and (d) (``launches_data``).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -3158,8 +3186,8 @@ def _timed_cli(label: str, main, argv):
     wall = time.perf_counter() - t0
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if "cv2" in sys.modules:
-        _fail(f"phase 17: {label} imported OpenCV")
+    if sys.modules.get("cv2") is not None:
+        _fail(f"{label} imported OpenCV")
     print(f"[chip_smoke] {label}: {wall:.3f} s wall, peak {peak:.3f} GiB, launches "
           f"{ {k: v for k, v in launches.items() if v} }")
     return out, launches, wall, peak
@@ -3206,19 +3234,20 @@ def _train_cli(label: str, main, cfg_dir: str, per_step):
     return dict(per_step), wall, peak
 
 
-def _infer_cli(label: str, argv, size: int, main):
+def _infer_cli(label: str, argv, size, main):
     """An inference CLI on the card: the launches of one U-Net forward and
     the label PNG, decoded by the C++ loader, equal to the labels the
-    call returned."""
+    call returned (``size``: the labels' side, or their (H, W))."""
     import numpy as np
 
     from mingraph_unet_tpu_torch.data import native_loader
 
+    hw = (size, size) if isinstance(size, int) else tuple(size)
     out, launches, wall, _ = _timed_cli(label, main, argv)
     _expect_launches(label, launches, {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1})
     labels = out["labels"]
-    decoded = native_loader.load_mask(out["label_path"], (size, size))
-    if labels.shape != (size, size) or decoded is None or not np.array_equal(decoded, labels.astype(np.uint8)):
+    decoded = native_loader.load_mask(out["label_path"], hw)
+    if labels.shape != hw or decoded is None or not np.array_equal(decoded, labels.astype(np.uint8)):
         _fail(f"phase 17: {label}: the label PNG differs from the labels returned")
     print(f"[chip_smoke] {label}: labels {labels.shape}, foreground share {float((labels == 1).mean()):.4f}, "
           f"label PNG decoded equal")
@@ -3350,6 +3379,217 @@ def _cli_path(dev):
     return {k: {c: v.get(c, 0) for c in _wrappers()} for k, v in paths.items()}
 
 
+JPEG_FIXTURES = os.path.join("tests", "fixtures", "jpeg")   # phase 18: the decoders' fixtures and manifest
+DATA_DECODES = 20     # phase 18 (a): one-thread decodes of the scene JPEG timed
+DATA_BATCHES = 5      # phase 18 (a): load_batch calls (8 x 512², 4 threads) timed
+DATA_SPLIT = 16       # phase 18 (b): 512² scenes of the generated split
+JPEG_EPOCHS = 2       # phase 18 (c): epochs of one batch-8 step over the scene's 8 copies
+
+
+def _sha256(arr) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _instances_digest(instances) -> str:
+    """SHA-256 of an instance list as canonical JSON, as
+    ``tests/fixtures/jpeg/make_fixtures.py`` records it."""
+    import hashlib
+
+    import numpy as np
+
+    rows = [{"poly": np.asarray(i["poly"]).tolist(), "bbox": [float(v) for v in i["bbox"]],
+             "occluded": bool(i["occluded"])} for i in instances]
+    return hashlib.sha256(json.dumps(rows, sort_keys=True).encode()).hexdigest()
+
+
+def _all_finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_all_finite(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def _decode_fixtures(fixtures: str, manifest: dict):
+    """Phase 18 (a): every fixture decoded equal to OpenCV's recorded
+    arrays, and the host's decode rates. Returns (one-thread images/s,
+    load_batch images/s)."""
+    from mingraph_unet_tpu_torch.data import native_loader
+
+    for name, rec in sorted(manifest["files"].items()):
+        path = os.path.join(fixtures, name)
+        colour = native_loader.decode(path)[..., ::-1]  # OpenCV's BGR
+        grey = native_loader.decode(path, gray=True)
+        for what, arr in (("color_bgr", colour), ("gray", grey)):
+            if list(arr.shape) != rec[what]["shape"] or _sha256(arr) != rec[what]["sha256"]:
+                _fail(f"phase 18 (a): {name} ({what}) decodes to another array than OpenCV's")
+    print(f"[chip_smoke] phase 18 (a): {len(manifest['files'])} fixtures decoded, colour and grey, each equal to "
+          f"cv2.imread's array (SHA-256 of the manifest)")
+    scene = os.path.join(fixtures, "scene.jpg")
+    native_loader.decode(scene)
+    t0 = time.perf_counter()
+    for _ in range(DATA_DECODES):
+        native_loader.decode(scene)
+    one = DATA_DECODES / (time.perf_counter() - t0)
+    native_loader.load_batch([scene] * BATCH, None, (SIZE, SIZE), threads=4, exact=True)
+    t0 = time.perf_counter()
+    for _ in range(DATA_BATCHES):
+        out = native_loader.load_batch([scene] * BATCH, None, (SIZE, SIZE), threads=4, exact=True)
+    pool = DATA_BATCHES * BATCH / (time.perf_counter() - t0)
+    if out is None or not out[0].any():
+        _fail("phase 18 (a): load_batch failed on the scene JPEG")
+    return one, pool
+
+
+def _jpeg_train_dir(root: str, fixtures: str) -> str:
+    """Phase 18 (c)'s data: the scene JPEG 8 times and a COCO file of its
+    fruit polygons (from the committed ``scene.json``) naming each copy.
+    Returns the config directory (``configs/*.yaml``, 512², batch 8, bf16,
+    the dense head, the annotation file)."""
+    import shutil
+
+    from mingraph_unet_tpu_torch.config import load_yaml, write_yaml
+
+    img_dir = os.path.join(root, "data", "train", "images")
+    os.makedirs(img_dir)
+    with open(os.path.join(fixtures, "scene.json")) as f:
+        coco = json.load(f)
+    base = coco["images"][0]
+    images, anns = [], []
+    for k in range(BATCH):
+        shutil.copy(os.path.join(fixtures, "scene.jpg"), os.path.join(img_dir, f"scene_{k}.jpg"))
+        images.append(dict(base, id=k, file_name=f"scene_{k}.jpg"))
+        anns += [dict(a, id=len(anns) + 1, image_id=k) for a in coco["annotations"]]
+    ann_file = os.path.join(root, "data", "train", "annotations.json")
+    with open(ann_file, "w") as f:
+        json.dump(dict(coco, images=images, annotations=anns), f)
+    cfg_dir = _cli_configs(root, "jpeg")
+    for file, change in (("dataset.yaml", lambda d: d.update(annotations_file=ann_file)),
+                         ("model.yaml", lambda d: d["fusion_detection"].update(use_dense_detection=True)),
+                         ("training.yaml", lambda d: d.update(bf16=True))):
+        data = load_yaml(os.path.join(cfg_dir, file))
+        change(data)
+        write_yaml(os.path.join(cfg_dir, file), data)
+    return cfg_dir
+
+
+def _data_path(dev):
+    """Phase 18: the data layer on files, with ``import cv2`` failing.
+    Returns the launches a step (a call) of (c) and (d)."""
+    import importlib.util
+
+    if sys.modules.get("cv2") is not None:
+        _fail("phase 18: an earlier phase imported OpenCV")
+    installed = importlib.util.find_spec("cv2") is not None
+    sys.modules["cv2"] = None  # from here on `import cv2` raises ImportError, whether or not OpenCV is installed
+    try:
+        import cv2  # noqa: F401
+        _fail("phase 18: OpenCV could still be imported")
+    except ImportError:
+        pass
+    print(f"[chip_smoke] phase 18: OpenCV {'is' if installed else 'is not'} installed here; the phase runs with "
+          "`import cv2` failing")
+    try:
+        return _data_phase(dev)
+    finally:
+        if sys.modules.get("cv2", None) is not None:
+            _fail("phase 18: the data layer imported OpenCV")
+        sys.modules.pop("cv2", None)
+
+
+def _data_phase(dev):
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mingraph_unet_tpu_torch.config import PipelineConfig
+    from mingraph_unet_tpu_torch.data import native_loader, synthetic
+    from mingraph_unet_tpu_torch.scripts import graph_refinement, infer_segmentation, run_results, train_end_to_end
+    from mingraph_unet_tpu_torch.scripts import train_segmentation
+    from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
+    from mingraph_unet_tpu_torch.train.segmentation import build_unet
+
+    t_phase = time.perf_counter()
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_FIXTURES)
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    decode_one, decode_pool = _decode_fixtures(fixtures, manifest)
+    paths, seconds, peaks = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        # (b) the synthetic orchard, and the seeded scene against the JAX generator's digests
+        t0 = time.perf_counter()
+        synthetic.generate_orchard_dataset(os.path.join(root, "orchard"), DATA_SPLIT, 0, 0, (SIZE, SIZE), seed=18)
+        generate = DATA_SPLIT / (time.perf_counter() - t0)
+        syn = manifest["synthetic"]
+        _, mask, instances = synthetic.render_orchard_scene(np.random.default_rng(syn["seed"]), *syn["size"])
+        if _sha256(mask) != syn["mask_sha256"] or _instances_digest(instances) != syn["instances_sha256"]:
+            _fail("phase 18 (b): the seeded 512² scene's mask or instances differ from the JAX generator's")
+        print(f"[chip_smoke] phase 18 (b): {DATA_SPLIT} scenes of 512² written, {generate:.2f} images/s; the seeded "
+              f"scene's mask and {len(instances)} instances equal to the JAX generator's")
+        # (c) annotated training from JPEG files
+        cfg_dir = _jpeg_train_dir(root, fixtures)
+        decoded = []
+        real = native_loader.load_batch
+        native_loader.load_batch = lambda *a, **k: decoded.append((len(a[0]), k.get("exact"))) or real(*a, **k)
+        try:
+            (state, history), launches, seconds["train_jpeg"], peaks["train_jpeg"] = _timed_cli(
+                "train_end_to_end on JPEG + COCO", train_end_to_end.main,
+                ["--config_path", cfg_dir, "--epochs", str(JPEG_EPOCHS)])
+        finally:
+            native_loader.load_batch = real
+        if decoded != [(BATCH, True)] * JPEG_EPOCHS:
+            _fail(f"phase 18 (c): the loader decoded {decoded}, expected {JPEG_EPOCHS} batches of {BATCH} JPEGs")
+        per_step = {"k4_fwd": 4, "k4_dgrad": 4, "histeq": 1}
+        _expect_launches("train_end_to_end on JPEG + COCO", launches, {k: n * JPEG_EPOCHS for k, n in per_step.items()})
+        if not all(math.isfinite(v) for v in history["epoch_loss"]) or len(history["epoch_loss"]) != JPEG_EPOCHS:
+            _fail(f"phase 18 (c): epoch losses {history['epoch_loss']}")
+        paths["train_end_to_end JPEG step"] = per_step
+        print(f"[chip_smoke] phase 18 (c): {JPEG_EPOCHS} annotated bf16 steps on {BATCH} JPEGs, epoch losses "
+              f"{[round(v, 4) for v in history['epoch_loss']]}, {JPEG_EPOCHS * BATCH / seconds['train_jpeg']:.2f} "
+              f"images/s over the whole call")
+        # (d) inference on the JPEG, at resize_dim and as a large scene
+        seg_cfg = _cli_configs(root, "seg")
+        torch.manual_seed(18)
+        weights = os.path.join(root, "seg", "checkpoints")
+        CheckpointManager(weights).save(0, build_unet(PipelineConfig.from_config_dir(seg_cfg), dev).state_dict())
+        scene = os.path.join(fixtures, "scene.jpg")
+        common = ["--config_path", seg_cfg, "--weights_path", weights, "--image_path", scene, "--output_dir",
+                  os.path.join(root, "out")]
+        paths["infer_segmentation JPEG"], seconds["infer_jpeg"] = _infer_cli(
+            "infer_segmentation on the JPEG", common, SIZE, infer_segmentation.main)
+        paths["infer_segmentation --large_scene JPEG"], seconds["infer_jpeg_large"] = _infer_cli(
+            "infer_segmentation --large_scene on the JPEG",
+            common + ["--large_scene", "--tile", str(TILE), "--halo", str(HALO)], manifest["scene"]["size"],
+            infer_segmentation.main)
+        # (e) the four CLIs' smoke runs and run_results --quick
+        for name, main, argv in (("train_segmentation", train_segmentation.main, []),
+                                 ("train_end_to_end", train_end_to_end.main, []),
+                                 ("infer_segmentation", infer_segmentation.main,
+                                  ["--output_dir", os.path.join(root, "smoke")]),
+                                 ("graph_refinement", graph_refinement.main, [])):
+            _, _, seconds[f"smoke_{name}"], _ = _timed_cli(f"{name} smoke run", main, argv)
+        results, _, seconds["run_results_quick"], peaks["run_results_quick"] = _timed_cli(
+            "run_results --quick", run_results.main,
+            ["--quick", "--out", os.path.join(root, "results"), "--results_dir", os.path.join(root, "outputs")])
+        tables = {k: results[k] for k in ("table1_segmentation", "table2_yield", "table3_ablation")}
+        if not tables["table1_segmentation"] or not tables["table3_ablation"] or not _all_finite(tables):
+            _fail(f"phase 18 (e): run_results --quick gave tables {tables}")
+        print(f"[chip_smoke] phase 18 (e): run_results --quick: Tables 1-3 finite ({len(tables['table1_segmentation'])}"
+              f" / {len(tables['table2_yield'])} / {len(tables['table3_ablation'])} rows)")
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] data_decode_images_per_s scene_jpeg_one_thread {decode_one:.2f} "
+          f"load_batch_4_threads_512 {decode_pool:.2f} generate_512_images_per_s {generate:.2f}")
+    print("[chip_smoke] data_seconds " + " ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f" phase_18 {time.perf_counter() - t_phase:.1f}")
+    print("[chip_smoke] data_peak_gib " + " ".join(f"{k} {v:.3f}" for k, v in peaks.items()))
+    return {k: {c: v.get(c, 0) for c in _wrappers()} for k, v in paths.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -3421,6 +3661,8 @@ def main() -> int:
     _attach_launches(rows, annotated_launches, "launches_annotated")
     # The CLIs and the profiling hooks (phase 17).
     _attach_launches(rows, _cli_path(dev), "launches_cli")
+    # The data layer on files, without OpenCV (phase 18).
+    _attach_launches(rows, _data_path(dev), "launches_data")
 
     print(f"[chip_smoke] forward_ms {fwd_ms:.4f} images_per_s {BATCH / fwd_ms * 1e3:.2f}")
     print(f"[chip_smoke] train_ms {train_ms:.4f} train_images_per_s {BATCH / train_ms * 1e3:.2f} "

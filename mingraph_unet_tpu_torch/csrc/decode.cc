@@ -1,30 +1,60 @@
-// Host-side data loader: PNG decode + resize + threaded batch loading
-// (the port's copy of native/decode.cc; host code, not a CUDA kernel).
+// Host-side image decoding and resizing: PNG, JPEG and BMP decoders of the
+// port's own, the resizes the JAX package gets from OpenCV, and a threaded
+// batch loader (host code, not a CUDA kernel), behind a C ABI bound by
+// mingraph_unet_tpu_torch/data/native_loader.py and data/raster.py.
 //
-// The trainers feed uint8 batches to the device, so the host's share of
-// the input pipeline is image decode + resize; this library does that in
-// C++ with a pthread pool, behind a minimal C ABI consumed via ctypes
-// (mingraph_unet_tpu_torch/data/native_loader.py).
-//
-// Scope: 8-bit non-interlaced PNG, color types 0 (gray), 2 (RGB), 3
-// (palette), 4 (gray+alpha), 6 (RGBA). Other files take the OpenCV path
-// on the Python side.
+// Two decoding contracts live here:
+// - "native": what the JAX package's own C++ loader (native/decode.cc)
+//   does: 8-bit non-interlaced PNG only, its bilinear and integer-nearest
+//   resizes. mgu_load_image / mgu_load_mask / mgu_load_batch(mode 0).
+// - "opencv": what cv2.imread and cv2.resize give, bit for bit, on the
+//   files the port reads (OpenCV 5 with libjpeg-turbo's defaults):
+//   * JPEG: baseline, extended sequential and progressive Huffman coding,
+//     8-bit, 1 or 3 components (YCbCr), any integral sampling factors,
+//     restart intervals; libjpeg's ISLOW integer IDCT, its fancy (triangle)
+//     h2v1 / h1v2 / h2v2 upsampling (box for other integral factors), its
+//     fixed-point YCbCr->RGB tables, the luma plane alone for grey; the
+//     EXIF orientation (APP1) applied as imread applies it. Arithmetic
+//     coding, 12-bit, lossless and hierarchical frames, CMYK / YCCK / RGB
+//     coded colour, and truncated or corrupt data return an error code.
+//   * PNG: 8- and 16-bit (reduced to the high byte), Adam7 interlacing,
+//     grey, RGB, palette and alpha (dropped); grey reads of colour take
+//     libpng's rgb_to_gray.
+//   * BMP: uncompressed 8-bit palette, 24- and 32-bit.
+//   * resize: INTER_LINEAR on uint8 (11-bit weights, INTER_AREA on an exact
+//     2x downscale) and INTER_NEAREST from the floating-point scale.
+//   mgu_decode, mgu_resize_linear_u8, mgu_load_batch(mode 1).
 //
 // Build: ops/kernels/build.py::host_library("decode")
 // (g++ -O3 -shared -fPIC, links zlib + pthread).
 
+#include <algorithm>
+#include <array>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
-#include <cstring>
 #include <cstdio>
 #include <cstdlib>
-#include <vector>
-#include <string>
+#include <cstring>
 #include <thread>
-#include <atomic>
+#include <vector>
 #include <zlib.h>
 
 namespace {
+
+// Error codes (data/native_loader.py names each).
+enum : int {
+  OK = 0,
+  E_OPEN = 1,
+  E_FORMAT = 2,
+  E_TRUNCATED = 3,
+  E_CORRUPT = 4,
+  E_ARITHMETIC = 5,
+  E_PRECISION = 6,
+  E_LOSSLESS = 7,
+  E_COLOR = 8,
+  E_UNSUPPORTED = 9,
+};
 
 struct Image {
   int w = 0, h = 0, c = 0;  // c = channels in decoded output (1 or 3)
@@ -33,6 +63,9 @@ struct Image {
 
 inline uint32_t be32(const uint8_t* p) {
   return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) | (uint32_t(p[2]) << 8) | uint32_t(p[3]);
+}
+inline uint32_t le32(const uint8_t* p) {
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24);
 }
 
 inline int paeth(int a, int b, int c) {
@@ -43,66 +76,18 @@ inline int paeth(int a, int b, int c) {
   return c;
 }
 
-// Decode an 8-bit non-interlaced PNG into RGB (3ch) or gray (1ch).
-bool decode_png(const uint8_t* data, size_t len, Image* out, bool want_gray) {
-  static const uint8_t magic[8] = {137, 80, 78, 71, 13, 10, 26, 10};
-  if (len < 8 || memcmp(data, magic, 8) != 0) return false;
+// ---------------------------------------------------------------- PNG ----
 
-  size_t pos = 8;
-  int width = 0, height = 0, bit_depth = 0, color_type = 0, interlace = 0;
-  std::vector<uint8_t> idat;
-  std::vector<uint8_t> palette;  // rgb triples
-
-  while (pos + 8 <= len) {
-    uint32_t chunk_len = be32(data + pos);
-    const char* type = reinterpret_cast<const char*>(data + pos + 4);
-    const uint8_t* body = data + pos + 8;
-    if (pos + 12 + chunk_len > len) return false;
-    if (!memcmp(type, "IHDR", 4)) {
-      width = be32(body);
-      height = be32(body + 4);
-      bit_depth = body[8];
-      color_type = body[9];
-      interlace = body[12];
-      if (bit_depth != 8 || interlace != 0) return false;
-      if (color_type != 0 && color_type != 2 && color_type != 3 && color_type != 4 && color_type != 6)
-        return false;
-    } else if (!memcmp(type, "PLTE", 4)) {
-      palette.assign(body, body + chunk_len);
-    } else if (!memcmp(type, "IDAT", 4)) {
-      idat.insert(idat.end(), body, body + chunk_len);
-    } else if (!memcmp(type, "IEND", 4)) {
-      break;
-    }
-    pos += 12 + chunk_len;
-  }
-  if (width <= 0 || height <= 0 || idat.empty()) return false;
-
-  int src_c = color_type == 2 ? 3 : color_type == 6 ? 4 : color_type == 4 ? 2 : 1;
-  size_t stride = size_t(width) * src_c;
-  std::vector<uint8_t> raw((stride + 1) * height);
-
-  z_stream zs;
-  memset(&zs, 0, sizeof(zs));
-  if (inflateInit(&zs) != Z_OK) return false;
-  zs.next_in = idat.data();
-  zs.avail_in = static_cast<uInt>(idat.size());
-  zs.next_out = raw.data();
-  zs.avail_out = static_cast<uInt>(raw.size());
-  int zret = inflate(&zs, Z_FINISH);
-  inflateEnd(&zs);
-  if (zret != Z_STREAM_END && zret != Z_OK) return false;
-
-  // Unfilter scanlines in place into a contiguous pixel buffer.
-  std::vector<uint8_t> img(stride * height);
-  const int bpp = src_c;  // bytes per pixel (8-bit depth)
-  for (int y = 0; y < height; ++y) {
+// Undo the row filters of one (sub)image of `rows` rows of `stride` bytes,
+// each row led by its filter byte. Returns false on an unknown filter.
+bool unfilter(const uint8_t* raw, int rows, size_t stride, int bpp, uint8_t* dst) {
+  for (int y = 0; y < rows; ++y) {
     uint8_t filter = raw[(stride + 1) * y];
-    const uint8_t* src = raw.data() + (stride + 1) * y + 1;
-    uint8_t* dst = img.data() + stride * y;
-    const uint8_t* up = y > 0 ? img.data() + stride * (y - 1) : nullptr;
+    const uint8_t* src = raw + (stride + 1) * y + 1;
+    uint8_t* d = dst + stride * y;
+    const uint8_t* up = y > 0 ? dst + stride * (y - 1) : nullptr;
     for (size_t x = 0; x < stride; ++x) {
-      int a = x >= size_t(bpp) ? dst[x - bpp] : 0;
+      int a = x >= size_t(bpp) ? d[x - bpp] : 0;
       int b = up ? up[x] : 0;
       int c = (up && x >= size_t(bpp)) ? up[x - bpp] : 0;
       int v = src[x];
@@ -114,44 +99,1029 @@ bool decode_png(const uint8_t* data, size_t len, Image* out, bool want_gray) {
         case 4: v += paeth(a, b, c); break;
         default: return false;
       }
-      dst[x] = uint8_t(v);
-    }
-  }
-
-  // Convert to requested channel count.
-  int out_c = want_gray ? 1 : 3;
-  out->w = width;
-  out->h = height;
-  out->c = out_c;
-  out->px.resize(size_t(width) * height * out_c);
-  for (size_t i = 0; i < size_t(width) * height; ++i) {
-    uint8_t r, g, b;
-    const uint8_t* s = img.data() + i * src_c;
-    switch (color_type) {
-      case 0: r = g = b = s[0]; break;
-      case 2: r = s[0]; g = s[1]; b = s[2]; break;
-      case 3: {
-        size_t pi = size_t(s[0]) * 3;
-        if (pi + 2 >= palette.size()) return false;
-        r = palette[pi]; g = palette[pi + 1]; b = palette[pi + 2];
-        break;
-      }
-      case 4: r = g = b = s[0]; break;
-      default: r = s[0]; g = s[1]; b = s[2]; break;  // 6 = RGBA, drop alpha
-    }
-    if (want_gray) {
-      // OpenCV grayscale weights, rounded.
-      out->px[i] = uint8_t(0.299 * r + 0.587 * g + 0.114 * b + 0.5);
-    } else {
-      out->px[i * 3] = r;
-      out->px[i * 3 + 1] = g;
-      out->px[i * 3 + 2] = b;
+      d[x] = uint8_t(v);
     }
   }
   return true;
 }
 
-// cv2 INTER_LINEAR-compatible bilinear resize (half-pixel centers).
+// Decode a PNG into RGB (3ch) or gray (1ch). `legacy` keeps the JAX
+// loader's contract: 8-bit non-interlaced only, grey as rounded float
+// weights.
+int decode_png(const uint8_t* data, size_t len, Image* out, bool want_gray, bool legacy) {
+  static const uint8_t magic[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+  if (len < 8 || memcmp(data, magic, 8) != 0) return E_FORMAT;
+
+  size_t pos = 8;
+  int width = 0, height = 0, bit_depth = 0, color_type = 0, interlace = 0;
+  bool seen_end = false;
+  std::vector<uint8_t> idat;
+  std::vector<uint8_t> palette;  // rgb triples
+
+  while (pos + 8 <= len) {
+    uint32_t chunk_len = be32(data + pos);
+    const char* type = reinterpret_cast<const char*>(data + pos + 4);
+    const uint8_t* body = data + pos + 8;
+    if (chunk_len > len || pos + 12 + chunk_len > len) return E_TRUNCATED;
+    if (!memcmp(type, "IHDR", 4)) {
+      if (chunk_len < 13) return E_CORRUPT;
+      width = be32(body);
+      height = be32(body + 4);
+      bit_depth = body[8];
+      color_type = body[9];
+      interlace = body[12];
+      if (legacy && (bit_depth != 8 || interlace != 0)) return E_UNSUPPORTED;
+      if ((bit_depth != 8 && bit_depth != 16) || interlace > 1) return E_UNSUPPORTED;
+      if (color_type != 0 && color_type != 2 && color_type != 3 && color_type != 4 && color_type != 6)
+        return E_CORRUPT;
+      if (color_type == 3 && bit_depth != 8) return E_CORRUPT;
+    } else if (!memcmp(type, "PLTE", 4)) {
+      palette.assign(body, body + chunk_len);
+    } else if (!memcmp(type, "IDAT", 4)) {
+      idat.insert(idat.end(), body, body + chunk_len);
+    } else if (!memcmp(type, "IEND", 4)) {
+      seen_end = true;
+      break;
+    }
+    pos += 12 + chunk_len;
+  }
+  if (width <= 0 || height <= 0 || idat.empty()) return legacy ? E_CORRUPT : (seen_end ? E_CORRUPT : E_TRUNCATED);
+
+  const int src_c = color_type == 2 ? 3 : color_type == 6 ? 4 : color_type == 4 ? 2 : 1;
+  const int bpp = src_c * bit_depth / 8;  // bytes per pixel
+  const size_t stride = size_t(width) * bpp;
+
+  // Adam7 passes: (x0, y0, dx, dy); a non-interlaced image is one pass.
+  static const int adam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                                  {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+  const int npass = interlace ? 7 : 1;
+  size_t raw_size = 0;
+  for (int p = 0; p < npass; ++p) {
+    int x0 = interlace ? adam7[p][0] : 0, y0 = interlace ? adam7[p][1] : 0;
+    int dx = interlace ? adam7[p][2] : 1, dy = interlace ? adam7[p][3] : 1;
+    size_t pw = width > x0 ? size_t(width - x0 + dx - 1) / dx : 0;
+    size_t ph = height > y0 ? size_t(height - y0 + dy - 1) / dy : 0;
+    if (pw && ph) raw_size += (pw * bpp + 1) * ph;
+  }
+  std::vector<uint8_t> raw(raw_size);
+  z_stream zs;
+  memset(&zs, 0, sizeof(zs));
+  if (inflateInit(&zs) != Z_OK) return E_CORRUPT;
+  zs.next_in = idat.data();
+  zs.avail_in = static_cast<uInt>(idat.size());
+  zs.next_out = raw.data();
+  zs.avail_out = static_cast<uInt>(raw.size());
+  int zret = inflate(&zs, Z_FINISH);
+  size_t produced = raw.size() - zs.avail_out;
+  inflateEnd(&zs);
+  if (zret != Z_STREAM_END && zret != Z_OK && zret != Z_BUF_ERROR) return E_CORRUPT;
+  if (produced < raw.size()) return legacy ? E_CORRUPT : E_TRUNCATED;
+
+  std::vector<uint8_t> img(stride * height);
+  {
+    const uint8_t* r = raw.data();
+    std::vector<uint8_t> sub;
+    for (int p = 0; p < npass; ++p) {
+      int x0 = interlace ? adam7[p][0] : 0, y0 = interlace ? adam7[p][1] : 0;
+      int dx = interlace ? adam7[p][2] : 1, dy = interlace ? adam7[p][3] : 1;
+      size_t pw = width > x0 ? size_t(width - x0 + dx - 1) / dx : 0;
+      size_t ph = height > y0 ? size_t(height - y0 + dy - 1) / dy : 0;
+      if (!pw || !ph) continue;
+      if (!interlace) {
+        if (!unfilter(r, int(ph), stride, bpp, img.data())) return E_CORRUPT;
+        break;
+      }
+      sub.resize(pw * bpp * ph);
+      if (!unfilter(r, int(ph), pw * bpp, bpp, sub.data())) return E_CORRUPT;
+      for (size_t y = 0; y < ph; ++y)
+        for (size_t x = 0; x < pw; ++x)
+          memcpy(img.data() + (y0 + y * dy) * stride + (x0 + x * dx) * bpp, sub.data() + (y * pw + x) * bpp, bpp);
+      r += (pw * bpp + 1) * ph;
+    }
+  }
+
+  const int out_c = want_gray ? 1 : 3;
+  out->w = width;
+  out->h = height;
+  out->c = out_c;
+  out->px.resize(size_t(width) * height * out_c);
+  const bool wide = bit_depth == 16;
+  for (size_t i = 0; i < size_t(width) * height; ++i) {
+    const uint8_t* s = img.data() + i * bpp;
+    // Samples at full depth (16-bit big-endian, or 8-bit).
+    auto sample = [&](int k) -> uint32_t { return wide ? (uint32_t(s[2 * k]) << 8) | s[2 * k + 1] : s[k]; };
+    uint32_t r, g, b;
+    bool grey_src = color_type == 0 || color_type == 4;
+    if (color_type == 3) {
+      size_t pi = size_t(s[0]) * 3;
+      if (pi + 2 >= palette.size()) return E_CORRUPT;
+      r = palette[pi];
+      g = palette[pi + 1];
+      b = palette[pi + 2];
+    } else if (grey_src) {
+      r = g = b = sample(0);
+    } else {
+      r = sample(0);
+      g = sample(1);
+      b = sample(2);
+    }
+    if (want_gray) {
+      uint32_t v;
+      if (legacy) {
+        v = uint32_t(0.299 * r + 0.587 * g + 0.114 * b + 0.5);
+      } else if (grey_src) {
+        v = wide ? r >> 8 : r;
+      } else if (r == g && r == b) {  // libpng's rgb_to_gray (0.299, 0.587)
+        v = wide ? r >> 8 : r;
+      } else if (wide) {  // rounded on 16 bits, then the high byte
+        v = ((r * 9797 + g * 19234 + b * 3737 + 16384) >> 15) >> 8;
+      } else {  // truncated on 8 bits
+        v = (r * 9797 + g * 19234 + b * 3737) >> 15;
+      }
+      out->px[i] = uint8_t(v);
+    } else {
+      if (wide && color_type != 3) {
+        r >>= 8;
+        g >>= 8;
+        b >>= 8;
+      }
+      out->px[i * 3] = uint8_t(r);
+      out->px[i * 3 + 1] = uint8_t(g);
+      out->px[i * 3 + 2] = uint8_t(b);
+    }
+  }
+  return OK;
+}
+
+// ---------------------------------------------------------------- BMP ----
+
+int decode_bmp(const uint8_t* data, size_t len, Image* out, bool want_gray) {
+  if (len < 54 || data[0] != 'B' || data[1] != 'M') return E_FORMAT;
+  uint32_t off = le32(data + 10), hsize = le32(data + 14);
+  if (hsize < 40) return E_UNSUPPORTED;
+  int32_t w = int32_t(le32(data + 18)), h = int32_t(le32(data + 22));
+  int bpp = data[28] | (data[29] << 8);
+  uint32_t comp = le32(data + 30), ncolors = le32(data + 46);
+  if (w <= 0 || h == 0 || comp != 0 || (bpp != 8 && bpp != 24 && bpp != 32)) return E_UNSUPPORTED;
+  bool top_down = h < 0;
+  if (top_down) h = -h;
+  size_t row = (size_t(w) * bpp / 8 + 3) & ~size_t(3);
+  if (off > len || size_t(off) + row * h > len) return E_TRUNCATED;
+  const uint8_t* pal = data + 14 + hsize;
+  if (bpp == 8) {
+    if (ncolors == 0) ncolors = 256;
+    if (size_t(pal - data) + 4 * size_t(ncolors) > len) return E_TRUNCATED;
+  }
+  out->w = w;
+  out->h = h;
+  out->c = want_gray ? 1 : 3;
+  out->px.resize(size_t(w) * h * out->c);
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* src = data + off + row * (top_down ? y : h - 1 - y);
+    for (int x = 0; x < w; ++x) {
+      uint32_t b, g, r;
+      if (bpp == 8) {
+        uint32_t k = src[x];
+        if (k >= ncolors) return E_CORRUPT;
+        b = pal[4 * k];
+        g = pal[4 * k + 1];
+        r = pal[4 * k + 2];
+      } else {
+        const uint8_t* p = src + size_t(x) * (bpp / 8);
+        b = p[0];
+        g = p[1];
+        r = p[2];
+      }
+      size_t i = size_t(y) * w + x;
+      if (want_gray) {  // OpenCV's icvCvt_BGR2Gray_8u_C3C1R
+        out->px[i] = uint8_t((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14);
+      } else {
+        out->px[i * 3] = uint8_t(r);
+        out->px[i * 3 + 1] = uint8_t(g);
+        out->px[i * 3 + 2] = uint8_t(b);
+      }
+    }
+  }
+  return OK;
+}
+
+// --------------------------------------------------------------- JPEG ----
+
+const int kZigzag[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33, 40, 48,
+    41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23,
+    30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    // Guard entries for a run past the end of a corrupt block.
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+struct Huffman {
+  bool defined = false;
+  // Canonical code tables (JPEG Annex C / F.2.2.3).
+  int32_t maxcode[18];
+  int32_t valptr[17];
+  int32_t mincode[17];
+  uint8_t vals[256];
+  // Fast lookup of codes up to 9 bits: (length << 8) | value, 0 if longer.
+  uint16_t fast[512];
+};
+
+bool build_huffman(Huffman* h, const uint8_t* counts, const uint8_t* vals, int nvals) {
+  memcpy(h->vals, vals, nvals);
+  int code = 0, k = 0;
+  memset(h->fast, 0, sizeof(h->fast));
+  for (int l = 1; l <= 16; ++l) {
+    h->valptr[l] = k;
+    h->mincode[l] = code;
+    for (int i = 0; i < counts[l - 1]; ++i) {
+      if (l <= 9) {
+        int shift = 9 - l;
+        for (int j = 0; j < (1 << shift); ++j) h->fast[(code << shift) | j] = uint16_t((l << 8) | vals[k]);
+      }
+      ++code;
+      ++k;
+    }
+    h->maxcode[l] = counts[l - 1] ? code - 1 : -1;
+    if (code > (1 << l)) return false;
+    code <<= 1;
+  }
+  h->maxcode[17] = 0x7fffffff;
+  h->defined = true;
+  return true;
+}
+
+struct Component {
+  int id = 0, hs = 1, vs = 1, tq = 0;
+  int bw = 0, bh = 0;          // blocks covering the component's samples
+  int bw_alloc = 0, bh_alloc = 0;  // blocks in whole MCUs
+  int dw = 0, dh = 0;          // downsampled width and height
+  std::vector<int16_t> coef;   // bh_alloc * bw_alloc * 64, natural order
+  int dc_pred = 0;
+  int td = 0, ta = 0;          // Huffman table selectors of the scan
+};
+
+class Jpeg {
+ public:
+  Jpeg(const uint8_t* d, size_t n) : data_(d), len_(n) {}
+  int decode(Image* out, bool want_gray);
+
+ private:
+  const uint8_t* data_;
+  size_t len_;
+  size_t pos_ = 0;
+  // Bit reader.
+  uint32_t bits_ = 0;
+  int nbits_ = 0;
+  bool hit_marker_ = false;
+  int err_ = OK;
+
+  uint16_t qt_[4][64];
+  bool qt_defined_[4] = {false, false, false, false};
+  Huffman dc_[4], ac_[4];
+  std::vector<Component> comp_;
+  int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  bool progressive_ = false, frame_ = false;
+  int restart_ = 0;
+  bool jfif_ = false, adobe_ = false;
+  int adobe_transform_ = -1;
+  int orientation_ = 1;
+  int eobrun_ = 0;
+
+  int byte() {
+    if (pos_ >= len_) return -1;
+    return data_[pos_++];
+  }
+  void fill(int need) {
+    while (nbits_ < need) {
+      int b = 0;
+      if (!hit_marker_) {
+        if (pos_ >= len_) {
+          err_ = E_TRUNCATED;
+          hit_marker_ = true;
+        } else {
+          b = data_[pos_];
+          if (b == 0xFF) {
+            int b2 = pos_ + 1 < len_ ? data_[pos_ + 1] : -1;
+            if (b2 == 0x00) {
+              pos_ += 2;
+            } else {
+              hit_marker_ = true;  // a marker: feed zeros, leave it unread
+              b = 0;
+            }
+          } else {
+            ++pos_;
+          }
+        }
+      }
+      bits_ = (bits_ << 8) | uint32_t(b);
+      nbits_ += 8;
+    }
+  }
+  int get_bits(int n) {
+    if (n == 0) return 0;
+    fill(n);
+    int v = int((bits_ >> (nbits_ - n)) & ((1u << n) - 1));
+    nbits_ -= n;
+    return v;
+  }
+  int get_bit() { return get_bits(1); }
+  static int extend(int v, int s) { return s == 0 ? 0 : (v < (1 << (s - 1)) ? v - (1 << s) + 1 : v); }
+  int decode_huff(const Huffman& h) {
+    fill(16);
+    int look = int((bits_ >> (nbits_ - 9)) & 0x1FF);
+    int f = h.fast[look];
+    if (f) {
+      nbits_ -= f >> 8;
+      return f & 0xFF;
+    }
+    int code = int((bits_ >> (nbits_ - 10)) & 0x3FF), l = 10;
+    while (l <= 16 && code > h.maxcode[l]) {
+      ++l;
+      code = int((bits_ >> (nbits_ - l)) & ((1u << l) - 1));
+    }
+    if (l > 16) {
+      err_ = E_CORRUPT;
+      return 0;
+    }
+    nbits_ -= l;
+    return h.vals[h.valptr[l] + code - h.mincode[l]];
+  }
+  bool failed() const { return err_ != OK; }
+  void reset_bits() {
+    bits_ = 0;
+    nbits_ = 0;
+    hit_marker_ = false;
+  }
+
+  int read_segment_length(size_t* seg_end) {
+    if (pos_ + 2 > len_) return E_TRUNCATED;
+    int l = (data_[pos_] << 8) | data_[pos_ + 1];
+    if (l < 2) return E_CORRUPT;
+    if (pos_ + l > len_) return E_TRUNCATED;
+    *seg_end = pos_ + l;
+    pos_ += 2;
+    return OK;
+  }
+  int parse_sof(int marker);
+  int parse_dht(size_t end);
+  int parse_dqt(size_t end);
+  void parse_exif(const uint8_t* p, size_t n);
+  int parse_sos(size_t end);
+  int decode_scan(const std::vector<int>& sc, int ss, int se, int ah, int al);
+  int decode_block(Component& c, int16_t* blk, int ss, int se, int ah, int al);
+  void idct_component(const Component& c, std::vector<uint8_t>* plane, int* stride);
+};
+
+int Jpeg::parse_sof(int marker) {
+  size_t end;
+  int rc = read_segment_length(&end);
+  if (rc) return rc;
+  if (frame_) return E_CORRUPT;
+  if (end - pos_ < 6) return E_CORRUPT;
+  int precision = data_[pos_];
+  height_ = (data_[pos_ + 1] << 8) | data_[pos_ + 2];
+  width_ = (data_[pos_ + 3] << 8) | data_[pos_ + 4];
+  int nc = data_[pos_ + 5];
+  pos_ += 6;
+  if (precision != 8) return E_PRECISION;
+  if (height_ == 0) return E_UNSUPPORTED;  // the height in a DNL marker
+  if (width_ == 0) return E_CORRUPT;
+  if (nc == 4) return E_COLOR;
+  if (nc != 1 && nc != 3) return E_UNSUPPORTED;
+  if (end - pos_ < size_t(3 * nc)) return E_CORRUPT;
+  progressive_ = marker == 0xC2;
+  comp_.resize(nc);
+  for (int i = 0; i < nc; ++i) {
+    Component& c = comp_[i];
+    c.id = data_[pos_];
+    c.hs = data_[pos_ + 1] >> 4;
+    c.vs = data_[pos_ + 1] & 15;
+    c.tq = data_[pos_ + 2];
+    pos_ += 3;
+    if (c.hs < 1 || c.hs > 4 || c.vs < 1 || c.vs > 4 || c.tq > 3) return E_CORRUPT;
+    hmax_ = std::max(hmax_, c.hs);
+    vmax_ = std::max(vmax_, c.vs);
+  }
+  mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
+  mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+  for (Component& c : comp_) {
+    c.dw = (width_ * c.hs + hmax_ - 1) / hmax_;
+    c.dh = (height_ * c.vs + vmax_ - 1) / vmax_;
+    c.bw = (c.dw + 7) / 8;
+    c.bh = (c.dh + 7) / 8;
+    c.bw_alloc = mcux_ * c.hs;
+    c.bh_alloc = mcuy_ * c.vs;
+    c.coef.assign(size_t(c.bw_alloc) * c.bh_alloc * 64, 0);
+  }
+  pos_ = end;
+  frame_ = true;
+  return OK;
+}
+
+int Jpeg::parse_dht(size_t end) {
+  while (pos_ < end) {
+    if (end - pos_ < 17) return E_CORRUPT;
+    int tc = data_[pos_] >> 4, th = data_[pos_] & 15;
+    if (tc > 1 || th > 3) return E_CORRUPT;
+    const uint8_t* counts = data_ + pos_ + 1;
+    int n = 0;
+    for (int i = 0; i < 16; ++i) n += counts[i];
+    if (n > 256 || end - pos_ < size_t(17 + n)) return E_CORRUPT;
+    if (!build_huffman(tc ? &ac_[th] : &dc_[th], counts, data_ + pos_ + 17, n)) return E_CORRUPT;
+    pos_ += 17 + n;
+  }
+  return OK;
+}
+
+int Jpeg::parse_dqt(size_t end) {
+  while (pos_ < end) {
+    int pq = data_[pos_] >> 4, tq = data_[pos_] & 15;
+    if (pq > 1 || tq > 3) return E_CORRUPT;
+    size_t need = 1 + 64 * (pq + 1);
+    if (end - pos_ < need) return E_CORRUPT;
+    for (int k = 0; k < 64; ++k) {
+      int v = pq ? (data_[pos_ + 1 + 2 * k] << 8) | data_[pos_ + 2 + 2 * k] : data_[pos_ + 1 + k];
+      qt_[tq][kZigzag[k]] = uint16_t(v);
+    }
+    qt_defined_[tq] = true;
+    pos_ += need;
+  }
+  return OK;
+}
+
+// The orientation tag (0x0112) of IFD0 in an "Exif\0\0" APP1 payload.
+void Jpeg::parse_exif(const uint8_t* p, size_t n) {
+  if (n < 14 || memcmp(p, "Exif\0\0", 6) != 0) return;
+  p += 6;
+  n -= 6;
+  bool le;
+  if (p[0] == 'I' && p[1] == 'I') {
+    le = true;
+  } else if (p[0] == 'M' && p[1] == 'M') {
+    le = false;
+  } else {
+    return;
+  }
+  auto u16 = [&](size_t o) -> uint32_t { return le ? p[o] | (p[o + 1] << 8) : (p[o] << 8) | p[o + 1]; };
+  auto u32 = [&](size_t o) -> uint32_t {
+    return le ? le32(p + o) : be32(p + o);
+  };
+  if (u16(2) != 42) return;
+  uint32_t ifd = u32(4);
+  if (size_t(ifd) + 2 > n) return;
+  uint32_t count = u16(ifd);
+  for (uint32_t i = 0; i < count; ++i) {
+    size_t e = size_t(ifd) + 2 + 12 * size_t(i);
+    if (e + 12 > n) return;
+    if (u16(e) == 0x0112) {
+      uint32_t v = u16(e + 8);
+      if (u16(e + 2) == 3 && v >= 1 && v <= 8) orientation_ = int(v);
+      return;
+    }
+  }
+}
+
+int Jpeg::decode_block(Component& c, int16_t* blk, int ss, int se, int ah, int al) {
+  if (!progressive_) {
+    int s = decode_huff(dc_[c.td]);
+    if (s > 11) return E_CORRUPT;
+    c.dc_pred += extend(get_bits(s), s);
+    blk[0] = int16_t(c.dc_pred);
+    const Huffman& h = ac_[c.ta];
+    for (int k = 1; k < 64; ++k) {
+      int rs = decode_huff(h);
+      int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        if (k > 63) return E_CORRUPT;
+        blk[kZigzag[k]] = int16_t(extend(get_bits(sz), sz));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+    return failed() ? err_ : OK;
+  }
+  if (ss == 0) {  // DC scan
+    if (ah == 0) {
+      int s = decode_huff(dc_[c.td]);
+      if (s > 11) return E_CORRUPT;
+      c.dc_pred += extend(get_bits(s), s);
+      blk[0] = int16_t(uint32_t(c.dc_pred) << al);
+    } else if (get_bit()) {
+      blk[0] = int16_t(blk[0] | (1 << al));
+    }
+    return failed() ? err_ : OK;
+  }
+  const Huffman& h = ac_[c.ta];
+  if (ah == 0) {  // AC first
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return OK;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_huff(h);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) return E_CORRUPT;
+        blk[kZigzag[k]] = int16_t(uint32_t(extend(get_bits(s), s)) << al);
+      } else if (r < 15) {
+        eobrun_ = (1 << r) - 1;
+        if (r) eobrun_ += get_bits(r);
+        break;
+      } else {
+        k += 15;
+      }
+    }
+    return failed() ? err_ : OK;
+  }
+  // AC refinement (libjpeg's decode_mcu_AC_refine).
+  const int p1 = 1 << al, m1 = -1 * (1 << al);
+  int k = ss;
+  if (eobrun_ == 0) {
+    for (; k <= se; ++k) {
+      int rs = decode_huff(h);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        if (s != 1) return E_CORRUPT;
+        s = get_bit() ? p1 : m1;
+      } else if (r != 15) {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += get_bits(r);
+        break;
+      }
+      do {
+        int16_t* coef = blk + kZigzag[k];
+        if (*coef != 0) {
+          if (get_bit() && (*coef & p1) == 0) *coef = int16_t(*coef >= 0 ? *coef + p1 : *coef + m1);
+        } else {
+          if (--r < 0) break;
+        }
+        ++k;
+      } while (k <= se);
+      if (s) {
+        if (k > 63) return E_CORRUPT;
+        blk[kZigzag[k]] = int16_t(s);
+      }
+      if (failed()) return err_;
+    }
+  }
+  if (eobrun_ > 0) {
+    for (; k <= se; ++k) {
+      int16_t* coef = blk + kZigzag[k];
+      if (*coef != 0 && get_bit() && (*coef & p1) == 0) *coef = int16_t(*coef >= 0 ? *coef + p1 : *coef + m1);
+    }
+    --eobrun_;
+  }
+  return failed() ? err_ : OK;
+}
+
+int Jpeg::decode_scan(const std::vector<int>& sc, int ss, int se, int ah, int al) {
+  reset_bits();
+  eobrun_ = 0;
+  for (int i : sc) comp_[i].dc_pred = 0;
+  const bool single = sc.size() == 1;
+  const int units_x = single ? comp_[sc[0]].bw : mcux_;
+  const int units_y = single ? comp_[sc[0]].bh : mcuy_;
+  int todo = restart_;
+  int next_rst = 0;
+  for (int my = 0; my < units_y; ++my) {
+    for (int mx = 0; mx < units_x; ++mx) {
+      if (restart_ && todo == 0) {
+        // Expect RSTn here: drop the partial byte, read the marker.
+        reset_bits();
+        while (pos_ + 2 < len_ && data_[pos_] == 0xFF && data_[pos_ + 1] == 0xFF) ++pos_;
+        if (pos_ + 1 >= len_) return E_TRUNCATED;
+        if (data_[pos_] != 0xFF || data_[pos_ + 1] != 0xD0 + next_rst) return E_CORRUPT;
+        pos_ += 2;
+        next_rst = (next_rst + 1) & 7;
+        todo = restart_;
+        eobrun_ = 0;
+        for (int i : sc) comp_[i].dc_pred = 0;
+      }
+      for (int i : sc) {
+        Component& c = comp_[i];
+        int nh = single ? 1 : c.hs, nv = single ? 1 : c.vs;
+        for (int v = 0; v < nv; ++v)
+          for (int h = 0; h < nh; ++h) {
+            int by = single ? my : my * c.vs + v, bx = single ? mx : mx * c.hs + h;
+            int rc = decode_block(c, &c.coef[(size_t(by) * c.bw_alloc + bx) * 64], ss, se, ah, al);
+            if (rc) return rc;
+          }
+      }
+      if (restart_) --todo;
+    }
+  }
+  // Skip to the next marker (padding bits, or fill bytes).
+  reset_bits();
+  while (pos_ + 1 < len_ && !(data_[pos_] == 0xFF && data_[pos_ + 1] != 0x00 &&
+                              !(data_[pos_ + 1] >= 0xD0 && data_[pos_ + 1] <= 0xD7)))
+    ++pos_;
+  return OK;
+}
+
+int Jpeg::parse_sos(size_t end) {
+  if (!frame_) return E_CORRUPT;
+  int ns = data_[pos_];
+  if (ns < 1 || ns > 4 || end - pos_ < size_t(1 + 2 * ns + 3)) return E_CORRUPT;
+  std::vector<int> sc;
+  for (int i = 0; i < ns; ++i) {
+    int id = data_[pos_ + 1 + 2 * i], t = data_[pos_ + 2 + 2 * i];
+    int found = -1;
+    for (size_t k = 0; k < comp_.size(); ++k)
+      if (comp_[k].id == id) found = int(k);
+    if (found < 0) return E_CORRUPT;
+    comp_[found].td = t >> 4;
+    comp_[found].ta = t & 15;
+    if (comp_[found].td > 3 || comp_[found].ta > 3) return E_CORRUPT;
+    sc.push_back(found);
+  }
+  const uint8_t* p = data_ + pos_ + 1 + 2 * ns;
+  int ss = p[0], se = p[1], ah = p[2] >> 4, al = p[2] & 15;
+  pos_ = end;
+  if (progressive_) {
+    if (ss > se || se > 63 || al > 13 || (ss == 0 && se != 0) || (ss > 0 && ns != 1)) return E_CORRUPT;
+  } else {
+    ss = 0;
+    se = 63;
+    ah = al = 0;
+  }
+  int blocks = 0;
+  for (int i : sc) blocks += comp_[i].hs * comp_[i].vs;
+  if (ns > 1 && blocks > 10) return E_CORRUPT;
+  for (int i : sc) {
+    const Component& c = comp_[i];
+    if (ss == 0 && (ah == 0 || !progressive_) && !dc_[c.td].defined) return E_CORRUPT;
+    if (se > 0 && !ac_[c.ta].defined) return E_CORRUPT;
+  }
+  return decode_scan(sc, ss, se, ah, al);
+}
+
+// libjpeg's jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2) into a plane of
+// bw_alloc * 8 by bh_alloc * 8 samples.
+void Jpeg::idct_component(const Component& c, std::vector<uint8_t>* plane, int* stride) {
+  constexpr int CB = 13, P1 = 2;
+  constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
+                    F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
+  // range_limit[(v) & 1023] of libjpeg's post-IDCT table (v centred on 0).
+  // Built once, thread-safe: the batch loader decodes on several threads.
+  static const std::array<uint8_t, 1024> limit = [] {
+    std::array<uint8_t, 1024> t{};
+    for (int i = 0; i < 1024; ++i) {
+      int v = i < 512 ? i : i - 1024;
+      t[i] = uint8_t(v < -128 ? 0 : v > 127 ? 255 : v + 128);
+    }
+    return t;
+  }();
+  const uint16_t* q = qt_[c.tq];
+  *stride = c.bw_alloc * 8;
+  plane->assign(size_t(*stride) * c.bh_alloc * 8, 0);
+  auto descale = [](int64_t x, int n) -> int64_t { return (x + (int64_t(1) << (n - 1))) >> n; };
+  for (int by = 0; by < c.bh_alloc; ++by) {
+    for (int bx = 0; bx < c.bw_alloc; ++bx) {
+      const int16_t* in = &c.coef[(size_t(by) * c.bw_alloc + bx) * 64];
+      int ws[64];
+      for (int col = 0; col < 8; ++col) {
+        const int16_t* ip = in + col;
+        const uint16_t* qp = q + col;
+        int* wp = ws + col;
+        if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+          int dc = (ip[0] * qp[0]) * (1 << P1);
+          for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+          continue;
+        }
+        int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
+        int64_t z1 = (z2 + z3) * F0541;
+        int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+        z2 = ip[0] * qp[0];
+        z3 = ip[32] * qp[32];
+        int64_t tmp0 = (z2 + z3) * (1 << CB), tmp1 = (z2 - z3) * (1 << CB);
+        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+        tmp0 = ip[56] * qp[56];
+        tmp1 = ip[40] * qp[40];
+        tmp2 = ip[24] * qp[24];
+        tmp3 = ip[8] * qp[8];
+        z1 = tmp0 + tmp3;
+        z2 = tmp1 + tmp2;
+        z3 = tmp0 + tmp2;
+        int64_t z4 = tmp1 + tmp3;
+        int64_t z5 = (z3 + z4) * F1175;
+        tmp0 *= F0298;
+        tmp1 *= F2053;
+        tmp2 *= F3072;
+        tmp3 *= F1501;
+        z1 *= -F0899;
+        z2 *= -F2562;
+        z3 *= -F1961;
+        z4 *= -F0390;
+        z3 += z5;
+        z4 += z5;
+        tmp0 += z1 + z3;
+        tmp1 += z2 + z4;
+        tmp2 += z2 + z3;
+        tmp3 += z1 + z4;
+        wp[0] = int(descale(tmp10 + tmp3, CB - P1));
+        wp[56] = int(descale(tmp10 - tmp3, CB - P1));
+        wp[8] = int(descale(tmp11 + tmp2, CB - P1));
+        wp[48] = int(descale(tmp11 - tmp2, CB - P1));
+        wp[16] = int(descale(tmp12 + tmp1, CB - P1));
+        wp[40] = int(descale(tmp12 - tmp1, CB - P1));
+        wp[24] = int(descale(tmp13 + tmp0, CB - P1));
+        wp[32] = int(descale(tmp13 - tmp0, CB - P1));
+      }
+      for (int r = 0; r < 8; ++r) {
+        const int* wp = ws + 8 * r;
+        uint8_t* op = plane->data() + size_t(by * 8 + r) * *stride + bx * 8;
+        constexpr int S = CB + P1 + 3;
+        int64_t z2 = wp[2], z3 = wp[6];
+        int64_t z1 = (z2 + z3) * F0541;
+        int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+        int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CB), tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CB);
+        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+        tmp0 = wp[7];
+        tmp1 = wp[5];
+        tmp2 = wp[3];
+        tmp3 = wp[1];
+        z1 = tmp0 + tmp3;
+        z2 = tmp1 + tmp2;
+        z3 = tmp0 + tmp2;
+        int64_t z4 = tmp1 + tmp3;
+        int64_t z5 = (z3 + z4) * F1175;
+        tmp0 *= F0298;
+        tmp1 *= F2053;
+        tmp2 *= F3072;
+        tmp3 *= F1501;
+        z1 *= -F0899;
+        z2 *= -F2562;
+        z3 *= -F1961;
+        z4 *= -F0390;
+        z3 += z5;
+        z4 += z5;
+        tmp0 += z1 + z3;
+        tmp1 += z2 + z4;
+        tmp2 += z2 + z3;
+        tmp3 += z1 + z4;
+        op[0] = limit[descale(tmp10 + tmp3, S) & 1023];
+        op[7] = limit[descale(tmp10 - tmp3, S) & 1023];
+        op[1] = limit[descale(tmp11 + tmp2, S) & 1023];
+        op[6] = limit[descale(tmp11 - tmp2, S) & 1023];
+        op[2] = limit[descale(tmp12 + tmp1, S) & 1023];
+        op[5] = limit[descale(tmp12 - tmp1, S) & 1023];
+        op[3] = limit[descale(tmp13 + tmp0, S) & 1023];
+        op[4] = limit[descale(tmp13 - tmp0, S) & 1023];
+      }
+    }
+  }
+}
+
+// A component's samples (dw x dh, in a plane of `stride`) brought to the
+// image's width and height as libjpeg's upsampler brings them: rows past
+// dh repeat the last row, the row above row 0 is row 0.
+void upsample(const Component& c, int hmax, int vmax, const uint8_t* in, int stride, int width, int height,
+              std::vector<uint8_t>* out) {
+  const int dw = c.dw, dh = c.dh;
+  const int hx = hmax / c.hs, vx = vmax / c.vs;
+  const int ow = dw * hx;
+  std::vector<uint8_t> full(size_t(ow) * dh * vx);
+  auto row = [&](int y) { return in + size_t(std::min(std::max(y, 0), dh - 1)) * stride; };
+  if (hx == 1 && vx == 1) {
+    for (int y = 0; y < dh; ++y) memcpy(&full[size_t(y) * ow], row(y), dw);
+  } else if (hx == 2 && vx == 1 && dw > 2) {  // h2v1_fancy_upsample
+    for (int y = 0; y < dh; ++y) {
+      const uint8_t* ip = row(y);
+      uint8_t* op = &full[size_t(y) * ow];
+      op[0] = ip[0];
+      op[1] = uint8_t((ip[0] * 3 + ip[1] + 2) >> 2);
+      for (int x = 1; x < dw - 1; ++x) {
+        int v = ip[x] * 3;
+        op[2 * x] = uint8_t((v + ip[x - 1] + 1) >> 2);
+        op[2 * x + 1] = uint8_t((v + ip[x + 1] + 2) >> 2);
+      }
+      op[2 * dw - 2] = uint8_t((ip[dw - 1] * 3 + ip[dw - 2] + 1) >> 2);
+      op[2 * dw - 1] = ip[dw - 1];
+    }
+  } else if (hx == 1 && vx == 2) {  // h1v2_fancy_upsample
+    for (int y = 0; y < dh; ++y) {
+      for (int v = 0; v < 2; ++v) {
+        const uint8_t* p0 = row(y);
+        const uint8_t* p1 = row(v == 0 ? y - 1 : y + 1);
+        int bias = v == 0 ? 1 : 2;
+        uint8_t* op = &full[size_t(2 * y + v) * ow];
+        for (int x = 0; x < dw; ++x) op[x] = uint8_t((p0[x] * 3 + p1[x] + bias) >> 2);
+      }
+    }
+  } else if (hx == 2 && vx == 2 && dw > 2) {  // h2v2_fancy_upsample
+    for (int y = 0; y < dh; ++y) {
+      for (int v = 0; v < 2; ++v) {
+        const uint8_t* p0 = row(y);
+        const uint8_t* p1 = row(v == 0 ? y - 1 : y + 1);
+        uint8_t* op = &full[size_t(2 * y + v) * ow];
+        int this_sum = p0[0] * 3 + p1[0], next_sum = p0[1] * 3 + p1[1], last_sum;
+        op[0] = uint8_t((this_sum * 4 + 8) >> 4);
+        op[1] = uint8_t((this_sum * 3 + next_sum + 7) >> 4);
+        last_sum = this_sum;
+        this_sum = next_sum;
+        for (int x = 1; x < dw - 1; ++x) {
+          next_sum = p0[x + 1] * 3 + p1[x + 1];
+          op[2 * x] = uint8_t((this_sum * 3 + last_sum + 8) >> 4);
+          op[2 * x + 1] = uint8_t((this_sum * 3 + next_sum + 7) >> 4);
+          last_sum = this_sum;
+          this_sum = next_sum;
+        }
+        op[2 * dw - 2] = uint8_t((this_sum * 3 + last_sum + 8) >> 4);
+        op[2 * dw - 1] = uint8_t((this_sum * 4 + 7) >> 4);
+      }
+    }
+  } else {  // box (int_upsample, and h2v1 / h2v2 of two columns or fewer)
+    for (int y = 0; y < dh; ++y) {
+      const uint8_t* ip = row(y);
+      for (int v = 0; v < vx; ++v) {
+        uint8_t* op = &full[size_t(y * vx + v) * ow];
+        for (int x = 0; x < dw; ++x)
+          for (int k = 0; k < hx; ++k) op[x * hx + k] = ip[x];
+      }
+    }
+  }
+  out->resize(size_t(width) * height);
+  for (int y = 0; y < height; ++y) memcpy(out->data() + size_t(y) * width, &full[size_t(y) * ow], width);
+}
+
+int Jpeg::decode(Image* out, bool want_gray) {
+  if (len_ < 4 || data_[0] != 0xFF || data_[1] != 0xD8) return E_FORMAT;
+  pos_ = 2;
+  bool eoi = false;
+  int scans = 0;
+  while (!eoi) {
+    // Next marker (skip fill bytes).
+    while (pos_ < len_ && data_[pos_] != 0xFF) ++pos_;
+    while (pos_ < len_ && data_[pos_] == 0xFF) ++pos_;
+    if (pos_ >= len_) return E_TRUNCATED;
+    int m = data_[pos_++];
+    if (m == 0xD9) {
+      eoi = true;
+      break;
+    }
+    if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+    size_t end;
+    int rc = read_segment_length(&end);
+    if (rc) return rc;
+    switch (m) {
+      case 0xC0:
+      case 0xC1:
+      case 0xC2:
+        pos_ -= 2;
+        rc = parse_sof(m);
+        break;
+      case 0xC3:
+        return E_LOSSLESS;
+      case 0xC5:
+      case 0xC6:
+      case 0xC7:
+        return E_UNSUPPORTED;  // hierarchical
+      case 0xC9:
+      case 0xCA:
+      case 0xCB:
+      case 0xCD:
+      case 0xCE:
+      case 0xCF:
+      case 0xCC:
+        return E_ARITHMETIC;
+      case 0xC4:
+        rc = parse_dht(end);
+        break;
+      case 0xDB:
+        rc = parse_dqt(end);
+        break;
+      case 0xDD:
+        if (end - pos_ < 2) return E_CORRUPT;
+        restart_ = (data_[pos_] << 8) | data_[pos_ + 1];
+        break;
+      case 0xDA:
+        rc = parse_sos(end);
+        ++scans;
+        end = pos_;  // the scan left pos_ at the next marker
+        break;
+      case 0xDC:
+        return E_UNSUPPORTED;  // DNL
+      case 0xE0:
+        if (end - pos_ >= 5 && !memcmp(data_ + pos_, "JFIF\0", 5)) jfif_ = true;
+        break;
+      case 0xE1:
+        if (orientation_ == 1) parse_exif(data_ + pos_, end - pos_);
+        break;
+      case 0xEE:
+        if (end - pos_ >= 12 && !memcmp(data_ + pos_, "Adobe", 5)) {
+          adobe_ = true;
+          adobe_transform_ = data_[pos_ + 11];
+        }
+        break;
+      default:
+        break;  // APPn, COM
+    }
+    if (rc) return rc;
+    pos_ = end;
+  }
+  if (!frame_ || scans == 0) return E_TRUNCATED;
+  for (const Component& c : comp_)
+    if (!qt_defined_[c.tq]) return E_CORRUPT;
+  // The colour space as libjpeg infers it.
+  const int nc = int(comp_.size());
+  if (nc == 3) {
+    bool rgb = false;
+    if (jfif_) {
+      rgb = false;
+    } else if (adobe_) {
+      rgb = adobe_transform_ == 0;
+    } else if (comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B') {
+      rgb = true;
+    }
+    if (rgb) return E_COLOR;
+  }
+  for (const Component& c : comp_)
+    if (hmax_ % c.hs || vmax_ % c.vs) return E_UNSUPPORTED;
+
+  // IDCT and upsample each needed component to full size.
+  const int used = (want_gray || nc == 1) ? 1 : 3;
+  std::vector<std::vector<uint8_t>> full(used);
+  for (int i = 0; i < used; ++i) {
+    std::vector<uint8_t> plane;
+    int stride;
+    idct_component(comp_[i], &plane, &stride);
+    upsample(comp_[i], hmax_, vmax_, plane.data(), stride, width_, height_, &full[i]);
+  }
+  out->w = width_;
+  out->h = height_;
+  out->c = want_gray ? 1 : 3;
+  const size_t n = size_t(width_) * height_;
+  out->px.resize(n * out->c);
+  if (want_gray) {
+    memcpy(out->px.data(), full[0].data(), n);
+  } else if (used == 1) {
+    for (size_t i = 0; i < n; ++i) out->px[3 * i] = out->px[3 * i + 1] = out->px[3 * i + 2] = full[0][i];
+  } else {
+    // libjpeg's ycc_rgb_convert tables (SCALEBITS 16).
+    // Built once, thread-safe, as the range limit above.
+    struct YccTables {
+      int cr_r[256], cb_b[256];
+      int64_t cr_g[256], cb_g[256];
+    };
+    static const YccTables tables = [] {
+      constexpr int SB = 16;
+      constexpr int64_t HALF = int64_t(1) << (SB - 1);
+      auto fix = [](double x) { return int64_t(x * (1 << 16) + 0.5); };
+      YccTables t{};
+      for (int i = 0; i < 256; ++i) {
+        int64_t x = i - 128;
+        t.cr_r[i] = int((fix(1.40200) * x + HALF) >> SB);
+        t.cb_b[i] = int((fix(1.77200) * x + HALF) >> SB);
+        t.cr_g[i] = -fix(0.71414) * x;
+        t.cb_g[i] = -fix(0.34414) * x + HALF;
+      }
+      return t;
+    }();
+    const int *cr_r = tables.cr_r, *cb_b = tables.cb_b;
+    const int64_t *cr_g = tables.cr_g, *cb_g = tables.cb_g;
+    auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
+    for (size_t i = 0; i < n; ++i) {
+      int y = full[0][i], cb = full[1][i], cr = full[2][i];
+      out->px[3 * i] = clamp(y + cr_r[cr]);
+      out->px[3 * i + 1] = clamp(y + int((cb_g[cb] + cr_g[cr]) >> 16));
+      out->px[3 * i + 2] = clamp(y + cb_b[cb]);
+    }
+  }
+  // EXIF orientation, as cv::imread applies it.
+  if (orientation_ != 1) {
+    const int c = out->c, w = out->w, h = out->h;
+    const bool transpose = orientation_ >= 5;
+    const int ow = transpose ? h : w, oh = transpose ? w : h;
+    std::vector<uint8_t> o(out->px.size());
+    for (int y = 0; y < oh; ++y) {
+      for (int x = 0; x < ow; ++x) {
+        // (sx, sy) in the stored image for output pixel (x, y).
+        int sx, sy;
+        switch (orientation_) {
+          case 2: sx = w - 1 - x; sy = y; break;
+          case 3: sx = w - 1 - x; sy = h - 1 - y; break;
+          case 4: sx = x; sy = h - 1 - y; break;
+          case 5: sx = y; sy = x; break;
+          case 6: sx = y; sy = h - 1 - x; break;
+          case 7: sx = w - 1 - y; sy = h - 1 - x; break;
+          default: sx = w - 1 - y; sy = x; break;  // 8
+        }
+        memcpy(&o[(size_t(y) * ow + x) * c], &out->px[(size_t(sy) * w + sx) * c], c);
+      }
+    }
+    out->px.swap(o);
+    out->w = ow;
+    out->h = oh;
+  }
+  return OK;
+}
+
+// ------------------------------------------------------------ resizes ----
+
+// The JAX native loader's bilinear resize (half-pixel centres, float
+// weights): within one grey level of OpenCV's INTER_LINEAR.
 void resize_bilinear(const Image& in, int oh, int ow, uint8_t* out) {
   const int c = in.c;
   const float sy = float(in.h) / oh, sx = float(in.w) / ow;
@@ -180,8 +1150,8 @@ void resize_bilinear(const Image& in, int oh, int ow, uint8_t* out) {
   }
 }
 
-// cv2 INTER_NEAREST-compatible resize: sx = floor(dx * src / dst).
-void resize_nearest(const Image& in, int oh, int ow, uint8_t* out) {
+// The JAX native loader's nearest resize: sx = floor(dx * src / dst).
+void resize_nearest_int(const Image& in, int oh, int ow, uint8_t* out) {
   const int c = in.c;
   for (int y = 0; y < oh; ++y) {
     int sy = int((int64_t(y) * in.h) / oh);
@@ -194,59 +1164,202 @@ void resize_nearest(const Image& in, int oh, int ow, uint8_t* out) {
   }
 }
 
-bool read_file(const char* path, std::vector<uint8_t>* buf) {
+// OpenCV's INTER_NEAREST: sx = floor(dx * (1 / (dst / src))).
+void resize_nearest_cv(const uint8_t* in, int ih, int iw, int c, uint8_t* out, int oh, int ow) {
+  const double fx = 1.0 / (double(ow) / iw), fy = 1.0 / (double(oh) / ih);
+  std::vector<int> xs(ow);
+  for (int x = 0; x < ow; ++x) xs[x] = std::min(int(std::floor(x * fx)), iw - 1);
+  for (int y = 0; y < oh; ++y) {
+    int sy = std::min(int(std::floor(y * fy)), ih - 1);
+    for (int x = 0; x < ow; ++x)
+      memcpy(out + (size_t(y) * ow + x) * c, in + (size_t(sy) * iw + xs[x]) * c, c);
+  }
+}
+
+// OpenCV's INTER_LINEAR on uint8: per axis a source index and two 11-bit
+// weights from the float position; rows resized first into int sums, the
+// columns then combined as its vector code does (each sum >> 4, times the
+// weight, >> 16, both added with 2, >> 2). An exact 2x downscale is
+// INTER_AREA's rounded 2x2 mean.
+void resize_linear_cv(const uint8_t* in, int ih, int iw, int c, uint8_t* out, int oh, int ow) {
+  if (ih == oh && iw == ow) {
+    memcpy(out, in, size_t(ih) * iw * c);
+    return;
+  }
+  if (iw == 2 * ow && ih == 2 * oh && c != 2) {
+    for (int y = 0; y < oh; ++y)
+      for (int x = 0; x < ow; ++x)
+        for (int k = 0; k < c; ++k) {
+          const uint8_t* p = in + (size_t(2 * y) * iw + 2 * x) * c + k;
+          int s = p[0] + p[c] + p[size_t(iw) * c] + p[size_t(iw) * c + c];
+          out[(size_t(y) * ow + x) * c + k] = uint8_t((s + 2) >> 2);
+        }
+    return;
+  }
+  auto coefs = [](int src, int dst, bool clamp_edges, std::vector<int>* idx, std::vector<int>* a0,
+                  std::vector<int>* a1) {
+    const double scale = 1.0 / (double(dst) / src);
+    idx->resize(dst);
+    a0->resize(dst);
+    a1->resize(dst);
+    for (int d = 0; d < dst; ++d) {
+      float f = float((d + 0.5) * scale - 0.5);
+      int s = int(std::floor(f));
+      f -= float(s);
+      if (clamp_edges) {
+        if (s < 0) f = 0.f, s = 0;
+        if (s >= src - 1) f = 0.f, s = src - 1;
+      }
+      (*idx)[d] = s;
+      (*a0)[d] = int(std::nearbyint((1.f - f) * 2048.f));
+      (*a1)[d] = int(std::nearbyint(f * 2048.f));
+    }
+  };
+  std::vector<int> xi, xa0, xa1, yi, ya0, ya1;
+  coefs(iw, ow, true, &xi, &xa0, &xa1);
+  coefs(ih, oh, false, &yi, &ya0, &ya1);
+  const int wc = ow * c;
+  std::vector<int> hrow(size_t(ih) * wc);
+  std::vector<char> hdone(ih, 0);
+  auto hresize = [&](int y) {
+    if (hdone[y]) return;
+    const uint8_t* s = in + size_t(y) * iw * c;
+    int* d = &hrow[size_t(y) * wc];
+    for (int x = 0; x < ow; ++x) {
+      int sx = xi[x];
+      for (int k = 0; k < c; ++k) {
+        if (sx >= iw - 1) {
+          d[x * c + k] = s[sx * c + k] * 2048;
+        } else {
+          d[x * c + k] = s[sx * c + k] * xa0[x] + s[(sx + 1) * c + k] * xa1[x];
+        }
+      }
+    }
+    hdone[y] = 1;
+  };
+  for (int y = 0; y < oh; ++y) {
+    int r0 = std::min(std::max(yi[y], 0), ih - 1), r1 = std::min(std::max(yi[y] + 1, 0), ih - 1);
+    hresize(r0);
+    hresize(r1);
+    const int* s0 = &hrow[size_t(r0) * wc];
+    const int* s1 = &hrow[size_t(r1) * wc];
+    const int b0 = ya0[y], b1 = ya1[y];
+    uint8_t* d = out + size_t(y) * wc;
+    for (int x = 0; x < wc; ++x) {
+      int v = ((((s0[x] >> 4) * b0) >> 16) + (((s1[x] >> 4) * b1) >> 16) + 2) >> 2;
+      d[x] = uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- I/O ----
+
+int read_file(const char* path, std::vector<uint8_t>* buf) {
   FILE* f = fopen(path, "rb");
-  if (!f) return false;
+  if (!f) return E_OPEN;
   fseek(f, 0, SEEK_END);
   long n = ftell(f);
   fseek(f, 0, SEEK_SET);
   if (n <= 0) {
     fclose(f);
-    return false;
+    return E_TRUNCATED;
   }
   buf->resize(size_t(n));
   size_t got = fread(buf->data(), 1, size_t(n), f);
   fclose(f);
-  return got == size_t(n);
+  return got == size_t(n) ? OK : E_OPEN;
+}
+
+// Decode a file the way cv2.imread does (colour as RGB, or grey).
+int decode_file(const char* path, bool want_gray, Image* img) {
+  std::vector<uint8_t> buf;
+  int rc = read_file(path, &buf);
+  if (rc) return rc;
+  if (buf.size() >= 8 && buf[0] == 137 && buf[1] == 'P') return decode_png(buf.data(), buf.size(), img, want_gray, false);
+  if (buf.size() >= 2 && buf[0] == 0xFF && buf[1] == 0xD8) return Jpeg(buf.data(), buf.size()).decode(img, want_gray);
+  if (buf.size() >= 2 && buf[0] == 'B' && buf[1] == 'M') return decode_bmp(buf.data(), buf.size(), img, want_gray);
+  return E_FORMAT;
+}
+
+// One batch item: 0 or an error code.
+int load_item(const char* path, int oh, int ow, uint8_t* out, bool mask, int mode) {
+  Image img;
+  if (mode == 0) {
+    std::vector<uint8_t> buf;
+    int rc = read_file(path, &buf);
+    if (rc) return rc;
+    rc = decode_png(buf.data(), buf.size(), &img, mask, true);
+    if (rc) return rc;
+    if (img.h == oh && img.w == ow) {
+      memcpy(out, img.px.data(), img.px.size());
+    } else if (mask) {
+      resize_nearest_int(img, oh, ow, out);
+    } else {
+      resize_bilinear(img, oh, ow, out);
+    }
+    return OK;
+  }
+  int rc = decode_file(path, mask, &img);
+  if (rc) return rc;
+  if (mask) {
+    resize_nearest_cv(img.px.data(), img.h, img.w, img.c, out, oh, ow);
+  } else {
+    resize_linear_cv(img.px.data(), img.h, img.w, img.c, out, oh, ow);
+  }
+  return OK;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decode one PNG file and resize into out (oh*ow*3 RGB, bilinear) or
-// (oh*ow gray, nearest — for masks). Returns 0 on success, nonzero on error.
-int mgu_load_image(const char* path, int oh, int ow, uint8_t* out) {
-  std::vector<uint8_t> buf;
-  if (!read_file(path, &buf)) return 1;
+// The JAX loader's contract: decode one PNG file and resize into out
+// (oh*ow*3 RGB, bilinear) or (oh*ow gray, nearest — for masks). Returns 0
+// on success, nonzero on error.
+int mgu_load_image(const char* path, int oh, int ow, uint8_t* out) { return load_item(path, oh, ow, out, false, 0); }
+
+int mgu_load_mask(const char* path, int oh, int ow, uint8_t* out) { return load_item(path, oh, ow, out, true, 0); }
+
+// Decode a PNG, JPEG or BMP file as cv2.imread does: RGB (gray = 0) or
+// grey; shape receives (h, w, c) and *out a malloc'd buffer the caller
+// frees with mgu_free. Returns 0 or an error code.
+int mgu_decode(const char* path, int gray, int* shape, uint8_t** out) {
   Image img;
-  if (!decode_png(buf.data(), buf.size(), &img, /*want_gray=*/false)) return 2;
-  if (img.h == oh && img.w == ow) {
-    memcpy(out, img.px.data(), img.px.size());
-  } else {
-    resize_bilinear(img, oh, ow, out);
-  }
-  return 0;
+  int rc = decode_file(path, gray != 0, &img);
+  if (rc) return rc;
+  *out = static_cast<uint8_t*>(malloc(img.px.size()));
+  if (!*out) return E_OPEN;
+  memcpy(*out, img.px.data(), img.px.size());
+  shape[0] = img.h;
+  shape[1] = img.w;
+  shape[2] = img.c;
+  return OK;
 }
 
-int mgu_load_mask(const char* path, int oh, int ow, uint8_t* out) {
-  std::vector<uint8_t> buf;
-  if (!read_file(path, &buf)) return 1;
-  Image img;
-  if (!decode_png(buf.data(), buf.size(), &img, /*want_gray=*/true)) return 2;
-  if (img.h == oh && img.w == ow) {
-    memcpy(out, img.px.data(), img.px.size());
-  } else {
-    resize_nearest(img, oh, ow, out);
-  }
-  return 0;
+void mgu_free(void* p) { free(p); }
+
+// cv2.resize(INTER_NEAREST) of an (ih, iw) array of `pix`-byte pixels into
+// (oh, ow).
+int mgu_resize_nearest(const uint8_t* in, int ih, int iw, int pix, uint8_t* out, int oh, int ow) {
+  if (ih <= 0 || iw <= 0 || oh <= 0 || ow <= 0 || pix <= 0) return E_UNSUPPORTED;
+  resize_nearest_cv(in, ih, iw, pix, out, oh, ow);
+  return OK;
 }
 
-// Threaded batch loader: decode+resize n images (and masks when mask_paths
-// is non-null) with `threads` workers. paths are NUL-separated. Returns the
-// number of failures (failed slots are zero-filled).
-int mgu_load_batch(const char* const* img_paths, const char* const* mask_paths, int n,
-                   int oh, int ow, uint8_t* out_imgs, uint8_t* out_masks, int threads) {
+// cv2.resize(INTER_LINEAR) of a uint8 (ih, iw, c) array into (oh, ow, c).
+int mgu_resize_linear_u8(const uint8_t* in, int ih, int iw, int c, uint8_t* out, int oh, int ow) {
+  if (ih <= 0 || iw <= 0 || oh <= 0 || ow <= 0 || c <= 0) return E_UNSUPPORTED;
+  resize_linear_cv(in, ih, iw, c, out, oh, ow);
+  return OK;
+}
+
+// Threaded batch loader: decode + resize n images (and masks when
+// mask_paths is non-null) with `threads` workers. mode 0 keeps the JAX
+// loader's contract (PNG, its bilinear / integer nearest), mode 1 is
+// OpenCV's (every format mgu_decode reads, INTER_LINEAR / INTER_NEAREST).
+// Returns the number of failures (failed slots are zero-filled).
+int mgu_load_batch(const char* const* img_paths, const char* const* mask_paths, int n, int oh, int ow,
+                   uint8_t* out_imgs, uint8_t* out_masks, int threads, int mode) {
   if (threads < 1) threads = 1;
   std::atomic<int> next(0), failures(0);
   auto worker = [&]() {
@@ -254,13 +1367,13 @@ int mgu_load_batch(const char* const* img_paths, const char* const* mask_paths, 
       int i = next.fetch_add(1);
       if (i >= n) break;
       uint8_t* img_dst = out_imgs + size_t(i) * oh * ow * 3;
-      if (mgu_load_image(img_paths[i], oh, ow, img_dst) != 0) {
+      if (load_item(img_paths[i], oh, ow, img_dst, false, mode) != OK) {
         memset(img_dst, 0, size_t(oh) * ow * 3);
         failures.fetch_add(1);
       }
       if (mask_paths && out_masks) {
         uint8_t* mask_dst = out_masks + size_t(i) * oh * ow;
-        if (mgu_load_mask(mask_paths[i], oh, ow, mask_dst) != 0) {
+        if (load_item(mask_paths[i], oh, ow, mask_dst, true, mode) != OK) {
           memset(mask_dst, 0, size_t(oh) * ow);
           failures.fetch_add(1);
         }
@@ -274,6 +1387,6 @@ int mgu_load_batch(const char* const* img_paths, const char* const* mask_paths, 
   return failures.load();
 }
 
-int mgu_version() { return 1; }
+int mgu_version() { return 2; }
 
 }  // extern "C"

@@ -1,12 +1,12 @@
 """COCO-style annotations: boxes, occlusion flags, instance masks. The port's
-own copy of ``mingraph_unet_tpu/data/annotations.py`` (host numpy; OpenCV
-is imported where a polygon is rasterized or an image read).
+own copy of ``mingraph_unet_tpu/data/annotations.py`` (host numpy; polygons
+are rasterized by ``data/raster.py``, OpenCV's fill reproduced).
 
 - :class:`CocoAnnotations` reads the COCO detection layout (``images`` /
   ``annotations`` / ``categories``). Polygon segmentations are rasterized
-  with ``cv2.fillPoly``; an annotation without a usable polygon becomes its
-  filled box. Occlusion comes from ``iscrowd`` or ``attributes.occluded``
-  (the CVAT convention).
+  as ``cv2.fillPoly`` fills them; an annotation without a usable polygon
+  becomes its filled box. Occlusion comes from ``iscrowd`` or
+  ``attributes.occluded`` (the CVAT convention).
 - :class:`YieldImageDataset` gives image files with their annotations in
   the yield harness's item schema ``(image_u8 HWC, count, [{"bbox" xyxy,
   "class_id", "occluded"}, ...])``.
@@ -24,6 +24,8 @@ import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from mingraph_unet_tpu_torch.data.raster import fill_poly, resize_nearest
 
 __all__ = ["CocoAnnotations", "YieldImageDataset", "write_coco_json"]
 
@@ -65,10 +67,8 @@ class CocoAnnotations:
                            max_instances: Optional[int] = None) -> np.ndarray:
         """(O, H, W) uint8 instance masks of one image: polygons filled
         (``cv2.fillPoly``), a box where no polygon fills a pixel; resized
-        nearest to ``out_hw``; with ``max_instances`` padded with empty masks
-        or cut to the largest."""
-        import cv2
-
+        nearest (``INTER_NEAREST``) to ``out_hw``; with ``max_instances``
+        padded with empty masks or cut to the largest."""
         im = self.images[image_id]
         h, w = int(im["height"]), int(im["width"])
         masks = []
@@ -79,7 +79,7 @@ class CocoAnnotations:
                 polys = [np.round(np.asarray(p, np.float64).reshape(-1, 2)).astype(np.int32) for p in seg
                          if len(p) >= 6]
                 if polys:
-                    cv2.fillPoly(m, polys, 1)
+                    fill_poly(m, polys, 1)
             if not m.any():
                 x, y, bw, bh = ann["bbox"]
                 x0, y0 = max(0, int(round(x))), max(0, int(round(y)))
@@ -87,7 +87,7 @@ class CocoAnnotations:
                 m[y0:y1, x0:x1] = 1
             masks.append(m)
         if out_hw is not None and tuple(out_hw) != (h, w):
-            masks = [cv2.resize(m, (out_hw[1], out_hw[0]), interpolation=cv2.INTER_NEAREST) for m in masks]
+            masks = [resize_nearest(m, tuple(out_hw)) for m in masks]
             h, w = out_hw
         stack = np.stack(masks) if masks else np.zeros((0, h, w), np.uint8)
         if max_instances is not None:

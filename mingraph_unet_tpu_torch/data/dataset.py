@@ -2,13 +2,17 @@
 ``mingraph_unet_tpu/data/dataset.py``.
 
 - Host side: :class:`MangoDataset` (sorted-glob image/mask pairing with a
-  count check, zero masks when the mask directory is absent, cv2 decode and
+  count check, zero masks when the mask directory is absent, decode and
   resize to uint8 HWC images and int32 masks, and with a COCO annotation
   file the uint8 instance masks) and :class:`BatchLoader` (the same
   numpy-seeded epoch order as the JAX loader, so both yield the same
-  batches; PNG batches without instances decoded by the C++ loader of
-  ``data/native_loader.py``). OpenCV is imported only where an image is
-  read by it; :func:`read_image` reads a PNG through the C++ loader.
+  batches). No OpenCV: files are decoded by the C++ of
+  ``data/native_loader.py`` (``cv2.imread``'s arrays, bit for bit) and
+  resized by ``data/raster.py`` (``cv2.resize``'s), so every batch equals
+  the JAX package's: a batch of PNGs without instances is decoded and
+  resized as the JAX package's own C++ loader does it, every other batch
+  (a JPEG in it, instances, or a PNG that loader does not take) as
+  OpenCV does it.
 - Device side: :func:`device_preprocess_batch`, the synced augmentation and
   normalization of a uint8 batch (and its instance masks) on the device it
   lies on.
@@ -25,53 +29,35 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mingraph_unet_tpu_torch.data import native_loader, png
+from mingraph_unet_tpu_torch.data import native_loader
 from mingraph_unet_tpu_torch.data.annotations import CocoAnnotations
+from mingraph_unet_tpu_torch.data.raster import resize_linear_u8, resize_nearest
 from mingraph_unet_tpu_torch.ops.image import AugmentDraw, augment_image, augment_labels, augment_pair, normalize
 
 __all__ = ["MangoDataset", "BatchLoader", "device_preprocess_batch", "load_image_rgb", "load_mask", "read_image"]
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """Decode an image file to RGB uint8 HWC."""
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise FileNotFoundError(f"Image not found or undecodable: {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    """Decode an image file to RGB uint8 HWC (``cv2.imread`` + BGR→RGB)."""
+    return native_loader.decode(path)
 
 
 def load_mask(path: str) -> np.ndarray:
-    """Decode a label mask to uint8 HW."""
-    import cv2
-
-    mask = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-    if mask is None:
-        raise FileNotFoundError(f"Mask not found or undecodable: {path}")
-    return mask
+    """Decode a label mask to uint8 HW (``cv2.imread(IMREAD_GRAYSCALE)``)."""
+    return native_loader.decode(path, gray=True)
 
 
 def _resize(img: np.ndarray, hw: Tuple[int, int], nearest: bool) -> np.ndarray:
     if img.shape[:2] == tuple(hw):
         return img
-    import cv2
-
-    return cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR)
+    return resize_nearest(img, hw) if nearest else resize_linear_u8(img, hw)
 
 
 def read_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """An image file as RGB uint8 HWC at ``size`` (bilinear; the file's own
-    size when None): a PNG decoded by the C++ loader, another format by
-    OpenCV (which raises ``ImportError`` where it is not installed)."""
-    if path.lower().endswith(".png"):
-        hw = tuple(size) if size is not None else png.png_size(path)
-        img = native_loader.load_image(path, hw)
-        if img is None:
-            raise FileNotFoundError(f"Image not found or undecodable: {path}")
-        return img
+    """An image file as RGB uint8 HWC, at ``size`` when it is given
+    (``cv2.resize`` INTER_LINEAR, as the JAX package's inference resizes)."""
     img = load_image_rgb(path)
-    return img if size is None else _resize(img, size, nearest=False)
+    return img if size is None else _resize(img, tuple(size), nearest=False)
 
 
 class MangoDataset:
@@ -80,9 +66,10 @@ class MangoDataset:
     says so, where the default raises. With ``annotations_file`` (COCO,
     ``data/annotations.py``) an item also carries its ``max_instances``
     instance masks, and without a mask folder the semantic mask is their
-    union. ``use_native`` lets :class:`BatchLoader` decode PNG batches with
-    the C++ loader (``data/native_loader.py``) on ``native_threads``
-    threads."""
+    union. ``use_native`` lets :class:`BatchLoader` decode each batch on
+    ``native_threads`` threads (``data/native_loader.py::load_batch``);
+    without it the items are decoded one at a time, by the same
+    decoders."""
 
     IMAGE_EXTS = ("*.png", "*.jpg", "*.jpeg")
 
@@ -220,24 +207,28 @@ class BatchLoader:
         if error:
             raise error[0]
 
-    def _load_native(self, rows) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-        """The batch decoded by the C++ loader, or None where it does not
-        apply (instance batches, a file that is not a PNG, a file it fails
-        to decode): the caller then takes the OpenCV path."""
+    def _load_native(self, rows) -> Optional[Tuple[np.ndarray, ...]]:
+        """The batch decoded on the thread pool, or None when a file fails
+        (the caller then reads the items one at a time, which raises the
+        cause, or substitutes zeros with ``strict=False``). A batch of PNGs
+        without instances takes the JAX loader's own decoding and resizing,
+        as the JAX package does; any other batch OpenCV's."""
         ds = self.dataset
-        if ds.annotations is not None:
-            return None
         img_paths = [ds.image_paths[int(i)] for i in rows]
-        if not all(p.lower().endswith(".png") for p in img_paths):
-            return None
         mask_paths = [ds.mask_paths[int(i)] for i in rows] if ds.mask_paths is not None else None
-        out = native_loader.load_batch(img_paths, mask_paths, ds.image_size, threads=ds.native_threads)
+        exact = ds.annotations is not None or not all(p.lower().endswith(".png") for p in img_paths)
+        out = native_loader.load_batch(img_paths, mask_paths, ds.image_size, threads=ds.native_threads, exact=exact)
         if out is None:
             return None
         imgs, masks = out
-        if masks is None:
-            return imgs, np.zeros((len(img_paths), *ds.image_size), np.int32)
-        return imgs, np.clip(masks, 0, ds.num_classes - 1).astype(np.int32)
+        inst = np.stack([ds._instances(int(i)) for i in rows]) if ds.annotations is not None else None
+        if masks is not None:
+            masks = np.clip(masks, 0, ds.num_classes - 1).astype(np.int32)
+        elif inst is not None:
+            masks = inst.any(axis=1).astype(np.int32)
+        else:
+            masks = np.zeros((len(img_paths), *ds.image_size), np.int32)
+        return (imgs, masks) if inst is None else (imgs, masks, inst)
 
 
 def device_preprocess_batch(

@@ -1,6 +1,8 @@
 """Synthetic annotated orchard scenes: the port's own copy of
-``mingraph_unet_tpu/data/synthetic.py`` (seeded numpy + OpenCV on the host,
-so the same seed writes the same images, masks and annotation JSON).
+``mingraph_unet_tpu/data/synthetic.py`` (seeded numpy on the host, drawn by
+``data/raster.py``'s copy of OpenCV's rasterizer and written by
+``data/png.py``, so the same seed writes the same images, masks and
+annotation JSON as the JAX package does with OpenCV).
 
 - Foliage background: multi-scale green blotch texture, brown branch
   strokes and a low-frequency lighting field.
@@ -21,6 +23,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mingraph_unet_tpu_torch.data import raster
+from mingraph_unet_tpu_torch.data.png import write_png
+
 __all__ = ["render_orchard_scene", "generate_orchard_split", "generate_orchard_dataset"]
 
 
@@ -29,11 +34,9 @@ def _lighting_field(
 ) -> np.ndarray:
     """Low-frequency multiplicative lighting (sun-dappled canopy), (H, W, 1);
     ``strength`` scales the gradient amplitude around 1.0."""
-    import cv2
-
     s = strength
     coarse = rng.uniform(1.0 - 0.35 * s, 1.0 + 0.25 * s, size=(max(2, h // 32), max(2, w // 32)))
-    field = cv2.resize(coarse.astype(np.float32), (w, h), interpolation=cv2.INTER_CUBIC)
+    field = raster.resize_cubic_f32(coarse.astype(np.float32), (h, w))
     return np.clip(field, max(0.15, 1.0 - 0.5 * s), 1.0 + 0.4 * s)[..., None]
 
 
@@ -41,8 +44,6 @@ def _foliage_background(
     rng: np.random.Generator, h: int, w: int, lighting_strength: float = 1.0
 ) -> np.ndarray:
     """Leaf-clutter background, uint8 BGR."""
-    import cv2
-
     # Base canopy color with per-pixel noise.
     base = np.array([28, 85, 30], np.float32)  # BGR dark green
     img = base[None, None, :] + rng.normal(0, 10, size=(h, w, 3)).astype(np.float32)
@@ -57,7 +58,7 @@ def _foliage_background(
             axis=1,
         ).astype(np.int32)
         col = (int(rng.integers(20, 45)), int(rng.integers(40, 70)), int(rng.integers(60, 95)))
-        cv2.polylines(img, [pts], False, col, thickness=int(rng.integers(1, 3)))
+        raster.polylines(img, [pts], False, col, thickness=int(rng.integers(1, 3)))
 
     # Leaf blotches at two scales, varied green hues, random orientation.
     n_leaves = int(0.004 * h * w)
@@ -71,7 +72,7 @@ def _foliage_background(
             float(np.clip(rng.normal(105, 25) * g, 40, 215)),  # G
             float(np.clip(rng.normal(45, 15) * g, 10, 110)),  # R
         )
-        cv2.ellipse(img, c, ax, ang, 0, 360, col, -1)
+        raster.ellipse(img, c, ax, ang, 0, 360, col, -1)
 
     img *= _lighting_field(rng, h, w, lighting_strength)
     return np.clip(img, 0, 255).astype(np.uint8)
@@ -82,8 +83,6 @@ def _draw_clutter(rng: np.random.Generator, img: np.ndarray, n: int) -> None:
     hues but elongated ragged shapes (axis ratio 0.2-0.45 vs fruit 0.68-0.88),
     NOT in the semantic mask. Color alone stops separating the classes —
     the hard-regime knob that punishes a pure color segmenter."""
-    import cv2
-
     h, w = img.shape[:2]
     scale = min(h, w)
     for _ in range(n):
@@ -96,7 +95,7 @@ def _draw_clutter(rng: np.random.Generator, img: np.ndarray, n: int) -> None:
         ripe = np.array([25, 135, 235], np.float32)
         col = unripe * (1 - t) + ripe * t + rng.normal(0, 15, 3)
         col = tuple(float(np.clip(v, 0, 255)) for v in col)
-        cv2.ellipse(img, c, (a, b), ang, 0, 360, col, -1)
+        raster.ellipse(img, c, (a, b), ang, 0, 360, col, -1)
         # Ragged edge: a couple of darker nicks along the blob.
         for _ in range(2):
             nc = (
@@ -104,18 +103,16 @@ def _draw_clutter(rng: np.random.Generator, img: np.ndarray, n: int) -> None:
                 int(np.clip(c[1] + rng.integers(-b, b + 1), 0, h - 1)),
             )
             dark = tuple(v * 0.55 for v in col)
-            cv2.ellipse(img, nc, (max(1, a // 3), max(1, b // 2)), ang, 0, 360, dark, -1)
+            raster.ellipse(img, nc, (max(1, a // 3), max(1, b // 2)), ang, 0, 360, dark, -1)
 
 
 def _draw_fruit(
     rng: np.random.Generator, img: np.ndarray, c, axes, ang: float
 ) -> np.ndarray:
     """Shaded mango ellipse onto ``img`` in place; returns its filled mask."""
-    import cv2
-
     h, w = img.shape[:2]
     layer_mask = np.zeros((h, w), np.uint8)
-    cv2.ellipse(layer_mask, c, axes, ang, 0, 360, 1, -1)
+    raster.ellipse(layer_mask, c, axes, ang, 0, 360, 1, -1)
 
     # Ripeness: green-tinged → deep orange (BGR).
     t = rng.uniform(0.0, 1.0)
@@ -137,9 +134,7 @@ def _draw_fruit(
     hx = int(c[0] - 0.35 * axes[0])
     hy = int(c[1] - 0.35 * axes[1])
     hl = np.zeros((h, w), np.uint8)
-    cv2.ellipse(
-        hl, (hx, hy), (max(1, axes[0] // 4), max(1, axes[1] // 5)), ang, 0, 360, 1, -1
-    )
+    raster.ellipse(hl, (hx, hy), (max(1, axes[0] // 4), max(1, axes[1] // 5)), ang, 0, 360, 1, -1)
     hl &= layer_mask
     img[hl > 0] = np.clip(img[hl > 0].astype(np.float32) * 1.35 + 40, 0, 255).astype(
         np.uint8
@@ -175,8 +170,6 @@ def render_orchard_scene(
     dilated 1-2 px (sloppy boundaries). Instance annotations (boxes/polys)
     stay correct — eval splits must be generated with label_noise=0.
     """
-    import cv2
-
     img = _foliage_background(rng, h, w, lighting_strength)
     if clutter > 0:
         _draw_clutter(rng, img, int(rng.poisson(clutter)))
@@ -198,7 +191,7 @@ def render_orchard_scene(
             pm &= ~m
         per_fruit_masks.append(m)
 
-        poly = cv2.ellipse2Poly(c, (a, b), int(ang), 0, 360, 10).astype(np.float64)
+        poly = raster.ellipse2poly(c, (a, b), int(ang), 0, 360, 10).astype(np.float64)
         poly = np.clip(poly, [0, 0], [w - 1, h - 1])
         x0, y0 = poly.min(axis=0)
         x1, y1 = poly.max(axis=0)
@@ -226,8 +219,8 @@ def render_orchard_scene(
                 float(np.clip(50 * g, 10, 120)),
             )
             leaf = np.zeros((h, w), np.uint8)
-            cv2.ellipse(leaf, leaf_c, (la, lb), lang, 0, 360, 1, -1)
-            cv2.ellipse(img, leaf_c, (la, lb), lang, 0, 360, col, -1)
+            raster.ellipse(leaf, leaf_c, (la, lb), lang, 0, 360, 1, -1)
+            raster.ellipse(img, leaf_c, (la, lb), lang, 0, 360, col, -1)
             covered = int((leaf & pm).sum())
             for pm2 in per_fruit_masks:
                 pm2 &= ~leaf
@@ -242,9 +235,9 @@ def render_orchard_scene(
         k = int(rng.integers(1, 3))
         kernel = np.ones((2 * k + 1, 2 * k + 1), np.uint8)
         if rng.uniform() < 0.5:
-            visible = cv2.erode(visible, kernel)
+            visible = raster.erode(visible, kernel)
         else:
-            visible = cv2.dilate(visible, kernel)
+            visible = raster.dilate(visible, kernel)
 
     # Final sensor noise.
     img = np.clip(
@@ -267,8 +260,6 @@ def generate_orchard_split(
     ``split_dir``.  Returns the annotation-file path.  Extra kwargs go to
     :func:`render_orchard_scene` (hard-regime knobs; pass ``label_noise``
     to TRAIN splits only)."""
-    import cv2
-
     from mingraph_unet_tpu_torch.data.annotations import write_coco_json
 
     img_dir = os.path.join(split_dir, "images")
@@ -285,8 +276,8 @@ def generate_orchard_split(
             rng, h, w, min_fruits, max_fruits, occlusion_prob, **scene_kwargs
         )
         name = f"img_{i:05d}.png"
-        cv2.imwrite(os.path.join(img_dir, name), img)
-        cv2.imwrite(os.path.join(mask_dir, name), mask)
+        write_png(os.path.join(img_dir, name), img[..., ::-1])  # the file holds RGB
+        write_png(os.path.join(mask_dir, name), mask)
         coco_images.append({"id": i, "file_name": name, "height": h, "width": w})
         for inst in instances:
             coco_anns.append(

@@ -77,7 +77,13 @@ _HOST_LIBS = ("-lz", "-lpthread")
 _S = ctypes.c_char_p
 _HOST_SIGNATURES = {
     "decode": {"mgu_load_image": [_S, _I, _I, _P], "mgu_load_mask": [_S, _I, _I, _P],
-               "mgu_load_batch": [_P, _P, _I, _I, _I, _P, _P, _I]},
+               "mgu_load_batch": [_P, _P, _I, _I, _I, _P, _P, _I, _I],
+               "mgu_decode": [_S, _I, _P, _P], "mgu_free": [_P],
+               "mgu_resize_nearest": [_P, _I, _I, _I, _P, _I, _I],
+               "mgu_resize_linear_u8": [_P, _I, _I, _I, _P, _I, _I]},
+    "raster": {"mgu_fill_convex_poly": [_P, _I, _I, _I, _P, _I, _S, _I],
+               "mgu_fill_poly": [_P, _I, _I, _I, _P, _P, _I, _S, _I],
+               "mgu_polylines": [_P, _I, _I, _I, _P, _P, _I, _I, _S, _I]},
 }
 
 _lock = threading.Lock()

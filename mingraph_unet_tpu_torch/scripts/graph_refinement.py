@@ -9,9 +9,9 @@ hard patch labels. :func:`graph_features` and :func:`build_graph_modules`
 make the inputs and the seeded modules, :func:`run_graph_pipeline` runs
 them (so that a caller can load other weights in between) and
 :func:`graph_pipeline` does all three. Without ``--config_path`` it runs on
-an image of a tiny dataset (``utils/bootstrap.py``, which draws with
-OpenCV). Runs on the CUDA card unless ``--cpu`` is given; on the card the
-hist-eq feature runs K6 on a batch of one.
+an image of a tiny dataset (``utils/bootstrap.py``). Runs on the CUDA card
+unless ``--cpu`` is given; on the card the hist-eq feature runs K6 on a
+batch of one.
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@
 Writes the label and visualization PNGs (``train/infer.py``); with
 ``--large_scene`` the scene is segmented at its own resolution by
 overlapping tiles. Without ``--config_path`` it trains a one-epoch smoke
-model on a tiny dataset (``utils/bootstrap.py``, which draws with OpenCV)
-and infers on one of its images. Runs on the CUDA card unless ``--cpu``
-is given.
+model on a tiny dataset (``utils/bootstrap.py``) and infers on one of its
+images. The image is a PNG, JPEG or BMP (``data/dataset.py::read_image``).
+Runs on the CUDA card unless ``--cpu`` is given.
 """
 
 from __future__ import annotations

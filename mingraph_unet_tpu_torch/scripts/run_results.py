@@ -24,8 +24,8 @@ Counterpart of ``scripts/run_results.py``:
     python -m mingraph_unet_tpu_torch.scripts.run_results --out runs/results [--quick] [--cpu]
 
 Every stage runs on the CUDA card unless ``--cpu`` is given. The synthetic
-dataset is drawn with OpenCV (``data/synthetic.py``), so this script needs
-it installed; the loss plot needs matplotlib and is skipped without it.
+dataset is drawn by ``data/synthetic.py`` (no OpenCV); the loss plot needs
+matplotlib and is skipped without it.
 """
 
 from __future__ import annotations

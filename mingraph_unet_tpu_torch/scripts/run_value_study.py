@@ -32,7 +32,7 @@ Counterpart of ``scripts/run_value_study.py``:
     python -m mingraph_unet_tpu_torch.scripts.run_value_study --out runs/value_study [--only a,b] [--eval_only] [--cpu]
 
 Every stage runs on the CUDA card unless ``--cpu`` is given; the synthetic
-dataset is drawn with OpenCV (``data/synthetic.py``).
+dataset is drawn by ``data/synthetic.py`` (no OpenCV).
 """
 
 from __future__ import annotations

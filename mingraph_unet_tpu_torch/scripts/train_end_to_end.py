@@ -5,8 +5,7 @@
 
 With ``--config_path`` it trains from the four YAML files in ``D``; without
 it, it runs a two-epoch smoke on a tiny dataset written by
-``utils/bootstrap.py`` (which draws with OpenCV). Runs on the CUDA card
-unless ``--cpu`` is given.
+``utils/bootstrap.py``. Runs on the CUDA card unless ``--cpu`` is given.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@
     python -m mingraph_unet_tpu_torch.scripts.train_segmentation --config_path D [--epochs N] [--cpu]
 
 With ``--config_path`` it trains from the four YAML files in ``D``; without
-it, it writes a tiny dataset and configs (``utils/bootstrap.py``, which
-draws with OpenCV) to a temporary directory and runs a two-epoch smoke.
+it, it writes a tiny dataset and configs (``utils/bootstrap.py``) to a
+temporary directory and runs a two-epoch smoke.
 Runs on the CUDA card unless ``--cpu`` is given.
 """
 

@@ -13,9 +13,9 @@
 Weights are the port's own checkpoints (``train/checkpoint.py``): a trainer's
 composite checkpoint or a bare state dict. A JAX checkpoint comes in through
 ``convert.py``. Entry points run on the CUDA card unless ``device="cpu"``
-is passed. A PNG is read by the C++ loader (``data/dataset.py::
-read_image``; OpenCV only for other formats) and the outputs are written
-by ``data/png.py``: a label PNG and a visualization PNG whose decoded BGR
+is passed. The image (PNG, JPEG or BMP) is read and resized as the JAX
+package reads it with OpenCV (``data/dataset.py::read_image``) and the
+outputs are written by ``data/png.py``: a label PNG and a visualization PNG whose decoded BGR
 equals the BGR visualization array, as OpenCV's ``imwrite`` writes it.
 """
 

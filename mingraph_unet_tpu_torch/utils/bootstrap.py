@@ -1,7 +1,8 @@
 """Dummy configs and a tiny dataset for smoke runs and tests. The port's
 own copy of ``mingraph_unet_tpu/utils/bootstrap.py``: the same seed writes
-the same images, masks, annotation JSON and YAML (OpenCV is imported on
-use; the YAML is ``config.py``'s writer).
+the same images, masks, annotation JSON and YAML, without OpenCV (the
+ellipses are ``data/raster.py``'s, the PNGs ``data/png.py``'s, the YAML
+``config.py``'s writer).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Tuple
 import numpy as np
 
 from mingraph_unet_tpu_torch.config import PipelineConfig, write_yaml
+from mingraph_unet_tpu_torch.data import raster
+from mingraph_unet_tpu_torch.data.png import write_png
 
 __all__ = ["make_dummy_run"]
 
@@ -37,8 +40,6 @@ def make_dummy_run(
     (polygon segmentations + boxes, one annotation per ellipse) and points
     ``dataset.annotations_file`` at it (the instance-GT training path).
     """
-    import cv2
-
     cfg_dir = os.path.join(base_dir, "configs")
     data_root = os.path.join(base_dir, "data")
     img_dir = os.path.join(data_root, "train", "images")
@@ -57,10 +58,10 @@ def make_dummy_run(
             c = (int(rng.integers(w // 4, 3 * w // 4)), int(rng.integers(h // 4, 3 * h // 4)))
             ax = (int(rng.integers(4, max(5, w // 6))), int(rng.integers(3, max(4, h // 8))))
             ang = float(rng.uniform(0, 180))
-            cv2.ellipse(img, c, ax, ang, 0, 360, (30, 140, 230), -1)
-            cv2.ellipse(mask, c, ax, ang, 0, 360, 1, -1)
+            raster.ellipse(img, c, ax, ang, 0, 360, (30, 140, 230), -1)
+            raster.ellipse(mask, c, ax, ang, 0, 360, 1, -1)
             if with_annotations:
-                poly = cv2.ellipse2Poly(c, ax, int(ang), 0, 360, 10)
+                poly = raster.ellipse2poly(c, ax, int(ang), 0, 360, 10)
                 poly = np.clip(poly, [0, 0], [w - 1, h - 1])
                 x0, y0 = poly.min(axis=0)
                 x1, y1 = poly.max(axis=0)
@@ -75,8 +76,8 @@ def make_dummy_run(
                     }
                 )
                 ann_id += 1
-        cv2.imwrite(os.path.join(img_dir, f"img_{i:03d}.png"), img)
-        cv2.imwrite(os.path.join(mask_dir, f"img_{i:03d}.png"), mask)
+        write_png(os.path.join(img_dir, f"img_{i:03d}.png"), img[..., ::-1])  # the file holds RGB
+        write_png(os.path.join(mask_dir, f"img_{i:03d}.png"), mask)
         coco_images.append(
             {"id": i, "file_name": f"img_{i:03d}.png", "height": h, "width": w}
         )

@@ -31,7 +31,7 @@ print(len(names), bad)
 
 # The data and evaluation modules and the command-line entry points, which
 # the walk must reach.
-DATA_AND_EVAL_MODULES = ("data.annotations", "data.synthetic", "data.native_loader", "data.collection",
+DATA_AND_EVAL_MODULES = ("data.annotations", "data.synthetic", "data.native_loader", "data.raster", "data.collection",
                    "experiments.segmentation_performance", "experiments.yield_estimation_performance",
                    "experiments.ablation_study", "utils.bootstrap")
 CLI_MODULES = ("data.png", "utils.env", "utils.profiling", "scripts.train_segmentation", "scripts.train_end_to_end",
