@@ -33,11 +33,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    step) and each kernel at each shape with CUDA events, beside its plain
    version, its one-call PyTorch counterpart where there is one, and its
    bound on an H100 SXM (3.35 TB/s, 989 bf16 TFLOP/s dense). K1 (and K4
-   in phase 6) also gets its device time (torch.profiler: the kernel
-   alone, and the whole call with the wrapper's weight packing), the
-   library call's device time, and K1 prints the bytes of weights its
-   tiling moves from L2 into shared memory a call (worked out, not
-   measured, so not in the kernels line). K2 gets its device time the same
+   in phase 6, K9 in phase 12) also gets its device time (torch.profiler:
+   the kernel alone, and every device operation of the call), its device
+   operations and host µs a call, the library call's device time, and K1
+   prints the bytes of weights its tiling moves from L2 a call (worked
+   out, not measured, so not in the kernels line). K2 gets its device time the same
    way, its L2 -> SM bytes of weights and halos (worked out, printed only),
    and as context, having no one-call library counterpart, the same
    function by cuDNN (``conv_transpose2d``, ``cat``, ``conv2d``: held
@@ -164,8 +164,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    Function ``psconv_train_halo``, the shards' kernel gradients summed
    within ``DK_TOL`` of the whole one; one inner shard's forward and dgrad
    timed beside their bound, the plain version, the library's dense-s2d
-   ``F.conv2d`` and the unsharded K4's device time over 4. Every earlier
-   path launches K4 on a shard never.
+   ``F.conv2d`` and the unsharded K4's device time over 4, with the host's
+   µs a call (``time.perf_counter`` over ``HOST_CALLS`` calls issued with
+   no sync) and the device operations a call, which must be 1: the kernel
+   lays out the raw weights itself. Every earlier path launches K4 on a
+   shard never.
 15. The model options the trainers take, at ``PipelineConfig()`` widths in
    bf16 at 512² b8: (a) the e2e step with the dense detection head, trained
    on connected-component ground truth (fast instancing): 3 warm-up and 5
@@ -296,6 +299,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_SIMT_FLOPS = 67e12
 FORWARD_ITERS, KERNEL_ITERS = 20, 20
+HOST_CALLS = 200     # calls issued back to back for a wrapper's host µs a call
 K8_ITERS = 3         # K8's plain version (f32 cuDNN, TF32 off): up to ~27 ms a call
 TRAIN_WARMUP, TRAIN_ITERS, FIXED_BATCH_STEPS = 3, 10, 10
 E2E_WARMUP, E2E_ITERS = 3, 5
@@ -500,15 +504,17 @@ def _kernel_table(dev, launches, scene_launches):
             extra = {"device_ms": dev_ms}
             print(f"[chip_smoke] {name} L{case['level']}: device {dev_ms * 1e3:.1f} us")
         if case["kind"] == "psel":
-            # The card's time: the kernel alone, and the call (the wrapper's
-            # weight packing and casts too); the weights it moves L2 -> SM.
-            call_ms, dev_ms = _device_ms(tag, lambda: kernel_fn(*args), own="psel_wgmma_kernel")
+            # The card's time: the kernel alone, and the call (every device
+            # operation of it); the host's; the weights it moves L2 -> SM.
+            call_ms, dev_ms, dev_ops = _device_ms(tag, lambda: kernel_fn(*args), own="psel_wgmma_kernel", count=True)
+            host_us = _host_us(lambda: kernel_fn(*args))
             lib_dev_ms = _device_ms(f"{tag} library", lambda: F.conv2d(xn, w, padding=1))
-            extra = {"device_ms": dev_ms, "call_device_ms": call_ms, "library_device_ms": lib_dev_ms}
-            print(f"[chip_smoke] {name} L{case['level']}: device {dev_ms * 1e3:.1f} us (call {call_ms * 1e3:.1f}), "
-                  f"library device {lib_dev_ms * 1e3:.1f} us; weights L2 -> SM (from the tiling) "
-                  f"{_psel_weight_l2_bytes(shape, dev) / 1e6:.2f} MB a call against {case['bytes'] / 1e6:.1f} MB "
-                  f"compulsory")
+            extra = {"device_ms": dev_ms, "call_device_ms": call_ms, "library_device_ms": lib_dev_ms,
+                     "host_us": host_us, "device_ops": dev_ops}
+            print(f"[chip_smoke] {name} L{case['level']}: device {dev_ms * 1e3:.1f} us (call {call_ms * 1e3:.1f} in "
+                  f"{dev_ops} operations), host {host_us:.1f} us a call, library device {lib_dev_ms * 1e3:.1f} us; "
+                  f"weights L2 -> SM (from the tiling) {_psel_weight_l2_bytes(shape, dev, k.element_size()) / 1e6:.2f}"
+                  f" MB a call against {case['bytes'] / 1e6:.1f} MB compulsory")
         rows.append({
             "name": f"{name} L{case['level']}",
             "route": "cuda",
@@ -661,19 +667,21 @@ def _forward_time(model, x):
     return ms
 
 
-def _psel_weight_l2_bytes(shape, dev) -> int:
+def _psel_weight_l2_bytes(shape, dev, weight_bytes: int) -> int:
     """Bytes of weights the bf16 psel kernel (K1, K4, K9) moves from L2 into
     shared memory a call, worked out from its tiling in
-    ``csrc/psel_conv.cu``, not read from the card: one 9·C·C bf16 copy a
-    block of its persistent grid, min(tiles, SMs) blocks over tiles of
-    TH × 16 s2d pixels (TH 8 at C = 32, 4 at C = 64)."""
+    ``csrc/psel_conv.cu``, not read from the card: the raw 9·C·C kernel
+    (``weight_bytes`` a weight: 4 for an f32 parameter), staged by bulk
+    copies and laid out by the block, once a block of its persistent grid,
+    min(tiles, SMs) blocks over tiles of TH × 16 s2d pixels (TH 8 at C = 32,
+    4 at C = 64)."""
     import torch
 
     b, hh, ww, c4 = shape
     c = c4 // 4
     th = 8 if c == 32 else 4
     tiles = b * -(-hh // th) * -(-ww // 16)
-    return min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count) * 9 * c * c * 2
+    return min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count) * 9 * c * c * weight_bytes
 
 
 def _wconv_weight_l2_bytes(shape, packed) -> int:
@@ -762,23 +770,41 @@ def _device_ops(fn, iters: int):
     return sorted(ops, key=lambda k: k[1] * k[2], reverse=True)
 
 
-def _device_ms(label: str, fn, iters: int = 10, own: str = ""):
+def _device_ms(label: str, fn, iters: int = 10, own: str = "", count: bool = False):
     """Device time per call of ``fn``: the summed time of every CUDA kernel
     it launches (``_device_ops``), printed with its kernels. Where a call
     is short, the CUDA-event time of ``_time_ms`` is the host's time to
     issue it; this is the card's. With ``own``, returns (the call's time,
     the time of the kernels whose name holds ``own``: the hand-written
-    kernel without the wrapper's packing)."""
+    kernel without the wrapper's packing), and with ``count`` also the
+    device operations a call."""
     kernels = _device_ops(fn, iters)
     ms = sum(t * n for _, t, n in kernels) / 1e3
-    print(f"[chip_smoke]   device time per call of {label}: {ms * 1e3:.1f} us: " + "; ".join(
+    ops = sum(n for _, _, n in kernels)
+    print(f"[chip_smoke]   device time per call of {label}: {ms * 1e3:.1f} us in {ops} operations: " + "; ".join(
         f"{key[:60]} {t:.1f} us x{n}" for key, t, n in kernels[:4]))
     if not own:
         return ms
     own_ms = sum(t * n for key, t, n in kernels if own in key) / 1e3
     if own_ms <= 0:
         _fail(f"{label}: the profiler recorded no kernel named {own!r}")
-    return ms, own_ms
+    return (ms, own_ms, ops) if count else (ms, own_ms)
+
+
+def _host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host µs a call of ``fn``: ``time.perf_counter`` over ``calls`` calls
+    issued back to back with no sync (the card runs behind), after a
+    warm-up; the sync after the window is not counted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15):
@@ -1121,17 +1147,19 @@ def _k4_table(dev, launches, e2e_launches):
             w = s2d_ops.s2d_conv3x3_kernel(kd).to(inp.dtype).permute(3, 2, 0, 1).contiguous()
             xn = inp.permute(0, 3, 1, 2)
             library_ms = _time_ms(lambda: F.conv2d(xn, w, padding=1), KERNEL_ITERS)
-            call_ms, dev_ms = _device_ms(tag, lambda: fn(inp, kk), own="psel_wgmma_kernel")
+            call_ms, dev_ms, dev_ops = _device_ms(tag, lambda: fn(inp, kk), own="psel_wgmma_kernel", count=True)
+            host_us = _host_us(lambda: fn(inp, kk))
             rows.append({
                 "name": f"{name} L{lvl}", "route": "cuda", "source": source, "device_ms": dev_ms,
-                "call_device_ms": call_ms,
+                "call_device_ms": call_ms, "device_ops": dev_ops, "host_us": host_us,
                 "replaces": f"{PSCONV_SRC}:{line}", "launches": launches[f"k4_{name.split('_')[1]}"],
                 "launches_e2e": e2e_launches[f"k4_{name.split('_')[1]}"],
                 "shape": list(inp.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms,
             })
-            print(f"[chip_smoke] {name} L{lvl}: {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us, plain "
+            print(f"[chip_smoke] {name} L{lvl}: {ms * 1e3:.1f} us/launch, host {host_us:.1f} us a call, device "
+                  f"{dev_ms * 1e3:.1f} us ({dev_ops} operations a call), plain "
                   f"{plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
                   f"({rows[-1]['bound_by']})")
 
@@ -2048,9 +2076,11 @@ def _k9_table(dev, s2d_sites, launches):
             extn = ext.permute(0, 3, 1, 2)
             library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=1), KERNEL_ITERS)
             dev_ms = {k: _device_ms(f"{k} L{level} shard", f) for k, f in (
-                ("k9", lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2)),
                 ("jax", lambda: psconv.psel_conv3x3(psconv.extend_rows(xs, top, bot), k2, b2)[:, 1:-1]),
                 ("library", lambda: F.conv2d(extn, wd, padding=1)))}
+            k9_call = lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2)  # noqa: E731
+            dev_ms["k9"], _, k9_ops = _device_ms(f"k9 L{level} shard", k9_call, own="psel_wgmma_kernel", count=True)
+            k9_host_us = _host_us(k9_call)
             b, h, w, z = xs.shape
             c = z // 4
             t_bytes = (ext.numel() * 2 + xs.numel() * 2 + k2.numel() * 2 + c * 4) / HBM_BYTES_PER_S * 1e3
@@ -2063,14 +2093,15 @@ def _k9_table(dev, s2d_sites, launches):
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms, "jax_form_ms": jax_ms, "device_ms": dev_ms["k9"],
                 "jax_form_device_ms": dev_ms["jax"], "library_device_ms": dev_ms["library"],
+                "device_ops": k9_ops, "host_us": k9_host_us,
             })
             print(f"[chip_smoke] sharded_psconv L{level} one inner shard {tuple(xs.shape)}: {ms * 1e3:.1f} us/launch, "
                   f"JAX form (concat + K1 + slice) {jax_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
                   f"(dense-s2d F.conv2d on the extended shard) {library_ms * 1e3:.1f} us, bound "
                   f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}); device time per call (profiler): "
-                  f"K9 {dev_ms['k9'] * 1e3:.1f} us, JAX form {dev_ms['jax'] * 1e3:.1f} us, library "
-                  f"{dev_ms['library'] * 1e3:.1f} us; weights L2 -> SM (from the tiling) "
-                  f"{_psel_weight_l2_bytes(xs.shape, xs.device) / 1e6:.2f} MB")
+                  f"K9 {dev_ms['k9'] * 1e3:.1f} us in {k9_ops} operations (host {k9_host_us:.1f} us a call), JAX "
+                  f"form {dev_ms['jax'] * 1e3:.1f} us, library {dev_ms['library'] * 1e3:.1f} us; weights L2 -> SM "
+                  f"(from the tiling) {_psel_weight_l2_bytes(xs.shape, xs.device, k2.element_size()) / 1e6:.2f} MB")
 
             block, inp, (x_prev, wt, bias_up), _ = sites[dec]
             k1, b1 = block.folded(1)
@@ -2615,8 +2646,11 @@ def _spatial_k4_table(dev, launches):
             ms = _time_ms(lambda: fn(xs, top, bot, kk), KERNEL_ITERS)
             plain_ms = _time_ms(lambda: plain(xs, top, bot, kk), KERNEL_ITERS)
             library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=(0, 1)), KERNEL_ITERS)
-            call_ms, dev_ms = _device_ms(f"psconv_{name}_halo L{lvl} shard", lambda: fn(xs, top, bot, kk),
-                                         own="psel_wgmma_kernel")
+            call_ms, dev_ms, dev_ops = _device_ms(f"psconv_{name}_halo L{lvl} shard", lambda: fn(xs, top, bot, kk),
+                                                  own="psel_wgmma_kernel", count=True)
+            if dev_ops != 1:
+                _fail(f"psconv_{name}_halo L{lvl}: {dev_ops} device operations a call, expected the kernel alone")
+            host_us = _host_us(lambda: fn(xs, top, bot, kk))
             whole_fn = psconv.psconv_fwd if name == "fwd" else psconv.psconv_dgrad
             _, whole_dev = _device_ms(f"psconv_{name} L{lvl} whole", lambda: whole_fn(inp, kk), own="psel_wgmma_kernel")
             library_dev = _device_ms(f"library L{lvl} shard", lambda: F.conv2d(extn, wd, padding=(0, 1)))
@@ -2632,9 +2666,11 @@ def _spatial_k4_table(dev, launches):
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms, "device_ms": dev_ms, "call_device_ms": call_ms,
                 "library_device_ms": library_dev, "unsharded_device_ms_over_4": whole_dev / 4,
+                "host_us": host_us, "device_ops": dev_ops,
             })
             print(f"[chip_smoke] psconv_{name}_halo L{lvl} one inner shard {tuple(xs.shape)} + 2 rows: {ms * 1e3:.1f} "
-                  f"us/launch, device {dev_ms * 1e3:.1f} us (the call {call_ms * 1e3:.1f} us), plain "
+                  f"us/launch, host {host_us:.1f} us a call, device {dev_ms * 1e3:.1f} us (the call "
+                  f"{call_ms * 1e3:.1f} us in {dev_ops} operation{'s' if dev_ops > 1 else ''}), plain "
                   f"{plain_ms * 1e3:.1f} us, library (dense-s2d F.conv2d, VALID in H) {library_ms * 1e3:.1f} us / "
                   f"device {library_dev * 1e3:.1f} us, unsharded K4 device / 4 {whole_dev / 4 * 1e3:.1f} us, bound "
                   f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")

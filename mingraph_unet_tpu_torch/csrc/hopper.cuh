@@ -12,8 +12,9 @@
 // offset): element (k, n) of the slab sits at byte
 //     ((n / 8) * 2 + k / 8) * 128 + (n % 8) * 16 + (k % 8) * 2.
 // A core matrix is one contiguous 128-byte line, so wgmma reads it without
-// bank conflicts and no swizzle is needed. The wrappers pack the weights in
-// this order (ops/kernels/psconv.py::wgmma_b_layout).
+// bank conflicts and no swizzle is needed. The psel kernel lays its weights
+// out in this order itself (psel_conv.cu::lay_weights); the other wrappers
+// pack them so (ops/kernels/psconv.py::wgmma_b_layout).
 //
 // A in registers. Warp w of a warpgroup supplies rows 16w .. 16w + 15 of the
 // 64-row A tile in mma.sync's m16n8k16 A-fragment layout, which is what
@@ -125,6 +126,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// Order this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads of it (wgmma's B operand, a TMA store): each
+// writing thread fences, then a barrier hands the data over.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` over `count` threads (whole warps): each waits for
+// all of them; their earlier shared-memory writes are visible after it.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- asynchronous copies ----

@@ -26,14 +26,21 @@
 //   Design.
 //   - Persistent blocks, one a SM, walk the TH x 16 s2d tiles, column-fastest
 //     so that neighbours share their halo rows in L2.
-//   - The 9C x C weights are copied into shared memory once a block, by one
-//     bulk (TMA) copy completing on an mbarrier, in wgmma's K-major B layout
-//     (hopper.cuh; packed by psconv.py::wgmma_b_layout): 18.4 KB at C = 32,
-//     73.7 KB at C = 64. No weight byte crosses L2 twice for a block.
+//   - The kernel takes the conv's raw HWIO (3, 3, C, C) kernel, f32 or bf16,
+//     as the parameter lies, and lays it out itself: its tap planes are
+//     staged in shared memory by bulk (TMA) copies, in slots that the ring's
+//     first stage does not use, and the consumer threads write wgmma's
+//     K-major B image of the 9C x C weights (hopper.cuh) from them, rounded
+//     to bf16 as Tensor.to(bfloat16) rounds, direct or (the dgrad) the
+//     adjoint's (flipped, in/out transposed): 18.4 KB at C = 32, 73.7 KB at
+//     C = 64, resident for the block's life. Meanwhile the first halo is in
+//     flight. So a call is one device operation: no weight pack, no
+//     adjoint copy, and no cache of prepared weights that could go stale.
 //   - Warp specialised: a producer warpgroup (its registers handed to the
-//     consumers by setmaxnreg) stages each tile's s2d halo (TH+2 x 18
-//     pixels, all 4C channels) into a ring of stages (3 at C = 32, 2 at
-//     C = 64, what shared memory holds beside the weights) with full / empty
+//     consumers by setmaxnreg; one thread of it issues the copies) stages
+//     each tile's s2d halo (TH+2 x 18 pixels, all 4C channels) into a ring
+//     of stages (3 at C = 32, 2 at C = 64, what shared memory holds beside
+//     the weights) with full / empty
 //     mbarriers, so the loads run ahead of the products without a
 //     block-wide barrier. The halo is one TMA box a 64-channel plane, from
 //     a 4-D tensor map over x whose out-of-bounds zeros are the SAME
@@ -41,8 +48,12 @@
 //     8 rows of an ldmatrix fall in 8 bank groups. TMA keeps the copies off
 //     the load/store unit, which a cp.async halo shares with the ldmatrix
 //     reads of the products.
-//     K9's tiles whose halo holds a neighbour's row (row -1 or hh, passed
-//     apart) take cp.async into the same swizzled layout.
+//     A tile whose halo holds a shard's neighbour row (row -1 from `top`,
+//     row hh from `bot`, passed apart) is staged row by row: one box a row
+//     and plane, from a one-row map of x, of `top` or of `bot`, each landing
+//     at its row's offset (HALO_W * 128 bytes a row: 128-byte aligned, not
+//     1024; TMA's swizzle follows the address, so the rows land in swz128's
+//     layout, which tools/tma_row_probe.cu checks on the card).
 //   - Two consumer warpgroups; warpgroup g computes s2d rows g*TH/2 ..
 //     (g+1)*TH/2 - 1 of the tile. Its warp p takes output phase p, so one
 //     wgmma.m64nCk16 covers 16 pixels of all four phases: each warp's A
@@ -63,6 +74,8 @@
 //   on where a tile or a shard starts, so K9's stitched shards equal the
 //   unsharded launch bit for bit.
 // f32: conv_tile.cuh's FMA kernel, for the card-vs-CPU f32 checks.
+#include <atomic>
+
 #include "conv_tile.cuh"
 #include "hopper.cuh"
 
@@ -77,10 +90,16 @@ constexpr int CONSUMERS = 256;
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // setmaxnreg: 128 * 56 + 256 * 224 <= 65536
 constexpr int SM90_SHARED = 232448;                     // dynamic shared memory a block may use
 constexpr int MAX_STAGES = 8;
+// The consumers meet at named barrier WEIGHTS_BAR once the weights are
+// laid out (1 and 2 are the consumer warpgroups' own).
+constexpr int WEIGHTS_BAR = 3;
+constexpr uint32_t ROW_BYTES = HALO_W * 128;  // one staged halo row of one 64-channel plane
 
-// Shared memory of the bf16 kernel: the weights, each consumer warpgroup's
-// output staging (its two s2d rows of the tile), the ring of halo stages,
-// the mbarriers.
+// Shared memory of the bf16 kernel: the weights' image, each consumer
+// warpgroup's output staging (its two s2d rows of the tile), the ring of
+// halo stages, and at the top the mbarriers. While the image is laid out,
+// the raw kernel's tap planes are staged in slots (RawSlots) in the output
+// staging and above ring stage 0.
 template <int C>
 struct Plan {
   // s2d rows a tile, TH / 2 a consumer warpgroup: 8 at C = 32 (a 1.41x halo
@@ -96,22 +115,51 @@ struct Plan {
   static constexpr int PLANE_BYTES = (HALO_PIX * 128 + 1023) / 1024 * 1024;
   static constexpr int HALO_BYTES = PLANES * PLANE_BYTES;
   static constexpr int OUT_BYTES = MI * TW * OS * 2;   // a warpgroup's rows
-  static constexpr int BAR_BYTES = (1 + 2 * MAX_STAGES) * 8;
+  static constexpr int BAR_BYTES = (2 * MAX_STAGES + 9 + 1) * 8;
   static constexpr int OUT = W_BYTES, RING = OUT + 2 * OUT_BYTES;
-  static constexpr int STAGES_FIT = (SM90_SHARED - RING - BAR_BYTES) / HALO_BYTES;
+  static constexpr int BAR = SM90_SHARED - BAR_BYTES, TOP = BAR / 128 * 128;
+  static constexpr int STAGES_FIT = (BAR - RING) / HALO_BYTES;
   static constexpr int STAGES = STAGES_FIT < MAX_STAGES ? STAGES_FIT : MAX_STAGES;
-  static constexpr int BAR = RING + STAGES * HALO_BYTES;
-  static constexpr int BYTES = BAR + BAR_BYTES;
-  static_assert(STAGES >= 2 && BYTES <= SM90_SHARED, "psel plan exceeds shared memory");
+  static constexpr int BYTES = SM90_SHARED;
+  static_assert(STAGES >= 2 && RING + STAGES * HALO_BYTES <= BAR, "psel plan exceeds shared memory");
+};
+
+// Where the raw kernel's nine tap planes (C x C weights, f32 or bf16) are
+// staged while the consumers lay out the image: `lo` slots in the output
+// staging (free until the first epilogue), then slots down from TOP, above
+// ring stage 0, which the producer fills meanwhile: `ns` in all (9 or fewer:
+// then a slot takes a second plane). Ring stages from `first_blocked` on
+// overlap a slot, and the producer waits for the image before it fills them.
+template <int C>
+struct RawSlots {
+  int pb, lo, ns, first_blocked;
+  __device__ explicit RawSlots(bool f32) {
+    using P = Plan<C>;
+    pb = C * C * (f32 ? 4 : 2);
+    lo = (P::RING - P::OUT) / pb;
+    ns = lo + (P::TOP - P::RING - P::HALO_BYTES) / pb;
+    const int hi_used = min(9, ns) - lo, lowest = P::TOP - hi_used * pb;
+    first_blocked = P::STAGES;
+    for (int st = P::STAGES - 1; st >= 1 && hi_used > 0; --st)
+      if (P::RING + (st + 1) * P::HALO_BYTES > lowest) first_blocked = st;
+  }
+  __device__ int at(int j) const { return j < lo ? Plan<C>::OUT + j * pb : Plan<C>::TOP - (j - lo + 1) * pb; }
 };
 
 struct PselArgs {
   const bf16* x;      // (B, Hh, Ww, 4C)
-  const bf16* w;      // (9C, C) in wgmma B layout
+  const void* w;      // the conv's raw HWIO (3, 3, C, C) kernel, f32 (w_f32) or bf16
   const float* bias;  // (C,) or null
   bf16* y;            // (B, Hh, Ww, 4C)
   const bf16 *top, *bot;  // (B, 1, Ww, 4C) halo rows of a shard, null at a global border
   int b, hh, ww, tiles_w, tiles_h, ntiles;
+  int w_f32, adjoint;  // adjoint: convolve with the flipped, in/out-transposed kernel (the dgrad)
+};
+
+// The halo's tensor maps: x in (TH + 2)-row boxes; where a shard has a
+// neighbour row, x, `top` and `bot` in one-row boxes (unset otherwise).
+struct Maps {
+  CUtensorMap x, row, top, bot;
 };
 
 struct Tile {
@@ -123,53 +171,153 @@ __device__ __forceinline__ Tile decode(const PselArgs& a, int t, int th) {
   return Tile{rest / a.tiles_h, (rest % a.tiles_h) * th, tx * TW};
 }
 
-// The producer warpgroup: the weights once (one bulk copy), then every
-// tile's halo into the next free stage: one TMA box a plane (out-of-bounds
-// zeros are the SAME padding), or, where a shard's neighbour row falls in the
-// halo (row -1 from `top`, row hh from `bot`), cp.async of the same swizzled
-// layout by every producer thread. Each producer thread arrives on the
-// stage's barrier once (after its copies, on the cp.async path).
-template <int C>
-__device__ void produce(const PselArgs& a, const CUtensorMap* xmap, bf16* wsm, unsigned char* ring, uint64_t* wbar,
-                        uint64_t* full, uint64_t* empty) {
-  using P = Plan<C>;
-  const int ptid = threadIdx.x - CONSUMERS;
-  if (ptid == 0) {
-    sm90::mbar_arrive_expect_tx(wbar, P::W_BYTES);
-    sm90::bulk_copy(wsm, a.w, P::W_BYTES, wbar);
+// Two weights as one bf16x2 word, the first in the low half.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) { return lo | uint32_t(hi) << 16; }
+
+// 8 weights of a staged plane as one 16-byte chunk of bf16: consecutive
+// ones (16 or 32 aligned bytes), or C apart.
+template <int C, bool CONSECUTIVE>
+__device__ __forceinline__ uint4 chunk8(const float* p) {
+  if constexpr (CONSECUTIVE) {
+    const float4 lo = reinterpret_cast<const float4*>(p)[0], hi = reinterpret_cast<const float4*>(p)[1];
+    return make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y), pack2(hi.z, hi.w));
+  } else {
+    return make_uint4(pack2(p[0], p[C]), pack2(p[2 * C], p[3 * C]), pack2(p[4 * C], p[5 * C]),
+                      pack2(p[6 * C], p[7 * C]));
   }
+}
+template <int C, bool CONSECUTIVE>
+__device__ __forceinline__ uint4 chunk8(const unsigned short* p) {
+  if constexpr (CONSECUTIVE) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    return make_uint4(pack2(p[0], p[C]), pack2(p[2 * C], p[3 * C]), pack2(p[4 * C], p[5 * C]),
+                      pack2(p[6 * C], p[7 * C]));
+  }
+}
+
+// The image of tap `it` of B (9C x C, row tap*C + ci; wgmma's K-major
+// layout, hopper.cuh) from the staged raw plane of HWIO tap `it` (direct)
+// or 8 - `it` (adjoint), each consumer thread a share of its C*C/8 chunks.
+// Chunk q of the image is B's rows 8*k8 .. 8*k8 + 7 of column n, 16 bytes
+// of the image. Direct: B[tap*C + ci][n] = W[tap][ci][n], q = (k8, n), the
+// chunk's weights C apart in the plane and consecutive threads on
+// consecutive columns. Adjoint: B[tap*C + i][n] = W[8 - tap][n][i], q =
+// (tap, n, i / 8), 8 consecutive weights. ops/kernels/psconv.py::
+// psel_b_image_index is the same map, held against wgmma_b_layout by the
+// CPU tests.
+template <int C, bool ADJ, typename T>
+__device__ void lay_tap(const T* plane, int it, unsigned char* wsm) {
+  constexpr int PER = C * C / 8;
+  for (int q = it * PER + int(threadIdx.x); q < (it + 1) * PER; q += CONSUMERS) {
+    int k8, n, at;
+    if (ADJ) {
+      const int rem = q - it * PER;
+      n = rem / (C / 8);
+      k8 = it * (C / 8) + rem % (C / 8);
+      at = 8 * rem;  // n * C + 8 * (rem % (C / 8))
+    } else {
+      k8 = q / C;
+      n = q % C;
+      at = 8 * (k8 % (C / 8)) * C + n;
+    }
+    *reinterpret_cast<uint4*>(wsm + (k8 >> 1) * 32 * C + ((n >> 3) * 2 + (k8 & 1)) * 128 + (n & 7) * 16) =
+        chunk8<C, ADJ>(plane + at);
+  }
+}
+
+template <int C>
+__device__ void lay_tap(const PselArgs& a, const unsigned char* plane, int t, unsigned char* wsm) {
+  if (a.adjoint) {
+    if (a.w_f32) lay_tap<C, true>(reinterpret_cast<const float*>(plane), 8 - t, wsm);
+    else lay_tap<C, true>(reinterpret_cast<const unsigned short*>(plane), 8 - t, wsm);
+  } else {
+    if (a.w_f32) lay_tap<C, false>(reinterpret_cast<const float*>(plane), t, wsm);
+    else lay_tap<C, false>(reinterpret_cast<const unsigned short*>(plane), t, wsm);
+  }
+}
+
+// The consumers lay out the weights at the start of the block. The first
+// consumer thread stages the raw tap planes into the slots by bulk (TMA)
+// copies, plane p into slot p % ns, each completing on its slot's barrier;
+// every consumer lays out its share of each plane as it lands, and where a
+// slot takes a later plane they meet at WEIGHTS_BAR first (the slot is
+// read). Then the ring stages under the slots go back to the producer
+// (`wready`). The copies run beside the producer's first halo boxes; a
+// TMA copy keeps a plane's bytes in flight at once, where loads by the
+// threads of every SM from the same lines at once wait on L2
+// (tools/psel_variants.py).
+template <int C>
+__device__ void lay_weights(const PselArgs& a, unsigned char* smem, uint64_t* sbar, uint64_t* wready) {
+  const RawSlots<C> sl(a.w_f32);
+  const bool lead = threadIdx.x == 0;
+  const unsigned char* w = static_cast<const unsigned char*>(a.w);
+  if (lead)
+    for (int p = 0; p < 9 && p < sl.ns; ++p) {
+      sm90::mbar_arrive_expect_tx(&sbar[p], sl.pb);
+      sm90::bulk_copy(smem + sl.at(p), w + size_t(p) * sl.pb, sl.pb, &sbar[p]);
+    }
+  for (int p = 0; p < 9; ++p) {
+    const int j = p % sl.ns;
+    sm90::mbar_wait(&sbar[j], (p / sl.ns) & 1);
+    lay_tap<C>(a, smem + sl.at(j), p, smem);
+    if (p + sl.ns < 9) {
+      sm90::fence_proxy_async_shared();  // the next copy writes the slot by the async proxy
+      sm90::bar_sync(WEIGHTS_BAR, CONSUMERS);
+      if (lead) {
+        sm90::mbar_arrive_expect_tx(&sbar[j], sl.pb);
+        sm90::bulk_copy(smem + sl.at(j), w + size_t(p + sl.ns) * sl.pb, sl.pb, &sbar[j]);
+      }
+    }
+  }
+  sm90::fence_proxy_async_shared();  // wgmma reads the image, and the producer's boxes write the slots, by the async proxy
+  sm90::bar_sync(WEIGHTS_BAR, CONSUMERS);
+  if (lead) sm90::mbar_arrive(wready);
+}
+
+// The producer (one thread): every tile's halo into the next free stage
+// (the stages under the raw weights' slots once the image is laid out),
+// one TMA box a 64-channel plane, whose out-of-bounds zeros are the SAME
+// padding; a tile whose halo holds a shard's neighbour row (row -1 from
+// `top`, row hh from `bot`) row by row, each row from its own map. Such a
+// tile's rows past hh feed only outputs that are not stored, so they are
+// not loaded.
+template <int C>
+__device__ void produce(const PselArgs& a, const Maps& m, unsigned char* ring, uint64_t* full, uint64_t* empty,
+                        uint64_t* wready) {
+  using P = Plan<C>;
+  const int blocked = RawSlots<C>(a.w_f32).first_blocked;  // stages that hold raw weights until the image is laid out
+  bool held = blocked < P::STAGES;
   int s = 0;
   uint32_t ph = 0;
   for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
     const Tile tl = decode(a, t, P::TH);
     sm90::mbar_wait(&empty[s], ph ^ 1);
+    if (held && s >= blocked) {
+      sm90::mbar_wait(wready, 0);
+      held = false;
+    }
     unsigned char* dst = ring + size_t(s) * P::HALO_BYTES;
     const bool rows = (tl.i0 == 0 && a.top) || (tl.i0 + P::TH >= a.hh && a.bot);
     if (!rows) {
-      if (ptid == 0) {
-        sm90::mbar_arrive_expect_tx(&full[s], P::PLANES * P::HALO_PIX * 128);
-        for (int pl = 0; pl < P::PLANES; ++pl)
-          sm90::tma_load_4d(dst + pl * P::PLANE_BYTES, xmap, 64 * pl, tl.j0 - 1, tl.i0 - 1, tl.bi, &full[s]);
-      } else {
-        sm90::mbar_arrive(&full[s]);
-      }
+      sm90::mbar_arrive_expect_tx(&full[s], P::PLANES * P::HALO_PIX * 128);
+      for (int pl = 0; pl < P::PLANES; ++pl)
+        sm90::tma_load_4d(dst + pl * P::PLANE_BYTES, &m.x, 64 * pl, tl.j0 - 1, tl.i0 - 1, tl.bi, &full[s]);
     } else {
-      for (int i = ptid; i < P::PLANES * P::HALO_PIX * 8; i += 128) {
-        const int ck = i & 7, pix = (i >> 3) % P::HALO_PIX, pl = (i >> 3) / P::HALO_PIX;
-        const int gi = tl.i0 - 1 + pix / HALO_W, gj = tl.j0 - 1 + pix % HALO_W;
-        const bf16* src = nullptr;
-        if (gj >= 0 && gj < a.ww) {
-          if (gi >= 0 && gi < a.hh)
-            src = a.x + ((size_t(tl.bi) * a.hh + gi) * a.ww + gj) * (4 * C);
-          else if (gi == -1 && a.top)
-            src = a.top + (size_t(tl.bi) * a.ww + gj) * (4 * C);
-          else if (gi == a.hh && a.bot)
-            src = a.bot + (size_t(tl.bi) * a.ww + gj) * (4 * C);
-        }
-        sm90::cp_async16(dst + pl * P::PLANE_BYTES + sm90::swz128(pix, ck), src ? src + 64 * pl + 8 * ck : a.x,
-                         src ? 16 : 0);
+      const int nr = min(P::TH + 2, a.hh - tl.i0 + 2);  // staged row r is row i0 - 1 + r
+      sm90::mbar_arrive_expect_tx(&full[s], nr * P::PLANES * ROW_BYTES);
+      for (int r = 0; r < nr; ++r) {
+        const int gi = tl.i0 - 1 + r;
+        const bool up = gi == -1 && a.top, down = gi == a.hh && a.bot;
+        const CUtensorMap* map = up ? &m.top : down ? &m.bot : &m.row;
+        for (int pl = 0; pl < P::PLANES; ++pl)
+          sm90::tma_load_4d(dst + pl * P::PLANE_BYTES + r * ROW_BYTES, map, 64 * pl, tl.j0 - 1, up || down ? 0 : gi,
+                            tl.bi, &full[s]);
       }
-      sm90::cp_async_arrive(&full[s]);
     }
     if (++s == P::STAGES) {
       s = 0;
@@ -188,8 +336,8 @@ __device__ void produce(const PselArgs& a, const CUtensorMap* xmap, bf16* wsm, u
 // A consumer warpgroup: s2d rows MI*g .. MI*g + MI - 1 of every tile; warp p
 // of it takes output phase p.
 template <int C, bool RELU>
-__device__ void consume(const PselArgs& a, const bf16* wsm, bf16* outs, const unsigned char* ring, uint64_t* wbar,
-                        uint64_t* full, uint64_t* empty) {
+__device__ void consume(const PselArgs& a, const bf16* wsm, bf16* outs, const unsigned char* ring, uint64_t* full,
+                        uint64_t* empty) {
   using P = Plan<C>;
   constexpr int KS = C / 16;   // k-steps a tap
   constexpr int NR = C / 2;    // accumulator registers a thread per 64-row tile
@@ -203,7 +351,6 @@ __device__ void consume(const PselArgs& a, const bf16* wsm, bf16* outs, const un
   const int wtid = threadIdx.x & 127;
   const bool leader = wtid == 0;
   const auto wg_sync = [wg]() { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
-  sm90::mbar_wait(wbar, 0);  // the weights are resident for the block's life
   int s = 0;
   uint32_t ph = 0;
   for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
@@ -283,66 +430,96 @@ __device__ void consume(const PselArgs& a, const bf16* wsm, bf16* outs, const un
 }
 
 template <int C, bool RELU>
-__global__ void __launch_bounds__(THREADS, 1) psel_wgmma_kernel(PselArgs a, const __grid_constant__ CUtensorMap xmap) {
+__global__ void __launch_bounds__(THREADS, 1) psel_wgmma_kernel(PselArgs a, const __grid_constant__ Maps maps) {
   using P = Plan<C>;
   extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* wsm = reinterpret_cast<bf16*>(smem);
-  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + P::BAR);
-  uint64_t* full = wbar + 1;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
   uint64_t* empty = full + MAX_STAGES;
+  uint64_t* sbar = empty + MAX_STAGES;  // a raw plane has landed in slot j
+  uint64_t* wready = sbar + 9;          // the image is laid out
   if (threadIdx.x == 0) {
-    sm90::mbar_init(wbar, 1);
     for (int i = 0; i < P::STAGES; ++i) {
-      sm90::mbar_init(&full[i], 128);  // each producer thread once (and the TMA boxes' expected bytes)
-      sm90::mbar_init(&empty[i], 2);   // one release a consumer warpgroup
+      sm90::mbar_init(&full[i], 1);   // the producer's arrival (and the boxes' expected bytes)
+      sm90::mbar_init(&empty[i], 2);  // one release a consumer warpgroup
     }
+    for (int j = 0; j < 9; ++j) sm90::mbar_init(&sbar[j], 1);
+    sm90::mbar_init(wready, 1);
     sm90::fence_mbar_init();
   }
   __syncthreads();
   if (threadIdx.x >= CONSUMERS) {
     sm90::setmaxnreg_dec<PRODUCER_REGS>();
-    produce<C>(a, &xmap, wsm, smem + P::RING, wbar, full, empty);
+    if (threadIdx.x == CONSUMERS) produce<C>(a, maps, smem + P::RING, full, empty, wready);
   } else {
     sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    lay_weights<C>(a, smem, sbar, wready);  // resident for the block's life
     bf16* outs = reinterpret_cast<bf16*>(smem + P::OUT + (threadIdx.x >> 7) * P::OUT_BYTES);
-    consume<C, RELU>(a, wsm, outs, smem + P::RING, wbar, full, empty);
+    consume<C, RELU>(a, reinterpret_cast<const bf16*>(smem), outs, smem + P::RING, full, empty);
   }
 }
 
-// Persistent grid: one block a SM (the plan takes its shared memory), at
-// most one a tile.
-int grid_blocks(int ntiles) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return ntiles < sms ? ntiles : sms;
+constexpr int MAX_DEVICES = 64;
+
+// The device's SM count, asked once a device.
+int sm_count(int dev) {
+  static std::atomic<int> sms[MAX_DEVICES];
+  int n = sms[dev].load(std::memory_order_relaxed);
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    sms[dev].store(n, std::memory_order_relaxed);
+  return n;
 }
 
+// The kernel's dynamic shared memory allowed, once an instantiation and device.
+template <int C, bool RELU>
+cudaError_t allow_smem(int dev) {
+  static std::atomic<bool> done[MAX_DEVICES];
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(psel_wgmma_kernel<C, RELU>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<C>::BYTES);
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+// Persistent grid: one block a SM (the plan takes its shared memory), at
+// most one a tile. The maps are encoded every launch (they hold the
+// tensors' addresses); the device's attributes are asked once.
 template <int C, bool RELU>
 int launch_wgmma(PselArgs a, cudaStream_t stream) {
   a.tiles_w = (a.ww + TW - 1) / TW;
   a.tiles_h = (a.hh + Plan<C>::TH - 1) / Plan<C>::TH;
   a.ntiles = a.b * a.tiles_w * a.tiles_h;
   if (a.ntiles == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(psel_wgmma_kernel<C, RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Plan<C>::BYTES);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return int(err);
-  // x as (4C, Ww, Hh, B) in boxes of 64 channels x (TW + 2) x (TH + 2) x 1.
-  CUtensorMap xmap;
-  const cuuint32_t box[4] = {64, HALO_W, Plan<C>::TH + 2, 1};
-  if (!sm90::nhwc_map(&xmap, a.x, a.b, a.hh, a.ww, 4 * C, box, CU_TENSOR_MAP_SWIZZLE_128B))
-    return int(cudaErrorInvalidValue);
-  psel_wgmma_kernel<C, RELU><<<grid_blocks(a.ntiles), THREADS, Plan<C>::BYTES, stream>>>(a, xmap);
+  if (dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
+  if ((err = allow_smem<C, RELU>(dev)) != cudaSuccess) return int(err);
+  const int sms = sm_count(dev);
+  if (sms == 0) return int(cudaErrorInvalidDevice);
+  // x as (4C, Ww, Hh, B) in boxes of 64 channels x (TW + 2) x (TH + 2) x 1;
+  // the row maps in boxes one row high.
+  Maps m;
+  const cuuint32_t box[4] = {64, HALO_W, Plan<C>::TH + 2, 1}, row[4] = {64, HALO_W, 1, 1};
+  const auto swz = CU_TENSOR_MAP_SWIZZLE_128B;
+  bool ok = sm90::nhwc_map(&m.x, a.x, a.b, a.hh, a.ww, 4 * C, box, swz);
+  if (a.top || a.bot) ok = ok && sm90::nhwc_map(&m.row, a.x, a.b, a.hh, a.ww, 4 * C, row, swz);
+  if (a.top) ok = ok && sm90::nhwc_map(&m.top, a.top, a.b, 1, a.ww, 4 * C, row, swz);
+  if (a.bot) ok = ok && sm90::nhwc_map(&m.bot, a.bot, a.b, 1, a.ww, 4 * C, row, swz);
+  if (!ok) return int(cudaErrorInvalidValue);
+  psel_wgmma_kernel<C, RELU><<<a.ntiles < sms ? a.ntiles : sms, THREADS, Plan<C>::BYTES, stream>>>(a, m);
   return int(cudaGetLastError());
 }
 
 template <bool RELU>
-int launch(const mgu::ConvArgs& a, bool is_bf16, cudaStream_t stream) {
-  if (!is_bf16)
+int launch(const mgu::ConvArgs& a, bool is_bf16, bool w_f32, bool adjoint, cudaStream_t stream) {
+  if (!is_bf16) {  // HWIO f32 weights of the conv as launched
+    if (adjoint || !w_f32) return int(cudaErrorInvalidValue);
     return mgu::launch(mgu::conv_f32_kernel<false, RELU>, a, mgu::SmemPlan<float>(a.c, a.cp, false).bytes, stream);
+  }
   if (a.cout != a.c) return int(cudaErrorInvalidValue);
-  PselArgs p{static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.w), a.bias, static_cast<bf16*>(a.y),
-             static_cast<const bf16*>(a.x_top), static_cast<const bf16*>(a.x_bot), a.b, a.hh, a.ww, 0, 0, 0};
+  PselArgs p{static_cast<const bf16*>(a.x), a.w, a.bias, static_cast<bf16*>(a.y),
+             static_cast<const bf16*>(a.x_top), static_cast<const bf16*>(a.x_bot), a.b, a.hh, a.ww, 0, 0, 0,
+             int(w_f32), int(adjoint)};
   switch (a.c) {
     case 32: return launch_wgmma<32, RELU>(p, stream);
     case 64: return launch_wgmma<64, RELU>(p, stream);
@@ -353,22 +530,26 @@ int launch(const mgu::ConvArgs& a, bool is_bf16, cudaStream_t stream) {
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a bf16 width without an instantiation. bf16
-// weights in wgmma B layout, f32 weights HWIO.
+// cudaErrorInvalidValue for a bf16 width without an instantiation. bf16: w
+// is the conv's raw HWIO (3, 3, C, C) kernel, f32 (w_f32) or bf16, laid out
+// by the kernel, the adjoint's when `adjoint`; f32: HWIO f32 weights of the
+// conv as launched (w_f32 1, adjoint 0).
 extern "C" int mgu_psel_conv3x3(const void* x, const void* w, const float* bias, void* y,
-                                int b, int hh, int ww, int c, int cout, int is_bf16, int relu,
-                                void* stream) {
+                                int b, int hh, int ww, int c, int cout, int is_bf16, int relu, int w_f32,
+                                int adjoint, void* stream) {
   mgu::ConvArgs a{x, w, nullptr, nullptr, bias, nullptr, y, b, hh, ww, c, 0, cout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return relu ? launch<true>(a, is_bf16 != 0, s) : launch<false>(a, is_bf16 != 0, s);
+  return relu ? launch<true>(a, is_bf16 != 0, w_f32 != 0, adjoint != 0, s)
+              : launch<false>(a, is_bf16 != 0, w_f32 != 0, adjoint != 0, s);
 }
 
 extern "C" int mgu_psel_conv3x3_halo(const void* x, const void* x_top, const void* x_bot, const void* w,
                                      const float* bias, void* y, int b, int hh, int ww, int c, int cout,
-                                     int is_bf16, int relu, void* stream) {
+                                     int is_bf16, int relu, int w_f32, int adjoint, void* stream) {
   mgu::ConvArgs a{x, w, nullptr, nullptr, bias, nullptr, y, b, hh, ww, c, 0, cout};
   a.x_top = x_top;
   a.x_bot = x_bot;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return relu ? launch<true>(a, is_bf16 != 0, s) : launch<false>(a, is_bf16 != 0, s);
+  return relu ? launch<true>(a, is_bf16 != 0, w_f32 != 0, adjoint != 0, s)
+              : launch<false>(a, is_bf16 != 0, w_f32 != 0, adjoint != 0, s);
 }

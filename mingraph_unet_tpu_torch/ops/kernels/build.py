@@ -38,6 +38,7 @@ __all__ = [
     "build_all",
     "check_cuda_input",
     "compiler_log",
+    "cuda_input_ok",
     "host_library",
     "library",
     "nvcc_path",
@@ -59,8 +60,8 @@ _FLAGS = (
 # argument would be cut to 32 bits), every size is c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "psel_conv": {"mgu_psel_conv3x3": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-                  "mgu_psel_conv3x3_halo": [_P] * 6 + [_I] * 7 + [_P]},
+    "psel_conv": {"mgu_psel_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+                  "mgu_psel_conv3x3_halo": [_P] * 6 + [_I] * 9 + [_P]},
     "dec_conv1": {"mgu_dec_conv1": [_P] * 6 + [_I] * 7 + [_P],
                   "mgu_dec_conv1_halo": [_P] * 10 + [_I] * 9 + [_P]},
     "phase_pool": {"mgu_phase_max_pool": [_P, _P] + [_I] * 5 + [_P]},
@@ -232,7 +233,18 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name} has no backward: call it under torch.no_grad() (inference)")
 
 
+def cuda_input_ok(t: torch.Tensor, dtype: torch.dtype, ndim: int = 4) -> bool:
+    """Whether ``t`` is what the kernels take (see :func:`check_cuda_input`),
+    without building a message: the launch paths' fast check."""
+    return t.is_cuda and t.dtype == dtype and t.dim() == ndim and t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
 def check_cuda_input(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int = 4) -> None:
+    """Raise ``ValueError`` naming what is wrong unless ``t`` is a CUDA
+    tensor of ``dtype`` with ``ndim`` dimensions, contiguous and 16-byte
+    aligned; the message is built only when it fails."""
+    if cuda_input_ok(t, dtype, ndim):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
@@ -241,5 +253,13 @@ def check_cuda_input(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int =
     require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
 
+# The current stream's raw handle in one call where this build of PyTorch
+# has it (CUDA builds), else through the public Stream object.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream

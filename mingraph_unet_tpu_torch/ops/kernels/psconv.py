@@ -13,7 +13,9 @@ layout as full-resolution pixels, so they do the conv's useful FLOPs (not
 the TPU form's 16/9× or the dense s2d form's 4×), on tensor cores in bf16.
 Both bf16 kernels are Hopper designs: persistent warp-specialised blocks,
 weights resident in shared memory in wgmma's B layout
-(:func:`wgmma_b_layout`), halos staged by TMA through rings of stages.
+(:func:`wgmma_b_layout`), halos staged by TMA through rings of stages. psel
+takes the conv's raw HWIO kernel and lays that image out itself
+(:func:`psel_b_image_index`), so a launch is its one device operation.
 psel (``csrc/psel_conv.cu``) runs ``wgmma`` over all four output phases at
 once; dec-conv1 (``csrc/dec_conv1.cu``) one output phase per ``wgmma``, so
 its x_prev term multiplies only the phase's four live taps of the folded
@@ -58,6 +60,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
@@ -65,6 +68,7 @@ from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
 from mingraph_unet_tpu_torch.ops.kernels.build import (
     KERNEL_DTYPES,
     check_cuda_input,
+    cuda_input_ok,
     library,
     require,
     require_no_grad,
@@ -76,6 +80,7 @@ __all__ = [
     "psel_fits",
     "dec_conv1_fits",
     "wgmma_b_layout",
+    "psel_b_image_index",
     "psel_conv3x3",
     "psel_conv3x3_plain",
     "dec_conv1_weights",
@@ -134,8 +139,32 @@ def wgmma_b_layout(w2d: torch.Tensor) -> torch.Tensor:
     return w2d.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2).contiguous()
 
 
+def psel_b_image_index(c: int, adjoint: bool = False) -> np.ndarray:
+    """The map the psel kernel's prologue lays its weights out by
+    (``csrc/psel_conv.cu::lay_tap``): element i of the B image it writes
+    to shared memory (9·C·C bf16, in the order of :func:`wgmma_b_layout`'s
+    output flattened) is element ``index[i]`` of the raw HWIO (3, 3, C, C)
+    kernel flattened; with ``adjoint``, of the kernel whose adjoint the
+    image is. Chunk q of the image is B's rows 8·k8 … 8·k8 + 7 of column
+    n, 16 bytes, from 8 weights C apart (direct, q = (k8, n)) or
+    consecutive (adjoint, q = (tap, n, i // 8))."""
+    q = np.arange(9 * c * c // 8)
+    if adjoint:  # B[tap·C + i][n] = W[8 − tap][n][i]
+        tap, rem = q // (c * c // 8), q % (c * c // 8)
+        n, k8 = rem // (c // 8), tap * (c // 8) + rem % (c // 8)
+        at, stride = (8 - tap) * c * c + 8 * rem, 1
+    else:  # B[r][n] = W as (9C, C)[r][n]
+        k8, n = q // c, q % c
+        at, stride = 8 * k8 * c + n, c
+    pos = (k8 >> 1) * 16 * c + ((n >> 3) * 2 + (k8 & 1)) * 64 + (n & 7) * 8  # the chunk's first element
+    e = np.arange(8)
+    index = np.empty(9 * c * c, dtype=np.int64)
+    index[(pos[:, None] + e).ravel()] = (at[:, None] + e * stride).ravel()
+    return index
+
+
 def _kernel_weights(w: torch.Tensor, dev: torch.device, dt: torch.dtype) -> torch.Tensor:
-    """(..., K, N) weights as the kernel reads them: as they are in f32,
+    """(..., K, N) weights as K2's kernel reads them: as they are in f32,
     :func:`wgmma_b_layout` over (rows, N) in bf16."""
     w = w.to(device=dev, dtype=dt)
     if dt == torch.bfloat16:
@@ -155,10 +184,17 @@ def psel_conv3x3_plain(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Te
     return torch.relu(y + s2d_ops.s2d_vector(bias).to(y.dtype))
 
 
+def _rows_ok(row: Optional[torch.Tensor], x: torch.Tensor) -> bool:
+    if row is None:
+        return True
+    b, _, ww, z = x.shape
+    return cuda_input_ok(row, x.dtype) and row.shape == (b, 1, ww, z) and row.get_device() == x.get_device()
+
+
 def _check_rows(name: str, row: Optional[torch.Tensor], x: torch.Tensor) -> None:
     """A halo row of ``x`` as the sharded kernels take it: None, or
     (B, 1, Ww, channels) of x's dtype on x's device, contiguous."""
-    if row is None:
+    if _rows_ok(row, x):
         return
     check_cuda_input(name, row, x.dtype)
     want = (x.shape[0], 1, x.shape[2], x.shape[3])
@@ -170,37 +206,89 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
-                 relu: bool, rows: Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = None
-                 ) -> torch.Tensor:
-    """Launch the psel tile on CUDA tensors after checking what it takes;
-    ``bias`` None adds none. ``rows`` = (top, bottom) launches the sharded
-    entry (K9) with those halo rows (None at a global border)."""
+_PSEL_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+_NO_ROWS = (None, None)
+
+
+def _psel_check(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                top: Optional[torch.Tensor], bottom: Optional[torch.Tensor], adjoint: bool) -> None:
+    """Raise ``ValueError`` unless the psel tile takes this launch: x a CUDA
+    (B, Hh, Ww, 4·Cin) tensor of a kernel dtype, the kernel (3, 3, ·, ·)
+    (the conv's (Cin, Cout) swapped when ``adjoint``), widths multiples of
+    16 (bf16: Cout = Cin in :data:`BF16_WIDTHS`), bias (Cout,) or None, the
+    rows as :func:`_check_rows` takes them. One test when all is well; the
+    messages are built only for a refusal."""
+    ks = kernel.shape
     dt = x_s2d.dtype
+    if len(ks) == 4 and dt in KERNEL_DTYPES and cuda_input_ok(x_s2d, dt):
+        cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
+        if (ks[0] == 3 and ks[1] == 3 and x_s2d.shape[3] == 4 * cin and cin % 16 == 0 and cout % 16 == 0
+                and (bias is None or bias.shape == (cout,))
+                and (dt is not torch.bfloat16 or (cin == cout and cin in BF16_WIDTHS))
+                and _rows_ok(top, x_s2d) and _rows_ok(bottom, x_s2d)):
+            return
     require(dt in KERNEL_DTYPES, f"{name}: unsupported dtype {dt}")
     check_cuda_input("x_s2d", x_s2d, dt)
-    b, hh, ww, zin = x_s2d.shape
-    require(tuple(kernel.shape[:2]) == (3, 3) and kernel.dim() == 4, f"kernel must be (3, 3, Cin, Cout), got {tuple(kernel.shape)}")
-    cin, cout = kernel.shape[2], kernel.shape[3]
+    require(tuple(ks[:2]) == (3, 3) and kernel.dim() == 4, f"kernel must be (3, 3, Cin, Cout), got {tuple(ks)}")
+    cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
+    zin = x_s2d.shape[3]
     require(zin == 4 * cin, f"x has {zin} s2d channels, kernel expects 4*{cin}")
     require(cin % 16 == 0 and cout % 16 == 0, f"Cin={cin}, Cout={cout} must be multiples of 16")
     if bias is not None:
         require(tuple(bias.shape) == (cout,), f"bias must be ({cout},), got {tuple(bias.shape)}")
-        bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
     if dt == torch.bfloat16:
         require(cin == cout and cin in BF16_WIDTHS, f"bf16 kernel needs Cout = Cin in {BF16_WIDTHS}, got {cin} -> {cout}")
-    w = _kernel_weights(kernel, x_s2d.device, dt)
-    y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=x_s2d.device)
+    _check_rows("top", top, x_s2d)
+    _check_rows("bottom", bottom, x_s2d)
+    raise ValueError(f"{name}: refused")  # not reached: one of the checks above names the fault
+
+
+def _psel_weights(kernel: torch.Tensor, x_s2d: torch.Tensor, adjoint: bool) -> Tuple[torch.Tensor, bool]:
+    """(weights as the psel kernel reads them, whether they are f32). bf16
+    x: the raw HWIO kernel as it lies, f32 or bf16 (another dtype widened
+    to f32), on x's device, contiguous and 16-byte aligned (a copy
+    otherwise); the kernel rounds it to bf16 and lays out its B image, the
+    adjoint's when ``adjoint``, itself, so a parameter passed as it lies
+    costs no device operation. f32 x: the HWIO f32 weights of the conv as
+    launched, the adjoint flipped here (the f32 FMA kernel serves the f32
+    checks only)."""
+    if x_s2d.dtype == torch.bfloat16:
+        w = kernel if kernel.dtype in _PSEL_WEIGHT_DTYPES else kernel.float()
+        if w.get_device() != x_s2d.get_device():
+            w = w.to(x_s2d.device)
+        if not w.is_contiguous() or w.data_ptr() % 16:  # the kernel's bulk copies read it from 16-byte bounds
+            w = w.clone(memory_format=torch.contiguous_format)
+        return w, w.dtype == torch.float32
+    w = kernel.to(device=x_s2d.device, dtype=torch.float32)
+    return (_adjoint(w) if adjoint else w).contiguous(), True
+
+
+def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                 relu: bool, rows: Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = None,
+                 adjoint: bool = False) -> torch.Tensor:
+    """Launch the psel tile on CUDA tensors after checking what it takes;
+    ``bias`` None adds none; ``adjoint`` convolves with the kernel's adjoint
+    (the dgrad). ``rows`` = (top, bottom) launches the sharded entry (K9)
+    with those halo rows (None at a global border). The C call encodes the
+    tensor maps and launches; the device's attributes are asked once."""
+    top, bottom = _NO_ROWS if rows is None else rows
+    _psel_check(name, x_s2d, kernel, bias, top, bottom, adjoint)
+    w, w_f32 = _psel_weights(kernel, x_s2d, adjoint)
+    b, hh, ww, z = x_s2d.shape
+    ks = kernel.shape
+    cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
+    if bias is not None:
+        bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
+    y = torch.empty_like(x_s2d) if cout == cin else x_s2d.new_empty((b, hh, ww, 4 * cout))
+    is_bf16 = x_s2d.dtype is torch.bfloat16
+    flags = (int(is_bf16), int(relu), int(w_f32), int(adjoint and is_bf16))
     lib = library("psel_conv")
-    common = (b, hh, ww, cin, cout, int(dt == torch.bfloat16), int(relu), stream_ptr(x_s2d))
     if rows is None:
-        rc = lib.mgu_psel_conv3x3(x_s2d.data_ptr(), w.data_ptr(), _ptr(bias), y.data_ptr(), *common)
+        rc = lib.mgu_psel_conv3x3(x_s2d.data_ptr(), w.data_ptr(), _ptr(bias), y.data_ptr(), b, hh, ww, cin, cout,
+                                  *flags, stream_ptr(x_s2d))
     else:
-        top, bottom = rows
-        _check_rows("top", top, x_s2d)
-        _check_rows("bottom", bottom, x_s2d)
         rc = lib.mgu_psel_conv3x3_halo(x_s2d.data_ptr(), _ptr(top), _ptr(bottom), w.data_ptr(), _ptr(bias),
-                                       y.data_ptr(), *common)
+                                       y.data_ptr(), b, hh, ww, cin, cout, *flags, stream_ptr(x_s2d))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return y
@@ -531,7 +619,7 @@ def psconv_dgrad(g_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     fit)."""
     if g_s2d.device.type == "cpu":
         return psconv_dgrad_plain(g_s2d, kernel)
-    y = _psel_launch("psconv_dgrad", g_s2d, _adjoint(kernel), None, relu=False)
+    y = _psel_launch("psconv_dgrad", g_s2d, kernel, None, relu=False, adjoint=True)
     psconv_dgrad.launches += 1
     return y
 
@@ -635,7 +723,7 @@ def psconv_dgrad_halo(g_s2d: torch.Tensor, g_top: Optional[torch.Tensor], g_bott
     order)."""
     if g_s2d.device.type == "cpu":
         return psconv_halo_plain(g_s2d, g_top, g_bottom, _adjoint(kernel))
-    y = _psel_launch("psconv_dgrad_halo", g_s2d, _adjoint(kernel), None, relu=False, rows=(g_top, g_bottom))
+    y = _psel_launch("psconv_dgrad_halo", g_s2d, kernel, None, relu=False, rows=(g_top, g_bottom), adjoint=True)
     psconv_dgrad_halo.launches += 1
     return y
 

@@ -538,9 +538,12 @@ def _shards(t, n, cuts=None):
 # uneven ones (heights 1, 3, 5) that are not multiples of the 4-row tile;
 # shards exactly one tile high over a ragged width (the bf16 psel tile is 4
 # rows at C = 64, 8 at C = 32); and shards of many tiles, more than the
-# persistent grid holds, cut at heights 1, 4, 33 and 32.
+# persistent grid holds, cut at heights 1, 4, 33 and 32; and the spatial
+# train step's production shards: the U-Net's L0 (8, 256, 256, 128) at C = 32
+# and L1 (8, 128, 128, 256) at C = 64 (512² b8), cut into 4 equal shards.
 HALO_CASES = [(2, 16, 20, 32, None), (1, 9, 18, 64, [0, 1, 4, 9]), (2, 16, 37, 64, [0, 4, 8, 12, 16]),
-              (2, 32, 37, 32, [0, 8, 16, 24, 32]), (2, 70, 100, 32, [0, 1, 5, 38, 70])]
+              (2, 32, 37, 32, [0, 8, 16, 24, 32]), (2, 70, 100, 32, [0, 1, 5, 38, 70]),
+              (8, 256, 256, 32, None), (8, 128, 128, 64, None)]
 
 
 @pytest.mark.cuda
@@ -578,6 +581,56 @@ def test_card_dec_conv1_halo_stitches_to_k2_bit_for_bit(cuda_device, case, dtype
     torch.cuda.synchronize()
     assert t_psconv.dec_conv1_halo.launches == before + len(parts)
     assert torch.equal(got, whole)
+
+
+# Every entry of the psel kernel on a shard of one case: (x, top, bottom,
+# kernel) → output.
+PSEL_ENTRIES = {
+    "psel_conv3x3": lambda x, top, bot, k, b: t_psconv.psel_conv3x3(x, k, b),
+    "psel_conv3x3_halo": lambda x, top, bot, k, b: t_psconv.psel_conv3x3_halo(x, top, bot, k, b),
+    "psconv_fwd": lambda x, top, bot, k, b: t_psconv.psconv_fwd(x, k),
+    "psconv_dgrad": lambda x, top, bot, k, b: t_psconv.psconv_dgrad(x, k),
+    "psconv_fwd_halo": lambda x, top, bot, k, b: t_psconv.psconv_fwd_halo(x, top, bot, k),
+    "psconv_dgrad_halo": lambda x, top, bot, k, b: t_psconv.psconv_dgrad_halo(x, top, bot, k),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("entry", sorted(PSEL_ENTRIES))
+def test_card_psel_entries_follow_weights_changed_in_place(cuda_device, entry, kdtype):
+    """The bf16 psel kernel lays out the raw kernel it is given at every
+    launch, so no prepared weights can go stale: after an in-place update
+    of the kernel (an ``add_``, as Adam updates a parameter) the next launch
+    follows the new values, bit-equal to a launch on a fresh copy; and a
+    call is one device operation (no weight pack, no adjoint copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, k, bias = (_t(a).to(cuda_device) for a in _psel_case((2, 16, 37, 64, 64)))
+    x, k = x.to(torch.bfloat16), k.to(kdtype)
+    xs, top, bot, _ = _shards(x, 4, [0, 4, 9, 12, 16])[1]
+    fn = PSEL_ENTRIES[entry]
+    first = fn(xs, top, bot, k, bias)
+    k.add_(torch.full_like(k, 0.25))
+    second = fn(xs, top, bot, k, bias)
+    fresh = fn(xs, top, bot, k.clone(), bias)
+    torch.cuda.synchronize()
+    assert torch.equal(second, fresh) and not torch.equal(second, first)
+    # The profiler may miss a launch of a window, or now and then record
+    # none (chip_smoke.py's _device_ops): a window without any is taken
+    # again, and every operation recorded must be the kernel, at most one
+    # a call.
+    calls = 3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(xs, top, bot, k, bias)
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count}
+        if ops:
+            break
+    assert ops and sum(ops.values()) <= calls and all("psel_wgmma_kernel" in key for key in ops), ops
 
 
 @pytest.mark.cuda

@@ -150,6 +150,22 @@ def test_wgmma_b_layout(k, n):
         assert flat[byte // 2] == w[kk, nn]
 
 
+@pytest.mark.parametrize("adjoint", [False, True], ids=["direct", "adjoint"])
+@pytest.mark.parametrize("c", [32, 64])
+def test_psel_b_image_index_is_the_packed_layout(c, adjoint):
+    """The map by which the bf16 psel kernel lays out the raw HWIO kernel
+    in shared memory (its prologue, ``csrc/psel_conv.cu::lay_weights``):
+    every element of the B image comes from one weight, each weight goes to
+    one element, and the image equals ``wgmma_b_layout`` of the kernel (of
+    its adjoint, flipped and in/out transposed, for the dgrad) as (9C, C)."""
+    index = t_psconv.psel_b_image_index(c, adjoint)
+    assert index.shape == (9 * c * c,) and np.array_equal(np.sort(index), np.arange(9 * c * c))
+    w = torch.from_numpy(np.random.default_rng(c).standard_normal((3, 3, c, c)).astype(np.float32))
+    src = w.flip(0, 1).transpose(2, 3) if adjoint else w
+    packed = t_psconv.wgmma_b_layout(src.reshape(9 * c, c)).flatten()
+    assert torch.equal(w.flatten()[torch.from_numpy(index)], packed)
+
+
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     counters = (t_psconv.psel_conv3x3, t_psconv.dec_conv1_fused, t_pool.phase_max_pool_kernel,
                 t_wconv.wconv3x3_s2d, t_cb.fused_conv_block)

@@ -24,6 +24,22 @@ checkout's port and builds its kernels, then runs the cases named by
 - ``K6``: ``equalize_channel`` on the orchard luma at 512² b8 and a 1024²
   scene luma (``chip_smoke.py`` phase 7's inputs), held bit for bit
   against its plain version;
+- ``K4shard``: K4 on one inner H-shard of four (``psconv_fwd_halo``,
+  ``psconv_dgrad_halo``; ``chip_smoke.py`` phase 14's shards: L0 (8, 64,
+  256, 128) and L1 (8, 32, 128, 256), bf16, with the neighbours' two rows),
+  held bit for bit against K4 on the whole tensor; beside each, the same
+  shard launched with no rows (every tile staged like an inner one, the
+  padding zero: what the border tiles cost), the whole tensor's device time
+  over 4 (what a quarter of the tiles costs in fixed work), the device µs
+  with the kernel passed in bf16 (half the weight bytes), and the host µs
+  a call (``chip_smoke._host_us``: ``time.perf_counter`` over
+  ``HOST_CALLS`` calls without a sync), whole and split by stage (checks,
+  weights, output, stream, the C call that encodes the maps and launches;
+  where the kernel takes the raw kernel, also that call on an empty batch,
+  which returns before any map or launch);
+- ``psel``: K1 (``psel_conv3x3``), K4 on the whole tensor (forward and
+  dgrad) and K9 on the inner shard at the same shapes, events, device µs,
+  device operations and host µs a call;
 - ``paths``: the three paths that launch K6 (the bf16 serving forward at
   512² b8, the 1024² large scene with its dense head and decode, and the
   bf16 end-to-end train step at 512² b8), built as ``chip_smoke.py``
@@ -174,7 +190,111 @@ def _paths(cs, tree, dev):
     yield row("e2e train step bf16 512^2 b8", lambda: step(state, imgs, masks, gen))
 
 
-CASES = {"K2": _k2, "K6": _k6, "K8": _k8, "paths": _paths}
+def _psel_stages(x, top, bot, k, adjoint: bool):
+    """The host stages of one launch of the psel entry, each a callable
+    (the last launches the kernel), as the wrapper of this checkout runs
+    them: checks, weights (the kernel takes the raw parameter, or the
+    wrapper packs it), the output's allocation, the stream lookup, the C
+    call."""
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import build, psconv
+
+    lib = build.library("psel_conv")
+    b, hh, ww, z = x.shape
+    c = z // 4
+    y = torch.empty_like(x)
+    stream = build.stream_ptr(x)
+    if hasattr(psconv, "_psel_weights"):  # the kernel lays out the raw kernel itself
+        w, w_f32 = psconv._psel_weights(k, x, adjoint)
+
+        def c_call(batch=b):
+            return lib.mgu_psel_conv3x3_halo(x.data_ptr(), top.data_ptr(), bot.data_ptr(), w.data_ptr(), None,
+                                             y.data_ptr(), batch, hh, ww, c, c, 1, 0, int(w_f32), int(adjoint), stream)
+
+        return {
+            "checks": lambda: psconv._psel_check("psel", x, k, None, top, bot, adjoint),
+            "weights": lambda: psconv._psel_weights(k, x, adjoint),
+            "output": lambda: torch.empty_like(x),
+            "stream": lambda: build.stream_ptr(x),
+            "ctypes": lambda: c_call(0),  # the C call of an empty batch: argument passing, no map, no launch
+            "c_call": c_call,
+        }
+    w = psconv._kernel_weights(psconv._adjoint(k) if adjoint else k, x.device, x.dtype)
+
+    def checks():
+        build.check_cuda_input("x_s2d", x, x.dtype)
+        build.require(tuple(k.shape[:2]) == (3, 3) and k.dim() == 4, f"kernel {tuple(k.shape)}")
+        psconv._check_rows("top", top, x)
+        psconv._check_rows("bottom", bot, x)
+
+    return {
+        "checks": checks,
+        "weights": (lambda: psconv._kernel_weights(psconv._adjoint(k), x.device, x.dtype)) if adjoint
+        else (lambda: psconv._kernel_weights(k, x.device, x.dtype)),
+        "output": lambda: torch.empty((b, hh, ww, z), dtype=x.dtype, device=x.device),
+        "stream": lambda: build.stream_ptr(x),
+        "c_call": lambda: lib.mgu_psel_conv3x3_halo(x.data_ptr(), top.data_ptr(), bot.data_ptr(), w.data_ptr(),
+                                                    None, y.data_ptr(), b, hh, ww, c, c, 1, 0, stream),
+    }
+
+
+def _k4shard(cs, tree, dev):
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    for lvl, c in ((0, 32), (1, 64)):
+        hh = cs.SIZE // 2 ** (lvl + 1)
+        inp = {"fwd": torch.randn((cs.BATCH, hh, hh, 4 * c), generator=g, device=dev).to(torch.bfloat16),
+               "dgrad": torch.randn((cs.BATCH, hh, hh, 4 * c), generator=g, device=dev).to(torch.bfloat16)}
+        k = torch.randn((3, 3, c, c), generator=g, device=dev) * (1.0 / (9 * c)) ** 0.5
+        for name, fn, whole_fn in (("fwd", psconv.psconv_fwd_halo, psconv.psconv_fwd),
+                                   ("dgrad", psconv.psconv_dgrad_halo, psconv.psconv_dgrad)):
+            x = inp[name]
+            whole = whole_fn(x, k)
+            views = cs._shard_views(x, cs._shard_cuts(hh)[0])
+            got = torch.cat([fn(s, t, b, k) for s, t, b, _ in views], dim=1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, whole):
+                cs._fail(f"{tree}: psconv_{name}_halo L{lvl}: shards not bit-equal to K4 on the whole tensor")
+            xs, top, bot, _ = views[1]
+            call = lambda: fn(xs, top, bot, k)  # noqa: E731
+            row = _row(cs, tree, f"K4 shard {name}", call, ("psel_wgmma_kernel",), cs.KERNEL_ITERS, 10,
+                       level=lvl, shape=list(xs.shape))
+            row["host_us"] = cs._host_us(call)
+            row["host_split_us"] = {st: cs._host_us(f) for st, f in
+                                    _psel_stages(xs, top, bot, k, name == "dgrad").items()}
+            row["norows_device_us"] = _device(cs, lambda: fn(xs, None, None, k), ("psel_wgmma_kernel",), 10)[1]
+            kb = k.to(torch.bfloat16)
+            row["bf16_kernel_device_us"] = _device(cs, lambda: fn(xs, top, bot, kb), ("psel_wgmma_kernel",), 10)[1]
+            row["whole_device_us_over_4"] = _device(cs, lambda: whole_fn(x, k), ("psel_wgmma_kernel",), 10)[1] / 4
+            yield row
+
+
+def _psel(cs, tree, dev):
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    for lvl, c in ((0, 32), (1, 64)):
+        hh = cs.SIZE // 2 ** (lvl + 1)
+        x = torch.randn((cs.BATCH, hh, hh, 4 * c), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((3, 3, c, c), generator=g, device=dev) * (1.0 / (9 * c)) ** 0.5
+        bias = torch.randn((c,), generator=g, device=dev)
+        xs, top, bot, _ = cs._shard_views(x, cs._shard_cuts(hh)[0])[1]
+        for kernel, call in (("K1", lambda: psconv.psel_conv3x3(x, k, bias)),
+                             ("K4 fwd", lambda: psconv.psconv_fwd(x, k)),
+                             ("K4 dgrad", lambda: psconv.psconv_dgrad(x, k)),
+                             ("K9 shard", lambda: psconv.psel_conv3x3_halo(xs, top, bot, k, bias))):
+            row = _row(cs, tree, kernel, call, ("psel_wgmma_kernel",), cs.KERNEL_ITERS, 10, level=lvl)
+            row["host_us"] = cs._host_us(call)
+            yield row
+
+
+CASES = {"K2": _k2, "K6": _k6, "K8": _k8, "K4shard": _k4shard, "psel": _psel, "paths": _paths}
 
 
 def one(tree: str, cases: list) -> int:
