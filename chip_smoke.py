@@ -14,7 +14,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (one ``nvcc`` per source, all started together) into
    ``mingraph_unet_tpu_torch/build/``, and print each one's registers,
    spills and any ptxas warning that it serializes wgmma instructions
-   (fatal for K8, whose tensor-core path must not be serialized).
+   (fatal for K8 and the psel kernels, bf16 and f32: their tensor-core
+   paths must not be serialized).
 2. Hold each kernel against its plain PyTorch version at the shapes the
    512² b8 serving path gives it, on seeded bf16 inputs. The plain version
    runs in f32 on the same (bf16) inputs; a conv kernel must agree within
@@ -28,7 +29,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    non-constant images. The launch counters must read psel 4, dec-conv1 2,
    pool 2, d2s 1 and hist-eq 1, and every output must be finite. At batch 1 the card's f32
    outputs (TF32 off) must agree with the same port and weights on the CPU
-   within ``CPU_TOL`` of max |CPU|.
+   within ``CPU_TOL`` of max |CPU|. The f32 serving forward at 128² b16
+   launches psel 4, dec-conv1 2, pool 2, d2s 1 and hist-eq 1, and the
+   profiler's kernel names show every psel launch on the split kernel and
+   only K2's on the FMA kernel.
 4. Time the forward (ms/step, images/s, and the host's time to issue a
    step) and each kernel at each shape with CUDA events, beside its plain
    version, its one-call PyTorch counterpart where there is one, and its
@@ -44,7 +48,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    against K2's plain version within ``CONV_TOL``, timed by events and
    device time). K2's bound counts its least work, 2·17·C² operations a
    full-resolution pixel (the skip taps and the ConvTranspose folded into
-   the four live x_prev taps of the pixel's phase).
+   the four live x_prev taps of the pixel's phase). The f32 kernels of
+   phase 2 are timed the same way (device operations a call: 1) beside
+   their plain version, the full-resolution ``F.conv2d`` in f32 with TF32
+   off (channels-last; TF32 on as context) and the split form's bound: f32
+   x in and y out at 3.35 TB/s against three bf16 products of 9·C²
+   (K2: 17·C²) multiply-adds a full-res pixel at 989 TFLOP/s, with the
+   f32 FMA figure (67 TFLOP/s) printed as context.
 5. Train the U-Net of the repo's model widths (``configs/model.yaml``: init
    32, depth 4, 2 classes) in bf16 at 512² b8 with the segmentation
    trainer's step (augmentation, CE + Dice, backward, Adam lr 1e-3 weight
@@ -54,11 +64,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    finite gradient and the BN running statistics must move; on one fixed
    batch without augmentation the loss must fall over 10 steps. At batch
    2, 128², the card's f32 step (TF32 off) must agree with the same step
-   in f64 on the CPU, leaf by leaf (see ``_train_vs_cpu``).
+   in f64 on the CPU, leaf by leaf (see ``_train_vs_cpu``). Then the
+   segmentation step as ``configs/*.yaml`` configure it (f32, 128², batch
+   16, Adam) for 3 + 10 steps: K4 4 + 4 a step, all 8 on the split kernel
+   and none on the FMA kernel (profiler), a finite loss and gradients;
+   ms/step, host issue ms and peak memory.
 6. Hold K4's forward, dgrad and autograd gradients against their plain
    versions at both train shapes, bf16 and f32 (the kernel gradient of
    bf16 inputs within ``DK_TOL``: it is summed and returned in f32), and
-   time them and the kernel gradient (PyTorch) beside their bounds.
+   time them and the kernel gradient (PyTorch) beside their bounds; the
+   f32 gradients again at 128² b16.
 7. Hold the hist-eq kernel (K6) bit for bit against its plain version on
    the orchard-like luma at 512² b8, a constant image, a two-valued image,
    an odd shape (3, 37, 53) and a 1024² scene luma; it must put one device
@@ -126,19 +141,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
    256 (a halo staged in two chunks) and bf16 Cin 512 (128 K chunks).
 12. K9 (``psel_conv3x3_halo``) and K2's sharded entry (``dec_conv1_halo``)
    on H-shards in one process: the serving forward's captured L0 (8, 256,
-   256, 128) and L1 (8, 128, 128, 256) conv2 inputs and both decoder conv1
+   256, 128) and L1 (8, 128, 128, 256) conv2 inputs (for f32 K9 those of
+   the f32 forward of phase 13, with its weights) and both decoder conv1
    sites, cut into 4 equal and 4 uneven shards, each given its neighbours'
    rows by hand. Stitched, they must equal K1 and K2 on the whole tensor
    bit for bit, in bf16 and f32, and the plain versions within
-   ``CONV_TOL`` / ``F32_TOL``. One inner shard is timed beside its bound,
-   the plain version, the JAX form (concat + K1 + slice) and the library's
-   dense-s2d ``F.conv2d`` on the extended shard, each by CUDA events and by
-   device time, with K9's L2 -> SM weight bytes worked out from its tiling
-   (printed only).
+   ``CONV_TOL`` / ``F32_TOL``. One inner shard is timed, bf16 and f32,
+   beside its bound, the plain version, the JAX form (concat + K1 + slice)
+   and the library's dense-s2d ``F.conv2d`` on the extended shard, each by
+   CUDA events and by device time, with K9's L2 -> SM weight bytes worked
+   out from its tiling (printed only).
 13. The torch.distributed paths over NCCL in a group of one rank (the card
    machine has one card): ``spatial_sharded_apply`` of the serving U-Net
    at 512² b8 bf16 against the unsharded forward within ``CONV_TOL`` of
-   max |logits|, bit-equal to K1 / K2 at each K9 / sharded-K2 site on the
+   max |logits| (in f32, TF32 off, within ``F32_TOL``), bit-equal to K1 / K2 at each K9 / sharded-K2 site on the
    inputs it got, launching K9 4, sharded K2 2, pool 2, d2s 1 and K1, K2
    never; one data-parallel segmentation step and one e2e step (bf16 512²
    b8) against the one-card steps within 1e-3 of each loss, gradient and
@@ -150,12 +166,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    all-reduce and of the flat gradient all-reduce are timed, and a
    collective issued behind a long kernel shows whether it holds the host. Every earlier path launches K9 and sharded K2 never.
 14. Spatial-parallel training, the spatial train path: the segmentation and
-   the e2e train step (bf16 512² b8) made on a one-rank NCCL mesh with
+   the e2e train step (512² b8, bf16 and f32) made on a one-rank NCCL mesh with
    their spatial switch set on (one card holds no spatial axis of two
    ranks), so that the U-Net runs on its one H-shard through every sharded
    train site and its outputs go through the gather; each step must launch
-   K4 on a shard 4 forward and 4 dgrad (hist-eq once in e2e), K4 itself
-   and K1-K3 never, and agree with the one-card step within 1e-3. Then K4
+   K4 on a shard 4 forward and 4 dgrad (hist-eq once in e2e; in f32 all
+   8 on the split kernel by the profiler's names), K4 itself and K1-K3
+   never, and agree with the one-card step within 1e-3. Then K4
    on H-shards (``psconv_fwd_halo``, ``psconv_dgrad_halo``) at the train
    shapes L0 (8, 256, 256, 128) and L1 (8, 128, 128, 256), bf16 and f32,
    on 4 equal and 4 uneven shards cut in one process with the halo rows by
@@ -565,15 +582,15 @@ def _perturb_bn(model, seed: int) -> None:
             buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
 
 
-def _serving_model(dev, **options):
-    """The serving configuration (with the model ``options``) with seeded
-    weights, perturbed BN running statistics, and its seeded batch of
-    images."""
+def _serving_model(dev, dtype=None, **options):
+    """The serving configuration (with the model ``options``; bf16 unless
+    ``dtype`` says otherwise) with seeded weights, perturbed BN running
+    statistics, and its seeded batch of images."""
     import torch
 
     from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
 
-    model = MinGraphUNet(dtype=torch.bfloat16, detection_pre_pool=32, device=dev, seed=0, **options)
+    model = MinGraphUNet(dtype=dtype or torch.bfloat16, detection_pre_pool=32, device=dev, seed=0, **options)
     _perturb_bn(model, seed=1)
     return model, _images(BATCH, SIZE, seed=2).to(dev)
 
@@ -1193,6 +1210,242 @@ def _k4_table(dev, launches, e2e_launches):
         print(f"[chip_smoke] psconv_wgrad L{lvl} (PyTorch): {dk_ms * 1e3:.1f} us/call, device "
               f"{dk_dev_ms * 1e3:.1f} us, bound {max(b_bytes, b_ops) * 1e3:.1f} us "
               f"({'bytes' if b_bytes >= b_ops else 'operations'})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The configured precision (f32): the split psel kernel (phases 3, 5, 6)
+# ---------------------------------------------------------------------------
+
+F32_CELLS = ((BATCH, SIZE), (16, 128))  # the bf16 rows' 512² b8, configs/*.yaml's 128² b16
+F32_STEP_WARMUP, F32_STEP_ITERS = 3, 10
+SPLIT_KERNEL, FMA_KERNEL = "psel_split_kernel", "conv_f32_kernel"
+
+
+def _split_bound(shape, ops_terms: int, extra_bytes: int = 0):
+    """(bound ms, bound_by, SIMT ms) of an f32 conv over the s2d ``shape``
+    computed on the tensor cores in the split form: f32 x read and y written
+    once (plus ``extra_bytes``) at 3.35 TB/s against three bf16 products of
+    ``ops_terms`` multiply-adds a full-res pixel (9·C² for psel, 17·C² for
+    K2) at 989 TFLOP/s; the SIMT figure is the same function's 2·ops_terms
+    operations a pixel at 67 f32 TFLOP/s, context only."""
+    b, hh, ww, z = shape
+    t_bytes = (2 * b * hh * ww * z * 4 + extra_bytes) / HBM_BYTES_PER_S * 1e3
+    ops = 2 * b * (2 * hh) * (2 * ww) * ops_terms
+    t_ops = 3 * ops / BF16_TENSOR_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ops / F32_SIMT_FLOPS * 1e3
+
+
+def _kernel_names(label: str, fn, iters: int = 2):
+    """{kernel name: launches a call} of ``fn`` by torch.profiler, printed."""
+    ops = _device_ops(fn, iters)
+    names = {key: n for key, _, n in ops}
+    split = sum(n for key, n in names.items() if SPLIT_KERNEL in key)
+    fma = sum(n for key, n in names.items() if FMA_KERNEL in key)
+    print(f"[chip_smoke] {label}: {split} {SPLIT_KERNEL} and {fma} {FMA_KERNEL} launches a call (profiler)")
+    return split, fma
+
+
+def _configured_step(dev, iters: int):
+    """The segmentation step as ``configs/*.yaml`` configure it (f32, 128²,
+    batch 16, Adam; PyTorch's default TF32 setting) on a seeded batch, timed
+    over ``iters`` steps after F32_STEP_WARMUP: ms/step by CUDA events, host
+    issue ms/step by ``time.perf_counter``, peak memory in GiB, the
+    launches a step and every step's loss; with the model and a call of
+    one more step. Shared with ``tools/kernel_ab.py``'s f32 case."""
+    import torch
+
+    from mingraph_unet_tpu_torch.config import PipelineConfig
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
+
+    cfg = PipelineConfig.from_config_dir(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"))
+    b, size = cfg.training.batch_size, cfg.preprocessing.resize_dim[0]
+    if cfg.training.bf16 or (b, size) != F32_CELLS[1] or cfg.training.optimizer != "adam":
+        _fail(f"configs/*.yaml no longer configure f32 Adam at {F32_CELLS[1][1]}² b{F32_CELLS[1][0]}")
+    model = build_unet(cfg)
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
+    step = make_train_step(cfg, augment=True)
+    imgs, masks = _train_batch(b, size, seed=3, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = [step(state, imgs, masks, gen)["loss"] for _ in range(F32_STEP_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        losses.append(step(state, imgs, masks, gen)["loss"])
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / iters, "host_ms": host_ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "counts": {k: v // iters for k, v in _counts().items()}, "losses": [float(v) for v in losses],
+            "model": model, "step": lambda: step(state, imgs, masks, gen)}
+
+
+def _f32_path(dev):
+    """The configured precision's paths on the card, counted and profiled:
+    the f32 serving forward at 128² b16 (psel 4, dec-conv1 2, pool 2, d2s 1,
+    hist-eq 1; the profiler's kernel names: every psel launch the split
+    kernel, the FMA kernel only K2's) and the segmentation step as
+    ``configs/*.yaml`` configure it (f32, 128², batch 16, Adam lr 1e-3
+    weight decay 1e-4, PyTorch's default TF32 setting): K4 4 + 4 a step,
+    every one the split kernel, none the FMA kernel; finite losses and
+    gradients; ms/step by CUDA events, host issue ms, peak memory. Returns
+    the launches a forward and a step."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+
+    b, size = F32_CELLS[1]  # the configured cell (``_configured_step`` holds configs/*.yaml to it)
+    with torch.no_grad():
+        model = MinGraphUNet(dtype=torch.float32, detection_pre_pool=size // 16, device=dev, seed=0)
+        _perturb_bn(model, seed=1)
+        x = _images(b, size, seed=2).to(dev)
+        _reset_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        fwd = _counts()
+        if fwd != dict({k: 0 for k in fwd}, psel=4, dec1=2, pool=2, d2s=1, histeq=1):
+            _fail(f"f32 serving forward {size}² b{b}: launches {fwd}")
+        if not torch.isfinite(out["logits"]).all():
+            _fail("f32 serving forward: non-finite logits")
+        split, fma = _kernel_names(f"f32 serving forward {size}² b{b}", lambda: model(x))
+        if (split, fma) != (fwd["psel"], fwd["dec1"]):
+            _fail(f"f32 serving forward: {split} split and {fma} FMA launches, expected psel {fwd['psel']} on the "
+                  f"split kernel and only K2's {fwd['dec1']} on the FMA kernel")
+    del model, x, out
+
+    run = _configured_step(dev, F32_STEP_ITERS)
+    ms, host_ms, peak, counts, losses = run["ms"], run["host_ms"], run["peak_gib"], run["counts"], run["losses"]
+    if counts != dict({k: 0 for k in counts}, k4_fwd=4, k4_dgrad=4):
+        _fail(f"configured f32 step: launches a step {counts}")
+    if not all(math.isfinite(v) for v in losses) or not _grads_finite(run["model"]):
+        _fail("configured f32 step: a non-finite loss or gradient")
+    split, fma = _kernel_names("configured f32 step", run["step"])
+    if (split, fma) != (8, 0):
+        _fail(f"configured f32 step: {split} split and {fma} FMA launches a step, expected K4's 8 on the split kernel")
+    print(f"[chip_smoke] configured segmentation step (configs/*.yaml: f32, {size}² b{b}, Adam): {ms:.3f} ms/step, "
+          f"{b / ms * 1e3:.1f} images/s, host issue time {host_ms:.3f} ms/step, peak memory {peak:.3f} GiB; "
+          f"losses {[f'{v:.4f}' for v in losses]}")
+    print(f"[chip_smoke] f32_step_ms {ms:.4f} f32_step_host_ms {host_ms:.4f} f32_step_peak_gib {peak:.3f}")
+    del run
+    torch.cuda.empty_cache()
+    return fwd, counts
+
+
+def _f32_table(dev, fwd_launches, step_launches):
+    """Phases 2, 4 and 6 in f32: K1, K4 forward and dgrad at the 512² b8
+    shapes and the configured 128² b16 ones of both s2d levels (C = 32, 64:
+    the split kernel) held against their plain versions within F32_TOL
+    (TF32 off), whole output and borders, and timed: events a launch, the
+    kernel's device time, its device operations a call (must be 1) and
+    host µs, the plain version, the full-resolution ``F.conv2d`` in f32
+    (channels-last; TF32 off, and on as context), the split form's bound and
+    the SIMT figure; the autograd Function's f32 gradients at 128² b16
+    (512² b8: phase 6). K2 in f32 (the FMA kernel) at its bf16 shapes,
+    checked and timed beside its split-form bound and, having no one-call
+    library, the cuDNN route in f32 as context."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale  # noqa: E731
+    source = "mingraph_unet_tpu_torch/csrc/psel_conv.cu"
+    rows = []
+    torch.backends.cudnn.allow_tf32 = False
+    for b, size in F32_CELLS:
+        cell = f"{size}^2 b{b}"
+        for lvl, c in ((0, 32), (1, 64)):
+            hh = size // 2 ** (lvl + 1)
+            x, cot = rnd(b, hh, hh, 4 * c), rnd(b, hh, hh, 4 * c)
+            k, bias = rnd(3, 3, c, c, scale=(1.0 / (9 * c)) ** 0.5), rnd(c)
+            xf = s2d_ops.depth_to_space(x).permute(0, 3, 1, 2)  # channels-last NCHW view
+            wf = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            library = lambda: F.conv2d(xf, wf, padding=1)  # noqa: E731
+            _check_close(f"library F.conv2d f32 {cell} L{lvl}", s2d_ops.space_to_depth(library().permute(0, 2, 3, 1)),
+                         psconv.psconv_train_plain(x, k), F32_TOL, what="K4's plain version")
+            lib_ms = _time_ms(library, KERNEL_ITERS)
+            lib_dev = _device_ms(f"library f32 {cell} L{lvl}", library)
+            torch.backends.cudnn.allow_tf32 = True
+            tf32_ms, tf32_dev = _time_ms(library, KERNEL_ITERS), _device_ms(f"library TF32 {cell} L{lvl}", library)
+            torch.backends.cudnn.allow_tf32 = False
+            bound, bound_by, simt = _split_bound(x.shape, 9 * c * c, k.numel() * 4)
+            for name, fn, plain, args, line, counter in (
+                ("psel_conv3x3", psconv.psel_conv3x3, psconv.psel_conv3x3_plain, (x, k, bias), "258", "psel"),
+                ("psconv_fwd", psconv.psconv_fwd, psconv.psconv_train_plain, (x, k), "416", "k4_fwd"),
+                ("psconv_dgrad", psconv.psconv_dgrad, psconv.psconv_dgrad_plain, (cot, k), "433", "k4_dgrad"),
+            ):
+                tag = f"{name} f32 {cell} L{lvl}"
+                first = fn(*args)
+                err = _check_close(f"{tag} {tuple(x.shape)}", first, plain(*args), F32_TOL)
+                call = lambda: fn(*args)  # noqa: E731
+                ms, plain_ms = _time_ms(call, KERNEL_ITERS), _time_ms(lambda: plain(*args), KERNEL_ITERS)
+                if not torch.equal(call(), first):  # every stage of the ring reused many times by now
+                    _fail(f"{tag}: a later launch differs from the first on the same input")
+                call_ms, dev_ms, dev_ops = _device_ms(tag, call, own=SPLIT_KERNEL, count=True)
+                if dev_ops != 1:
+                    _fail(f"{tag}: {dev_ops} device operations a call, expected the split kernel alone")
+                host_us = _host_us(call)
+                launches = fwd_launches if counter == "psel" else step_launches
+                rows.append({
+                    "name": tag, "route": "cuda", "source": source, "replaces": f"{PSCONV_SRC}:{line}",
+                    "launches": launches[counter], "launches_path": "f32 serving forward 128^2 b16" if
+                    counter == "psel" else "configured f32 segmentation step", "shape": list(x.shape),
+                    "dtype": "float32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "library_ms": lib_ms, "device_ms": dev_ms, "call_device_ms": call_ms,
+                    "device_ops": dev_ops, "host_us": host_us, "library_device_ms": lib_dev,
+                    "library_tf32_ms": tf32_ms, "library_tf32_device_ms": tf32_dev,
+                })
+                print(f"[chip_smoke] {tag}: {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us ({dev_ops} "
+                      f"operation a call), host {host_us:.1f} us a call, plain {plain_ms * 1e3:.1f} us, library f32 "
+                      f"(TF32 off) {lib_ms * 1e3:.1f} us / device {lib_dev * 1e3:.1f} us (TF32 on, context: "
+                      f"{tf32_ms * 1e3:.1f} / {tf32_dev * 1e3:.1f} us), bound {bound * 1e3:.1f} us ({bound_by}, the "
+                      f"split form's bf16 products); f32 FMA figure {simt * 1e3:.1f} us (context)")
+            if b != BATCH:  # phase 6 holds the 512² b8 gradients
+                grads = []
+                for fn in (psconv.psconv_train, psconv.psconv_train_plain):
+                    xi, ki = x.clone().requires_grad_(), k.clone().requires_grad_()
+                    fn(xi, ki).backward(cot)
+                    grads.append((xi.grad, ki.grad))
+                (dx, dk), (dx_ref, dk_ref) = grads
+                _check_close(f"psconv_train f32 {cell} L{lvl} dx", dx, dx_ref, F32_TOL)
+                _check_close(f"psconv_train f32 {cell} L{lvl} dK", dk[None], dk_ref[None], F32_TOL, border=False)
+
+    for case in _kernel_cases(dev):
+        if case["kind"] != "dec1":
+            continue
+        args = [a.float() for a in case["args"]]
+        tag = f"dec_conv1_fused f32 {SIZE}^2 b{BATCH} L{case['level']}"
+        call = lambda: psconv.dec_conv1_fused(*args)  # noqa: E731
+        err = _check_close(f"{tag} {tuple(args[0].shape)}", call(), psconv.dec_conv1_fused_plain(*args), F32_TOL)
+        ms = _time_ms(call, KERNEL_ITERS)
+        plain_ms = _time_ms(lambda: psconv.dec_conv1_fused_plain(*args), KERNEL_ITERS)
+        call_ms, dev_ms = _device_ms(tag, call, own=FMA_KERNEL)
+        cudnn = _dec1_cudnn(args[0], args[1], *case["unfolded"])
+        cudnn_ms, cudnn_dev = _time_ms(cudnn, KERNEL_ITERS), _device_ms(f"{tag} cuDNN route", cudnn)
+        c = args[0].shape[-1] // 4
+        bound, bound_by, simt = _split_bound(args[0].shape, 17 * c * c, (args[1].numel() + args[2].numel()
+                                                                         + args[3].numel()) * 4)
+        rows.append({
+            "name": tag, "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/dec_conv1.cu",
+            "replaces": f"{PSCONV_SRC}:599", "launches": fwd_launches["dec1"],
+            "launches_path": "f32 serving forward 128^2 b16", "shape": list(args[0].shape), "dtype": "float32",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "device_ms": dev_ms, "call_device_ms": call_ms,
+            "context_cudnn_route_ms": cudnn_ms, "context_cudnn_route_device_ms": cudnn_dev,
+        })
+        print(f"[chip_smoke] {tag} (the FMA kernel): {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us (call "
+              f"{call_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, cuDNN route f32 (context) {cudnn_ms * 1e3:.1f} / "
+              f"{cudnn_dev * 1e3:.1f} us, bound {bound * 1e3:.1f} us ({bound_by}, split form), f32 FMA figure "
+              f"{simt * 1e3:.1f} us")
+    torch.backends.cudnn.allow_tf32 = True
     return rows
 
 
@@ -2025,9 +2278,69 @@ def _shard_cuts(h):
     return [i * h // 4 for i in range(5)], [0, 1, h // 4 + 1, h // 2 + 3, h]
 
 
-def _k9_table(dev, s2d_sites, launches):
+def _k9_timing(x, k2, b2, level: int, launches, err: float):
+    """Phase 12's timing of K9 on one inner shard of four of ``x`` (bf16, or
+    f32 on the split kernel) beside the JAX form (concat + K1 + slice), the
+    plain version, the library's call (dense-s2d ``F.conv2d`` on the
+    extended shard; in f32 with TF32 off) and its bound: the shard and its
+    two halo rows read, its rows written, at 3.35 TB/s, against 2·9·C²
+    operations a full-res pixel at 989 bf16 TFLOP/s (three times that in
+    f32: the split form's products). Returns the kernels line's row."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    f32 = x.dtype == torch.float32
+    xs, top, bot, _ = _shard_views(x, _shard_cuts(x.shape[1])[0])[1]
+    ext = psconv.extend_rows(xs, top, bot)
+    ms = _time_ms(lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2), KERNEL_ITERS)
+    plain_ms = _time_ms(lambda: psconv.psel_conv3x3_halo_plain(xs, top, bot, k2, b2), KERNEL_ITERS)
+    jax_ms = _time_ms(lambda: psconv.psel_conv3x3(psconv.extend_rows(xs, top, bot), k2, b2)[:, 1:-1], KERNEL_ITERS)
+    wd = s2d_ops.s2d_conv3x3_kernel(k2).to(xs.dtype).permute(3, 2, 0, 1).contiguous()
+    extn = ext.permute(0, 3, 1, 2)
+    library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=1), KERNEL_ITERS)
+    tag = f"L{level}{' f32' if f32 else ''} shard"
+    dev_ms = {k: _device_ms(f"{k} {tag}", f) for k, f in (
+        ("jax", lambda: psconv.psel_conv3x3(psconv.extend_rows(xs, top, bot), k2, b2)[:, 1:-1]),
+        ("library", lambda: F.conv2d(extn, wd, padding=1)))}
+    k9_call = lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2)  # noqa: E731
+    dev_ms["k9"], _, k9_ops = _device_ms(f"k9 {tag}", k9_call, own=SPLIT_KERNEL if f32 else "psel_wgmma_kernel",
+                                         count=True)
+    k9_host_us = _host_us(k9_call)
+    b, h, w, z = xs.shape
+    c, esz = z // 4, xs.element_size()
+    t_bytes = (ext.numel() * esz + xs.numel() * esz + k2.numel() * esz + c * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 if f32 else 1) * 2 * b * (2 * h) * (2 * w) * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
+    row = {
+        "name": f"sharded_psconv{' f32' if f32 else ''} L{level}", "route": "cuda",
+        "source": "mingraph_unet_tpu_torch/csrc/psel_conv.cu",
+        "replaces": "mingraph_unet_tpu/parallel/halo.py:84", "launches": launches["k9"],
+        "shape": list(xs.shape), "shards": 4, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "jax_form_ms": jax_ms, "device_ms": dev_ms["k9"],
+        "jax_form_device_ms": dev_ms["jax"], "library_device_ms": dev_ms["library"],
+        "device_ops": k9_ops, "host_us": k9_host_us,
+    }
+    if f32:
+        row["dtype"] = "float32"
+        row["launches_path"] = "f32 sharded serving forward 512^2 b8"
+    print(f"[chip_smoke] sharded_psconv {tag} {tuple(xs.shape)}: {ms * 1e3:.1f} us/launch, "
+          f"JAX form (concat + K1 + slice) {jax_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
+          f"(dense-s2d F.conv2d on the extended shard) {library_ms * 1e3:.1f} us, bound "
+          f"{max(t_bytes, t_ops) * 1e3:.1f} us ({row['bound_by']}); device time per call (profiler): "
+          f"K9 {dev_ms['k9'] * 1e3:.1f} us in {k9_ops} operations (host {k9_host_us:.1f} us a call), JAX "
+          f"form {dev_ms['jax'] * 1e3:.1f} us, library {dev_ms['library'] * 1e3:.1f} us; weights L2 -> SM "
+          f"(from the tiling) {_psel_weight_l2_bytes(xs.shape, xs.device, k2.element_size()) / 1e6:.2f} MB")
+    return row
+
+
+def _k9_table(dev, s2d_sites, launches, f32_sites):
     """Phase 12: K9 and K2's sharded entry on H-shards, in one process. The
-    serving forward's L0 and L1 conv2 inputs (bf16 and f32) are cut into 4
+    L0 and L1 conv2 inputs and weights of the bf16 serving forward
+    (``s2d_sites``) and of the f32 one (``f32_sites``: f32 x, kernel and
+    bias, whose low bf16 halves are not zero) are cut into 4
     equal and 4 uneven shards, each given its neighbours' rows: the stitched
     K9 shards must equal K1 on the whole tensor bit for bit, and K1's plain
     version within CONV_TOL (F32_TOL in f32); the same for K2's sharded
@@ -2038,20 +2351,22 @@ def _k9_table(dev, s2d_sites, launches):
     at 3.35 TB/s, against 2·9·C² operations a full-res pixel at 989 bf16
     TFLOP/s (PERF.md's K9 row)."""
     import torch
-    import torch.nn.functional as F
 
-    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
     from mingraph_unet_tpu_torch.ops.kernels import psconv
 
     sites = {name: (block, inp, fused_up, conv2) for name, block, inp, fused_up, conv2 in s2d_sites}
-    rows = []
+    rows, errs = [], {}
     torch.backends.cudnn.allow_tf32 = False  # the f32 plain versions are cuDNN convs
     with torch.no_grad():
         for level, (enc, dec) in enumerate((("enc0", "dec-L0"), ("enc1", "dec-L1"))):
-            x2, k2, b2 = sites[enc][3]
+            x2 = sites[enc][3][0]
             hh = x2.shape[1]
+            inputs = {torch.bfloat16: sites[enc][3], torch.float32: f32_sites[level]}
             for dt, tol in ((torch.bfloat16, CONV_TOL), (torch.float32, F32_TOL)):
-                x = x2.to(dt)
+                x, k2, b2 = inputs[dt]
+                if x.dtype != dt or x.shape != x2.shape:
+                    _fail(f"sharded_psconv L{level}: a {dt} input of {tuple(x2.shape)} expected, got {x.dtype} "
+                          f"{tuple(x.shape)}")
                 whole = psconv.psel_conv3x3(x, k2, b2)
                 for cuts in _shard_cuts(hh):
                     got = torch.cat([psconv.psel_conv3x3_halo(xs, top, bot, k2, b2)
@@ -2060,48 +2375,11 @@ def _k9_table(dev, s2d_sites, launches):
                     if not torch.equal(got, whole):
                         _fail(f"sharded_psconv L{level} {dt} shards {cuts}: not bit-equal to K1 on the whole tensor "
                               f"(max diff {(got.float() - whole.float()).abs().max().item():.3g})")
-                err = _check_close(f"sharded_psconv L{level} {dt} stitched {tuple(x.shape)}", got,
-                                   psconv.psel_conv3x3_plain(x.float(), k2, b2), tol)
-                if dt == torch.bfloat16:
-                    err_bf16 = err
+                errs[dt] = _check_close(f"sharded_psconv L{level} {dt} stitched {tuple(x.shape)}", got,
+                                        psconv.psel_conv3x3_plain(x.float(), k2, b2), tol)
             print(f"[chip_smoke] sharded_psconv L{level}: 4 equal and 4 uneven shards bit-equal to K1 (bf16, f32)")
-
-            xs, top, bot, _ = _shard_views(x2, _shard_cuts(hh)[0])[1]
-            ext = psconv.extend_rows(xs, top, bot)
-            ms = _time_ms(lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2), KERNEL_ITERS)
-            plain_ms = _time_ms(lambda: psconv.psel_conv3x3_halo_plain(xs, top, bot, k2, b2), KERNEL_ITERS)
-            jax_ms = _time_ms(lambda: psconv.psel_conv3x3(psconv.extend_rows(xs, top, bot), k2, b2)[:, 1:-1],
-                              KERNEL_ITERS)
-            wd = s2d_ops.s2d_conv3x3_kernel(k2).to(xs.dtype).permute(3, 2, 0, 1).contiguous()
-            extn = ext.permute(0, 3, 1, 2)
-            library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=1), KERNEL_ITERS)
-            dev_ms = {k: _device_ms(f"{k} L{level} shard", f) for k, f in (
-                ("jax", lambda: psconv.psel_conv3x3(psconv.extend_rows(xs, top, bot), k2, b2)[:, 1:-1]),
-                ("library", lambda: F.conv2d(extn, wd, padding=1)))}
-            k9_call = lambda: psconv.psel_conv3x3_halo(xs, top, bot, k2, b2)  # noqa: E731
-            dev_ms["k9"], _, k9_ops = _device_ms(f"k9 L{level} shard", k9_call, own="psel_wgmma_kernel", count=True)
-            k9_host_us = _host_us(k9_call)
-            b, h, w, z = xs.shape
-            c = z // 4
-            t_bytes = (ext.numel() * 2 + xs.numel() * 2 + k2.numel() * 2 + c * 4) / HBM_BYTES_PER_S * 1e3
-            t_ops = 2 * b * (2 * h) * (2 * w) * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
-            rows.append({
-                "name": f"sharded_psconv L{level}", "route": "cuda",
-                "source": "mingraph_unet_tpu_torch/csrc/psel_conv.cu",
-                "replaces": "mingraph_unet_tpu/parallel/halo.py:84", "launches": launches["k9"],
-                "shape": list(xs.shape), "shards": 4, "max_abs_err": err_bf16, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms, "jax_form_ms": jax_ms, "device_ms": dev_ms["k9"],
-                "jax_form_device_ms": dev_ms["jax"], "library_device_ms": dev_ms["library"],
-                "device_ops": k9_ops, "host_us": k9_host_us,
-            })
-            print(f"[chip_smoke] sharded_psconv L{level} one inner shard {tuple(xs.shape)}: {ms * 1e3:.1f} us/launch, "
-                  f"JAX form (concat + K1 + slice) {jax_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
-                  f"(dense-s2d F.conv2d on the extended shard) {library_ms * 1e3:.1f} us, bound "
-                  f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}); device time per call (profiler): "
-                  f"K9 {dev_ms['k9'] * 1e3:.1f} us in {k9_ops} operations (host {k9_host_us:.1f} us a call), JAX "
-                  f"form {dev_ms['jax'] * 1e3:.1f} us, library {dev_ms['library'] * 1e3:.1f} us; weights L2 -> SM "
-                  f"(from the tiling) {_psel_weight_l2_bytes(xs.shape, xs.device, k2.element_size()) / 1e6:.2f} MB")
+            for dt, dname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                rows.append(_k9_timing(*inputs[dt], level, launches[dname], errs[dt]))
 
             block, inp, (x_prev, wt, bias_up), _ = sites[dec]
             k1, b1 = block.folded(1)
@@ -2141,7 +2419,7 @@ def _k9_table(dev, s2d_sites, launches):
             t_ops = 2 * b * (2 * h) * (2 * w) * 17 * c * c / BF16_TENSOR_FLOPS * 1e3  # K2's least work, as above
             rows.append({
                 "name": f"dec_conv1_halo {dec}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/dec_conv1.cu",
-                "replaces": f"{PSCONV_SRC}:599", "launches": launches["dec1_halo"], "shape": list(s.shape),
+                "replaces": f"{PSCONV_SRC}:599", "launches": launches["bf16"]["dec1_halo"], "shape": list(s.shape),
                 "shards": 4, "max_abs_err": err_bf16, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, "device_ms": dev_ms,
                 "call_device_ms": call_ms,
@@ -2327,30 +2605,105 @@ class _Params(list):
         self.n_bn = sum(isinstance(mod, FoldableBatchNorm) for mod in model.modules())
 
 
+def _sharded_serving(dev, mesh, dtype):
+    """Phase 13's sharded serving forward in ``dtype``: the serving U-Net
+    at 512² b8 through ``spatial_sharded_apply`` on the one-rank ``mesh``,
+    launching K9 4 and sharded K2 2 and K1, K2 never, every K9 and
+    sharded-K2 site bit-equal to K1 and K2 on the inputs it got, the
+    logits within CONV_TOL of the unsharded forward's in bf16 (the cuDNN
+    sites may pick another algorithm for a VALID-in-H conv) and F32_TOL in
+    f32 (TF32 off). The bf16 forward is timed beside the unsharded one.
+    Returns the launch counts and, by s2d level, the (x, kernel, bias) of
+    the first K9 site there: the encoder's conv2 input and weights."""
+    import torch
+
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+    from mingraph_unet_tpu_torch.parallel import halo as phalo
+    from mingraph_unet_tpu_torch.parallel import spatial as pspatial
+
+    f32 = dtype == torch.float32
+    tag = "f32" if f32 else "bf16"
+    model, x = _serving_model(dev, dtype=dtype)
+    unet = model.unet
+    sites = []
+    real = {"k9": phalo.psel_conv3x3_halo, "dec1_halo": pspatial.dec_conv1_halo}
+
+    def spy(kind):
+        def call(*args):
+            y = real[kind](*args)
+            sites.append((kind, args, y))
+            return y
+        return call
+
+    def sharded():
+        return pspatial.gather_rows(pspatial.spatial_sharded_apply(
+            lambda xl, spatial: unet(xl, spatial=spatial)["logits"], x, mesh), mesh)
+
+    torch.backends.cudnn.allow_tf32 = not f32
+    with torch.no_grad():
+        whole = unet(x)["logits"]
+        phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = spy("k9"), spy("dec1_halo")
+        try:
+            _reset_counts()
+            got = sharded()
+            torch.cuda.synchronize()
+            launches = _counts()
+        finally:
+            phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = real["k9"], real["dec1_halo"]
+        print(f"[chip_smoke] spatial_sharded_apply {tag} launches: {launches}")
+        if launches != {"psel": 0, "dec1": 0, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 0,
+                        "wconv": 0, "conv_block": 0, "k9": 4, "dec1_halo": 2,
+                        "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
+            _fail(f"expected K9 4, sharded K2 2, pool 2, d2s 1 and no K1 or K2 launches in the sharded {tag} U-Net, "
+                  f"got {launches}")
+        _check_close(f"spatial_sharded_apply U-Net {tag} logits (NCCL, 1 rank)", got, whole,
+                     F32_TOL if f32 else CONV_TOL, what="the unsharded forward")
+        enc_sites = {}
+        for kind, args, y in sites:
+            if kind == "k9":
+                xs, top, bot, k, b = args[:5]
+                ref = psconv.psel_conv3x3(xs, k, b)
+                enc_sites.setdefault({128: 0, 256: 1}[xs.shape[-1]], (xs, k, b))
+            else:
+                s, st, sb, p, pt, pb, k_skip, k_prev, t9 = args[:9]
+                ref = psconv.dec_conv1_fused(s, p, k_skip, k_prev, t9)
+            if not torch.equal(y, ref):
+                _fail(f"{kind} {tag} site {tuple(args[0].shape)} in the sharded forward is not bit-equal to the "
+                      f"unsharded kernel on its inputs")
+        print(f"[chip_smoke] spatial_sharded_apply U-Net {tag}: {len(sites)} K9/K2 sites bit-equal to K1/K2")
+        if not f32:
+            whole_ms = _time_ms(lambda: unet(x)["logits"], 5)
+            sharded_ms = _time_ms(sharded, 5)
+            whole_dev = _device_ms("the unsharded U-Net", lambda: unet(x)["logits"], 3)
+            sharded_dev = _device_ms("the sharded U-Net", sharded, 3)
+            print(f"[chip_smoke] spatial_sharded_apply U-Net bf16 {BATCH}x{SIZE}^2 (1 rank): {sharded_ms:.3f} ms "
+                  f"({sharded_dev:.3f} ms of kernels) against the unsharded U-Net's {whole_ms:.3f} ms "
+                  f"({whole_dev:.3f} ms of kernels)")
+    torch.backends.cudnn.allow_tf32 = True
+    del model, x, whole, got, sites
+    torch.cuda.empty_cache()
+    return launches, enc_sites
+
+
 def _nccl_paths(dev):
     """Phase 13: the port's torch.distributed paths over NCCL at world size
     1 (one rank in a group of one; each collective runs). The serving
-    U-Net through ``spatial_sharded_apply`` at 512² b8 bf16 against the
-    unsharded forward within CONV_TOL of max |logits| (the cuDNN sites may
-    pick another algorithm for a VALID-in-H conv), bit-equal to K1 and K2 at
-    every K9 and sharded-K2 site on the inputs the site got, launching K9 4
-    and sharded K2 2 and K1, K2 never; then one data-parallel segmentation
+    U-Net through ``spatial_sharded_apply`` at 512² b8, in bf16 and in f32
+    (``_sharded_serving``); then one data-parallel segmentation
     step and one e2e step at 512² b8 bf16 against the one-card steps from
     the same weights, batch and generator: losses, gradients and BN
     statistics within 1e-3 (an all-reduced sum may round in another order),
     each step launching K4 as before, and each timed and profiled beside
     the one-card step (``_dp_vs_one_card``). A group of one rank exchanges
     no halo rows and gathers nothing: the halo exchange and the all-gather
-    need two or more cards. Returns the sharded forward's launch counts."""
+    need two or more cards. Returns the sharded forwards' launch counts by
+    dtype and the f32 forward's K9 sites by level (phase 12's f32 inputs)."""
     import socket
 
     import torch
     import torch.distributed as dist
 
-    from mingraph_unet_tpu_torch.ops.kernels import psconv
-    from mingraph_unet_tpu_torch.parallel import halo as phalo
     from mingraph_unet_tpu_torch.parallel import mesh as pmesh
-    from mingraph_unet_tpu_torch.parallel import spatial as pspatial
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
     from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
     from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
@@ -2363,59 +2716,8 @@ def _nccl_paths(dev):
     try:
         mesh = pmesh.make_mesh(1, 1)
         print(f"[chip_smoke] NCCL group of 1 rank: mesh {mesh.shape}, backend {dist.get_backend()}")
-        model, x = _serving_model(dev)
-        unet = model.unet
-        sites = []
-        real = {"k9": phalo.psel_conv3x3_halo, "dec1_halo": pspatial.dec_conv1_halo}
-
-        def spy(kind):
-            def call(*args):
-                y = real[kind](*args)
-                sites.append((kind, args, y))
-                return y
-            return call
-
-        def sharded():
-            return pspatial.gather_rows(pspatial.spatial_sharded_apply(
-                lambda xl, spatial: unet(xl, spatial=spatial)["logits"], x, mesh), mesh)
-
-        with torch.no_grad():
-            whole = unet(x)["logits"]
-            phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = spy("k9"), spy("dec1_halo")
-            try:
-                _reset_counts()
-                got = sharded()
-                torch.cuda.synchronize()
-                launches = _counts()
-            finally:
-                phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = real["k9"], real["dec1_halo"]
-            print(f"[chip_smoke] spatial_sharded_apply launches: {launches}")
-            if launches != {"psel": 0, "dec1": 0, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 0,
-                            "wconv": 0, "conv_block": 0, "k9": 4, "dec1_halo": 2,
-                            "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
-                _fail(f"expected K9 4, sharded K2 2, pool 2, d2s 1 and no K1 or K2 launches in the sharded U-Net, "
-                      f"got {launches}")
-            _check_close("spatial_sharded_apply U-Net logits (NCCL, 1 rank)", got, whole, CONV_TOL,
-                         what="the unsharded forward")
-            for kind, args, y in sites:
-                if kind == "k9":
-                    xs, top, bot, k, b = args[:5]
-                    ref = psconv.psel_conv3x3(xs, k, b)
-                else:
-                    s, st, sb, p, pt, pb, k_skip, k_prev, t9 = args[:9]
-                    ref = psconv.dec_conv1_fused(s, p, k_skip, k_prev, t9)
-                if not torch.equal(y, ref):
-                    _fail(f"{kind} site {tuple(args[0].shape)} in the sharded forward is not bit-equal to the "
-                          f"unsharded kernel on its inputs")
-            whole_ms = _time_ms(lambda: unet(x)["logits"], 5)
-            sharded_ms = _time_ms(sharded, 5)
-            whole_dev = _device_ms("the unsharded U-Net", lambda: unet(x)["logits"], 3)
-            sharded_dev = _device_ms("the sharded U-Net", sharded, 3)
-        print(f"[chip_smoke] spatial_sharded_apply U-Net bf16 {BATCH}x{SIZE}^2 (1 rank): {sharded_ms:.3f} ms "
-              f"({sharded_dev:.3f} ms of kernels) against the unsharded U-Net's {whole_ms:.3f} ms ({whole_dev:.3f} "
-              f"ms of kernels); {len(sites)} K9/K2 sites bit-equal to K1/K2")
-        del model, x, whole, got, sites
-        torch.cuda.empty_cache()
+        launches, _ = _sharded_serving(dev, mesh, torch.bfloat16)
+        launches32, f32_sites = _sharded_serving(dev, mesh, torch.float32)
 
         _collective_blocking(mesh.batch_group, dev)
         cfg = _train_cfg(SIZE, bf16=True)
@@ -2452,7 +2754,7 @@ def _nccl_paths(dev):
             _dp_vs_one_card(kind, one, dp, dp_params, mesh)
             del sides, one, dp, dp_params
             torch.cuda.empty_cache()
-        return launches
+        return {"bf16": launches, "f32": launches32}, f32_sites
     finally:
         dist.destroy_process_group()
 
@@ -2466,12 +2768,14 @@ def _spatial_train_path(dev):
     the U-Net then runs on its single H-shard through every sharded train
     site (K4 on the shard at the four s2d conv2s, no row exchanged), its
     outputs go through the gather and the rest of the step as on a spatial
-    group. Each bf16 512² b8 step (seg, e2e) must launch K4 on a shard 4
-    forward and 4 dgrad (hist-eq once in e2e) and K4 itself, K1-K3 never,
+    group. Each 512² b8 step (seg, e2e; in bf16, and in f32 as
+    ``configs/training.yaml`` sets the precision) must launch K4 on a shard
+    4 forward and 4 dgrad (hist-eq once in e2e) and K4 itself, K1-K3 never,
     and agree with the one-card step from the same weights, batch and
-    generator within 1e-3 (losses, every gradient and BN statistic).
-    Phase 15 (f): the e2e step with the dense head on, the same way.
-    Returns each step's launch counts."""
+    generator within 1e-3 (losses, every gradient and BN statistic); in
+    f32 the profiler must name the split kernel for all 8 launches and the
+    FMA kernel for none. Phase 15 (f): the e2e step with the dense head
+    on, the same way. Returns each step's launch counts."""
     import socket
 
     import torch
@@ -2490,10 +2794,13 @@ def _spatial_train_path(dev):
         mesh = pmesh.make_mesh(1, 1)
         imgs, masks = _train_batch(BATCH, SIZE, seed=5, dev=dev)
         launches = {}
-        for kind, module in (("seg", segmentation), ("e2e", end_to_end), ("e2e dense", end_to_end)):
-            cfg = _train_cfg(SIZE, bf16=True)
+        for kind, module in (("seg", segmentation), ("e2e", end_to_end), ("e2e dense", end_to_end),
+                             ("seg f32", segmentation), ("e2e f32", end_to_end)):
+            f32 = kind.endswith("f32")
+            cfg = _train_cfg(SIZE, bf16=not f32)
             cfg.model.fusion_detection.use_dense_detection = kind == "e2e dense"
-            build = segmentation.build_unet if kind == "seg" else end_to_end.build_mingraph_unet
+            seg = kind.startswith("seg")
+            build = segmentation.build_unet if seg else end_to_end.build_mingraph_unet
             weights = build(cfg).state_dict()
             sides = {}
             for side in ("one card", "spatial"):
@@ -2506,7 +2813,7 @@ def _spatial_train_path(dev):
                     module.spatial_step = lambda mesh: True
                 try:
                     step = (segmentation.make_train_step(cfg, augment=True, mesh=mesh if side == "spatial" else None)
-                            if kind == "seg" else
+                            if seg else
                             end_to_end.make_e2e_train_step(m, opt, cfg, augment=True,
                                                            mesh=mesh if side == "spatial" else None))
                 finally:
@@ -2517,9 +2824,9 @@ def _spatial_train_path(dev):
                 counts = _counts()
                 want = {k: 0 for k in counts}
                 if side == "spatial":
-                    want.update(k4_fwd_halo=4, k4_dgrad_halo=4, histeq=0 if kind == "seg" else 1)
+                    want.update(k4_fwd_halo=4, k4_dgrad_halo=4, histeq=0 if seg else 1)
                 else:
-                    want.update(k4_fwd=4, k4_dgrad=4, histeq=0 if kind == "seg" else 1)
+                    want.update(k4_fwd=4, k4_dgrad=4, histeq=0 if seg else 1)
                 print(f"[chip_smoke] {kind} step ({side}) launches: {counts}")
                 if counts != want:
                     _fail(f"{kind} step ({side}): expected launches {want}, got {counts}")
@@ -2535,8 +2842,13 @@ def _spatial_train_path(dev):
                 if not abs(got_m[k] - v) <= 1e-3 * max(abs(v), 1e-6):
                     _fail(f"{kind} spatial step: {k} {got_m[k]} against the one-card step's {v}")
             _leaf_check(f"{kind} spatial step (NCCL, 1 rank) vs one card", got_l, ref_l, 1e-3,
-                        _feeds_bn if kind == "seg" else _zero_in_exact_arithmetic)
-            if kind == "e2e dense":
+                        _feeds_bn if seg else _zero_in_exact_arithmetic)
+            if f32:
+                split, fma = _kernel_names(f"{kind} spatial step", sp)
+                if (split, fma) != (8, 0):
+                    _fail(f"{kind} spatial step: {split} split and {fma} FMA launches a step, expected K4 on a "
+                          f"shard's 8 on the split kernel")
+            elif kind == "e2e dense":
                 if not (ref_m["l_dense_obj"] > 0.0 and ref_m["l_dense_box"] > 0.0):
                     _fail(f"{kind} spatial step: the dense terms must be positive, got {ref_m}")
             else:
@@ -2552,6 +2864,76 @@ def _spatial_train_path(dev):
         dist.destroy_process_group()
 
 
+def _k4_shard_timing(x, cot, k, lvl: int, launches, errs):
+    """Phase 14's timing of K4 on one inner shard of four of ``x`` (forward)
+    and ``cot`` (dgrad), bf16 or f32 (the split kernel), each by events and
+    device time beside its bound (the shard and its 2 rows read, its rows
+    written, the weights, at 3.35 TB/s, against 2·9·C² operations a
+    full-res pixel at 989 TFLOP/s, three times that in f32: the split
+    form's products), the plain version, the library's dense-s2d
+    ``F.conv2d`` on the extended shard (f32: TF32 off) and the unsharded
+    K4's device time over 4; a call must be one device operation. Returns
+    the kernels line's two rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    def dgrad_plain(t, top, bottom, kk):
+        return psconv.psconv_halo_plain(t, top, bottom, kk.flip(0, 1).transpose(2, 3))
+
+    f32 = x.dtype == torch.float32
+    own, dname = (SPLIT_KERNEL, " f32") if f32 else ("psel_wgmma_kernel", "")
+    hh, c = x.shape[1], k.shape[2]
+    rows = []
+    for name, fn, plain, inp, line in (
+        ("fwd", psconv.psconv_fwd_halo, psconv.psconv_halo_plain, x, 416),
+        ("dgrad", psconv.psconv_dgrad_halo, dgrad_plain, cot, 433),
+    ):
+        xs, top, bot, _ = _shard_views(inp, _shard_cuts(hh)[0])[1]
+        kd = k if name == "fwd" else k.flip(0, 1).transpose(2, 3)
+        wd = s2d_ops.s2d_conv3x3_kernel(kd).to(xs.dtype).permute(3, 2, 0, 1).contiguous()
+        extn = psconv.extend_rows(xs, top, bot).permute(0, 3, 1, 2)
+        tag = f"psconv_{name}_halo{dname} L{lvl}"
+        torch.backends.cudnn.allow_tf32 = False
+        ms = _time_ms(lambda: fn(xs, top, bot, k), KERNEL_ITERS)
+        plain_ms = _time_ms(lambda: plain(xs, top, bot, k), KERNEL_ITERS)
+        library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=(0, 1)), KERNEL_ITERS)
+        call_ms, dev_ms, dev_ops = _device_ms(f"{tag} shard", lambda: fn(xs, top, bot, k), own=own, count=True)
+        if dev_ops != 1:
+            _fail(f"{tag}: {dev_ops} device operations a call, expected the kernel alone")
+        host_us = _host_us(lambda: fn(xs, top, bot, k))
+        whole_fn = psconv.psconv_fwd if name == "fwd" else psconv.psconv_dgrad
+        _, whole_dev = _device_ms(f"psconv_{name}{dname} L{lvl} whole", lambda: whole_fn(inp, k), own=own)
+        library_dev = _device_ms(f"library{dname} L{lvl} shard", lambda: F.conv2d(extn, wd, padding=(0, 1)))
+        torch.backends.cudnn.allow_tf32 = True
+        b, h, w, z = xs.shape
+        esz = xs.element_size()
+        t_bytes = ((xs.numel() + top.numel() + bot.numel()) * esz + xs.numel() * esz + k.numel() * esz) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = (3 if f32 else 1) * 2 * b * (2 * h) * (2 * w) * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
+        rows.append({
+            "name": tag, "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/psel_conv.cu",
+            "replaces": f"{PSCONV_SRC}:{line}", "launches": launches["seg" + dname][f"k4_{name}_halo"],
+            "launches_e2e": launches["e2e" + dname][f"k4_{name}_halo"], "shape": list(xs.shape), "shards": 4,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "device_ms": dev_ms, "call_device_ms": call_ms,
+            "library_device_ms": library_dev, "unsharded_device_ms_over_4": whole_dev / 4,
+            "host_us": host_us, "device_ops": dev_ops,
+        })
+        if f32:
+            rows[-1]["dtype"] = "float32"
+        print(f"[chip_smoke] {tag} one inner shard {tuple(xs.shape)} + 2 rows: {ms * 1e3:.1f} "
+              f"us/launch, host {host_us:.1f} us a call, device {dev_ms * 1e3:.1f} us (the call "
+              f"{call_ms * 1e3:.1f} us in {dev_ops} operation{'s' if dev_ops > 1 else ''}), plain "
+              f"{plain_ms * 1e3:.1f} us, library (dense-s2d F.conv2d, VALID in H) {library_ms * 1e3:.1f} us / "
+              f"device {library_dev * 1e3:.1f} us, unsharded K4 device / 4 {whole_dev / 4 * 1e3:.1f} us, bound "
+              f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")
+    return rows
+
+
 def _spatial_k4_table(dev, launches):
     """Phase 14's kernels: K4 on H-shards (``psconv_fwd_halo``,
     ``psconv_dgrad_halo``: K9's entry with no bias and no ReLU) at the
@@ -2565,26 +2947,15 @@ def _spatial_k4_table(dev, launches):
     to the whole one within DK_TOL. The autograd Function
     (``psconv_train_halo``), driven with the rows by hand, must give the
     same forward and dx bit for bit and its dK sum within DK_TOL. One
-    inner shard's forward and dgrad (bf16) are timed by events and device
-    time beside their bound (the shard and its 2 rows read, its rows
-    written, the weights, at 3.35 TB/s, against 2·9·C² operations a
-    full-res pixel at 989 TFLOP/s), the plain version, the library's
-    dense-s2d ``F.conv2d`` on the extended shard, and the unsharded K4's
-    device time over 4."""
+    inner shard's forward and dgrad are timed in both dtypes
+    (``_k4_shard_timing``)."""
     import torch
-    import torch.nn.functional as F
 
-    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
     from mingraph_unet_tpu_torch.ops.kernels import psconv
 
     g = torch.Generator(device=dev).manual_seed(17)
     rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale  # noqa: E731
-    source = "mingraph_unet_tpu_torch/csrc/psel_conv.cu"
     rows = []
-
-    def dgrad_plain(t, top, bottom, kk):
-        return psconv.psconv_halo_plain(t, top, bottom, kk.flip(0, 1).transpose(2, 3))
-
     for lvl, c in ((0, 32), (1, 64)):
         hh = SIZE // 2 ** (lvl + 1)
         x32, cot32 = rnd(BATCH, hh, hh, 4 * c), rnd(BATCH, hh, hh, 4 * c)
@@ -2634,46 +3005,8 @@ def _spatial_k4_table(dev, launches):
                   f"dgrad, the autograd Function), dK within {DK_TOL}")
         torch.backends.cudnn.allow_tf32 = True
 
-        x, cot = x32.to(torch.bfloat16), cot32.to(torch.bfloat16)
-        for name, fn, plain, inp, kk, line in (
-            ("fwd", psconv.psconv_fwd_halo, psconv.psconv_halo_plain, x, k, 416),
-            ("dgrad", psconv.psconv_dgrad_halo, dgrad_plain, cot, k, 433),
-        ):
-            xs, top, bot, _ = _shard_views(inp, _shard_cuts(hh)[0])[1]
-            kd = kk if name == "fwd" else kk.flip(0, 1).transpose(2, 3)
-            wd = s2d_ops.s2d_conv3x3_kernel(kd).to(xs.dtype).permute(3, 2, 0, 1).contiguous()
-            extn = psconv.extend_rows(xs, top, bot).permute(0, 3, 1, 2)
-            ms = _time_ms(lambda: fn(xs, top, bot, kk), KERNEL_ITERS)
-            plain_ms = _time_ms(lambda: plain(xs, top, bot, kk), KERNEL_ITERS)
-            library_ms = _time_ms(lambda: F.conv2d(extn, wd, padding=(0, 1)), KERNEL_ITERS)
-            call_ms, dev_ms, dev_ops = _device_ms(f"psconv_{name}_halo L{lvl} shard", lambda: fn(xs, top, bot, kk),
-                                                  own="psel_wgmma_kernel", count=True)
-            if dev_ops != 1:
-                _fail(f"psconv_{name}_halo L{lvl}: {dev_ops} device operations a call, expected the kernel alone")
-            host_us = _host_us(lambda: fn(xs, top, bot, kk))
-            whole_fn = psconv.psconv_fwd if name == "fwd" else psconv.psconv_dgrad
-            _, whole_dev = _device_ms(f"psconv_{name} L{lvl} whole", lambda: whole_fn(inp, kk), own="psel_wgmma_kernel")
-            library_dev = _device_ms(f"library L{lvl} shard", lambda: F.conv2d(extn, wd, padding=(0, 1)))
-            b, h, w, z = xs.shape
-            t_bytes = ((xs.numel() + top.numel() + bot.numel()) * 2 + xs.numel() * 2 + kk.numel() * 2) \
-                / HBM_BYTES_PER_S * 1e3
-            t_ops = 2 * b * (2 * h) * (2 * w) * 9 * c * c / BF16_TENSOR_FLOPS * 1e3
-            rows.append({
-                "name": f"psconv_{name}_halo L{lvl}", "route": "cuda", "source": source,
-                "replaces": f"{PSCONV_SRC}:{line}", "launches": launches["seg"][f"k4_{name}_halo"],
-                "launches_e2e": launches["e2e"][f"k4_{name}_halo"], "shape": list(xs.shape), "shards": 4,
-                "max_abs_err": errs[torch.bfloat16][name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms, "device_ms": dev_ms, "call_device_ms": call_ms,
-                "library_device_ms": library_dev, "unsharded_device_ms_over_4": whole_dev / 4,
-                "host_us": host_us, "device_ops": dev_ops,
-            })
-            print(f"[chip_smoke] psconv_{name}_halo L{lvl} one inner shard {tuple(xs.shape)} + 2 rows: {ms * 1e3:.1f} "
-                  f"us/launch, host {host_us:.1f} us a call, device {dev_ms * 1e3:.1f} us (the call "
-                  f"{call_ms * 1e3:.1f} us in {dev_ops} operation{'s' if dev_ops > 1 else ''}), plain "
-                  f"{plain_ms * 1e3:.1f} us, library (dense-s2d F.conv2d, VALID in H) {library_ms * 1e3:.1f} us / "
-                  f"device {library_dev * 1e3:.1f} us, unsharded K4 device / 4 {whole_dev / 4 * 1e3:.1f} us, bound "
-                  f"{max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']})")
+        for dt in (torch.bfloat16, torch.float32):
+            rows += _k4_shard_timing(x32.to(dt), cot32.to(dt), k, lvl, launches, errs[dt])
     return rows
 
 
@@ -3650,13 +3983,13 @@ def main() -> int:
     print(f"[chip_smoke] build: {time.perf_counter() - t0:.1f}s ({', '.join(built) or 'cached'})")
     for name in build.SOURCES:
         log = build.compiler_log(name).splitlines()
-        regs = [ln.split(":", 1)[-1].strip() for ln in log if "registers" in ln]
+        regs = [ln.split(":", 1)[-1].strip() for ln in log if "Used" in ln and "registers" in ln]
         spills = [ln.strip() for ln in log if "spill stores" in ln and " 0 bytes spill stores" not in ln]
         serial = [ln.strip() for ln in log if "wgmma.mma_async instructions are serialized" in ln]
         print(f"[chip_smoke]   {name}: {'; '.join(regs)}; spills: {'; '.join(spills) or 'none'}; "
               f"wgmma serialized: {'; '.join(serial) or 'none'}")
-        if serial and name == "conv_block":
-            _fail("ptxas serializes K8's wgmma instructions")
+        if serial and name in ("conv_block", "psel_conv"):
+            _fail(f"ptxas serializes {name}'s wgmma instructions")
 
     model, x, launches = _main_path(dev)
     fwd_ms = _forward_time(model, x)
@@ -3667,10 +4000,12 @@ def main() -> int:
     train_launches, train_ms, train_host_ms, train_peak = _train_path(dev, _train_cfg(SIZE, bf16=True), "train",
                                                                        TRAIN_WARMUP, TRAIN_ITERS)
     _train_vs_cpu(dev)
+    f32_launches = _f32_path(dev)
     e2e_launches, e2e_ms, e2e_host_ms, e2e_peak = _e2e_path(dev)
     _e2e_vs_cpu(dev)
     rows = (_kernel_table(dev, launches, scene_launches) + _d2s_table(dev, launches, scene_launches)
-            + _k4_table(dev, train_launches, e2e_launches) + _histeq_table(dev, launches, e2e_launches, scene_launches))
+            + _k4_table(dev, train_launches, e2e_launches) + _f32_table(dev, *f32_launches)
+            + _histeq_table(dev, launches, e2e_launches, scene_launches))
     # K7 and K8 on the serving forward's own conv-site inputs, captured last
     # so that no other phase's peak memory holds them.
     s2d_sites, std_sites = _capture_sites(*_serving_model(dev))
@@ -3680,8 +4015,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # The torch.distributed paths over NCCL (phase 13), then K9 and sharded
     # K2 on the captured sites (phase 12) with the sharded forward's counts.
-    sharded_launches = _nccl_paths(dev)
-    rows += _k9_table(dev, s2d_sites, sharded_launches)
+    sharded_launches, f32_sites = _nccl_paths(dev)
+    rows += _k9_table(dev, s2d_sites, sharded_launches, f32_sites)
+    del f32_sites
     del s2d_sites
     torch.cuda.empty_cache()
     # Spatial-parallel training (phase 14): the steps' spatial path, then K4

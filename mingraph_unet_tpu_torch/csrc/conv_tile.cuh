@@ -1,10 +1,12 @@
 // Tiled 3x3 'SAME' conv on a phase-major space-to-depth (s2d) tensor in
-// f32: the FMA kernel that psel_conv.cu runs for f32 inputs (the s2d
-// ConvBlock's conv2; without ReLU, the raw training conv's forward and
-// dgrad) and dec_conv1.cu runs for f32 inputs (the s2d decoder's conv1 with
-// the ConvTranspose folded in). Both bf16 paths are their own Hopper kernels
-// (psel_conv.cu, dec_conv1.cu, hopper.cuh); they and wconv.cu take the
-// argument block and the launch helper from here.
+// f32: the FMA kernel that psel_conv.cu runs for f32 inputs at widths its
+// tensor-core kernels have no instantiation for (Cin != Cout, or C outside
+// {32, 64}: the s2d ConvBlock's conv2; without ReLU, the raw training conv's
+// forward and dgrad) and dec_conv1.cu runs for every f32 input (the s2d
+// decoder's conv1 with the ConvTranspose folded in). The bf16 paths, and
+// psel's f32 path at C = Cout in {32, 64}, are Hopper kernels (psel_conv.cu,
+// dec_conv1.cu, hopper.cuh); they and wconv.cu take the argument block and
+// the launch helper from here.
 //
 // Layout. An s2d tensor is (B, Hh, Ww, 4C) with channel index ph*C + c,
 // ph = 2*py + px. Full-resolution pixel (y, x, c) lives at s2d
@@ -16,9 +18,11 @@
 // full-res pixels) of one image and all output channels. It copies the
 // tile's s2d input halo (6 x 18 s2d pixels, all 4C channels, zero outside
 // the image) into shared memory once, then each thread computes one
-// full-res pixel by plain FMA, weights in their HWIO layout, ReLU when RELU
-// is set. This path exists so that a card run can be held against the CPU
-// in f32; it is not tuned.
+// full-res pixel by plain FMA, weights from the raw HWIO kernel (ADJ: the
+// adjoint's, read flipped and in/out transposed from the raw kernel), ReLU
+// when RELU is set. It runs on the f32 FMA units (67 TFLOP/s on an H100
+// SXM) and is not tuned: it serves the widths and the dec-conv1 path that
+// no tensor-core kernel covers yet.
 //
 // The optional second source (HAS_PREV) is dec_conv1's x_prev term: a 3x3
 // conv on x_prev's own (Hh, Ww) grid with the dense ConvTranspose-folded
@@ -73,7 +77,7 @@ struct SmemPlan {
 
 struct ConvArgs {
   const void* x;      // (B, Hh, Ww, 4C) s2d input
-  const void* w;      // full-res (3, 3, C, Cout) weights: f32 HWIO (bf16: as the Hopper kernel packs them)
+  const void* w;      // full-res (3, 3, C, Cout) weights: f32 HWIO, the raw (3, 3, Cout, C) kernel for ADJ (bf16: as the Hopper kernel takes them)
   const void* xp;     // (B, Hh, Ww, Cp) x_prev (HAS_PREV only)
   const void* wp;     // x_prev weights (HAS_PREV only): f32 the dense folded (3, 3, Cp, 4Cout) HWIO
   const float* bias;  // (Cout,) when !HAS_PREV; null adds none
@@ -149,9 +153,12 @@ __device__ __forceinline__ float epilogue_term(const ConvArgs& a, int gi, int gj
 }
 
 // f32 FMA kernel: one full-res output pixel per thread, 16 output channels
-// at a time, sizes at run time.
-template <bool HAS_PREV, bool RELU>
+// at a time, sizes at run time. Weight (tap, ci, n) is w[tap][ci][n], or
+// with ADJ (the dgrad of psel_conv's training conv, without HAS_PREV)
+// w[8 - tap][n][ci] of the raw kernel the adjoint is taken of.
+template <bool HAS_PREV, bool RELU, bool ADJ = false>
 __global__ void __launch_bounds__(THREADS) conv_f32_kernel(ConvArgs a) {
+  static_assert(!(HAS_PREV && ADJ), "dec_conv1's weights are never adjoint");
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemPlan<float> plan(a.c, a.cp, HAS_PREV);
   float* halo = reinterpret_cast<float*>(smem);
@@ -180,11 +187,20 @@ __global__ void __launch_bounds__(THREADS) conv_f32_kernel(ConvArgs a) {
       // full-res (r + ky - 1, col + kx - 1) in the s2d halo
       const int fy = r + tap / 3 + 1, fx = col + tap % 3 + 1;
       const float* src = halo + ((fy >> 1) * HALO_W + (fx >> 1)) * plan.ss + ((fy & 1) * 2 + (fx & 1)) * a.c;
-      const float* wt = w + size_t(tap) * a.c * cout + n0;
-      for (int ci = 0; ci < a.c; ++ci) {
-        const float v = src[ci];
+      if constexpr (ADJ) {
+        const float* wt = w + size_t(8 - tap) * a.c * cout + size_t(n0) * a.c;
+        for (int ci = 0; ci < a.c; ++ci) {
+          const float v = src[ci];
 #pragma unroll
-        for (int q = 0; q < 16; ++q) acc[q] = fmaf(v, wt[size_t(ci) * cout + q], acc[q]);
+          for (int q = 0; q < 16; ++q) acc[q] = fmaf(v, wt[size_t(q) * a.c + ci], acc[q]);
+        }
+      } else {
+        const float* wt = w + size_t(tap) * a.c * cout + n0;
+        for (int ci = 0; ci < a.c; ++ci) {
+          const float v = src[ci];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) acc[q] = fmaf(v, wt[size_t(ci) * cout + q], acc[q]);
+        }
       }
     }
     if constexpr (HAS_PREV) {

@@ -67,8 +67,8 @@
 //     layout (each block of an L1 cluster its own copy). The per-pixel sum
 //     runs in one order wherever a tile or shard starts, so stitched shards
 //     equal the unsharded launch bit for bit.
-// f32: conv_tile.cuh's FMA kernel over the dense k_prev, for the card-vs-CPU
-// f32 checks.
+// f32: conv_tile.cuh's FMA kernel over the dense k_prev, the f32 inference
+// path's decoder conv1 (not tuned; its redesign is queued in ROADMAP.md).
 #include "conv_tile.cuh"
 #include "hopper.cuh"
 

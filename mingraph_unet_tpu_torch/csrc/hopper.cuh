@@ -401,18 +401,35 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a contiguous NHWC bf16 tensor seen as (c, w, h, n), innermost
-// first, read in boxes of box[0..3] elements; out-of-bounds elements read
-// zero. False where the driver refuses it.
+// The driver's encode needs the current device's context current on the
+// calling thread, which the runtime binds only when the thread first needs
+// it: a thread whose first CUDA work is an encode (autograd's backward
+// thread, where a kernel's backward comes first) has none, and the encode
+// fails. cudaSetDevice binds it, once a thread and device.
+inline bool bind_context() {
+  thread_local int bound = -1;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  if (dev != bound) {
+    if (cudaSetDevice(dev) != cudaSuccess) return false;
+    bound = dev;
+  }
+  return true;
+}
+
+// A map of a contiguous NHWC tensor (bf16, or f32 by `dtype`) seen as
+// (c, w, h, n), innermost first, read in boxes of box[0..3] elements;
+// out-of-bounds elements read zero. False where the driver refuses it.
 inline bool nhwc_map(CUtensorMap* m, const void* base, int n, int h, int w, int c, const cuuint32_t (&box)[4],
-                     CUtensorMapSwizzle swizzle) {
+                     CUtensorMapSwizzle swizzle,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
+  if (!enc || !bind_context()) return false;
   const cuuint64_t dims[4] = {cuuint64_t(c), cuuint64_t(w), cuuint64_t(h), cuuint64_t(n)};
-  const cuuint64_t row = cuuint64_t(c) * 2;
+  const cuuint64_t row = cuuint64_t(c) * (dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2);
   const cuuint64_t strides[3] = {row, row * w, row * w * h};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
+  return enc(m, dtype, 4, const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -11,7 +11,11 @@ PyTorch versions. Counterpart of ``mingraph_unet_tpu/ops/pallas/psconv.py``.
 Both kernels are implicit GEMMs over a staged s2d input halo that read the
 layout as full-resolution pixels, so they do the conv's useful FLOPs (not
 the TPU form's 16/9× or the dense s2d form's 4×), on tensor cores in bf16.
-Both bf16 kernels are Hopper designs: persistent warp-specialised blocks,
+psel's f32 instantiation (C = Cout in :data:`BF16_WIDTHS`, the configured
+precision's K1, K4 and K9) runs the same design on the tensor cores with a
+bf16 hi/lo split: three bf16 products a term (hi·hi + hi·lo + lo·hi) into
+f32, from two B images it lays out itself (``split`` in
+:func:`psel_b_image_index`). Both bf16 kernels are Hopper designs: persistent warp-specialised blocks,
 weights resident in shared memory in wgmma's B layout
 (:func:`wgmma_b_layout`), halos staged by TMA through rings of stages. psel
 takes the conv's raw HWIO kernel and lays that image out itself
@@ -113,9 +117,10 @@ BF16_WIDTHS = (32, 64)
 
 def psel_fits(dtype: torch.dtype, cin: int, cout: int) -> bool:
     """Whether the psel tile has an instantiation for this conv: f32 with
-    Cin and Cout multiples of 16, or bf16 with Cout = Cin in
-    :data:`BF16_WIDTHS`. The same rule serves psconv_train's forward and
-    dgrad (whose adjoint conv swaps Cin and Cout)."""
+    Cin and Cout multiples of 16 (Cout = Cin in :data:`BF16_WIDTHS` on the
+    tensor cores, other widths on the f32 FMA kernel), or bf16 with Cout =
+    Cin in :data:`BF16_WIDTHS`. The same rule serves psconv_train's forward
+    and dgrad (whose adjoint conv swaps Cin and Cout)."""
     if dtype == torch.float32:
         return cin % 16 == 0 and cout % 16 == 0
     return dtype == torch.bfloat16 and cin == cout and cin in BF16_WIDTHS
@@ -139,7 +144,13 @@ def wgmma_b_layout(w2d: torch.Tensor) -> torch.Tensor:
     return w2d.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2).contiguous()
 
 
-def psel_b_image_index(c: int, adjoint: bool = False) -> np.ndarray:
+# The split kernel's channel of each row of a 16-row slab: the lanes' A
+# fragments take channels 4t … 4t + 3 as fragment columns 2t, 2t + 1, 2t + 8,
+# 2t + 9, so slab row 8h + e holds channel 4·(e // 2) + 2h + e % 2.
+SPLIT_SLAB_ROWS = np.array([4 * (e // 2) + 2 * h + e % 2 for h in range(2) for e in range(8)])
+
+
+def psel_b_image_index(c: int, adjoint: bool = False, split: bool = False) -> np.ndarray:
     """The map the psel kernel's prologue lays its weights out by
     (``csrc/psel_conv.cu::lay_tap``): element i of the B image it writes
     to shared memory (9·C·C bf16, in the order of :func:`wgmma_b_layout`'s
@@ -147,19 +158,28 @@ def psel_b_image_index(c: int, adjoint: bool = False) -> np.ndarray:
     kernel flattened; with ``adjoint``, of the kernel whose adjoint the
     image is. Chunk q of the image is B's rows 8·k8 … 8·k8 + 7 of column
     n, 16 bytes, from 8 weights C apart (direct, q = (k8, n)) or
-    consecutive (adjoint, q = (tap, n, i // 8))."""
+    consecutive (adjoint, q = (tap, n, i // 8)). With ``split`` the map of
+    the f32 kernel's hi and lo images (``lay_tap_split``): each 16-row slab
+    of B holds its 16 channels in the order :data:`SPLIT_SLAB_ROWS`."""
+    rows = np.arange(9 * c)
+    if split:
+        rows = rows // 16 * 16 + SPLIT_SLAB_ROWS[rows % 16]
     q = np.arange(9 * c * c // 8)
     if adjoint:  # B[tap·C + i][n] = W[8 − tap][n][i]
         tap, rem = q // (c * c // 8), q % (c * c // 8)
         n, k8 = rem // (c // 8), tap * (c // 8) + rem % (c // 8)
-        at, stride = (8 - tap) * c * c + 8 * rem, 1
     else:  # B[r][n] = W as (9C, C)[r][n]
         k8, n = q // c, q % c
-        at, stride = 8 * k8 * c + n, c
-    pos = (k8 >> 1) * 16 * c + ((n >> 3) * 2 + (k8 & 1)) * 64 + (n & 7) * 8  # the chunk's first element
     e = np.arange(8)
+    r = rows[8 * k8[:, None] + e]  # the channel row of the raw kernel each chunk element holds
+    if adjoint:
+        tap = r // c
+        at = (8 - tap) * c * c + n[:, None] * c + r % c
+    else:
+        at = r * c + n[:, None]
+    pos = (k8 >> 1) * 16 * c + ((n >> 3) * 2 + (k8 & 1)) * 64 + (n & 7) * 8  # the chunk's first element
     index = np.empty(9 * c * c, dtype=np.int64)
-    index[(pos[:, None] + e).ravel()] = (at[:, None] + e * stride).ravel()
+    index[(pos[:, None] + e).ravel()] = at.ravel()
     return index
 
 
@@ -243,24 +263,21 @@ def _psel_check(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opti
     raise ValueError(f"{name}: refused")  # not reached: one of the checks above names the fault
 
 
-def _psel_weights(kernel: torch.Tensor, x_s2d: torch.Tensor, adjoint: bool) -> Tuple[torch.Tensor, bool]:
-    """(weights as the psel kernel reads them, whether they are f32). bf16
-    x: the raw HWIO kernel as it lies, f32 or bf16 (another dtype widened
-    to f32), on x's device, contiguous and 16-byte aligned (a copy
-    otherwise); the kernel rounds it to bf16 and lays out its B image, the
-    adjoint's when ``adjoint``, itself, so a parameter passed as it lies
-    costs no device operation. f32 x: the HWIO f32 weights of the conv as
-    launched, the adjoint flipped here (the f32 FMA kernel serves the f32
-    checks only)."""
-    if x_s2d.dtype == torch.bfloat16:
-        w = kernel if kernel.dtype in _PSEL_WEIGHT_DTYPES else kernel.float()
-        if w.get_device() != x_s2d.get_device():
-            w = w.to(x_s2d.device)
-        if not w.is_contiguous() or w.data_ptr() % 16:  # the kernel's bulk copies read it from 16-byte bounds
-            w = w.clone(memory_format=torch.contiguous_format)
-        return w, w.dtype == torch.float32
-    w = kernel.to(device=x_s2d.device, dtype=torch.float32)
-    return (_adjoint(w) if adjoint else w).contiguous(), True
+def _psel_weights(kernel: torch.Tensor, x_s2d: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """(weights as the psel kernel reads them, whether they are f32): the
+    raw HWIO kernel as it lies, on x's device, contiguous and 16-byte
+    aligned (a copy otherwise), f32 or (for bf16 x) bf16, another dtype
+    widened to f32. The kernel lays out its B images itself, the adjoint's
+    for the dgrad (bf16 x: rounded to bf16; f32 x: split into hi and lo, or
+    read by the FMA kernel), so a parameter passed as it lies costs no
+    device operation."""
+    keep = _PSEL_WEIGHT_DTYPES if x_s2d.dtype == torch.bfloat16 else (torch.float32,)
+    w = kernel if kernel.dtype in keep else kernel.float()
+    if w.get_device() != x_s2d.get_device():
+        w = w.to(x_s2d.device)
+    if not w.is_contiguous() or w.data_ptr() % 16:  # the kernel's bulk copies read it from 16-byte bounds
+        w = w.clone(memory_format=torch.contiguous_format)
+    return w, w.dtype == torch.float32
 
 
 def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
@@ -273,15 +290,14 @@ def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opt
     tensor maps and launches; the device's attributes are asked once."""
     top, bottom = _NO_ROWS if rows is None else rows
     _psel_check(name, x_s2d, kernel, bias, top, bottom, adjoint)
-    w, w_f32 = _psel_weights(kernel, x_s2d, adjoint)
+    w, w_f32 = _psel_weights(kernel, x_s2d)
     b, hh, ww, z = x_s2d.shape
     ks = kernel.shape
     cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
     if bias is not None:
         bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x_s2d) if cout == cin else x_s2d.new_empty((b, hh, ww, 4 * cout))
-    is_bf16 = x_s2d.dtype is torch.bfloat16
-    flags = (int(is_bf16), int(relu), int(w_f32), int(adjoint and is_bf16))
+    flags = (int(x_s2d.dtype is torch.bfloat16), int(relu), int(w_f32), int(adjoint))
     lib = library("psel_conv")
     if rows is None:
         rc = lib.mgu_psel_conv3x3(x_s2d.data_ptr(), w.data_ptr(), _ptr(bias), y.data_ptr(), b, hh, ww, cin, cout,

@@ -595,20 +595,41 @@ PSEL_ENTRIES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("entry", sorted(PSEL_ENTRIES))
-def test_card_psel_entries_follow_weights_changed_in_place(cuda_device, entry, kdtype):
-    """The bf16 psel kernel lays out the raw kernel it is given at every
-    launch, so no prepared weights can go stale: after an in-place update
-    of the kernel (an ``add_``, as Adam updates a parameter) the next launch
-    follows the new values, bit-equal to a launch on a fresh copy; and a
-    call is one device operation (no weight pack, no adjoint copy)."""
+def _card_ops(fn, calls: int = 3) -> dict:
+    """The device operations of ``calls`` calls of ``fn`` by name. The
+    profiler may miss a launch of a window, or now and then record none
+    (chip_smoke.py's _device_ops): a window without any is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x, k, bias = (_t(a).to(cuda_device) for a in _psel_case((2, 16, 37, 64, 64)))
-    x, k = x.to(torch.bfloat16), k.to(kdtype)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count}
+        if ops:
+            return ops
+    return {}
+
+
+# The psel kernel of each input dtype (C = Cout in {32, 64}).
+PSEL_KERNEL = {torch.bfloat16: "psel_wgmma_kernel", torch.float32: "psel_split_kernel"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype,kdtype,c", [(torch.bfloat16, torch.float32, 64), (torch.bfloat16, torch.bfloat16, 64),
+                                             (torch.float32, torch.float32, 32), (torch.float32, torch.float32, 64)])
+@pytest.mark.parametrize("entry", sorted(PSEL_ENTRIES))
+def test_card_psel_entries_follow_weights_changed_in_place(cuda_device, entry, xdtype, kdtype, c):
+    """The psel kernels (bf16, and f32 on the split) lay out the raw kernel
+    they are given at every launch, so no prepared weights can go stale:
+    after an in-place update of the kernel (an ``add_``, as Adam updates a
+    parameter) the next launch follows the new values, bit-equal to a
+    launch on a fresh copy; and a call is one device operation (no weight
+    pack, no adjoint copy)."""
+    x, k, bias = (_t(a).to(cuda_device) for a in _psel_case((2, 16, 37, c, c)))
+    x, k = x.to(xdtype), k.to(kdtype)
     xs, top, bot, _ = _shards(x, 4, [0, 4, 9, 12, 16])[1]
     fn = PSEL_ENTRIES[entry]
     first = fn(xs, top, bot, k, bias)
@@ -617,20 +638,45 @@ def test_card_psel_entries_follow_weights_changed_in_place(cuda_device, entry, k
     fresh = fn(xs, top, bot, k.clone(), bias)
     torch.cuda.synchronize()
     assert torch.equal(second, fresh) and not torch.equal(second, first)
-    # The profiler may miss a launch of a window, or now and then record
-    # none (chip_smoke.py's _device_ops): a window without any is taken
-    # again, and every operation recorded must be the kernel, at most one
-    # a call.
     calls = 3
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn(xs, top, bot, k, bias)
-            torch.cuda.synchronize()
-        ops = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count}
-        if ops:
-            break
-    assert ops and sum(ops.values()) <= calls and all("psel_wgmma_kernel" in key for key in ops), ops
+    ops = _card_ops(lambda: fn(xs, top, bot, k, bias), calls)
+    assert ops and sum(ops.values()) <= calls and all(PSEL_KERNEL[xdtype] in key for key in ops), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256, 256, 32), (8, 128, 128, 64)])
+def test_card_f32_psel_repeats_bit_for_bit(cuda_device, shape):
+    """The split kernel's ring of k-slices: at the 512² b8 shapes (a block
+    walks many tiles, every stage reused), 20 launches on the same input
+    give the same output bit for bit. A stage released before its reads
+    had landed made about one launch in 40 differ (0.43 at L1)."""
+    b, hh, ww, c = shape
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x = torch.randn((b, hh, ww, 4 * c), generator=g, device=cuda_device)
+    k = torch.randn((3, 3, c, c), generator=g, device=cuda_device) * (1.0 / (9 * c)) ** 0.5
+    bias = torch.randn((c,), generator=g, device=cuda_device)
+    first = t_psconv.psel_conv3x3(x, k, bias)
+    same = [torch.equal(t_psconv.psel_conv3x3(x, k, bias), first) for _ in range(20)]
+    assert all(same), f"{same.count(False)} of 20 launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 48), (48, 16), (16, 16), (96, 96)])
+def test_card_f32_fma_widths_match_plain(cuda_device, cin, cout):
+    """f32 widths the split kernel has no instantiation for run the FMA
+    kernel, which reads the adjoint from the raw kernel too: K1, K4
+    forward and dgrad against their plain versions within CARD_TOL."""
+    x, k, bias = (_t(a).to(cuda_device) for a in _psel_case((2, 5, 19, cin, cout)))
+    g = torch.randn((2, 5, 19, 4 * cout), generator=torch.Generator(device=cuda_device).manual_seed(3),
+                    device=cuda_device)
+    checks = ((t_psconv.psel_conv3x3(x, k, bias), t_psconv.psel_conv3x3_plain(x, k, bias)),
+              (t_psconv.psconv_fwd(x, k), t_psconv.psconv_train_plain(x, k)),
+              (t_psconv.psconv_dgrad(g, k), t_psconv.psconv_dgrad_plain(g, k)))
+    torch.cuda.synchronize()
+    for got, ref in checks:
+        _assert_close_rel(got.cpu(), ref.cpu(), CARD_TOL[torch.float32])
+    ops = _card_ops(lambda: t_psconv.psconv_dgrad(g, k))
+    assert ops and all("conv_f32_kernel" in key for key in ops), ops
 
 
 @pytest.mark.cuda

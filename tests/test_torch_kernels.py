@@ -166,6 +166,102 @@ def test_psel_b_image_index_is_the_packed_layout(c, adjoint):
     assert torch.equal(w.flatten()[torch.from_numpy(index)], packed)
 
 
+@pytest.mark.parametrize("adjoint", [False, True], ids=["direct", "adjoint"])
+@pytest.mark.parametrize("c", [32, 64])
+def test_psel_split_b_image_index_is_the_packed_layout(c, adjoint):
+    """The map of the f32 psel kernel's hi and lo images
+    (``csrc/psel_conv.cu::lay_tap_split``): a permutation of the raw
+    kernel, equal to ``wgmma_b_layout`` of (9C, C) B whose rows, within
+    each 16-row slab, hold the channels in the order the lanes' A fragments
+    take them (``SPLIT_SLAB_ROWS``: fragment columns 2t, 2t + 1, 2t + 8,
+    2t + 9 from channels 4t … 4t + 3)."""
+    rows = t_psconv.SPLIT_SLAB_ROWS
+    assert sorted(rows) == list(range(16))
+    for t in range(4):
+        assert [rows[2 * t], rows[2 * t + 1], rows[8 + 2 * t], rows[9 + 2 * t]] == list(range(4 * t, 4 * t + 4))
+    index = t_psconv.psel_b_image_index(c, adjoint, split=True)
+    assert index.shape == (9 * c * c,) and np.array_equal(np.sort(index), np.arange(9 * c * c))
+    w = torch.from_numpy(np.random.default_rng(c).standard_normal((3, 3, c, c)).astype(np.float32))
+    b = (w.flip(0, 1).transpose(2, 3) if adjoint else w).reshape(9 * c, c)
+    order = torch.from_numpy(np.arange(9 * c) // 16 * 16 + rows[np.arange(9 * c) % 16])
+    assert torch.equal(w.flatten()[torch.from_numpy(index)], t_psconv.wgmma_b_layout(b[order]).flatten())
+
+
+F32_TOL = 1e-4  # chip_smoke.py's tolerance for an f32 kernel against its plain version
+
+
+def _split(t):
+    """An f32 tensor as the f32 psel kernel splits it: (hi, lo) with hi =
+    bf16(t), lo = bf16(t - hi), both exact in f64."""
+    hi = t.to(torch.bfloat16)
+    return hi.double(), (t - hi.float()).to(torch.bfloat16).double()
+
+
+def _split_conv(x, k, conv):
+    """``conv(x, k)`` of f32 x and k as the card's f32 psel kernel forms it:
+    three bf16 products a term, hi·hi + hi·lo + lo·hi (each exact), summed
+    here in f64; the kernel sums them in f32."""
+    (xh, xl), (kh, kl) = _split(x), _split(k)
+    return conv(xh, kh) + conv(xh, kl) + conv(xl, kh)
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_psel_split_products_match_pallas_f32(c):
+    """The f32 psel kernel's arithmetic (the bf16 hi/lo split, three
+    products) against the JAX package's Pallas ``conv3x3_s2d_psel`` in f32
+    (interpret mode) for K1 (bias, ReLU), and against JAX's
+    ``psconv_train`` dgrad and the port's own ``psconv_train`` dgrad (K4),
+    within ``F32_TOL`` of max |ref|, on seeded inputs at C = Cout = c."""
+    x, k, bias = _psel_case((2, 6, 8, c, c), seed=c)
+    g = np.random.default_rng(c + 1).standard_normal(x.shape).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref = jax_psconv.conv3x3_s2d_psel(
+            jnp.asarray(x), jax_psconv.psconv_weights(jnp.asarray(k)),
+            jax_s2d.s2d_vector(jnp.asarray(bias)), relu=True, interpret=True,
+        )
+        _, vjp = jax.vjp(lambda xx: jax_psconv.psconv_train(xx, jnp.asarray(k), interpret=True), jnp.asarray(x))
+        (dx_ref,) = vjp(jnp.asarray(g))
+    y = torch.relu(_split_conv(_t(x), _t(k), t_psconv.psconv_train_plain) + t_s2d.s2d_vector(_t(bias)).double())
+    _assert_close_rel(y.numpy(), ref, F32_TOL)
+    dx = _split_conv(_t(g), _t(k), t_psconv.psconv_dgrad_plain)
+    _assert_close_rel(dx.numpy(), dx_ref, F32_TOL)
+    xi = _t(x).requires_grad_()
+    t_psconv.psconv_train(xi, _t(k)).backward(_t(g))
+    _assert_close_rel(dx.numpy(), xi.grad.numpy(), F32_TOL)
+
+
+class _Recorder:
+    """Stands in for the psel library: records each C call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("xdtype,kdtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("adjoint", [False, True], ids=["fwd", "dgrad"])
+def test_psel_launch_passes_the_raw_kernel_and_the_adjoint_flag(monkeypatch, xdtype, kdtype, adjoint):
+    """One weight route for both dtypes: the psel launch hands the C entry
+    the parameter as it lies (its own storage: no flip, no cast, no copy)
+    with ``adjoint`` set for the dgrad, f32 x included (the kernel lays out
+    the adjoint itself); ``_psel_weights`` passes the kernel through."""
+    x = torch.zeros((1, 4, 4, 4 * 32), dtype=xdtype)
+    k = torch.randn((3, 3, 32, 32)).to(kdtype)
+    w, w_f32 = t_psconv._psel_weights(k, x)
+    assert w.data_ptr() == k.data_ptr() and w_f32 == (kdtype == torch.float32)
+    lib = _Recorder()
+    monkeypatch.setattr(t_psconv, "_psel_check", lambda *a: None)
+    monkeypatch.setattr(t_psconv, "library", lambda name: lib)
+    monkeypatch.setattr(t_psconv, "stream_ptr", lambda t: 0)
+    t_psconv._psel_launch("psel", x, k, None, relu=False, adjoint=adjoint)
+    ((name, args),) = lib.calls
+    assert name == "mgu_psel_conv3x3" and args[1] == k.data_ptr()
+    assert args[9:13] == (int(xdtype == torch.bfloat16), 0, int(kdtype == torch.float32), int(adjoint))
+
+
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     counters = (t_psconv.psel_conv3x3, t_psconv.dec_conv1_fused, t_pool.phase_max_pool_kernel,
                 t_wconv.wconv3x3_s2d, t_cb.fused_conv_block)

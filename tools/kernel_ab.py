@@ -3,7 +3,7 @@
 checkouts of this repository on one CUDA card, in turns, on the same seeded
 inputs.
 
-    python3 tools/kernel_ab.py [--cases K2,K6,K8,paths] PARENT . . PARENT
+    python3 tools/kernel_ab.py [--cases K2,K6,K8,f32,paths] PARENT . . PARENT
 
 Each checkout argument is the root of a checkout (for example the parent
 commit unpacked with ``git archive`` into a git-ignored directory, and
@@ -40,6 +40,14 @@ checkout's port and builds its kernels, then runs the cases named by
 - ``psel``: K1 (``psel_conv3x3``), K4 on the whole tensor (forward and
   dgrad) and K9 on the inner shard at the same shapes, events, device µs,
   device operations and host µs a call;
+- ``f32``: the f32 instantiations of K1, K4 (forward, dgrad) at the
+  512² b8 and the configured 128² b16 shapes of both s2d levels, K9 and K4
+  on the inner shard of 4 at 512² b8 (stitched shards held bit for bit
+  against the whole launch), K2 at its bf16 shapes, each held against its
+  plain version within ``F32_TOL`` (TF32 off), beside the full-resolution
+  ``F.conv2d`` in f32 with TF32 off (and on, as context); then the
+  segmentation step as ``configs/*.yaml`` configure it (f32, 128², batch
+  16, Adam): ms/step, host issue ms, peak memory;
 - ``paths``: the three paths that launch K6 (the bf16 serving forward at
   512² b8, the 1024² large scene with its dense head and decode, and the
   bf16 end-to-end train step at 512² b8), built as ``chip_smoke.py``
@@ -57,7 +65,9 @@ limit first and exits non-zero if any check or process fails.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -206,7 +216,9 @@ def _psel_stages(x, top, bot, k, adjoint: bool):
     y = torch.empty_like(x)
     stream = build.stream_ptr(x)
     if hasattr(psconv, "_psel_weights"):  # the kernel lays out the raw kernel itself
-        w, w_f32 = psconv._psel_weights(k, x, adjoint)
+        # (before the f32 kernel took the adjoint flag, the weights took it too)
+        wargs = (k, x, adjoint)[:len(inspect.signature(psconv._psel_weights).parameters)]
+        w, w_f32 = psconv._psel_weights(*wargs)
 
         def c_call(batch=b):
             return lib.mgu_psel_conv3x3_halo(x.data_ptr(), top.data_ptr(), bot.data_ptr(), w.data_ptr(), None,
@@ -214,7 +226,7 @@ def _psel_stages(x, top, bot, k, adjoint: bool):
 
         return {
             "checks": lambda: psconv._psel_check("psel", x, k, None, top, bot, adjoint),
-            "weights": lambda: psconv._psel_weights(k, x, adjoint),
+            "weights": lambda: psconv._psel_weights(*wargs),
             "output": lambda: torch.empty_like(x),
             "stream": lambda: build.stream_ptr(x),
             "ctypes": lambda: c_call(0),  # the C call of an empty batch: argument passing, no map, no launch
@@ -294,7 +306,102 @@ def _psel(cs, tree, dev):
             yield row
 
 
-CASES = {"K2": _k2, "K6": _k6, "K8": _k8, "K4shard": _k4shard, "psel": _psel, "paths": _paths}
+F32_CELLS = (("512^2 b8", 8, 512), ("128^2 b16", 16, 128))  # the bf16 rows' shapes; configs/*.yaml's
+F32_OWN = ("psel_split_kernel", "conv_f32_kernel")  # the f32 psel kernel (split wgmma), or the FMA kernel
+STEP_ITERS = 20
+
+
+def _f32(cs, tree, dev):
+    """The f32 instantiations: K1, K4 forward and dgrad at both cells' L0
+    and L1, K9 and K4 on the inner shard of 4 (512^2 b8), K2 at its two
+    bf16 shapes, each held against its plain version (TF32 off), with the
+    full-resolution ``F.conv2d`` in f32 (channels-last, TF32 off and, as
+    context, on); then the configured f32 segmentation step."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
+    from mingraph_unet_tpu_torch.ops.kernels import psconv
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(23)
+    for cell, b, size in F32_CELLS:
+        for lvl, c in ((0, 32), (1, 64)):
+            hh = size // 2 ** (lvl + 1)
+            x = torch.randn((b, hh, hh, 4 * c), generator=g, device=dev)
+            k = torch.randn((3, 3, c, c), generator=g, device=dev) * (1.0 / (9 * c)) ** 0.5
+            bias = torch.randn((c,), generator=g, device=dev)
+            fields = dict(dtype="f32", cell=cell, level=lvl, shape=list(x.shape))
+            cases = {"K1": (lambda: psconv.psel_conv3x3(x, k, bias), lambda: psconv.psel_conv3x3_plain(x, k, bias)),
+                     "K4 fwd": (lambda: psconv.psconv_fwd(x, k), lambda: psconv.psconv_train_plain(x, k)),
+                     "K4 dgrad": (lambda: psconv.psconv_dgrad(x, k), lambda: psconv.psconv_dgrad_plain(x, k))}
+            if cell == F32_CELLS[0][0]:
+                xs, top, bot, _ = cs._shard_views(x, cs._shard_cuts(hh)[0])[1]
+                cases.update({
+                    "K9 shard": (lambda: psconv.psel_conv3x3_halo(xs, top, bot, k, bias),
+                                 lambda: psconv.psel_conv3x3_halo_plain(xs, top, bot, k, bias)),
+                    "K4 shard fwd": (lambda: psconv.psconv_fwd_halo(xs, top, bot, k),
+                                     lambda: psconv.psconv_halo_plain(xs, top, bot, k)),
+                    "K4 shard dgrad": (lambda: psconv.psconv_dgrad_halo(xs, top, bot, k),
+                                       lambda: psconv.psconv_halo_plain(xs, top, bot, k.flip(0, 1).transpose(2, 3)))})
+                for name, shard, whole in (("K9", psconv.psel_conv3x3_halo, psconv.psel_conv3x3),
+                                           ("K4 fwd", psconv.psconv_fwd_halo, psconv.psconv_fwd),
+                                           ("K4 dgrad", psconv.psconv_dgrad_halo, psconv.psconv_dgrad)):
+                    args = (k, bias) if name == "K9" else (k,)
+                    for cuts in cs._shard_cuts(hh):
+                        got = torch.cat([shard(s, t, u, *args) for s, t, u, _ in cs._shard_views(x, cuts)], dim=1)
+                        if not torch.equal(got, whole(x, *args)):
+                            cs._fail(f"{tree}: f32 {name} L{lvl} shards {cuts} not bit-equal to the whole launch")
+            for kernel, (call, plain) in cases.items():
+                err = cs._check_close(f"{tree} {kernel} f32 {cell} L{lvl}", call(), plain(), cs.F32_TOL)
+                row = _row(cs, tree, kernel, call, F32_OWN, cs.KERNEL_ITERS, 10, max_abs_err=err, **fields)
+                if kernel.startswith("K4 shard") or kernel == "K9 shard":
+                    row["shape"] = list(xs.shape)
+                row["host_us"] = cs._host_us(call)
+                row["plain_us"] = cs._time_ms(plain, cs.KERNEL_ITERS) * 1e3
+                yield row
+            # The full-resolution conv of the same function, channels-last.
+            xf = s2d_ops.depth_to_space(x).permute(0, 3, 1, 2)
+            wf = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib = lambda: F.conv2d(xf, wf, padding=1)  # noqa: E731
+            cs._check_close(f"{tree} library f32 {cell} L{lvl}", s2d_ops.space_to_depth(lib().permute(0, 2, 3, 1)),
+                            psconv.psconv_train_plain(x, k), cs.F32_TOL)
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = tf32
+                yield _row(cs, tree, f"library F.conv2d full-res{' TF32' if tf32 else ''}", lib, ("",),
+                           cs.KERNEL_ITERS, 10, **fields)
+            torch.backends.cudnn.allow_tf32 = False
+    for case in cs._kernel_cases(dev):
+        if case["kind"] != "dec1":
+            continue
+        args = [a.float() for a in case["args"]]
+        call = lambda: psconv.dec_conv1_fused(*args)  # noqa: E731
+        err = cs._check_close(f"{tree} K2 f32 L{case['level']}", call(), psconv.dec_conv1_fused_plain(*args),
+                              cs.F32_TOL)
+        row = _row(cs, tree, "K2", call, F32_OWN + ("dec1",), cs.KERNEL_ITERS, 10, dtype="f32", cell="512^2 b8",
+                   level=case["level"], shape=list(args[0].shape), max_abs_err=err)
+        row["plain_us"] = cs._time_ms(lambda: psconv.dec_conv1_fused_plain(*args), cs.KERNEL_ITERS) * 1e3
+        cudnn = cs._dec1_cudnn(args[0], args[1], *case["unfolded"])
+        row["cudnn_route_us"] = cs._time_ms(cudnn, cs.KERNEL_ITERS) * 1e3
+        row["cudnn_route_device_us"] = _device(cs, cudnn, (), 10)[0]
+        yield row
+    torch.backends.cudnn.allow_tf32 = True
+    yield _f32_step(cs, tree, dev)
+
+
+def _f32_step(cs, tree, dev):
+    """The segmentation step as ``configs/*.yaml`` configure it (f32, 128²,
+    batch 16, Adam), timed by ``chip_smoke._configured_step``: ms/step by
+    CUDA events, host issue ms, peak memory, K4 launches a step."""
+    run = cs._configured_step(dev, STEP_ITERS)
+    if not all(math.isfinite(v) for v in run["losses"]):
+        cs._fail(f"{tree}: the configured f32 step's loss is not finite")
+    return {"tree": tree, "path": "segmentation step f32 128^2 b16 (configs/*.yaml)", "ms": run["ms"],
+            "host_ms": run["host_ms"], "peak_gib": run["peak_gib"],
+            "k4_launches_a_step": run["counts"]["k4_fwd"] + run["counts"]["k4_dgrad"]}
+
+
+CASES = {"K2": _k2, "K6": _k6, "K8": _k8, "K4shard": _k4shard, "psel": _psel, "f32": _f32, "paths": _paths}
 
 
 def one(tree: str, cases: list) -> int:
@@ -316,7 +423,7 @@ def one(tree: str, cases: list) -> int:
     build.build_all()
     dev = torch.device("cuda", 0)
     for name in cases:
-        with torch.no_grad() if name != "paths" else torch.enable_grad():
+        with torch.no_grad() if name not in ("paths", "f32") else torch.enable_grad():
             for row in CASES[name](cs, tree, dev):
                 print(json.dumps(row), flush=True)
     return 0
