@@ -14,8 +14,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (one ``nvcc`` per source, all started together) into
    ``mingraph_unet_tpu_torch/build/``, and print each one's registers,
    spills and any ptxas warning that it serializes wgmma instructions
-   (fatal for K8 and the psel kernels, bf16 and f32: their tensor-core
-   paths must not be serialized).
+   (fatal for K8, the psel kernels, bf16 and f32, and K2's f32 split
+   kernel: their tensor-core paths must not be serialized).
 2. Hold each kernel against its plain PyTorch version at the shapes the
    512² b8 serving path gives it, on seeded bf16 inputs. The plain version
    runs in f32 on the same (bf16) inputs; a conv kernel must agree within
@@ -31,8 +31,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    outputs (TF32 off) must agree with the same port and weights on the CPU
    within ``CPU_TOL`` of max |CPU|. The f32 serving forward at 128² b16
    launches psel 4, dec-conv1 2, pool 2, d2s 1 and hist-eq 1, and the
-   profiler's kernel names show every psel launch on the split kernel and
-   only K2's on the FMA kernel.
+   profiler's kernel names show every psel launch on the split psel kernel,
+   every K2 launch on K2's split kernel and none on the FMA kernel.
 4. Time the forward (ms/step, images/s, and the host's time to issue a
    step) and each kernel at each shape with CUDA events, beside its plain
    version, its one-call PyTorch counterpart where there is one, and its
@@ -760,23 +760,41 @@ def _s2d_of(y_nchw):
     return s2d_ops.space_to_depth(y_nchw.permute(0, 2, 3, 1))
 
 
+def _warm_profile(activities):
+    """This checkout's ``utils/profiling.py::warm_profile`` (torch.profiler
+    after a discarded warm-up step), loaded from its file: the module
+    imports only torch, and ``tools/kernel_ab.py`` then measures an older
+    checkout's port the same way."""
+    if "_smoke_profiling" not in sys.modules:
+        import importlib.util
+
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mingraph_unet_tpu_torch", "utils",
+                            "profiling.py")
+        spec = importlib.util.spec_from_file_location("_smoke_profiling", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules["_smoke_profiling"] = module
+    return sys.modules["_smoke_profiling"].warm_profile(activities)
+
+
 def _device_ops(fn, iters: int):
     """Every operation ``fn`` puts on the card (kernels, memsets, copies),
     by torch.profiler over ``iters`` calls after a warm-up, as (name, µs a
-    launch, launches a call), the longest first. The profiler may miss a
-    launch of the window (it records 9 of 10 at times), so each operation
-    counts its mean time per recorded launch times its launches per call,
-    rounded. Now and then it records no device operation at all in a
-    window whose calls ran; such a window is taken again, up to three
-    times in all."""
+    launch, launches a call), the longest first. The session starts with
+    the profiler's own warm-up step (``utils/profiling.py::warm_profile``:
+    without it a process that has profiled for a while loses a session's
+    first kernels, at times all of a window's); each operation counts its
+    mean time per recorded launch times its launches per call, rounded,
+    and a window that records no device operation is taken again, up to
+    three times in all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -831,11 +849,11 @@ def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15):
     step (the host ops' self time on every thread, under the profiler)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
@@ -1219,7 +1237,7 @@ def _k4_table(dev, launches, e2e_launches):
 
 F32_CELLS = ((BATCH, SIZE), (16, 128))  # the bf16 rows' 512² b8, configs/*.yaml's 128² b16
 F32_STEP_WARMUP, F32_STEP_ITERS = 3, 10
-SPLIT_KERNEL, FMA_KERNEL = "psel_split_kernel", "conv_f32_kernel"
+SPLIT_KERNEL, DEC1_SPLIT, FMA_KERNEL = "psel_split_kernel", "dec1_split_kernel", "conv_f32_kernel"
 
 
 def _split_bound(shape, ops_terms: int, extra_bytes: int = 0):
@@ -1237,13 +1255,15 @@ def _split_bound(shape, ops_terms: int, extra_bytes: int = 0):
 
 
 def _kernel_names(label: str, fn, iters: int = 2):
-    """{kernel name: launches a call} of ``fn`` by torch.profiler, printed."""
+    """(psel split, K2 split, FMA) kernel launches a call of ``fn`` by
+    torch.profiler's kernel names, printed."""
     ops = _device_ops(fn, iters)
     names = {key: n for key, _, n in ops}
-    split = sum(n for key, n in names.items() if SPLIT_KERNEL in key)
-    fma = sum(n for key, n in names.items() if FMA_KERNEL in key)
-    print(f"[chip_smoke] {label}: {split} {SPLIT_KERNEL} and {fma} {FMA_KERNEL} launches a call (profiler)")
-    return split, fma
+    split, dec1, fma = (sum(n for key, n in names.items() if name in key)
+                        for name in (SPLIT_KERNEL, DEC1_SPLIT, FMA_KERNEL))
+    print(f"[chip_smoke] {label}: {split} {SPLIT_KERNEL}, {dec1} {DEC1_SPLIT} and {fma} {FMA_KERNEL} launches a call "
+          f"(profiler)")
+    return split, dec1, fma
 
 
 def _configured_step(dev, iters: int):
@@ -1289,12 +1309,13 @@ def _configured_step(dev, iters: int):
 def _f32_path(dev):
     """The configured precision's paths on the card, counted and profiled:
     the f32 serving forward at 128² b16 (psel 4, dec-conv1 2, pool 2, d2s 1,
-    hist-eq 1; the profiler's kernel names: every psel launch the split
-    kernel, the FMA kernel only K2's) and the segmentation step as
+    hist-eq 1; the profiler's kernel names: every psel and K2 launch on a
+    split tensor-core kernel, none on the FMA kernel) and the segmentation step as
     ``configs/*.yaml`` configure it (f32, 128², batch 16, Adam lr 1e-3
     weight decay 1e-4, PyTorch's default TF32 setting): K4 4 + 4 a step,
     every one the split kernel, none the FMA kernel; finite losses and
-    gradients; ms/step by CUDA events, host issue ms, peak memory. Returns
+    gradients; ms/step by CUDA events, host issue ms, peak memory; and the
+    f32 serving forward's device time at 512² b8 (torch.profiler). Returns
     the launches a forward and a step."""
     import torch
 
@@ -1313,11 +1334,21 @@ def _f32_path(dev):
             _fail(f"f32 serving forward {size}² b{b}: launches {fwd}")
         if not torch.isfinite(out["logits"]).all():
             _fail("f32 serving forward: non-finite logits")
-        split, fma = _kernel_names(f"f32 serving forward {size}² b{b}", lambda: model(x))
-        if (split, fma) != (fwd["psel"], fwd["dec1"]):
-            _fail(f"f32 serving forward: {split} split and {fma} FMA launches, expected psel {fwd['psel']} on the "
-                  f"split kernel and only K2's {fwd['dec1']} on the FMA kernel")
+        names = _kernel_names(f"f32 serving forward {size}² b{b}", lambda: model(x))
+        if names != (fwd["psel"], fwd["dec1"], 0):
+            _fail(f"f32 serving forward: {names} psel split, K2 split and FMA launches, expected psel "
+                  f"{fwd['psel']} and K2 {fwd['dec1']} on their split kernels and none on the FMA kernel")
     del model, x, out
+    with torch.no_grad():  # the f32 serving forward at the bf16 path's 512² b8: its device time
+        model, x = _serving_model(dev, dtype=torch.float32)
+        _reset_counts()
+        model(x)
+        if _counts()["dec1"] != 2:
+            _fail(f"f32 serving forward {SIZE}² b{BATCH}: launches {_counts()}")
+        fwd_dev_ms = _device_ms(f"f32 serving forward {SIZE}^2 b{BATCH}", lambda: model(x), iters=3)
+        print(f"[chip_smoke] f32_forward_device_ms {fwd_dev_ms:.4f} ({SIZE}² b{BATCH}, TF32 as PyTorch's default)")
+    del model, x
+    torch.cuda.empty_cache()
 
     run = _configured_step(dev, F32_STEP_ITERS)
     ms, host_ms, peak, counts, losses = run["ms"], run["host_ms"], run["peak_gib"], run["counts"], run["losses"]
@@ -1325,9 +1356,10 @@ def _f32_path(dev):
         _fail(f"configured f32 step: launches a step {counts}")
     if not all(math.isfinite(v) for v in losses) or not _grads_finite(run["model"]):
         _fail("configured f32 step: a non-finite loss or gradient")
-    split, fma = _kernel_names("configured f32 step", run["step"])
-    if (split, fma) != (8, 0):
-        _fail(f"configured f32 step: {split} split and {fma} FMA launches a step, expected K4's 8 on the split kernel")
+    names = _kernel_names("configured f32 step", run["step"])
+    if names != (8, 0, 0):
+        _fail(f"configured f32 step: {names} psel split, K2 split and FMA launches a step, expected K4's 8 on the "
+              f"split kernel")
     print(f"[chip_smoke] configured segmentation step (configs/*.yaml: f32, {size}² b{b}, Adam): {ms:.3f} ms/step, "
           f"{b / ms * 1e3:.1f} images/s, host issue time {host_ms:.3f} ms/step, peak memory {peak:.3f} GiB; "
           f"losses {[f'{v:.4f}' for v in losses]}")
@@ -1346,9 +1378,13 @@ def _f32_table(dev, fwd_launches, step_launches):
     host µs, the plain version, the full-resolution ``F.conv2d`` in f32
     (channels-last; TF32 off, and on as context), the split form's bound and
     the SIMT figure; the autograd Function's f32 gradients at 128² b16
-    (512² b8: phase 6). K2 in f32 (the FMA kernel) at its bf16 shapes,
-    checked and timed beside its split-form bound and, having no one-call
-    library, the cuDNN route in f32 as context."""
+    (512² b8: phase 6). K2 in f32 (its split kernel) at its bf16 shapes on
+    the model's strided weights, checked, timed (device operations a call:
+    1) beside its split-form bound and, having no one-call library, the
+    cuDNN route in f32 as context; and K2's sharded entry in f32, 4 equal
+    and 4 uneven shards stitched bit-equal to the whole launch, the inner
+    shard of 4 checked and timed the same way (its launches: phase 13's
+    f32 sharded forward)."""
     import torch
     import torch.nn.functional as F
 
@@ -1421,30 +1457,74 @@ def _f32_table(dev, fwd_launches, step_launches):
     for case in _kernel_cases(dev):
         if case["kind"] != "dec1":
             continue
+        # k_skip, k_prev and t9 as the model makes them (a slice of conv1's
+        # kernel, the einsum's k_prev, the table): strided views, which the
+        # split kernel reads as they lie.
         args = [a.float() for a in case["args"]]
-        tag = f"dec_conv1_fused f32 {SIZE}^2 b{BATCH} L{case['level']}"
+        lvl, c, hh = case["level"], args[0].shape[-1] // 4, args[0].shape[1]
+        tag = f"dec_conv1_fused f32 {SIZE}^2 b{BATCH} L{lvl}"
         call = lambda: psconv.dec_conv1_fused(*args)  # noqa: E731
-        err = _check_close(f"{tag} {tuple(args[0].shape)}", call(), psconv.dec_conv1_fused_plain(*args), F32_TOL)
+        first = call()
+        err = _check_close(f"{tag} {tuple(args[0].shape)}", first, psconv.dec_conv1_fused_plain(*args), F32_TOL)
         ms = _time_ms(call, KERNEL_ITERS)
         plain_ms = _time_ms(lambda: psconv.dec_conv1_fused_plain(*args), KERNEL_ITERS)
-        call_ms, dev_ms = _device_ms(tag, call, own=FMA_KERNEL)
+        if not torch.equal(call(), first):  # every stage of the ring reused many times by now
+            _fail(f"{tag}: a later launch differs from the first on the same input")
+        call_ms, dev_ms, dev_ops = _device_ms(tag, call, own=DEC1_SPLIT, count=True)
+        if dev_ops != 1:
+            _fail(f"{tag}: {dev_ops} device operations a call, expected the split kernel alone")
+        host_us = _host_us(call)
         cudnn = _dec1_cudnn(args[0], args[1], *case["unfolded"])
         cudnn_ms, cudnn_dev = _time_ms(cudnn, KERNEL_ITERS), _device_ms(f"{tag} cuDNN route", cudnn)
-        c = args[0].shape[-1] // 4
-        bound, bound_by, simt = _split_bound(args[0].shape, 17 * c * c, (args[1].numel() + args[2].numel()
-                                                                         + args[3].numel()) * 4)
+        weight_bytes = (args[2].numel() + args[3].numel() + args[4].numel()) * 4
+        bound, bound_by, simt = _split_bound(args[0].shape, 17 * c * c, args[1].numel() * 4 + weight_bytes)
         rows.append({
             "name": tag, "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/dec_conv1.cu",
             "replaces": f"{PSCONV_SRC}:599", "launches": fwd_launches["dec1"],
             "launches_path": "f32 serving forward 128^2 b16", "shape": list(args[0].shape), "dtype": "float32",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None, "device_ms": dev_ms, "call_device_ms": call_ms,
-            "context_cudnn_route_ms": cudnn_ms, "context_cudnn_route_device_ms": cudnn_dev,
+            "library_ms": None, "device_ms": dev_ms, "call_device_ms": call_ms, "device_ops": dev_ops,
+            "host_us": host_us, "context_cudnn_route_ms": cudnn_ms, "context_cudnn_route_device_ms": cudnn_dev,
         })
-        print(f"[chip_smoke] {tag} (the FMA kernel): {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us (call "
-              f"{call_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, cuDNN route f32 (context) {cudnn_ms * 1e3:.1f} / "
-              f"{cudnn_dev * 1e3:.1f} us, bound {bound * 1e3:.1f} us ({bound_by}, split form), f32 FMA figure "
-              f"{simt * 1e3:.1f} us")
+        print(f"[chip_smoke] {tag} (the split kernel): {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us "
+              f"({dev_ops} operation a call), host {host_us:.1f} us a call, plain {plain_ms * 1e3:.1f} us, cuDNN "
+              f"route f32 (context) {cudnn_ms * 1e3:.1f} / {cudnn_dev * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
+              f"({bound_by}, split form), f32 FMA figure {simt * 1e3:.1f} us")
+
+        # The sharded entry: 4 equal and 4 uneven shards stitched bit-equal
+        # to the whole launch, then the inner shard of 4 checked and timed.
+        views = lambda cuts: zip(_shard_views(args[0], cuts), _shard_views(args[1], cuts))  # noqa: E731
+        for cuts in _shard_cuts(hh):
+            got = torch.cat([psconv.dec_conv1_halo(s, st, sb, p, pt, pb, *args[2:], row0, hh)
+                             for (s, st, sb, row0), (p, pt, pb, _) in views(cuts)], dim=1)
+            if not torch.equal(got, first):
+                _fail(f"dec_conv1_halo f32 L{lvl} shards {cuts}: not bit-equal to the whole launch (max diff "
+                      f"{(got - first).abs().max().item():.3g})")
+        (s, st, sb, row0), (p, pt, pb, _) = list(views(_shard_cuts(hh)[0]))[1]
+        stag = f"dec_conv1_halo f32 {SIZE}^2 b{BATCH} L{lvl}"
+        shard = lambda: psconv.dec_conv1_halo(s, st, sb, p, pt, pb, *args[2:], row0, hh)  # noqa: E731
+        shard_plain = lambda: psconv.dec_conv1_halo_plain(s, st, sb, p, pt, pb, *args[2:], row0, hh)  # noqa: E731
+        serr = _check_close(f"{stag} inner shard {tuple(s.shape)}", shard(), shard_plain(), F32_TOL)
+        sms, splain_ms = _time_ms(shard, KERNEL_ITERS), _time_ms(shard_plain, KERNEL_ITERS)
+        scall_ms, sdev_ms, sops = _device_ms(f"{stag} inner shard", shard, own=DEC1_SPLIT, count=True)
+        if sops != 1:
+            _fail(f"{stag}: {sops} device operations a call, expected the split kernel alone")
+        shost = _host_us(shard)
+        rows_in = (st.numel() + sb.numel() + pt.numel() + pb.numel()) * 4
+        sbound, sbound_by, ssimt = _split_bound(s.shape, 17 * c * c, p.numel() * 4 + rows_in + weight_bytes)
+        rows.append({
+            "name": stag, "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/dec_conv1.cu",
+            "replaces": f"{PSCONV_SRC}:599", "launches": None,  # set from phase 13's f32 sharded forward
+            "launches_path": "f32 sharded serving forward 512^2 b8 (phase 13)", "shape": list(s.shape),
+            "shards": 4, "dtype": "float32", "max_abs_err": serr, "ms": sms, "plain_ms": splain_ms,
+            "bound_ms": sbound, "bound_by": sbound_by, "library_ms": None, "device_ms": sdev_ms,
+            "call_device_ms": scall_ms, "device_ops": sops, "host_us": shost,
+            "unsharded_device_ms_over_4": dev_ms / 4,
+        })
+        print(f"[chip_smoke] {stag} inner shard {tuple(s.shape)} (4 equal and 4 uneven shards bit-equal to the whole "
+              f"launch): {sms * 1e3:.1f} us/launch, device {sdev_ms * 1e3:.1f} us ({sops} operation a call; the whole "
+              f"launch over 4: {dev_ms / 4 * 1e3:.1f}), host {shost:.1f} us a call, plain {splain_ms * 1e3:.1f} us, "
+              f"bound {sbound * 1e3:.1f} us ({sbound_by}, split form), f32 FMA figure {ssimt * 1e3:.1f} us")
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -2671,6 +2751,11 @@ def _sharded_serving(dev, mesh, dtype):
                 _fail(f"{kind} {tag} site {tuple(args[0].shape)} in the sharded forward is not bit-equal to the "
                       f"unsharded kernel on its inputs")
         print(f"[chip_smoke] spatial_sharded_apply U-Net {tag}: {len(sites)} K9/K2 sites bit-equal to K1/K2")
+        if f32:
+            names = _kernel_names("f32 sharded U-Net", sharded)
+            if names != (launches["k9"], launches["dec1_halo"], 0):
+                _fail(f"f32 sharded U-Net: {names} psel split, K2 split and FMA launches, expected K9 "
+                      f"{launches['k9']} and sharded K2 {launches['dec1_halo']} on their split kernels")
         if not f32:
             whole_ms = _time_ms(lambda: unet(x)["logits"], 5)
             sharded_ms = _time_ms(sharded, 5)
@@ -2844,10 +2929,10 @@ def _spatial_train_path(dev):
             _leaf_check(f"{kind} spatial step (NCCL, 1 rank) vs one card", got_l, ref_l, 1e-3,
                         _feeds_bn if seg else _zero_in_exact_arithmetic)
             if f32:
-                split, fma = _kernel_names(f"{kind} spatial step", sp)
-                if (split, fma) != (8, 0):
-                    _fail(f"{kind} spatial step: {split} split and {fma} FMA launches a step, expected K4 on a "
-                          f"shard's 8 on the split kernel")
+                names = _kernel_names(f"{kind} spatial step", sp)
+                if names != (8, 0, 0):
+                    _fail(f"{kind} spatial step: {names} psel split, K2 split and FMA launches a step, expected K4 "
+                          f"on a shard's 8 on the split kernel")
             elif kind == "e2e dense":
                 if not (ref_m["l_dense_obj"] > 0.0 and ref_m["l_dense_box"] > 0.0):
                     _fail(f"{kind} spatial step: the dense terms must be positive, got {ref_m}")
@@ -3988,7 +4073,7 @@ def main() -> int:
         serial = [ln.strip() for ln in log if "wgmma.mma_async instructions are serialized" in ln]
         print(f"[chip_smoke]   {name}: {'; '.join(regs)}; spills: {'; '.join(spills) or 'none'}; "
               f"wgmma serialized: {'; '.join(serial) or 'none'}")
-        if serial and name in ("conv_block", "psel_conv"):
+        if serial and (name in ("conv_block", "psel_conv") or any(DEC1_SPLIT in ln for ln in serial)):
             _fail(f"ptxas serializes {name}'s wgmma instructions")
 
     model, x, launches = _main_path(dev)
@@ -4016,6 +4101,9 @@ def main() -> int:
     # The torch.distributed paths over NCCL (phase 13), then K9 and sharded
     # K2 on the captured sites (phase 12) with the sharded forward's counts.
     sharded_launches, f32_sites = _nccl_paths(dev)
+    for row in rows:
+        if row["name"].startswith("dec_conv1_halo f32"):
+            row["launches"] = sharded_launches["f32"]["dec1_halo"]
     rows += _k9_table(dev, s2d_sites, sharded_launches, f32_sites)
     del f32_sites
     del s2d_sites

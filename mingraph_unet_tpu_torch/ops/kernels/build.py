@@ -62,8 +62,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "psel_conv": {"mgu_psel_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
                   "mgu_psel_conv3x3_halo": [_P] * 6 + [_I] * 9 + [_P]},
-    "dec_conv1": {"mgu_dec_conv1": [_P] * 6 + [_I] * 7 + [_P],
-                  "mgu_dec_conv1_halo": [_P] * 10 + [_I] * 9 + [_P]},
+    "dec_conv1": {"mgu_dec_conv1": [_P] * 6 + [_I] * 15 + [_P],
+                  "mgu_dec_conv1_halo": [_P] * 10 + [_I] * 17 + [_P]},
     "phase_pool": {"mgu_phase_max_pool": [_P, _P] + [_I] * 5 + [_P]},
     "d2s": {"mgu_depth_to_space": [_P, _P] + [_I] * 4 + [_P]},
     "histeq": {"mgu_histeq": [_P, _P, _I, _I, _P]},

@@ -15,7 +15,12 @@ psel's f32 instantiation (C = Cout in :data:`BF16_WIDTHS`, the configured
 precision's K1, K4 and K9) runs the same design on the tensor cores with a
 bf16 hi/lo split: three bf16 products a term (hi·hi + hi·lo + lo·hi) into
 f32, from two B images it lays out itself (``split`` in
-:func:`psel_b_image_index`). Both bf16 kernels are Hopper designs: persistent warp-specialised blocks,
+:func:`psel_b_image_index`). So does dec-conv1's (both entries, Cout = Cs
+in :data:`BF16_WIDTHS`, Cp = 2·Cs: :func:`dec_conv1_split`): a block
+computes all four output phases of a share of the output columns, with
+hi and lo images of W_skip and the live x_prev blocks laid out from the
+raw f32 weights as they lie (:func:`dec_conv1_split_image_index`). Both
+bf16 kernels are Hopper designs: persistent warp-specialised blocks,
 weights resident in shared memory in wgmma's B layout
 (:func:`wgmma_b_layout`), halos staged by TMA through rings of stages. psel
 takes the conv's raw HWIO kernel and lays that image out itself
@@ -89,6 +94,8 @@ __all__ = [
     "psel_conv3x3_plain",
     "dec_conv1_weights",
     "dec_conv1_live_weights",
+    "dec_conv1_split",
+    "dec_conv1_split_image_index",
     "dec_conv1_bias_table",
     "dec_conv1_fused",
     "dec_conv1_fused_plain",
@@ -184,7 +191,7 @@ def psel_b_image_index(c: int, adjoint: bool = False, split: bool = False) -> np
 
 
 def _kernel_weights(w: torch.Tensor, dev: torch.device, dt: torch.dtype) -> torch.Tensor:
-    """(..., K, N) weights as K2's kernel reads them: as they are in f32,
+    """(..., K, N) weights as K2's bf16 kernel reads them (f32: contiguous):
     :func:`wgmma_b_layout` over (rows, N) in bf16."""
     w = w.to(device=dev, dtype=dt)
     if dt == torch.bfloat16:
@@ -474,6 +481,52 @@ def dec_conv1_fused_plain(
     return torch.relu(dec_conv1_preact(x_skip_s2d, x_prev, k_skip, k_prev, t9))
 
 
+def dec_conv1_split(cs: int, cp: int, cout: int) -> bool:
+    """Whether an f32 dec-conv1 launch runs the split tensor-core kernel
+    (``csrc/dec_conv1.cu::dec1_split_kernel``): Cout = Cs in
+    :data:`BF16_WIDTHS` and Cp = 2·Cs, the U-Net's two s2d levels. Other
+    f32 widths run the FMA kernel (``csrc/conv_tile.cuh``)."""
+    return cout == cs and cp == 2 * cs and cs in BF16_WIDTHS
+
+
+def _f32_weights(t: torch.Tensor, dev: torch.device, as_is: bool) -> torch.Tensor:
+    """An f32 weight of K2 on ``dev``: as it lies where ``as_is`` and its
+    last dimension is contiguous (the split kernel reads any strides of the
+    others, so the model's sliced k_skip and its einsum's k_prev cost no
+    copy), else contiguous."""
+    t = t.to(device=dev, dtype=torch.float32)
+    return t if as_is and t.stride(-1) == 1 else t.contiguous()
+
+
+def dec_conv1_split_image_index(c: int, rank: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The map by which block ``rank`` of the split kernel's cluster lays
+    out its weights (``csrc/dec_conv1.cu::lay_split_weights``): (W_skip
+    image, live image), element i of each (bf16, in the order of
+    :func:`wgmma_b_layout`'s output flattened; the hi and lo images share
+    it) from element ``index[i]`` of the raw k_skip (3, 3, C, C), of the
+    dense k_prev (3, 3, 2C, 4C), flattened. The block holds output columns
+    rank·NB … rank·NB + NB − 1 of every phase, NB = 1024 // C (a cluster of
+    C // NB blocks): W_skip's rows tap·C + ci, then the 16 live (phase p,
+    tap u) blocks' rows, each ``k_prev[py + a, px + b, :, p·C + cols]``
+    (u = 2a + b, as :func:`dec_conv1_live_weights`), with every 16-row slab
+    in :data:`SPLIT_SLAB_ROWS` order."""
+    nb, cp = 1024 // c, 2 * c
+    cols = rank * nb + np.arange(nb)
+
+    def image(rows_src: np.ndarray) -> np.ndarray:  # rows_src[k, n]: flat source index of B row k, column n
+        k = rows_src.shape[0]
+        order = np.arange(k) // 16 * 16 + SPLIT_SLAB_ROWS[np.arange(k) % 16]
+        return wgmma_b_layout(torch.from_numpy(rows_src[order])).flatten().numpy()
+
+    tap, ci = np.divmod(np.arange(9 * c), c)
+    skip = image((tap * c + ci)[:, None] * c + cols[None, :])
+    p, rest = np.divmod(np.arange(16 * cp), 4 * cp)
+    u, ci = np.divmod(rest, cp)
+    ky, kx = p // 2 + u // 2, p % 2 + u % 2
+    live = image(((ky * 3 + kx) * cp + ci)[:, None] * (4 * c) + (p * c)[:, None] + cols[None, :])
+    return skip, live
+
+
 def _dec_conv1_launch(name: str, x_skip_s2d, x_prev, k_skip, k_prev, t9, halo=None) -> torch.Tensor:
     """Launch the dec-conv1 tile on CUDA tensors after checking what it
     takes. ``halo`` = (skip_top, skip_bottom, prev_top, prev_bottom, row0,
@@ -495,12 +548,16 @@ def _dec_conv1_launch(name: str, x_skip_s2d, x_prev, k_skip, k_prev, t9, halo=No
         require(cout == cs and cp == 2 * cs and cs in BF16_WIDTHS,
                 f"bf16 kernel needs Cout = Cs in {BF16_WIDTHS} and Cp = 2·Cs, got Cs={cs}, Cp={cp}, Cout={cout}")
     dev = x_skip_s2d.device
-    ws = _kernel_weights(k_skip, dev, dt)
-    wp = _kernel_weights(dec_conv1_live_weights(k_prev) if dt == torch.bfloat16 else k_prev, dev, dt)
-    tf = t9.to(device=dev, dtype=torch.float32).contiguous()
+    if dt == torch.bfloat16:
+        ws = _kernel_weights(k_skip, dev, dt)
+        wp = _kernel_weights(dec_conv1_live_weights(k_prev), dev, dt)
+        tf = t9.to(device=dev, dtype=torch.float32).contiguous()
+    else:  # raw f32: the split kernel reads them as they lie, the FMA kernel contiguous
+        as_is = dec_conv1_split(cs, cp, cout)
+        ws, wp, tf = (_f32_weights(t, dev, as_is) for t in (k_skip, k_prev, t9))
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
     lib = library("dec_conv1")
-    tail = (int(dt == torch.bfloat16), stream_ptr(x_skip_s2d))
+    tail = (*ws.stride()[:3], *wp.stride()[:3], *tf.stride()[:2], int(dt == torch.bfloat16), stream_ptr(x_skip_s2d))
     if halo is None:
         rc = lib.mgu_dec_conv1(x_skip_s2d.data_ptr(), x_prev.data_ptr(), ws.data_ptr(), wp.data_ptr(),
                                tf.data_ptr(), y.data_ptr(), b, hh, ww, cs, cp, cout, *tail)
@@ -531,8 +588,10 @@ def dec_conv1_fused(
     :func:`dec_conv1_bias_table`.
 
     x_skip_s2d: (B, Hh, Ww, 4·Cs); x_prev: (B, Hh, Ww, Cp); returns
-    (B, Hh, Ww, 4·Cout). On CUDA: f32 with Cs, Cp, Cout multiples of 16, or
-    bf16 with Cout = Cs in :data:`BF16_WIDTHS` and Cp = 2·Cs.
+    (B, Hh, Ww, 4·Cout). On CUDA: f32 with Cs, Cp, Cout multiples of 16
+    (the split tensor-core kernel where :func:`dec_conv1_split` holds, the
+    FMA kernel otherwise), or bf16 with Cout = Cs in :data:`BF16_WIDTHS` and
+    Cp = 2·Cs.
     """
     if x_skip_s2d.device.type == "cpu":
         return dec_conv1_fused_plain(x_skip_s2d, x_prev, k_skip, k_prev, t9)

@@ -1,6 +1,8 @@
 """Profiling hooks over ``torch.profiler``. Counterpart of
 ``mingraph_unet_tpu/utils/profiling.py`` (which wraps ``jax.profiler``).
 
+- :func:`warm_profile` is ``torch.profiler.profile`` after a warm-up step
+  that its results leave out, so that no kernel of the block goes missing.
 - :func:`trace_if` records CPU and CUDA activity with Python stacks and
   writes a Chrome trace (``trace-<pid>-<ns>.json.gz``) into a directory.
 - :func:`parse_device_trace` reads the device events of the newest such
@@ -28,16 +30,51 @@ from typing import Dict, Iterator, List, Optional
 
 import torch
 
-__all__ = ["trace_if", "step_timer", "StepTimer", "parse_device_trace", "attribute_stages"]
+__all__ = ["warm_profile", "trace_if", "step_timer", "StepTimer", "parse_device_trace", "attribute_stages"]
 
 _PACKAGE = "mingraph_unet_tpu_torch"
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+# Kernels launched in the discarded warm-up step of a profiled session. In
+# a process that has used the card and the profiler for a while (a whole
+# file of card tests, chip_smoke.py), the profiler drops the device records
+# of a session's first kernels (one to three; at times every one of a short
+# session; none in a fresh process); kernels launched in a warm-up step take
+# that loss, and every later one is recorded.
+WARMUP_KERNELS = 8
+
+
+@contextlib.contextmanager
+def warm_profile(activities, **kwargs) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler.profile(activities, **kwargs)`` over the block,
+    after a warm-up step that its results leave out (where it records CUDA:
+    :data:`WARMUP_KERNELS` tiny kernels, synchronized). Yields the profiler;
+    after the block its ``key_averages()`` and ``export_chrome_trace`` hold
+    the block's events, every kernel it launched among them."""
+    prof = torch.profiler.profile(activities=activities,
+                                  schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1), **kwargs)
+    prof.record_steps = False  # no "ProfilerStep#" range: it would show among the block's device operations
+    prof.start()
+    if torch.profiler.ProfilerActivity.CUDA in activities:
+        z = torch.zeros(1, device="cuda")
+        for _ in range(WARMUP_KERNELS):
+            z.add_(1)
+        torch.cuda.synchronize()
+    prof.step()  # the recorded step
+    try:
+        yield prof
+    finally:
+        prof.step()  # ends it
+        prof.stop()
+
+
 @contextlib.contextmanager
 def trace_if(trace_dir: Optional[str]) -> Iterator[None]:
     """Profile the block into a Chrome trace under ``trace_dir`` (CPU, and
-    CUDA where there is a card, with Python stacks); nothing for None."""
+    CUDA where there is a card, with Python stacks; :func:`warm_profile`,
+    so that every kernel the block launches is in the trace); nothing for
+    None."""
     if not trace_dir:
         yield
         return
@@ -45,7 +82,7 @@ def trace_if(trace_dir: Optional[str]) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities, with_stack=True) as prof:
+    with warm_profile(activities, with_stack=True) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace-{os.getpid()}-{time.time_ns()}.json.gz"))
 

@@ -47,18 +47,20 @@ def _psel_case(shape, seed=0):
     return x, k, bias
 
 
-def _dec1_args(shape, seed=1):
+def _dec1_args(shape, seed=1, device="cpu"):
+    """Seeded K2 inputs; the weights made on ``device`` as the model makes
+    them (k_skip a slice of conv1's kernel, k_prev and t9 strided)."""
     b, hh, ww, c, cprev = shape
     rng = np.random.default_rng(seed)
     x_skip = rng.standard_normal((b, hh, ww, 4 * c)).astype(np.float32)
     x_prev = rng.standard_normal((b, hh, ww, cprev)).astype(np.float32)
-    kernel = _t((rng.standard_normal((3, 3, 2 * c, c)) * 0.2).astype(np.float32))
-    bias = _t(rng.standard_normal(c).astype(np.float32))
-    kt = _t((rng.standard_normal((2, 2, cprev, c)) * 0.2).astype(np.float32))
-    bias_up = _t(rng.standard_normal(c).astype(np.float32))
+    kernel = _t((rng.standard_normal((3, 3, 2 * c, c)) * 0.2).astype(np.float32)).to(device)
+    bias = _t(rng.standard_normal(c).astype(np.float32)).to(device)
+    kt = _t((rng.standard_normal((2, 2, cprev, c)) * 0.2).astype(np.float32)).to(device)
+    bias_up = _t(rng.standard_normal(c).astype(np.float32)).to(device)
     k_skip, k_prev = t_psconv.dec_conv1_weights(kernel, c, t_s2d.s2d_convt2x2_kernel(kt))
     t9 = t_psconv.dec_conv1_bias_table(kernel, c, bias_up, bias)
-    return _t(x_skip), _t(x_prev), k_skip, k_prev, t9
+    return _t(x_skip).to(device), _t(x_prev).to(device), k_skip, k_prev, t9
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +104,11 @@ def test_card_psel_matches_plain(cuda_device, shape, dtype):
 
 # The bf16 dec-conv1 kernel's persistent grid walks 4 x 16 s2d tiles, a block
 # a SM at C = 32 and a cluster of four blocks (one output phase each) a tile
-# at C = 64: Hh and Ww that are not multiples of the tile, batch 1 with
-# fewer tiles than the grid has clusters, Hh = 1, and more tiles than the
-# grid has blocks (or clusters).
+# at C = 64; the f32 split kernel's the same tiles, a block a SM at C = 32
+# and a cluster of four (a quarter of the output columns each) at C = 64:
+# Hh and Ww that are not multiples of the tile, batch 1 with fewer tiles
+# than the grid has clusters, Hh = 1, and more tiles than the grid has
+# blocks (or clusters).
 DEC1_RAGGED = [(1, 7, 37, 64, 128), (1, 13, 37, 32, 64), (1, 1, 21, 64, 128), (1, 1, 40, 32, 64),
                (2, 101, 99, 32, 64), (3, 66, 70, 64, 128)]
 
@@ -596,14 +600,18 @@ PSEL_ENTRIES = {
 
 
 def _card_ops(fn, calls: int = 3) -> dict:
-    """The device operations of ``calls`` calls of ``fn`` by name. The
-    profiler may miss a launch of a window, or now and then record none
-    (chip_smoke.py's _device_ops): a window without any is taken again."""
+    """The device operations of ``calls`` calls of ``fn`` by name, in a
+    session that starts with the profiler's warm-up step
+    (``utils/profiling.py::warm_profile``: without it a process that has
+    profiled for a while loses a session's first kernels); a window
+    without any is taken again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from mingraph_unet_tpu_torch.utils.profiling import warm_profile
 
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -658,6 +666,65 @@ def test_card_f32_psel_repeats_bit_for_bit(cuda_device, shape):
     first = t_psconv.psel_conv3x3(x, k, bias)
     same = [torch.equal(t_psconv.psel_conv3x3(x, k, bias), first) for _ in range(20)]
     assert all(same), f"{same.count(False)} of 20 launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64])
+def test_card_f32_dec_conv1_repeats_bit_for_bit(cuda_device, c):
+    """K2's f32 split kernel at the 512² b8 shapes (L0: C = 32, a block a
+    SM; L1: C = 64, clusters of four; every ring stage reused many times):
+    20 launches on the same input give the same output bit for bit, and
+    the first is within CARD_TOL of the plain version."""
+    hh = 256 if c == 32 else 128
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x_skip = torch.randn((8, hh, hh, 4 * c), generator=g, device=cuda_device)
+    x_prev = torch.randn((8, hh, hh, 2 * c), generator=g, device=cuda_device)
+    kernel = torch.randn((3, 3, 2 * c, c), generator=g, device=cuda_device) * (1.0 / (18 * c)) ** 0.5
+    kt = torch.randn((2, 2, 2 * c, c), generator=g, device=cuda_device) * (1.0 / (8 * c)) ** 0.5
+    bias, bias_up = torch.randn((c,), generator=g, device=cuda_device), torch.randn((c,), generator=g, device=cuda_device)
+    k_skip, k_prev = t_psconv.dec_conv1_weights(kernel, c, t_s2d.s2d_convt2x2_kernel(kt))
+    t9 = t_psconv.dec_conv1_bias_table(kernel, c, bias_up, bias)
+    first = t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9)
+    same = [torch.equal(t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9), first) for _ in range(20)]
+    assert all(same), f"{same.count(False)} of 20 launches differ"
+    ref = t_psconv.dec_conv1_fused_plain(x_skip, x_prev, k_skip, k_prev, t9)
+    _assert_close_rel(first.cpu(), ref.cpu(), CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64])
+def test_card_f32_dec_conv1_is_one_device_operation(cuda_device, c):
+    """An f32 K2 call, unsharded or on a shard, is one launch of the split
+    kernel on the model's weights as ``dec_conv1_weights`` and
+    ``dec_conv1_bias_table`` give them (strided views: no copy, no pack)."""
+    x_skip, x_prev, k_skip, k_prev, t9 = _dec1_args((2, 16, 37, c, 2 * c), device=cuda_device)
+    assert not (k_skip.is_contiguous() or k_prev.is_contiguous() or t9.is_contiguous())
+    (s, st, sb, row0), (p, pt, pb, _) = _shards(x_skip, 4, [0, 4, 9, 12, 16])[1], _shards(x_prev, 4, [0, 4, 9, 12, 16])[1]
+    calls = 3
+    for fn in (lambda: t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9),
+               lambda: t_psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, 16)):
+        fn()
+        ops = _card_ops(fn, calls)
+        assert ops and sum(ops.values()) <= calls and all("dec1_split_kernel" in key for key in ops), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 19, 48, 96), (1, 6, 20, 32, 48)])
+def test_card_f32_dec_conv1_fma_widths_match_plain(cuda_device, shape):
+    """f32 K2 widths the split kernel has no instantiation for (Cs = 48;
+    Cp ≠ 2·Cs) run the FMA kernel, unsharded and on shards, within
+    CARD_TOL of the plain version; the shards stitch bit for bit."""
+    b, hh, ww, c, cp = shape
+    x_skip, x_prev, k_skip, k_prev, t9 = (t.to(cuda_device) for t in _dec1_args(shape))
+    got = t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9)
+    _assert_close_rel(got.cpu(), t_psconv.dec_conv1_fused_plain(x_skip, x_prev, k_skip, k_prev, t9).cpu(),
+                      CARD_TOL[torch.float32])
+    parts = [t_psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, hh)
+             for (s, st, sb, row0), (p, pt, pb, _) in zip(_shards(x_skip, 2), _shards(x_prev, 2))]
+    assert torch.equal(torch.cat(parts, dim=1), got)
+    ops = _card_ops(lambda: t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9))
+    # The FMA kernel, beside the contiguous copies it takes of the model's strided weights.
+    assert any("conv_f32_kernel" in key for key in ops) and not any("dec1_split_kernel" in key for key in ops), ops
 
 
 @pytest.mark.cuda

@@ -10,6 +10,13 @@ Tolerances: the live form is a selection and must hold k_prev's entries
 exactly; the contraction sums the same products as the dense plain version
 less the zero ones, in f32, within 1e-5 of max |ref|; against JAX within
 2e-4 of max |ref| (PARITY.md M5).
+
+The f32 kernel (``dec1_split_kernel``) lays out, per block of its cluster,
+hi and lo B images of the live form's columns from the raw weights; its
+map (``dec_conv1_split_image_index``) is held here to the live blocks, and
+its hi/lo arithmetic, emulated on the CPU, to the plain version within the
+card's f32 tolerance (1e-4 of max |ref|: the dropped lo·lo products are
+below 2^-16 of each product) and to JAX within 2e-4.
 """
 
 import jax
@@ -56,11 +63,11 @@ def _weights(kernel, bias, kt, bias_up):
     return k_skip, k_prev, t_psconv.dec_conv1_bias_table(_t(kernel), c, _t(bias_up), _t(bias))
 
 
-def _live_contraction(x_skip, x_prev, k_skip, live, t9):
-    """The kernel's sum in f32: the skip term, then for each output phase
-    p = (py, px) its 4 live taps u = 2a + b, each reading x_prev at s2d
-    offset (py + a − 1, px + b − 1) (zero outside the grid), then the bias
-    field and the ReLU."""
+def _live_terms(x_skip, x_prev, k_skip, live):
+    """The kernel's products in f32 before the bias: the skip term, then
+    for each output phase p = (py, px) its 4 live taps u = 2a + b, each
+    reading x_prev at s2d offset (py + a − 1, px + b − 1) (zero outside the
+    grid)."""
     _, hh, ww, _ = x_skip.shape
     c = k_skip.shape[-1]
     y = t_s2d.conv3x3_s2d(x_skip, t_s2d.s2d_conv3x3_kernel(k_skip))
@@ -71,6 +78,32 @@ def _live_contraction(x_skip, x_prev, k_skip, live, t9):
             a, b = divmod(u, 2)
             win = xp[:, py + a:py + a + hh, px + b:px + b + ww]
             y[..., p * c:(p + 1) * c] += torch.einsum("nhwi,io->nhwo", win, live[p, u])
+    return y
+
+
+def _live_contraction(x_skip, x_prev, k_skip, live, t9):
+    """The kernel's sum in f32 (:func:`_live_terms`), then the bias field
+    and the ReLU."""
+    _, hh, ww, _ = x_skip.shape
+    return torch.relu(_live_terms(x_skip, x_prev, k_skip, live) + t_psconv.bias_table_field(t9, hh, ww)[None])
+
+
+def _split(t):
+    """An f32 tensor as the f32 kernel splits it: (hi, lo), hi = bf16(t),
+    lo = bf16(t − hi), both held in f32 (exactly)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _split_form(x_skip, x_prev, k_skip, live, t9):
+    """The f32 kernel's arithmetic (``csrc/dec_conv1.cu::dec1_split_kernel``)
+    on the CPU: every operand split into bf16 hi and lo, each product taken
+    as hi·hi + hi·lo + lo·hi (a product of two bf16 values is exact in f32),
+    summed in f32 over the skip taps and the live x_prev taps; then the bias
+    field and the ReLU."""
+    _, hh, ww, _ = x_skip.shape
+    (sh, sl), (ph, pl), (kh, kl), (lh, ll) = (_split(t) for t in (x_skip, x_prev, k_skip, live))
+    y = _live_terms(sh, ph, kh, lh) + _live_terms(sh, ph, kl, ll) + _live_terms(sl, pl, kh, lh)
     return torch.relu(y + t_psconv.bias_table_field(t9, hh, ww)[None])
 
 
@@ -111,3 +144,110 @@ def test_live_contraction_matches_plain_and_pallas(shape):
         t9j = jax_psconv.dec_conv1_bias_table(jnp.asarray(kernel), c, jnp.asarray(bias_up), jnp.asarray(bias))
         ref = jax_psconv.dec_conv1_fused(jnp.asarray(x_skip), jnp.asarray(x_prev), km, kp, kc, t9j, interpret=True)
     _assert_close_rel(got.numpy(), ref, 2e-4)
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_split_image_index_gathers_the_live_blocks(c):
+    """The f32 kernel's weight map: block r of the cluster (C // NB blocks,
+    NB = 1024 // C columns each) gathers W_skip's columns r·NB … r·NB + NB
+    − 1 and the same columns of the 16 live (phase, tap) blocks of the
+    dense k_prev, each laid out as ``wgmma_b_layout`` with every 16-row slab
+    in ``SPLIT_SLAB_ROWS`` order; over the cluster every weight of k_skip is
+    read once, and the live indices are exactly k_prev's non-zero blocks,
+    so every non-zero of k_prev is read and no zero block is."""
+    _, _, kernel, bias, kt, bias_up = _case((1, 1, 1, c, 2 * c))
+    k_skip, k_prev, _ = _weights(kernel, bias, kt, bias_up)
+    k_skip = k_skip.contiguous()
+    live = t_psconv.dec_conv1_live_weights(k_prev)
+    nb, cp = 1024 // c, 2 * c
+    rows = t_psconv.SPLIT_SLAB_ROWS
+
+    def laid(b2d):  # (K, NB) → the kernel's image: each slab's rows in SPLIT_SLAB_ROWS order
+        k = b2d.shape[0]
+        order = torch.from_numpy(np.arange(k) // 16 * 16 + rows[np.arange(k) % 16])
+        return t_psconv.wgmma_b_layout(b2d[order]).flatten()
+
+    skip_all, live_all = [], []
+    for r in range(c // nb):
+        cols = slice(r * nb, (r + 1) * nb)
+        skip_index, live_index = t_psconv.dec_conv1_split_image_index(c, r)
+        assert skip_index.shape == (9 * c * nb,) and live_index.shape == (16 * cp * nb,)
+        assert torch.equal(k_skip.flatten()[torch.from_numpy(skip_index)], laid(k_skip[..., cols].reshape(9 * c, nb)))
+        assert torch.equal(k_prev.flatten()[torch.from_numpy(live_index)],
+                           laid(live[..., cols].reshape(16 * cp, nb)))
+        skip_all.append(skip_index)
+        live_all.append(live_index)
+    skip_all, live_all = np.concatenate(skip_all), np.concatenate(live_all)
+    assert np.array_equal(np.sort(skip_all), np.arange(9 * c * c))
+    assert len(np.unique(live_all)) == len(live_all) == 16 * cp * c
+    mask = torch.zeros(k_prev.numel(), dtype=torch.bool)
+    mask[torch.from_numpy(live_all)] = True
+    assert bool((k_prev.flatten()[~mask] == 0).all())  # every block left out is zero
+    assert bool((k_prev.flatten()[mask] != 0).all())   # and every one read is live
+
+
+# (B, Hh, Ww, C, Cp): the kernel's two widths at small grids; a grid one
+# pixel high.
+SPLIT_SHAPES = [(2, 6, 8, 32, 64), (1, 4, 6, 64, 128), (1, 1, 7, 32, 64)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_form_matches_plain_and_pallas(shape):
+    """The f32 kernel's hi/lo arithmetic on the live form, emulated on the
+    CPU, against the plain version (the card's f32 tolerance, 1e-4 of max
+    |ref|) and JAX's ``dec_conv1_fused`` in f32 (Pallas in interpret mode,
+    2e-4: PARITY.md M5)."""
+    x_skip, x_prev, kernel, bias, kt, bias_up = _case(shape)
+    k_skip, k_prev, t9 = _weights(kernel, bias, kt, bias_up)
+    got = _split_form(_t(x_skip), _t(x_prev), k_skip, t_psconv.dec_conv1_live_weights(k_prev), t9)
+    plain = t_psconv.dec_conv1_fused_plain(_t(x_skip), _t(x_prev), k_skip, k_prev, t9)
+    _assert_close_rel(got.numpy(), plain.numpy(), 1e-4)
+    c = kernel.shape[-1]
+    with jax.default_matmul_precision("highest"):
+        km, kp, kc = jax_psconv.dec_conv1_weights(jnp.asarray(kernel), c, jax_s2d.s2d_convt2x2_kernel(jnp.asarray(kt)))
+        t9j = jax_psconv.dec_conv1_bias_table(jnp.asarray(kernel), c, jnp.asarray(bias_up), jnp.asarray(bias))
+        ref = jax_psconv.dec_conv1_fused(jnp.asarray(x_skip), jnp.asarray(x_prev), km, kp, kc, t9j, interpret=True)
+    _assert_close_rel(got.numpy(), ref, 2e-4)
+
+
+class _Recorder:
+    """Stands in for the dec-conv1 library: records each C call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("halo", [False, True], ids=["unsharded", "sharded"])
+@pytest.mark.parametrize("c,cp,split", [(32, 64, True), (64, 128, True), (48, 96, False), (32, 48, False)])
+def test_f32_launch_passes_the_model_weights_as_they_lie(monkeypatch, c, cp, split, halo):
+    """An f32 launch at the split kernel's widths hands the C entry k_skip
+    (a slice of conv1's kernel), k_prev and t9 as the model makes them (no
+    copy: their own storage and strides), so a call is one device
+    operation; other f32 widths hand the FMA kernel contiguous copies with
+    their dense strides."""
+    _, _, kernel, bias, kt, bias_up = _case((1, 1, 1, c, cp))
+    k_skip, k_prev, t9 = _weights(kernel, bias, kt, bias_up)
+    assert not (k_skip.is_contiguous() or k_prev.is_contiguous() or t9.is_contiguous())
+    assert t_psconv.dec_conv1_split(c, cp, c) == split
+    x_skip, x_prev = torch.zeros((1, 4, 4, 4 * c)), torch.zeros((1, 4, 4, cp))
+    lib = _Recorder()
+    for name in ("check_cuda_input", "require_no_grad", "_check_rows"):
+        monkeypatch.setattr(t_psconv, name, lambda *a: None)
+    monkeypatch.setattr(t_psconv, "library", lambda name: lib)
+    monkeypatch.setattr(t_psconv, "stream_ptr", lambda t: 0)
+    rows = (None, None, None, None, 0, 4) if halo else None
+    t_psconv._dec_conv1_launch("k2", x_skip, x_prev, k_skip, k_prev, t9, halo=rows)
+    ((name, args),) = lib.calls
+    assert name == ("mgu_dec_conv1_halo" if halo else "mgu_dec_conv1")
+    ws, wp, tf = args[6:9] if halo else args[2:5]
+    strides = args[-10:-2]
+    if split:
+        assert (ws, wp, tf) == (k_skip.data_ptr(), k_prev.data_ptr(), t9.data_ptr())
+        assert strides == (*k_skip.stride()[:3], *k_prev.stride()[:3], *t9.stride()[:2])
+    else:
+        assert ws != k_skip.data_ptr() and wp != k_prev.data_ptr() and tf != t9.data_ptr()
+        assert strides == (3 * c * c, c * c, c, 3 * cp * 4 * c, cp * 4 * c, 4 * c, 12 * c, 4 * c)
+    assert args[-2] == 0  # not bf16

@@ -43,11 +43,14 @@ checkout's port and builds its kernels, then runs the cases named by
 - ``f32``: the f32 instantiations of K1, K4 (forward, dgrad) at the
   512² b8 and the configured 128² b16 shapes of both s2d levels, K9 and K4
   on the inner shard of 4 at 512² b8 (stitched shards held bit for bit
-  against the whole launch), K2 at its bf16 shapes, each held against its
-  plain version within ``F32_TOL`` (TF32 off), beside the full-resolution
-  ``F.conv2d`` in f32 with TF32 off (and on, as context); then the
-  segmentation step as ``configs/*.yaml`` configure it (f32, 128², batch
-  16, Adam): ms/step, host issue ms, peak memory;
+  against the whole launch), K2 at its bf16 shapes and its sharded entry
+  on the inner shard of 4 (stitched shards bit-equal to the whole launch),
+  each held against its plain version within ``F32_TOL`` (TF32 off),
+  beside the full-resolution ``F.conv2d`` in f32 with TF32 off (and on, as
+  context); the f32 serving forward at 512² b8 (its device time and the
+  part of it in the f32 conv kernels); then the segmentation step as
+  ``configs/*.yaml`` configure it (f32, 128², batch 16, Adam): ms/step,
+  host issue ms, peak memory;
 - ``paths``: the three paths that launch K6 (the bf16 serving forward at
   512² b8, the 1024² large scene with its dense head and decode, and the
   bf16 end-to-end train step at 512² b8), built as ``chip_smoke.py``
@@ -385,7 +388,30 @@ def _f32(cs, tree, dev):
         row["cudnn_route_us"] = cs._time_ms(cudnn, cs.KERNEL_ITERS) * 1e3
         row["cudnn_route_device_us"] = _device(cs, cudnn, (), 10)[0]
         yield row
+        # K2's sharded entry on the inner shard of 4, stitched shards held bit
+        # for bit against the whole launch.
+        hh, whole = args[0].shape[1], call()
+        views = lambda cuts: zip(cs._shard_views(args[0], cuts), cs._shard_views(args[1], cuts))  # noqa: E731
+        for cuts in cs._shard_cuts(hh):
+            got = torch.cat([psconv.dec_conv1_halo(s, st, sb, p, pt, pb, *args[2:], row0, hh)
+                             for (s, st, sb, row0), (p, pt, pb, _) in views(cuts)], dim=1)
+            if not torch.equal(got, whole):
+                cs._fail(f"{tree}: f32 K2 L{case['level']} shards {cuts} not bit-equal to the whole launch")
+        (s, st, sb, row0), (p, pt, pb, _) = list(views(cs._shard_cuts(hh)[0]))[1]
+        shard = lambda: psconv.dec_conv1_halo(s, st, sb, p, pt, pb, *args[2:], row0, hh)  # noqa: E731
+        shard_plain = lambda: psconv.dec_conv1_halo_plain(s, st, sb, p, pt, pb, *args[2:], row0, hh)  # noqa: E731
+        err = cs._check_close(f"{tree} K2 shard f32 L{case['level']}", shard(), shard_plain(), cs.F32_TOL)
+        row = _row(cs, tree, "K2 shard", shard, F32_OWN + ("dec1",), cs.KERNEL_ITERS, 10, dtype="f32",
+                   cell="512^2 b8", level=case["level"], shape=list(s.shape), max_abs_err=err)
+        row["host_us"] = cs._host_us(shard)
+        yield row
     torch.backends.cudnn.allow_tf32 = True
+    with torch.no_grad():  # the f32 serving forward at 512² b8, TF32 as PyTorch's default
+        model, x = cs._serving_model(dev, dtype=torch.float32)
+        yield _row(cs, tree, "f32 serving forward", lambda: model(x), F32_OWN + ("dec1",), 5, 3, dtype="f32",
+                   cell="512^2 b8")
+    del model, x
+    torch.cuda.empty_cache()
     yield _f32_step(cs, tree, dev)
 
 
