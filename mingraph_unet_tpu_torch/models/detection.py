@@ -30,6 +30,7 @@ from mingraph_unet_tpu_torch.ops.boxes import cxcywh_to_xyxy, nms
 from mingraph_unet_tpu_torch.ops.cc import _top_k_stable, instance_boxes
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
 from mingraph_unet_tpu_torch.parallel.data import batch_mean, global_count
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["DetectionHead", "DenseDetectionHead", "decode_dense_detections", "dense_detection_loss"]
 
@@ -67,20 +68,21 @@ class DetectionHead(nn.Module):
 
     def forward(self, f: torch.Tensor, pre_pool_size: Optional[int] = None,
                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
-        x = f.to(self.dtype)
-        if pre_pool_size is not None and x.shape[1] > pre_pool_size:
-            x = _avg_pool(x, max(1, x.shape[1] // pre_pool_size), max(1, x.shape[2] // pre_pool_size))
-        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-            x = bn(torch.relu(conv2d_nhwc(x, conv.kernel, conv.bias, padding=1)))
-        x = x.mean(dim=(1, 2))
-        gen = gen if self.training else None
-        x = layers.dropout(torch.relu(self.fc1(x)), HEAD_DROPOUT, gen)
-        x = layers.dropout(torch.relu(self.fc2(x)), HEAD_DROPOUT, gen)
-        acc = torch.promote_types(x.dtype, torch.float32)
-        out = (torch.sigmoid(self.fc_bbox(x).to(acc)), torch.sigmoid(self.fc_confidence(x).to(acc)))
-        if hasattr(self, "fc_class_scores"):
-            out += (self.fc_class_scores(x).to(acc),)
-        return out
+        with span("detection"):
+            x = f.to(self.dtype)
+            if pre_pool_size is not None and x.shape[1] > pre_pool_size:
+                x = _avg_pool(x, max(1, x.shape[1] // pre_pool_size), max(1, x.shape[2] // pre_pool_size))
+            for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
+                x = bn(torch.relu(conv2d_nhwc(x, conv.kernel, conv.bias, padding=1)))
+            x = x.mean(dim=(1, 2))
+            gen = gen if self.training else None
+            x = layers.dropout(torch.relu(self.fc1(x)), HEAD_DROPOUT, gen)
+            x = layers.dropout(torch.relu(self.fc2(x)), HEAD_DROPOUT, gen)
+            acc = torch.promote_types(x.dtype, torch.float32)
+            out = (torch.sigmoid(self.fc_bbox(x).to(acc)), torch.sigmoid(self.fc_confidence(x).to(acc)))
+            if hasattr(self, "fc_class_scores"):
+                out += (self.fc_class_scores(x).to(acc),)
+            return out
 
 
 class DenseDetectionHead(nn.Module):

@@ -24,6 +24,7 @@ from torch import nn
 from mingraph_unet_tpu_torch.models import layers
 from mingraph_unet_tpu_torch.models.layers import xavier_uniform
 from mingraph_unet_tpu_torch.ops import lattice as lattice_ops
+from mingraph_unet_tpu_torch.utils.profiling import NO_SPAN, span
 
 __all__ = ["adjacency_from_edge_index", "fully_connected_adjacency", "DenseGAT", "LatticeGAT", "GATNetwork"]
 
@@ -152,14 +153,18 @@ class GATNetwork(nn.Module):
     ``output_dim``; more → concat layers at ``hidden_dim`` then an averaging
     layer. ``backend`` is ``"lattice"`` (grid input) or ``"dense"``
     (``forward(x, adj)``); every layer drops at ``dropout_rate`` in train
-    mode, drawing from the ``gen`` given to :meth:`forward`."""
+    mode, drawing from the ``gen`` given to :meth:`forward`. ``span``
+    names the forward's range (``utils/profiling.py::span``); None opens
+    none, for a network nested in a named range (the MinCut segment
+    predictor, inside ``mgu.graph.mincut``)."""
 
     def __init__(self, in_features, hidden_dim, output_dim, num_heads, gen, num_layers=1,
-                 alpha=0.2, backend="dense", dtype=torch.float32, dropout_rate=0.1):
+                 alpha=0.2, backend="dense", dtype=torch.float32, dropout_rate=0.1, span=None):
         super().__init__()
         cls = LatticeGAT if backend == "lattice" else DenseGAT
         self.backend = backend
         self.num_layers = num_layers
+        self.span = span
         dims = [(in_features, output_dim, False)] if num_layers == 1 else (
             [(in_features, hidden_dim, True)]
             + [(hidden_dim, hidden_dim, True)] * (num_layers - 2)
@@ -172,7 +177,8 @@ class GATNetwork(nn.Module):
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.backend == "dense" and adj is None:
             raise ValueError("the dense backend needs an adjacency mask")
-        for i in range(self.num_layers):
-            layer = getattr(self, f"layer{i}")
-            x = layer(x, gen=gen) if self.backend == "lattice" else layer(x, adj, gen=gen)
+        with span(self.span) if self.span is not None else NO_SPAN:
+            for i in range(self.num_layers):
+                layer = getattr(self, f"layer{i}")
+                x = layer(x, gen=gen) if self.backend == "lattice" else layer(x, adj, gen=gen)
         return x

@@ -19,6 +19,7 @@ from torch import nn
 from mingraph_unet_tpu_torch.models.gat import GATNetwork
 from mingraph_unet_tpu_torch.models.layers import Dense
 from mingraph_unet_tpu_torch.ops import lattice as lattice_ops
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["edge_weights_dense", "normalized_cut_loss_dense", "normalized_cut_loss_lattice", "SegmentPredictor",
            "MinCutRefinement"]
@@ -121,9 +122,10 @@ class MinCutRefinement(nn.Module):
                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.backend != "lattice" and adj is None:
             raise ValueError("the dense backend needs an adjacency mask")
-        logits = self.segment_predictor(gat_features, adj, gen=gen)
-        acc = torch.promote_types(logits.dtype, torch.float32)  # f32, or f64 in an f64 model
-        soft = torch.softmax(logits.to(acc), dim=-1)
-        if self.backend == "lattice":
-            return normalized_cut_loss_lattice(gat_features.to(acc), soft, self.sigma_ncut), soft
-        return normalized_cut_loss_dense(gat_features.to(acc), adj, soft, self.sigma_ncut), soft
+        with span("graph.mincut"):
+            logits = self.segment_predictor(gat_features, adj, gen=gen)
+            acc = torch.promote_types(logits.dtype, torch.float32)  # f32, or f64 in an f64 model
+            soft = torch.softmax(logits.to(acc), dim=-1)
+            if self.backend == "lattice":
+                return normalized_cut_loss_lattice(gat_features.to(acc), soft, self.sigma_ncut), soft
+            return normalized_cut_loss_dense(gat_features.to(acc), adj, soft, self.sigma_ncut), soft

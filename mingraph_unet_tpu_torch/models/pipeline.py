@@ -64,6 +64,7 @@ from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD, denormalize
 from mingraph_unet_tpu_torch.ops.patches import broadcast_patch_to_pixels, patch_reduce_mean
 from mingraph_unet_tpu_torch.ops.segment import gather_rows, segment_mean
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["MinGraphUNet"]
 
@@ -154,7 +155,8 @@ class MinGraphUNet(nn.Module):
         self.patch_feature_proj = Dense(init_features, unet_patch_feature_dim, gen, dtype)
         if use_patch_gat:
             self.patch_gat = GATNetwork(unet_patch_feature_dim + 4, gat_hidden_dim, gat_output_dim, gat_num_heads,
-                                        gen, gat_num_layers, gat_alpha, "lattice", dtype, gat_dropout)
+                                        gen, gat_num_layers, gat_alpha, "lattice", dtype, gat_dropout,
+                                        span="graph.patch_gat")
         else:
             self.patch_passthrough_proj = Dense(unet_patch_feature_dim + 4, gat_output_dim, gen, dtype)
         self.feature_consistency_proj = Dense(init_features, gat_output_dim, gen, dtype)
@@ -163,7 +165,7 @@ class MinGraphUNet(nn.Module):
                                            max(1, gat_num_heads // 2), gat_alpha, dtype, gat_dropout)
             if use_region_gat:
                 self.region_gat = GATNetwork(gat_output_dim, gat_hidden_dim, gat_output_dim, gat_num_heads, gen, 1,
-                                             gat_alpha, "dense", dtype, gat_dropout)
+                                             gat_alpha, "dense", dtype, gat_dropout, span="graph.region_gat")
         head_in = init_features + gat_output_dim if use_fusion else init_features
         self.detection_head = DetectionHead(head_in, gen, fc_hidden_dim, dtype, num_detection_classes)
         if use_dense_detection:
@@ -220,7 +222,7 @@ class MinGraphUNet(nn.Module):
         else:
             unet_patch = patch_reduce_mean(skips[0], p)
         unet_patch = self.patch_feature_proj(unet_patch)
-        with torch.no_grad():
+        with torch.no_grad(), span("aux"):
             rgb255 = torch.clamp(
                 denormalize(images[..., :3].float(), self.normalization_mean, self.normalization_std), 0.0, 1.0
             ) * 255.0
@@ -245,17 +247,19 @@ class MinGraphUNet(nn.Module):
         if self.use_partition:
             # Stage 4: MinCut partition.
             l_partition, soft_assign = self.mincut(gat_feats, gen=gen)
-            hard_labels = torch.argmax(soft_assign, dim=-1)
             # Stage 5: region pooling + region GAT.
-            flat_feats = gat_feats.reshape(b, nph * npw, -1).to(acc)
-            flat_labels = hard_labels.reshape(b, nph * npw)
-            region_feats, region_counts = segment_mean(flat_feats, flat_labels, k)
+            with span("graph.regions"):
+                hard_labels = torch.argmax(soft_assign, dim=-1)
+                flat_feats = gat_feats.reshape(b, nph * npw, -1).to(acc)
+                flat_labels = hard_labels.reshape(b, nph * npw)
+                region_feats, region_counts = segment_mean(flat_feats, flat_labels, k)
             if self.use_region_gat:
                 adj = fully_connected_adjacency(k, device=self.device)
                 region_embeds = self.region_gat(region_feats.to(dt), adj, gen=gen).to(acc)
             else:
                 region_embeds = region_feats
-            f_g_patch = gather_rows(region_embeds, flat_labels).reshape(b, nph, npw, -1)
+            with span("graph.regions"):
+                f_g_patch = gather_rows(region_embeds, flat_labels).reshape(b, nph, npw, -1)
         else:
             # No partition: every patch in segment 0, the patch embeddings
             # broadcast to pixels directly.

@@ -83,6 +83,7 @@ from mingraph_unet_tpu_torch.ops.kernels.psconv import (
     psel_fits,
 )
 from mingraph_unet_tpu_torch.parallel import data as dp
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet", "decoder_d2s"]
 
@@ -149,7 +150,9 @@ class ConvBlock(nn.Module):
                      else spatial.conv_same(x, conv.kernel, conv.bias))
                 x = torch.relu(z if bn is None else bn(z))
             else:
-                k, b = self.folded(i)
+                with span("weights"):
+                    k, b = self.folded(i)
+                    k, b = k.to(self.dtype), b.to(self.dtype)
                 x = x.to(self.dtype)
                 x = torch.relu(conv2d_nhwc(x, k, b, padding=1) if spatial is None else spatial.conv_same(x, k, b))
         return x
@@ -167,23 +170,27 @@ class ConvBlock(nn.Module):
                 return _remat(self._forward_s2d_train, x, fused_up, spatial)
             return self._forward_s2d_train(x, fused_up, spatial)
         dt = self.dtype
-        k, b = self.folded(1)
         x = x.to(dt)
         if fused_up is None:
-            kw = s2d_ops.windowed_down_kernel(k)
+            with span("weights"):
+                k, b = self.folded(1)
+                kw, bs = s2d_ops.windowed_down_kernel(k), s2d_ops.s2d_vector(b).to(dt)
             x = s2d_ops.conv3x3_windowed_down(x, kw) if spatial is None else spatial.windowed_down(x, kw)
-            x = torch.relu(x + s2d_ops.s2d_vector(b).to(dt))
+            x = torch.relu(x + bs)
         else:
             x_prev, wt, bias_up = fused_up
             x_prev, skip_c = x_prev.to(dt), x.shape[-1] // 4
-            k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
-            t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
+            with span("weights"):
+                k, b = self.folded(1)
+                k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
+                t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
             if spatial is not None:
                 x = spatial.dec_conv1(x, x_prev, k_skip, k_prev, t9)
             else:
                 fused = dec_conv1_fits(dt, skip_c, x_prev.shape[-1], k.shape[-1])
                 x = (dec_conv1_fused if fused else dec_conv1_fused_plain)(x, x_prev, k_skip, k_prev, t9)
-        k, b = self.folded(2)
+        with span("weights"):
+            k, b = self.folded(2)
         if spatial is not None:
             return spatial.psel(x, k, b)
         psel = psel_conv3x3 if psel_fits(dt, k.shape[2], k.shape[3]) else psel_conv3x3_plain
@@ -201,15 +208,17 @@ class ConvBlock(nn.Module):
         dt = self.dtype
         k, b = self.conv1.kernel, self.conv1.bias
         if fused_up is None:
-            kw = s2d_ops.windowed_down_kernel(k)
+            with span("weights"):
+                kw, bs = s2d_ops.windowed_down_kernel(k), s2d_ops.s2d_vector(b).to(dt)
             x = x.to(dt)
             x = s2d_ops.conv3x3_windowed_down(x, kw) if spatial is None else spatial.windowed_down(x, kw)
-            x = x + s2d_ops.s2d_vector(b).to(dt)
+            x = x + bs
         else:
             x_prev, wt, bias_up = fused_up
             skip_c = x.shape[-1] // 4
-            k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
-            t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
+            with span("weights"):
+                k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
+                t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
             preact = dec_conv1_preact if spatial is None else spatial.dec_conv1_train
             x = preact(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
         x = self._bn_relu_s2d(x, self._conv_bn(1)[1])
@@ -218,7 +227,9 @@ class ConvBlock(nn.Module):
             x = spatial.psel_train(x, k)
         else:
             x = (psconv_train if psel_fits(dt, k.shape[2], k.shape[3]) else psconv_train_plain)(x, k)
-        x = x + s2d_ops.s2d_vector(self.conv2.bias).to(dt)
+        with span("weights"):
+            bs = s2d_ops.s2d_vector(self.conv2.bias).to(dt)
+        x = x + bs
         return self._bn_relu_s2d(x, self._conv_bn(2)[1])
 
     @staticmethod
@@ -254,6 +265,7 @@ class UNetEncoder(nn.Module):
         super().__init__()
         self.depth = depth
         self.dtype = dtype
+        self.level_spans = tuple(f"unet.enc{i}" for i in range(depth))
         cin, f = in_channels, init_features
         for i in range(depth):
             self.add_module(f"block{i}", ConvBlock(cin, f, gen, dtype, use_batchnorm, remat))
@@ -270,19 +282,22 @@ class UNetEncoder(nn.Module):
         for i in range(self.depth):
             block = getattr(self, f"block{i}")
             skip_hw.append((x.shape[1], x.shape[2]))
-            if i in s2d_levels:
-                s = block.forward_s2d(x.to(self.dtype), spatial=spatial)
-                skip_s2d[i] = s
-                skips.append(None)
-                # MaxPool(2,2) = max over phases; amax splits the gradient
-                # evenly among ties, as JAX's max does.
-                kernel = not self.training and phase_max_pool_fits(s.dtype, s.shape[-1] // 4)
-                x = phase_max_pool_kernel(s) if kernel else s2d_ops.phase_max_pool(s)
-            else:
-                x = block(x, spatial)
-                skips.append(x)
-                x = _max_pool_2x2(x)
-        return skips, self.bottleneck(x, spatial), skip_s2d, skip_hw
+            with span(self.level_spans[i]):
+                if i in s2d_levels:
+                    s = block.forward_s2d(x.to(self.dtype), spatial=spatial)
+                    skip_s2d[i] = s
+                    skips.append(None)
+                    # MaxPool(2,2) = max over phases; amax splits the gradient
+                    # evenly among ties, as JAX's max does.
+                    kernel = not self.training and phase_max_pool_fits(s.dtype, s.shape[-1] // 4)
+                    x = phase_max_pool_kernel(s) if kernel else s2d_ops.phase_max_pool(s)
+                else:
+                    x = block(x, spatial)
+                    skips.append(x)
+                    x = _max_pool_2x2(x)
+        with span("unet.bottleneck"):
+            x = self.bottleneck(x, spatial)
+        return skips, x, skip_s2d, skip_hw
 
 
 class DecoderBlock(nn.Module):
@@ -311,7 +326,8 @@ class DecoderBlock(nn.Module):
                 f"s2d DecoderBlock needs matching grids: skip {tuple(x_skip_s2d.shape)} "
                 f"vs prev {tuple(x_prev.shape)}"
             )
-        wt = s2d_ops.s2d_convt2x2_kernel(self.upsample.kernel)
+        with span("weights"):
+            wt = s2d_ops.s2d_convt2x2_kernel(self.upsample.kernel)
         return self.conv_block.forward_s2d(x_skip_s2d, fused_up=(x_prev.to(self.dtype), wt, self.upsample.bias),
                                            spatial=spatial)
 
@@ -324,6 +340,7 @@ class UNetDecoder(nn.Module):
         super().__init__()
         self.depth = depth
         self.dtype = dtype
+        self.level_spans = tuple(f"unet.dec{i}" for i in range(depth))
         prev = init_features * 2**depth
         for j, i in enumerate(reversed(range(depth))):
             out = init_features * 2**i
@@ -341,24 +358,30 @@ class UNetDecoder(nn.Module):
         feats: List[Optional[torch.Tensor]] = []
         for j, i in enumerate(reversed(range(self.depth))):
             block = getattr(self, f"block{j}")
-            if i in skip_s2d and skip_hw[i] == (2 * x.shape[1], 2 * x.shape[2]):
-                f = block.forward_s2d(x, skip_s2d[i], spatial)
-                f_u_s2d[i] = f
-                x = decoder_d2s(f, self.training) if i > 0 else None
-            else:
-                skip = skips[i] if skips[i] is not None else s2d_ops.depth_to_space(skip_s2d[i])
-                x = block(x, skip, spatial)
+            with span(self.level_spans[i]):
+                if i in skip_s2d and skip_hw[i] == (2 * x.shape[1], 2 * x.shape[2]):
+                    f = block.forward_s2d(x, skip_s2d[i], spatial)
+                    f_u_s2d[i] = f
+                    x = decoder_d2s(f, self.training) if i > 0 else None
+                else:
+                    skip = skips[i] if skips[i] is not None else s2d_ops.depth_to_space(skip_s2d[i])
+                    x = block(x, skip, spatial)
             feats.append(x)
+        with span("unet.head"):
+            logits = self._head(x, f_u_s2d)
+        return logits.to(torch.promote_types(logits.dtype, torch.float32)), feats[::-1], f_u_s2d
+
+    def _head(self, x: Optional[torch.Tensor], f_u_s2d: Dict[int, torch.Tensor]) -> torch.Tensor:
+        """The final 1×1 conv of the last decoder output, in its dtype."""
+        dt = self.dtype
         k, b = self.final_conv.kernel, self.final_conv.bias
         if 0 in f_u_s2d:
             # Final 1×1 conv in s2d layout (block-diagonal per-phase matmul),
             # so only the num_classes-wide result goes back to full res.
-            f = f_u_s2d[0].to(self.dtype)
-            y = f @ s2d_ops.s2d_1x1_kernel(k).to(self.dtype) + s2d_ops.s2d_vector(b).to(self.dtype)
-            logits = s2d_ops.depth_to_space(y)
-        else:
-            logits = conv2d_nhwc(x.to(self.dtype), k, b, padding=0)
-        return logits.to(torch.promote_types(logits.dtype, torch.float32)), feats[::-1], f_u_s2d
+            with span("weights"):
+                k_s2d, b_s2d = s2d_ops.s2d_1x1_kernel(k).to(dt), s2d_ops.s2d_vector(b).to(dt)
+            return s2d_ops.depth_to_space(f_u_s2d[0].to(dt) @ k_s2d + b_s2d)
+        return conv2d_nhwc(x.to(dt), k, b, padding=0)
 
 
 class UNet(nn.Module):
@@ -398,11 +421,13 @@ class UNet(nn.Module):
             if x.shape[1] * spatial.count != spatial.h_global:
                 raise ValueError(f"{spatial.count} shards of {x.shape[1]} rows do not make the scene's "
                                  f"{spatial.h_global}")
-        x = x.to(self.dtype)
-        with dp.spatial_norm(None if spatial is None else spatial.mesh):
-            skips, bottleneck, skip_s2d, skip_hw = self.encoder(x, self.s2d_levels(x.shape[1], x.shape[2]), spatial)
-            logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw, spatial)
-        if full_res_outputs:
-            skips = [s if s is not None else s2d_ops.depth_to_space(skip_s2d[i]) for i, s in enumerate(skips)]
-            f_u = [f if f is not None else decoder_d2s(f_u_s2d[i], self.training) for i, f in enumerate(f_u)]
+        with span("unet"):
+            x = x.to(self.dtype)
+            with dp.spatial_norm(None if spatial is None else spatial.mesh):
+                skips, bottleneck, skip_s2d, skip_hw = self.encoder(x, self.s2d_levels(x.shape[1], x.shape[2]),
+                                                                    spatial)
+                logits, f_u, f_u_s2d = self.decoder(skips, bottleneck, skip_s2d, skip_hw, spatial)
+            if full_res_outputs:
+                skips = [s if s is not None else s2d_ops.depth_to_space(skip_s2d[i]) for i, s in enumerate(skips)]
+                f_u = [f if f is not None else decoder_d2s(f_u_s2d[i], self.training) for i, f in enumerate(f_u)]
         return {"logits": logits, "skips": skips, "f_u": f_u, "skip_s2d": skip_s2d, "f_u_s2d": f_u_s2d}

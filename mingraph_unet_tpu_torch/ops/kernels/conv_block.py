@@ -36,6 +36,7 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     require_no_grad,
     stream_ptr,
 )
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["channel_tile", "fold_bn", "fused_conv_block", "fused_conv_block_plain", "pack_weights", "split_bf16"]
 
@@ -119,26 +120,29 @@ def fused_conv_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     raises."""
     if x.device.type == "cpu":
         return fused_conv_block_plain(x, w1, s1, b1, w2, s2, b2)
-    require_no_grad("fused_conv_block", x, w1, s1, b1, w2, s2, b2)
-    dt = x.dtype
-    require(dt in KERNEL_DTYPES, f"fused_conv_block: unsupported dtype {dt}")
-    check_cuda_input("x", x, dt)
-    bn, h, w, cin = x.shape
-    c = w1.shape[-1]
-    require(tuple(w1.shape) == (3, 3, cin, c), f"w1 must be (3, 3, {cin}, C), got {tuple(w1.shape)}")
-    require(tuple(w2.shape) == (3, 3, c, c), f"w2 must be (3, 3, {c}, {c}), got {tuple(w2.shape)}")
-    for name, v in (("s1", s1), ("b1", b1), ("s2", s2), ("b2", b2)):
-        require(tuple(v.shape) == (c,), f"{name} must be ({c},), got {tuple(v.shape)}")
-    dev = x.device
-    nt = channel_tile(c)
-    c1p, c2p = _up(c, CHUNK), _up(c, nt)
-    stream = pack_weights(w1.to(dev), w2.to(dev))
-    s1p, b1p, s2p, b2p = (F.pad(v.to(dev).float(), (0, n - c)) for v, n in ((s1, c1p), (b1, c1p), (s2, c2p), (b2, c2p)))
-    y = torch.empty((bn, h, w, c), dtype=dt, device=dev)
-    rc = library("conv_block").mgu_conv_block(
-        x.data_ptr(), stream.data_ptr(), s1p.data_ptr(), b1p.data_ptr(), s2p.data_ptr(), b2p.data_ptr(),
-        y.data_ptr(), bn, h, w, cin, c, nt, int(dt == torch.bfloat16), stream_ptr(x),
-    )
+    with span("kernel.fused_conv_block", (x, w1, s1, b1, w2, s2, b2)):
+        require_no_grad("fused_conv_block", x, w1, s1, b1, w2, s2, b2)
+        dt = x.dtype
+        require(dt in KERNEL_DTYPES, f"fused_conv_block: unsupported dtype {dt}")
+        check_cuda_input("x", x, dt)
+        bn, h, w, cin = x.shape
+        c = w1.shape[-1]
+        require(tuple(w1.shape) == (3, 3, cin, c), f"w1 must be (3, 3, {cin}, C), got {tuple(w1.shape)}")
+        require(tuple(w2.shape) == (3, 3, c, c), f"w2 must be (3, 3, {c}, {c}), got {tuple(w2.shape)}")
+        for name, v in (("s1", s1), ("b1", b1), ("s2", s2), ("b2", b2)):
+            require(tuple(v.shape) == (c,), f"{name} must be ({c},), got {tuple(v.shape)}")
+        dev = x.device
+        nt = channel_tile(c)
+        c1p, c2p = _up(c, CHUNK), _up(c, nt)
+        with span("weights"):
+            stream = pack_weights(w1.to(dev), w2.to(dev))
+            s1p, b1p, s2p, b2p = (F.pad(v.to(dev).float(), (0, n - c))
+                                  for v, n in ((s1, c1p), (b1, c1p), (s2, c2p), (b2, c2p)))
+        y = torch.empty((bn, h, w, c), dtype=dt, device=dev)
+        rc = library("conv_block").mgu_conv_block(
+            x.data_ptr(), stream.data_ptr(), s1p.data_ptr(), b1p.data_ptr(), s2p.data_ptr(), b2p.data_ptr(),
+            y.data_ptr(), bn, h, w, cin, c, nt, int(dt == torch.bfloat16), stream_ptr(x),
+        )
     if rc != 0:
         raise RuntimeError(f"fused_conv_block launch failed: cudaError {rc}")
     fused_conv_block.launches += 1

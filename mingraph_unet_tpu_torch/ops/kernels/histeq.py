@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from mingraph_unet_tpu_torch.ops.kernels.build import check_cuda_input, library, require, stream_ptr
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["MAX_PIXELS", "equalize_channel", "equalize_channel_plain"]
 
@@ -48,14 +49,15 @@ def equalize_channel(y_u8: torch.Tensor) -> torch.Tensor:
     tensor, more than :data:`MAX_PIXELS` pixels per image)."""
     if y_u8.device.type == "cpu":
         return equalize_channel_plain(y_u8)
-    check_cuda_input("y_u8", y_u8, torch.uint8, ndim=3)
-    b, h, w = y_u8.shape
-    n = h * w
-    require(n <= MAX_PIXELS, f"equalize_channel: {n} pixels per image exceed {MAX_PIXELS} (the f32 CDF is inexact)")
-    out = torch.empty_like(y_u8)
-    if b == 0 or n == 0:
-        return out
-    rc = library("histeq").mgu_histeq(y_u8.data_ptr(), out.data_ptr(), b, n, stream_ptr(y_u8))
+    with span("kernel.equalize_channel", (y_u8,)):
+        check_cuda_input("y_u8", y_u8, torch.uint8, ndim=3)
+        b, h, w = y_u8.shape
+        n = h * w
+        require(n <= MAX_PIXELS, f"equalize_channel: {n} pixels per image exceed {MAX_PIXELS} (the f32 CDF is inexact)")
+        out = torch.empty_like(y_u8)
+        if b == 0 or n == 0:
+            return out
+        rc = library("histeq").mgu_histeq(y_u8.data_ptr(), out.data_ptr(), b, n, stream_ptr(y_u8))
     if rc != 0:
         raise RuntimeError(f"equalize_channel launch failed: cudaError {rc}")
     equalize_channel.launches += 1

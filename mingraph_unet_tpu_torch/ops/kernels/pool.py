@@ -28,6 +28,7 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     require_no_grad,
     stream_ptr,
 )
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["depth_to_space_fits", "depth_to_space_kernel", "phase_max_pool_fits", "phase_max_pool_kernel"]
 
@@ -45,18 +46,20 @@ def phase_max_pool_kernel(y_s2d: torch.Tensor) -> torch.Tensor:
     selects one of its inputs)."""
     if y_s2d.device.type == "cpu":
         return s2d_ops.phase_max_pool(y_s2d)
-    require_no_grad("phase_max_pool_kernel", y_s2d)
-    dt = y_s2d.dtype
-    require(dt in KERNEL_DTYPES, f"phase_max_pool_kernel: unsupported dtype {dt}")
-    check_cuda_input("y_s2d", y_s2d, dt)
-    b, hh, ww, cc = y_s2d.shape
-    c = cc // 4
-    require(cc % 4 == 0 and (c * y_s2d.element_size()) % 16 == 0, f"C={c} channels per phase must fill 16-byte vectors")
-    out = torch.empty((b, hh, ww, c), dtype=dt, device=y_s2d.device)
-    rc = library("phase_pool").mgu_phase_max_pool(
-        y_s2d.data_ptr(), out.data_ptr(), b, hh, ww, c,
-        int(dt == torch.bfloat16), stream_ptr(y_s2d),
-    )
+    with span("kernel.phase_max_pool_kernel", (y_s2d,)):
+        require_no_grad("phase_max_pool_kernel", y_s2d)
+        dt = y_s2d.dtype
+        require(dt in KERNEL_DTYPES, f"phase_max_pool_kernel: unsupported dtype {dt}")
+        check_cuda_input("y_s2d", y_s2d, dt)
+        b, hh, ww, cc = y_s2d.shape
+        c = cc // 4
+        require(cc % 4 == 0 and (c * y_s2d.element_size()) % 16 == 0,
+                f"C={c} channels per phase must fill 16-byte vectors")
+        out = torch.empty((b, hh, ww, c), dtype=dt, device=y_s2d.device)
+        rc = library("phase_pool").mgu_phase_max_pool(
+            y_s2d.data_ptr(), out.data_ptr(), b, hh, ww, c,
+            int(dt == torch.bfloat16), stream_ptr(y_s2d),
+        )
     if rc != 0:
         raise RuntimeError(f"phase_max_pool_kernel launch failed: cudaError {rc}")
     phase_max_pool_kernel.launches += 1
@@ -76,17 +79,19 @@ def depth_to_space_kernel(y_s2d: torch.Tensor) -> torch.Tensor:
     same permutation of the input, bit for bit."""
     if y_s2d.device.type == "cpu":
         return s2d_ops.depth_to_space(y_s2d)
-    require_no_grad("depth_to_space_kernel", y_s2d)
-    dt = y_s2d.dtype
-    require(dt in KERNEL_DTYPES, f"depth_to_space_kernel: unsupported dtype {dt}")
-    check_cuda_input("y_s2d", y_s2d, dt)
-    b, hh, ww, cc = y_s2d.shape
-    c = cc // 4
-    require(cc % 4 == 0 and (c * y_s2d.element_size()) % 16 == 0, f"C={c} channels per phase must fill 16-byte vectors")
-    out = torch.empty((b, 2 * hh, 2 * ww, c), dtype=dt, device=y_s2d.device)
-    rc = library("d2s").mgu_depth_to_space(
-        y_s2d.data_ptr(), out.data_ptr(), b, hh, ww, c * y_s2d.element_size() // 16, stream_ptr(y_s2d),
-    )
+    with span("kernel.depth_to_space_kernel", (y_s2d,)):
+        require_no_grad("depth_to_space_kernel", y_s2d)
+        dt = y_s2d.dtype
+        require(dt in KERNEL_DTYPES, f"depth_to_space_kernel: unsupported dtype {dt}")
+        check_cuda_input("y_s2d", y_s2d, dt)
+        b, hh, ww, cc = y_s2d.shape
+        c = cc // 4
+        require(cc % 4 == 0 and (c * y_s2d.element_size()) % 16 == 0,
+                f"C={c} channels per phase must fill 16-byte vectors")
+        out = torch.empty((b, 2 * hh, 2 * ww, c), dtype=dt, device=y_s2d.device)
+        rc = library("d2s").mgu_depth_to_space(
+            y_s2d.data_ptr(), out.data_ptr(), b, hh, ww, c * y_s2d.element_size() // 16, stream_ptr(y_s2d),
+        )
     if rc != 0:
         raise RuntimeError(f"depth_to_space_kernel launch failed: cudaError {rc}")
     depth_to_space_kernel.launches += 1

@@ -83,6 +83,7 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     require_no_grad,
     stream_ptr,
 )
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = [
     "BF16_WIDTHS",
@@ -297,12 +298,13 @@ def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opt
     tensor maps and launches; the device's attributes are asked once."""
     top, bottom = _NO_ROWS if rows is None else rows
     _psel_check(name, x_s2d, kernel, bias, top, bottom, adjoint)
-    w, w_f32 = _psel_weights(kernel, x_s2d)
     b, hh, ww, z = x_s2d.shape
     ks = kernel.shape
     cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
-    if bias is not None:
-        bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
+    with span("weights"):
+        w, w_f32 = _psel_weights(kernel, x_s2d)
+        if bias is not None:
+            bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x_s2d) if cout == cin else x_s2d.new_empty((b, hh, ww, 4 * cout))
     flags = (int(x_s2d.dtype is torch.bfloat16), int(relu), int(w_f32), int(adjoint))
     lib = library("psel_conv")
@@ -326,8 +328,9 @@ def psel_conv3x3(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) 
     """
     if x_s2d.device.type == "cpu":
         return psel_conv3x3_plain(x_s2d, kernel, bias)
-    require_no_grad("psel_conv3x3", x_s2d, kernel, bias)
-    y = _psel_launch("psel_conv3x3", x_s2d, kernel, bias, relu=True)
+    with span("kernel.psel_conv3x3", (x_s2d, kernel, bias)):
+        require_no_grad("psel_conv3x3", x_s2d, kernel, bias)
+        y = _psel_launch("psel_conv3x3", x_s2d, kernel, bias, relu=True)
     psel_conv3x3.launches += 1
     return y
 
@@ -364,8 +367,9 @@ def psel_conv3x3_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: 
     on the whole tensor once stitched."""
     if x_s2d.device.type == "cpu":
         return psel_conv3x3_halo_plain(x_s2d, top, bottom, kernel, bias, relu)
-    require_no_grad("psel_conv3x3_halo", *(t for t in (x_s2d, top, bottom, kernel, bias) if t is not None))
-    y = _psel_launch("psel_conv3x3_halo", x_s2d, kernel, bias, relu=relu, rows=(top, bottom))
+    with span("kernel.psel_conv3x3_halo", (x_s2d, top, bottom, kernel, bias)):
+        require_no_grad("psel_conv3x3_halo", *(t for t in (x_s2d, top, bottom, kernel, bias) if t is not None))
+        y = _psel_launch("psel_conv3x3_halo", x_s2d, kernel, bias, relu=relu, rows=(top, bottom))
     psel_conv3x3_halo.launches += 1
     return y
 
@@ -548,13 +552,14 @@ def _dec_conv1_launch(name: str, x_skip_s2d, x_prev, k_skip, k_prev, t9, halo=No
         require(cout == cs and cp == 2 * cs and cs in BF16_WIDTHS,
                 f"bf16 kernel needs Cout = Cs in {BF16_WIDTHS} and Cp = 2·Cs, got Cs={cs}, Cp={cp}, Cout={cout}")
     dev = x_skip_s2d.device
-    if dt == torch.bfloat16:
-        ws = _kernel_weights(k_skip, dev, dt)
-        wp = _kernel_weights(dec_conv1_live_weights(k_prev), dev, dt)
-        tf = t9.to(device=dev, dtype=torch.float32).contiguous()
-    else:  # raw f32: the split kernel reads them as they lie, the FMA kernel contiguous
-        as_is = dec_conv1_split(cs, cp, cout)
-        ws, wp, tf = (_f32_weights(t, dev, as_is) for t in (k_skip, k_prev, t9))
+    with span("weights"):
+        if dt == torch.bfloat16:
+            ws = _kernel_weights(k_skip, dev, dt)
+            wp = _kernel_weights(dec_conv1_live_weights(k_prev), dev, dt)
+            tf = t9.to(device=dev, dtype=torch.float32).contiguous()
+        else:  # raw f32: the split kernel reads them as they lie, the FMA kernel contiguous
+            as_is = dec_conv1_split(cs, cp, cout)
+            ws, wp, tf = (_f32_weights(t, dev, as_is) for t in (k_skip, k_prev, t9))
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
     lib = library("dec_conv1")
     tail = (*ws.stride()[:3], *wp.stride()[:3], *tf.stride()[:2], int(dt == torch.bfloat16), stream_ptr(x_skip_s2d))
@@ -595,7 +600,8 @@ def dec_conv1_fused(
     """
     if x_skip_s2d.device.type == "cpu":
         return dec_conv1_fused_plain(x_skip_s2d, x_prev, k_skip, k_prev, t9)
-    y = _dec_conv1_launch("dec_conv1_fused", x_skip_s2d, x_prev, k_skip, k_prev, t9)
+    with span("kernel.dec_conv1_fused", (x_skip_s2d, x_prev, k_skip, k_prev, t9)):
+        y = _dec_conv1_launch("dec_conv1_fused", x_skip_s2d, x_prev, k_skip, k_prev, t9)
     dec_conv1_fused.launches += 1
     return y
 
@@ -637,10 +643,12 @@ def dec_conv1_halo(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bot
     if x_skip_s2d.device.type == "cpu":
         return dec_conv1_halo_plain(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip,
                                     k_prev, t9, row0, hh_global)
-    rows = [t for t in (skip_top, skip_bottom, prev_top, prev_bottom) if t is not None]
-    require_no_grad("dec_conv1_halo", *rows)
-    y = _dec_conv1_launch("dec_conv1_halo", x_skip_s2d, x_prev, k_skip, k_prev, t9,
-                          halo=(skip_top, skip_bottom, prev_top, prev_bottom, row0, hh_global))
+    with span("kernel.dec_conv1_halo", (x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip,
+                                         k_prev, t9, row0, hh_global)):
+        rows = [t for t in (skip_top, skip_bottom, prev_top, prev_bottom) if t is not None]
+        require_no_grad("dec_conv1_halo", *rows)
+        y = _dec_conv1_launch("dec_conv1_halo", x_skip_s2d, x_prev, k_skip, k_prev, t9,
+                              halo=(skip_top, skip_bottom, prev_top, prev_bottom, row0, hh_global))
     dec_conv1_halo.launches += 1
     return y
 
@@ -679,7 +687,8 @@ def psconv_fwd(x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     the shapes :func:`psel_fits` accepts."""
     if x_s2d.device.type == "cpu":
         return psconv_train_plain(x_s2d, kernel)
-    y = _psel_launch("psconv_fwd", x_s2d, kernel, None, relu=False)
+    with span("kernel.psconv_fwd", (x_s2d, kernel)):
+        y = _psel_launch("psconv_fwd", x_s2d, kernel, None, relu=False)
     psconv_fwd.launches += 1
     return y
 
@@ -694,7 +703,8 @@ def psconv_dgrad(g_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     fit)."""
     if g_s2d.device.type == "cpu":
         return psconv_dgrad_plain(g_s2d, kernel)
-    y = _psel_launch("psconv_dgrad", g_s2d, kernel, None, relu=False, adjoint=True)
+    with span("kernel.psconv_dgrad", (g_s2d, kernel)):
+        y = _psel_launch("psconv_dgrad", g_s2d, kernel, None, relu=False, adjoint=True)
     psconv_dgrad.launches += 1
     return y
 
@@ -720,12 +730,13 @@ def psconv_wgrad(x_s2d: torch.Tensor, g_s2d: torch.Tensor, kernel: torch.Tensor,
     cin, cout = kernel.shape[2], kernel.shape[3]
     dt = torch.promote_types(kernel.dtype, torch.float32)
     pad = 1
-    if rows is not None and (rows[0] is not None or rows[1] is not None):
-        x_s2d, pad = extend_rows(x_s2d, *rows), (0, 1)
-    dw = torch.nn.grad.conv2d_weight(
-        x_s2d.to(dt).permute(0, 3, 1, 2), (4 * cout, 4 * cin, 3, 3), g_s2d.to(dt).permute(0, 3, 1, 2), padding=pad
-    )
-    return s2d_ops.s2d_conv3x3_kernel_adjoint(dw.permute(2, 3, 1, 0))
+    with span("kernel.psconv_wgrad", (x_s2d, g_s2d, kernel)):
+        if rows is not None and (rows[0] is not None or rows[1] is not None):
+            x_s2d, pad = extend_rows(x_s2d, *rows), (0, 1)
+        dw = torch.nn.grad.conv2d_weight(
+            x_s2d.to(dt).permute(0, 3, 1, 2), (4 * cout, 4 * cin, 3, 3), g_s2d.to(dt).permute(0, 3, 1, 2),
+            padding=pad)
+        return s2d_ops.s2d_conv3x3_kernel_adjoint(dw.permute(2, 3, 1, 0))
 
 
 class _PsconvTrain(torch.autograd.Function):
@@ -779,7 +790,8 @@ def psconv_fwd_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Op
     :func:`psconv_fwd` on the whole tensor bit for bit."""
     if x_s2d.device.type == "cpu":
         return psconv_halo_plain(x_s2d, top, bottom, kernel)
-    y = _psel_launch("psconv_fwd_halo", x_s2d, kernel, None, relu=False, rows=(top, bottom))
+    with span("kernel.psconv_fwd_halo", (x_s2d, top, bottom, kernel)):
+        y = _psel_launch("psconv_fwd_halo", x_s2d, kernel, None, relu=False, rows=(top, bottom))
     psconv_fwd_halo.launches += 1
     return y
 
@@ -798,7 +810,9 @@ def psconv_dgrad_halo(g_s2d: torch.Tensor, g_top: Optional[torch.Tensor], g_bott
     order)."""
     if g_s2d.device.type == "cpu":
         return psconv_halo_plain(g_s2d, g_top, g_bottom, _adjoint(kernel))
-    y = _psel_launch("psconv_dgrad_halo", g_s2d, kernel, None, relu=False, rows=(g_top, g_bottom), adjoint=True)
+    with span("kernel.psconv_dgrad_halo", (g_s2d, g_top, g_bottom, kernel)):
+        y = _psel_launch("psconv_dgrad_halo", g_s2d, kernel, None, relu=False, rows=(g_top, g_bottom),
+                         adjoint=True)
     psconv_dgrad_halo.launches += 1
     return y
 

@@ -39,6 +39,7 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
     require_no_grad,
     stream_ptr,
 )
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["wconv3x3_weights", "wconv3x3_s2d", "wconv3x3_s2d_plain", "wconv_uses_mma", "wgmma_weight_chunks"]
 
@@ -226,39 +227,45 @@ def wconv3x3_s2d(
     f32, contiguous, 16-byte aligned, any Hh and Ww) or raises."""
     if x_s2d.device.type == "cpu":
         return wconv3x3_s2d_plain(x_s2d, w2, bias, groups, relu)
-    require_no_grad("wconv3x3_s2d", x_s2d, w2, bias)
-    dt = x_s2d.dtype
-    require(dt in KERNEL_DTYPES, f"wconv3x3_s2d: unsupported dtype {dt}")
-    check_cuda_input("x_s2d", x_s2d, dt)
-    b, hh, ww, c4 = x_s2d.shape
-    require(c4 % 4 == 0, f"x has {c4} s2d channels, not a multiple of 4")
-    cin = c4 // 4
-    groups = _groups(cin, groups)
-    require(w2.dim() == 2 and w2.shape[0] == 16 * cin and w2.shape[1] % 4 == 0,
-            f"w2 must be (16*{cin}, 4*Cout), got {tuple(w2.shape)}")
-    cout = w2.shape[1] // 4
-    require(tuple(bias.shape) == (cout,), f"bias must be ({cout},), got {tuple(bias.shape)}")
-    dev = x_s2d.device
-    bias = bias.to(device=dev, dtype=torch.float32).contiguous()
-    y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
-    lib = library("wconv")
-    if wconv_uses_mma(dt):
-        np_, ncb = _wgmma_cols(cout)
-        w = wgmma_weight_chunks(w2.to(device=dev, dtype=dt), groups, cout)
-        table = _chunk_table(groups, dev)
-        bias4 = bias.repeat(4)  # the bias of every output column, phase-major
-        rc = lib.mgu_wconv3x3_wgmma(
-            x_s2d.data_ptr(), w.data_ptr(), bias4.data_ptr(), y.data_ptr(), b, hh, ww, cin, cout, np_, ncb,
-            table.shape[0], table.data_ptr(), int(all(g % _KSTEP == 0 for g in groups)), int(relu), stream_ptr(x_s2d),
-        )
-    else:
-        npad = -(-4 * cout // _SIMT_N) * _SIMT_N
-        w = F.pad(w2.to(device=dev, dtype=dt), (0, npad - 4 * cout)).contiguous()
-        table = _group_table(groups, dev)
-        rc = lib.mgu_wconv3x3_simt(
-            x_s2d.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), b, hh, ww, cin, cout, npad,
-            len(groups), table.data_ptr(), int(relu), stream_ptr(x_s2d),
-        )
+    with span("kernel.wconv3x3_s2d", (x_s2d, w2, bias)):
+        require_no_grad("wconv3x3_s2d", x_s2d, w2, bias)
+        dt = x_s2d.dtype
+        require(dt in KERNEL_DTYPES, f"wconv3x3_s2d: unsupported dtype {dt}")
+        check_cuda_input("x_s2d", x_s2d, dt)
+        b, hh, ww, c4 = x_s2d.shape
+        require(c4 % 4 == 0, f"x has {c4} s2d channels, not a multiple of 4")
+        cin = c4 // 4
+        groups = _groups(cin, groups)
+        require(w2.dim() == 2 and w2.shape[0] == 16 * cin and w2.shape[1] % 4 == 0,
+                f"w2 must be (16*{cin}, 4*Cout), got {tuple(w2.shape)}")
+        cout = w2.shape[1] // 4
+        require(tuple(bias.shape) == (cout,), f"bias must be ({cout},), got {tuple(bias.shape)}")
+        dev = x_s2d.device
+        mma = wconv_uses_mma(dt)
+        with span("weights"):
+            bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+            if mma:
+                np_, ncb = _wgmma_cols(cout)
+                w = wgmma_weight_chunks(w2.to(device=dev, dtype=dt), groups, cout)
+                table = _chunk_table(groups, dev)
+                bias4 = bias.repeat(4)  # the bias of every output column, phase-major
+            else:
+                npad = -(-4 * cout // _SIMT_N) * _SIMT_N
+                w = F.pad(w2.to(device=dev, dtype=dt), (0, npad - 4 * cout)).contiguous()
+                table = _group_table(groups, dev)
+        y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
+        lib = library("wconv")
+        if mma:
+            rc = lib.mgu_wconv3x3_wgmma(
+                x_s2d.data_ptr(), w.data_ptr(), bias4.data_ptr(), y.data_ptr(), b, hh, ww, cin, cout, np_, ncb,
+                table.shape[0], table.data_ptr(), int(all(g % _KSTEP == 0 for g in groups)), int(relu),
+                stream_ptr(x_s2d),
+            )
+        else:
+            rc = lib.mgu_wconv3x3_simt(
+                x_s2d.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), b, hh, ww, cin, cout, npad,
+                len(groups), table.data_ptr(), int(relu), stream_ptr(x_s2d),
+            )
     if rc != 0:
         raise RuntimeError(f"wconv3x3_s2d launch failed: cudaError {rc}")
     wconv3x3_s2d.launches += 1

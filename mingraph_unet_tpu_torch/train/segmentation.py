@@ -48,6 +48,7 @@ from mingraph_unet_tpu_torch.parallel.mesh import Mesh, replicate
 from mingraph_unet_tpu_torch.parallel.spatial import spatial_sharded_unet
 from mingraph_unet_tpu_torch.train.common import (TrainState, draw_step_augment, make_multistep, make_optimizer,
                                                   run_epochs, spatial_step, trainer_mesh)
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["build_unet", "make_train_step", "train_unet_segmentation", "evaluate_unet"]
 
@@ -88,19 +89,24 @@ def make_train_step(cfg: PipelineConfig, augment: bool = True, mesh: Optional[Me
         images_u8, masks = images_u8.to(dev), masks.to(dev).long()
         b, h, w = masks.shape
         with data_parallel(mesh, b):
-            draw = draw_step_augment(gen, b, h, w, pre) if augment else None
-            imgs, masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean, pre.normalization_std,
-                                                  draw, num_classes=cfg.dataset.num_classes)
-            model.train()
-            logits = (spatial_sharded_unet(model, imgs, mesh) if spatial else model(imgs))["logits"]
-            ce = cross_entropy_loss(logits, masks)
-            dice = dice_loss(logits, masks)
-            loss = ce + dice_w * dice
-            share = spatial_share(loss)
-        state.optimizer.zero_grad(set_to_none=True)
-        share.backward()
-        all_reduce_gradients(model.parameters(), mesh)
-        state.apply_gradients()
+            with span("train.augment"):
+                draw = draw_step_augment(gen, b, h, w, pre) if augment else None
+                imgs, masks = device_preprocess_batch(images_u8, masks, pre.normalization_mean,
+                                                      pre.normalization_std, draw, num_classes=cfg.dataset.num_classes)
+            with span("train.forward"):
+                model.train()
+                logits = (spatial_sharded_unet(model, imgs, mesh) if spatial else model(imgs))["logits"]
+            with span("train.loss"):
+                ce = cross_entropy_loss(logits, masks)
+                dice = dice_loss(logits, masks)
+                loss = ce + dice_w * dice
+                share = spatial_share(loss)
+        with span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            share.backward()
+            all_reduce_gradients(model.parameters(), mesh)
+        with span("train.optimizer"):
+            state.apply_gradients()
         return all_reduce_metrics({"loss": loss.detach(), "ce": ce.detach(), "dice": dice.detach()}, mesh)
 
     return train_step

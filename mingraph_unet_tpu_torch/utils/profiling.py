@@ -15,6 +15,12 @@
   (``ops/kernels/psconv.py(...)``), a library kernel's the module that
   called the aten op.
 - :func:`attribute_stages` folds rows into stages by source substring.
+- :func:`span` is the program's own range: ``with span("unet.enc0"):``
+  opens ``mgu.unet.enc0`` in the profiler's trace while a profiler
+  records, and costs one flag test otherwise. While spans record, each
+  call of this package that makes the host wait on the card leaves a
+  zero-length range ``mgu.sync@<file>:<line>`` (:data:`SYNC_PREFIX`) at
+  the moment the call returns.
 """
 
 from __future__ import annotations
@@ -25,15 +31,171 @@ import glob
 import gzip
 import json
 import os
+import sys
+import threading
 import time
+import warnings
 from typing import Dict, Iterator, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["warm_profile", "trace_if", "step_timer", "StepTimer", "parse_device_trace", "attribute_stages"]
+__all__ = ["warm_profile", "trace_if", "step_timer", "StepTimer", "parse_device_trace", "attribute_stages", "span",
+           "NO_SPAN", "SPAN_PREFIX", "SYNC_PREFIX", "LAUNCH_CATEGORIES", "SYNC_RUNTIME_CALLS", "is_sync_runtime_call",
+           "is_device_call"]
 
 _PACKAGE = "mingraph_unet_tpu_torch"
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+# ---------------------------------------------------------------------------
+# The program's spans and its sync markers
+# ---------------------------------------------------------------------------
+
+SPAN_PREFIX = "mgu."
+SYNC_PREFIX = "mgu.sync@"
+# The warning torch raises at a synchronizing call under set_sync_debug_mode("warn")
+# (c10/cuda/CUDAFunctions.cpp: a copy from pageable memory, .item(), nonzero,
+# .cpu(), a stream's synchronize).
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class _NoSpan:
+    """What :func:`span` returns while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str, args: Optional[tuple] = None):
+    """The range ``mgu.<name>`` over a ``with`` block.
+
+    While a torch profiler records: ``torch.profiler.record_function`` (a
+    ``user_annotation``, which the profiler also draws over the device
+    work it launches), on the clock of the device records; with ``args``,
+    a call's inputs as a tuple, a ``cpu_op`` range that holds them, so
+    that a profiler that records shapes writes their dims and dtypes
+    (``Input Dims``, ``Input type``) into the trace (``record_function``'s
+    own text argument never reaches it) at no cost of formatting. The
+    first such span also starts the sync markers (:func:`_watch_syncs`).
+    Otherwise the shared :data:`NO_SPAN`: no allocation, no dispatcher
+    call, no string. ``name`` is a fixed string, so that a trace sums a
+    span's calls by name; the first span after the profiler has stopped
+    ends the sync markers."""
+    if _autograd_profiler._is_profiler_enabled:
+        if _sync_watch is None or (_sync_watch and warnings.showwarning is not _on_warning):
+            _watch_syncs()
+        if args is None:
+            return torch.profiler.record_function(SPAN_PREFIX + name)
+        return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name, tuple(args))  # aborts on another type
+    if _sync_watch is not None:
+        _unwatch_syncs()
+    return NO_SPAN
+
+
+# While the markers are on: (the sync debug mode to restore or None, the
+# ``warnings.showwarning`` to restore, the filter entry added); () while a
+# caller's own sync debug mode is left alone; None while off.
+_sync_watch: Optional[tuple] = None
+_sync_lock = threading.Lock()
+
+
+def _watch_syncs() -> None:
+    """For the profiler's session: every synchronizing call warns
+    (``torch.cuda.set_sync_debug_mode("warn")`` where CUDA is initialized),
+    each time (an ``always`` filter), and :func:`_on_warning` turns the
+    warning into a marker and prints nothing. A sync debug mode that the
+    caller set is left as it is, and nothing is marked. A watch whose
+    ``showwarning`` someone else has put back (a ``catch_warnings`` block
+    that ended) is ended and begun again."""
+    global _sync_watch
+    with _sync_lock, torch.profiler.record_function(SPAN_PREFIX + "sync.watch"):
+        if _sync_watch is not None:
+            if not _sync_watch or warnings.showwarning is _on_warning:
+                return
+            _end_watch()
+        cuda = torch.cuda.is_initialized()
+        if cuda and torch.cuda.get_sync_debug_mode() != 0:
+            _sync_watch = ()
+            return
+        if cuda:
+            _set_sync_mode("warn")
+        warnings.filterwarnings("always", message=_SYNC_WARNING, category=UserWarning)
+        _sync_watch = (0 if cuda else None, warnings.showwarning, warnings.filters[0])
+        warnings.showwarning = _on_warning
+
+
+def _set_sync_mode(mode) -> None:
+    """``torch.cuda.set_sync_debug_mode`` without its one-time notice that
+    the mode is a prototype."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _unwatch_syncs() -> None:
+    """Restore what :func:`_watch_syncs` changed."""
+    with _sync_lock:
+        _end_watch()
+
+
+def _end_watch() -> None:
+    """:func:`_unwatch_syncs` with the lock held."""
+    global _sync_watch
+    watch, _sync_watch = _sync_watch, None
+    if not watch:
+        return
+    mode, show, entry = watch
+    if mode is not None:
+        _set_sync_mode(mode)
+    if warnings.showwarning is _on_warning:
+        warnings.showwarning = show
+    if any(f is entry for f in warnings.filters):
+        warnings.filters[:] = [f for f in warnings.filters if f is not entry]
+        warnings._filters_mutated()
+
+
+def _sync_site(frame) -> Optional[str]:
+    """``<file>:<line>`` of the innermost frame of this package, the file
+    from the package's folder on; None where no frame is the package's."""
+    while frame is not None:
+        path = frame.f_code.co_filename
+        i = path.find(_PACKAGE + os.sep)
+        if i >= 0:
+            return f"{path[i + len(_PACKAGE) + 1:]}:{frame.f_lineno}"
+        frame = frame.f_back
+    return None
+
+
+def _on_warning(message, category, filename, lineno, file=None, line=None) -> None:
+    """``warnings.showwarning`` while the markers are on. A sync warning
+    while the profiler records becomes ``mgu.sync@<file>:<line>`` of the
+    package's innermost frame (none where the call came from outside the
+    package); one after it has stopped ends the markers. Either is not
+    shown; every other warning goes on to the previous ``showwarning``."""
+    watch = _sync_watch
+    if _SYNC_WARNING not in str(message):
+        show = watch[1] if watch else warnings._showwarning_orig
+        if show is warnings._showwarning_orig:  # the module's own, which a catch_warnings may have redirected
+            warnings._showwarnmsg_impl(warnings.WarningMessage(message, category, filename, lineno, file, line))
+        else:
+            show(message, category, filename, lineno, file, line)
+        return
+    if not _autograd_profiler._is_profiler_enabled:
+        _unwatch_syncs()
+        return
+    site = _sync_site(sys._getframe(1))
+    if site is not None:
+        with torch.profiler.record_function(SYNC_PREFIX + site):
+            pass
 
 
 # Kernels launched in the discarded warm-up step of a profiled session. In
@@ -160,6 +322,27 @@ def _launch_sources(events: List[dict], launches: Dict[int, dict]) -> Dict[int, 
             if own or names:
                 out[corr] = _frame_source((own or names)[-1])
     return out
+
+
+# A Chrome trace's host calls into the CUDA runtime and driver.
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+SYNC_RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def is_sync_runtime_call(e: dict) -> bool:
+    """A Chrome trace event of a runtime call that makes the host wait on
+    the card: a stream's or the device's synchronize, or a synchronous
+    ``cudaMemcpy*``."""
+    name = e["name"]
+    return e.get("cat") == "cuda_runtime" and (name in SYNC_RUNTIME_CALLS
+                                               or (name.startswith("cudaMemcpy") and "Async" not in name))
+
+
+def is_device_call(e: dict) -> bool:
+    """A Chrome trace event of a launch, copy, memset or synchronize of the
+    CUDA runtime or driver."""
+    return e.get("cat") in LAUNCH_CATEGORIES and any(w in e["name"]
+                                                     for w in ("Launch", "Memcpy", "Memset", "Synchronize"))
 
 
 def parse_device_trace(trace_dir: str, steps: int):

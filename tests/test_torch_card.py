@@ -939,3 +939,108 @@ def test_card_setup_host_and_trace_attribution(cuda_device, tmp_path):
     assert len(rows) == 1 and rows[0]["launches_per_step"] == 1.0 and rows[0]["us_per_step"] > 0
     assert "mingraph_unet_tpu_torch/ops/kernels/psconv.py" in rows[0]["source"]
     assert attribute_stages(rows, [("kernels", ("ops/kernels/",))]) == {"kernels": round(rows[0]["us_per_step"] / 1e3, 3)}
+
+
+# ---------------------------------------------------------------------------
+# The program's spans (utils/profiling.py::span) on a traced serving forward
+# ---------------------------------------------------------------------------
+
+def _traced(fn, tmp_path, **kwargs):
+    """The Chrome trace's events of one call of ``fn`` under
+    ``warm_profile`` (CPU and CUDA, ``kwargs`` for the profiler), each with
+    its end."""
+    import json
+
+    from torch.profiler import ProfilerActivity
+
+    from mingraph_unet_tpu_torch.utils.profiling import warm_profile
+
+    with warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA], **kwargs) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    for e in events:
+        e["ts"], e["end"] = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+    return events
+
+
+@pytest.mark.cuda
+def test_card_spans_of_a_bf16_serving_forward(cuda_device, tmp_path):
+    """A bf16 MinGraph-UNet eval forward (512² tiles at the serving widths)
+    traced with shapes: every synchronizing runtime call the calling thread
+    makes inside a ``mgu.`` span has a ``mgu.sync@`` marker right after it
+    (before the thread's next launch, copy or synchronize); every
+    ``mgu.kernel.*`` span holds its inputs' dims and dtypes and its
+    hand-written kernel's device operation (one launched outside every aten
+    op); and the forward's outputs are what an untraced forward gives."""
+    from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
+    from mingraph_unet_tpu_torch.utils import profiling
+
+    model = MinGraphUNet(dtype=torch.bfloat16, device=cuda_device, detection_pre_pool=32)
+    x = torch.randn((2, 512, 512, 3), generator=torch.Generator().manual_seed(8)).to(cuda_device)
+    want = model(x)
+    torch.cuda.synchronize()
+    got = {}
+    events = _traced(lambda: got.update(model(x)), tmp_path, record_shapes=True)
+    for key in ("logits", "pred_bboxes", "soft_assignments"):
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+
+    tid = next(e["tid"] for e in events if e["name"] == "mgu.unet")
+    mine = sorted((e for e in events if e.get("tid") == tid), key=lambda e: e["ts"])
+    spans = [e for e in mine if e["name"].startswith("mgu.") and not e["name"].startswith(profiling.SYNC_PREFIX)]
+    markers = [e for e in mine if e["name"].startswith(profiling.SYNC_PREFIX)]
+    syncs = [e for e in mine
+             if profiling.is_sync_runtime_call(e) and any(s["ts"] <= e["ts"] <= s["end"] for s in spans)]
+    for e in syncs:
+        nxt = [m["ts"] for m in markers if m["ts"] >= e["end"]]
+        assert nxt, f"no marker after {e['name']} at {e['ts']}"
+        between = [o for o in mine if e["end"] <= o["ts"] < min(nxt) and profiling.is_device_call(o)]
+        assert not between, f"{e['name']} at {e['ts']}: {[o['name'] for o in between]} before its marker"
+    print(f"syncs {len(syncs)}, markers {[m['name'] for m in markers]}")
+
+    kernels = [e for e in spans if e["name"].startswith("mgu.kernel.")]
+    assert {e["name"] for e in kernels} >= {"mgu.kernel.psel_conv3x3", "mgu.kernel.dec_conv1_fused",
+                                             "mgu.kernel.phase_max_pool_kernel", "mgu.kernel.depth_to_space_kernel",
+                                             "mgu.kernel.equalize_channel"}
+    inputs = {e["name"]: (e["args"]["Input Dims"], e["args"]["Input type"]) for e in kernels}
+    assert inputs["mgu.kernel.psel_conv3x3"] == ([[2, 256, 256, 128], [3, 3, 32, 32], [32]],
+                                                 ["c10::BFloat16", "float", "float"])
+    assert inputs["mgu.kernel.equalize_channel"] == ([[2, 512, 512]], ["unsigned char"])
+    aten = [e for e in mine if e.get("cat") == "cpu_op" and not e["name"].startswith("mgu.")]
+    device = {e["args"].get("correlation"): e for e in events if e.get("cat") == "kernel"}
+    for k in kernels:
+        own = [e for e in mine if e.get("cat") in profiling.LAUNCH_CATEGORIES and k["ts"] <= e["ts"] <= k["end"]
+               and e["args"].get("correlation") in device
+               and not any(a["ts"] <= e["ts"] <= a["end"] for a in aten)]
+        assert own, f"{k['name']} at {k['ts']} holds no launch of its own kernel"
+
+
+@pytest.mark.cuda
+def test_card_a_sync_inside_a_span_leaves_one_marker_at_its_line(cuda_device, tmp_path):
+    """``.item()`` called by code of the package inside a span: one marker,
+    naming the call's file and line; the sync debug mode is restored by the
+    first span after the profiler has stopped."""
+    import os
+
+    from mingraph_unet_tpu_torch.utils import profiling
+
+    code = compile("def probe(t):\n    return t.sum().item()\n",
+                   os.path.join(os.path.dirname(profiling.__file__), "sync_probe.py"), "exec")
+    namespace = {}
+    exec(code, namespace)
+    t = torch.ones(1000, device=cuda_device)
+
+    def fn():
+        with profiling.span("probe"):
+            assert namespace["probe"](t) == 1000.0
+
+    events = _traced(fn, tmp_path)
+    markers = [e for e in events if e["name"].startswith(profiling.SYNC_PREFIX)]
+    assert [m["name"] for m in markers] == ["mgu.sync@utils/sync_probe.py:2"]
+    probe = next(e for e in events if e["name"] == "mgu.probe")
+    assert probe["ts"] <= markers[0]["ts"] <= probe["end"]
+    assert torch.cuda.get_sync_debug_mode() == 1  # the session's, until the program's next span
+    assert profiling.span("unet") is profiling.NO_SPAN
+    assert torch.cuda.get_sync_debug_mode() == 0
