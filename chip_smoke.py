@@ -123,7 +123,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and, on the printed lines only (they are worked out, not measured), the
    windowed form's floor (its 16/9 of the operations at the bf16 rate) and
    the L2 -> SM weight bytes of its tiling against the compulsory bytes.
-   The serving forward, the scene and both trainers launch K7 and K8 never.
+   The bf16 serving forward, the scene and both trainers launch K7 and K8
+   never (the f32 eval forward runs K8 at its standard blocks).
 11. Hold the fused ConvBlock (K8) at the five standard-layout ConvBlocks of
    the same forward (enc block2, enc block3, bottleneck, dec block0, dec
    block1) with each block's conv kernels and ``fold_bn`` of its BN: kernel
@@ -136,7 +137,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    products at 989 TFLOP/s: the kernel computes the f32 function on the
    tensor cores) and, printed only, the f32-FMA figure the SIMT kernel it
    replaced was held to and the weight bytes its tiling moves from L2
-   (worked out). K7's odd
+   (worked out). Then K8 in f32 as the f32 eval forward calls it, on the
+   five blocks' inputs of the f32 serving model at 512² b8 with
+   ``ConvBlock.scale_shift``'s arguments: against its plain version (TF32
+   off) and the block's ``ConvBlock.forward`` within ``F32_TOL``, timed,
+   with its device time and its bound (three bf16 products a term for f32
+   x). K7's odd
    shapes include five groups (tensor cores in bf16, SIMT in f32), f32 Cin
    256 (a halo staged in two chunks) and bf16 Cin 512 (128 K chunks).
 12. K9 (``psel_conv3x3_halo``) and K2's sharded entry (``dec_conv1_halo``)
@@ -777,6 +783,16 @@ def _warm_profile(activities):
     return sys.modules["_smoke_profiling"].warm_profile(activities)
 
 
+def _is_device_op(e) -> bool:
+    """Whether a ``key_averages()`` entry is an operation on the card. The
+    program's own ranges (``mgu.*`` spans), which the profiler also lists
+    on the device, span other operations and are none."""
+    from torch.autograd import DeviceType
+
+    return (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("mgu."))
+
+
 def _device_ops(fn, iters: int):
     """Every operation ``fn`` puts on the card (kernels, memsets, copies),
     by torch.profiler over ``iters`` calls after a warm-up, as (name, µs a
@@ -786,9 +802,8 @@ def _device_ops(fn, iters: int):
     first kernels, at times all of a window's); each operation counts its
     mean time per recorded launch times its launches per call, rounded,
     and a window that records no device operation is taken again, up to
-    three times in all."""
+    three times in all (``_is_device_op``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     fn()
@@ -799,7 +814,7 @@ def _device_ops(fn, iters: int):
                 fn()
             torch.cuda.synchronize()
         ops = [(e.key, e.self_device_time_total / e.count, max(1, round(e.count / iters)))
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+               for e in prof.key_averages() if _is_device_op(e) and e.count]
         if ops:
             break
     return sorted(ops, key=lambda k: k[1] * k[2], reverse=True)
@@ -857,7 +872,7 @@ def _profile(label: str, step, step_ms: float, steps: int = 5, top: int = 15):
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = [e for e in prof.key_averages() if _is_device_op(e) and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
@@ -1309,14 +1324,15 @@ def _configured_step(dev, iters: int):
 def _f32_path(dev):
     """The configured precision's paths on the card, counted and profiled:
     the f32 serving forward at 128² b16 (psel 4, dec-conv1 2, pool 2, d2s 1,
-    hist-eq 1; the profiler's kernel names: every psel and K2 launch on a
+    hist-eq 1, and K8 5: every standard-layout ConvBlock of an f32 eval
+    forward; the profiler's kernel names: every psel and K2 launch on a
     split tensor-core kernel, none on the FMA kernel) and the segmentation step as
     ``configs/*.yaml`` configure it (f32, 128², batch 16, Adam lr 1e-3
     weight decay 1e-4, PyTorch's default TF32 setting): K4 4 + 4 a step,
     every one the split kernel, none the FMA kernel; finite losses and
     gradients; ms/step by CUDA events, host issue ms, peak memory; and the
-    f32 serving forward's device time at 512² b8 (torch.profiler). Returns
-    the launches a forward and a step."""
+    f32 serving forward's device time at 512² b8 (torch.profiler; K8 5
+    again). Returns the launches a forward and a step."""
     import torch
 
     from mingraph_unet_tpu_torch.models.pipeline import MinGraphUNet
@@ -1330,7 +1346,7 @@ def _f32_path(dev):
         out = model(x)
         torch.cuda.synchronize()
         fwd = _counts()
-        if fwd != dict({k: 0 for k in fwd}, psel=4, dec1=2, pool=2, d2s=1, histeq=1):
+        if fwd != dict({k: 0 for k in fwd}, psel=4, dec1=2, pool=2, d2s=1, histeq=1, conv_block=5):
             _fail(f"f32 serving forward {size}² b{b}: launches {fwd}")
         if not torch.isfinite(out["logits"]).all():
             _fail("f32 serving forward: non-finite logits")
@@ -1343,8 +1359,8 @@ def _f32_path(dev):
         model, x = _serving_model(dev, dtype=torch.float32)
         _reset_counts()
         model(x)
-        if _counts()["dec1"] != 2:
-            _fail(f"f32 serving forward {SIZE}² b{BATCH}: launches {_counts()}")
+        if _counts()["dec1"] != 2 or _counts()["conv_block"] != 5:
+            _fail(f"f32 serving forward {SIZE}² b{BATCH}: launches {_counts()}, expected dec1 2 and conv_block 5")
         fwd_dev_ms = _device_ms(f"f32 serving forward {SIZE}^2 b{BATCH}", lambda: model(x), iters=3)
         print(f"[chip_smoke] f32_forward_device_ms {fwd_dev_ms:.4f} ({SIZE}² b{BATCH}, TF32 as PyTorch's default)")
     del model, x
@@ -1844,7 +1860,7 @@ def _conv_block_l2_bytes(shape, c) -> int:
     return blocks * stages * cb.STAGE_BYTES
 
 
-def _conv_block_table(dev, std_sites, launches, scene_launches):
+def _conv_block_table(dev, std_sites, f32_sites, launches, scene_launches, f32_launches):
     """Phase 11: K8 at the five standard-layout ConvBlocks of the serving
     U-Net, on their captured bf16 inputs, with each block's own conv kernels
     and ``fold_bn`` of its conv biases and BN: against its plain version
@@ -1862,7 +1878,20 @@ def _conv_block_table(dev, std_sites, launches, scene_launches):
     + 3·C·C) operations per pixel. Beside it, on the printed line only
     (worked out, not measured): the f32-FMA figure, 2·9·(Cin·C + C·C)
     operations per pixel at 67 TFLOP/s (what a SIMT kernel could reach, and
-    the kernel beats), and the weight bytes its tiling moves from L2."""
+    the kernel beats), and the weight bytes its tiling moves from L2. The
+    row's launches a forward: the bf16 serving forward and scene (0) and the
+    f32 serving forward (``f32_launches``: 5).
+
+    Then K8 as the f32 eval forward runs it (``f32_sites``: the five blocks'
+    inputs captured from the f32 serving model at 512² b8, the call's
+    arguments ``ConvBlock.scale_shift`` as the block passes them): against
+    its plain version (TF32 off) within F32_TOL and against the block's own
+    ``ConvBlock.forward`` (the same dispatch) within F32_TOL, timed beside
+    its plain version, with the kernel's device time; bound: x and y once in
+    f32, f32 weights, against the split form's operations for f32 x, three
+    bf16 products a term of both convs, 2·9·(3·Cin·C + 3·C·C) operations per
+    pixel at 989 TFLOP/s. Its rows are ``fused_conv_block f32 <site>``, with
+    the f32 serving forward's launches."""
     import torch
 
     from mingraph_unet_tpu_torch.ops.kernels import conv_block as cb
@@ -1898,6 +1927,7 @@ def _conv_block_table(dev, std_sites, launches, scene_launches):
                 "name": f"fused_conv_block {name}", "route": "cuda",
                 "source": "mingraph_unet_tpu_torch/csrc/conv_block.cu", "replaces": f"{CONV_BLOCK_SRC}:135",
                 "launches": launches["conv_block"], "launches_scene": scene_launches["conv_block"],
+                "launches_f32": f32_launches["conv_block"],
                 "shape": list(x.shape), "cout": c, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                 "call_device_ms": call_ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1909,6 +1939,38 @@ def _conv_block_table(dev, std_sites, launches, scene_launches):
                   f"{pair_ms * 1e3:.1f} us; bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}; the "
                   f"bf16 split's products at 989 TFLOP/s {t_ops * 1e3:.1f} us), f32-FMA figure {fma_ms * 1e3:.1f} us "
                   f"(67 TFLOP/s, context only); weights L2 -> SM (from the tiling) {l2 / 1e6:.1f} MB a call")
+
+        torch.backends.cudnn.allow_tf32 = False
+        for name, block, x in f32_sites:
+            args = [t for i in (1, 2) for t in block.scale_shift(i)]
+            x = x.contiguous()
+            bn_, h, w, cin = x.shape
+            c = block.conv1.kernel.shape[-1]
+            tag = f"fused_conv_block f32 {name} {tuple(x.shape)} {cin}->{c}"
+            got = cb.fused_conv_block(x, *args)
+            err = _check_close(tag, got, cb.fused_conv_block_plain(x, *args), F32_TOL)
+            _check_close(f"{tag} vs the block's ConvBlock.forward", got, block(x), F32_TOL, what="ConvBlock.forward")
+            plain_ms = _time_ms(lambda: cb.fused_conv_block_plain(x, *args), K8_ITERS)
+            ms = _time_ms(lambda: cb.fused_conv_block(x, *args), KERNEL_ITERS)
+            call_ms, dev_ms = _device_ms(tag, lambda: cb.fused_conv_block(x, *args), own="conv_block_kernel")
+            px = bn_ * h * w
+            t_bytes = (x.numel() * 4 + px * c * 4 + 9 * (cin * c + c * c) * 4 + 4 * c * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * px * 9 * (3 * cin * c + 3 * c * c) / BF16_TENSOR_FLOPS * 1e3
+            rows.append({
+                "name": f"fused_conv_block f32 {name}", "route": "cuda",
+                "source": "mingraph_unet_tpu_torch/csrc/conv_block.cu", "replaces": f"{CONV_BLOCK_SRC}:135",
+                "launches": launches["conv_block"], "launches_scene": scene_launches["conv_block"],
+                "launches_f32": f32_launches["conv_block"],
+                "shape": list(x.shape), "cout": c, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "call_device_ms": call_ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+            })
+            print(f"[chip_smoke] fused_conv_block f32 {name}: {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us "
+                  f"(call {call_ms * 1e3:.1f}), plain (f32 cuDNN, TF32 off) {plain_ms * 1e3:.1f} us, library -; "
+                  f"bound {max(t_bytes, t_ops) * 1e3:.1f} us ({rows[-1]['bound_by']}; the split's three products a "
+                  f"term at 989 TFLOP/s {t_ops * 1e3:.1f} us); device / bound {dev_ms / max(t_bytes, t_ops):.2f}")
+        torch.backends.cudnn.allow_tf32 = True
 
         g = torch.Generator(device=dev).manual_seed(19)
         torch.backends.cudnn.allow_tf32 = False
@@ -3689,16 +3751,17 @@ def _train_cli(label: str, main, cfg_dir: str, per_step):
 
 
 def _infer_cli(label: str, argv, size, main):
-    """An inference CLI on the card: the launches of one U-Net forward and
-    the label PNG, decoded by the C++ loader, equal to the labels the
-    call returned (``size``: the labels' side, or their (H, W))."""
+    """An inference CLI on the card: the launches of one f32 U-Net eval
+    forward (K8 at its five standard-layout blocks) and the label PNG,
+    decoded by the C++ loader, equal to the labels the call returned
+    (``size``: the labels' side, or their (H, W))."""
     import numpy as np
 
     from mingraph_unet_tpu_torch.data import native_loader
 
     hw = (size, size) if isinstance(size, int) else tuple(size)
     out, launches, wall, _ = _timed_cli(label, main, argv)
-    _expect_launches(label, launches, {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1})
+    _expect_launches(label, launches, {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "conv_block": 5})
     labels = out["labels"]
     decoded = native_loader.load_mask(out["label_path"], hw)
     if labels.shape != hw or decoded is None or not np.array_equal(decoded, labels.astype(np.uint8)):
@@ -4094,9 +4157,10 @@ def main() -> int:
     # K7 and K8 on the serving forward's own conv-site inputs, captured last
     # so that no other phase's peak memory holds them.
     s2d_sites, std_sites = _capture_sites(*_serving_model(dev))
+    f32_std_sites = _capture_sites(*_serving_model(dev, dtype=torch.float32))[1]
     rows += (_wconv_table(dev, s2d_sites, launches, scene_launches)
-             + _conv_block_table(dev, std_sites, launches, scene_launches))
-    del std_sites
+             + _conv_block_table(dev, std_sites, f32_std_sites, launches, scene_launches, f32_launches[0]))
+    del std_sites, f32_std_sites
     torch.cuda.empty_cache()
     # The torch.distributed paths over NCCL (phase 13), then K9 and sharded
     # K2 on the captured sites (phase 12) with the sharded forward's counts.

@@ -2,7 +2,10 @@
 ``mingraph_unet_tpu/models/unet.py``.
 
 - ``ConvBlock``: (Conv3x3 → BN → ReLU) ×2. ``model.eval()``: BN folded into
-  the conv in f32 and the folded weights cast to the compute dtype.
+  the conv in f32 and the folded weights cast to the compute dtype; a
+  standard-layout block of an f32 model runs instead as one fused-ConvBlock
+  call (K8) on the raw kernels, BN applied as the scale/shift after each
+  conv.
   ``model.train()``: conv + bias → BN over the batch statistics (which
   updates the running ones) → ReLU, differentiable. ``use_batchnorm=False``
   drops both BNs (and their parameters): conv + bias → ReLU, the raw
@@ -29,9 +32,12 @@
   ``phase_max_pool_fits``, ``depth_to_space_fits``), decided from the
   shapes; every other site runs the plain form. On a CPU tensor the
   wrappers run the plain PyTorch versions.
-- Deeper levels, the bottleneck and the final 1×1 conv use cuDNN through
-  ``F.conv2d`` / ``F.conv_transpose2d``, as the JAX package leaves them to
-  XLA.
+- The standard-layout ConvBlocks (the deeper levels and the bottleneck) run
+  the fused-ConvBlock kernel (K8, :func:`fused_conv_block`) at inference in
+  f32; in bf16, in training and on an H-shard their convs use cuDNN through
+  ``F.conv2d``, as the JAX package leaves them to XLA. The 2×2
+  ConvTransposes and the final 1×1 conv use cuDNN
+  (``F.conv_transpose2d``, ``F.conv2d``) in every mode.
 
 Full-resolution tensors that nothing downstream reads (the encoder skips of
 the s2d levels and the last decoder output) are built only when the caller
@@ -63,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm, recomputing
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc, conv_transpose2x2_nhwc
+from mingraph_unet_tpu_torch.ops.kernels.conv_block import fused_conv_block
 from mingraph_unet_tpu_torch.ops.kernels.pool import (
     depth_to_space_fits,
     depth_to_space_kernel,
@@ -126,14 +133,25 @@ class ConvBlock(nn.Module):
     def _conv_bn(self, i: int) -> Tuple[ConvParams, Optional[FoldableBatchNorm]]:
         return getattr(self, f"conv{i}"), getattr(self, f"bn{i}", None)
 
+    def scale_shift(self, i: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(kernel, scale, shift) of conv ``i`` (1 or 2), f32: the raw kernel,
+        and BN's eval affine ``a·z + c`` on its output with the conv bias,
+        ``scale = a``, ``shift = bias·a + c`` (1 and the conv bias without
+        BN). K8's arguments."""
+        conv, bn = self._conv_bn(i)
+        if bn is None:
+            return conv.kernel, torch.ones_like(conv.bias), conv.bias
+        a, c = bn.eval_affine()
+        return conv.kernel, a, conv.bias * a + c
+
     def folded(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(kernel, bias) of conv ``i`` (1 or 2) with its BN folded in, f32
-        (the raw ones without BN)."""
+        """(kernel, bias) of conv ``i`` with its BN folded in, f32 (the raw
+        values without BN)."""
         conv, bn = self._conv_bn(i)
         if bn is None:
             return conv.kernel, conv.bias
-        a, c = bn.eval_affine()
-        return conv.kernel * a, conv.bias * a + c
+        k, s, b = self.scale_shift(i)
+        return k * s, b
 
     def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
         """Standard NHWC path; ``spatial``: x is one H-shard."""
@@ -142,6 +160,12 @@ class ConvBlock(nn.Module):
         return self._forward(x, spatial)
 
     def _forward(self, x: torch.Tensor, spatial) -> torch.Tensor:
+        if not self.training and spatial is None and self.dtype == torch.float32:
+            args = []
+            for i in (1, 2):
+                with span("weights"):
+                    args += self.scale_shift(i)
+            return fused_conv_block(x.to(self.dtype).contiguous(), *args)
         for i in (1, 2):
             if self.training:
                 conv, bn = self._conv_bn(i)

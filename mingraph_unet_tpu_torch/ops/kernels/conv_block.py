@@ -16,8 +16,9 @@ above 256 output channels a block computes one channel tile of conv2 (and
 all of conv1 for it).
 
 :func:`fold_bn` folds inference BatchNorm into the (s, b) pairs it takes.
-No entry point of the port calls the kernel, as none in the JAX package
-does; it has no backward. ``launches`` counts kernel launches.
+``models/unet.py::ConvBlock`` calls it for every standard-layout block of
+an f32 eval forward (no entry point of the JAX package calls its kernel);
+it has no backward. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations

@@ -15,6 +15,9 @@
   (``ops/kernels/psconv.py(...)``), a library kernel's the module that
   called the aten op.
 - :func:`attribute_stages` folds rows into stages by source substring.
+- :func:`device_ms_by_range` gives each device event of a trace to the
+  innermost device-side range of a prefix that holds it (the U-Net's
+  ``mgu.unet*`` spans: its device time by level).
 - :func:`span` is the program's own range: ``with span("unet.enc0"):``
   opens ``mgu.unet.enc0`` in the profiler's trace while a profiler
   records, and costs one flag test otherwise. While spans record, each
@@ -40,9 +43,9 @@ from typing import Dict, Iterator, List, Optional
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["warm_profile", "trace_if", "step_timer", "StepTimer", "parse_device_trace", "attribute_stages", "span",
-           "NO_SPAN", "SPAN_PREFIX", "SYNC_PREFIX", "LAUNCH_CATEGORIES", "SYNC_RUNTIME_CALLS", "is_sync_runtime_call",
-           "is_device_call"]
+__all__ = ["warm_profile", "trace_if", "step_timer", "StepTimer", "parse_device_trace", "attribute_stages",
+           "device_ms_by_range", "span", "NO_SPAN", "SPAN_PREFIX", "SYNC_PREFIX", "LAUNCH_CATEGORIES",
+           "SYNC_RUNTIME_CALLS", "is_sync_runtime_call", "is_device_call"]
 
 _PACKAGE = "mingraph_unet_tpu_torch"
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -403,3 +406,21 @@ def attribute_stages(rows, stage_rules, default: str = "other"):
                 break
         out[stage] = out.get(stage, 0.0) + r["us_per_step"] / 1e3
     return {k: round(v, 3) for k, v in out.items()}
+
+
+def device_ms_by_range(events, prefix: str, steps: int):
+    """(ms a step by range, ms a step by (range, op)) of the trace
+    ``events``: each kernel, copy and memset goes to the innermost device
+    range (``gpu_user_annotation``) whose name starts with ``prefix`` and
+    that holds it on the device timeline, ``"outside"`` if none does."""
+    ranges = sorted((e for e in events if e.get("cat") == "gpu_user_annotation"
+                     and str(e.get("name", "")).startswith(prefix)), key=lambda r: r.get("dur", 0))
+    by_range: collections.Counter = collections.Counter()
+    by_op: collections.Counter = collections.Counter()
+    for op in (e for e in events if e.get("cat") in _DEVICE_CATEGORIES):
+        t0, dur = op["ts"], op.get("dur", 0)
+        name = next((r["name"] for r in ranges if r["ts"] <= t0 and t0 + dur <= r["ts"] + r.get("dur", 0)),
+                    "outside")
+        by_range[name] += dur / 1e3 / steps
+        by_op[(name, op["name"])] += dur / 1e3 / steps
+    return by_range, by_op

@@ -465,6 +465,36 @@ def test_card_conv_block_standard_sites(cuda_device, site, dtype):
 
 
 @pytest.mark.cuda
+def test_card_f32_eval_unet_runs_standard_blocks_on_k8(cuda_device, monkeypatch):
+    """An f32 eval U-Net (init 32, depth 4) at 512² b2 launches K8 once for
+    each of its five standard-layout ConvBlocks, and its logits match the
+    same model with those blocks on K8's plain version (cuDNN in f32, TF32
+    off); a bf16 eval forward launches none."""
+    from mingraph_unet_tpu_torch.models import unet as t_unet
+
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn((2, 512, 512, 3), generator=g).to(cuda_device)
+    for dtype, launches in ((torch.float32, 5), (torch.bfloat16, 0)):
+        model = t_unet.UNet(torch.Generator().manual_seed(0), dtype=dtype)
+        with torch.no_grad():
+            for name, buf in model.named_buffers():
+                buf.copy_(torch.randn(buf.shape, generator=g) * 0.2 if name.endswith(".mean")
+                          else torch.rand(buf.shape, generator=g) + 0.5)
+        model = model.to(cuda_device).eval()
+        with torch.no_grad():
+            before = t_cb.fused_conv_block.launches
+            got = model(x)["logits"]
+            torch.cuda.synchronize()
+            assert t_cb.fused_conv_block.launches == before + launches, dtype
+            if dtype == torch.float32:
+                with monkeypatch.context() as m:
+                    m.setattr(t_unet, "fused_conv_block", t_cb.fused_conv_block_plain)
+                    ref = model(x)["logits"]
+                assert t_cb.fused_conv_block.launches == before + launches
+                _assert_close_rel(got.cpu(), ref.cpu(), CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
 def test_card_conv_block_refuses_what_it_does_not_take(cuda_device):
     def args(cin, c):
         v = torch.ones(c, device=cuda_device)

@@ -23,8 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from mingraph_unet_tpu.ops.pallas import conv_block as jax_cb
+from mingraph_unet_tpu_torch.models import unet as t_unet
 from mingraph_unet_tpu_torch.models.unet import UNet
+from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
 from mingraph_unet_tpu_torch.ops.kernels import conv_block as t_cb
+from mingraph_unet_tpu_torch.parallel import mesh as t_mesh
+from mingraph_unet_tpu_torch.parallel import spatial as t_spatial
 
 
 def _t(a):
@@ -108,15 +112,35 @@ def test_fold_bn_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6, atol=0)
 
 
+def _perturb(model, g):
+    """BN statistics and every bias away from their init (zeros), so folding
+    BN in changes every conv and the conv biases pass through its scale."""
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            buf.copy_(torch.randn(buf.shape, generator=g) * 0.2 if name.endswith(".mean")
+                      else torch.rand(buf.shape, generator=g) + 0.5)
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+
+
+def _folded_block(block, x):
+    """A standard-layout ConvBlock's eval forward in the folded form: each
+    conv with BN folded into its kernel (``ConvBlock.folded``) through
+    ``conv2d_nhwc``, then ReLU."""
+    for i in (1, 2):
+        k, b = block.folded(i)
+        x = torch.relu(conv2d_nhwc(x, k, b, padding=1))
+    return x
+
+
 def test_fused_conv_block_plain_equals_unet_standard_block():
     """K8's plain version on a standard-layout ConvBlock of an f32 port
     U-Net, with its own kernels and fold_bn of its conv biases and BN,
-    equals the block's eval forward (which folds BN into the kernels)."""
+    equals the block in the folded form (BN folded into the kernels)."""
     model = UNet(torch.Generator().manual_seed(0), init_features=4, depth=3).eval()
     g = torch.Generator().manual_seed(1)
-    for name, buf in model.named_buffers():
-        buf.copy_(torch.randn(buf.shape, generator=g) * 0.2 if name.endswith(".mean")
-                  else torch.rand(buf.shape, generator=g) + 0.5)
+    _perturb(model, g)
     for block in (model.encoder.block2, model.encoder.bottleneck, model.decoder.block0.conv_block):
         cin = block.conv1.kernel.shape[2]
         x = torch.randn((2, 6, 10, cin), generator=g)
@@ -126,8 +150,62 @@ def test_fused_conv_block_plain_equals_unet_standard_block():
             args += [conv.kernel, s, b]
         with torch.no_grad():
             got = t_cb.fused_conv_block_plain(x, *args)
-            ref = block(x)
+            ref = _folded_block(block, x)
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+# A depth-4 U-Net at 32²: levels 0 and 1 run in s2d, and the five
+# standard-layout ConvBlocks (encoder levels 2 and 3, the bottleneck, the
+# decoder levels 3 and 2) take these inputs at init_features 4, in order.
+STANDARD_INPUTS = [(2, 8, 8, 8), (2, 4, 4, 16), (2, 2, 2, 32), (2, 4, 4, 64), (2, 8, 8, 32)]
+
+
+def _unet(seed=0, **options):
+    model = UNet(torch.Generator().manual_seed(seed), init_features=4, depth=4, **options)
+    _perturb(model, torch.Generator().manual_seed(seed + 1))
+    return model
+
+
+@pytest.mark.parametrize("mode", ["f32_eval", "bf16_eval", "f32_train", "f32_eval_spatial"])
+def test_unet_dispatches_standard_blocks_to_fused_conv_block(mode, monkeypatch):
+    """Every standard-layout ConvBlock of an f32 eval forward is one
+    ``fused_conv_block`` call on the block's input; a bf16 eval forward, a
+    train forward and an eval forward on an H-shard make none."""
+    calls = []
+
+    def spy(x, *args):
+        calls.append((tuple(x.shape), x.dtype))
+        return t_cb.fused_conv_block(x, *args)
+
+    monkeypatch.setattr(t_unet, "fused_conv_block", spy)
+    model = _unet(dtype=torch.bfloat16 if mode == "bf16_eval" else torch.float32).train(mode == "f32_train")
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(2))
+    spatial = t_spatial.SpatialShard(t_mesh.make_mesh(), 0, 32) if mode == "f32_eval_spatial" else None
+    with torch.set_grad_enabled(mode == "f32_train"):
+        model(x, spatial=spatial)
+    assert calls == ([(s, torch.float32) for s in STANDARD_INPUTS] if mode == "f32_eval" else [])
+
+
+@pytest.mark.parametrize("use_batchnorm", [True, False])
+def test_f32_eval_unet_logits_equal_the_folded_form(use_batchnorm, monkeypatch):
+    """The f32 eval U-Net with its standard blocks on ``fused_conv_block``
+    (BN as the scale/shift after each raw conv; scale 1 and the conv bias
+    without BN) gives the logits of the same model with those blocks in the
+    folded form, within 1e-5."""
+    model = _unet(seed=3, use_batchnorm=use_batchnorm).eval()
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        got = model(x)["logits"]
+        monkeypatch.setattr(t_unet.ConvBlock, "_forward", lambda block, x, spatial: _folded_block(block, x))
+        ref = model(x)["logits"]
+    assert not torch.equal(got, torch.zeros_like(got))
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+def test_scale_shift_without_batchnorm_is_the_raw_conv():
+    block = _unet(use_batchnorm=False).encoder.block2
+    k, s, b = block.scale_shift(2)
+    assert k is block.conv2.kernel and b is block.conv2.bias and torch.equal(s, torch.ones_like(b))
 
 
 # ---------------------------------------------------------------------------

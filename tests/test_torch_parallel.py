@@ -62,8 +62,10 @@ from mingraph_unet_tpu.train import segmentation as jax_seg
 from mingraph_unet_tpu.utils.bootstrap import make_dummy_run
 from mingraph_unet_tpu_torch.convert import load_jax_variables, variables_from_jax
 from mingraph_unet_tpu_torch.models import losses as t_losses
+from mingraph_unet_tpu_torch.models import unet as t_unet
 from mingraph_unet_tpu_torch.models.unet import UNet
 from mingraph_unet_tpu_torch.ops import cc as t_cc
+from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
 from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
 from mingraph_unet_tpu_torch.parallel import data as t_data
@@ -448,19 +450,35 @@ def test_spatial_sharded_unet_matches_unsharded(runs, case):
             assert np.abs(g[key] - r).max() <= 1e-5 * np.abs(r).max(), key
 
 
+def _folded_conv_block(x, w1, s1, b1, w2, s2, b2):
+    """``fused_conv_block``'s function with each scale folded into its
+    kernel, through ``conv2d_nhwc``: what a standard ConvBlock's convs
+    compute on an H-shard (``ConvBlock.folded``)."""
+    for w, s, b in ((w1, s1, b1), (w2, s2, b2)):
+        x = torch.relu(conv2d_nhwc(x, w * s, b, padding=1))
+    return x
+
+
 @pytest.mark.parametrize("case", sorted(UNET_CASES))
-def test_spatial_sharded_unet_on_one_shard_is_the_unsharded_forward(case):
+def test_spatial_sharded_unet_on_one_shard_is_the_unsharded_forward(case, monkeypatch):
     """On a spatial axis of one rank no row is exchanged and every conv site
-    runs its unsharded op (the cuDNN convs with their own padding), so the
-    sharded forward is the unsharded one bit for bit."""
+    runs its unsharded op (the cuDNN convs with their own padding, BN
+    folded into the standard blocks' kernels), so the sharded forward is
+    bit for bit the unsharded one with its standard blocks in that folded
+    form; and within 1e-5 of max |logits| of the unsharded forward itself,
+    whose f32 standard blocks run ``fused_conv_block`` (BN applied after
+    each conv)."""
     args, shape = UNET_CASES[case]
     model = _unet(args, seed=3)
     x = torch.from_numpy(_scene(shape, 9))
     with torch.no_grad():
+        fused = model(x)["logits"]
+        monkeypatch.setattr(t_unet, "fused_conv_block", _folded_conv_block)
         ref = model(x)["logits"]
         got = t_spatial.spatial_sharded_apply(lambda xl, spatial: model(xl, spatial=spatial)["logits"], x,
                                               t_mesh.make_mesh())
     assert torch.equal(got, ref)
+    torch.testing.assert_close(fused, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
 
 
 def test_spatial_sharded_apply_conv_matches_jax(runs):

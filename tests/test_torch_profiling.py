@@ -117,6 +117,30 @@ def test_parse_device_trace_reads_the_newest_trace(tmp_path):
                      "launches_per_step": 1 / 3}]
 
 
+def test_device_ms_by_range_takes_the_innermost_range():
+    """Each device event goes to the innermost ``mgu.unet*`` device range
+    that holds it (another prefix's ranges and host ranges do not count),
+    ``outside`` when none does; ms a step over ``steps``."""
+    def ev(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 1, "ts": ts, "dur": dur}
+
+    events = [ev("gpu_user_annotation", "mgu.unet", 0.0, 1000.0),
+              ev("gpu_user_annotation", "mgu.unet.enc2", 100.0, 300.0),
+              ev("gpu_user_annotation", "mgu.kernel.fused_conv_block", 150.0, 200.0),
+              ev("user_annotation", "mgu.unet.dec2", 500.0, 400.0),
+              ev("kernel", "conv_block_kernel", 160.0, 180.0),
+              ev("kernel", "pad", 120.0, 20.0),
+              ev("gpu_memcpy", "Memcpy HtoD", 600.0, 100.0),
+              ev("kernel", "head", 990.0, 20.0),
+              ev("kernel", "late", 2000.0, 40.0)]
+    by_range, by_op = t_prof.device_ms_by_range(events, "mgu.unet", steps=2)
+    assert by_range == pytest.approx({"mgu.unet.enc2": 0.1, "mgu.unet": 0.05, "outside": 0.03})
+    assert by_op[("mgu.unet.enc2", "conv_block_kernel")] == pytest.approx(0.09)
+    assert by_op[("mgu.unet", "Memcpy HtoD")] == pytest.approx(0.05)
+    assert set(by_op) == {("mgu.unet.enc2", "conv_block_kernel"), ("mgu.unet.enc2", "pad"),
+                          ("mgu.unet", "Memcpy HtoD"), ("outside", "head"), ("outside", "late")}
+
+
 def test_trace_if_writes_a_trace_it_reads(tmp_path):
     """On the CPU the trace has Python frames and no device event."""
     with t_prof.trace_if(None):

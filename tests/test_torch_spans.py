@@ -93,7 +93,7 @@ def test_a_span_with_inputs_holds_their_dims_and_dtypes(record_shapes, tmp_path)
 # A tiny forward's weight sites, on the CPU (the kernel wrappers' own weight
 # spans run on the card only): each s2d encoder level folds conv1 into its
 # windowed form and folds conv2; the bottleneck (depth 2: the standard
-# path) folds both convs; each s2d decoder level lays out its upsample,
+# path, f32: the fused block) takes both convs' scale and shift; each s2d decoder level lays out its upsample,
 # folds conv1 into the fused form and folds conv2; the head lays out the
 # 1x1 conv. Levels 0 and 1 run in s2d at 32x32, depth 2.
 EVAL_WEIGHT_SITES = 2 + 2 + 2 + 3 + 3 + 1

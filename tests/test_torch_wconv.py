@@ -19,6 +19,7 @@ import torch
 from mingraph_unet_tpu.ops import s2d as jax_s2d
 from mingraph_unet_tpu.ops.pallas import wconv as jax_wconv
 from mingraph_unet_tpu_torch.models import pipeline as t_pipeline
+from mingraph_unet_tpu_torch.models import unet as t_unet
 from mingraph_unet_tpu_torch.models.unet import UNet
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
 from mingraph_unet_tpu_torch.ops.kernels import conv_block as t_cb
@@ -126,23 +127,39 @@ def test_wconv_grouped_equals_dec_conv1_plain_at_unet_decoder():
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
 
-def test_serving_forward_calls_neither_k7_nor_k8(monkeypatch):
-    """As in JAX, no entry point dispatches K7 or K8: the serving forward
-    runs with both wrappers (and their plain versions) replaced by spies
-    that record any call."""
+def _k7_k8_calls(monkeypatch, dtype):
+    """The K7 and K8 entry points that a serving forward in ``dtype`` calls,
+    in order: both wrappers (and their plain versions) replaced by spies
+    that record any call, the U-Net's K8 returning its plain result."""
     calls = []
 
-    def spy(name):
-        return lambda *a, **k: calls.append(name)
+    def spy(name, real=None):
+        return lambda *a, **k: calls.append(name) or (real(*a, **k) if real else None)
 
+    plain = t_cb.fused_conv_block_plain
     for mod, names in ((t_wconv, ("wconv3x3_s2d", "wconv3x3_s2d_plain")),
                        (t_cb, ("fused_conv_block", "fused_conv_block_plain"))):
         for n in names:
             monkeypatch.setattr(mod, n, spy(n))
-    model = t_pipeline.MinGraphUNet(device="cpu", init_features=8, depth=2, detection_pre_pool=4)
-    out = model(torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(4)))
+    monkeypatch.setattr(t_unet, "fused_conv_block", spy("fused_conv_block", plain))
+    x = torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(4))
+    model = t_pipeline.MinGraphUNet(device="cpu", init_features=8, depth=2, detection_pre_pool=4, dtype=dtype)
+    out = model(x)
     assert torch.isfinite(out["logits"]).all()
-    assert calls == []
+    return calls
+
+
+def test_serving_forward_calls_neither_k7_nor_k8(monkeypatch):
+    """As in JAX, no entry point of the serving forward in bf16 (the
+    serving precision) dispatches K7 or K8."""
+    assert _k7_k8_calls(monkeypatch, torch.bfloat16) == []
+
+
+def test_f32_serving_forward_calls_k8_only_at_its_standard_block_and_never_k7(monkeypatch):
+    """In f32 the U-Net's standard-layout ConvBlocks of an eval forward
+    dispatch K8 (depth 2 at 64²: the bottleneck is the one standard block,
+    one call); nothing dispatches K7."""
+    assert _k7_k8_calls(monkeypatch, torch.float32) == ["fused_conv_block"]
 
 
 def _unpack_wgmma_chunks(packed, groups, cout):

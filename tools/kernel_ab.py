@@ -3,7 +3,7 @@
 checkouts of this repository on one CUDA card, in turns, on the same seeded
 inputs.
 
-    python3 tools/kernel_ab.py [--cases K2,K6,K8,f32,paths] PARENT . . PARENT
+    python3 tools/kernel_ab.py [--cases K2,K6,K8,f32,f32fwd,paths] PARENT . . PARENT
 
 Each checkout argument is the root of a checkout (for example the parent
 commit unpacked with ``git archive`` into a git-ignored directory, and
@@ -47,10 +47,12 @@ checkout's port and builds its kernels, then runs the cases named by
   on the inner shard of 4 (stitched shards bit-equal to the whole launch),
   each held against its plain version within ``F32_TOL`` (TF32 off),
   beside the full-resolution ``F.conv2d`` in f32 with TF32 off (and on, as
-  context); the f32 serving forward at 512² b8 (its device time and the
-  part of it in the f32 conv kernels); then the segmentation step as
+  context); ``f32fwd``; then the segmentation step as
   ``configs/*.yaml`` configure it (f32, 128², batch 16, Adam): ms/step,
   host issue ms, peak memory;
+- ``f32fwd``: the f32 serving forward at 512² b8 (its device time and
+  the part of it in the hand-written f32 conv kernels), with cuDNN's TF32
+  on (PyTorch's default) and off;
 - ``paths``: the three paths that launch K6 (the bf16 serving forward at
   512² b8, the 1024² large scene with its dense head and decode, and the
   bf16 end-to-end train step at 512² b8), built as ``chip_smoke.py``
@@ -406,13 +408,25 @@ def _f32(cs, tree, dev):
         row["host_us"] = cs._host_us(shard)
         yield row
     torch.backends.cudnn.allow_tf32 = True
-    with torch.no_grad():  # the f32 serving forward at 512² b8, TF32 as PyTorch's default
+    yield from _f32_forward(cs, tree, dev)
+    yield _f32_step(cs, tree, dev)
+
+
+def _f32_forward(cs, tree, dev):
+    """The f32 serving forward at 512² b8 with cuDNN's TF32 as PyTorch's
+    default (on) and off: CUDA-event µs, device µs of the whole forward and
+    of its hand-written f32 conv kernels (psel, K2, K8)."""
+    import torch
+
+    with torch.no_grad():
         model, x = cs._serving_model(dev, dtype=torch.float32)
-        yield _row(cs, tree, "f32 serving forward", lambda: model(x), F32_OWN + ("dec1",), 5, 3, dtype="f32",
-                   cell="512^2 b8")
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            yield _row(cs, tree, "f32 serving forward", lambda: model(x), F32_OWN + ("dec1", "conv_block_kernel"), 5,
+                       3, dtype="f32", cell="512^2 b8", tf32=tf32)
+    torch.backends.cudnn.allow_tf32 = True
     del model, x
     torch.cuda.empty_cache()
-    yield _f32_step(cs, tree, dev)
 
 
 def _f32_step(cs, tree, dev):
@@ -427,7 +441,8 @@ def _f32_step(cs, tree, dev):
             "k4_launches_a_step": run["counts"]["k4_fwd"] + run["counts"]["k4_dgrad"]}
 
 
-CASES = {"K2": _k2, "K6": _k6, "K8": _k8, "K4shard": _k4shard, "psel": _psel, "f32": _f32, "paths": _paths}
+CASES = {"K2": _k2, "K6": _k6, "K8": _k8, "K4shard": _k4shard, "psel": _psel, "f32": _f32, "f32fwd": _f32_forward,
+         "paths": _paths}
 
 
 def one(tree: str, cases: list) -> int:
