@@ -17,7 +17,7 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 ROOT = PACKAGE_DIR.parent
@@ -116,12 +116,30 @@ def unet_forward_flops(h: int, w: int, in_ch: int, classes: int, init: int, dept
     return total + conv_flops(h, w, 1, prev, classes)
 
 
+def detection_head_hw(h: int, w: int, a: dict) -> Tuple[int, int]:
+    """The map the single-box detection head's convs run on, as
+    ``models/pipeline.py`` and ``models/detection.py`` decide it: the patch
+    grid on the pooled serving path (``detection_pre_pool`` equal to H and W
+    over the patch size); otherwise the full-resolution fused map, after
+    the head's own average pool down to ``detection_pre_pool`` (windows of
+    H // S, 'VALID') where that is set and smaller than H."""
+    p, s = a["patch_size"], a.get("detection_pre_pool")
+    if s is not None and h > s and h % s == 0 and w % s == 0 and h // s == p and w // s == p:
+        return h // p, w // p
+    if s is not None and h > s:
+        sh, sw = max(1, h // s), max(1, w // s)
+        return h // sh, w // sw
+    return h, w
+
+
 def pipeline_forward_flops(h: int, w: int, a: dict) -> float:
-    """One image of the MinGraph-UNet serving forward (pooled head, one GAT
-    layer a stage): the U-Net, the Sobel conv's two 3×3 filters, the patch
-    projections, the lattice GATs (projection, both attention scores, the
-    4-neighbour aggregation), the segment pooling and gathering as one-hot
-    products, the region GAT and the detection head."""
+    """One image of the MinGraph-UNet forward (one GAT layer a stage): the
+    U-Net, the Sobel conv's two 3×3 filters, the patch projections, the
+    lattice GATs (projection, both attention scores, the 4-neighbour
+    aggregation), the segment pooling and gathering as one-hot products,
+    the region GAT, and the detection head's convs where they run
+    (:func:`detection_head_hw`) and its dense layers. Average pools and
+    means are not counted."""
     p, init, heads = a["patch_size"], a["init_features"], a["gat_num_heads"]
     d_in, d_out, k = a["unet_patch_feature_dim"] + 4, a["gat_output_dim"], a["num_segments"]
     n = (h // p) * (w // p)
@@ -131,12 +149,13 @@ def pipeline_forward_flops(h: int, w: int, a: dict) -> float:
 
     c = init + d_out
     fc = a["fc_hidden_dim"]
+    hh, wh = detection_head_hw(h, w, a)
     return (unet_forward_flops(h, w, a.get("in_channels", 3), a["num_classes"], init, a["depth"])
             + conv_flops(h, w, 3, 1, 2)
             + 2.0 * n * init * a["unet_patch_feature_dim"] + 2.0 * n * init * d_out
             + gat(n, d_in, d_out, heads, 4) + gat(n, d_out, k, max(1, heads // 2), 4)
             + 2 * 2.0 * n * k * d_out + gat(k, d_out, d_out, heads, k - 1)
-            + conv_flops(h // p, w // p, 3, c, c // 2) + conv_flops(h // p, w // p, 3, c // 2, c // 4)
+            + conv_flops(hh, wh, 3, c, c // 2) + conv_flops(hh, wh, 3, c // 2, c // 4)
             + 2.0 * (c // 4 * fc + fc * fc // 2 + fc // 2 * 5))
 
 

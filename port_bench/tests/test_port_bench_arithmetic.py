@@ -58,7 +58,8 @@ def test_unet_forward_is_96_gflop_an_image_at_512():
 
 def test_pipeline_adds_little_to_the_unet():
     a = {"patch_size": 16, "init_features": 32, "gat_num_heads": 4, "unet_patch_feature_dim": 16,
-         "gat_output_dim": 64, "num_segments": 2, "fc_hidden_dim": 256, "depth": 4, "num_classes": 2}
+         "gat_output_dim": 64, "num_segments": 2, "fc_hidden_dim": 256, "depth": 4, "num_classes": 2,
+         "detection_pre_pool": 32}
     unet = core.unet_forward_flops(512, 512, 3, 2, 32, 4)
     extra = core.pipeline_forward_flops(512, 512, a) - unet
     # The Sobel filters (9.4 MFLOP), the detection convs on the 32 × 32 patch grid (106 MFLOP), the
@@ -73,3 +74,30 @@ def test_train_step_is_three_forwards():
     t = {"batch": 16, "height": 512, "width": 512, "checked": 3}
     d = train.Driver(cfg, t, 1, "cpu")
     assert d.flops_per_unit == pytest.approx(3 * 16 * core.unet_forward_flops(512, 512, 3, 2, 32, 4))
+
+
+def _mgu(**changes):
+    c = core.read_json(core.PACKAGE_DIR / "configs" / "mgu_bf16.json")
+    c["args"].update(changes)
+    return c
+
+
+def test_forward_flops_of_the_configurations_as_run_are_pinned():
+    # The serving cells' figures at 512², to the last digit: counting the head where it runs moves neither.
+    assert core.forward_flops(_mgu(), 512, 512) == 96722157824.0
+    unet = core.read_json(core.PACKAGE_DIR / "configs" / "unet_f32.json")
+    assert core.forward_flops(unet, 512, 512) == 96586432512.0
+
+
+def test_the_full_resolution_head_is_counted_on_the_full_map():
+    # detection_pre_pool None: the head's convs on the fused 512² map, c = 32 + 64 = 96 → 48 → 24, where
+    # the pooled serving path runs them on the 32 × 32 patch grid.
+    head = 2 * 9 * (96 * 48 + 48 * 24)
+    full, pooled = core.forward_flops(_mgu(detection_pre_pool=None), 512, 512), core.forward_flops(_mgu(), 512, 512)
+    assert full - pooled == pytest.approx(head * (512 * 512 - 32 * 32), rel=1e-12)
+    # detection_pre_pool 64: the head's own average pool (windows of 8) first, its convs on 64 × 64.
+    assert core.detection_head_hw(512, 512, _mgu(detection_pre_pool=64)["args"]) == (64, 64)
+    assert core.forward_flops(_mgu(detection_pre_pool=64), 512, 512) - pooled == pytest.approx(
+        head * (64 * 64 - 32 * 32), rel=1e-12)
+    assert core.detection_head_hw(512, 512, _mgu()["args"]) == (32, 32)
+    assert core.detection_head_hw(512, 512, _mgu(detection_pre_pool=None)["args"]) == (512, 512)
