@@ -20,7 +20,10 @@ linear index (``y·W + x``) of its pixels.
   components of a label map, and the pixel bounding boxes of instance
   masks (over the last two axes, any leading axes).
 
-None of these carries a gradient.
+None of these carries a gradient. While a profiler records, the stencil
+labelling and each top-instance selection is one range of the program's
+(``utils/profiling.py::span``): ``mgu.cc.stencil`` and
+``mgu.cc.top_instances``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["component_count", "instance_boxes", "label_components", "label_components_stencil", "top_instances",
            "top_instances_dense"]
@@ -54,21 +59,22 @@ def _initial_labels(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int
 def label_components_stencil(mask: torch.Tensor, num_iters: int = 128) -> torch.Tensor:
     """(B, H, W) binary → (B, H, W) int32 labels by ``num_iters`` sweeps of
     4-neighbour min propagation."""
-    fg, labels, n = _initial_labels(mask)
-    padded = F.pad(labels, (1, 1, 1, 1), value=n)  # the border stays n
-    inner = padded[:, 1:-1, 1:-1]
-    # max(m, floor) keeps a foreground pixel's minimum (labels are >= 0)
-    # and resets the background to n.
-    floor = torch.where(fg, 0, n).to(torch.int32)
-    m = torch.empty_like(labels)
-    for _ in range(num_iters):
-        torch.minimum(padded[:, :-2, 1:-1], padded[:, 2:, 1:-1], out=m)
-        torch.minimum(m, padded[:, 1:-1, :-2], out=m)
-        torch.minimum(m, padded[:, 1:-1, 2:], out=m)
-        torch.minimum(m, inner, out=m)
-        torch.maximum(m, floor, out=m)
-        inner.copy_(m)
-    return torch.where(fg, inner, torch.full_like(inner, -1))
+    with span("cc.stencil"):
+        fg, labels, n = _initial_labels(mask)
+        padded = F.pad(labels, (1, 1, 1, 1), value=n)  # the border stays n
+        inner = padded[:, 1:-1, 1:-1]
+        # max(m, floor) keeps a foreground pixel's minimum (labels are >= 0)
+        # and resets the background to n.
+        floor = torch.where(fg, 0, n).to(torch.int32)
+        m = torch.empty_like(labels)
+        for _ in range(num_iters):
+            torch.minimum(padded[:, :-2, 1:-1], padded[:, 2:, 1:-1], out=m)
+            torch.minimum(m, padded[:, 1:-1, :-2], out=m)
+            torch.minimum(m, padded[:, 1:-1, 2:], out=m)
+            torch.minimum(m, inner, out=m)
+            torch.maximum(m, floor, out=m)
+            inner.copy_(m)
+        return torch.where(fg, inner, torch.full_like(inner, -1))
 
 
 @torch.no_grad()
@@ -102,17 +108,18 @@ def top_instances(labels: torch.Tensor, max_objects: int, min_area: int = 1) -> 
     """The ``max_objects`` largest components by an exact per-label area
     count: (B, O, H, W) f32 masks (all-zero rows pad unused slots) and
     (B, O) f32 areas (0 for unused slots)."""
-    b, h, w = labels.shape
-    n = h * w
-    flat = labels.reshape(b, n).long()
-    ids = torch.where(flat >= 0, flat, torch.full_like(flat, n))
-    areas_all = torch.zeros((b, n + 1), dtype=torch.float32, device=labels.device)
-    areas_all.scatter_add_(1, ids, torch.ones_like(ids, dtype=torch.float32))
-    areas_all[:, n] = 0.0  # the background bin
-    top_areas, top_ids = _top_k_stable(areas_all, max_objects)
-    keep = top_areas >= min_area
-    masks = (labels[:, None] == top_ids[:, :, None, None]) & keep[:, :, None, None]
-    return masks.float(), torch.where(keep, top_areas, torch.zeros_like(top_areas))
+    with span("cc.top_instances"):
+        b, h, w = labels.shape
+        n = h * w
+        flat = labels.reshape(b, n).long()
+        ids = torch.where(flat >= 0, flat, torch.full_like(flat, n))
+        areas_all = torch.zeros((b, n + 1), dtype=torch.float32, device=labels.device)
+        areas_all.scatter_add_(1, ids, torch.ones_like(ids, dtype=torch.float32))
+        areas_all[:, n] = 0.0  # the background bin
+        top_areas, top_ids = _top_k_stable(areas_all, max_objects)
+        keep = top_areas >= min_area
+        masks = (labels[:, None] == top_ids[:, :, None, None]) & keep[:, :, None, None]
+        return masks.float(), torch.where(keep, top_areas, torch.zeros_like(top_areas))
 
 
 @torch.no_grad()
@@ -123,35 +130,36 @@ def top_instances_dense(labels: torch.Tensor, max_objects: int, min_area: int = 
     (an integral-image box sum) are candidates; the first ``candidates``
     (default max(4·max_objects, 16)) in raster order get exact areas by
     dense comparison, and the largest ``max_objects`` of them are kept."""
-    b, h, w = labels.shape
-    n = h * w
-    dev = labels.device
-    cand = candidates or max(4 * max_objects, 16)
-    fg = labels >= 0
-    idx = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, h, w)
-    roots = fg & (labels == idx)
+    with span("cc.top_instances"):
+        b, h, w = labels.shape
+        n = h * w
+        dev = labels.device
+        cand = candidates or max(4 * max_objects, 16)
+        fg = labels >= 0
+        idx = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, h, w)
+        roots = fg & (labels == idx)
 
-    side = 2 * math.isqrt(max(min_area - 1, 0)) + 3
-    r = side // 2
-    integ = F.pad(torch.cumsum(torch.cumsum(fg.float(), 1), 2), (1, 0, 1, 0))  # (B, H+1, W+1)
-    # Edge-replicated extension of the integral image clamps the window at
-    # the border, as JAX's pad(mode="edge").
-    ext = F.pad(integ[:, None], (r, r + 1, 0, side), mode="replicate")[:, 0]
-    c0, c1 = 2 * r + 1, 2 * r + 1 + w
-    mass = ext[:, side : side + h, c0:c1] - ext[:, 0:h, c0:c1] - ext[:, side : side + h, 0:w] + ext[:, 0:h, 0:w]
+        side = 2 * math.isqrt(max(min_area - 1, 0)) + 3
+        r = side // 2
+        integ = F.pad(torch.cumsum(torch.cumsum(fg.float(), 1), 2), (1, 0, 1, 0))  # (B, H+1, W+1)
+        # Edge-replicated extension of the integral image clamps the window at
+        # the border, as JAX's pad(mode="edge").
+        ext = F.pad(integ[:, None], (r, r + 1, 0, side), mode="replicate")[:, 0]
+        c0, c1 = 2 * r + 1, 2 * r + 1 + w
+        mass = ext[:, side : side + h, c0:c1] - ext[:, 0:h, c0:c1] - ext[:, side : side + h, 0:w] + ext[:, 0:h, 0:w]
 
-    score = torch.where(roots & (mass >= min_area), n - idx, torch.zeros_like(idx))
-    # The positive scores are distinct, so the top values do not depend on
-    # how ties among the zeros are broken.
-    top_scores = torch.topk(score.reshape(b, n), min(cand, n), dim=1).values
-    ids_c = torch.where(top_scores > 0, n - top_scores, torch.full_like(top_scores, n))
-    areas_c = (labels.reshape(b, 1, n) == ids_c[:, :, None]).sum(-1).float()
-    areas_c = torch.where((top_scores > 0) & (areas_c >= min_area), areas_c, torch.zeros_like(areas_c))
-    top_areas, pos = _top_k_stable(areas_c, max_objects)
-    keep = top_areas >= float(max(min_area, 1))
-    ids_k = torch.where(keep, ids_c.gather(1, pos), torch.full_like(pos, n, dtype=ids_c.dtype))
-    masks = labels[:, None] == ids_k[:, :, None, None]
-    return masks.float(), torch.where(keep, top_areas, torch.zeros_like(top_areas))
+        score = torch.where(roots & (mass >= min_area), n - idx, torch.zeros_like(idx))
+        # The positive scores are distinct, so the top values do not depend on
+        # how ties among the zeros are broken.
+        top_scores = torch.topk(score.reshape(b, n), min(cand, n), dim=1).values
+        ids_c = torch.where(top_scores > 0, n - top_scores, torch.full_like(top_scores, n))
+        areas_c = (labels.reshape(b, 1, n) == ids_c[:, :, None]).sum(-1).float()
+        areas_c = torch.where((top_scores > 0) & (areas_c >= min_area), areas_c, torch.zeros_like(areas_c))
+        top_areas, pos = _top_k_stable(areas_c, max_objects)
+        keep = top_areas >= float(max(min_area, 1))
+        ids_k = torch.where(keep, ids_c.gather(1, pos), torch.full_like(pos, n, dtype=ids_c.dtype))
+        masks = labels[:, None] == ids_k[:, :, None, None]
+        return masks.float(), torch.where(keep, top_areas, torch.zeros_like(top_areas))
 
 
 @torch.no_grad()

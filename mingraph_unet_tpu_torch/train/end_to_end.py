@@ -54,6 +54,12 @@ backpropagates 1/S of its total; the gradients are summed over every rank.
 The gathered full-resolution tensors and the heads are held whole on every
 spatial rank; so are the instance masks, as the masks are.
 
+While a profiler records, the step's phases are the ranges
+``mgu.train.e2e.{augment,forward,loss,backward,optimizer}`` and each loss
+term's work is ``mgu.loss.<term>`` (``seg``: CE and the class
+probabilities; ``feature``, ``partition``, ``shape`` with the instancing's
+``mgu.cc.*``, ``smooth``, ``detection``; ``utils/profiling.py::span``).
+
 Every model the config builds trains: the dense head, class scores (no
 loss reaches them, as in JAX: the class branch moves by weight decay
 alone), each ablation switch, the U-Net without BatchNorm or
@@ -84,6 +90,7 @@ from mingraph_unet_tpu_torch.parallel.mesh import Mesh, replicate
 from mingraph_unet_tpu_torch.parallel.spatial import spatial_sharded_unet
 from mingraph_unet_tpu_torch.train.common import (TrainState, draw_step_augment, make_multistep, make_optimizer,
                                                   run_epochs, spatial_step, trainer_mesh)
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["BALANCED_LOSSES", "LossBalance", "build_mingraph_unet", "gt_union_box", "make_e2e_train_step",
            "mingraph_unet_kwargs", "train_end_to_end"]
@@ -208,6 +215,72 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
         raise ValueError("loss_balance 'uncertainty' needs the model's LossBalance (build_mingraph_unet adds it)")
     spatial = spatial_step(mesh)
 
+    def loss_terms(out: Dict[str, Any], aug_masks: torch.Tensor, aug_inst: Optional[torch.Tensor]
+                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The step's terms (``aux``) and ``L_total``, each term in its own
+        range ``mgu.loss.<term>``."""
+        logits = out["logits"]
+        b = logits.shape[0]
+        with span("loss.seg"):
+            l_seg = losses.cross_entropy_loss(logits, aug_masks)
+            probs = torch.softmax(logits, dim=-1)  # L_shape's and L_smooth's foreground map
+        with span("loss.feature"):
+            # y_p from the ground truth: foreground fraction per patch > 0.5.
+            with torch.no_grad():
+                fg_frac = patch_reduce_mean((aug_masks == 1).float()[..., None], patch)[..., 0]
+                y_p = (fg_frac > 0.5).float()
+            n_patches = y_p.shape[1] * y_p.shape[2]
+            l_feature = losses.feature_consistency_loss(
+                out["f_unet_patches"].reshape(b, n_patches, -1), out["gat_feats"].reshape(b, n_patches, -1),
+                y_p.reshape(b, n_patches), margin=lw.feature_loss_margin)
+        with span("loss.partition"):
+            l_partition = batch_mean(out["l_partition"])
+        with span("loss.shape"):
+            if aug_inst is not None:  # the ellipse prior on the annotated instances: no gradient into the model
+                l_shape = losses.elliptical_shape_loss(aug_inst.float())
+            else:
+                l_shape = losses.elliptical_shape_loss_soft_instances(probs, max_instances=max_instances,
+                                                                      exact=exact_instancing)
+        with span("loss.smooth"):
+            l_smooth = losses.total_variation_loss(probs[..., 1:2])
+
+        aux = {"l_unet_seg": l_seg, "l_shape": l_shape, "l_feature": l_feature, "l_partition": l_partition,
+               "l_smooth": l_smooth}
+        graph_terms = [("l_shape", l_shape, lw.l_shape_weight), ("l_feature", l_feature, lw.l_feature_weight),
+                       ("l_partition", l_partition, lw.l_partition_weight),
+                       ("l_smooth", l_smooth, lw.l_smooth_weight)]
+        if lw.l_partition_sup_weight > 0.0:
+            with span("loss.partition"):
+                l_psup = losses.partition_supervision_loss(out["soft_assignments"], y_p)  # f32 (f64) already
+            aux["l_partition_sup"] = l_psup
+            graph_terms.append(("l_partition_sup", l_psup, lw.l_partition_sup_weight))
+        total = l_seg
+        for name, val, wt in graph_terms:
+            if wt == 0.0:
+                continue
+            if balance:
+                s = model.loss_balance.log_vars[BALANCED_LOSSES.index(name)]
+                total = total + torch.exp(-s) * wt * val + replicated(0.5 * s)
+                aux[f"bal_s_{name}"] = s.detach().clone()  # before the update
+            else:
+                total = total + wt * val
+        if train_detection:
+            with span("loss.detection"):
+                gt_box, has_obj = gt_union_box(aug_masks)
+                l_bbox, l_conf = losses.detection_losses(out["pred_bboxes"], out["pred_confidence"], gt_box,
+                                                         has_obj)
+            total = total + l_bbox + l_conf
+            aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
+        if "dense_objectness_logits" in out:
+            with span("loss.detection"):
+                gt = aug_inst if aug_inst is not None else _gt_instances(aug_masks, max_instances, exact_instancing)
+                l_dense_obj, l_dense_box = dense_detection_loss(
+                    {"objectness_logits": out["dense_objectness_logits"], "boxes": out["dense_boxes"]}, gt, patch)
+            total = total + l_dense_obj + l_dense_box
+            aux["l_dense_obj"], aux["l_dense_box"] = l_dense_obj, l_dense_box
+        aux["total"] = total
+        return aux, total
+
     def train_step(state: TrainState, images_u8: torch.Tensor, masks: torch.Tensor, gen: torch.Generator,
                    instances: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         if state.model is not model or state.optimizer is not opt:
@@ -218,77 +291,32 @@ def make_e2e_train_step(model: MinGraphUNet, opt: torch.optim.Optimizer, cfg: Pi
             instances = instances.to(dev)
         b, h, w = masks.shape
         with data_parallel(mesh, b):
-            draw = draw_step_augment(gen, b, h, w, pre) if augment else None
-            imgs, aug_masks, *aug_inst = device_preprocess_batch(
-                images_u8, masks, pre.normalization_mean, pre.normalization_std, draw,
-                num_classes=cfg.dataset.num_classes, instances=instances)
-            aug_inst = aug_inst[0] if aug_inst else None
-            model.train()
-            u = spatial_sharded_unet(model.unet, imgs, mesh, level0=True) if spatial else None
-            out = model(imgs, gen=gen, unet_outputs=u)
-            logits = out["logits"]
-            l_seg = losses.cross_entropy_loss(logits, aug_masks)
-
-            # y_p from the ground truth: foreground fraction per patch > 0.5.
-            with torch.no_grad():
-                fg_frac = patch_reduce_mean((aug_masks == 1).float()[..., None], patch)[..., 0]
-                y_p = (fg_frac > 0.5).float()
-            n_patches = y_p.shape[1] * y_p.shape[2]
-            l_feature = losses.feature_consistency_loss(
-                out["f_unet_patches"].reshape(b, n_patches, -1), out["gat_feats"].reshape(b, n_patches, -1),
-                y_p.reshape(b, n_patches), margin=lw.feature_loss_margin)
-            l_partition = batch_mean(out["l_partition"])
-            probs = torch.softmax(logits, dim=-1)
-            if aug_inst is not None:  # the ellipse prior on the annotated instances: no gradient into the model
-                l_shape = losses.elliptical_shape_loss(aug_inst.float())
-            else:
-                l_shape = losses.elliptical_shape_loss_soft_instances(probs, max_instances=max_instances,
-                                                                      exact=exact_instancing)
-            l_smooth = losses.total_variation_loss(probs[..., 1:2])
-
-            aux = {"l_unet_seg": l_seg, "l_shape": l_shape, "l_feature": l_feature, "l_partition": l_partition,
-                   "l_smooth": l_smooth}
-            graph_terms = [("l_shape", l_shape, lw.l_shape_weight), ("l_feature", l_feature, lw.l_feature_weight),
-                           ("l_partition", l_partition, lw.l_partition_weight),
-                           ("l_smooth", l_smooth, lw.l_smooth_weight)]
-            if lw.l_partition_sup_weight > 0.0:
-                l_psup = losses.partition_supervision_loss(out["soft_assignments"], y_p)  # f32 (f64) already
-                aux["l_partition_sup"] = l_psup
-                graph_terms.append(("l_partition_sup", l_psup, lw.l_partition_sup_weight))
-            total = l_seg
-            for name, val, wt in graph_terms:
-                if wt == 0.0:
-                    continue
-                if balance:
-                    s = model.loss_balance.log_vars[BALANCED_LOSSES.index(name)]
-                    total = total + torch.exp(-s) * wt * val + replicated(0.5 * s)
-                    aux[f"bal_s_{name}"] = s.detach().clone()  # before the update
-                else:
-                    total = total + wt * val
-            if train_detection:
-                gt_box, has_obj = gt_union_box(aug_masks)
-                l_bbox, l_conf = losses.detection_losses(out["pred_bboxes"], out["pred_confidence"], gt_box, has_obj)
-                total = total + l_bbox + l_conf
-                aux["l_bbox"], aux["l_conf"] = l_bbox, l_conf
-            if "dense_objectness_logits" in out:
-                gt = aug_inst if aug_inst is not None else _gt_instances(aug_masks, max_instances, exact_instancing)
-                l_dense_obj, l_dense_box = dense_detection_loss(
-                    {"objectness_logits": out["dense_objectness_logits"], "boxes": out["dense_boxes"]}, gt, patch)
-                total = total + l_dense_obj + l_dense_box
-                aux["l_dense_obj"], aux["l_dense_box"] = l_dense_obj, l_dense_box
-            aux["total"] = total
+            with span("train.e2e.augment"):
+                draw = draw_step_augment(gen, b, h, w, pre) if augment else None
+                imgs, aug_masks, *aug_inst = device_preprocess_batch(
+                    images_u8, masks, pre.normalization_mean, pre.normalization_std, draw,
+                    num_classes=cfg.dataset.num_classes, instances=instances)
+                aug_inst = aug_inst[0] if aug_inst else None
+            with span("train.e2e.forward"):
+                model.train()
+                u = spatial_sharded_unet(model.unet, imgs, mesh, level0=True) if spatial else None
+                out = model(imgs, gen=gen, unet_outputs=u)
+            with span("train.e2e.loss"):
+                aux, total = loss_terms(out, aug_masks, aug_inst)
             share = spatial_share(total)
 
-        opt.zero_grad(set_to_none=True)
-        share.backward()
-        # A parameter the total does not reach (the MinCut predictor while
-        # the graph terms are off) has a zero gradient in JAX, which the
-        # optimizer still applies (weight decay moves it): the same here.
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        all_reduce_gradients(model.parameters(), mesh)
-        state.apply_gradients()
+        with span("train.e2e.backward"):
+            opt.zero_grad(set_to_none=True)
+            share.backward()
+            # A parameter the total does not reach (the MinCut predictor while
+            # the graph terms are off) has a zero gradient in JAX, which the
+            # optimizer still applies (weight decay moves it): the same here.
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_gradients(model.parameters(), mesh)
+        with span("train.e2e.optimizer"):
+            state.apply_gradients()
         aux = {k: v.detach() for k, v in aux.items()}
         return all_reduce_metrics(aux, mesh, keys=[k for k in aux if not k.startswith("bal_s_")])
 
