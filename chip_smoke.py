@@ -292,6 +292,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    Prints each call's wall seconds and peak memory, the decode and
    generation rates; the kernels line gives each kernel's launches a step
    (a call) of (c) and (d) (``launches_data``).
+19. The split-form train conv (K10, ``ops/kernels/conv3x3.py``) in the
+   f32 U-Net step of the ``unet_f32.train_b16`` cell (512², batch 16, TF32
+   off; run after phase 6): K10 forward 10 and dgrad 10 launches a step
+   (20 forward with remat), K4 4 + 4 and nothing else; at the ten
+   standard-block convs, on the inputs, weights and cotangents one step
+   gives them, forward and dgrad against their plain versions (cuDNN f32)
+   within ``F32_TOL``, timed beside the plain version, the library call
+   and the split form's bound; the step's time and its levels 2-4 device
+   ms by pass, with those convs on cuDNN (before) and on K10 (after)
+   (``_conv3x3_path``). The phases that run an f32 train step (5, 17)
+   expect K10's 10 + 10 a step.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -338,6 +349,14 @@ POOL_SRC = "mingraph_unet_tpu/ops/pallas/pool.py"
 HISTEQ_SRC = "mingraph_unet_tpu/ops/pallas/histeq.py"
 WCONV_SRC = "mingraph_unet_tpu/ops/pallas/wconv.py"
 CONV_BLOCK_SRC = "mingraph_unet_tpu/ops/pallas/conv_block.py"
+# Phase 19: K10 (the split-form train conv) in the f32 U-Net step of the
+# unet_f32.train_b16 cell (512², batch 16): its launches a step, and the ten
+# standard-block convs it runs, in forward order.
+K10_STEP = {"k10_fwd": 10, "k10_dgrad": 10}
+K10_BATCH, K10_STEPS = 16, 3
+K10_SITES = ("enc2 conv1", "enc2 conv2", "enc3 conv1", "enc3 conv2", "bottleneck conv1", "bottleneck conv2",
+             "dec3 conv1", "dec3 conv2", "dec2 conv1", "dec2 conv2")
+K10_LEVELS = ("mgu.unet.enc2", "mgu.unet.enc3", "mgu.unet.bottleneck", "mgu.unet.dec3", "mgu.unet.dec2")
 
 
 def _fail(msg: str) -> None:
@@ -363,13 +382,14 @@ def _time_ms(fn, iters: int) -> float:
 def _wrappers():
     """Every kernel wrapper of the port, by the name its launch count goes
     under."""
-    from mingraph_unet_tpu_torch.ops.kernels import conv_block, histeq, pool, psconv, wconv
+    from mingraph_unet_tpu_torch.ops.kernels import conv3x3, conv_block, histeq, pool, psconv, wconv
 
     return {"psel": psconv.psel_conv3x3, "dec1": psconv.dec_conv1_fused, "pool": pool.phase_max_pool_kernel,
             "d2s": pool.depth_to_space_kernel, "k4_fwd": psconv.psconv_fwd, "k4_dgrad": psconv.psconv_dgrad,
             "histeq": histeq.equalize_channel, "wconv": wconv.wconv3x3_s2d, "conv_block": conv_block.fused_conv_block,
             "k9": psconv.psel_conv3x3_halo, "dec1_halo": psconv.dec_conv1_halo,
-            "k4_fwd_halo": psconv.psconv_fwd_halo, "k4_dgrad_halo": psconv.psconv_dgrad_halo}
+            "k4_fwd_halo": psconv.psconv_fwd_halo, "k4_dgrad_halo": psconv.psconv_dgrad_halo,
+            "k10_fwd": conv3x3.conv3x3_fwd, "k10_dgrad": conv3x3.conv3x3_dgrad}
 
 
 def _reset_counts() -> None:
@@ -618,7 +638,7 @@ def _main_path(dev, label: str = "main path", **options):
     print(f"[chip_smoke] {label} launches: {launches}")
     if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
                     "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
-                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
+                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0, "k10_fwd": 0, "k10_dgrad": 0}:
         _fail(f"{label}: expected psel 4, dec1 2, pool 2, d2s 1, histeq 1 and no K4, K7, K8, K9 or sharded K2 "
               f"launches per forward, got "
               f"{launches}")
@@ -766,7 +786,7 @@ def _s2d_of(y_nchw):
     return s2d_ops.space_to_depth(y_nchw.permute(0, 2, 3, 1))
 
 
-def _warm_profile(activities):
+def _warm_profile(activities, **kwargs):
     """This checkout's ``utils/profiling.py::warm_profile`` (torch.profiler
     after a discarded warm-up step), loaded from its file: the module
     imports only torch, and ``tools/kernel_ab.py`` then measures an older
@@ -780,7 +800,7 @@ def _warm_profile(activities):
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         sys.modules["_smoke_profiling"] = module
-    return sys.modules["_smoke_profiling"].warm_profile(activities)
+    return sys.modules["_smoke_profiling"].warm_profile(activities, **kwargs)
 
 
 def _is_device_op(e) -> bool:
@@ -1368,7 +1388,7 @@ def _f32_path(dev):
 
     run = _configured_step(dev, F32_STEP_ITERS)
     ms, host_ms, peak, counts, losses = run["ms"], run["host_ms"], run["peak_gib"], run["counts"], run["losses"]
-    if counts != dict({k: 0 for k in counts}, k4_fwd=4, k4_dgrad=4):
+    if counts != dict({k: 0 for k in counts}, k4_fwd=4, k4_dgrad=4, k10_fwd=10, k10_dgrad=10):
         _fail(f"configured f32 step: launches a step {counts}")
     if not all(math.isfinite(v) for v in losses) or not _grads_finite(run["model"]):
         _fail("configured f32 step: a non-finite loss or gradient")
@@ -1992,6 +2012,207 @@ def _conv_block_table(dev, std_sites, f32_sites, launches, scene_launches, f32_l
     return rows
 
 
+def _k10_step(dev, remat: bool = False):
+    """The U-Net trainer's f32 step at 512² b16, the ``unet_f32.train_b16``
+    cell's setting (``configs/*.yaml``'s model, Adam lr 1e-3 weight decay
+    1e-4, augmentation) on a seeded batch: (model, one step's call)."""
+    import torch
+
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.segmentation import build_unet, make_train_step
+
+    cfg = _train_cfg(SIZE, bf16=False)
+    cfg.model.unet.remat = remat
+    model = build_unet(cfg)
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000))
+    step = make_train_step(cfg, augment=True)
+    imgs, masks = _train_batch(K10_BATCH, SIZE, seed=5, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return model, lambda: step(state, imgs, masks, gen)
+
+
+def _k10_capture(step):
+    """The ten standard-block convs of one step, in forward order: each
+    call's input, kernel and bias and the cotangent its output receives
+    (a spy on ``models/unet.py::conv3x3_train``)."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models import unet
+
+    sites, real = [], unet.conv3x3_train
+
+    def spy(x, kernel, bias):
+        y = real(x, kernel, bias)
+        site = {"x": x.detach().clone(), "k": kernel.detach().clone(), "b": bias.detach().clone()}
+        y.register_hook(lambda g, site=site: site.__setitem__("g", g.detach().contiguous().clone()))
+        sites.append(site)
+        return y
+
+    unet.conv3x3_train = spy
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        unet.conv3x3_train = real
+    if len(sites) != len(K10_SITES) or not all("g" in site for site in sites):
+        _fail(f"phase 19: captured {len(sites)} standard-block train convs, expected {len(K10_SITES)} with cotangents")
+    return sites
+
+
+def _k10_account(step, sites, label: str):
+    """One route's step: ms a step by CUDA events over ``K10_STEPS`` steps,
+    then ``K10_STEPS`` profiled: the forward's device ms at levels 2-4 (the
+    ``mgu.unet.*`` ranges), the device ms of cuDNN's
+    ``aten::convolution_backward`` at the ten sites' shapes (dgrad and
+    wgrad on cuDNN; wgrad alone with K10) and of K10's kernels outside the
+    forward's ranges (its dgrad). Printed and returned, ms a step."""
+    import json
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    ms = _time_ms(step, K10_STEPS)
+    with _warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for _ in range(K10_STEPS):
+            step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    levels, by_op = sys.modules["_smoke_profiling"].device_ms_by_range(events, "mgu.unet.", K10_STEPS)
+    fwd = {lv[9:]: levels[lv] for lv in K10_LEVELS}
+    k10_fwd = sum(v for (lv, op), v in by_op.items() if lv in K10_LEVELS and "conv3x3_kernel" in op)
+    k10_dgrad = sum(v for (lv, op), v in by_op.items() if lv == "outside" and "conv3x3_kernel" in op)
+    shapes = {(tuple(s["x"].permute(0, 3, 1, 2).shape), (s["k"].shape[3], s["k"].shape[2], 3, 3)) for s in sites}
+    bwd = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        ins = e.input_shapes
+        if e.key == "aten::convolution_backward" and len(ins) > 2 and (tuple(ins[1]), tuple(ins[2])) in shapes:
+            bwd += e.device_time_total / 1e3 / K10_STEPS
+    out = {"step_ms": ms, "forward_levels_ms": fwd, "forward_ms": sum(fwd.values()), "k10_forward_ms": k10_fwd,
+           "cudnn_backward_ms": bwd, "k10_dgrad_ms": k10_dgrad}
+    print(f"[chip_smoke] phase 19 {label}: {ms:.3f} ms a step; levels 2-4 forward {out['forward_ms']:.3f} device ms "
+          f"({', '.join(f'{k} {v:.3f}' for k, v in fwd.items())}; K10 {k10_fwd:.3f}); backward at the ten sites: "
+          f"cuDNN convolution_backward {bwd:.3f}, K10 dgrad {k10_dgrad:.3f}")
+    for (lv, op), v in sorted(by_op.items(), key=lambda kv: -kv[1]):
+        if lv in K10_LEVELS and v >= 0.05:
+            print(f"[chip_smoke]   {lv[9:]:10s} {v:8.3f} ms  {op[:90]}")
+    return out
+
+
+def _conv3x3_path(dev):
+    """Phase 19: K10, the split-form train conv, at the f32 U-Net step of the
+    ``unet_f32.train_b16`` cell (512² b16, TF32 off). (a) Its launches a
+    step: forward 10 and dgrad 10 (K4 4 + 4, nothing else), with remat
+    forward 20 and dgrad 10 (K4 8 + 4). (b) At the ten standard-block convs, on the
+    inputs, weights and cotangents one step gives them: forward and dgrad
+    against their plain versions (cuDNN f32, TF32 off) within ``F32_TOL``,
+    whole output and borders; each timed (µs a call by CUDA events, the
+    kernel's and the call's device µs, host µs a call) beside the plain
+    version, the library (``F.conv2d``; dgrad: ``aten.convolution_backward``
+    for the input alone, as autograd makes it) by events and device time,
+    and the split form's bound: x in and y out at 3.35 TB/s against three
+    bf16 products of 2·9·Cin·Cout operations a pixel at 989 TFLOP/s, the
+    f32 FMA figure (67 TFLOP/s) printed beside it. (c) The step before and
+    after: the standard blocks' train convs on cuDNN (the dispatch's device
+    check patched to false), then on K10 (``_k10_account``). Returns the
+    kernels line's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.models import unet
+    from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as c3
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for remat in (True, False):
+        model, step = _k10_step(dev, remat)
+        step()
+        torch.cuda.synchronize()
+        _reset_counts()
+        step()
+        torch.cuda.synchronize()
+        # Remat runs every block's forward again in the backward: K4's and
+        # K10's forward twice, their dgrad once.
+        want = dict({k: 0 for k in _wrappers()}, k4_fwd=8 if remat else 4, k4_dgrad=4, k10_fwd=20 if remat else 10,
+                    k10_dgrad=10)
+        if _counts() != want:
+            _fail(f"phase 19: the f32 512² b{K10_BATCH} step{' with remat' if remat else ''} launched {_counts()}, "
+                  f"expected {want}")
+        print(f"[chip_smoke] phase 19: f32 512² b{K10_BATCH} step{' with remat' if remat else ''}: K10 forward "
+              f"{want['k10_fwd']} and dgrad {want['k10_dgrad']} launches a step")
+        if remat:
+            del model, step
+            torch.cuda.empty_cache()
+    sites = _k10_capture(step)
+    real = unet._on_card
+    unet._on_card = lambda x: False
+    try:
+        before = _k10_account(step, sites, "standard blocks' train convs on cuDNN (before)")
+    finally:
+        unet._on_card = real
+    after = _k10_account(step, sites, "standard blocks' train convs on K10 (after)")
+    print(f"[chip_smoke] k10_step_ms before {before['step_ms']:.3f} after {after['step_ms']:.3f}; levels 2-4 forward "
+          f"{before['forward_ms']:.3f} -> {after['forward_ms']:.3f} device ms; their dgrad + wgrad "
+          f"{before['cudnn_backward_ms']:.3f} -> {after['k10_dgrad_ms'] + after['cudnn_backward_ms']:.3f} "
+          f"(K10 dgrad {after['k10_dgrad_ms']:.3f} + cuDNN wgrad {after['cudnn_backward_ms']:.3f})")
+    del model, step
+    torch.cuda.empty_cache()
+
+    rows, sums = [], {"fwd": [0.0, 0.0, 0.0], "dgrad": [0.0, 0.0, 0.0]}
+    for name, site in zip(K10_SITES, sites):
+        x, k, b, g = site["x"], site["k"], site["b"], site["g"]
+        bn_, h, w, cin = x.shape
+        cout = k.shape[-1]
+        px = bn_ * h * w
+        xn, kn, gn = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2)
+        for kind in ("fwd", "dgrad"):
+            if kind == "fwd":
+                fn, plain = (lambda: c3.conv3x3_fwd(x, k, b)), (lambda: c3.conv3x3_plain(x, k, b))
+                lib = lambda: F.conv2d(xn, kn, b, padding=1)  # noqa: E731
+                inp, out_c = x, cout
+            else:
+                fn, plain = (lambda: c3.conv3x3_dgrad(g, k)), (lambda: c3.conv3x3_dgrad_plain(g, k))
+                lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+                    gn, xn, kn, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False])[0]
+                inp, out_c = g, cin
+            tag = f"conv3x3_{kind} {name} {tuple(inp.shape)} -> {out_c}"
+            err = _check_close(tag, fn(), plain(), F32_TOL)
+            ms = _time_ms(fn, KERNEL_ITERS)
+            call_ms, dev_ms, ops = _device_ms(tag, fn, own="conv3x3_kernel", count=True)
+            host_us = _host_us(fn, 50)
+            plain_ms = _time_ms(plain, KERNEL_ITERS)
+            lib_ms = _time_ms(lib, KERNEL_ITERS)
+            lib_dev_ms = _device_ms(f"{tag} library", lib)
+            t_ops = 3 * 2 * px * 9 * cin * cout / BF16_TENSOR_FLOPS * 1e3
+            t_bytes = (4 * px * (cin + cout) + 9 * cin * cout * 4) / HBM_BYTES_PER_S * 1e3
+            fma_ms = 2 * px * 9 * cin * cout / F32_SIMT_FLOPS * 1e3
+            bound = max(t_ops, t_bytes)
+            for i, v in enumerate((dev_ms, bound, lib_dev_ms)):
+                sums[kind][i] += v
+            rows.append({
+                "name": f"conv3x3_{kind} {name}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/conv3x3.cu",
+                "replaces": None, "launches_f32_step": K10_STEP[f"k10_{kind}"], "shape": list(inp.shape),
+                "cout": out_c, "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "call_device_ms": call_ms,
+                "device_ops": ops, "host_us": host_us, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_device_ms": lib_dev_ms, "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else
+                "operations",
+            })
+            print(f"[chip_smoke] {tag}: {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us (call "
+                  f"{call_ms * 1e3:.1f} in {ops} ops: the packing), host {host_us:.1f} us; plain {plain_ms * 1e3:.1f} "
+                  f"us, library {lib_ms * 1e3:.1f} / {lib_dev_ms * 1e3:.1f} us; bound {bound * 1e3:.1f} us "
+                  f"({rows[-1]['bound_by']}); device / bound {dev_ms / bound:.2f}; f32 FMA figure "
+                  f"{fma_ms * 1e3:.1f} us (context)")
+    for kind, (dev_ms, bound, lib_dev_ms) in sums.items():
+        print(f"[chip_smoke] k10_{kind}_ten_sites device {dev_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({dev_ms / bound:.2f}x), library device {lib_dev_ms:.4f} ms")
+    torch.backends.cudnn.allow_tf32 = tf32
+    return rows
+
+
 def _check_decode(boxes, scores, valid, size: int) -> None:
     """Valid boxes ordered, centred in the scene and no larger than it;
     invalid slots zero."""
@@ -2036,7 +2257,7 @@ def _large_scene(dev):
     print(f"[chip_smoke] large-scene launches: {launches}")
     if launches != {"psel": 4, "dec1": 2, "pool": 2, "d2s": 2, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 1,
                     "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
-                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
+                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0, "k10_fwd": 0, "k10_dgrad": 0}:
         _fail(f"expected psel 4, dec1 2, pool 2, d2s 2, histeq 1 and no K4, K7, K8, K9 or sharded K2 launches "
               f"per scene, "
               f"got {launches}")
@@ -2190,7 +2411,7 @@ def _e2e_run(dev, cfg, label: str, warmup: int, iters: int, train_detection: boo
           f"{ {k: round(float(v), 4) for k, v in auxes[-1].items()} }")
     if launches != {"psel": 0, "dec1": 0, "pool": 0, "d2s": 0, "k4_fwd": 4 * n, "k4_dgrad": 4 * n, "histeq": n,
                     "wconv": 0, "conv_block": 0, "k9": 0, "dec1_halo": 0,
-                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
+                    "k4_fwd_halo": 0, "k4_dgrad_halo": 0, "k10_fwd": 0, "k10_dgrad": 0}:
         _fail(f"{label}: expected K4 forward 4, dgrad 4 and histeq 1 launches per e2e step and no K1-K3, K5, "
               f"K7-K9 or sharded K2, got {launches} over {n} steps")
     if not _grads_finite(model):
@@ -2795,7 +3016,7 @@ def _sharded_serving(dev, mesh, dtype):
         print(f"[chip_smoke] spatial_sharded_apply {tag} launches: {launches}")
         if launches != {"psel": 0, "dec1": 0, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 0,
                         "wconv": 0, "conv_block": 0, "k9": 4, "dec1_halo": 2,
-                        "k4_fwd_halo": 0, "k4_dgrad_halo": 0}:
+                        "k4_fwd_halo": 0, "k4_dgrad_halo": 0, "k10_fwd": 0, "k10_dgrad": 0}:
             _fail(f"expected K9 4, sharded K2 2, pool 2, d2s 1 and no K1 or K2 launches in the sharded {tag} U-Net, "
                   f"got {launches}")
         _check_close(f"spatial_sharded_apply U-Net {tag} logits (NCCL, 1 rank)", got, whole,
@@ -2917,8 +3138,10 @@ def _spatial_train_path(dev):
     outputs go through the gather and the rest of the step as on a spatial
     group. Each 512² b8 step (seg, e2e; in bf16, and in f32 as
     ``configs/training.yaml`` sets the precision) must launch K4 on a shard
-    4 forward and 4 dgrad (hist-eq once in e2e) and K4 itself, K1-K3 never,
-    and agree with the one-card step from the same weights, batch and
+    4 forward and 4 dgrad (hist-eq once in e2e) and K4 itself, K1-K3 and
+    K10 never, and agree with the one-card step (in f32 with its standard
+    blocks' convs on cuDNN, as the sharded step runs them) from the same
+    weights, batch and
     generator within 1e-3 (losses, every gradient and BN statistic); in
     f32 the profiler must name the split kernel for all 8 launches and the
     FMA kernel for none. Phase 15 (f): the e2e step with the dense head
@@ -2928,10 +3151,12 @@ def _spatial_train_path(dev):
     import torch
     import torch.distributed as dist
 
+    from mingraph_unet_tpu_torch.models import unet
     from mingraph_unet_tpu_torch.parallel import mesh as pmesh
     from mingraph_unet_tpu_torch.train import end_to_end, segmentation
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
 
+    on_card = unet._on_card
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as so:
         so.bind(("127.0.0.1", 0))
         port = so.getsockname()[1]
@@ -2965,9 +3190,15 @@ def _spatial_train_path(dev):
                                                            mesh=mesh if side == "spatial" else None))
                 finally:
                     module.spatial_step = real
+                # The one-card f32 step runs its standard blocks' convs on cuDNN,
+                # as the sharded step does (``spatial.conv_same``), not on K10:
+                # the comparison holds the sharding to 1e-3, and two conv
+                # arithmetics part further by flipping ReLU and pool decisions.
+                unet._on_card = (lambda x: False) if f32 else on_card
                 _reset_counts()
                 metrics = step(state, imgs, masks, torch.Generator(device=dev).manual_seed(0))
                 torch.cuda.synchronize()
+                unet._on_card = on_card
                 counts = _counts()
                 want = {k: 0 for k in counts}
                 if side == "spatial":
@@ -3008,6 +3239,7 @@ def _spatial_train_path(dev):
             torch.cuda.empty_cache()
         return launches
     finally:
+        unet._on_card = on_card
         dist.destroy_process_group()
 
 
@@ -3170,7 +3402,8 @@ ABLATION_VARIANTS = {
 ROW_COUNTER = {"psel_conv3x3": "psel", "dec_conv1_fused": "dec1", "phase_max_pool": "pool", "depth_to_space": "d2s",
                "psconv_fwd": "k4_fwd", "psconv_dgrad": "k4_dgrad", "equalize_channel": "histeq",
                "wconv3x3_s2d": "wconv", "fused_conv_block": "conv_block", "sharded_psconv": "k9",
-               "dec_conv1_halo": "dec1_halo", "psconv_fwd_halo": "k4_fwd_halo", "psconv_dgrad_halo": "k4_dgrad_halo"}
+               "dec_conv1_halo": "dec1_halo", "psconv_fwd_halo": "k4_fwd_halo", "psconv_dgrad_halo": "k4_dgrad_halo",
+               "conv3x3_fwd": "k10_fwd", "conv3x3_dgrad": "k10_dgrad"}
 
 
 def _dense(cfg) -> None:
@@ -3865,9 +4098,9 @@ def _cli_path(dev):
               f"{time.perf_counter() - t0:.1f} s")
         paths = {}
         paths["train_segmentation step"], seg_s, seg_peak = _train_cli(
-            "train_segmentation", train_segmentation.main, seg_cfg, {"k4_fwd": 4, "k4_dgrad": 4})
+            "train_segmentation", train_segmentation.main, seg_cfg, {"k4_fwd": 4, "k4_dgrad": 4, **K10_STEP})
         paths["train_end_to_end step"], e2e_s, e2e_peak = _train_cli(
-            "train_end_to_end", train_end_to_end.main, e2e_cfg, {"k4_fwd": 4, "k4_dgrad": 4, "histeq": 1})
+            "train_end_to_end", train_end_to_end.main, e2e_cfg, {"k4_fwd": 4, "k4_dgrad": 4, "histeq": 1, **K10_STEP})
         weights = os.path.join(root, "seg", "checkpoints")
         common = ["--config_path", seg_cfg, "--weights_path", weights]
         paths["infer_segmentation"], infer_s = _infer_cli(
@@ -4149,11 +4382,12 @@ def main() -> int:
                                                                        TRAIN_WARMUP, TRAIN_ITERS)
     _train_vs_cpu(dev)
     f32_launches = _f32_path(dev)
+    k10_rows = _conv3x3_path(dev)
     e2e_launches, e2e_ms, e2e_host_ms, e2e_peak = _e2e_path(dev)
     _e2e_vs_cpu(dev)
     rows = (_kernel_table(dev, launches, scene_launches) + _d2s_table(dev, launches, scene_launches)
             + _k4_table(dev, train_launches, e2e_launches) + _f32_table(dev, *f32_launches)
-            + _histeq_table(dev, launches, e2e_launches, scene_launches))
+            + _histeq_table(dev, launches, e2e_launches, scene_launches) + k10_rows)
     # K7 and K8 on the serving forward's own conv-site inputs, captured last
     # so that no other phase's peak memory holds them.
     s2d_sites, std_sites = _capture_sites(*_serving_model(dev))

@@ -34,10 +34,14 @@
   wrappers run the plain PyTorch versions.
 - The standard-layout ConvBlocks (the deeper levels and the bottleneck) run
   the fused-ConvBlock kernel (K8, :func:`fused_conv_block`) at inference in
-  f32; in bf16, in training and on an H-shard their convs use cuDNN through
-  ``F.conv2d``, as the JAX package leaves them to XLA. The 2×2
-  ConvTransposes and the final 1×1 conv use cuDNN
-  (``F.conv_transpose2d``, ``F.conv2d``) in every mode.
+  f32. In f32 training on the card, unsharded, each of their convs is the
+  split-form conv kernel (K10, :func:`conv3x3_train`: forward and dx on the
+  kernel, the kernel and bias gradients from cuDNN's weight-gradient call);
+  in bf16, on an H-shard and on the CPU their convs use cuDNN through
+  ``F.conv2d`` (``conv2d_nhwc``), as the JAX package leaves them to XLA.
+  The choice follows from the input's device, the block's dtype and the
+  shard (:func:`split_conv`). The 2×2 ConvTransposes and the final 1×1
+  conv use cuDNN (``F.conv_transpose2d``, ``F.conv2d``) in every mode.
 
 Full-resolution tensors that nothing downstream reads (the encoder skips of
 the s2d levels and the last decoder output) are built only when the caller
@@ -69,6 +73,7 @@ from torch.utils.checkpoint import checkpoint
 from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm, recomputing
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc, conv_transpose2x2_nhwc
+from mingraph_unet_tpu_torch.ops.kernels.conv3x3 import conv3x3_train
 from mingraph_unet_tpu_torch.ops.kernels.conv_block import fused_conv_block
 from mingraph_unet_tpu_torch.ops.kernels.pool import (
     depth_to_space_fits,
@@ -92,9 +97,21 @@ from mingraph_unet_tpu_torch.ops.kernels.psconv import (
 from mingraph_unet_tpu_torch.parallel import data as dp
 from mingraph_unet_tpu_torch.utils.profiling import span
 
-__all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet", "decoder_d2s"]
+__all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet", "decoder_d2s",
+           "split_conv"]
 
 FusedUp = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x_prev, wt, bias_up)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def split_conv(x: torch.Tensor, dtype: torch.dtype, spatial) -> bool:
+    """Whether a standard-layout ConvBlock's train-mode conv of ``x`` runs
+    the split-form conv kernel (K10): an f32 block, unsharded, on the
+    card."""
+    return spatial is None and dtype == torch.float32 and _on_card(x)
 
 
 def _remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
@@ -170,8 +187,12 @@ class ConvBlock(nn.Module):
             if self.training:
                 conv, bn = self._conv_bn(i)
                 x = x.to(self.dtype)
-                z = (conv2d_nhwc(x, conv.kernel, conv.bias, padding=1) if spatial is None
-                     else spatial.conv_same(x, conv.kernel, conv.bias))
+                if split_conv(x, self.dtype, spatial):
+                    z = conv3x3_train(x.contiguous(), conv.kernel, conv.bias)
+                elif spatial is None:
+                    z = conv2d_nhwc(x, conv.kernel, conv.bias, padding=1)
+                else:
+                    z = spatial.conv_same(x, conv.kernel, conv.bias)
                 x = torch.relu(z if bn is None else bn(z))
             else:
                 with span("weights"):

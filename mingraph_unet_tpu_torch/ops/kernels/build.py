@@ -50,7 +50,7 @@ __all__ = [
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("psel_conv", "dec_conv1", "phase_pool", "d2s", "histeq", "wconv", "conv_block")
+SOURCES = ("psel_conv", "dec_conv1", "phase_pool", "d2s", "histeq", "wconv", "conv_block", "conv3x3")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,6 +70,7 @@ _SIGNATURES = {
     "wconv": {"mgu_wconv3x3_wgmma": [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P],
               "mgu_wconv3x3_simt": [_P] * 4 + [_I] * 7 + [_P, _I, _P]},
     "conv_block": {"mgu_conv_block": [_P] * 7 + [_I] * 7 + [_P]},
+    "conv3x3": {"mgu_conv3x3": [_P] * 4 + [_I] * 6 + [_P]},
 }
 
 # Host libraries (g++): name → C signatures.

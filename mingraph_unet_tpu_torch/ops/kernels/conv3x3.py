@@ -1,0 +1,163 @@
+"""The f32 3×3 'SAME' train conv of the standard-layout ConvBlocks as a
+hand-written CUDA kernel (K10), with its plain PyTorch version.
+
+It replaces no TPU kernel: the JAX package leaves these convs to XLA, and
+the port ran them through cuDNN, which in f32 with TF32 off takes its FMA
+or FFT routes. :func:`conv3x3_fwd` is ``conv3x3(x, kernel) + bias`` on NHWC
+f32 (``csrc/conv3x3.cu``: wgmma with each f32 operand split into a bf16
+pair ``hi = bf16(a)``, ``lo = bf16(a − hi)`` and each product taken as
+``hi·hi + hi·lo + lo·hi``, the form of K8 in f32); :func:`conv3x3_dgrad` is
+the same kernel on the cotangent with the adjoint kernel (taps flipped,
+input and output channels swapped), no bias. :func:`pack_weights` splits
+and packs a kernel once a call, on its device, into the stream of 16 KB
+stages the kernel consumes. It takes any Cin, Cout, H and W: above 256
+output channels a block computes one channel tile.
+
+:func:`conv3x3_train` is the differentiable conv as a
+``torch.autograd.Function``: forward and dx through the kernel, the kernel
+and bias gradients through cuDNN's weight-gradient call
+(:func:`conv3x3_wgrad`), as autograd's backward of ``F.conv2d`` computes
+them. ``models/unet.py::ConvBlock`` calls it for every conv of a
+standard-layout block in an f32 train forward on the card, unsharded. On a
+CPU tensor each wrapper runs its plain version, so the same Function is
+testable there. ``launches`` on each wrapper counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+from mingraph_unet_tpu_torch.ops.kernels.build import check_cuda_input, library, require, stream_ptr
+from mingraph_unet_tpu_torch.ops.kernels.conv_block import CHUNK, channel_tile, pack_stream
+from mingraph_unet_tpu_torch.utils.profiling import span
+
+__all__ = ["adjoint", "conv3x3_dgrad", "conv3x3_dgrad_plain", "conv3x3_fwd", "conv3x3_plain", "conv3x3_train",
+           "conv3x3_wgrad", "pack_weights"]
+
+
+def adjoint(kernel: torch.Tensor) -> torch.Tensor:
+    """The 3×3 'SAME' conv's adjoint kernel: spatially flipped, in/out
+    transposed, (3, 3, Cin, Cout) → (3, 3, Cout, Cin)."""
+    return kernel.flip(0, 1).transpose(2, 3)
+
+
+def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``conv2d_nhwc(x, kernel, bias, padding=1)`` in x's dtype."""
+    return conv2d_nhwc(x, kernel, bias, padding=1)
+
+
+def conv3x3_dgrad_plain(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """dx of the conv for cotangent ``g``: the same conv with the adjoint
+    kernel, no bias, in g's dtype."""
+    return conv2d_nhwc(g, adjoint(kernel), None, padding=1)
+
+
+def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """The weight stream of ``csrc/conv3x3.cu``: (channel tiles, bytes / 2)
+    as bf16, for ``channel_tile(Cout)`` output channels a tile.
+
+    Input channels are padded with zeros to a multiple of 64 (x chunks),
+    output channels to whole tiles. For each channel tile, x chunk and tap:
+    the chunk's 64 input rows as 4 k-steps, each the hi then the lo 16 × NT
+    slab (:func:`conv_block.pack_stream`, K8's conv2 layout), in 16 KB
+    stages of 1, 2 or 4 k-steps."""
+    cin, c = kernel.shape[2], kernel.shape[3]
+    nt = channel_tile(c)
+    xc, ntl = -(-cin // CHUNK), -(-c // nt)
+    wp = F.pad(kernel.float().reshape(9, cin, c), (0, ntl * nt - c, 0, xc * CHUNK - cin))
+    return pack_stream(wp, nt).reshape(ntl, -1).contiguous()
+
+
+def _launch(name: str, x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel on x (B, H, W, Cin) f32 with ``kernel`` (3, 3, Cin, Cout)
+    as it is given (the caller passes the adjoint for dx) and ``bias``
+    (Cout,) or None; raises on what it does not take."""
+    check_cuda_input("x", x, torch.float32)
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    require(tuple(kernel.shape) == (3, 3, cin, cout), f"{name}: kernel must be (3, 3, {cin}, Cout), "
+                                                       f"got {tuple(kernel.shape)}")
+    require(kernel.dtype == torch.float32 and kernel.device == x.device,
+            f"{name}: kernel must be f32 on {x.device}, got {kernel.dtype} on {kernel.device}")
+    if bias is not None:
+        require(tuple(bias.shape) == (cout,) and bias.dtype == torch.float32 and bias.device == x.device,
+                f"{name}: bias must be ({cout},) f32 on {x.device}, got {tuple(bias.shape)} {bias.dtype}")
+        bias = bias.contiguous()
+    with span("weights"):
+        stream = pack_weights(kernel)
+    y = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
+    rc = library("conv3x3").mgu_conv3x3(x.data_ptr(), stream.data_ptr(), None if bias is None else bias.data_ptr(),
+                                        y.data_ptr(), b, h, w, cin, cout, channel_tile(cout), stream_ptr(x))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return y
+
+
+def conv3x3_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``conv3x3(x, kernel) + bias``, 'SAME', f32: x (B, H, W, Cin) NHWC,
+    kernel (3, 3, Cin, Cout), bias (Cout,); returns (B, H, W, Cout)
+    NHWC-contiguous. A CPU tensor runs :func:`conv3x3_plain`; a CUDA tensor
+    launches the kernel (x f32, contiguous, 16-byte aligned) or raises."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, kernel, bias)
+    with span("kernel.conv3x3_fwd", (x, kernel, bias)):
+        y = _launch("conv3x3_fwd", x, kernel, bias)
+    conv3x3_fwd.launches += 1
+    return y
+
+
+conv3x3_fwd.launches = 0
+
+
+def conv3x3_dgrad(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """dx of :func:`conv3x3_fwd` for cotangent g (B, H, W, Cout):
+    (B, H, W, Cin) f32, the kernel on g with :func:`adjoint` of ``kernel``
+    packed on its device. A CPU tensor runs :func:`conv3x3_dgrad_plain`."""
+    if g.device.type == "cpu":
+        return conv3x3_dgrad_plain(g, kernel)
+    with span("kernel.conv3x3_dgrad", (g, kernel)):
+        dx = _launch("conv3x3_dgrad", g, adjoint(kernel), None)
+    conv3x3_dgrad.launches += 1
+    return dx
+
+
+conv3x3_dgrad.launches = 0
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dkernel (3, 3, Cin, Cout), dbias (Cout,)) of the conv for cotangent
+    g: cuDNN's weight-gradient call (``aten.convolution_backward`` with
+    ``output_mask`` (False, True, True)) on the NCHW views that
+    :func:`conv2d_nhwc` gives ``F.conv2d``, under the backend's TF32 flags,
+    as autograd's backward of the conv makes it."""
+    cout = kernel.shape[-1]
+    _, dw, db = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(3, 2, 0, 1), [cout],
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, True])
+    return dw.permute(2, 3, 1, 0), db
+
+
+class _Conv3x3Train(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        return conv3x3_fwd(x, kernel, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        g = g.contiguous()  # autograd may hand the cotangent over strided or expanded
+        dx = conv3x3_dgrad(g, kernel) if ctx.needs_input_grad[0] else None
+        dk, db = conv3x3_wgrad(x, g, kernel) if ctx.needs_input_grad[1] or ctx.needs_input_grad[2] else (None, None)
+        return dx, dk, db
+
+
+def conv3x3_train(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``conv3x3(x, kernel) + bias`` ('SAME', NHWC): forward
+    through :func:`conv3x3_fwd`, dx through :func:`conv3x3_dgrad`, the
+    kernel and bias gradients through :func:`conv3x3_wgrad`."""
+    return _Conv3x3Train.apply(x, kernel, bias)

@@ -39,7 +39,8 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
 )
 from mingraph_unet_tpu_torch.utils.profiling import span
 
-__all__ = ["channel_tile", "fold_bn", "fused_conv_block", "fused_conv_block_plain", "pack_weights", "split_bf16"]
+__all__ = ["channel_tile", "fold_bn", "fused_conv_block", "fused_conv_block_plain", "pack_stream", "pack_weights",
+           "split_bf16"]
 
 # csrc/conv_block.cu: h in chunks of 64 channels, x in chunks of 64 input
 # channels, the weight stream in stages of 16 KB.
@@ -85,6 +86,18 @@ def split_bf16(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, (w - hi.float()).to(torch.bfloat16)])
 
 
+def pack_stream(wp: torch.Tensor, nt: int) -> torch.Tensor:
+    """A (9, K, N) f32 weight (K a multiple of 64, N of ``nt``) as
+    (N / nt, K / 64, bytes / 2) bf16: for each ``nt``-column tile and
+    64-row chunk of K, per tap its 4 k-steps, each the hi then the lo
+    16 × nt slab in wgmma's K-major B layout (``psconv.wgmma_b_layout``):
+    element (k, n) at ``[n // 8, k // 8, n % 8, k % 8]``."""
+    kc, ntl = wp.shape[1] // CHUNK, wp.shape[2] // nt
+    # (hl, tap, kc, ks, k1, k0, ntl, n1, n0) -> (ntl, kc, tap, ks, hl, n1, k1, n0, k0)
+    packed = split_bf16(wp).reshape(2, 9, kc, 4, 2, 8, ntl, nt // 8, 8).permute(6, 2, 1, 3, 0, 7, 4, 8, 5)
+    return packed.reshape(ntl, kc, -1)
+
+
 def pack_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """The weight stream of ``csrc/conv_block.cu``: (channel tiles, h
     chunks, bytes) as bf16, for ``channel_tile(C)`` output channels a tile.
@@ -102,12 +115,8 @@ def pack_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     xc, hc, ntl = -(-cin // CHUNK), _up(c, CHUNK) // CHUNK, -(-c // nt)
     w1p = F.pad(w1.float().reshape(9, cin, c), (0, hc * CHUNK - c, 0, xc * CHUNK - cin))
     w2p = F.pad(w2.float().reshape(9, c, c), (0, ntl * nt - c, 0, hc * CHUNK - c))
-    # (hl, tap, xc, ks, k1, k0, hc, n1, n0) -> (hc, xc, tap, ks, hl, n1, k1, n0, k0)
-    one = split_bf16(w1p).reshape(2, 9, xc, 4, 2, 8, hc, 8, 8).permute(6, 2, 1, 3, 0, 7, 4, 8, 5)
-    # (hl, tap, hc, ks, k1, k0, nt, n1, n0) -> (nt, hc, tap, ks, hl, n1, k1, n0, k0)
-    two = split_bf16(w2p).reshape(2, 9, hc, 4, 2, 8, ntl, nt // 8, 8).permute(6, 2, 1, 3, 0, 7, 4, 8, 5)
-    one = one.reshape(1, hc, -1).expand(ntl, hc, -1)
-    return torch.cat([one, two.reshape(ntl, hc, -1)], dim=2).contiguous()
+    one = pack_stream(w1p, CHUNK).reshape(1, hc, -1).expand(ntl, hc, -1)  # conv1's N tiles are the h chunks
+    return torch.cat([one, pack_stream(w2p, nt)], dim=2).contiguous()
 
 
 def fused_conv_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
+from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as t_c3
 from mingraph_unet_tpu_torch.ops.kernels import conv_block as t_cb
 from mingraph_unet_tpu_torch.ops.kernels import histeq as t_histeq
 from mingraph_unet_tpu_torch.ops.kernels import pool as t_pool
@@ -553,6 +554,116 @@ def test_card_conv_block_wide(cuda_device, case, dtype):
     torch.cuda.synchronize()
     ref = t_cb.fused_conv_block_plain(x.float(), *args)
     _assert_close_rel(got.float().cpu(), ref.cpu(), CARD_TOL[dtype])
+
+
+# K10 (the split-form train conv): the ten standard-block convs of the
+# configured f32 train step (init 32, depth 4, 512² b16) as (B, H, W, Cin,
+# Cout): enc2, enc3, the bottleneck, dec3, dec2, conv1 then conv2; then
+# widths that are not multiples of 64 (Cin 3 and 96 not of 4 or 64, Cout 40
+# and 600 in ragged tiles) at ragged H and W.
+CONV3X3_SITES = [(16, 128, 128, 64, 128), (16, 128, 128, 128, 128), (16, 64, 64, 128, 256), (16, 64, 64, 256, 256),
+                 (16, 32, 32, 256, 512), (16, 32, 32, 512, 512), (16, 64, 64, 512, 256), (16, 64, 64, 256, 256),
+                 (16, 128, 128, 256, 128), (16, 128, 128, 128, 128)]
+CONV3X3_ODD = [(2, 9, 13, 3, 8), (1, 11, 19, 96, 40), (2, 5, 7, 130, 600), (1, 3, 3, 66, 64)]
+
+
+def _conv3x3_case(shape, dev):
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device=dev).manual_seed(h * w + cin + cout)
+    x = torch.randn((b, h, w, cin), generator=g, device=dev)
+    k = torch.randn((3, 3, cin, cout), generator=g, device=dev) * (2.0 / (9 * cin)) ** 0.5
+    bias = torch.randn(cout, generator=g, device=dev) * 0.1
+    gy = torch.randn((b, h, w, cout), generator=g, device=dev)
+    return x, k, bias, gy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV3X3_SITES + CONV3X3_ODD)
+def test_card_conv3x3_fwd_and_dgrad_match_plain(cuda_device, shape):
+    """K10's forward and dgrad against their plain versions (cuDNN in f32,
+    TF32 off) within the f32 card tolerance, whole output and border rows
+    and columns; each call advances its wrapper's ``launches`` by one."""
+    x, k, bias, gy = _conv3x3_case(shape, cuda_device)
+    fwd, dgrad = t_c3.conv3x3_fwd.launches, t_c3.conv3x3_dgrad.launches
+    got = t_c3.conv3x3_fwd(x, k, bias)
+    dx = t_c3.conv3x3_dgrad(gy, k)
+    torch.cuda.synchronize()
+    assert (t_c3.conv3x3_fwd.launches, t_c3.conv3x3_dgrad.launches) == (fwd + 1, dgrad + 1)
+    assert got.is_contiguous() and dx.is_contiguous() and dx.shape == x.shape
+    for g_, r_ in ((got, t_c3.conv3x3_plain(x, k, bias)), (dx, t_c3.conv3x3_dgrad_plain(gy, k))):
+        _assert_close_rel(g_.cpu(), r_.cpu(), CARD_TOL[torch.float32])
+        edge = lambda t: torch.cat([t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1]], 1)  # noqa: E731
+        _assert_close_rel(edge(g_).cpu(), edge(r_).cpu(), CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 32, 48, 64, 128), (2, 16, 16, 512, 256)])
+def test_card_conv3x3_train_grads_match_plain(cuda_device, shape):
+    """The autograd Function's output and x, kernel and bias gradients
+    against ``conv2d_nhwc`` under autograd (cuDNN in f32, TF32 off): dx
+    from the kernel within the card tolerance, dk and db from the same
+    weight-gradient call."""
+    from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+
+    x, k, bias, gy = _conv3x3_case(shape, cuda_device)
+    sides = []
+    for fn in (t_c3.conv3x3_train, lambda a, b, c: conv2d_nhwc(a, b, c, padding=1)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, k, bias)]
+        y = fn(*leaves)
+        sides.append([y] + list(torch.autograd.grad(y, leaves, gy)))
+    for got, ref in zip(*sides):
+        assert got.shape == ref.shape
+        _assert_close_rel(got.detach().cpu(), ref.detach().cpu(), CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_card_conv3x3_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((1, 4, 4, 8), device=cuda_device)
+    k, bias = torch.zeros((3, 3, 8, 16), device=cuda_device), torch.zeros(16, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        t_c3.conv3x3_fwd(x.to(torch.bfloat16), k, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_c3.conv3x3_fwd(torch.zeros((1, 4, 8, 8), device=cuda_device).transpose(1, 2)[:, :4], k, bias)
+    with pytest.raises(ValueError, match="kernel must be"):
+        t_c3.conv3x3_fwd(x, k[:, :, :4], bias)
+    with pytest.raises(ValueError, match="bias must be"):
+        t_c3.conv3x3_fwd(x, k, bias[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_card_f32_train_unet_runs_standard_convs_on_k10(cuda_device, remat, monkeypatch):
+    """An f32 train U-Net (init 32, depth 4) at 256² b2 launches K10's
+    forward once for each of its ten standard-block convs (twice with
+    remat) and its dgrad once each, and its loss and gradients match the
+    same model with those convs on cuDNN (the gradients as one vector: the
+    conv biases that feed BN have none in exact arithmetic); a bf16 train
+    step launches none."""
+    from mingraph_unet_tpu_torch.models import unet as t_unet
+
+    x = torch.randn((2, 256, 256, 3), generator=torch.Generator().manual_seed(23)).to(cuda_device)
+    model = t_unet.UNet(torch.Generator().manual_seed(0), remat=remat).to(cuda_device).train()
+    sides = []
+    for on_card in (True, False):
+        with monkeypatch.context() as m:
+            if not on_card:
+                m.setattr(t_unet, "_on_card", lambda t: False)
+            fwd, dgrad = t_c3.conv3x3_fwd.launches, t_c3.conv3x3_dgrad.launches
+            model.zero_grad()
+            loss = model(x)["logits"].square().mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            sides.append((loss.detach(), torch.cat([p.grad.flatten() for p in model.parameters()])))
+            want = ((20 if remat else 10), 10) if on_card else (0, 0)
+            assert (t_c3.conv3x3_fwd.launches - fwd, t_c3.conv3x3_dgrad.launches - dgrad) == want
+    (loss1, g1), (loss0, g0) = sides
+    _assert_close_rel(loss1.cpu(), loss0.cpu(), CARD_TOL[torch.float32])
+    assert (g1 - g0).norm() <= 1e-3 * g0.norm(), ((g1 - g0).norm() / g0.norm()).item()
+    bf16 = t_unet.UNet(torch.Generator().manual_seed(0), dtype=torch.bfloat16).to(cuda_device).train()
+    fwd = t_c3.conv3x3_fwd.launches
+    bf16(x)["logits"].float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert t_c3.conv3x3_fwd.launches == fwd
 
 
 def _shards(t, n, cuts=None):
