@@ -31,8 +31,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    outputs (TF32 off) must agree with the same port and weights on the CPU
    within ``CPU_TOL`` of max |CPU|. The f32 serving forward at 128² b16
    launches psel 4, dec-conv1 2, pool 2, d2s 1 and hist-eq 1, and the
-   profiler's kernel names show every psel launch on the split psel kernel,
-   every K2 launch on K2's split kernel and none on the FMA kernel.
+   profiler's kernel names show every psel launch on the split psel kernel
+   and every K2 launch on K2's split kernel.
 4. Time the forward (ms/step, images/s, and the host's time to issue a
    step) and each kernel at each shape with CUDA events, beside its plain
    version, its one-call PyTorch counterpart where there is one, and its
@@ -67,7 +67,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    in f64 on the CPU, leaf by leaf (see ``_train_vs_cpu``). Then the
    segmentation step as ``configs/*.yaml`` configure it (f32, 128², batch
    16, Adam) for 3 + 10 steps: K4 4 + 4 a step, all 8 on the split kernel
-   and none on the FMA kernel (profiler), a finite loss and gradients;
+   (profiler), a finite loss and gradients;
    ms/step, host issue ms and peak memory.
 6. Hold K4's forward, dgrad and autograd gradients against their plain
    versions at both train shapes, bf16 and f32 (the kernel gradient of
@@ -1272,7 +1272,7 @@ def _k4_table(dev, launches, e2e_launches):
 
 F32_CELLS = ((BATCH, SIZE), (16, 128))  # the bf16 rows' 512² b8, configs/*.yaml's 128² b16
 F32_STEP_WARMUP, F32_STEP_ITERS = 3, 10
-SPLIT_KERNEL, DEC1_SPLIT, FMA_KERNEL = "psel_split_kernel", "dec1_split_kernel", "conv_f32_kernel"
+SPLIT_KERNEL, DEC1_SPLIT = "psel_split_kernel", "dec1_split_kernel"
 
 
 def _split_bound(shape, ops_terms: int, extra_bytes: int = 0):
@@ -1290,15 +1290,13 @@ def _split_bound(shape, ops_terms: int, extra_bytes: int = 0):
 
 
 def _kernel_names(label: str, fn, iters: int = 2):
-    """(psel split, K2 split, FMA) kernel launches a call of ``fn`` by
+    """(psel split, K2 split) kernel launches a call of ``fn`` by
     torch.profiler's kernel names, printed."""
     ops = _device_ops(fn, iters)
     names = {key: n for key, _, n in ops}
-    split, dec1, fma = (sum(n for key, n in names.items() if name in key)
-                        for name in (SPLIT_KERNEL, DEC1_SPLIT, FMA_KERNEL))
-    print(f"[chip_smoke] {label}: {split} {SPLIT_KERNEL}, {dec1} {DEC1_SPLIT} and {fma} {FMA_KERNEL} launches a call "
-          f"(profiler)")
-    return split, dec1, fma
+    split, dec1 = (sum(n for key, n in names.items() if name in key) for name in (SPLIT_KERNEL, DEC1_SPLIT))
+    print(f"[chip_smoke] {label}: {split} {SPLIT_KERNEL} and {dec1} {DEC1_SPLIT} launches a call (profiler)")
+    return split, dec1
 
 
 def _configured_step(dev, iters: int):
@@ -1346,10 +1344,10 @@ def _f32_path(dev):
     the f32 serving forward at 128² b16 (psel 4, dec-conv1 2, pool 2, d2s 1,
     hist-eq 1, and K8 5: every standard-layout ConvBlock of an f32 eval
     forward; the profiler's kernel names: every psel and K2 launch on a
-    split tensor-core kernel, none on the FMA kernel) and the segmentation step as
+    split tensor-core kernel) and the segmentation step as
     ``configs/*.yaml`` configure it (f32, 128², batch 16, Adam lr 1e-3
     weight decay 1e-4, PyTorch's default TF32 setting): K4 4 + 4 a step,
-    every one the split kernel, none the FMA kernel; finite losses and
+    every one the split kernel; finite losses and
     gradients; ms/step by CUDA events, host issue ms, peak memory; and the
     f32 serving forward's device time at 512² b8 (torch.profiler; K8 5
     again). Returns the launches a forward and a step."""
@@ -1371,9 +1369,9 @@ def _f32_path(dev):
         if not torch.isfinite(out["logits"]).all():
             _fail("f32 serving forward: non-finite logits")
         names = _kernel_names(f"f32 serving forward {size}² b{b}", lambda: model(x))
-        if names != (fwd["psel"], fwd["dec1"], 0):
-            _fail(f"f32 serving forward: {names} psel split, K2 split and FMA launches, expected psel "
-                  f"{fwd['psel']} and K2 {fwd['dec1']} on their split kernels and none on the FMA kernel")
+        if names != (fwd["psel"], fwd["dec1"]):
+            _fail(f"f32 serving forward: {names} psel split and K2 split launches, expected psel "
+                  f"{fwd['psel']} and K2 {fwd['dec1']} on their split kernels")
     del model, x, out
     with torch.no_grad():  # the f32 serving forward at the bf16 path's 512² b8: its device time
         model, x = _serving_model(dev, dtype=torch.float32)
@@ -1393,8 +1391,8 @@ def _f32_path(dev):
     if not all(math.isfinite(v) for v in losses) or not _grads_finite(run["model"]):
         _fail("configured f32 step: a non-finite loss or gradient")
     names = _kernel_names("configured f32 step", run["step"])
-    if names != (8, 0, 0):
-        _fail(f"configured f32 step: {names} psel split, K2 split and FMA launches a step, expected K4's 8 on the "
+    if names != (8, 0):
+        _fail(f"configured f32 step: {names} psel split and K2 split launches a step, expected K4's 8 on the "
               f"split kernel")
     print(f"[chip_smoke] configured segmentation step (configs/*.yaml: f32, {size}² b{b}, Adam): {ms:.3f} ms/step, "
           f"{b / ms * 1e3:.1f} images/s, host issue time {host_ms:.3f} ms/step, peak memory {peak:.3f} GiB; "
@@ -1705,7 +1703,7 @@ def _capture_sites(model, x):
     from mingraph_unet_tpu_torch.models import unet as unet_mod
 
     s2d_calls, psel_calls, std_calls = [], [], []
-    real_s2d, real_psel = unet_mod.ConvBlock.forward_s2d, unet_mod.psel_conv3x3
+    real_s2d, real_psel = unet_mod.ConvBlock.forward_s2d, unet_mod.conv2_s2d
 
     def forward_s2d(block, inp, fused_up=None, spatial=None):
         s2d_calls.append((block, inp, fused_up))
@@ -1717,13 +1715,13 @@ def _capture_sites(model, x):
 
     hooks = [m.register_forward_pre_hook(lambda mod, args: std_calls.append((mod, args[0])))
              for m in model.unet.modules() if isinstance(m, unet_mod.ConvBlock)]
-    unet_mod.ConvBlock.forward_s2d, unet_mod.psel_conv3x3 = forward_s2d, psel
+    unet_mod.ConvBlock.forward_s2d, unet_mod.conv2_s2d = forward_s2d, psel
     try:
         with torch.no_grad():
             model(x)
         torch.cuda.synchronize()
     finally:
-        unet_mod.ConvBlock.forward_s2d, unet_mod.psel_conv3x3 = real_s2d, real_psel
+        unet_mod.ConvBlock.forward_s2d, unet_mod.conv2_s2d = real_s2d, real_psel
         for h in hooks:
             h.remove()
     if len(s2d_calls) != 4 or len(psel_calls) != 4 or len(std_calls) != 5:
@@ -2034,12 +2032,12 @@ def _k10_step(dev, remat: bool = False):
 def _k10_capture(step):
     """The ten standard-block convs of one step, in forward order: each
     call's input, kernel and bias and the cotangent its output receives
-    (a spy on ``models/unet.py::conv3x3_train``)."""
+    (a spy on ``ops/kernels/conv3x3.py::conv3x3_train``)."""
     import torch
 
-    from mingraph_unet_tpu_torch.models import unet
+    from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as c3
 
-    sites, real = [], unet.conv3x3_train
+    sites, real = [], c3.conv3x3_train
 
     def spy(x, kernel, bias):
         y = real(x, kernel, bias)
@@ -2048,12 +2046,12 @@ def _k10_capture(step):
         sites.append(site)
         return y
 
-    unet.conv3x3_train = spy
+    c3.conv3x3_train = spy
     try:
         step()
         torch.cuda.synchronize()
     finally:
-        unet.conv3x3_train = real
+        c3.conv3x3_train = real
     if len(sites) != len(K10_SITES) or not all("g" in site for site in sites):
         _fail(f"phase 19: captured {len(sites)} standard-block train convs, expected {len(K10_SITES)} with cotangents")
     return sites
@@ -2123,7 +2121,6 @@ def _conv3x3_path(dev):
     import torch
     import torch.nn.functional as F
 
-    from mingraph_unet_tpu_torch.models import unet
     from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as c3
 
     tf32 = torch.backends.cudnn.allow_tf32
@@ -2148,12 +2145,12 @@ def _conv3x3_path(dev):
             del model, step
             torch.cuda.empty_cache()
     sites = _k10_capture(step)
-    real = unet._on_card
-    unet._on_card = lambda x: False
+    real = c3.split_conv
+    c3.split_conv = lambda x: False
     try:
         before = _k10_account(step, sites, "standard blocks' train convs on cuDNN (before)")
     finally:
-        unet._on_card = real
+        c3.split_conv = real
     after = _k10_account(step, sites, "standard blocks' train convs on K10 (after)")
     print(f"[chip_smoke] k10_step_ms before {before['step_ms']:.3f} after {after['step_ms']:.3f}; levels 2-4 forward "
           f"{before['forward_ms']:.3f} -> {after['forward_ms']:.3f} device ms; their dgrad + wgrad "
@@ -2989,7 +2986,7 @@ def _sharded_serving(dev, mesh, dtype):
     model, x = _serving_model(dev, dtype=dtype)
     unet = model.unet
     sites = []
-    real = {"k9": phalo.psel_conv3x3_halo, "dec1_halo": pspatial.dec_conv1_halo}
+    real = {"k9": phalo.conv2_s2d_halo, "dec1_halo": pspatial.dec_conv1_shard}
 
     def spy(kind):
         def call(*args):
@@ -3005,14 +3002,14 @@ def _sharded_serving(dev, mesh, dtype):
     torch.backends.cudnn.allow_tf32 = not f32
     with torch.no_grad():
         whole = unet(x)["logits"]
-        phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = spy("k9"), spy("dec1_halo")
+        phalo.conv2_s2d_halo, pspatial.dec_conv1_shard = spy("k9"), spy("dec1_halo")
         try:
             _reset_counts()
             got = sharded()
             torch.cuda.synchronize()
             launches = _counts()
         finally:
-            phalo.psel_conv3x3_halo, pspatial.dec_conv1_halo = real["k9"], real["dec1_halo"]
+            phalo.conv2_s2d_halo, pspatial.dec_conv1_shard = real["k9"], real["dec1_halo"]
         print(f"[chip_smoke] spatial_sharded_apply {tag} launches: {launches}")
         if launches != {"psel": 0, "dec1": 0, "pool": 2, "d2s": 1, "k4_fwd": 0, "k4_dgrad": 0, "histeq": 0,
                         "wconv": 0, "conv_block": 0, "k9": 4, "dec1_halo": 2,
@@ -3036,8 +3033,8 @@ def _sharded_serving(dev, mesh, dtype):
         print(f"[chip_smoke] spatial_sharded_apply U-Net {tag}: {len(sites)} K9/K2 sites bit-equal to K1/K2")
         if f32:
             names = _kernel_names("f32 sharded U-Net", sharded)
-            if names != (launches["k9"], launches["dec1_halo"], 0):
-                _fail(f"f32 sharded U-Net: {names} psel split, K2 split and FMA launches, expected K9 "
+            if names != (launches["k9"], launches["dec1_halo"]):
+                _fail(f"f32 sharded U-Net: {names} psel split and K2 split launches, expected K9 "
                       f"{launches['k9']} and sharded K2 {launches['dec1_halo']} on their split kernels")
         if not f32:
             whole_ms = _time_ms(lambda: unet(x)["logits"], 5)
@@ -3143,20 +3140,20 @@ def _spatial_train_path(dev):
     blocks' convs on cuDNN, as the sharded step runs them) from the same
     weights, batch and
     generator within 1e-3 (losses, every gradient and BN statistic); in
-    f32 the profiler must name the split kernel for all 8 launches and the
-    FMA kernel for none. Phase 15 (f): the e2e step with the dense head
+    f32 the profiler must name the split kernel for all 8 launches.
+    Phase 15 (f): the e2e step with the dense head
     on, the same way. Returns each step's launch counts."""
     import socket
 
     import torch
     import torch.distributed as dist
 
-    from mingraph_unet_tpu_torch.models import unet
+    from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as c3
     from mingraph_unet_tpu_torch.parallel import mesh as pmesh
     from mingraph_unet_tpu_torch.train import end_to_end, segmentation
     from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
 
-    on_card = unet._on_card
+    split_conv = c3.split_conv
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as so:
         so.bind(("127.0.0.1", 0))
         port = so.getsockname()[1]
@@ -3194,11 +3191,11 @@ def _spatial_train_path(dev):
                 # as the sharded step does (``spatial.conv_same``), not on K10:
                 # the comparison holds the sharding to 1e-3, and two conv
                 # arithmetics part further by flipping ReLU and pool decisions.
-                unet._on_card = (lambda x: False) if f32 else on_card
+                c3.split_conv = (lambda x: False) if f32 else split_conv
                 _reset_counts()
                 metrics = step(state, imgs, masks, torch.Generator(device=dev).manual_seed(0))
                 torch.cuda.synchronize()
-                unet._on_card = on_card
+                c3.split_conv = split_conv
                 counts = _counts()
                 want = {k: 0 for k in counts}
                 if side == "spatial":
@@ -3223,8 +3220,8 @@ def _spatial_train_path(dev):
                         _feeds_bn if seg else _zero_in_exact_arithmetic)
             if f32:
                 names = _kernel_names(f"{kind} spatial step", sp)
-                if names != (8, 0, 0):
-                    _fail(f"{kind} spatial step: {names} psel split, K2 split and FMA launches a step, expected K4 "
+                if names != (8, 0):
+                    _fail(f"{kind} spatial step: {names} psel split and K2 split launches a step, expected K4 "
                           f"on a shard's 8 on the split kernel")
             elif kind == "e2e dense":
                 if not (ref_m["l_dense_obj"] > 0.0 and ref_m["l_dense_box"] > 0.0):
@@ -3239,7 +3236,7 @@ def _spatial_train_path(dev):
             torch.cuda.empty_cache()
         return launches
     finally:
-        unet._on_card = on_card
+        c3.split_conv = split_conv
         dist.destroy_process_group()
 
 

@@ -127,7 +127,6 @@
 //   levels: two consumer warpgroups (one output row parity each), 128-byte
 //   boxes (fewer, larger stages), an L2 prefetch of the next tile, and block
 //   0's multicasts shared out among the cluster's blocks.
-// Other f32 widths: conv_tile.cuh's FMA kernel over the dense k_prev.
 #include "conv_tile.cuh"
 #include "hopper.cuh"
 
@@ -733,7 +732,7 @@ __device__ __forceinline__ int chunk_at(int k8, int n) {
 // holds its 16 channels in the order the A fragments take them
 // (psel_conv.cu::lay_tap_split, ops/kernels/psconv.py::SPLIT_SLAB_ROWS):
 // row 8h + e is channel 16ks + 4(e / 2) + 2h + e % 2.
-// ops/kernels/psconv.py::dec_conv1_split_image_index is the same map.
+// ops/kernels/psconv.py::dec_conv1_image_index is the same map.
 template <int C>
 __device__ void lay_split_weights(const SplitArgs& a, unsigned char* smem, int col0) {
   using P = SplitPlan<C>;
@@ -1097,23 +1096,17 @@ int launch_split(SplitArgs a, cudaStream_t stream) {
   }
 }
 
-// dec_conv1 on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a bf16 width without an instantiation. bf16
-// weights as Dec1Args says; f32 weights raw: k_skip (3, 3, Cs, Cout) and the
-// dense k_prev (3, 3, Cp, 4Cout) with the strides `ws_s` and `wp_s` of their
-// three leading dimensions, and t9 with `t9_s` (their last dimension
-// contiguous), read as they lie by the split kernel; the FMA kernel takes
-// them contiguous.
+// dec_conv1 on `stream`, Cout = Cs in {32, 64} and Cp = 2 Cs; returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for widths
+// without an instantiation. bf16 weights as Dec1Args says; f32 weights raw:
+// k_skip (3, 3, Cs, Cout) and the dense k_prev (3, 3, Cp, 4Cout) with the
+// strides `ws_s` and `wp_s` of their three leading dimensions, and t9 with
+// `t9_s` (their last dimension contiguous), read as they lie by the split
+// kernel.
 int launch(const mgu::ConvArgs& a, const int (&ws_s)[3], const int (&wp_s)[3], const int (&t9_s)[2], bool is_bf16,
            cudaStream_t stream) {
+  if (a.cout != a.c || a.cp != 2 * a.c || (a.c != 32 && a.c != 64)) return int(cudaErrorInvalidValue);
   if (!is_bf16) {
-    if (a.cout != a.c || a.cp != 2 * a.c || (a.c != 32 && a.c != 64)) {
-      const bool dense = ws_s[0] == 3 * ws_s[1] && ws_s[1] == a.c * a.cout && ws_s[2] == a.cout &&
-                         wp_s[0] == 3 * wp_s[1] && wp_s[1] == a.cp * 4 * a.cout && wp_s[2] == 4 * a.cout &&
-                         t9_s[0] == 3 * t9_s[1] && t9_s[1] == 4 * a.cout;
-      if (!dense) return int(cudaErrorInvalidValue);
-      return mgu::launch(mgu::conv_f32_kernel<true, true>, a, mgu::SmemPlan<float>(a.c, a.cp, true).bytes, stream);
-    }
     const SplitArgs s{static_cast<const float*>(a.x), static_cast<const float*>(a.xp),
                       static_cast<const float*>(a.w), static_cast<const float*>(a.wp), a.t9,
                       static_cast<float*>(a.y), static_cast<const float*>(a.x_top),
@@ -1123,17 +1116,12 @@ int launch(const mgu::ConvArgs& a, const int (&ws_s)[3], const int (&wp_s)[3], c
                       a.b, a.hh, a.ww, a.row0, a.hh_glob, 0, 0, 0};
     return a.c == 32 ? launch_split<32>(s, stream) : launch_split<64>(s, stream);
   }
-  if (a.cout != a.c || a.cp != 2 * a.c) return int(cudaErrorInvalidValue);
   const Dec1Args d{static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.xp), static_cast<const bf16*>(a.w),
                    static_cast<const bf16*>(a.wp), a.t9, static_cast<bf16*>(a.y),
                    static_cast<const bf16*>(a.x_top), static_cast<const bf16*>(a.x_bot),
                    static_cast<const bf16*>(a.xp_top), static_cast<const bf16*>(a.xp_bot),
                    a.b, a.hh, a.ww, a.row0, a.hh_glob, 0, 0, 0};
-  switch (a.c) {
-    case 32: return launch_wgmma<32>(d, stream);
-    case 64: return launch_wgmma<64>(d, stream);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return a.c == 32 ? launch_wgmma<32>(d, stream) : launch_wgmma<64>(d, stream);
 }
 
 }  // namespace

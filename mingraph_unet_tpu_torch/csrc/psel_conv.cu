@@ -112,8 +112,6 @@
 //     write whole 32-byte sectors (8 channels of one pixel and phase).
 //   The sum's order (k-slices, taps, the three products) does not depend on
 //   where a tile or shard starts, so K9 and K4 on shards stitch bit for bit.
-// Other f32 widths run conv_tile.cuh's FMA kernel, the adjoint read from the
-// raw kernel there too.
 #include <atomic>
 #include <type_traits>
 
@@ -783,20 +781,12 @@ int launch_width(const PselArgs& p, int c, cudaStream_t stream) {
   }
 }
 
-// Either dtype: w is the conv's raw HWIO kernel, the adjoint's when
-// `adjoint` ((3, 3, Cout, Cin) then). bf16 x: f32 (w_f32) or bf16, C = Cout
-// in {32, 64}. f32 x: f32; C = Cout in {32, 64} runs the split kernel, any
-// other widths (multiples of 16) the FMA kernel.
+// Either dtype, C = Cout in {32, 64}: w is the conv's raw HWIO kernel, the
+// adjoint's when `adjoint` ((3, 3, Cout, Cin) then). bf16 x: f32 (w_f32) or
+// bf16, the wgmma kernel; f32 x: f32, the split kernel.
 template <bool RELU>
 int launch(const mgu::ConvArgs& a, bool is_bf16, bool w_f32, bool adjoint, cudaStream_t stream) {
-  const bool wide = a.cout == a.c && (a.c == 32 || a.c == 64);
-  if (!is_bf16 && !w_f32) return int(cudaErrorInvalidValue);
-  if (!is_bf16 && !wide) {
-    const size_t bytes = mgu::SmemPlan<float>(a.c, a.cp, false).bytes;
-    return adjoint ? mgu::launch(mgu::conv_f32_kernel<false, RELU, true>, a, bytes, stream)
-                   : mgu::launch(mgu::conv_f32_kernel<false, RELU, false>, a, bytes, stream);
-  }
-  if (a.cout != a.c) return int(cudaErrorInvalidValue);
+  if ((!is_bf16 && !w_f32) || a.cout != a.c) return int(cudaErrorInvalidValue);
   const PselArgs p{a.x, a.w, a.bias, a.y, a.x_top, a.x_bot, a.b, a.hh, a.ww, 0, 0, 0, int(w_f32), int(adjoint)};
   return is_bf16 ? launch_width<false, RELU>(p, a.c, stream) : launch_width<true, RELU>(p, a.c, stream);
 }

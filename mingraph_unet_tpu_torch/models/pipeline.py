@@ -58,10 +58,11 @@ from mingraph_unet_tpu_torch.models.fusion import fuse_features
 from mingraph_unet_tpu_torch.models.gat import GATNetwork, fully_connected_adjacency
 from mingraph_unet_tpu_torch.models.layers import Dense
 from mingraph_unet_tpu_torch.models.mincut import MinCutRefinement
-from mingraph_unet_tpu_torch.models.unet import UNet, decoder_d2s
+from mingraph_unet_tpu_torch.models.unet import UNet
 from mingraph_unet_tpu_torch.ops import filters
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD, denormalize
+from mingraph_unet_tpu_torch.ops.kernels.pool import decoder_d2s
 from mingraph_unet_tpu_torch.ops.patches import broadcast_patch_to_pixels, patch_reduce_mean
 from mingraph_unet_tpu_torch.ops.segment import gather_rows, segment_mean
 from mingraph_unet_tpu_torch.utils.profiling import span

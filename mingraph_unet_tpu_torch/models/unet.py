@@ -23,25 +23,27 @@
   phase-select conv kernel (K1), decoder conv1 the fused decoder-conv1
   kernel (K2), the encoder's pool the phase-max-pool kernel (K3) and each
   decoder output's turn to full resolution the depth-to-space kernel (K5,
-  :func:`decoder_d2s`; the skips and the logits keep the plain relayout, as
-  in JAX); in training conv2 is the raw conv kernel with its backward (K4),
+  ``decoder_d2s``; the skips and the logits keep the plain relayout, as in
+  JAX); in training conv2 is the raw conv kernel with its backward (K4),
   and conv1, the pool and the relayouts are differentiable PyTorch (K1–K3
   and K5 have no backward).
-  A site takes its kernel where the kernel has an instantiation for its
-  dtype and widths (``psel_fits``, ``dec_conv1_fits``,
-  ``phase_max_pool_fits``, ``depth_to_space_fits``), decided from the
-  shapes; every other site runs the plain form. On a CPU tensor the
-  wrappers run the plain PyTorch versions.
 - The standard-layout ConvBlocks (the deeper levels and the bottleneck) run
   the fused-ConvBlock kernel (K8, :func:`fused_conv_block`) at inference in
   f32. In f32 training on the card, unsharded, each of their convs is the
-  split-form conv kernel (K10, :func:`conv3x3_train`: forward and dx on the
-  kernel, the kernel and bias gradients from cuDNN's weight-gradient call);
-  in bf16, on an H-shard and on the CPU their convs use cuDNN through
-  ``F.conv2d`` (``conv2d_nhwc``), as the JAX package leaves them to XLA.
-  The choice follows from the input's device, the block's dtype and the
-  shard (:func:`split_conv`). The 2×2 ConvTransposes and the final 1×1
-  conv use cuDNN (``F.conv_transpose2d``, ``F.conv2d``) in every mode.
+  split-form conv kernel (K10: forward and dx on the kernel, the kernel and
+  bias gradients from cuDNN's weight-gradient call); in bf16, on an H-shard
+  and on the CPU their convs use cuDNN through ``F.conv2d``
+  (``conv2d_nhwc``), as the JAX package leaves them to XLA. The 2×2
+  ConvTransposes and the final 1×1 conv use cuDNN (``F.conv_transpose2d``,
+  ``F.conv2d``) in every mode.
+
+Who decides. The model calls one op a site, and the op's module in
+``ops/kernels/`` picks the kernel or the plain version from the tensor's
+device, dtype and widths: ``psconv.py`` (``conv2_s2d``,
+``conv2_s2d_train``, ``dec_conv1``), ``pool.py`` (``encoder_pool``,
+``decoder_d2s``, given the training flag) and ``conv3x3.py``
+(``conv3x3_same``). The model chooses only between an op and its sharded
+form, a method of the shard.
 
 Full-resolution tensors that nothing downstream reads (the encoder skips of
 the s2d levels and the last decoder output) are built only when the caller
@@ -73,45 +75,23 @@ from torch.utils.checkpoint import checkpoint
 from mingraph_unet_tpu_torch.models.layers import ConvParams, FoldableBatchNorm, recomputing
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc, conv_transpose2x2_nhwc
-from mingraph_unet_tpu_torch.ops.kernels.conv3x3 import conv3x3_train
+from mingraph_unet_tpu_torch.ops.kernels.conv3x3 import conv3x3_same
 from mingraph_unet_tpu_torch.ops.kernels.conv_block import fused_conv_block
-from mingraph_unet_tpu_torch.ops.kernels.pool import (
-    depth_to_space_fits,
-    depth_to_space_kernel,
-    phase_max_pool_fits,
-    phase_max_pool_kernel,
-)
+from mingraph_unet_tpu_torch.ops.kernels.pool import decoder_d2s, encoder_pool
 from mingraph_unet_tpu_torch.ops.kernels.psconv import (
+    conv2_s2d,
+    conv2_s2d_train,
+    dec_conv1,
     dec_conv1_bias_table,
-    dec_conv1_fits,
-    dec_conv1_fused,
-    dec_conv1_fused_plain,
     dec_conv1_preact,
     dec_conv1_weights,
-    psconv_train,
-    psconv_train_plain,
-    psel_conv3x3,
-    psel_conv3x3_plain,
-    psel_fits,
 )
 from mingraph_unet_tpu_torch.parallel import data as dp
 from mingraph_unet_tpu_torch.utils.profiling import span
 
-__all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet", "decoder_d2s",
-           "split_conv"]
+__all__ = ["ConvBlock", "FoldableBatchNorm", "UNetEncoder", "DecoderBlock", "UNetDecoder", "UNet"]
 
 FusedUp = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x_prev, wt, bias_up)
-
-
-def _on_card(x: torch.Tensor) -> bool:
-    return x.is_cuda
-
-
-def split_conv(x: torch.Tensor, dtype: torch.dtype, spatial) -> bool:
-    """Whether a standard-layout ConvBlock's train-mode conv of ``x`` runs
-    the split-form conv kernel (K10): an f32 block, unsharded, on the
-    card."""
-    return spatial is None and dtype == torch.float32 and _on_card(x)
 
 
 def _remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
@@ -187,12 +167,7 @@ class ConvBlock(nn.Module):
             if self.training:
                 conv, bn = self._conv_bn(i)
                 x = x.to(self.dtype)
-                if split_conv(x, self.dtype, spatial):
-                    z = conv3x3_train(x.contiguous(), conv.kernel, conv.bias)
-                elif spatial is None:
-                    z = conv2d_nhwc(x, conv.kernel, conv.bias, padding=1)
-                else:
-                    z = spatial.conv_same(x, conv.kernel, conv.bias)
+                z = (conv3x3_same if spatial is None else spatial.conv_same)(x, conv.kernel, conv.bias)
                 x = torch.relu(z if bn is None else bn(z))
             else:
                 with span("weights"):
@@ -229,17 +204,10 @@ class ConvBlock(nn.Module):
                 k, b = self.folded(1)
                 k_skip, k_prev = dec_conv1_weights(k, skip_c, wt)
                 t9 = dec_conv1_bias_table(k, skip_c, bias_up, b)
-            if spatial is not None:
-                x = spatial.dec_conv1(x, x_prev, k_skip, k_prev, t9)
-            else:
-                fused = dec_conv1_fits(dt, skip_c, x_prev.shape[-1], k.shape[-1])
-                x = (dec_conv1_fused if fused else dec_conv1_fused_plain)(x, x_prev, k_skip, k_prev, t9)
+            x = (dec_conv1 if spatial is None else spatial.dec_conv1)(x, x_prev, k_skip, k_prev, t9)
         with span("weights"):
             k, b = self.folded(2)
-        if spatial is not None:
-            return spatial.psel(x, k, b)
-        psel = psel_conv3x3 if psel_fits(dt, k.shape[2], k.shape[3]) else psel_conv3x3_plain
-        return psel(x, k, b)
+        return (conv2_s2d if spatial is None else spatial.psel)(x, k, b)
 
     def _forward_s2d_train(self, x: torch.Tensor, fused_up: Optional[FusedUp], spatial=None) -> torch.Tensor:
         """Train mode: each conv is bias → BN over (B, H/2, W/2, 4, C), so the
@@ -247,9 +215,8 @@ class ConvBlock(nn.Module):
         without BatchNorm) → ReLU.
         conv1 is differentiable PyTorch (the windowed conv, or the decoder's
         split form with the upsample-bias field, bias included); conv2 is
-        ``psconv_train`` (K4) where the tile has an instantiation. On an
-        H-shard (``spatial``) each runs in its sharded form, K4 on the
-        shard at conv2."""
+        ``conv2_s2d_train`` (K4 where the tile takes it). On an H-shard
+        (``spatial``) each runs in its sharded form."""
         dt = self.dtype
         k, b = self.conv1.kernel, self.conv1.bias
         if fused_up is None:
@@ -267,11 +234,7 @@ class ConvBlock(nn.Module):
             preact = dec_conv1_preact if spatial is None else spatial.dec_conv1_train
             x = preact(x.to(dt), x_prev.to(dt), k_skip, k_prev, t9)
         x = self._bn_relu_s2d(x, self._conv_bn(1)[1])
-        k = self.conv2.kernel
-        if spatial is not None:
-            x = spatial.psel_train(x, k)
-        else:
-            x = (psconv_train if psel_fits(dt, k.shape[2], k.shape[3]) else psconv_train_plain)(x, k)
+        x = (conv2_s2d_train if spatial is None else spatial.psel_train)(x, self.conv2.kernel)
         with span("weights"):
             bs = s2d_ops.s2d_vector(self.conv2.bias).to(dt)
         x = x + bs
@@ -283,15 +246,6 @@ class ConvBlock(nn.Module):
             return torch.relu(x)
         b, hh, ww, z = x.shape
         return torch.relu(bn(x.reshape(b, hh, ww, 4, z // 4)).reshape(b, hh, ww, z))
-
-
-def decoder_d2s(f_s2d: torch.Tensor, training: bool) -> torch.Tensor:
-    """A decoder level's s2d output at full resolution: the depth-to-space
-    kernel (K5) at inference where it fits, the plain (differentiable)
-    relayout in training. Counterpart of JAX ``models/unet.py::_d2s``."""
-    if not training and depth_to_space_fits(f_s2d.dtype, f_s2d.shape[-1] // 4):
-        return depth_to_space_kernel(f_s2d)
-    return s2d_ops.depth_to_space(f_s2d)
 
 
 def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -332,10 +286,7 @@ class UNetEncoder(nn.Module):
                     s = block.forward_s2d(x.to(self.dtype), spatial=spatial)
                     skip_s2d[i] = s
                     skips.append(None)
-                    # MaxPool(2,2) = max over phases; amax splits the gradient
-                    # evenly among ties, as JAX's max does.
-                    kernel = not self.training and phase_max_pool_fits(s.dtype, s.shape[-1] // 4)
-                    x = phase_max_pool_kernel(s) if kernel else s2d_ops.phase_max_pool(s)
+                    x = encoder_pool(s, self.training)
                 else:
                     x = block(x, spatial)
                     skips.append(x)

@@ -17,10 +17,15 @@ output channels a block computes one channel tile.
 ``torch.autograd.Function``: forward and dx through the kernel, the kernel
 and bias gradients through cuDNN's weight-gradient call
 (:func:`conv3x3_wgrad`), as autograd's backward of ``F.conv2d`` computes
-them. ``models/unet.py::ConvBlock`` calls it for every conv of a
-standard-layout block in an f32 train forward on the card, unsharded. On a
-CPU tensor each wrapper runs its plain version, so the same Function is
-testable there. ``launches`` on each wrapper counts kernel launches.
+them. On a CPU tensor each wrapper runs its plain version, so the same
+Function is testable there. ``launches`` on each wrapper counts kernel
+launches.
+
+Who decides. ``models/unet.py::ConvBlock`` calls :func:`conv3x3_same` for
+every conv of an unsharded standard-layout block in a train forward: it
+runs :func:`conv3x3_train` where :func:`split_conv` holds (an f32 tensor on
+the card) and ``conv2d_nhwc`` otherwise. The model keeps only the choice of
+the sharded form, whose exchange is its own.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ from mingraph_unet_tpu_torch.ops.kernels.build import check_cuda_input, library,
 from mingraph_unet_tpu_torch.ops.kernels.conv_block import CHUNK, channel_tile, pack_stream
 from mingraph_unet_tpu_torch.utils.profiling import span
 
-__all__ = ["adjoint", "conv3x3_dgrad", "conv3x3_dgrad_plain", "conv3x3_fwd", "conv3x3_plain", "conv3x3_train",
-           "conv3x3_wgrad", "pack_weights"]
+__all__ = ["adjoint", "conv3x3_dgrad", "conv3x3_dgrad_plain", "conv3x3_fwd", "conv3x3_plain", "conv3x3_same",
+           "conv3x3_train", "conv3x3_wgrad", "pack_weights", "split_conv"]
 
 
 def adjoint(kernel: torch.Tensor) -> torch.Tensor:
@@ -161,3 +166,22 @@ def conv3x3_train(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> 
     through :func:`conv3x3_fwd`, dx through :func:`conv3x3_dgrad`, the
     kernel and bias gradients through :func:`conv3x3_wgrad`."""
     return _Conv3x3Train.apply(x, kernel, bias)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def split_conv(x: torch.Tensor) -> bool:
+    """Whether the standard block's train conv of ``x`` runs the kernel: an
+    f32 tensor on the card."""
+    return x.dtype == torch.float32 and _on_card(x)
+
+
+def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A standard-layout ConvBlock's train-mode conv, 'SAME' + bias, NHWC:
+    :func:`conv3x3_train` (K10) where :func:`split_conv` holds, else
+    ``conv2d_nhwc`` (cuDNN on the card)."""
+    if split_conv(x):
+        return conv3x3_train(x.contiguous(), kernel, bias)
+    return conv2d_nhwc(x, kernel, bias, padding=1)

@@ -1,5 +1,7 @@
 """The s2d U-Net convs as hand-written CUDA kernels, with their plain
-PyTorch versions. Counterpart of ``mingraph_unet_tpu/ops/pallas/psconv.py``.
+PyTorch versions, and the one place that picks between them for each of
+the U-Net's s2d conv sites. Counterpart of
+``mingraph_unet_tpu/ops/pallas/psconv.py``.
 
 - :func:`psel_conv3x3` replaces ``conv3x3_s2d_psel``: ReLU of a 3×3 'SAME'
   conv + bias of a phase-major s2d tensor (the s2d ConvBlock's conv2).
@@ -10,30 +12,29 @@ PyTorch versions. Counterpart of ``mingraph_unet_tpu/ops/pallas/psconv.py``.
 
 Both kernels are implicit GEMMs over a staged s2d input halo that read the
 layout as full-resolution pixels, so they do the conv's useful FLOPs (not
-the TPU form's 16/9× or the dense s2d form's 4×), on tensor cores in bf16.
-psel's f32 instantiation (C = Cout in :data:`BF16_WIDTHS`, the configured
-precision's K1, K4 and K9) runs the same design on the tensor cores with a
-bf16 hi/lo split: three bf16 products a term (hi·hi + hi·lo + lo·hi) into
-f32, from two B images it lays out itself (``split`` in
-:func:`psel_b_image_index`). So does dec-conv1's (both entries, Cout = Cs
-in :data:`BF16_WIDTHS`, Cp = 2·Cs: :func:`dec_conv1_split`): a block
-computes all four output phases of a share of the output columns, with
-hi and lo images of W_skip and the live x_prev blocks laid out from the
-raw f32 weights as they lie (:func:`dec_conv1_split_image_index`). Both
-bf16 kernels are Hopper designs: persistent warp-specialised blocks,
-weights resident in shared memory in wgmma's B layout
-(:func:`wgmma_b_layout`), halos staged by TMA through rings of stages. psel
-takes the conv's raw HWIO kernel and lays that image out itself
-(:func:`psel_b_image_index`), so a launch is its one device operation.
-psel (``csrc/psel_conv.cu``) runs ``wgmma`` over all four output phases at
-once; dec-conv1 (``csrc/dec_conv1.cu``) one output phase per ``wgmma``, so
-its x_prev term multiplies only the phase's four live taps of the folded
-weights (:func:`dec_conv1_live_weights`), and at level 1 a cluster of four
-blocks, one a phase, shares each halo by TMA multicast. Memory bounds psel
-on the H100 at level 0 and puts it on the ridge at level 1; dec-conv1 is
-bound by memory at level 0 and by operations at level 1. In bf16 both are
-instantiated for the U-Net's two s2d widths: Cout = Cin (psel), Cout = Cs
-and Cp = 2·Cs (dec-conv1), with Cin, Cs in {32, 64}.
+the TPU form's 16/9× or the dense s2d form's 4×), on the tensor cores.
+Both are instantiated for the U-Net's two s2d widths, in bf16 and in f32
+(:data:`WIDTHS`): Cout = Cin (psel), Cout = Cs and Cp = 2·Cs (dec-conv1),
+with Cin, Cs in {32, 64}. The f32 instantiations (the configured
+precision's K1, K2, K4 and K9) run the bf16 design with a bf16 hi/lo
+split: three bf16 products a term (hi·hi + hi·lo + lo·hi) into f32. psel's
+from two B images it lays out itself (``split`` in
+:func:`psel_b_image_index`); dec-conv1's a block computes all four output
+phases of a share of the output columns, with hi and lo images of W_skip
+and the live x_prev blocks laid out from the raw f32 weights as they lie
+(:func:`dec_conv1_image_index`). The bf16 kernels are Hopper designs:
+persistent warp-specialised blocks, weights resident in shared memory in
+wgmma's B layout (:func:`wgmma_b_layout`), halos staged by TMA through
+rings of stages. psel takes the conv's raw HWIO kernel and lays that image
+out itself (:func:`psel_b_image_index`), so a launch is its one device
+operation. psel (``csrc/psel_conv.cu``) runs ``wgmma`` over all four
+output phases at once; dec-conv1 (``csrc/dec_conv1.cu``) one output phase
+per ``wgmma``, so its x_prev term multiplies only the phase's four live
+taps of the folded weights (:func:`dec_conv1_live_weights`), and at level
+1 a cluster of four blocks, one a phase, shares each halo by TMA
+multicast. Memory bounds psel on the H100 at level 0 and puts it on the
+ridge at level 1; dec-conv1 is bound by memory at level 0 and by
+operations at level 1.
 
 - :func:`psel_conv3x3_halo` (K9) replaces
   ``mingraph_unet_tpu/parallel/halo.py::sharded_psconv``'s kernel call: K1
@@ -58,11 +59,19 @@ and Cp = 2·Cs (dec-conv1), with Cin, Cs in {32, 64}.
   gradient is :func:`psconv_wgrad` over the shard extended by its x rows.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
-plain version, a CUDA tensor launches the kernel (or raises). ``launches``
-on each wrapper counts kernel launches. psel, dec-conv1 and the pool have
-no backward: on the card they refuse inputs that require a gradient while
-autograd records. Callers choose between a kernel and its plain version
-from the shapes alone, with :func:`psel_fits` and :func:`dec_conv1_fits`.
+plain version, a CUDA tensor launches the kernel (or raises, also at a
+width without an instantiation). ``launches`` on each wrapper counts kernel
+launches. psel, dec-conv1 and the pool have no backward: on the card they
+refuse inputs that require a gradient while autograd records.
+
+Who decides. The U-Net (``models/unet.py``, ``parallel/spatial.py``,
+``parallel/halo.py``) calls one op a site: :func:`conv2_s2d`,
+:func:`conv2_s2d_halo`, :func:`conv2_s2d_train`,
+:func:`conv2_s2d_train_shard`, :func:`dec_conv1` and
+:func:`dec_conv1_shard`. Each runs its kernel wrapper for a CUDA tensor at
+widths the tile is instantiated for, and its plain version otherwise,
+without passing through the wrapper; the rule is the tile's
+(:func:`_psel_fits`, :func:`_dec_conv1_fits`).
 """
 
 from __future__ import annotations
@@ -86,17 +95,20 @@ from mingraph_unet_tpu_torch.ops.kernels.build import (
 from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = [
-    "BF16_WIDTHS",
-    "psel_fits",
-    "dec_conv1_fits",
+    "WIDTHS",
+    "conv2_s2d",
+    "conv2_s2d_halo",
+    "conv2_s2d_train",
+    "conv2_s2d_train_shard",
+    "dec_conv1",
+    "dec_conv1_shard",
     "wgmma_b_layout",
     "psel_b_image_index",
     "psel_conv3x3",
     "psel_conv3x3_plain",
     "dec_conv1_weights",
     "dec_conv1_live_weights",
-    "dec_conv1_split",
-    "dec_conv1_split_image_index",
+    "dec_conv1_image_index",
     "dec_conv1_bias_table",
     "dec_conv1_fused",
     "dec_conv1_fused_plain",
@@ -119,28 +131,39 @@ __all__ = [
     "psconv_dgrad_halo",
 ]
 
-# Channel widths with a bf16 kernel instantiation (csrc/psel_conv.cu, csrc/dec_conv1.cu).
-BF16_WIDTHS = (32, 64)
+# Channel widths with a kernel instantiation, bf16 and f32 (csrc/psel_conv.cu, csrc/dec_conv1.cu).
+WIDTHS = (32, 64)
 
 
-def psel_fits(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether the psel tile has an instantiation for this conv: f32 with
-    Cin and Cout multiples of 16 (Cout = Cin in :data:`BF16_WIDTHS` on the
-    tensor cores, other widths on the f32 FMA kernel), or bf16 with Cout =
-    Cin in :data:`BF16_WIDTHS`. The same rule serves psconv_train's forward
-    and dgrad (whose adjoint conv swaps Cin and Cout)."""
-    if dtype == torch.float32:
-        return cin % 16 == 0 and cout % 16 == 0
-    return dtype == torch.bfloat16 and cin == cout and cin in BF16_WIDTHS
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
 
 
-def dec_conv1_fits(dtype: torch.dtype, cs: int, cp: int, cout: int) -> bool:
-    """Whether the dec-conv1 tile has an instantiation: f32 with Cs, Cp,
-    Cout multiples of 16, or bf16 with Cout = Cs in :data:`BF16_WIDTHS` and
-    Cp = 2·Cs."""
-    if dtype == torch.float32:
-        return cs % 16 == 0 and cp % 16 == 0 and cout % 16 == 0
-    return dtype == torch.bfloat16 and cout == cs and cp == 2 * cs and cs in BF16_WIDTHS
+def _psel_fits(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether the psel tile has an instantiation for this conv: bf16 or
+    f32, Cout = Cin in :data:`WIDTHS`. The same rule serves psconv_train's
+    forward and dgrad (whose adjoint conv swaps Cin and Cout) and the
+    sharded entries."""
+    return dtype in KERNEL_DTYPES and cin == cout and cin in WIDTHS
+
+
+def _dec_conv1_fits(dtype: torch.dtype, cs: int, cp: int, cout: int) -> bool:
+    """Whether the dec-conv1 tile has an instantiation: bf16 or f32, Cout =
+    Cs in :data:`WIDTHS` and Cp = 2·Cs."""
+    return dtype in KERNEL_DTYPES and cout == cs and cp == 2 * cs and cs in WIDTHS
+
+
+def _psel_kernel(x_s2d: torch.Tensor, kernel: torch.Tensor) -> bool:
+    """Whether the psel tile runs the conv of ``x_s2d`` with ``kernel``
+    (3, 3, Cin, Cout): a CUDA tensor at widths :func:`_psel_fits` takes."""
+    return _on_card(x_s2d) and _psel_fits(x_s2d.dtype, kernel.shape[2], kernel.shape[3])
+
+
+def _dec_conv1_kernel(x_skip_s2d: torch.Tensor, x_prev: torch.Tensor, k_skip: torch.Tensor) -> bool:
+    """Whether the dec-conv1 tile runs this decoder conv1: a CUDA tensor at
+    widths :func:`_dec_conv1_fits` takes."""
+    return _on_card(x_skip_s2d) and _dec_conv1_fits(x_skip_s2d.dtype, x_skip_s2d.shape[-1] // 4, x_prev.shape[-1],
+                                                    k_skip.shape[-1])
 
 
 def wgmma_b_layout(w2d: torch.Tensor) -> torch.Tensor:
@@ -242,18 +265,16 @@ def _psel_check(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opti
                 top: Optional[torch.Tensor], bottom: Optional[torch.Tensor], adjoint: bool) -> None:
     """Raise ``ValueError`` unless the psel tile takes this launch: x a CUDA
     (B, Hh, Ww, 4·Cin) tensor of a kernel dtype, the kernel (3, 3, ·, ·)
-    (the conv's (Cin, Cout) swapped when ``adjoint``), widths multiples of
-    16 (bf16: Cout = Cin in :data:`BF16_WIDTHS`), bias (Cout,) or None, the
-    rows as :func:`_check_rows` takes them. One test when all is well; the
+    (the conv's (Cin, Cout) swapped when ``adjoint``), widths
+    :func:`_psel_fits` takes, bias (Cout,) or None, the rows as
+    :func:`_check_rows` takes them. One test when all is well; the
     messages are built only for a refusal."""
     ks = kernel.shape
     dt = x_s2d.dtype
     if len(ks) == 4 and dt in KERNEL_DTYPES and cuda_input_ok(x_s2d, dt):
         cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
-        if (ks[0] == 3 and ks[1] == 3 and x_s2d.shape[3] == 4 * cin and cin % 16 == 0 and cout % 16 == 0
-                and (bias is None or bias.shape == (cout,))
-                and (dt is not torch.bfloat16 or (cin == cout and cin in BF16_WIDTHS))
-                and _rows_ok(top, x_s2d) and _rows_ok(bottom, x_s2d)):
+        if (ks[0] == 3 and ks[1] == 3 and x_s2d.shape[3] == 4 * cin and _psel_fits(dt, cin, cout)
+                and (bias is None or bias.shape == (cout,)) and _rows_ok(top, x_s2d) and _rows_ok(bottom, x_s2d)):
             return
     require(dt in KERNEL_DTYPES, f"{name}: unsupported dtype {dt}")
     check_cuda_input("x_s2d", x_s2d, dt)
@@ -261,11 +282,9 @@ def _psel_check(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opti
     cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
     zin = x_s2d.shape[3]
     require(zin == 4 * cin, f"x has {zin} s2d channels, kernel expects 4*{cin}")
-    require(cin % 16 == 0 and cout % 16 == 0, f"Cin={cin}, Cout={cout} must be multiples of 16")
+    require(_psel_fits(dt, cin, cout), f"{name}: the kernel needs Cout = Cin in {WIDTHS}, got {cin} -> {cout}")
     if bias is not None:
         require(tuple(bias.shape) == (cout,), f"bias must be ({cout},), got {tuple(bias.shape)}")
-    if dt == torch.bfloat16:
-        require(cin == cout and cin in BF16_WIDTHS, f"bf16 kernel needs Cout = Cin in {BF16_WIDTHS}, got {cin} -> {cout}")
     _check_rows("top", top, x_s2d)
     _check_rows("bottom", bottom, x_s2d)
     raise ValueError(f"{name}: refused")  # not reached: one of the checks above names the fault
@@ -276,9 +295,8 @@ def _psel_weights(kernel: torch.Tensor, x_s2d: torch.Tensor) -> Tuple[torch.Tens
     raw HWIO kernel as it lies, on x's device, contiguous and 16-byte
     aligned (a copy otherwise), f32 or (for bf16 x) bf16, another dtype
     widened to f32. The kernel lays out its B images itself, the adjoint's
-    for the dgrad (bf16 x: rounded to bf16; f32 x: split into hi and lo, or
-    read by the FMA kernel), so a parameter passed as it lies costs no
-    device operation."""
+    for the dgrad (bf16 x: rounded to bf16; f32 x: split into hi and lo),
+    so a parameter passed as it lies costs no device operation."""
     keep = _PSEL_WEIGHT_DTYPES if x_s2d.dtype == torch.bfloat16 else (torch.float32,)
     w = kernel if kernel.dtype in keep else kernel.float()
     if w.get_device() != x_s2d.get_device():
@@ -298,14 +316,14 @@ def _psel_launch(name: str, x_s2d: torch.Tensor, kernel: torch.Tensor, bias: Opt
     tensor maps and launches; the device's attributes are asked once."""
     top, bottom = _NO_ROWS if rows is None else rows
     _psel_check(name, x_s2d, kernel, bias, top, bottom, adjoint)
-    b, hh, ww, z = x_s2d.shape
+    b, hh, ww, _ = x_s2d.shape
     ks = kernel.shape
     cin, cout = (ks[3], ks[2]) if adjoint else (ks[2], ks[3])
     with span("weights"):
         w, w_f32 = _psel_weights(kernel, x_s2d)
         if bias is not None:
             bias = bias.to(device=x_s2d.device, dtype=torch.float32).contiguous()
-    y = torch.empty_like(x_s2d) if cout == cin else x_s2d.new_empty((b, hh, ww, 4 * cout))
+    y = torch.empty_like(x_s2d)
     flags = (int(x_s2d.dtype is torch.bfloat16), int(relu), int(w_f32), int(adjoint))
     lib = library("psel_conv")
     if rows is None:
@@ -324,7 +342,7 @@ def psel_conv3x3(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) 
 
     x_s2d: (B, Hh, Ww, 4·Cin); kernel: full-res (3, 3, Cin, Cout) HWIO
     (BN-folded); bias: (Cout,). Returns (B, Hh, Ww, 4·Cout) in x's dtype.
-    On CUDA: the shapes :func:`psel_fits` accepts; f32 accumulation.
+    On CUDA: the widths :func:`_psel_fits` takes; f32 accumulation.
     """
     if x_s2d.device.type == "cpu":
         return psel_conv3x3_plain(x_s2d, kernel, bias)
@@ -363,7 +381,7 @@ def psel_conv3x3_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: 
     the s2d row just above / below it (B, 1, Ww, 4·Cin) from the
     neighbouring shards, None at the global top / bottom. Returns the
     shard's (B, Hh_local, Ww, 4·Cout) rows of the unsharded conv. On CUDA:
-    the shapes :func:`psel_fits` accepts, bit-equal to :func:`psel_conv3x3`
+    the widths :func:`_psel_fits` takes, bit-equal to :func:`psel_conv3x3`
     on the whole tensor once stitched."""
     if x_s2d.device.type == "cpu":
         return psel_conv3x3_halo_plain(x_s2d, top, bottom, kernel, bias, relu)
@@ -485,24 +503,16 @@ def dec_conv1_fused_plain(
     return torch.relu(dec_conv1_preact(x_skip_s2d, x_prev, k_skip, k_prev, t9))
 
 
-def dec_conv1_split(cs: int, cp: int, cout: int) -> bool:
-    """Whether an f32 dec-conv1 launch runs the split tensor-core kernel
-    (``csrc/dec_conv1.cu::dec1_split_kernel``): Cout = Cs in
-    :data:`BF16_WIDTHS` and Cp = 2·Cs, the U-Net's two s2d levels. Other
-    f32 widths run the FMA kernel (``csrc/conv_tile.cuh``)."""
-    return cout == cs and cp == 2 * cs and cs in BF16_WIDTHS
-
-
-def _f32_weights(t: torch.Tensor, dev: torch.device, as_is: bool) -> torch.Tensor:
-    """An f32 weight of K2 on ``dev``: as it lies where ``as_is`` and its
-    last dimension is contiguous (the split kernel reads any strides of the
-    others, so the model's sliced k_skip and its einsum's k_prev cost no
-    copy), else contiguous."""
+def _f32_weights(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """An f32 weight of K2 on ``dev``: as it lies where its last dimension
+    is contiguous (the split kernel reads any strides of the others, so the
+    model's sliced k_skip and its einsum's k_prev cost no copy), else
+    contiguous."""
     t = t.to(device=dev, dtype=torch.float32)
-    return t if as_is and t.stride(-1) == 1 else t.contiguous()
+    return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def dec_conv1_split_image_index(c: int, rank: int) -> Tuple[np.ndarray, np.ndarray]:
+def dec_conv1_image_index(c: int, rank: int) -> Tuple[np.ndarray, np.ndarray]:
     """The map by which block ``rank`` of the split kernel's cluster lays
     out its weights (``csrc/dec_conv1.cu::lay_split_weights``): (W_skip
     image, live image), element i of each (bf16, in the order of
@@ -547,19 +557,16 @@ def _dec_conv1_launch(name: str, x_skip_s2d, x_prev, k_skip, k_prev, t9, halo=No
     require(zs == 4 * cs and tuple(k_skip.shape[:2]) == (3, 3), f"k_skip {tuple(k_skip.shape)} does not fit skip {tuple(x_skip_s2d.shape)}")
     require(tuple(k_prev.shape) == (3, 3, cp, 4 * cout), f"k_prev must be (3, 3, {cp}, {4 * cout}), got {tuple(k_prev.shape)}")
     require(tuple(t9.shape) == (3, 3, 4 * cout), f"t9 must be (3, 3, {4 * cout}), got {tuple(t9.shape)}")
-    require(cs % 16 == 0 and cp % 16 == 0 and cout % 16 == 0, f"Cs={cs}, Cp={cp}, Cout={cout} must be multiples of 16")
-    if dt == torch.bfloat16:
-        require(cout == cs and cp == 2 * cs and cs in BF16_WIDTHS,
-                f"bf16 kernel needs Cout = Cs in {BF16_WIDTHS} and Cp = 2·Cs, got Cs={cs}, Cp={cp}, Cout={cout}")
+    require(_dec_conv1_fits(dt, cs, cp, cout),
+            f"{name}: the kernel needs Cout = Cs in {WIDTHS} and Cp = 2·Cs, got Cs={cs}, Cp={cp}, Cout={cout}")
     dev = x_skip_s2d.device
     with span("weights"):
         if dt == torch.bfloat16:
             ws = _kernel_weights(k_skip, dev, dt)
             wp = _kernel_weights(dec_conv1_live_weights(k_prev), dev, dt)
             tf = t9.to(device=dev, dtype=torch.float32).contiguous()
-        else:  # raw f32: the split kernel reads them as they lie, the FMA kernel contiguous
-            as_is = dec_conv1_split(cs, cp, cout)
-            ws, wp, tf = (_f32_weights(t, dev, as_is) for t in (k_skip, k_prev, t9))
+        else:  # raw f32: the split kernel reads them as they lie
+            ws, wp, tf = (_f32_weights(t, dev) for t in (k_skip, k_prev, t9))
     y = torch.empty((b, hh, ww, 4 * cout), dtype=dt, device=dev)
     lib = library("dec_conv1")
     tail = (*ws.stride()[:3], *wp.stride()[:3], *tf.stride()[:2], int(dt == torch.bfloat16), stream_ptr(x_skip_s2d))
@@ -593,10 +600,8 @@ def dec_conv1_fused(
     :func:`dec_conv1_bias_table`.
 
     x_skip_s2d: (B, Hh, Ww, 4·Cs); x_prev: (B, Hh, Ww, Cp); returns
-    (B, Hh, Ww, 4·Cout). On CUDA: f32 with Cs, Cp, Cout multiples of 16
-    (the split tensor-core kernel where :func:`dec_conv1_split` holds, the
-    FMA kernel otherwise), or bf16 with Cout = Cs in :data:`BF16_WIDTHS` and
-    Cp = 2·Cs.
+    (B, Hh, Ww, 4·Cout). On CUDA: the widths :func:`_dec_conv1_fits`
+    takes.
     """
     if x_skip_s2d.device.type == "cpu":
         return dec_conv1_fused_plain(x_skip_s2d, x_prev, k_skip, k_prev, t9)
@@ -638,7 +643,7 @@ def dec_conv1_halo(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bot
     the shard of the skip (B, 1, Ww, 4·Cs) and of x_prev (B, 1, Ww, Cp),
     None at a global border, and the shard's first global row ``row0`` of
     ``hh_global``, from which the bias field's border rows are read. On
-    CUDA: the widths :func:`dec_conv1_fits` accepts; stitched shards equal
+    CUDA: the widths :func:`_dec_conv1_fits` takes; stitched shards equal
     :func:`dec_conv1_fused` on the whole tensor bit for bit."""
     if x_skip_s2d.device.type == "cpu":
         return dec_conv1_halo_plain(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip,
@@ -684,7 +689,7 @@ def psconv_fwd(x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """K4 forward: the raw 3×3 'SAME' conv of a phase-major s2d tensor,
     (B, Hh, Ww, 4·Cin) → (B, Hh, Ww, 4·Cout) in x's dtype; kernel full-res
     (3, 3, Cin, Cout). On CUDA: the psel tile without ReLU or bias, for
-    the shapes :func:`psel_fits` accepts."""
+    the widths :func:`_psel_fits` takes."""
     if x_s2d.device.type == "cpu":
         return psconv_train_plain(x_s2d, kernel)
     with span("kernel.psconv_fwd", (x_s2d, kernel)):
@@ -786,7 +791,7 @@ def psconv_fwd_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Op
     """K4 forward on one H-shard: the raw conv of the shard (B, Hh_local,
     Ww, 4·Cin) given the row just above and below it (B, 1, Ww, 4·Cin),
     None at a global border. On CUDA: K9's entry with no bias and no ReLU,
-    for the shapes :func:`psel_fits` accepts; stitched shards equal
+    for the widths :func:`_psel_fits` takes; stitched shards equal
     :func:`psconv_fwd` on the whole tensor bit for bit."""
     if x_s2d.device.type == "cpu":
         return psconv_halo_plain(x_s2d, top, bottom, kernel)
@@ -856,3 +861,70 @@ def psconv_train_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: 
     the shard extended by its x rows, VALID in H, summed over the ranks by
     the caller. On the CPU the two wrappers run their plain versions."""
     return _PsconvTrainHalo.apply(x_s2d, kernel, top, bottom, exchange)
+
+
+# ---------------------------------------------------------------------------
+# The U-Net's s2d conv sites: the kernel or the plain version
+# ---------------------------------------------------------------------------
+
+
+def conv2_s2d(x_s2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """An s2d ConvBlock's conv2 at inference: :func:`psel_conv3x3` (K1)
+    where :func:`_psel_kernel` holds, else :func:`psel_conv3x3_plain`."""
+    if _psel_kernel(x_s2d, kernel):
+        return psel_conv3x3(x_s2d, kernel, bias)
+    return psel_conv3x3_plain(x_s2d, kernel, bias)
+
+
+def conv2_s2d_halo(x_s2d: torch.Tensor, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor],
+                   kernel: torch.Tensor, bias: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """:func:`conv2_s2d` on one H-shard, given its halo rows:
+    :func:`psel_conv3x3_halo` (K9) under the same rule, else
+    :func:`psel_conv3x3_halo_plain`."""
+    if _psel_kernel(x_s2d, kernel):
+        return psel_conv3x3_halo(x_s2d, top, bottom, kernel, bias, relu)
+    return psel_conv3x3_halo_plain(x_s2d, top, bottom, kernel, bias, relu)
+
+
+def conv2_s2d_train(x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """An s2d ConvBlock's conv2 in training (no bias, no ReLU),
+    differentiable: :func:`psconv_train` (K4) where :func:`_psel_kernel`
+    holds, else :func:`psconv_train_plain`."""
+    if _psel_kernel(x_s2d, kernel):
+        return psconv_train(x_s2d, kernel)
+    return psconv_train_plain(x_s2d, kernel)
+
+
+Rows = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def conv2_s2d_train_shard(x_s2d: torch.Tensor, kernel: torch.Tensor, exchange: Callable[[torch.Tensor], Rows],
+                          rows: Callable[[torch.Tensor], Rows]) -> torch.Tensor:
+    """:func:`conv2_s2d_train` on one H-shard. Under the same rule,
+    :func:`psconv_train_halo` (K4 on the shard) with ``exchange(t)``, the
+    rows just above and below the shard of a tensor t from the neighbouring
+    shards outside autograd, which its backward calls on the cotangent;
+    else :func:`psconv_halo_plain` over ``rows(x_s2d)``, the same rows
+    through a differentiable exchange (or (None, None) without one)."""
+    if _psel_kernel(x_s2d, kernel):
+        return psconv_train_halo(x_s2d, *exchange(x_s2d), kernel, exchange)
+    return psconv_halo_plain(x_s2d, *rows(x_s2d), kernel)
+
+
+def dec_conv1(x_skip_s2d: torch.Tensor, x_prev: torch.Tensor, k_skip: torch.Tensor, k_prev: torch.Tensor,
+              t9: torch.Tensor) -> torch.Tensor:
+    """An s2d decoder's conv1 at inference: :func:`dec_conv1_fused` (K2)
+    where :func:`_dec_conv1_kernel` holds, else
+    :func:`dec_conv1_fused_plain`."""
+    if _dec_conv1_kernel(x_skip_s2d, x_prev, k_skip):
+        return dec_conv1_fused(x_skip_s2d, x_prev, k_skip, k_prev, t9)
+    return dec_conv1_fused_plain(x_skip_s2d, x_prev, k_skip, k_prev, t9)
+
+
+def dec_conv1_shard(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9,
+                    row0: int, hh_global: int) -> torch.Tensor:
+    """:func:`dec_conv1` on one H-shard, given its halo rows:
+    :func:`dec_conv1_halo` (K2's sharded entry) under the same rule, else
+    :func:`dec_conv1_halo_plain`."""
+    fn = dec_conv1_halo if _dec_conv1_kernel(x_skip_s2d, x_prev, k_skip) else dec_conv1_halo_plain
+    return fn(x_skip_s2d, skip_top, skip_bottom, x_prev, prev_top, prev_bottom, k_skip, k_prev, t9, row0, hh_global)

@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
-from mingraph_unet_tpu_torch.ops.kernels.psconv import psel_conv3x3_halo, psel_conv3x3_halo_plain, psel_fits
+from mingraph_unet_tpu_torch.ops.kernels.psconv import conv2_s2d_halo
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["halo_exchange_rows", "halo_rows", "sharded_conv2d_same", "sharded_psconv"]
@@ -131,13 +131,12 @@ def sharded_psconv(x_s2d_local: torch.Tensor, kernel: torch.Tensor, bias: torch.
                    relu: bool = True) -> torch.Tensor:
     """The phase-select s2d conv (+ bias, ReLU when ``relu``) of an
     H-sharded s2d tensor (B, Hh_local, Ww, 4·Cin): one s2d row exchanged
-    with each neighbour, then K9 (``psel_conv3x3_halo``) on the shard where
-    :func:`psel_fits` accepts the widths (the rule of the unsharded K1
-    site), else its plain version; the plain version on the CPU.
+    with each neighbour, then ``ops/kernels/psconv.py::conv2_s2d_halo`` on
+    the shard (K9 where the rule of the unsharded K1 site takes it, else
+    its plain version).
     ``kernel`` is the full-res (3, 3, Cin, Cout) HWIO kernel and ``bias``
     (Cout,), as ``psel_conv3x3`` takes them. The batch axis needs no
     communication: the conv is per image. Inference only (K9 has no
     backward); training takes ``parallel/spatial.py::SpatialShard.psel_train``."""
     top, bottom = halo_exchange_rows(x_s2d_local, 1, mesh)
-    fits = psel_fits(x_s2d_local.dtype, kernel.shape[2], kernel.shape[3])
-    return (psel_conv3x3_halo if fits else psel_conv3x3_halo_plain)(x_s2d_local, top, bottom, kernel, bias, relu)
+    return conv2_s2d_halo(x_s2d_local, top, bottom, kernel, bias, relu)

@@ -17,6 +17,11 @@
    2×2 ConvTranspose, K3 and K5 need no exchange when each shard's height
    is a multiple of the network's downsampling.
 
+Who decides. A :class:`SpatialShard` method makes the exchange its site
+needs and hands the rows to the site's op in ``ops/kernels/psconv.py``
+(``conv2_s2d_halo``, ``dec_conv1_shard``, ``conv2_s2d_train_shard``),
+which picks the kernel or the plain version by the unsharded site's rule.
+
 Spatial-parallel training (:func:`spatial_sharded_unet`): every rank of a
 spatial group holds the whole images of its batch rows, runs the U-Net in
 train mode on its H rows (the train-mode sites of :class:`SpatialShard`:
@@ -37,9 +42,8 @@ import torch.distributed as dist
 
 from mingraph_unet_tpu_torch.ops import s2d as s2d_ops
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
-from mingraph_unet_tpu_torch.ops.kernels.psconv import (dec_conv1_fits, dec_conv1_halo, dec_conv1_halo_plain,
-                                                        dec_conv1_halo_preact, dec_conv1_preact, psconv_halo_plain,
-                                                        psconv_train_halo, psconv_train_plain, psel_fits)
+from mingraph_unet_tpu_torch.ops.kernels.psconv import (conv2_s2d_train_shard, dec_conv1_halo_preact, dec_conv1_preact,
+                                                        dec_conv1_shard)
 from mingraph_unet_tpu_torch.parallel.halo import halo_exchange_rows, halo_rows, sharded_conv2d_same, sharded_psconv
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh, shard_batch
 
@@ -138,31 +142,24 @@ class SpatialShard:
         return sharded_psconv(x_s2d, kernel, bias, self.mesh)
 
     def psel_train(self, x_s2d: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-        """The s2d conv2 in training (K4's function: no bias, no ReLU): K4 on
-        the shard (``psconv_train_halo``, its forward and dgrad through K9's
-        entry; the x rows and, in its backward, the cotangent's rows
-        exchanged with the neighbours) where :func:`psel_fits` accepts the
-        widths, even on a spatial axis of one rank (no row then: bit-equal
-        to K4); else the plain form over the rows of a differentiable
-        exchange, and on one rank the unsharded plain conv."""
-        if psel_fits(x_s2d.dtype, kernel.shape[2], kernel.shape[3]):
-            def exchange(t):
-                return halo_exchange_rows(t, 1, self.mesh)
-
-            return psconv_train_halo(x_s2d, *exchange(x_s2d), kernel, exchange)
-        if self.count == 1:
-            return psconv_train_plain(x_s2d, kernel)
-        return psconv_halo_plain(x_s2d, *halo_rows(x_s2d, 1, self.mesh), kernel)
+        """The s2d conv2 in training (K4's function: no bias, no ReLU):
+        ``conv2_s2d_train_shard``, K4 on the shard with the x rows and, in
+        its backward, the cotangent's rows exchanged with the neighbours
+        (even on a spatial axis of one rank: no row then, bit-equal to K4);
+        else the plain form over the rows of a differentiable exchange, and
+        on one rank the unsharded plain conv."""
+        return conv2_s2d_train_shard(x_s2d, kernel, lambda t: halo_exchange_rows(t, 1, self.mesh),
+                                     lambda t: (None, None) if self.count == 1 else halo_rows(t, 1, self.mesh))
 
     def dec_conv1(self, x_skip_s2d, x_prev, k_skip, k_prev, t9) -> torch.Tensor:
         """The s2d decoder conv1 (K2's function): one row of both inputs
-        exchanged, then K2's sharded entry with the shard's global rows
-        where the tile fits, else its plain version."""
+        exchanged, then ``dec_conv1_shard`` with the shard's global rows
+        (K2's sharded entry where the tile takes it, else its plain
+        version)."""
         hh = x_skip_s2d.shape[1]
-        fits = dec_conv1_fits(x_skip_s2d.dtype, x_skip_s2d.shape[-1] // 4, x_prev.shape[-1], k_skip.shape[-1])
-        return (dec_conv1_halo if fits else dec_conv1_halo_plain)(
-            x_skip_s2d, *halo_exchange_rows(x_skip_s2d, 1, self.mesh), x_prev,
-            *halo_exchange_rows(x_prev, 1, self.mesh), k_skip, k_prev, t9, self.index * hh, self.count * hh)
+        return dec_conv1_shard(x_skip_s2d, *halo_exchange_rows(x_skip_s2d, 1, self.mesh), x_prev,
+                               *halo_exchange_rows(x_prev, 1, self.mesh), k_skip, k_prev, t9, self.index * hh,
+                               self.count * hh)
 
     def dec_conv1_train(self, x_skip_s2d, x_prev, k_skip, k_prev, t9) -> torch.Tensor:
         """The s2d decoder conv1 in training, before its BN (the function of

@@ -140,16 +140,16 @@ def test_card_pool_bit_equal(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_card_bf16_conv_rejects_uninstantiated_widths(cuda_device):
-    """The bf16 conv kernels exist for Cout = Cin in BF16_WIDTHS (and
-    Cp = 2·Cs for dec-conv1); other widths raise instead of launching."""
+    """The bf16 conv kernels exist for Cout = Cin in WIDTHS (and Cp = 2·Cs
+    for dec-conv1); other widths raise instead of launching."""
     x = torch.zeros((1, 4, 4, 4 * 32), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="bf16 kernel"):
+    with pytest.raises(ValueError, match="the kernel needs"):
         t_psconv.psel_conv3x3(x, torch.zeros((3, 3, 32, 16)), torch.zeros(16))
     x16 = torch.zeros((1, 4, 4, 4 * 16), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="bf16 kernel"):
+    with pytest.raises(ValueError, match="the kernel needs"):
         t_psconv.psel_conv3x3(x16, torch.zeros((3, 3, 16, 16)), torch.zeros(16))
     xp = torch.zeros((1, 4, 4, 48), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="bf16 kernel"):
+    with pytest.raises(ValueError, match="the kernel needs"):
         t_psconv.dec_conv1_fused(x, xp, torch.zeros((3, 3, 32, 32)), torch.zeros((3, 3, 48, 128)),
                                  torch.zeros((3, 3, 128)))
 
@@ -647,7 +647,7 @@ def test_card_f32_train_unet_runs_standard_convs_on_k10(cuda_device, remat, monk
     for on_card in (True, False):
         with monkeypatch.context() as m:
             if not on_card:
-                m.setattr(t_unet, "_on_card", lambda t: False)
+                m.setattr(t_c3, "split_conv", lambda t: False)
             fwd, dgrad = t_c3.conv3x3_fwd.launches, t_c3.conv3x3_dgrad.launches
             model.zero_grad()
             loss = model(x)["logits"].square().mean()
@@ -850,41 +850,43 @@ def test_card_f32_dec_conv1_is_one_device_operation(cuda_device, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 5, 19, 48, 96), (1, 6, 20, 32, 48)])
-def test_card_f32_dec_conv1_fma_widths_match_plain(cuda_device, shape):
-    """f32 K2 widths the split kernel has no instantiation for (Cs = 48;
-    Cp ≠ 2·Cs) run the FMA kernel, unsharded and on shards, within
-    CARD_TOL of the plain version; the shards stitch bit for bit."""
-    b, hh, ww, c, cp = shape
-    x_skip, x_prev, k_skip, k_prev, t9 = (t.to(cuda_device) for t in _dec1_args(shape))
-    got = t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9)
-    _assert_close_rel(got.cpu(), t_psconv.dec_conv1_fused_plain(x_skip, x_prev, k_skip, k_prev, t9).cpu(),
-                      CARD_TOL[torch.float32])
-    parts = [t_psconv.dec_conv1_halo(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, hh)
-             for (s, st, sb, row0), (p, pt, pb, _) in zip(_shards(x_skip, 2), _shards(x_prev, 2))]
-    assert torch.equal(torch.cat(parts, dim=1), got)
-    ops = _card_ops(lambda: t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9))
-    # The FMA kernel, beside the contiguous copies it takes of the model's strided weights.
-    assert any("conv_f32_kernel" in key for key in ops) and not any("dec1_split_kernel" in key for key in ops), ops
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout", [(16, 48), (48, 16), (16, 16), (96, 96)])
-def test_card_f32_fma_widths_match_plain(cuda_device, cin, cout):
-    """f32 widths the split kernel has no instantiation for run the FMA
-    kernel, which reads the adjoint from the raw kernel too: K1, K4
-    forward and dgrad against their plain versions within CARD_TOL."""
+@pytest.mark.parametrize("cin,cout,cs,cp", [(16, 48, 48, 96), (48, 16, 32, 48), (16, 16, 16, 32), (96, 96, 96, 192)])
+def test_card_f32_widths_without_a_kernel_run_plain(cuda_device, cin, cout, cs, cp):
+    """f32 widths the tiles have no instantiation for (psel Cout = Cin in
+    WIDTHS, dec-conv1 also Cp = 2·Cs): each op runs its plain version on
+    the card with no launch, unsharded and on shards, and matches a second
+    plain call within CARD_TOL (cuDNN need not repeat its bits); a direct
+    launch refuses them."""
     x, k, bias = (_t(a).to(cuda_device) for a in _psel_case((2, 5, 19, cin, cout)))
-    g = torch.randn((2, 5, 19, 4 * cout), generator=torch.Generator(device=cuda_device).manual_seed(3),
-                    device=cuda_device)
-    checks = ((t_psconv.psel_conv3x3(x, k, bias), t_psconv.psel_conv3x3_plain(x, k, bias)),
-              (t_psconv.psconv_fwd(x, k), t_psconv.psconv_train_plain(x, k)),
-              (t_psconv.psconv_dgrad(g, k), t_psconv.psconv_dgrad_plain(g, k)))
+    x_skip, x_prev, k_skip, k_prev, t9 = (t.to(cuda_device) for t in _dec1_args((2, 5, 19, cs, cp)))
+    (s, st, sb, row0), (p, pt, pb, _) = _shards(x_skip, 2)[1], _shards(x_prev, 2)[1]
+    wrappers = (t_psconv.psel_conv3x3, t_psconv.psel_conv3x3_halo, t_psconv.psconv_fwd, t_psconv.psconv_dgrad,
+                t_psconv.dec_conv1_fused, t_psconv.dec_conv1_halo)
+    before = [f.launches for f in wrappers]
+    xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+    y = t_psconv.conv2_s2d_train(xg, kg)
+    y.square().sum().backward()
+    xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+    yr = t_psconv.psconv_train_plain(xr, kr)
+    yr.square().sum().backward()
+    checks = ((t_psconv.conv2_s2d(x, k, bias), t_psconv.psel_conv3x3_plain(x, k, bias)),
+              (t_psconv.conv2_s2d_halo(x, x[:, :1], None, k, bias),
+               t_psconv.psel_conv3x3_halo_plain(x, x[:, :1], None, k, bias)),
+              (y.detach(), yr.detach()), (xg.grad, xr.grad), (kg.grad, kr.grad),
+              (t_psconv.dec_conv1(x_skip, x_prev, k_skip, k_prev, t9),
+               t_psconv.dec_conv1_fused_plain(x_skip, x_prev, k_skip, k_prev, t9)),
+              (t_psconv.dec_conv1_shard(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, 5),
+               t_psconv.dec_conv1_halo_plain(s, st, sb, p, pt, pb, k_skip, k_prev, t9, row0, 5)))
     torch.cuda.synchronize()
     for got, ref in checks:
         _assert_close_rel(got.cpu(), ref.cpu(), CARD_TOL[torch.float32])
-    ops = _card_ops(lambda: t_psconv.psconv_dgrad(g, k))
-    assert ops and all("conv_f32_kernel" in key for key in ops), ops
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(ValueError, match="the kernel needs Cout = Cin"):
+        t_psconv.psel_conv3x3(x, k, bias)
+    with pytest.raises(ValueError, match="the kernel needs Cout = Cin"):
+        t_psconv.psconv_dgrad(torch.zeros((2, 5, 19, 4 * cout), device=cuda_device), k)
+    with pytest.raises(ValueError, match="the kernel needs Cout = Cs"):
+        t_psconv.dec_conv1_fused(x_skip, x_prev, k_skip, k_prev, t9)
 
 
 @pytest.mark.cuda

@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from mingraph_unet_tpu_torch.models import unet as t_unet
 from mingraph_unet_tpu_torch.models.unet import ConvBlock, UNet
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
 from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as t_c3
@@ -156,14 +155,31 @@ class _Card:
     device = torch.device("cuda")
     is_cuda = True
 
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+
+class _Shard:
+    """A stand-in for ``SpatialShard`` on one rank: its 'SAME' conv."""
+
+    def conv_same(self, x, kernel, bias):
+        return conv2d_nhwc(x, kernel, bias, padding=1)
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
 @pytest.mark.parametrize("sharded", [False, True])
 @pytest.mark.parametrize("card", [False, True])
-def test_split_conv_predicate(dtype, sharded, card):
-    x = _Card() if card else torch.zeros(1)
-    got = t_unet.split_conv(x, dtype, object() if sharded else None)
-    assert got == (card and not sharded and dtype == torch.float32)
+def test_split_conv_predicate(dtype, sharded, card, monkeypatch):
+    """``conv3x3.split_conv`` holds for an f32 tensor on the card; a
+    train-mode ConvBlock asks it at both convs unsharded and never on an
+    H-shard, whose conv is the shard's."""
+    x = _Card(dtype) if card else torch.zeros(1, dtype=dtype)
+    assert t_c3.split_conv(x) == (card and dtype == torch.float32)
+    asked = []
+    monkeypatch.setattr(t_c3, "split_conv", lambda t: asked.append(t.dtype) or False)
+    block = ConvBlock(4, 4, torch.Generator().manual_seed(0), dtype).train()
+    block(torch.zeros((1, 4, 4, 4)), _Shard() if sharded else None)
+    assert asked == ([] if sharded else [dtype, dtype])
 
 
 # A depth-4 U-Net at 32², init_features 4: the ten convs of the standard
@@ -179,14 +195,15 @@ def test_unet_dispatches_standard_train_convs_to_split_conv(mode, monkeypatch):
     conv's input; a CPU tensor, a bf16 model or an eval forward make
     none."""
     calls = []
+    real = t_c3.conv3x3_train
 
     def spy(x, kernel, bias):
         calls.append((tuple(x.shape), x.dtype, tuple(kernel.shape)))
-        return t_c3.conv3x3_train(x, kernel, bias)
+        return real(x, kernel, bias)
 
-    monkeypatch.setattr(t_unet, "conv3x3_train", spy)
+    monkeypatch.setattr(t_c3, "conv3x3_train", spy)
     if mode.endswith("card"):
-        monkeypatch.setattr(t_unet, "_on_card", lambda x: True)
+        monkeypatch.setattr(t_c3, "_on_card", lambda x: True)
     dtype = torch.bfloat16 if mode.startswith("bf16") else torch.float32
     model = UNet(torch.Generator().manual_seed(0), init_features=4, depth=4, dtype=dtype).train("train" in mode)
     x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(2))
@@ -219,12 +236,12 @@ def test_train_conv_block_through_the_function_matches_conv2d_nhwc(use_batchnorm
     g = torch.Generator().manual_seed(6)
     x = torch.randn((2, 6, 10, 12), generator=g)
     sides, calls = [], []
+    real = t_c3.conv3x3_train
     for forced in (False, True):
         block = ConvBlock(12, 16, torch.Generator().manual_seed(7), use_batchnorm=use_batchnorm, remat=remat).train()
         if forced:
-            monkeypatch.setattr(t_unet, "_on_card", lambda t: True)
-            monkeypatch.setattr(t_unet, "conv3x3_train",
-                                lambda *a: calls.append(1) or t_c3.conv3x3_train(*a))
+            monkeypatch.setattr(t_c3, "_on_card", lambda t: True)
+            monkeypatch.setattr(t_c3, "conv3x3_train", lambda *a: calls.append(1) or real(*a))
         sides.append(_block_step(block, x))
     (loss0, grads0, stats0), (loss1, grads1, stats1) = sides
     assert len(calls) == (4 if remat else 2)

@@ -13,7 +13,7 @@ less the zero ones, in f32, within 1e-5 of max |ref|; against JAX within
 
 The f32 kernel (``dec1_split_kernel``) lays out, per block of its cluster,
 hi and lo B images of the live form's columns from the raw weights; its
-map (``dec_conv1_split_image_index``) is held here to the live blocks, and
+map (``dec_conv1_image_index``) is held here to the live blocks, and
 its hi/lo arithmetic, emulated on the CPU, to the plain version within the
 card's f32 tolerance (1e-4 of max |ref|: the dropped lo·lo products are
 below 2^-16 of each product) and to JAX within 2e-4.
@@ -170,7 +170,7 @@ def test_split_image_index_gathers_the_live_blocks(c):
     skip_all, live_all = [], []
     for r in range(c // nb):
         cols = slice(r * nb, (r + 1) * nb)
-        skip_index, live_index = t_psconv.dec_conv1_split_image_index(c, r)
+        skip_index, live_index = t_psconv.dec_conv1_image_index(c, r)
         assert skip_index.shape == (9 * c * nb,) and live_index.shape == (16 * cp * nb,)
         assert torch.equal(k_skip.flatten()[torch.from_numpy(skip_index)], laid(k_skip[..., cols].reshape(9 * c, nb)))
         assert torch.equal(k_prev.flatten()[torch.from_numpy(live_index)],
@@ -226,12 +226,12 @@ def test_f32_launch_passes_the_model_weights_as_they_lie(monkeypatch, c, cp, spl
     """An f32 launch at the split kernel's widths hands the C entry k_skip
     (a slice of conv1's kernel), k_prev and t9 as the model makes them (no
     copy: their own storage and strides), so a call is one device
-    operation; other f32 widths hand the FMA kernel contiguous copies with
-    their dense strides."""
+    operation. Other f32 widths have no kernel: the op runs the plain
+    version (the device check reading 'card') without calling the wrapper,
+    and a direct launch refuses them."""
     _, _, kernel, bias, kt, bias_up = _case((1, 1, 1, c, cp))
     k_skip, k_prev, t9 = _weights(kernel, bias, kt, bias_up)
     assert not (k_skip.is_contiguous() or k_prev.is_contiguous() or t9.is_contiguous())
-    assert t_psconv.dec_conv1_split(c, cp, c) == split
     x_skip, x_prev = torch.zeros((1, 4, 4, 4 * c)), torch.zeros((1, 4, 4, cp))
     lib = _Recorder()
     for name in ("check_cuda_input", "require_no_grad", "_check_rows"):
@@ -239,15 +239,25 @@ def test_f32_launch_passes_the_model_weights_as_they_lie(monkeypatch, c, cp, spl
     monkeypatch.setattr(t_psconv, "library", lambda name: lib)
     monkeypatch.setattr(t_psconv, "stream_ptr", lambda t: 0)
     rows = (None, None, None, None, 0, 4) if halo else None
+    if not split:
+        monkeypatch.setattr(t_psconv, "_on_card", lambda t: True)
+        for name in ("dec_conv1_fused", "dec_conv1_halo"):
+            monkeypatch.setattr(t_psconv, name, lambda *a, name=name: pytest.fail(f"{name} called"))
+        if halo:
+            got = t_psconv.dec_conv1_shard(x_skip, None, None, x_prev, None, None, k_skip, k_prev, t9, 0, 4)
+            ref = t_psconv.dec_conv1_halo_plain(x_skip, None, None, x_prev, None, None, k_skip, k_prev, t9, 0, 4)
+        else:
+            got = t_psconv.dec_conv1(x_skip, x_prev, k_skip, k_prev, t9)
+            ref = t_psconv.dec_conv1_fused_plain(x_skip, x_prev, k_skip, k_prev, t9)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        with pytest.raises(ValueError, match="needs Cout = Cs in"):
+            t_psconv._dec_conv1_launch("k2", x_skip, x_prev, k_skip, k_prev, t9, halo=rows)
+        assert lib.calls == []
+        return
     t_psconv._dec_conv1_launch("k2", x_skip, x_prev, k_skip, k_prev, t9, halo=rows)
     ((name, args),) = lib.calls
     assert name == ("mgu_dec_conv1_halo" if halo else "mgu_dec_conv1")
     ws, wp, tf = args[6:9] if halo else args[2:5]
-    strides = args[-10:-2]
-    if split:
-        assert (ws, wp, tf) == (k_skip.data_ptr(), k_prev.data_ptr(), t9.data_ptr())
-        assert strides == (*k_skip.stride()[:3], *k_prev.stride()[:3], *t9.stride()[:2])
-    else:
-        assert ws != k_skip.data_ptr() and wp != k_prev.data_ptr() and tf != t9.data_ptr()
-        assert strides == (3 * c * c, c * c, c, 3 * cp * 4 * c, cp * 4 * c, 4 * c, 12 * c, 4 * c)
+    assert (ws, wp, tf) == (k_skip.data_ptr(), k_prev.data_ptr(), t9.data_ptr())
+    assert args[-10:-2] == (*k_skip.stride()[:3], *k_prev.stride()[:3], *t9.stride()[:2])
     assert args[-2] == 0  # not bf16

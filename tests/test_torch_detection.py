@@ -84,7 +84,18 @@ def test_d2s_plain_path_matches_pallas(shape, dtype):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
 
 
+class _Card:
+    """A stand-in for a CUDA tensor of ``y``'s dtype and shape."""
+
+    is_cuda = True
+
+    def __init__(self, y):
+        self.dtype, self.shape = y.dtype, y.shape
+
+
 def _spy_d2s(monkeypatch):
+    """Record the K5 wrapper's calls, with ``ops/kernels/pool.py``'s device
+    check reading 'card' (the wrapper runs its plain version on the CPU)."""
     calls = []
     real = t_pool.depth_to_space_kernel
 
@@ -92,7 +103,8 @@ def _spy_d2s(monkeypatch):
         calls.append(y.data_ptr())
         return real(y)
 
-    monkeypatch.setattr(t_unet, "depth_to_space_kernel", spy)
+    monkeypatch.setattr(t_pool, "depth_to_space_kernel", spy)
+    monkeypatch.setattr(t_pool, "_on_card", lambda y: True)
     return calls
 
 
@@ -128,9 +140,14 @@ def test_d2s_launches_per_pipeline_forward(monkeypatch, pre_pool, n_calls):
 
 
 def test_d2s_fits_rule():
-    assert t_pool.depth_to_space_fits(torch.bfloat16, 8) and t_pool.depth_to_space_fits(torch.float32, 4)
-    assert not t_pool.depth_to_space_fits(torch.bfloat16, 4)
-    assert not t_pool.depth_to_space_fits(torch.float16, 64)
+    """K5 takes the pool's rule (``pool._fits``), at inference only."""
+    assert t_pool._fits(torch.bfloat16, 8) and t_pool._fits(torch.float32, 4)
+    assert not t_pool._fits(torch.bfloat16, 4)
+    assert not t_pool._fits(torch.float16, 64)
+    y = torch.zeros((1, 2, 2, 32))
+    assert not t_pool._kernel(y, training=False)  # a CPU tensor
+    assert not t_pool._kernel(_Card(y), training=True)
+    assert t_pool._kernel(_Card(y), training=False)
 
 
 # ---------------------------------------------------------------------------

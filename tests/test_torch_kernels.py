@@ -22,7 +22,10 @@ from mingraph_unet_tpu.ops import s2d as jax_s2d
 from mingraph_unet_tpu.ops.pallas import pool as jax_pool
 from mingraph_unet_tpu.ops.pallas import psconv as jax_psconv
 from mingraph_unet_tpu_torch.ops import s2d as t_s2d
+from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as t_c3
 from mingraph_unet_tpu_torch.ops.kernels import conv_block as t_cb
+from mingraph_unet_tpu_torch.ops.kernels import histeq as t_histeq
 from mingraph_unet_tpu_torch.ops.kernels import pool as t_pool
 from mingraph_unet_tpu_torch.ops.kernels import psconv as t_psconv
 from mingraph_unet_tpu_torch.ops.kernels import wconv as t_wconv
@@ -279,6 +282,68 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
                                t_cb.fused_conv_block_plain(xf, _t(k), s, _t(bias), _t(k), s, _t(bias)),
                                rtol=0, atol=0)
     assert [f.launches for f in counters] == before
+
+
+# The seven names the benchmark wraps to count kernel work, and the other
+# kernel wrappers an op may call: none may run on a plain path.
+_KERNEL_NAMES = {t_psconv: ("psel_conv3x3", "dec_conv1_fused", "psconv_fwd", "psconv_dgrad", "psel_conv3x3_halo",
+                            "dec_conv1_halo", "psconv_train", "psconv_train_halo"),
+                 t_pool: ("phase_max_pool_kernel", "depth_to_space_kernel"),
+                 t_histeq: ("equalize_channel",),
+                 t_c3: ("conv3x3_fwd", "conv3x3_dgrad", "conv3x3_train")}
+
+
+def _plain_cases():
+    """(op call, plain call, inputs to differentiate) for each U-Net op at a
+    width (or, for the standard block's conv, a dtype) its kernel has no
+    instantiation for: f32 psel at C = 16, dec-conv1 at Cs = 16, the pool
+    and the relayout at 6 f32 channels a phase (24 bytes), K10 in bf16."""
+    g = torch.Generator().manual_seed(3)
+    rnd = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    x, k, b = rnd(1, 4, 5, 64), rnd(3, 3, 16, 16), rnd(16)
+    top, bot = rnd(1, 1, 5, 64), rnd(1, 1, 5, 64)
+    skip, prev, ks, kp, t9 = rnd(1, 4, 5, 64), rnd(1, 4, 5, 32), rnd(3, 3, 16, 16), rnd(3, 3, 32, 64), rnd(3, 3, 64)
+    y6 = rnd(1, 4, 5, 24)
+    xb, kb, bb = rnd(1, 6, 7, 8).bfloat16(), rnd(3, 3, 8, 8), rnd(8)
+    no_rows = lambda t: pytest.fail("the kernel's exchange was called")  # noqa: E731
+    return {
+        "conv2_s2d": (lambda: t_psconv.conv2_s2d(x, k, b), lambda: t_psconv.psel_conv3x3_plain(x, k, b), ()),
+        "conv2_s2d_halo": (lambda: t_psconv.conv2_s2d_halo(x, top, bot, k, b),
+                           lambda: t_psconv.psel_conv3x3_halo_plain(x, top, bot, k, b), ()),
+        "conv2_s2d_train": (lambda: t_psconv.conv2_s2d_train(x, k), lambda: t_psconv.psconv_train_plain(x, k), (x, k)),
+        "conv2_s2d_train_shard": (lambda: t_psconv.conv2_s2d_train_shard(x, k, no_rows, lambda t: (top, bot)),
+                                  lambda: t_psconv.psconv_halo_plain(x, top, bot, k), (x, k)),
+        "dec_conv1": (lambda: t_psconv.dec_conv1(skip, prev, ks, kp, t9),
+                      lambda: t_psconv.dec_conv1_fused_plain(skip, prev, ks, kp, t9), ()),
+        "dec_conv1_shard": (lambda: t_psconv.dec_conv1_shard(skip, None, None, prev, None, None, ks, kp, t9, 4, 12),
+                            lambda: t_psconv.dec_conv1_halo_plain(skip, None, None, prev, None, None, ks, kp, t9, 4,
+                                                                  12), ()),
+        "encoder_pool": (lambda: t_pool.encoder_pool(y6, False), lambda: t_s2d.phase_max_pool(y6), ()),
+        "decoder_d2s": (lambda: t_pool.decoder_d2s(y6, False), lambda: t_s2d.depth_to_space(y6), ()),
+        "conv3x3_same": (lambda: t_c3.conv3x3_same(xb, kb, bb), lambda: conv2d_nhwc(xb, kb, bb, padding=1), ()),
+    }
+
+
+@pytest.mark.parametrize("op", sorted(_plain_cases()))
+def test_ops_run_the_plain_version_at_widths_without_a_kernel(monkeypatch, op):
+    """Each op of the U-Net, on a CPU tensor whose device check reads
+    'card', at a width without an instantiation: the plain version's result
+    (and gradients) bit for bit, with no kernel wrapper called, so no plain
+    path passes through a name the benchmark counts as kernel work."""
+    call, plain, wrt = _plain_cases()[op]
+    for t in wrt:
+        t.requires_grad_(True)
+    ref = plain()
+    ref_grads = torch.autograd.grad(ref.sum(), wrt) if wrt else ()
+    for mod, names in _KERNEL_NAMES.items():
+        for name in names:
+            monkeypatch.setattr(mod, name, lambda *a, name=name: pytest.fail(f"{name} called on a plain path"))
+    for mod in (t_psconv, t_pool, t_c3):
+        monkeypatch.setattr(mod, "_on_card", lambda t: True)
+    got = call()
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    for a, b in zip(torch.autograd.grad(got.sum(), wrt) if wrt else (), ref_grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_non_cpu_tensor_never_runs_the_plain_version():

@@ -892,7 +892,6 @@ def test_psconv_train_halo_stitches_in_one_process(cuts):
     plain form under ordinary autograd with the halo rows' gradients
     handed back by hand."""
     x, k, cot = PS_T
-    assert t_psconv.psel_fits(torch.float32, 16, 16)
     ref = _psconv_whole(x, k, cot)
     xt, ct = torch.from_numpy(x), torch.from_numpy(cot)
     rows = lambda t, a, e: (t[:, a - 1 : a] if a > 0 else None, t[:, e : e + 1] if e < t.shape[1] else None)  # noqa: E731

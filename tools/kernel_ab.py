@@ -312,7 +312,7 @@ def _psel(cs, tree, dev):
 
 
 F32_CELLS = (("512^2 b8", 8, 512), ("128^2 b16", 16, 128))  # the bf16 rows' shapes; configs/*.yaml's
-F32_OWN = ("psel_split_kernel", "conv_f32_kernel")  # the f32 psel kernel (split wgmma), or the FMA kernel
+F32_OWN = ("psel_split_kernel",)  # the f32 psel kernel (split wgmma)
 STEP_ITERS = 20
 
 

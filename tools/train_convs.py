@@ -105,10 +105,10 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("train_convs: needs a CUDA card")
-    from mingraph_unet_tpu_torch.models import unet
+    from mingraph_unet_tpu_torch.ops.kernels import conv3x3
 
-    if args.route == "cudnn" and hasattr(unet, "_on_card"):
-        unet._on_card = lambda x: False
+    if args.route == "cudnn":
+        conv3x3.split_conv = lambda x: False
     cell = core.load_cell(args.workload)
     drv = core.driver_module(cell.traffic["entry"]).make(cell.config, cell.traffic, args.seed, "cuda")
     drv.setup()
