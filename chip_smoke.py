@@ -30,9 +30,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    pool 2, d2s 1 and hist-eq 1, and every output must be finite. At batch 1 the card's f32
    outputs (TF32 off) must agree with the same port and weights on the CPU
    within ``CPU_TOL`` of max |CPU|. The f32 serving forward at 128² b16
-   launches psel 4, dec-conv1 2, pool 2, d2s 1 and hist-eq 1, and the
-   profiler's kernel names show every psel launch on the split psel kernel
-   and every K2 launch on K2's split kernel.
+   launches psel 4, dec-conv1 2, pool 2, d2s 1, hist-eq 1, K8 5 and K10's
+   narrow forward 2 (the detection head's convs on the pre-pooled map),
+   and the profiler's kernel names show every psel launch on the split
+   psel kernel and every K2 launch on K2's split kernel.
 4. Time the forward (ms/step, images/s, and the host's time to issue a
    step) and each kernel at each shape with CUDA events, beside its plain
    version, its one-call PyTorch counterpart where there is one, and its
@@ -301,8 +302,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    within ``F32_TOL``, timed beside the plain version, the library call
    and the split form's bound; the step's time and its levels 2-4 device
    ms by pass, with those convs on cuDNN (before) and on K10 (after)
-   (``_conv3x3_path``). The phases that run an f32 train step (5, 17)
-   expect K10's 10 + 10 a step.
+   (``_conv3x3_path``). Then the end-to-end step of the
+   ``mgu_e2e_f32.e2e_b16`` cell (512², batch 16, the full-resolution
+   detection head): K10 12 + 12 a step, of them the narrow tile 2 + 2 at
+   the head's convs (96 → 48 → 24) and the wide tile 10 + 10; the head's
+   two convs held and timed as the standard sites are (with the bound of
+   the work padded to the wide tile beside it); the step with the head's
+   convs on cuDNN and on K10, the head's forward, K10 dgrad and
+   ``convolution_backward`` (dW, or dX and dW) device ms by operation
+   (``_k10_head_path``). The phases that run an f32 train step (5, 17)
+   expect K10's 10 + 10 a step (the e2e CLI 12 + 12).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It also prints the
@@ -357,6 +366,12 @@ K10_BATCH, K10_STEPS = 16, 3
 K10_SITES = ("enc2 conv1", "enc2 conv2", "enc3 conv1", "enc3 conv2", "bottleneck conv1", "bottleneck conv2",
              "dec3 conv1", "dec3 conv2", "dec2 conv1", "dec2 conv2")
 K10_LEVELS = ("mgu.unet.enc2", "mgu.unet.enc3", "mgu.unet.bottleneck", "mgu.unet.dec3", "mgu.unet.dec2")
+# ... and in the end-to-end step of the mgu_e2e_f32.e2e_b16 cell (512², batch
+# 16, the full-resolution detection head): the head's two convs on K10's
+# narrow tile besides the ten standard ones, a step.
+K10_E2E_STEP = {"k10_fwd": 12, "k10_dgrad": 12}
+K10_HEAD_SITES = ("head conv1", "head conv2")
+K10_NARROW = re.compile(r"conv3x3_kernel<(24|48|96)>")
 
 
 def _fail(msg: str) -> None:
@@ -1342,9 +1357,10 @@ def _configured_step(dev, iters: int):
 def _f32_path(dev):
     """The configured precision's paths on the card, counted and profiled:
     the f32 serving forward at 128² b16 (psel 4, dec-conv1 2, pool 2, d2s 1,
-    hist-eq 1, and K8 5: every standard-layout ConvBlock of an f32 eval
-    forward; the profiler's kernel names: every psel and K2 launch on a
-    split tensor-core kernel) and the segmentation step as
+    hist-eq 1, K8 5: every standard-layout ConvBlock of an f32 eval
+    forward, and K10 2 on its narrow tile: the detection head's convs; the
+    profiler's kernel names: every psel and K2 launch on a split
+    tensor-core kernel) and the segmentation step as
     ``configs/*.yaml`` configure it (f32, 128², batch 16, Adam lr 1e-3
     weight decay 1e-4, PyTorch's default TF32 setting): K4 4 + 4 a step,
     every one the split kernel; finite losses and
@@ -1364,7 +1380,7 @@ def _f32_path(dev):
         out = model(x)
         torch.cuda.synchronize()
         fwd = _counts()
-        if fwd != dict({k: 0 for k in fwd}, psel=4, dec1=2, pool=2, d2s=1, histeq=1, conv_block=5):
+        if fwd != dict({k: 0 for k in fwd}, psel=4, dec1=2, pool=2, d2s=1, histeq=1, conv_block=5, k10_fwd=2):
             _fail(f"f32 serving forward {size}² b{b}: launches {fwd}")
         if not torch.isfinite(out["logits"]).all():
             _fail("f32 serving forward: non-finite logits")
@@ -2101,25 +2117,240 @@ def _k10_account(step, sites, label: str):
     return out
 
 
+def _k10_site_rows(sites, names, per_step, label: str):
+    """K10 at captured conv sites (each its input, kernel, bias and
+    cotangent): forward and dgrad against their plain versions within
+    ``F32_TOL``, whole output and borders; each timed (µs a call by CUDA
+    events, the kernel's and the call's device µs, host µs a call) beside
+    the plain version, the library (``F.conv2d``; dgrad:
+    ``aten.convolution_backward`` for the input alone, as autograd makes it)
+    by events and device time, and the split form's bound: x in and y out
+    at 3.35 TB/s against three bf16 products of 2·9·Cin·Cout operations a
+    pixel at 989 TFLOP/s, the f32 FMA figure (67 TFLOP/s) printed beside
+    it; where the widths are not multiples of 64, also the bound of the
+    work padded to the wide tile (Cin and Cout to multiples of 64). Prints
+    the sums as ``k10_<kind>_<label>``; returns the kernels line's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as c3
+
+    rows, sums = [], {"fwd": [0.0, 0.0, 0.0, 0.0], "dgrad": [0.0, 0.0, 0.0, 0.0]}
+    for name, site in zip(names, sites):
+        x, k, b, g = site["x"], site["k"], site["b"], site["g"]
+        bn_, h, w, cin = x.shape
+        cout = k.shape[-1]
+        px = bn_ * h * w
+        xn, kn, gn = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2)
+        for kind in ("fwd", "dgrad"):
+            if kind == "fwd":
+                fn, plain = (lambda: c3.conv3x3_fwd(x, k, b)), (lambda: c3.conv3x3_plain(x, k, b))
+                lib = lambda: F.conv2d(xn, kn, b, padding=1)  # noqa: E731
+                inp, out_c = x, cout
+            else:
+                fn, plain = (lambda: c3.conv3x3_dgrad(g, k)), (lambda: c3.conv3x3_dgrad_plain(g, k))
+                lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+                    gn, xn, kn, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False])[0]
+                inp, out_c = g, cin
+            in_c = inp.shape[-1]
+            tag = f"conv3x3_{kind} {name} {tuple(inp.shape)} -> {out_c}"
+            narrow = getattr(c3, f"conv3x3_{kind}").narrow
+            err = _check_close(tag, fn(), plain(), F32_TOL)
+            tile = "narrow" if getattr(c3, f"conv3x3_{kind}").narrow > narrow else "wide"
+            if (tile == "narrow") != (c3.tile(in_c, out_c)[0] in c3.NARROW):
+                _fail(f"{tag}: launched the {tile} tile, expected NT {c3.tile(in_c, out_c)[0]}")
+            ms = _time_ms(fn, KERNEL_ITERS)
+            call_ms, dev_ms, ops = _device_ms(tag, fn, own="conv3x3_kernel", count=True)
+            host_us = _host_us(fn, 50)
+            plain_ms = _time_ms(plain, KERNEL_ITERS)
+            lib_ms = _time_ms(lib, KERNEL_ITERS)
+            lib_dev_ms = _device_ms(f"{tag} library", lib)
+            t_ops = 3 * 2 * px * 9 * cin * cout / BF16_TENSOR_FLOPS * 1e3
+            t_bytes = (4 * px * (cin + cout) + 9 * cin * cout * 4) / HBM_BYTES_PER_S * 1e3
+            padded = 3 * 2 * px * 9 * -(-in_c // 64) * 64 * -(-out_c // 64) * 64 / BF16_TENSOR_FLOPS * 1e3
+            fma_ms = 2 * px * 9 * cin * cout / F32_SIMT_FLOPS * 1e3
+            bound = max(t_ops, t_bytes)
+            for i, v in enumerate((dev_ms, bound, lib_dev_ms, max(padded, t_bytes))):
+                sums[kind][i] += v
+            rows.append({
+                "name": f"conv3x3_{kind} {name}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/conv3x3.cu",
+                "replaces": None, "launches_f32_step": per_step[f"k10_{kind}"], "shape": list(inp.shape),
+                "cout": out_c, "tile": tile, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "call_device_ms": call_ms, "device_ops": ops, "host_us": host_us, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bound_padded_ms": max(padded, t_bytes),
+            })
+            print(f"[chip_smoke] {tag} ({tile} tile): {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us (call "
+                  f"{call_ms * 1e3:.1f} in {ops} ops: the packing), host {host_us:.1f} us; plain {plain_ms * 1e3:.1f} "
+                  f"us, library {lib_ms * 1e3:.1f} / {lib_dev_ms * 1e3:.1f} us; bound {bound * 1e3:.1f} us "
+                  f"({rows[-1]['bound_by']}), padded to the wide tile {max(padded, t_bytes) * 1e3:.1f} us; "
+                  f"device / bound {dev_ms / bound:.2f}; f32 FMA figure {fma_ms * 1e3:.1f} us (context)")
+    for kind, (dev_ms, bound, lib_dev_ms, padded) in sums.items():
+        print(f"[chip_smoke] k10_{kind}_{label} device {dev_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({dev_ms / bound:.2f}x), padded bound {padded:.4f} ms, library device {lib_dev_ms:.4f} ms")
+    return rows
+
+
+def _device_ms_under(events, want, steps: int):
+    """ms a step by name of the device operations that the host ops for
+    which ``want(op)`` holds launched, in the trace ``events``: a kernel is
+    tied by its ``correlation`` to its runtime call, and that to the host
+    op on the same thread whose span holds it."""
+    import collections
+
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e.get("ph") == "X" and want(e)]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    out: collections.Counter = collections.Counter()
+    for k in events:
+        if k.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        r = calls.get(k.get("args", {}).get("correlation"))
+        if r is not None and any(o["tid"] == r["tid"] and o["ts"] <= r["ts"] <= o["ts"] + o.get("dur", 0)
+                                 for o in ops):
+            out[k["name"]] += k.get("dur", 0) / 1e3 / steps
+    return out
+
+
+def _k10_e2e_step(dev):
+    """The end-to-end trainer's f32 step at 512² b16, the
+    ``mgu_e2e_f32.e2e_b16`` cell's setting (``configs/*.yaml``'s model with
+    the full-resolution detection head, Adam, augmentation) on a seeded
+    batch: (model, one step's call)."""
+    import torch
+
+    from mingraph_unet_tpu_torch.train.common import TrainState, make_optimizer
+    from mingraph_unet_tpu_torch.train.end_to_end import build_mingraph_unet, make_e2e_train_step
+
+    cfg = _train_cfg(SIZE, bf16=False)
+    model = build_mingraph_unet(cfg)
+    opt, sched = make_optimizer(model.parameters(), cfg.training, steps_per_epoch=1000)
+    state = TrainState(model, opt, sched)
+    step = make_e2e_train_step(model, opt, cfg, augment=True, train_detection=True)
+    imgs, masks = _train_batch(K10_BATCH, SIZE, seed=9, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return model, lambda: step(state, imgs, masks, gen)
+
+
+def _k10_head_account(step, sites, label: str):
+    """One route of the detection head's convs in the e2e step: ms a step
+    by CUDA events over ``K10_STEPS`` steps, then ``K10_STEPS`` profiled:
+    the head's forward device ms (the ``mgu.detection`` range) by
+    operation, its K10 dgrad (the narrow tile's kernels outside that
+    range) and the device operations that ``aten::convolution_backward``
+    launched at the head's weight shapes (dX and dW on cuDNN; dW alone with
+    K10) by name. Printed and returned, ms a step."""
+    import json
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    ms = _time_ms(step, K10_STEPS)
+    with _warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for _ in range(K10_STEPS):
+            step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ranges, by_op = sys.modules["_smoke_profiling"].device_ms_by_range(events, "mgu.detection", K10_STEPS)
+    head_fwd = sum(v for name, v in ranges.items() if name != "outside")
+    dgrad = sum(v for (rng, op), v in by_op.items() if rng == "outside" and K10_NARROW.search(op))
+    weights = [[s["k"].shape[3], s["k"].shape[2], 3, 3] for s in sites]
+    bwd = _device_ms_under(events, lambda e: e["name"] == "aten::convolution_backward"
+                           and len(e.get("args", {}).get("Input Dims", [])) > 2
+                           and e["args"]["Input Dims"][2] in weights, K10_STEPS)
+    out = {"step_ms": ms, "head_forward_ms": head_fwd, "k10_dgrad_ms": dgrad,
+           "convolution_backward_ms": sum(bwd.values())}
+    print(f"[chip_smoke] phase 19 e2e {label}: {ms:.3f} ms a step; the head's forward {head_fwd:.3f} device ms, "
+          f"K10 dgrad {dgrad:.3f}, convolution_backward at the head's shapes {out['convolution_backward_ms']:.3f}")
+    for (rng, op), v in sorted(by_op.items(), key=lambda kv: -kv[1]):
+        if rng != "outside" and v >= 0.05:
+            print(f"[chip_smoke]   head forward {v:8.3f} ms  {op[:100]}")
+    for op, v in sorted(bwd.items(), key=lambda kv: -kv[1]):
+        print(f"[chip_smoke]   head convolution_backward {v:8.3f} ms  {op[:100]}")
+    return out
+
+
+def _k10_head_path(dev):
+    """Phase 19, the end-to-end step (``mgu_e2e_f32.e2e_b16``'s setting):
+    (a) its launches a step: K10 forward 12 and dgrad 12, of them the
+    narrow tile 2 + 2 (the detection head's convs) and the ten standard
+    sites' 10 + 10 wide, K4 4 + 4, hist-eq 1, nothing else. (b) The head's
+    two convs, on the inputs, weights and cotangents one step gives them,
+    as ``_k10_site_rows`` holds and times the standard sites. (c) The step
+    with the head's convs on cuDNN (``conv2d_nhwc``, as before) and on K10
+    (``_k10_head_account``). Returns the kernels line's rows."""
+    import torch
+
+    from mingraph_unet_tpu_torch.models import detection
+    from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+    from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as c3
+
+    model, step = _k10_e2e_step(dev)
+    step()
+    torch.cuda.synchronize()
+    _reset_counts()
+    narrow = (c3.conv3x3_fwd.narrow, c3.conv3x3_dgrad.narrow)
+    step()
+    torch.cuda.synchronize()
+    got = (_counts(), c3.conv3x3_fwd.narrow - narrow[0], c3.conv3x3_dgrad.narrow - narrow[1])
+    want = (dict({k: 0 for k in _wrappers()}, k4_fwd=4, k4_dgrad=4, histeq=1, **K10_E2E_STEP), 2, 2)
+    if got != want:
+        _fail(f"phase 19: the f32 e2e 512² b{K10_BATCH} step launched {got[0]}, narrow {got[1]} + {got[2]}; "
+              f"expected {want[0]}, narrow 2 + 2")
+    print(f"[chip_smoke] phase 19: f32 e2e 512² b{K10_BATCH} step: K10 forward {K10_E2E_STEP['k10_fwd']} and "
+          f"dgrad {K10_E2E_STEP['k10_dgrad']} launches a step, the narrow tile 2 + 2 (the head), wide 10 + 10")
+
+    sites, real = [], c3.conv3x3_train
+
+    def spy(x, kernel, bias):
+        y = real(x, kernel, bias)
+        if c3.tile(x.shape[-1], kernel.shape[-1])[0] in c3.NARROW:
+            site = {"x": x.detach().clone(), "k": kernel.detach().clone(), "b": bias.detach().clone()}
+            y.register_hook(lambda g, site=site: site.__setitem__("g", g.detach().contiguous().clone()))
+            sites.append(site)
+        return y
+
+    c3.conv3x3_train = spy
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        c3.conv3x3_train = real
+    if len(sites) != len(K10_HEAD_SITES) or not all("g" in site for site in sites):
+        _fail(f"phase 19: captured {len(sites)} narrow train convs, expected the head's {len(K10_HEAD_SITES)}")
+    real_same = detection.conv3x3_same
+    detection.conv3x3_same = lambda x, k, b: conv2d_nhwc(x, k, b, padding=1)
+    try:
+        before = _k10_head_account(step, sites, "the head's convs on cuDNN (before)")
+    finally:
+        detection.conv3x3_same = real_same
+    after = _k10_head_account(step, sites, "the head's convs on K10 (after)")
+    print(f"[chip_smoke] k10_head_step_ms before {before['step_ms']:.3f} after {after['step_ms']:.3f}; the head's "
+          f"forward {before['head_forward_ms']:.3f} -> {after['head_forward_ms']:.3f} device ms; its conv backward "
+          f"{before['convolution_backward_ms']:.3f} -> {after['k10_dgrad_ms'] + after['convolution_backward_ms']:.3f} "
+          f"(K10 dgrad {after['k10_dgrad_ms']:.3f} + cuDNN wgrad {after['convolution_backward_ms']:.3f})")
+    del model, step
+    torch.cuda.empty_cache()
+    return _k10_site_rows(sites, K10_HEAD_SITES, K10_E2E_STEP, "head")
+
+
 def _conv3x3_path(dev):
     """Phase 19: K10, the split-form train conv, at the f32 U-Net step of the
     ``unet_f32.train_b16`` cell (512² b16, TF32 off). (a) Its launches a
     step: forward 10 and dgrad 10 (K4 4 + 4, nothing else), with remat
-    forward 20 and dgrad 10 (K4 8 + 4). (b) At the ten standard-block convs, on the
-    inputs, weights and cotangents one step gives them: forward and dgrad
-    against their plain versions (cuDNN f32, TF32 off) within ``F32_TOL``,
-    whole output and borders; each timed (µs a call by CUDA events, the
-    kernel's and the call's device µs, host µs a call) beside the plain
-    version, the library (``F.conv2d``; dgrad: ``aten.convolution_backward``
-    for the input alone, as autograd makes it) by events and device time,
-    and the split form's bound: x in and y out at 3.35 TB/s against three
-    bf16 products of 2·9·Cin·Cout operations a pixel at 989 TFLOP/s, the
-    f32 FMA figure (67 TFLOP/s) printed beside it. (c) The step before and
-    after: the standard blocks' train convs on cuDNN (the dispatch's device
-    check patched to false), then on K10 (``_k10_account``). Returns the
+    forward 20 and dgrad 10 (K4 8 + 4). (b) At the ten standard-block
+    convs, on the inputs, weights and cotangents one step gives them
+    (``_k10_site_rows``). (c) The step before and after: the standard
+    blocks' train convs on cuDNN (the dispatch's device check patched to
+    false), then on K10 (``_k10_account``). (d) The end-to-end step's
+    detection head on the narrow tile (``_k10_head_path``). Returns the
     kernels line's rows."""
     import torch
-    import torch.nn.functional as F
 
     from mingraph_unet_tpu_torch.ops.kernels import conv3x3 as c3
 
@@ -2159,53 +2390,10 @@ def _conv3x3_path(dev):
     del model, step
     torch.cuda.empty_cache()
 
-    rows, sums = [], {"fwd": [0.0, 0.0, 0.0], "dgrad": [0.0, 0.0, 0.0]}
-    for name, site in zip(K10_SITES, sites):
-        x, k, b, g = site["x"], site["k"], site["b"], site["g"]
-        bn_, h, w, cin = x.shape
-        cout = k.shape[-1]
-        px = bn_ * h * w
-        xn, kn, gn = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2)
-        for kind in ("fwd", "dgrad"):
-            if kind == "fwd":
-                fn, plain = (lambda: c3.conv3x3_fwd(x, k, b)), (lambda: c3.conv3x3_plain(x, k, b))
-                lib = lambda: F.conv2d(xn, kn, b, padding=1)  # noqa: E731
-                inp, out_c = x, cout
-            else:
-                fn, plain = (lambda: c3.conv3x3_dgrad(g, k)), (lambda: c3.conv3x3_dgrad_plain(g, k))
-                lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-                    gn, xn, kn, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False])[0]
-                inp, out_c = g, cin
-            tag = f"conv3x3_{kind} {name} {tuple(inp.shape)} -> {out_c}"
-            err = _check_close(tag, fn(), plain(), F32_TOL)
-            ms = _time_ms(fn, KERNEL_ITERS)
-            call_ms, dev_ms, ops = _device_ms(tag, fn, own="conv3x3_kernel", count=True)
-            host_us = _host_us(fn, 50)
-            plain_ms = _time_ms(plain, KERNEL_ITERS)
-            lib_ms = _time_ms(lib, KERNEL_ITERS)
-            lib_dev_ms = _device_ms(f"{tag} library", lib)
-            t_ops = 3 * 2 * px * 9 * cin * cout / BF16_TENSOR_FLOPS * 1e3
-            t_bytes = (4 * px * (cin + cout) + 9 * cin * cout * 4) / HBM_BYTES_PER_S * 1e3
-            fma_ms = 2 * px * 9 * cin * cout / F32_SIMT_FLOPS * 1e3
-            bound = max(t_ops, t_bytes)
-            for i, v in enumerate((dev_ms, bound, lib_dev_ms)):
-                sums[kind][i] += v
-            rows.append({
-                "name": f"conv3x3_{kind} {name}", "route": "cuda", "source": "mingraph_unet_tpu_torch/csrc/conv3x3.cu",
-                "replaces": None, "launches_f32_step": K10_STEP[f"k10_{kind}"], "shape": list(inp.shape),
-                "cout": out_c, "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "call_device_ms": call_ms,
-                "device_ops": ops, "host_us": host_us, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "library_device_ms": lib_dev_ms, "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else
-                "operations",
-            })
-            print(f"[chip_smoke] {tag}: {ms * 1e3:.1f} us/launch, device {dev_ms * 1e3:.1f} us (call "
-                  f"{call_ms * 1e3:.1f} in {ops} ops: the packing), host {host_us:.1f} us; plain {plain_ms * 1e3:.1f} "
-                  f"us, library {lib_ms * 1e3:.1f} / {lib_dev_ms * 1e3:.1f} us; bound {bound * 1e3:.1f} us "
-                  f"({rows[-1]['bound_by']}); device / bound {dev_ms / bound:.2f}; f32 FMA figure "
-                  f"{fma_ms * 1e3:.1f} us (context)")
-    for kind, (dev_ms, bound, lib_dev_ms) in sums.items():
-        print(f"[chip_smoke] k10_{kind}_ten_sites device {dev_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({dev_ms / bound:.2f}x), library device {lib_dev_ms:.4f} ms")
+    rows = _k10_site_rows(sites, K10_SITES, K10_STEP, "ten_sites")
+    del sites
+    torch.cuda.empty_cache()
+    rows += _k10_head_path(dev)
     torch.backends.cudnn.allow_tf32 = tf32
     return rows
 
@@ -4097,7 +4285,8 @@ def _cli_path(dev):
         paths["train_segmentation step"], seg_s, seg_peak = _train_cli(
             "train_segmentation", train_segmentation.main, seg_cfg, {"k4_fwd": 4, "k4_dgrad": 4, **K10_STEP})
         paths["train_end_to_end step"], e2e_s, e2e_peak = _train_cli(
-            "train_end_to_end", train_end_to_end.main, e2e_cfg, {"k4_fwd": 4, "k4_dgrad": 4, "histeq": 1, **K10_STEP})
+            "train_end_to_end", train_end_to_end.main, e2e_cfg, {"k4_fwd": 4, "k4_dgrad": 4, "histeq": 1,
+                                                                 **K10_E2E_STEP})
         weights = os.path.join(root, "seg", "checkpoints")
         common = ["--config_path", seg_cfg, "--weights_path", weights]
         paths["infer_segmentation"], infer_s = _infer_cli(

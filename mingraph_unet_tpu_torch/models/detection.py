@@ -9,7 +9,9 @@
   statistics and updates the running ones (flax's rules,
   ``layers.FoldableBatchNorm``). ``pre_pool_size`` is the JAX head's own
   average pool of its input down to ≤ S×S before the convs (the non-pooled
-  pipeline path with ``detection_pre_pool`` set).
+  pipeline path with ``detection_pre_pool`` set). Its convs are
+  ``ops/kernels/conv3x3.py::conv3x3_same``, which picks the kernel (f32 on
+  the card) or ``conv2d_nhwc``.
 - :class:`DenseDetectionHead`, the multi-instance head: per ``cell_size``
   cell an objectness logit and a box (centre offset in the cell, size as a
   fraction of the image), decoded by :func:`decode_dense_detections` (top-k
@@ -29,6 +31,7 @@ from mingraph_unet_tpu_torch.models.layers import ConvParams, Dense, FoldableBat
 from mingraph_unet_tpu_torch.ops.boxes import cxcywh_to_xyxy, nms
 from mingraph_unet_tpu_torch.ops.cc import _top_k_stable, instance_boxes
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
+from mingraph_unet_tpu_torch.ops.kernels.conv3x3 import conv3x3_same
 from mingraph_unet_tpu_torch.parallel.data import batch_mean, global_count
 from mingraph_unet_tpu_torch.utils.profiling import span
 
@@ -73,7 +76,7 @@ class DetectionHead(nn.Module):
             if pre_pool_size is not None and x.shape[1] > pre_pool_size:
                 x = _avg_pool(x, max(1, x.shape[1] // pre_pool_size), max(1, x.shape[2] // pre_pool_size))
             for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-                x = bn(torch.relu(conv2d_nhwc(x, conv.kernel, conv.bias, padding=1)))
+                x = bn(torch.relu(conv3x3_same(x, conv.kernel, conv.bias)))
             x = x.mean(dim=(1, 2))
             gen = gen if self.training else None
             x = layers.dropout(torch.relu(self.fc1(x)), HEAD_DROPOUT, gen)

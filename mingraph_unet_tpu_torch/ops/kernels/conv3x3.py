@@ -1,5 +1,6 @@
-"""The f32 3×3 'SAME' train conv of the standard-layout ConvBlocks as a
-hand-written CUDA kernel (K10), with its plain PyTorch version.
+"""The f32 3×3 'SAME' train conv of the standard-layout ConvBlocks and the
+detection head as a hand-written CUDA kernel (K10), with its plain PyTorch
+version.
 
 It replaces no TPU kernel: the JAX package leaves these convs to XLA, and
 the port ran them through cuDNN, which in f32 with TF32 off takes its FMA
@@ -9,9 +10,18 @@ pair ``hi = bf16(a)``, ``lo = bf16(a − hi)`` and each product taken as
 ``hi·hi + hi·lo + lo·hi``, the form of K8 in f32); :func:`conv3x3_dgrad` is
 the same kernel on the cotangent with the adjoint kernel (taps flipped,
 input and output channels swapped), no bias. :func:`pack_weights` splits
-and packs a kernel once a call, on its device, into the stream of 16 KB
-stages the kernel consumes. It takes any Cin, Cout, H and W: above 256
-output channels a block computes one channel tile.
+and packs a kernel once a call, on its device, into the stream of stages
+the kernel consumes. It takes any Cin, Cout, H and W: above 256 output
+channels a block computes one channel tile.
+
+:func:`tile` picks the kernel's tile from the widths: N the smallest of
+:data:`WIDTHS` that holds Cout. Where Cout is a multiple of 64 (every
+standard-block conv and its adjoint) that is K8's channel tile, and every x
+chunk runs its 4 k-steps. At the narrow widths (:data:`NARROW`: Cout up to
+48 or from 65 to 96, as at the detection head's 96 → 48 → 24 convs and
+their adjoints) the narrow tile: no wgmma computes more than 8 padded channels,
+the last x chunk stops at Cin's last 16-channel k-step, and two blocks
+share an SM.
 
 :func:`conv3x3_train` is the differentiable conv as a
 ``torch.autograd.Function``: forward and dx through the kernel, the kernel
@@ -19,12 +29,13 @@ and bias gradients through cuDNN's weight-gradient call
 (:func:`conv3x3_wgrad`), as autograd's backward of ``F.conv2d`` computes
 them. On a CPU tensor each wrapper runs its plain version, so the same
 Function is testable there. ``launches`` on each wrapper counts kernel
-launches.
+launches, ``narrow`` those that took the narrow tile.
 
 Who decides. ``models/unet.py::ConvBlock`` calls :func:`conv3x3_same` for
-every conv of an unsharded standard-layout block in a train forward: it
-runs :func:`conv3x3_train` where :func:`split_conv` holds (an f32 tensor on
-the card) and ``conv2d_nhwc`` otherwise. The model keeps only the choice of
+every conv of an unsharded standard-layout block in a train forward, and
+``models/detection.py::DetectionHead`` for its two convs: it runs
+:func:`conv3x3_train` where :func:`split_conv` holds (an f32 tensor on the
+card) and ``conv2d_nhwc`` otherwise. The U-Net keeps only the choice of
 the sharded form, whose exchange is its own.
 """
 
@@ -37,11 +48,16 @@ import torch.nn.functional as F
 
 from mingraph_unet_tpu_torch.ops.conv import conv2d_nhwc
 from mingraph_unet_tpu_torch.ops.kernels.build import check_cuda_input, library, require, stream_ptr
-from mingraph_unet_tpu_torch.ops.kernels.conv_block import CHUNK, channel_tile, pack_stream
+from mingraph_unet_tpu_torch.ops.kernels.conv_block import CHUNK, pack_stream
 from mingraph_unet_tpu_torch.utils.profiling import span
 
-__all__ = ["adjoint", "conv3x3_dgrad", "conv3x3_dgrad_plain", "conv3x3_fwd", "conv3x3_plain", "conv3x3_same",
-           "conv3x3_train", "conv3x3_wgrad", "pack_weights", "split_conv"]
+__all__ = ["NARROW", "WIDTHS", "adjoint", "conv3x3_dgrad", "conv3x3_dgrad_plain", "conv3x3_fwd", "conv3x3_plain",
+           "conv3x3_same", "conv3x3_train", "conv3x3_wgrad", "pack_weights", "split_conv", "tile"]
+
+# The widths the kernel is built for (N of its wgmma, ``csrc/conv3x3.cu``),
+# and those of them that run the narrow tile.
+WIDTHS, NARROW = (24, 48, 64, 96, 128, 256), (24, 48, 96)
+KSTEP = 16  # input channels of a k-step
 
 
 def adjoint(kernel: torch.Tensor) -> torch.Tensor:
@@ -61,26 +77,46 @@ def conv3x3_dgrad_plain(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return conv2d_nhwc(g, adjoint(kernel), None, padding=1)
 
 
+def tile(cin: int, cout: int) -> Tuple[int, int]:
+    """(NT, KL): the output channels a block computes, the smallest of
+    :data:`WIDTHS` that holds Cout (256 above: several channel tiles), and
+    the k-steps of the last x chunk. With the narrow tile (NT in
+    :data:`NARROW`) KL stops at Cin's last 16-channel step; elsewhere it is
+    4, and NT is K8's ``channel_tile(Cout)``."""
+    nt = next((n for n in WIDTHS if n >= cout), WIDTHS[-1])
+    if nt not in NARROW:
+        return nt, CHUNK // KSTEP
+    left = cin - (-(-cin // CHUNK) - 1) * CHUNK  # input channels of the last x chunk
+    return nt, -(-left // KSTEP)
+
+
 def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
     """The weight stream of ``csrc/conv3x3.cu``: (channel tiles, bytes / 2)
-    as bf16, for ``channel_tile(Cout)`` output channels a tile.
+    as bf16, for the channel tile NT of :func:`tile`.
 
     Input channels are padded with zeros to a multiple of 64 (x chunks),
     output channels to whole tiles. For each channel tile, x chunk and tap:
-    the chunk's 64 input rows as 4 k-steps, each the hi then the lo 16 × NT
-    slab (:func:`conv_block.pack_stream`, K8's conv2 layout), in 16 KB
-    stages of 1, 2 or 4 k-steps."""
+    the chunk's k-steps (4; in the last chunk KL of :func:`tile`), each the
+    hi then the lo 16 × NT slab (:func:`conv_block.pack_stream`, K8's conv2
+    layout); the kernel reads them in stages of whole k-steps. Where NT is
+    not narrow the stream is ``pack_stream``'s as it is."""
     cin, c = kernel.shape[2], kernel.shape[3]
-    nt = channel_tile(c)
+    nt, last = tile(cin, c)
     xc, ntl = -(-cin // CHUNK), -(-c // nt)
     wp = F.pad(kernel.float().reshape(9, cin, c), (0, ntl * nt - c, 0, xc * CHUNK - cin))
-    return pack_stream(wp, nt).reshape(ntl, -1).contiguous()
+    stream = pack_stream(wp, nt)
+    if last == CHUNK // KSTEP:
+        return stream.reshape(ntl, -1)
+    steps = stream.reshape(ntl, xc, 9, CHUNK // KSTEP, -1)  # a k-step's hi and lo slabs
+    return torch.cat([steps[:, :-1].reshape(ntl, -1), steps[:, -1, :, :last].reshape(ntl, -1)], dim=1)
 
 
-def _launch(name: str, x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, kernel: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> Tuple[torch.Tensor, bool]:
     """The kernel on x (B, H, W, Cin) f32 with ``kernel`` (3, 3, Cin, Cout)
     as it is given (the caller passes the adjoint for dx) and ``bias``
-    (Cout,) or None; raises on what it does not take."""
+    (Cout,) or None: (y, whether the narrow tile ran); raises on what it
+    does not take."""
     check_cuda_input("x", x, torch.float32)
     b, h, w, cin = x.shape
     cout = kernel.shape[-1]
@@ -94,12 +130,13 @@ def _launch(name: str, x: torch.Tensor, kernel: torch.Tensor, bias: Optional[tor
         bias = bias.contiguous()
     with span("weights"):
         stream = pack_weights(kernel)
+    nt, _ = tile(cin, cout)
     y = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
     rc = library("conv3x3").mgu_conv3x3(x.data_ptr(), stream.data_ptr(), None if bias is None else bias.data_ptr(),
-                                        y.data_ptr(), b, h, w, cin, cout, channel_tile(cout), stream_ptr(x))
+                                        y.data_ptr(), b, h, w, cin, cout, nt, stream_ptr(x))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    return y
+    return y, nt in NARROW
 
 
 def conv3x3_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -110,12 +147,13 @@ def conv3x3_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> to
     if x.device.type == "cpu":
         return conv3x3_plain(x, kernel, bias)
     with span("kernel.conv3x3_fwd", (x, kernel, bias)):
-        y = _launch("conv3x3_fwd", x, kernel, bias)
+        y, narrow = _launch("conv3x3_fwd", x, kernel, bias)
     conv3x3_fwd.launches += 1
+    conv3x3_fwd.narrow += narrow
     return y
 
 
-conv3x3_fwd.launches = 0
+conv3x3_fwd.launches = conv3x3_fwd.narrow = 0
 
 
 def conv3x3_dgrad(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -125,12 +163,13 @@ def conv3x3_dgrad(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     if g.device.type == "cpu":
         return conv3x3_dgrad_plain(g, kernel)
     with span("kernel.conv3x3_dgrad", (g, kernel)):
-        dx = _launch("conv3x3_dgrad", g, adjoint(kernel), None)
+        dx, narrow = _launch("conv3x3_dgrad", g, adjoint(kernel), None)
     conv3x3_dgrad.launches += 1
+    conv3x3_dgrad.narrow += narrow
     return dx
 
 
-conv3x3_dgrad.launches = 0
+conv3x3_dgrad.launches = conv3x3_dgrad.narrow = 0
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,15 +212,16 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def split_conv(x: torch.Tensor) -> bool:
-    """Whether the standard block's train conv of ``x`` runs the kernel: an
-    f32 tensor on the card."""
+    """Whether the conv of ``x`` runs the kernel: an f32 tensor on the
+    card."""
     return x.dtype == torch.float32 and _on_card(x)
 
 
 def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """A standard-layout ConvBlock's train-mode conv, 'SAME' + bias, NHWC:
-    :func:`conv3x3_train` (K10) where :func:`split_conv` holds, else
-    ``conv2d_nhwc`` (cuDNN on the card)."""
+    """A 3×3 conv, 'SAME' + bias, NHWC (a standard-layout ConvBlock's in a
+    train forward, the detection head's): :func:`conv3x3_train` (K10)
+    where :func:`split_conv` holds, else ``conv2d_nhwc`` (cuDNN on the
+    card)."""
     if split_conv(x):
         return conv3x3_train(x.contiguous(), kernel, bias)
     return conv2d_nhwc(x, kernel, bias, padding=1)

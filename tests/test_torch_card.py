@@ -630,6 +630,96 @@ def test_card_conv3x3_refuses_what_it_does_not_take(cuda_device):
         t_c3.conv3x3_fwd(x, k, bias[:8])
 
 
+# K10's narrow tile: the detection head's convs (96 -> 48 -> 24 on the fused
+# map; their dgrads run the adjoints 48 -> 96 and 24 -> 48) at 512² b2, at an
+# odd H and W, and at the pre-pooled 32² eval shape of an f32 head.
+CONV3X3_HEAD = [(2, 512, 512, 96, 48), (2, 512, 512, 48, 24), (1, 37, 23, 96, 48), (1, 37, 23, 48, 24),
+                (16, 32, 32, 96, 48), (16, 32, 32, 48, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV3X3_HEAD)
+def test_card_k10_narrow_tile_at_the_head_widths(cuda_device, shape):
+    """K10's forward and dgrad at the detection head's widths against their
+    plain versions (cuDNN f32, TF32 off) within the f32 card tolerance,
+    whole output and borders; both take the narrow tile (each wrapper's
+    ``narrow`` advances by one)."""
+    x, k, bias, gy = _conv3x3_case(shape, cuda_device)
+    before = (t_c3.conv3x3_fwd.narrow, t_c3.conv3x3_dgrad.narrow)
+    got = t_c3.conv3x3_fwd(x, k, bias)
+    dx = t_c3.conv3x3_dgrad(gy, k)
+    torch.cuda.synchronize()
+    assert (t_c3.conv3x3_fwd.narrow, t_c3.conv3x3_dgrad.narrow) == (before[0] + 1, before[1] + 1)
+    assert got.is_contiguous() and dx.is_contiguous() and dx.shape == x.shape
+    for g_, r_ in ((got, t_c3.conv3x3_plain(x, k, bias)), (dx, t_c3.conv3x3_dgrad_plain(gy, k))):
+        _assert_close_rel(g_.cpu(), r_.cpu(), CARD_TOL[torch.float32])
+        edge = lambda t: torch.cat([t[:, 0], t[:, -1], t[:, :, 0], t[:, :, -1]], 1)  # noqa: E731
+        _assert_close_rel(edge(g_).cpu(), edge(r_).cpu(), CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [CONV3X3_SITES[0], CONV3X3_SITES[5], (2, 16, 16, 64, 64)])
+def test_card_k10_widths_of_64_keep_the_wide_tile(cuda_device, shape):
+    """Where Cin and Cout are multiples of 64 (the standard blocks' convs and
+    their adjoints), K10's forward and dgrad launch without the narrow tile
+    and match their plain versions."""
+    x, k, bias, gy = _conv3x3_case(shape, cuda_device)
+    before = (t_c3.conv3x3_fwd.launches, t_c3.conv3x3_dgrad.launches, t_c3.conv3x3_fwd.narrow,
+              t_c3.conv3x3_dgrad.narrow)
+    got, dx = t_c3.conv3x3_fwd(x, k, bias), t_c3.conv3x3_dgrad(gy, k)
+    torch.cuda.synchronize()
+    assert (t_c3.conv3x3_fwd.launches, t_c3.conv3x3_dgrad.launches, t_c3.conv3x3_fwd.narrow,
+            t_c3.conv3x3_dgrad.narrow) == (before[0] + 1, before[1] + 1, before[2], before[3])
+    _assert_close_rel(got.cpu(), t_c3.conv3x3_plain(x, k, bias).cpu(), CARD_TOL[torch.float32])
+    _assert_close_rel(dx.cpu(), t_c3.conv3x3_dgrad_plain(gy, k).cpu(), CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_card_f32_detection_head_runs_its_convs_on_k10(cuda_device, monkeypatch):
+    """An f32 detection head (96 channels in) on the card: in train mode at
+    128² b2 its two convs launch K10's narrow forward and dgrad once each,
+    and its outputs and gradients (input and every parameter, as one
+    vector) match the same head with its convs on cuDNN; in eval mode on
+    the 512² map pre-pooled to 32² (b4) it launches the narrow forward
+    twice and matches cuDNN's; a bf16 head launches none."""
+    from mingraph_unet_tpu_torch.models import detection as t_det
+
+    head = t_det.DetectionHead(96, torch.Generator().manual_seed(0)).to(cuda_device).train()
+    f = torch.randn((2, 128, 128, 96), generator=torch.Generator().manual_seed(24)).to(cuda_device)
+    sides = []
+    for on_card in (True, False):
+        with monkeypatch.context() as m:
+            if not on_card:
+                m.setattr(t_c3, "split_conv", lambda t: False)
+            before = (t_c3.conv3x3_fwd.narrow, t_c3.conv3x3_dgrad.narrow)
+            x = f.clone().requires_grad_(True)
+            out = head(x, gen=torch.Generator(device=cuda_device).manual_seed(3))
+            loss = sum(o.square().mean() for o in out)
+            grads = torch.autograd.grad(loss, [x] + list(head.parameters()))
+            torch.cuda.synchronize()
+            want = (2, 2) if on_card else (0, 0)
+            assert (t_c3.conv3x3_fwd.narrow - before[0], t_c3.conv3x3_dgrad.narrow - before[1]) == want
+            sides.append((torch.cat([o.detach().flatten() for o in out]), torch.cat([g.flatten() for g in grads])))
+    (o1, g1), (o0, g0) = sides
+    _assert_close_rel(o1.cpu(), o0.cpu(), CARD_TOL[torch.float32])
+    assert (g1 - g0).norm() <= 1e-3 * g0.norm(), ((g1 - g0).norm() / g0.norm()).item()
+    head.eval()
+    big = torch.randn((4, 512, 512, 96), generator=torch.Generator().manual_seed(25)).to(cuda_device)
+    with torch.no_grad():
+        before = t_c3.conv3x3_fwd.narrow
+        got = torch.cat([o.flatten() for o in head(big, pre_pool_size=32)])
+        assert t_c3.conv3x3_fwd.narrow == before + 2
+        with monkeypatch.context() as m:
+            m.setattr(t_c3, "split_conv", lambda t: False)
+            ref = torch.cat([o.flatten() for o in head(big, pre_pool_size=32)])
+    _assert_close_rel(got.cpu(), ref.cpu(), CARD_TOL[torch.float32])
+    bf16 = t_det.DetectionHead(96, torch.Generator().manual_seed(0), dtype=torch.bfloat16).to(cuda_device).train()
+    before = t_c3.conv3x3_fwd.launches
+    sum(o.float().square().mean() for o in bf16(f, gen=torch.Generator(device=cuda_device).manual_seed(3))).backward()
+    torch.cuda.synchronize()
+    assert t_c3.conv3x3_fwd.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("remat", [False, True])
 def test_card_f32_train_unet_runs_standard_convs_on_k10(cuda_device, remat, monkeypatch):
