@@ -16,7 +16,9 @@
   cell an objectness logit and a box (centre offset in the cell, size as a
   fraction of the image), decoded by :func:`decode_dense_detections` (top-k
   and NMS) and trained by :func:`dense_detection_loss`. Its convs are plain
-  ``F.conv2d``, as the JAX package leaves them to XLA.
+  ``F.conv2d``, as the JAX package leaves them to XLA. Ranges:
+  ``mgu.dense_head`` (the head's forward), ``mgu.decode.topk`` (scores,
+  boxes and the top-k) and ``mgu.decode.nms`` (NMS and the survivors).
 """
 
 from __future__ import annotations
@@ -106,13 +108,14 @@ class DenseDetectionHead(nn.Module):
         self.box_head = ConvParams(hidden, 4, (1, 1), gen)
 
     def forward(self, f: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = torch.relu(conv2d_nhwc(f.to(self.dtype), self.conv1.kernel, self.conv1.bias, padding=1))
-        x = _avg_pool(x, self.cell_size, self.cell_size)
-        x = torch.relu(conv2d_nhwc(x, self.conv2.kernel, self.conv2.bias, padding=1))
-        acc = torch.promote_types(x.dtype, torch.float32)
-        obj = conv2d_nhwc(x, self.obj_head.kernel, self.obj_head.bias, padding=0).to(acc)
-        box = torch.sigmoid(conv2d_nhwc(x, self.box_head.kernel, self.box_head.bias, padding=0).to(acc))
-        return {"objectness_logits": obj[..., 0], "boxes": box}
+        with span("dense_head"):
+            x = torch.relu(conv2d_nhwc(f.to(self.dtype), self.conv1.kernel, self.conv1.bias, padding=1))
+            x = _avg_pool(x, self.cell_size, self.cell_size)
+            x = torch.relu(conv2d_nhwc(x, self.conv2.kernel, self.conv2.bias, padding=1))
+            acc = torch.promote_types(x.dtype, torch.float32)
+            obj = conv2d_nhwc(x, self.obj_head.kernel, self.obj_head.bias, padding=0).to(acc)
+            box = torch.sigmoid(conv2d_nhwc(x, self.box_head.kernel, self.box_head.bias, padding=0).to(acc))
+            return {"objectness_logits": obj[..., 0], "boxes": box}
 
 
 def decode_dense_detections(
@@ -137,19 +140,21 @@ def decode_dense_detections(
     h, w = image_hw
     k = min(top_k, gh * gw)
     dev = objectness_logits.device
-    scores_all = torch.sigmoid(objectness_logits.double()).float().reshape(b, gh * gw)
-    yy = torch.arange(gh, dtype=torch.float32, device=dev).repeat_interleave(gw)
-    xx = torch.arange(gw, dtype=torch.float32, device=dev).repeat(gh)
-    flat = boxes.float().reshape(b, gh * gw, 4)
-    cx = (xx[None] + flat[..., 0]) * cell_size
-    cy = (yy[None] + flat[..., 1]) * cell_size
-    xyxy = cxcywh_to_xyxy(torch.stack([cx, cy, flat[..., 2] * w, flat[..., 3] * h], dim=-1))
-    top_scores, top_idx = _top_k_stable(scores_all, k)
-    top_boxes = torch.gather(xyxy, 1, top_idx[..., None].expand(b, k, 4))
-    keep, _ = nms(top_boxes, top_scores, iou_threshold=iou_threshold)
-    valid = keep & (top_scores >= score_threshold)
-    return (torch.where(valid[..., None], top_boxes, torch.zeros_like(top_boxes)),
-            torch.where(valid, top_scores, torch.zeros_like(top_scores)), valid)
+    with span("decode.topk"):
+        scores_all = torch.sigmoid(objectness_logits.double()).float().reshape(b, gh * gw)
+        yy = torch.arange(gh, dtype=torch.float32, device=dev).repeat_interleave(gw)
+        xx = torch.arange(gw, dtype=torch.float32, device=dev).repeat(gh)
+        flat = boxes.float().reshape(b, gh * gw, 4)
+        cx = (xx[None] + flat[..., 0]) * cell_size
+        cy = (yy[None] + flat[..., 1]) * cell_size
+        xyxy = cxcywh_to_xyxy(torch.stack([cx, cy, flat[..., 2] * w, flat[..., 3] * h], dim=-1))
+        top_scores, top_idx = _top_k_stable(scores_all, k)
+        top_boxes = torch.gather(xyxy, 1, top_idx[..., None].expand(b, k, 4))
+    with span("decode.nms"):
+        keep, _ = nms(top_boxes, top_scores, iou_threshold=iou_threshold)
+        valid = keep & (top_scores >= score_threshold)
+        return (torch.where(valid[..., None], top_boxes, torch.zeros_like(top_boxes)),
+                torch.where(valid, top_scores, torch.zeros_like(top_scores)), valid)
 
 
 def dense_detection_loss(outputs: Dict[str, torch.Tensor], gt_instance_masks: torch.Tensor,

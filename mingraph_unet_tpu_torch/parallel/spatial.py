@@ -46,6 +46,7 @@ from mingraph_unet_tpu_torch.ops.kernels.psconv import (conv2_s2d_train_shard, d
                                                         dec_conv1_shard)
 from mingraph_unet_tpu_torch.parallel.halo import halo_exchange_rows, halo_rows, sharded_conv2d_same, sharded_psconv
 from mingraph_unet_tpu_torch.parallel.mesh import Mesh, shard_batch
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["SpatialShard", "extract_tiles", "gather_rows", "gather_spatial", "spatial_sharded_apply",
            "spatial_sharded_unet", "stitch_tiles", "tiled_inference"]
@@ -61,31 +62,34 @@ def extract_tiles(scene: torch.Tensor, tile: int, halo: int) -> Tuple[torch.Tens
     """NHWC scene → ``(nty·ntx·N, win, win, C)`` windows, tile-major, and
     the grid ``(nty, ntx)``; ``win = tile + 2·halo``. The scene must be at
     least one window on each side; for a pooling network H, W, tile and
-    halo are multiples of its downsampling factor."""
+    halo are multiples of its downsampling factor. Within the range
+    ``mgu.scene.windows``."""
     n, h, w, c = scene.shape
     win = tile + 2 * halo
     if h < win or w < win:
         raise ValueError(f"Scene {h}x{w} smaller than window {win}; run un-tiled instead.")
     ys, xs = _tile_starts(h, tile, halo), _tile_starts(w, tile, halo)
-    tiles = torch.stack([scene[:, y0 : y0 + win, x0 : x0 + win] for y0 in ys for x0 in xs])
-    return tiles.reshape(len(ys) * len(xs) * n, win, win, c), (len(ys), len(xs))
+    with span("scene.windows"):
+        tiles = torch.stack([scene[:, y0 : y0 + win, x0 : x0 + win] for y0 in ys for x0 in xs])
+        return tiles.reshape(len(ys) * len(xs) * n, win, win, c), (len(ys), len(xs))
 
 
 def stitch_tiles(tile_outputs: torch.Tensor, grid: Tuple[int, int], batch: int, scene_hw: Tuple[int, int],
                  tile: int, halo: int) -> torch.Tensor:
     """Inverse of :func:`extract_tiles` for per-pixel outputs: crop each
     window to its cell (accounting for the clamped placement), lay the
-    cells out and trim to the scene."""
+    cells out and trim to the scene. Within the range ``mgu.scene.stitch``."""
     nty, ntx = grid
     h, w = scene_hw
     ys, xs = _tile_starts(h, tile, halo), _tile_starts(w, tile, halo)
     t_out = tile_outputs.reshape(nty, ntx, batch, *tile_outputs.shape[1:])
-    rows = []
-    for ty in range(nty):
-        oy = ty * tile - ys[ty]  # the cell's offset inside its window
-        rows.append(torch.cat([t_out[ty, tx, :, oy : oy + tile, tx * tile - xs[tx] : tx * tile - xs[tx] + tile]
-                               for tx in range(ntx)], dim=2))
-    return torch.cat(rows, dim=1)[:, :h, :w]
+    with span("scene.stitch"):
+        rows = []
+        for ty in range(nty):
+            oy = ty * tile - ys[ty]  # the cell's offset inside its window
+            rows.append(torch.cat([t_out[ty, tx, :, oy : oy + tile, tx * tile - xs[tx] : tx * tile - xs[tx] + tile]
+                                   for tx in range(ntx)], dim=2))
+        return torch.cat(rows, dim=1)[:, :h, :w]
 
 
 def tiled_inference(apply_fn: Callable[[torch.Tensor], torch.Tensor], scene: torch.Tensor, tile: int = 512,

@@ -35,6 +35,7 @@ from mingraph_unet_tpu_torch.ops.image import normalize
 from mingraph_unet_tpu_torch.parallel.spatial import tiled_inference
 from mingraph_unet_tpu_torch.train.checkpoint import CheckpointManager
 from mingraph_unet_tpu_torch.train.segmentation import build_unet
+from mingraph_unet_tpu_torch.utils.profiling import span
 
 __all__ = [
     "class_palette",
@@ -157,7 +158,9 @@ def pipeline_forward_large(model: MinGraphUNet, scene: torch.Tensor, tile: int =
     ``f_u[0]`` are stitched in f32 in one concat, and the rest of the
     model runs once over the whole scene through ``unet_outputs``. Equals
     the whole-scene forward when ``halo`` covers the U-Net's receptive
-    field. The model's train/eval mode is restored afterwards."""
+    field. The model's train/eval mode is restored afterwards. Ranges:
+    ``mgu.scene.windows`` (the windows cut), ``mgu.scene.stitch`` (each
+    window's f32 concat and the stitch)."""
     was_training = model.training
     model.eval()
     try:
@@ -166,7 +169,8 @@ def pipeline_forward_large(model: MinGraphUNet, scene: torch.Tensor, tile: int =
 
         def unet_tile(tiles: torch.Tensor) -> torch.Tensor:
             u = model.unet(tiles, full_res_outputs=True)
-            return torch.cat([u["logits"].float(), u["skips"][0].float(), u["f_u"][0].float()], dim=-1)
+            with span("scene.stitch"):
+                return torch.cat([u["logits"].float(), u["skips"][0].float(), u["f_u"][0].float()], dim=-1)
 
         h, w = scene.shape[1:3]
         if h <= tile + 2 * halo or w <= tile + 2 * halo:
